@@ -6,13 +6,15 @@
 Phases, each of which raises (nonzero exit, no result line) on failure:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions, and the build of every CUDA kernel of the serving path
-   from ``paddle_tpu_torch/csrc/`` (one nvcc per source, in parallel);
+   CUDA versions, and the build of every CUDA kernel of the port from
+   ``paddle_tpu_torch/csrc/`` (one nvcc per source, all in parallel);
 2. each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, bfloat16 and float32, with CUDA-event timings
-   of the kernel, the plain version and one PyTorch library call that
-   computes the same function (a yardstick the port never calls), beside
-   the least time the card could take (``bound_ms``);
+   shapes its path gives it (serving: paged decode, RMSNorm; training:
+   flash-attention forward and backward, RoPE forward and backward,
+   RMSNorm), bfloat16 and float32, with CUDA-event timings of the kernel,
+   the plain version and one PyTorch library call that computes the same
+   function where there is one (a yardstick the port never calls),
+   beside the least time the card could take (``bound_ms``);
 3. serving at full Llama-3-8B width (32 layers, bfloat16, random weights
    from ``--seed``): 8 requests through an 8-slot ``ServingEngine``, two
    of them sharing a 256-token prefix so the prefix cache hits; every
@@ -20,7 +22,17 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    counters must rise by exactly their per-step counts;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
-   against the same request alone on a fresh 1-slot engine.
+   against the same request alone on a fresh 1-slot engine;
+5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
+   16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
+   full recompute): ``TrainStep`` with AdamW (fp32 moments) and
+   global-norm clipping, batch 8 x 2048 tokens, 1 warm-up step and 5
+   timed steps on the same batch; losses finite and falling, parameters
+   finite, launch counters up by exactly their per-step counts; step
+   time, tokens/s, MFU and peak memory, then one profiled step;
+6. training exactness: a 2-layer float32 model at the same width takes 2
+   train steps on the card and, from the same state dict, on the CPU
+   (plain versions); losses and parameters agree within stated bounds.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -74,18 +86,33 @@ def _time_ms(torch, fn, flush=None, warmup=5, iters=25):
     return statistics.median(times)
 
 
-def _check(torch, name, got, want, dtype):
-    atol, rtol = TOL[dtype]
+def _check(torch, name, got, want, dtype, row_atol=None, rtol=None):
+    """Max |got - want|, after asserting every element within ``atol +
+    rtol * |want|``: ``TOL[dtype]``, or, where ``row_atol`` is given, an
+    atol of ``row_atol`` times the RMS over the last axis of ``want``'s
+    row, and ``rtol``.  Logs the largest share of the limit any element
+    used."""
+    atol, rt = TOL[dtype]
     g, w = got.float(), want.float()
+    if row_atol is not None:
+        atol, rt = row_atol * w.square().mean(-1, keepdim=True).sqrt(), rtol
+        how = f"atol {row_atol:.3g} x row RMS"
+    else:
+        how = f"atol {atol:.3g}"
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (g - w).abs()
-    bad = err > atol + rtol * w.abs()
+    limit = atol + rt * w.abs()
+    bad = err > limit
     if bad.any():
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version "
             f"(max |err| {err.max().item():.3g}, {int(bad.sum())} elements "
-            f"past atol {atol} rtol {rtol})")
+            f"past {how} rtol {rt:.3g})")
+    _log(f"  {name}: max |err| {err.max().item():.3g}, "
+         f"{torch.where(err == 0, 0.0, err / limit).max().item():.3f} of "
+         f"the limit ({how}, "
+         f"rtol {rt:.3g})")
     return err.max().item()
 
 
@@ -110,9 +137,8 @@ def phase_env(torch):
     return smi
 
 
-def _rms_case(torch, rows, dtype, gen):
+def _rms_case(torch, rows, dtype, gen, d=4096):
     from paddle_tpu_torch.ops import rms_norm as rn
-    d = 4096
     dt = getattr(torch, dtype)
     x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
     w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
@@ -196,24 +222,179 @@ def _decode_case(torch, dtype, gen, rng):
                 library_max_abs_err=lib_err)
 
 
+# The training shapes of phase 5 (examples/llama_pretrain.py at full width)
+TRAIN = dict(batch=8, seq=2048, hidden=2048, heads=32, kv_heads=8,
+             head_dim=64, inter=8192, layers=16, vocab=32000)
+# flash attention in bfloat16: (atol as a share of the RMS of the value's
+# row over D, rtol) for O, dQ, dK and dV.  rtol 2^-7 is one bf16 ulp of
+# the value at any magnitude: fp32 sums in another order (dQ's atomics in
+# an order that changes from run to run) may round the other way.  The
+# forward rounds P to bf16 relative to the running max of its online
+# softmax, as the TPU kernel does, while the plain version rounds the
+# normalized P, so each term p_j v_j of a row of O may differ by 2^-8 of
+# itself; where the terms cancel, O keeps an error of that order of the
+# row's size while its value is near zero.  O's atol is 2^-5 of its row's
+# RMS (each check logs the largest share of its limit that an element
+# used).  The backward rounds the same normalized P and dS as
+# its plain version, so the gradients get 2^-8 of the row's RMS.  float32
+# flash uses TOL's atol 1e-4 (true fp32 products, no TF32).
+FLASH_BF16_TOL = {"O": (2.0 ** -5, 2.0 ** -7), "dQ": (2.0 ** -8, 2.0 ** -7),
+                  "dK": (2.0 ** -8, 2.0 ** -7), "dV": (2.0 ** -8, 2.0 ** -7)}
+# the LSE is fp32 in both dtypes (scores of bf16 inputs are exact products
+# summed in fp32): atol 1e-4 on values near log(S) ~ 8.
+LSE_TOL = (1e-4, 1e-5)
+
+
+def _flash_case(torch, dtype, b, gen):
+    """Causal flash attention at the training geometry (S=2048, Hq=32,
+    Hkv=8, D=64), forward and backward, each against its plain version
+    within FLASH_BF16_TOL in bfloat16 (its reasons are stated there) and
+    TOL in float32."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    s, hq, hkv, d = TRAIN["seq"], TRAIN["heads"], TRAIN["kv_heads"], \
+        TRAIN["head_dim"]
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
+    do = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    tag = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal {dtype}"
+    def check(what, got, want):
+        row_atol, rtol = FLASH_BF16_TOL[what] if dtype == "bfloat16" \
+            else (None, None)
+        return _check(torch, f"flash_attention {what} {tag}", got, want,
+                      dtype, row_atol, rtol)
+
+    err_o = check("O", o, o_ref)
+    atol, rtol = LSE_TOL
+    err_lse = (lse - lse_ref).abs()
+    if (err_lse > atol + rtol * lse_ref.abs()).any():
+        raise AssertionError(f"flash_attention_fwd LSE {tag}: max |err| "
+                             f"{err_lse.max().item():.3g} past atol {atol}")
+    del o_ref, lse_ref
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    err_b = max(check(n, g, r)
+                for n, g, r in zip(("dQ", "dK", "dV"), grads, refs))
+    del grads, refs
+    torch.cuda.empty_cache()
+    item = q.element_size()
+    fwd_ops = 4 * b * hq * s * s * d / 2
+    fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * item \
+        + lse.numel() * 4
+    # in: q, k, v, o, dO, LSE; out: dQ, dK, dV
+    bwd_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * item \
+        + lse.numel() * 4
+    fb, fby = _bound(fwd_bytes, fwd_ops, dtype)
+    bb, bby = _bound(bwd_bytes, 2.5 * fwd_ops, dtype)
+    fwd_ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, True),
+                      iters=10)
+    fwd_plain_ms = _time_ms(
+        torch, lambda: fa.flash_attention_fwd_plain(q, k, v, True),
+        warmup=2, iters=5)
+    bwd_ms = _time_ms(
+        torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+        iters=10)
+    bwd_plain_ms = _time_ms(
+        torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    True),
+        warmup=2, iters=5)
+    # library yardstick: SDPA on [B, H, S, D] views, GQA in the call
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = (out.transpose(1, 2).float() - o.float()).abs().max().item()
+    dot = do.transpose(1, 2)
+    with torch.no_grad():
+        lib_fwd_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True), iters=10)
+    lib_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del out, qt, kt, vt
+    shape = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal"
+    fwd = dict(shape=shape, dtype=dtype, max_abs_err=max(err_o,
+               err_lse.max().item()), ms=fwd_ms, plain_ms=fwd_plain_ms,
+               bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
+               library_max_abs_err=lib_err)
+    bwd = dict(shape=shape, dtype=dtype, max_abs_err=err_b, ms=bwd_ms,
+               plain_ms=bwd_plain_ms, bound_ms=bb, bound_by=bby,
+               library_ms=lib_bwd_ms)
+    return fwd, bwd
+
+
+def _rope_case(torch, dtype, gen):
+    """RoPE on q [8, 2048, 32, 64] (the training path's largest call),
+    forward and backward (-sin) against the plain version.  Both round
+    each fp32 product and sum on its own and cast once, so they agree
+    bit for bit (held to TOL all the same)."""
+    from paddle_tpu_torch.ops import rope as rp
+    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], \
+        TRAIN["head_dim"]
+    dt = getattr(torch, dtype)
+    x = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+    g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+    inv = 1.0 / (500000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                           device="cuda") / d))
+    freqs = torch.outer(torch.arange(s, dtype=torch.float32, device="cuda"),
+                        inv)
+    cos = torch.cos(freqs)[None, :, None, :]
+    sin = torch.sin(freqs)[None, :, None, :]
+    y = rp._rope(x, cos, sin, 1.0)
+    gx = rp._rope(g, cos, sin, -1.0)
+    want_y = rp.apply_rope_plain(x, cos, sin)
+    want_gx = rp.apply_rope_plain(g, cos, -sin)
+    torch.cuda.synchronize()
+    err = max(_check(torch, f"rope fwd {dtype}", y, want_y, dtype),
+              _check(torch, f"rope bwd {dtype}", gx, want_gx, dtype))
+    item = x.element_size()
+    bound_ms, by = _bound(2 * x.numel() * item + 2 * cos.numel() * 4,
+                          3 * x.numel(), dtype)
+    ms = _time_ms(torch, lambda: rp._rope(x, cos, sin, 1.0))
+    plain_ms = _time_ms(torch, lambda: rp.apply_rope_plain(x, cos, sin))
+    return dict(shape=f"[{b},{s},{h},{d}]", dtype=dtype, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+
 def phase_kernels(torch, seed):
     import numpy as np
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
-    rows = {"rms_norm": [], "paged_decode_attention": []}
+    rows = {"rms_norm": [], "paged_decode_attention": [],
+            "flash_attention_fwd": [], "flash_attention_bwd": [],
+            "rope": []}
     for dtype in ("bfloat16", "float32"):
         for n in (8, 256):
             rows["rms_norm"].append(_rms_case(torch, n, dtype, gen))
         rows["paged_decode_attention"].append(
             _decode_case(torch, dtype, gen, rng))
+        # flash at the training batch in bf16 (the main path's shape), at
+        # B=2 in f32 (the plain backward's fp32 score tensors at B=8 f32
+        # would be 4.3 GB each)
+        fwd, bwd = _flash_case(torch, dtype,
+                               TRAIN["batch"] if dtype == "bfloat16" else 2,
+                               gen)
+        rows["flash_attention_fwd"].append(fwd)
+        rows["flash_attention_bwd"].append(bwd)
+        rows["rope"].append(_rope_case(torch, dtype, gen))
+    rows["rms_norm"].append(_rms_case(
+        torch, TRAIN["batch"] * TRAIN["seq"], "bfloat16", gen,
+        d=TRAIN["hidden"]))
     for name, cases in rows.items():
         for c in cases:
+            lib = c["library_ms"]
             _log(f"{name} {c['shape']} {c['dtype']}: "
                  f"max_abs_err={c['max_abs_err']:.3g} "
                  f"kernel_ms={c['ms']:.4f} bound_ms={c['bound_ms']:.4f} "
                  f"({c['bound_by']}) plain_ms={c['plain_ms']:.4f} "
-                 f"library_ms={c['library_ms']:.4f}"
+                 f"library_ms="
+                 + ("none" if lib is None else f"{lib:.4f}")
                  + (f" (library max_abs_err={c['library_max_abs_err']:.3g})"
                     if "library_max_abs_err" in c else ""))
     return rows
@@ -278,10 +459,11 @@ def phase_serving(torch, seed):
                                  f"the vocabulary")
     if st["prefix_hits"] <= 0:
         raise AssertionError(f"the shared prefix did not hit: {st}")
-    want = {"rms_norm": (2 * cfg.num_hidden_layers + 1)
-            * (st["prefill_chunks"] + st["decode_steps"]),
-            "paged_decode_attention": cfg.num_hidden_layers
-            * st["decode_steps"]}
+    want = {name: 0 for name in KERNELS}       # training kernels: none
+    want.update({"rms_norm": (2 * cfg.num_hidden_layers + 1)
+                 * (st["prefill_chunks"] + st["decode_steps"]),
+                 "paged_decode_attention": cfg.num_hidden_layers
+                 * st["decode_steps"]})
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != expected "
                              f"{want} for {st['prefill_chunks']} chunks and "
@@ -381,6 +563,200 @@ def phase_exactness(torch, seed):
     torch.cuda.empty_cache()
 
 
+def _train_setup(torch, layers, dtype, seed, device=None):
+    """``examples/llama_pretrain.py``'s model, criterion, AdamW and
+    TrainStep at the full 1.1B width (``layers`` deep), parameters
+    random from ``seed`` on the card (or built on ``device``)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig(vocab_size=TRAIN["vocab"], hidden_size=TRAIN["hidden"],
+                      intermediate_size=TRAIN["inter"],
+                      num_hidden_layers=layers,
+                      num_attention_heads=TRAIN["heads"],
+                      num_key_value_heads=TRAIN["kv_heads"],
+                      max_position_embeddings=TRAIN["seq"], recompute=True)
+    model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=seed,
+                             init=device is None)
+    model.train()
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
+    step = TrainStep(model, lambda net, t, l: crit(net(t), l), opt)
+    return cfg, model, opt, step
+
+
+def _train_batch(torch, cfg, batch, seq, seed, device):
+    """Tokens then labels from one ``np.random.default_rng(seed)``, as
+    ``examples/llama_pretrain.py:98-104`` makes them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    return (torch.from_numpy(tokens).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def _finite_params(torch, model):
+    for name, p in model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"parameter {name} is not finite")
+
+
+def phase_training(torch, seed, smi):
+    """Phase 5.  Returns the kernels' launch counts of the 6 steps."""
+    from paddle_tpu_torch.ops import KERNELS
+    b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
+    t0 = time.perf_counter()
+    cfg, model, opt, step = _train_setup(torch, nl, "bfloat16", seed)
+    tokens, labels = _train_batch(torch, cfg, b, s, seed, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    _log(f"training model: {nl} layers at 1.1B width, bfloat16, "
+         f"{n_params / 1e9:.3f} B params, built in "
+         f"{time.perf_counter() - t0:.2f} s")
+    # launches per train step with full recompute, one launch per tensor
+    per_step = {name: 0 for name in KERNELS}
+    per_step.update({"flash_attention_fwd": 2 * nl,   # forward + recompute
+                     "flash_attention_bwd": nl,
+                     "rope": 6 * nl,        # q, k x (fwd, recompute, bwd)
+                     "rms_norm": 4 * nl + 1})  # 2/layer x 2, + final norm
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(tokens, labels)]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    if launches != per_step:
+        raise AssertionError(f"launches in one train step {launches} != "
+                             f"expected {per_step}")
+    n_timed = 5
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        losses.append(step(tokens, labels))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    want = {name: (n_timed + 1) * n for name, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"launches in {n_timed + 1} train steps "
+                             f"{launches} != expected {want}")
+    losses = [float(x) for x in losses]
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    _finite_params(torch, model)
+    peak = torch.cuda.max_memory_allocated()
+    n_embed = model.llama.embed_tokens.weight.numel()
+    flops_per_token = (6.0 * (n_params - n_embed)
+                       + 6.0 * nl * s * cfg.hidden_size)
+    tok_s = b * s / step_s
+    mfu = flops_per_token * tok_s / PEAK_OPS["bfloat16"]
+    _log(f"training: losses {['%.4f' % x for x in losses]}; warm-up step "
+         f"{warm:.3f} s; step {step_s * 1e3:.1f} ms over {n_timed} steps = "
+         f"{tok_s:.1f} tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; "
+         f"launches {launches}")
+    _log(f"training MFU {100 * mfu:.2f}% ({flops_per_token / 1e9:.3f} "
+         f"GFLOP/token x {tok_s:.1f} tokens/s against 989 TFLOP/s bf16 "
+         f"dense) on {smi}")
+    _profile_train_step(torch, step, tokens, labels)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_train_step(torch, step, tokens, labels):
+    """Where a train step's time goes: one step under ``torch.profiler``
+    (device busy time = sum of CUDA kernel durations over the host wall
+    of the profiled step) and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us())
+    if not per_kernel:
+        _log(f"train profile: wall {wall * 1e3:.1f} ms; device time not "
+             f"measured (the profiler recorded no CUDA kernels)")
+        return
+    busy = sum(per_kernel.values()) / 1e3
+    _log(f"train profile: 1 step, wall {wall * 1e3:.1f} ms profiled; device "
+         f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
+         f"wall), {len(per_kernel)} distinct kernels")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        _log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy:5.1f}%  "
+             f"{name[:90]}")
+
+
+def phase_train_exactness(torch, seed):
+    """Phase 6: 2 float32 train steps of a 2-layer model at 1.1B width,
+    batch 1 x 256, on the card (kernels) and on the CPU (plain versions)
+    from the same state dict and batch.  Bounds, set with room around
+    what the run measures (float32 sums in other orders give a loss
+    difference near 1e-7 relative and parameters within about 1e-5):
+    losses within rtol 1e-6; parameters: at most 1e-6 of the elements
+    past 1e-4, and none past lr (a gradient of the wrong sign puts a
+    parameter about 2 lr off after one Adam step)."""
+    from paddle_tpu_torch.ops import KERNELS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_steps, lr = 2, 3e-4
+    cfg, gpu, _, gstep = _train_setup(torch, 2, "float32", seed + 2)
+    _, cpu, _, cstep = _train_setup(torch, 2, "float32", seed + 2, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 2, "cpu")
+    for k in KERNELS.values():
+        k.launches = 0
+    gl, cl = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        gl.append(float(gstep(tokens, labels)))
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        cl.append(float(cstep(tokens, labels)))
+    t_cpu = time.perf_counter() - t0
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "rope",
+                 "rms_norm"):
+        if launches[name] == 0:
+            raise AssertionError(f"train exactness: {name} never launched")
+    rel = max(abs(g - c) / abs(c) for g, c in zip(gl, cl))
+    if rel > 1e-6:
+        raise AssertionError(f"train exactness: card losses {gl} vs CPU "
+                             f"{cl} (rel {rel:.3g})")
+    cparams = dict(cpu.named_parameters())
+    worst, n_bad, n_all = 0.0, 0, 0
+    for name, p in gpu.named_parameters():
+        diff = (p.detach().cpu() - cparams[name].detach()).abs()
+        worst = max(worst, diff.max().item())
+        n_bad += int((diff > 1e-4).sum())
+        n_all += diff.numel()
+    if worst > lr or n_bad > 1e-6 * n_all:
+        raise AssertionError(
+            f"train exactness: parameters differ by up to {worst:.3g} "
+            f"(bound {lr:.3g}), {n_bad} of {n_all} elements past 1e-4")
+    _log(f"train exactness: 2 layers at 1.1B width, float32, batch 1x256, "
+         f"{n_steps} steps: losses card {gl} CPU {cl} (max rel diff "
+         f"{rel:.3g}); parameters max |diff| {worst:.3g}, {n_bad} of "
+         f"{n_all} elements past 1e-4; card {t_gpu:.2f} s, CPU "
+         f"{t_cpu:.2f} s; launches {launches}")
+    del gpu, cpu, gstep, cstep
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -396,22 +772,38 @@ def main(argv=None) -> int:
         print(f"chip_smoke: cannot import paddle_tpu_torch ({e}); run it "
               f"from the root of the repository", file=sys.stderr)
         return 2
-    phase_env(torch)
+    smi = phase_env(torch)
     rows = phase_kernels(torch, args.seed)
-    launches = phase_serving(torch, args.seed)
+    by_path = {"serving": phase_serving(torch, args.seed)}
     phase_exactness(torch, args.seed)
-    main_case = {"rms_norm": 0, "paged_decode_attention": 0}   # bf16, decode
+    by_path["training"] = phase_training(torch, args.seed, smi)
+    phase_train_exactness(torch, args.seed)
+    # the case of each kernel's row: bf16 on its main path's shape
+    # (RMSNorm: one serving decode step)
+    main_case = {"rms_norm": 0, "paged_decode_attention": 0,
+                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                 "rope": 0}
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                          "paddle_tpu/ops/pallas/rms_norm.py:63"),
             "paged_decode_attention": (
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
-                "paddle_tpu/ops/pallas/decode_attention.py:492")}
+                "paddle_tpu/ops/pallas/decode_attention.py:492"),
+            "flash_attention_fwd": (
+                "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+                "paddle_tpu/ops/pallas/flash_attention.py:161"),
+            "flash_attention_bwd": (
+                "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                "paddle_tpu/ops/pallas/flash_attention.py:292"),
+            "rope": ("paddle_tpu_torch/csrc/rope.cu",
+                     "paddle_tpu/ops/pallas/rope.py:41")}
     kernels = []
     for name, (source, replaces) in meta.items():
         c = rows[name][main_case[name]]
+        per_path = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(per_path.values()),
+            "launches_by_path": per_path,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

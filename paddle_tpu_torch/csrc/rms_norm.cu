@@ -23,29 +23,20 @@
 //   dtype 0 = float32, 1 = bfloat16; requires d % 8 == 0 and 16-byte
 //   aligned pointers (the wrapper checks both).  Returns cudaGetLastError().
 
+#include "dtype.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+using ptt::from_f32;
+using ptt::to_f32;
+
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int kN = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int kN = 8; };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
 
 template <typename T>
 __global__ void rms_norm_fwd_kernel(const T* __restrict__ x,

@@ -1,33 +1,41 @@
-"""Llama for paged serving: port of the serving surface of
+"""Llama: port of the serving and training surfaces of
 ``paddle_tpu/models/llama.py``.
 
-What is here: ``LlamaConfig`` (the fields serving reads),
-``llama_3_8b_config``/``tiny_llama_config``, and ``LlamaForCausalLM``
-with ``kv_cache_spec`` (:485), ``decode_step`` (:514) and
-``prefill_chunk`` (:528) over the PAGED kv triple
-``(k_arena, v_arena, block_tables)`` only, on top of the layer-level
-``decode_step`` (:187) and ``chunk_step`` (:233).  Module and parameter
-names match the JAX model's ``named_parameters()`` so the weight bridge
-(``models/convert.py``) is a rename-free mapping.
+What is here: ``LlamaConfig`` (the fields serving and training read),
+``llama_3_8b_config``/``tiny_llama_config``, ``LlamaForCausalLM`` and
+``LlamaPretrainingCriterion``.
 
+- Serving: ``kv_cache_spec`` (:485), ``decode_step`` (:514) and
+  ``prefill_chunk`` (:528) over the PAGED kv triple
+  ``(k_arena, v_arena, block_tables)`` only, on top of the layer-level
+  ``decode_step`` (:187) and ``chunk_step`` (:233).  K/V are written into
+  the arenas IN PLACE (``index_put_``), which takes the place of JAX's
+  buffer donation: the caller's arena tensors are the updated arenas.
+- Training: the ``forward`` of every layer (:159-176, :332-345, :363-374,
+  :416-420, :438-457) without a kv cache, with full recompute of each
+  decoder layer when ``config.recompute`` and the model is in
+  ``.train()``, and the unshifted criterion (:570-589).
+
+Module and parameter names match the JAX model's ``named_parameters()``
+so the weight bridge (``models/convert.py``) is a rename-free mapping.
 The projections and ``lm_head`` are ``nn.Linear`` (a library GEMM, as
-the JAX package leaves them to XLA); RMSNorm runs the port's CUDA kernel
-on the card and paged decode attention its paged flash-decode kernel.
-K/V are written into the arenas IN PLACE (``index_put_``), which takes
-the place of JAX's buffer donation: the caller's arena tensors are the
-updated arenas.
+the JAX package leaves them to XLA); RMSNorm, RoPE (without position
+ids), causal attention and paged decode attention run the port's CUDA
+kernels on the card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device, to_dtype
-from ..nn.functional import llama_rope, swiglu
+from ..distributed.utils import recompute
+from ..nn.functional import (cross_entropy, llama_rope,
+                             scaled_dot_product_attention, swiglu)
 from ..nn.norm import RMSNorm
 from ..ops.decode_attention import (decode_attention_paged,
                                     paged_prefix_attention)
@@ -47,6 +55,26 @@ class LlamaConfig:
     max_position_embeddings: int = 8192
     rms_norm_eps: float = 1e-5
     rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    tensor_parallel: bool = False
+    recompute: bool = False
+    # None = full recompute of each decoder layer; the JAX package's
+    # named save policies are not ported
+    recompute_policy: Optional[str] = None
+    fused_linear_loss: bool = False
+
+    def __post_init__(self):
+        unported = {"tie_word_embeddings": self.tie_word_embeddings,
+                    "tensor_parallel": self.tensor_parallel,
+                    "recompute_policy": self.recompute_policy is not None,
+                    "fused_linear_loss": self.fused_linear_loss}
+        for name, on in unported.items():
+            if on:
+                item = ("distributed" if name == "tensor_parallel"
+                        else "training")
+                raise NotImplementedError(
+                    f"LlamaConfig({name}={getattr(self, name)!r}) is not "
+                    f"ported (ROADMAP.md, Queue 1: {item})")
 
     @property
     def head_dim(self):
@@ -91,6 +119,22 @@ class LlamaAttention(nn.Module):
         q, k = llama_rope(q, k, rotary_emb_base=self.config.rope_theta,
                           position_ids=position_ids)
         return q, k, v
+
+    def forward(self, x, position_ids=None, attention_mask=None,
+                cache=None):
+        """Training/full-sequence attention: causal flash attention
+        without a mask (the kernels on the card), the masked math with
+        one.  The dense kv-cache form is not ported."""
+        if cache is not None:
+            raise NotImplementedError(
+                "LlamaAttention.forward with a dense kv cache is not ported "
+                "(ROADMAP.md, Queue 1: LLMPredictor and the dense generate "
+                "programs)")
+        b, s, _ = x.shape
+        q, k, v = self._qkv_rope(x, position_ids)
+        out = scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
+                                           is_causal=attention_mask is None)
+        return self.o_proj(out.reshape(b, s, -1))
 
     def decode_step(self, x, kv: PagedKV, lens):
         """One cached decode step.  x: [B, 1, hidden]; kv: the paged
@@ -142,6 +186,18 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps,
                                                 **factory)
+        self._recompute = config.recompute
+
+    def _forward_impl(self, x, position_ids=None, attention_mask=None):
+        h = x + self.self_attn(self.input_layernorm(x), position_ids,
+                               attention_mask)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+    def forward(self, x, position_ids=None, attention_mask=None):
+        if self._recompute and self.training:
+            return recompute(self._forward_impl, x, position_ids,
+                             attention_mask)
+        return self._forward_impl(x, position_ids, attention_mask)
 
     def decode_step(self, x, kv, lens):
         attn_out, kv = self.self_attn.decode_step(self.input_layernorm(x),
@@ -167,9 +223,15 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             **factory)
 
+    def forward(self, input_ids, position_ids=None, attention_mask=None):
+        x = self.embed_tokens(input_ids.long())
+        for layer in self.layers:
+            x = layer(x, position_ids, attention_mask)
+        return self.norm(x)
+
 
 class LlamaForCausalLM(nn.Module):
-    """Llama with the paged serving surface.
+    """Llama with the paged serving surface and the training forward.
 
     ``device`` defaults to the CUDA card (``device="cpu"`` for tests);
     ``dtype`` is the parameter dtype.  Parameters are random from
@@ -177,7 +239,9 @@ class LlamaForCausalLM(nn.Module):
     projections, N(0, 1) embedding, unit norms), drawn by a
     ``torch.Generator`` on the target device — a full-size model is
     built in place on the card, never on the host.  ``init=False``
-    leaves them uninitialised for a following ``load_state_dict``."""
+    leaves them uninitialised for a following ``load_state_dict``.  The
+    model starts in ``eval()`` mode, as serving wants; ``.train()``
+    turns on ``config.recompute``."""
 
     def __init__(self, config: LlamaConfig, *, device: DeviceLike = None,
                  dtype="float32", seed: int = 0, init: bool = True):
@@ -207,6 +271,18 @@ class LlamaForCausalLM(nn.Module):
                 fan_out, fan_in = p.shape
                 p.normal_(0.0, (2.0 / (fan_in + fan_out)) ** 0.5,
                           generator=gen)
+
+    def forward(self, input_ids, position_ids=None, attention_mask=None,
+                labels=None):
+        """input_ids: [B, S] int.  Returns logits [B, S, vocab], or
+        ``(loss, logits)`` with ``labels`` (``LlamaPretrainingCriterion``,
+        unshifted)."""
+        logits = self.lm_head(self.llama(input_ids, position_ids,
+                                         attention_mask))
+        if labels is not None:
+            return LlamaPretrainingCriterion(self.config)(logits,
+                                                          labels), logits
+        return logits
 
     def kv_cache_spec(self):
         return (self.config.num_hidden_layers,
@@ -242,3 +318,18 @@ class LlamaForCausalLM(nn.Module):
         h = self.llama.norm(x)
         idx = min(max(n_valid - 1 - start, 0), c - 1)
         return self.lm_head(h[0, idx][None, :]), new_kvs
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Mean cross entropy over the positions whose label is not
+    ``ignore_index``.  Labels are used as given: despite the reference's
+    "shifted" docstring, nothing is shifted (``models/llama.py:570-589``)."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None,
+                 ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        return cross_entropy(logits, labels, ignore_index=self.ignore_index,
+                             reduction="mean")

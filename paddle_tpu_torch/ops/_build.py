@@ -8,8 +8,9 @@ and loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/paddle_tpu_torch/<name>-<hash>.so <name>.cu
 
 The library lands in ``build/paddle_tpu_torch/`` at the repository root
-(git-ignored), keyed by a hash of the source and the flags, so an edited
-kernel rebuilds and an unchanged one is loaded as it is.  ``build_all``
+(git-ignored), keyed by a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited kernel rebuilds and an unchanged one
+is loaded as it is.  ``build_all``
 starts one nvcc per source at once and waits for all of them.
 
 This replaces the compile probe of the JAX package
@@ -69,9 +70,15 @@ class Kernel:
         self._fn = None
 
     def library_path(self) -> str:
+        """Keyed by the source, the shared headers of ``csrc/`` (which a
+        source may include) and the flags."""
         h = hashlib.sha256()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        headers = sorted(f for f in os.listdir(CSRC_DIR)
+                         if f.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(CSRC_DIR, f)
+                                     for f in headers]:
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR,
                             f"{self.name}-{h.hexdigest()[:16]}.so")

@@ -13,7 +13,9 @@ Port of the paged float-cache path of
 ``decode_attention_paged`` launches the kernel for CUDA tensors (or
 raises on what the kernel cannot take) and runs
 ``decode_attention_paged_plain`` for CPU tensors; nothing sends a CUDA
-tensor to the plain version.
+tensor to the plain version.  The kernel has no backward: on the card it
+raises when grad mode is on and an input requires grad, rather than
+return an output detached from them.
 """
 
 from __future__ import annotations
@@ -115,6 +117,12 @@ def _check_operands(q, k_arena, v_arena, tables, lens):
     """Raise on what the kernel cannot take; returns (B, Hq, D, Hkv,
     G)."""
     b, hq, d, hkv, g = _head_geometry(q, k_arena)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_arena, v_arena)):
+        raise RuntimeError(
+            "paged decode kernel has no backward (it serves under "
+            "torch.no_grad()); its output would silently drop the "
+            "gradient of q, k_arena and v_arena")
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged decode kernel takes float32 or bfloat16 q, "
                         f"got {q.dtype}")

@@ -1,11 +1,14 @@
-"""RMSNorm forward: the CUDA kernel ``csrc/rms_norm.cu`` and its plain
-PyTorch version.
+"""RMSNorm: the CUDA forward kernel ``csrc/rms_norm.cu``, its plain
+PyTorch version, and the autograd Function over both.
 
 Port of ``paddle_tpu/ops/pallas/rms_norm.py`` (``_fwd_kernel`` :63,
-``_rms_fwd_impl`` :70, ``rms_norm`` :114).  The arithmetic is the JAX
-package's, kernel and XLA fallback alike (``nn/functional/norm.py:59-65``):
-``y = x * rsqrt(mean(x^2) + eps) * w`` per row in fp32, cast back to x's
-dtype.  Only the forward is here; the backward comes with training.
+``_rms_fwd_impl`` :70, the ``_rms`` custom_vjp :87-111, ``rms_norm``
+:114).  The arithmetic is the JAX package's, kernel and XLA fallback
+alike (``nn/functional/norm.py:59-65``): ``y = x * rsqrt(mean(x^2) + eps)
+* w`` per row in fp32, cast back to x's dtype.  The backward is
+``_rms_bwd``'s row-local math (:98-108) in plain torch on both devices,
+as it is XLA (not a kernel) in the JAX package; it saves only (x, w) and
+recomputes the row statistic.
 
 ``rms_norm`` takes the kernel for a CUDA tensor and the plain version for
 a CPU tensor, and nothing else: there is no switch that sends a CUDA
@@ -32,10 +35,12 @@ KERNEL = _build.register(_build.Kernel(
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
                    epsilon: float = 1e-6) -> torch.Tensor:
     """Reference math on any device: fp32 mean of squares, rsqrt, scale
-    by the fp32 weight, cast back to ``x.dtype``."""
-    xf = x.float()
+    by the fp32 weight, cast back to ``x.dtype`` (float64 stays
+    float64)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct)
     rrms = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)
-    return (xf * rrms * weight.float()).to(x.dtype)
+    return (xf * rrms * weight.to(ct)).to(x.dtype)
 
 
 def _check_operands(x: torch.Tensor, weight: torch.Tensor) -> int:
@@ -78,12 +83,48 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             epsilon: float = 1e-6) -> torch.Tensor:
-    """x: [..., d]; weight: [d].  CUDA tensors run the kernel (or
-    raise); CPU tensors run ``rms_norm_plain``."""
+def _rms_norm_fwd(x, weight, epsilon):
     if x.device.type == "cuda":
         return _rms_norm_cuda(x, weight, epsilon)
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, epsilon)
     raise ValueError(f"rms_norm: unsupported device {x.device}")
+
+
+def rms_norm_bwd(x, weight, g, epsilon):
+    """``_rms_bwd``: dx and dw from the saved (x, w) and the output
+    gradient, in fp32 (float64 stays float64); dx in x's dtype, dw in
+    w's."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).to(ct)
+    gf = g.reshape(-1, d).to(ct)
+    wf = weight.to(ct)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)
+    xhat = xf * r
+    gw = gf * wf
+    dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = (gf * xhat).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        return _rms_norm_fwd(x, weight, epsilon)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, g, ctx.epsilon)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             epsilon: float = 1e-6) -> torch.Tensor:
+    """x: [..., d]; weight: [d].  CUDA tensors run the kernel (or
+    raise); CPU tensors run ``rms_norm_plain``.  Differentiable in x and
+    weight through ``rms_norm_bwd``."""
+    return _RMSNorm.apply(x, weight, float(epsilon))

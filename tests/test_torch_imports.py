@@ -21,6 +21,10 @@ def test_import_loads_no_jax():
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.inference.serving, "
         "paddle_tpu_torch.inference.llm, paddle_tpu_torch.models.convert\n"
+        "import paddle_tpu_torch.jit.train_step, "
+        "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip, "
+        "paddle_tpu_torch.distributed.utils, "
+        "paddle_tpu_torch.ops.rope, paddle_tpu_torch.ops.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -66,6 +70,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         LlamaForCausalLM(tiny_llama_config())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LlamaForCausalLM(tiny_llama_config(recompute=True))
     with pytest.raises(ValueError, match="device must be"):
         resolve_device("meta")
     model = LlamaForCausalLM(tiny_llama_config(), device="cpu")
