@@ -9,20 +9,34 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    CUDA versions, and the build of every CUDA kernel of the port from
    ``paddle_tpu_torch/csrc/`` (one nvcc per source, all in parallel);
 2. each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (serving: paged decode, RMSNorm; training:
-   flash-attention forward and backward, RoPE forward and backward,
-   RMSNorm), bfloat16 and float32, with CUDA-event timings of the kernel,
-   the plain version and one PyTorch library call that computes the same
-   function where there is one (a yardstick the port never calls),
-   beside the least time the card could take (``bound_ms``);
+   shapes its path gives it (serving: paged decode over a float and an
+   int8 cache, RMSNorm, the int8/int4 quantized matmul at the 8B decode
+   and prefill shapes; training: flash-attention forward and backward,
+   RoPE forward and backward, RMSNorm), bfloat16 and float32, with
+   CUDA-event timings of the kernel, the plain version and one PyTorch
+   library call that computes the same function where there is one (a
+   yardstick the port never calls), beside the least time the card could
+   take (``bound_ms``);
 3. serving at full Llama-3-8B width (32 layers, bfloat16, random weights
    from ``--seed``): 8 requests through an 8-slot ``ServingEngine``, two
    of them sharing a 256-token prefix so the prefix cache hits; every
    request must finish with in-vocabulary tokens, and the kernels' launch
    counters must rise by exactly their per-step counts;
+3b. quantized serving: the same model and trace through two engines with
+   an int8 KV cache, one with int8 and one with int4 weights, under the
+   same checks (the quantized matmul launches 7 per layer per forward,
+   the int8 paged decode once per layer per decode step, the float one
+   never), with tokens/s, TTFT, decode step, peak memory and a profiled
+   decode window;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
-   against the same request alone on a fresh 1-slot engine;
+   against the same request alone on a fresh 1-slot engine; then the
+   same with an int8 KV cache and int8 weights;
+4b. quantized card-vs-CPU agreement: a 2-layer float32 model at the same
+   width with an int8 KV cache and int4 weights, on the card and on the
+   CPU from the same state dict: identical weight plans, and the logits
+   of every teacher-forced step and the greedy tokens agree within
+   stated bounds;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -86,13 +100,14 @@ def _time_ms(torch, fn, flush=None, warmup=5, iters=25):
     return statistics.median(times)
 
 
-def _check(torch, name, got, want, dtype, row_atol=None, rtol=None):
+def _check(torch, name, got, want, dtype, row_atol=None, rtol=None,
+           tol=None):
     """Max |got - want|, after asserting every element within ``atol +
-    rtol * |want|``: ``TOL[dtype]``, or, where ``row_atol`` is given, an
-    atol of ``row_atol`` times the RMS over the last axis of ``want``'s
-    row, and ``rtol``.  Logs the largest share of the limit any element
-    used."""
-    atol, rt = TOL[dtype]
+    rtol * |want|``: ``tol`` or ``TOL[dtype]``, or, where ``row_atol`` is
+    given, an atol of ``row_atol`` times the RMS over the last axis of
+    ``want``'s row, and ``rtol``.  Logs the largest share of the limit any
+    element used."""
+    atol, rt = tol or TOL[dtype]
     g, w = got.float(), want.float()
     if row_atol is not None:
         atol, rt = row_atol * w.square().mean(-1, keepdim=True).sqrt(), rtol
@@ -158,6 +173,29 @@ def _rms_case(torch, rows, dtype, gen, d=4096):
                 library_ms=lib_ms)
 
 
+def _read_flush(torch):
+    """An L2 flush that leaves the cache clean: one read of 256 MB (the
+    50 MB L2 holds none of the operands afterwards, and, unlike a write,
+    no dirty lines whose write-back would share the timed kernel's
+    memory bandwidth).  Returns (buffer, flush)."""
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    return scratch, lambda: scratch.max()
+
+
+def _paged_tables(np, rng, lens, blk_len, mb):
+    """Per-row tables of distinct random blocks (trash-padded past each
+    row's need) for the decode cases; returns (tables, blocks needed, NB)."""
+    need = [min(int(n) // blk_len + 1, mb) for n in lens]
+    nb = sum(need) + 8
+    perm = rng.permutation(nb)
+    tables = np.full((len(lens), mb), nb, np.int32)
+    used = 0
+    for i, k in enumerate(need):
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    return tables, need, nb
+
+
 def _decode_case(torch, dtype, gen, rng):
     """B=8 rows, Hkv=8, G=4, D=128, L=16, 128-block tables: ragged lens
     up to 2047 (a full table), mid-block frontiers, trash-padded
@@ -166,15 +204,8 @@ def _decode_case(torch, dtype, gen, rng):
     from paddle_tpu_torch.ops import decode_attention as da
     b, hkv, g, d, blk_len, mb = 8, 8, 4, 128, 16, 128
     lens = np.array([2047, 1500, 1023, 700, 383, 100, 17, 0], np.int32)
-    need = [min(int(n) // blk_len + 1, mb) for n in lens]
-    nb = sum(need) + 8
+    tables, need, nb = _paged_tables(np, rng, lens, blk_len, mb)
     dt = getattr(torch, dtype)
-    perm = rng.permutation(nb)
-    tables = np.full((b, mb), nb, np.int32)
-    used = 0
-    for i, k in enumerate(need):
-        tables[i, :k] = perm[used:used + k]
-        used += k
     shape = da.paged_arena_shape(nb + 1, hkv, blk_len, d)
     ka = torch.randn(shape, generator=gen, device="cuda").to(dt)
     va = torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -220,6 +251,117 @@ def _decode_case(torch, dtype, gen, rng):
                 dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
                 library_max_abs_err=lib_err)
+
+
+# int8 paged decode: float32 atol 1e-5 (the same fp32 math in another
+# order, outputs below 1); bfloat16 as flash O, an atol of 2^-5 of the
+# row's RMS over D plus one bf16 ulp (rtol 2^-7): the kernel rounds P to
+# bf16 relative to the online softmax's running max (as the TPU kernel
+# rounds it relative to its row max), the plain version rounds the
+# normalized P, so each term of a row may differ by 2^-8 of itself.
+DECODE_INT8_TOL = {"float32": dict(tol=(1e-5, 1e-5)),
+                   "bfloat16": dict(row_atol=2.0 ** -5, rtol=2.0 ** -7)}
+# quantized matmul: outputs of size ~1-3 summed over K <= 14336 exact fp32
+# products in another order: float32 atol 1e-4 plus rtol 1e-5; bfloat16
+# one ulp of the value (rtol 2^-7: both round an fp32 sum once) plus atol
+# 1e-4 for values near zero
+QMM_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 2.0 ** -7)}
+# the 8B projections (K, N) at decode (M = 8 slots) and one prefill chunk
+QMM_SHAPES = [(8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
+              (8, 14336, 4096), (256, 4096, 14336)]
+
+
+def _decode_int8_case(torch, dtype, gen, rng):
+    """The serving shape of ``_decode_case`` (B=8, Hkv=8, G=4, D=128,
+    L=16, 128-block tables, lens up to 2047, L2 flushed by a read) over
+    an int8 cache: random float arenas quantized per entry per kv head
+    (``quantize_kv_heads``), the trash row included."""
+    import numpy as np
+    from paddle_tpu_torch.models.generation import quantize_kv_heads
+    from paddle_tpu_torch.ops import decode_attention as da
+    b, hkv, g, d, blk_len, mb = 8, 8, 4, 128, 16, 128
+    lens = np.array([2047, 1500, 1023, 700, 383, 100, 17, 0], np.int32)
+    tables, need, nb = _paged_tables(np, rng, lens, blk_len, mb)
+    dt = getattr(torch, dtype)
+    shape = da.paged_arena_shape(nb + 1, hkv, blk_len, d)
+    planes = []
+    for _ in range(2):
+        f = torch.randn(nb + 1, blk_len, hkv, d, generator=gen, device="cuda")
+        codes, sc = quantize_kv_heads(f)
+        planes.append((codes.reshape(shape), sc))
+    (kc, ks), (vc, vs) = planes
+    q = torch.randn(b, hkv * g, d, generator=gen, device="cuda").to(dt)
+    tb = torch.from_numpy(tables).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    got = da.decode_attention_paged(q, kc, vc, tb, ln, kv_scales=(ks, vs))
+    want = da.decode_attention_paged_plain(q, kc, vc, tb, ln,
+                                           kv_scales=(ks, vs))
+    torch.cuda.synchronize()
+    err = _check(torch, f"paged_decode_attention_int8 {dtype}", got, want,
+                 dtype, **DECODE_INT8_TOL[dtype])
+    item = q.element_size()
+    slots = int((lens.astype(np.int64) + 1).sum())
+    nbytes = (slots * 2 * hkv * (d + 4)           # valid codes and scales
+              + 2 * q.numel() * item              # q in, out
+              + sum(need) * 4 + b * 4)            # table entries, lens
+    bound_ms, by = _bound(nbytes, 4 * slots * hkv * g * d, dtype)
+    scratch, flush = _read_flush(torch)
+    ms = _time_ms(torch, lambda: da.decode_attention_paged(
+        q, kc, vc, tb, ln, kv_scales=(ks, vs)), flush)
+    plain_ms = _time_ms(torch, lambda: da.decode_attention_paged_plain(
+        q, kc, vc, tb, ln, kv_scales=(ks, vs)), flush)
+    del scratch
+    return dict(shape=f"B={b} Hkv={hkv} G={g} D={d} L={blk_len} "
+                      f"max_blocks={mb} lens<={int(lens.max())} int8 cache",
+                dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def _qmm_case(torch, dtype, bits, m, k, n, gen):
+    """The quantized matmul on x [M, K] and codes of a random [K, N]
+    weight (std 0.02) quantized per output channel by the serving rule.
+    ``bound_ms`` uses the peak of x's dtype (bf16 tensor cores);
+    ``cuda_core_bound_ms`` the 67 TFLOP/s of the fp32 CUDA cores this
+    kernel runs on.  ``library_ms`` is one ``torch.matmul`` in x's dtype
+    on the pre-dequantized weight: the GEMM of the same shape, not the
+    same function (it streams 2 or 4 bytes per weight, not 1 or 1/2).
+    Every timed call finds the L2 cold and clean (``_read_flush``), as a
+    decode step finds each layer's weights."""
+    from paddle_tpu_torch.ops import quantized_matmul as qm
+    from paddle_tpu_torch.quantization import (absmax_to_scales,
+                                               quantize_channelwise)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+    w = 0.02 * torch.randn(k, n, generator=gen, device="cuda")
+    scales = absmax_to_scales(w.abs().amax(0), bits)
+    codes = quantize_channelwise(w, scales, bits)
+    del w
+    if bits == 4:
+        codes = qm.pack_int4(codes)
+    got = qm.quantized_matmul(x, codes, scales, bits=bits)
+    want = qm.quantized_matmul_plain(x, codes, scales, bits=bits)
+    torch.cuda.synchronize()
+    tag = f"M={m} K={k} N={n} int{bits}"
+    err = _check(torch, f"quantized_matmul {tag} {dtype}", got, want, dtype,
+                 tol=QMM_TOL[dtype])
+    item = x.element_size()
+    nbytes = m * k * item + codes.numel() + 4 * n + m * n * item
+    ops = 2.0 * m * k * n
+    bound_ms, by = _bound(nbytes, ops, dtype)
+    cc_ms, cc_by = _bound(nbytes, ops, "float32")
+    scratch, flush = _read_flush(torch)
+    ms = _time_ms(torch, lambda: qm.quantized_matmul(x, codes, scales,
+                                                     bits=bits), flush)
+    plain_ms = _time_ms(torch, lambda: qm.quantized_matmul_plain(
+        x, codes, scales, bits=bits), flush, warmup=2, iters=10)
+    wd = qm.dequant_view(codes, scales, bits, dt)
+    lib_ms = _time_ms(torch, lambda: torch.matmul(x, wd), flush)
+    del scratch, wd
+    return dict(shape=tag, dtype=dtype, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                cuda_core_bound_ms=cc_ms, cuda_core_bound_by=cc_by,
+                library_ms=lib_ms)
 
 
 # The training shapes of phase 5 (examples/llama_pretrain.py at full width)
@@ -367,6 +509,7 @@ def phase_kernels(torch, seed):
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
     rows = {"rms_norm": [], "paged_decode_attention": [],
+            "paged_decode_attention_int8": [], "quantized_matmul": [],
             "flash_attention_fwd": [], "flash_attention_bwd": [],
             "rope": []}
     for dtype in ("bfloat16", "float32"):
@@ -374,6 +517,12 @@ def phase_kernels(torch, seed):
             rows["rms_norm"].append(_rms_case(torch, n, dtype, gen))
         rows["paged_decode_attention"].append(
             _decode_case(torch, dtype, gen, rng))
+        rows["paged_decode_attention_int8"].append(
+            _decode_int8_case(torch, dtype, gen, rng))
+        for bits in (8, 4):
+            for m, k, n in QMM_SHAPES:
+                rows["quantized_matmul"].append(
+                    _qmm_case(torch, dtype, bits, m, k, n, gen))
         # flash at the training batch in bf16 (the main path's shape), at
         # B=2 in f32 (the plain backward's fp32 score tensors at B=8 f32
         # would be 4.3 GB each)
@@ -396,7 +545,10 @@ def phase_kernels(torch, seed):
                  f"library_ms="
                  + ("none" if lib is None else f"{lib:.4f}")
                  + (f" (library max_abs_err={c['library_max_abs_err']:.3g})"
-                    if "library_max_abs_err" in c else ""))
+                    if "library_max_abs_err" in c else "")
+                 + (f" cuda_core_bound_ms={c['cuda_core_bound_ms']:.4f} "
+                    f"({c['cuda_core_bound_by']})"
+                    if "cuda_core_bound_ms" in c else ""))
     return rows
 
 
@@ -413,15 +565,15 @@ def _build_8b(torch, n_layers, dtype, seed):
     return cfg, model
 
 
-def phase_serving(torch, seed):
-    """Phase 3.  Returns the kernels' launch counts of the run."""
+def _serve_trace(torch, eng, cfg, seed):
+    """The serving trace of phases 3 and 3b, from ``seed``: 7 requests of
+    64-512 prompt tokens, then (once the first has finished its prefill)
+    an 8th sharing its 256-token prefix (16 full blocks).  The launch
+    counters are set to 0 just before and read just after.  Every request
+    must finish with in-vocabulary tokens and the prefix must hit.
+    Returns (launches, stats, wall seconds, requests, tokens, rng)."""
     import numpy as np
-    from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.ops import KERNELS
-    cfg, model = _build_8b(torch, 32, "bfloat16", seed)
-    eng = ServingEngine(model, num_slots=8, prompt_len=512, chunk_len=256,
-                        max_cache_len=1024, block_len=16,
-                        compute_dtype="bfloat16")
     rng = np.random.default_rng(seed)
     shared = rng.integers(0, cfg.vocab_size, 256)
 
@@ -459,28 +611,115 @@ def phase_serving(torch, seed):
                                  f"the vocabulary")
     if st["prefix_hits"] <= 0:
         raise AssertionError(f"the shared prefix did not hit: {st}")
-    want = {name: 0 for name in KERNELS}       # training kernels: none
-    want.update({"rms_norm": (2 * cfg.num_hidden_layers + 1)
-                 * (st["prefill_chunks"] + st["decode_steps"]),
-                 "paged_decode_attention": cfg.num_hidden_layers
-                 * st["decode_steps"]})
+    return launches, st, wall, len(specs), sum(m for _, m in specs), rng
+
+
+def _check_launches(launches, want, st):
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != expected "
                              f"{want} for {st['prefill_chunks']} chunks and "
                              f"{st['decode_steps']} decode steps")
-    n_tok = sum(m for _, m in specs)
-    _log(f"serving: {len(specs)} requests, {n_tok} tokens in {wall:.3f} s "
+
+
+def _log_serving(tag, n_req, n_tok, wall, st, launches, extra=""):
+    _log(f"{tag}: {n_req} requests, {n_tok} tokens in {wall:.3f} s "
          f"= {n_tok / wall:.2f} tokens/s; mean TTFT "
          f"{st['mean_ttft_s'] * 1e3:.2f} ms; decode step "
          f"{st['decode_seconds'] / st['decode_steps'] * 1e3:.3f} ms over "
          f"{st['decode_steps']} steps; prefill chunks "
          f"{st['prefill_chunks']}; prefix hits {st['prefix_hits']} "
          f"(rate {st['prefix_hit_rate']:.3f}); peak blocks "
-         f"{st['peak_blocks_in_use']}; launches {launches}")
+         f"{st['peak_blocks_in_use']}; {extra}launches {launches}")
+
+
+def phase_serving(torch, seed, cfg, model):
+    """Phase 3.  Returns the kernels' launch counts of the run."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import KERNELS
+    eng = ServingEngine(model, num_slots=8, prompt_len=512, chunk_len=256,
+                        max_cache_len=1024, block_len=16,
+                        compute_dtype="bfloat16")
+    launches, st, wall, n_req, n_tok, rng = _serve_trace(torch, eng, cfg,
+                                                         seed)
+    want = {name: 0 for name in KERNELS}       # training kernels: none
+    want.update({"rms_norm": (2 * cfg.num_hidden_layers + 1)
+                 * (st["prefill_chunks"] + st["decode_steps"]),
+                 "paged_decode_attention": cfg.num_hidden_layers
+                 * st["decode_steps"]})
+    _check_launches(launches, want, st)
+    _log_serving("serving", n_req, n_tok, wall, st, launches)
     _profile_decode(torch, eng, rng, cfg.vocab_size)
-    del eng, model
+    del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def _host_us(torch, fn, n=500):
+    """Host time of one call of ``fn`` in microseconds: ``n`` calls
+    enqueued back to back, timed on the host clock without a device sync
+    inside the window (the device runs behind)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return t * 1e6
+
+
+def phase_quant_serving(torch, seed, cfg, model):
+    """Phase 3b: phase 3's model and trace through an int8-KV engine with
+    int8 weights and one with int4 weights, after the host cost of one
+    projection call (the decode step is host-bound).  Returns the launch
+    counts of each run, by path."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.ops import quantized_matmul as qm
+    nl = cfg.num_hidden_layers
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        x = torch.zeros(8, 4096, dtype=torch.bfloat16, device=dev)
+        lin = torch.nn.Linear(4096, 1024, bias=False, device=dev,
+                              dtype=torch.bfloat16)
+        codes = torch.zeros(4096, 1024, dtype=torch.int8, device=dev)
+        scales = torch.ones(1024, device=dev)
+        q_us = _host_us(torch, lambda: qm.quantized_matmul(x, codes, scales))
+        l_us = _host_us(torch, lambda: lin(x))
+    _log(f"host time per projection call, M=8 K=4096 N=1024 bf16: "
+         f"quantized_matmul {q_us:.1f} us, nn.Linear {l_us:.1f} us")
+    by_path = {}
+    for wd in ("int8", "int4"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, num_slots=8, prompt_len=512,
+                            chunk_len=256, max_cache_len=1024, block_len=16,
+                            compute_dtype="bfloat16", kv_cache_dtype="int8",
+                            weight_dtype=wd)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        launches, st, wall, n_req, n_tok, rng = _serve_trace(torch, eng, cfg,
+                                                             seed)
+        peak = torch.cuda.max_memory_allocated()
+        forwards = st["prefill_chunks"] + st["decode_steps"]
+        want = {name: 0 for name in KERNELS}
+        want.update({"rms_norm": (2 * nl + 1) * forwards,
+                     "quantized_matmul": 7 * nl * forwards,
+                     "paged_decode_attention_int8": nl * st["decode_steps"]})
+        _check_launches(launches, want, st)
+        _log_serving(f"serving int8 KV + {wd} weights", n_req, n_tok, wall,
+                     st, launches,
+                     f"peak memory {peak / 2 ** 30:.2f} GiB (the bf16 model "
+                     f"stays beside the planes); plan built in "
+                     f"{t_plan:.2f} s; modeled weight bytes per forward "
+                     f"{eng._weight_sweep_bytes / 1e9:.3f} GB; ")
+        _profile_decode(torch, eng, rng, cfg.vocab_size)
+        by_path[f"serving_int8kv_{wd}w"] = launches
+        del eng
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def _profile_decode(torch, eng, rng, vocab, steps=8):
@@ -534,32 +773,170 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
 
 
 def phase_exactness(torch, seed):
+    """Phase 4: a mixed trace through a 2-slot engine against each
+    request alone on a fresh 1-slot engine, token for token, in float32
+    and then with an int8 KV cache and int8 weights (the quantized
+    kernels' summation order depends on K alone, never on the batch)."""
     import numpy as np
     from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, model = _build_8b(torch, 4, "float32", seed + 1)
-    kw = dict(prompt_len=64, chunk_len=32, max_cache_len=128, block_len=16,
-              compute_dtype="float32")
     rng = np.random.default_rng(seed + 1)
     specs = [(40, 12), (17, 5), (64, 9), (33, 7), (5, 10)]
     trace = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
              for n, m in specs]
-    eng = ServingEngine(model, num_slots=2, **kw)
-    mixed = [eng.submit(ids, max_new_tokens=m) for ids, m in trace]
-    eng.run()
-    for r, (ids, m) in zip(mixed, trace):
-        one = ServingEngine(model, num_slots=1, **kw)
-        alone = one.submit(ids, max_new_tokens=m)
-        one.run()
-        if not np.array_equal(r.output, alone.output):
-            raise AssertionError(
-                f"request {r.request_id}: mixed 2-slot trace {r.output} != "
-                f"alone on a 1-slot engine {alone.output}")
-        del one
-    _log(f"exactness: {len(trace)} requests token-exact (2-slot mixed "
-         f"trace vs 1-slot engines, float32, 4 layers at 8B width)")
-    del eng, model
+    for quant in ({}, dict(kv_cache_dtype="int8", weight_dtype="int8")):
+        kw = dict(prompt_len=64, chunk_len=32, max_cache_len=128,
+                  block_len=16, compute_dtype="float32", **quant)
+        for k in KERNELS.values():
+            k.launches = 0
+        eng = ServingEngine(model, num_slots=2, **kw)
+        mixed = [eng.submit(ids, max_new_tokens=m) for ids, m in trace]
+        eng.run()
+        for r, (ids, m) in zip(mixed, trace):
+            one = ServingEngine(model, num_slots=1, **kw)
+            alone = one.submit(ids, max_new_tokens=m)
+            one.run()
+            if not np.array_equal(r.output, alone.output):
+                raise AssertionError(
+                    f"request {r.request_id}: mixed 2-slot trace "
+                    f"{r.output} != alone on a 1-slot engine "
+                    f"{alone.output} ({quant or 'float'})")
+            del one
+        if quant:
+            counts = {n: KERNELS[n].launches for n in
+                      ("quantized_matmul", "paged_decode_attention_int8")}
+            if not all(counts.values()):
+                raise AssertionError(f"exactness: a quantized kernel never "
+                                     f"launched: {counts}")
+            _log(f"exactness: {len(trace)} requests token-exact (2-slot "
+                 f"mixed trace vs 1-slot engines, float32, int8 KV cache "
+                 f"and int8 weights, 4 layers at 8B width); launches "
+                 f"{counts}")
+        else:
+            _log(f"exactness: {len(trace)} requests token-exact (2-slot "
+                 f"mixed trace vs 1-slot engines, float32, 4 layers at 8B "
+                 f"width)")
+        del eng
+    del model
+    torch.cuda.empty_cache()
+
+
+# phase 4b: largest |logit difference| allowed between the card and the
+# CPU at every teacher-forced step, stated before the first run.  Logits
+# of the random 2-layer model are ~0.25 in size; both sides sum the same
+# exact fp32 products in other orders (about 1e-6 relative), and a K/V
+# value whose fp32 quotient lies that close to a rounding boundary may
+# take the neighbouring int8 code on one side (one step is 1/127 of the
+# head's absmax), which moves a logit by well under 1e-4.  A wrong kernel
+# (a nibble, scale or slot out of place) moves logits by ~0.1.
+QUANT_LOGIT_ATOL = 2e-3
+
+
+def _teacher_forced(torch, model, wq, prompt, forced, device, block_len=16):
+    """Logits of ``model`` over int8 arenas under the weight context
+    ``wq``: the prompt as one chunk, then one decode step per token of
+    ``forced``.  Returns [1 + len(forced), vocab] float32 on the CPU."""
+    from paddle_tpu_torch.models.generation import init_paged_kv_arena
+    from paddle_tpu_torch.models.wquant import wquant_context
+    nl, hkv, d = model.kv_cache_spec()
+    n = len(prompt)
+    mb = -(-(n + len(forced)) // block_len)
+    tables = torch.arange(mb, dtype=torch.int32, device=device)[None, :]
+    kvs = [tuple(e) + (tables,) for e in init_paged_kv_arena(
+        nl, mb, block_len, hkv, d, torch.int8, device)]
+    rows = []
+    with torch.no_grad(), wquant_context(wq):
+        lg, kvs = model.prefill_chunk(
+            torch.from_numpy(prompt[None, :]).to(device), 0, n, kvs)
+        rows.append(lg[0].float().cpu())
+        for t, tok in enumerate(forced):
+            lg, kvs = model.decode_step(
+                torch.tensor([int(tok)], dtype=torch.int32, device=device),
+                torch.tensor([n + t], dtype=torch.int32, device=device), kvs)
+            rows.append(lg[0].float().cpu())
+    return torch.stack(rows)
+
+
+def phase_quant_exactness(torch, seed):
+    """Phase 4b: a 2-layer float32 model at 8B width with an int8 KV cache
+    and int4 weights, on the card and on the CPU (plain versions) from
+    the same state dict.  The two weight plans must be bit-identical; a
+    2-request trace runs through a 2-slot engine on each side; then the
+    first request's prompt and the CPU's tokens are teacher-forced
+    through both models: every step's logits within QUANT_LOGIT_ATOL,
+    the CPU's argmax equal to its engine's tokens, and the card's tokens
+    equal to the CPU's up to the first step whose CPU top-2 margin is
+    within 2 * QUANT_LOGIT_ATOL (a near-tie either side may take)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import KERNELS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu = _build_8b(torch, 2, "float32", seed + 3)
+    cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    kw = dict(prompt_len=64, chunk_len=32, max_cache_len=128, block_len=16,
+              compute_dtype="float32", kv_cache_dtype="int8",
+              weight_dtype="int4", num_slots=2)
+    rng = np.random.default_rng(seed + 3)
+    trace = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+             for n, m in [(40, 12), (17, 8)]]
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    geng = ServingEngine(gpu, **kw)
+    greqs = [geng.submit(ids, max_new_tokens=m) for ids, m in trace]
+    geng.run()
+    t_gpu = time.perf_counter() - t0
+    launches = {n: KERNELS[n].launches
+                for n in ("quantized_matmul", "paged_decode_attention_int8")}
+    t0 = time.perf_counter()
+    ceng = ServingEngine(cpu, device="cpu", **kw)
+    creqs = [ceng.submit(ids, max_new_tokens=m) for ids, m in trace]
+    ceng.run()
+    t_cpu = time.perf_counter() - t0
+    for (_, _, _, gc, gs), (_, t, _, cc, cs) in zip(geng._wq.entries,
+                                                    ceng._wq.entries):
+        if not (torch.equal(gc.cpu(), cc) and torch.equal(gs.cpu(), cs)):
+            raise AssertionError(f"quant exactness: the card's {t} plan "
+                                 f"differs from the CPU's")
+    prompt, _ = trace[0]
+    forced = creqs[0].output[:-1]
+    lg_g = _teacher_forced(torch, gpu, geng._wq_ctx, prompt, forced,
+                           geng.device)
+    lg_c = _teacher_forced(torch, cpu, ceng._wq_ctx, prompt, forced, "cpu")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"quant exactness: {name} never launched")
+    diff = (lg_g - lg_c).abs().max(dim=-1).values
+    if not torch.isfinite(lg_g).all() or diff.max().item() > QUANT_LOGIT_ATOL:
+        raise AssertionError(f"quant exactness: card logits differ from the "
+                             f"CPU's by {diff.tolist()} (bound "
+                             f"{QUANT_LOGIT_ATOL})")
+    if not np.array_equal(lg_c.argmax(-1).numpy(), creqs[0].output):
+        raise AssertionError("quant exactness: the CPU engine's tokens are "
+                             "not its model's teacher-forced argmax")
+    top2 = lg_c.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    close = np.flatnonzero(margin <= 2 * QUANT_LOGIT_ATOL)
+    upto = int(close[0]) if close.size else len(margin)
+    g_out = greqs[0].output
+    if not np.array_equal(g_out[:upto], creqs[0].output[:upto]):
+        raise AssertionError(f"quant exactness: card tokens {g_out} != CPU "
+                             f"tokens {creqs[0].output} before step {upto}")
+    same = [bool(np.array_equal(g.output, c.output))
+            for g, c in zip(greqs, creqs)]
+    _log(f"quant exactness: 2 layers at 8B width, float32, int8 KV + int4 "
+         f"weights: plans bit-identical; teacher-forced logits max |diff| "
+         f"{diff.max().item():.3g} over {len(diff)} steps (last step "
+         f"{diff[-1].item():.3g}; bound {QUANT_LOGIT_ATOL}); tokens equal "
+         f"through step {upto} of {len(margin)} (smallest CPU margin "
+         f"{margin.min():.3g}); whole requests equal {same}; card "
+         f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s; launches {launches}")
+    del geng, ceng, gpu, cpu
     torch.cuda.empty_cache()
 
 
@@ -774,13 +1151,21 @@ def main(argv=None) -> int:
         return 2
     smi = phase_env(torch)
     rows = phase_kernels(torch, args.seed)
-    by_path = {"serving": phase_serving(torch, args.seed)}
+    cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
+    by_path = {"serving": phase_serving(torch, args.seed, cfg, model)}
+    by_path.update(phase_quant_serving(torch, args.seed, cfg, model))
+    del model
+    torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
+    phase_quant_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     phase_train_exactness(torch, args.seed)
     # the case of each kernel's row: bf16 on its main path's shape
-    # (RMSNorm: one serving decode step)
+    # (RMSNorm: one serving decode step; the quantized matmul: int8, one
+    # decode step's gate/up projection, M=8 K=4096 N=14336)
     main_case = {"rms_norm": 0, "paged_decode_attention": 0,
+                 "paged_decode_attention_int8": 0,
+                 "quantized_matmul": QMM_SHAPES.index((8, 4096, 14336)),
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
                  "rope": 0}
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -788,6 +1173,12 @@ def main(argv=None) -> int:
             "paged_decode_attention": (
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/decode_attention.py:492"),
+            "paged_decode_attention_int8": (
+                "paddle_tpu_torch/csrc/paged_decode_attention_int8.cu",
+                "paddle_tpu/ops/pallas/decode_attention.py:583"),
+            "quantized_matmul": (
+                "paddle_tpu_torch/csrc/quantized_matmul.cu",
+                "paddle_tpu/ops/pallas/quantized_matmul.py:175"),
             "flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
                 "paddle_tpu/ops/pallas/flash_attention.py:161"),
@@ -807,7 +1198,8 @@ def main(argv=None) -> int:
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": c["shape"], "dtype": c["dtype"]})
+            "shape": c["shape"], "dtype": c["dtype"],
+            **{k: c[k] for k in ("cuda_core_bound_ms",) if k in c}})
     _log(json.dumps({"kernels": kernels}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,15 @@ beside it slice by slice and imports nothing of it (nor JAX).
   ``optimizer.AdamW`` and ``nn.ClipGradByGlobalNorm`` over the model's
   training forward, with flash-attention forward and backward and RoPE
   as further CUDA kernels, and RMSNorm differentiable.
+- Slice 3, quantized serving: the same engine with an int8 KV cache
+  and int8/int4 weights (``quantization`` holds the absmax rule), with
+  int8 paged flash-decode and the quantized matmul as CUDA kernels.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 
 from . import (device, distributed, inference, jit,  # noqa: F401
-               models, nn, ops, optimizer)
+               models, nn, ops, optimizer, quantization)
 
 
 def set_flags(flags) -> None:

@@ -1,5 +1,7 @@
 """Continuous-batching serving over a paged KV block pool: port of the
-synchronous, greedy, float-KV core of ``paddle_tpu/inference/serving.py``.
+synchronous, greedy core of ``paddle_tpu/inference/serving.py``, with a
+float or int8 KV cache (``kv_cache_dtype="int8"``) and float or int8/int4
+weights (``weight_dtype=``), in any combination.
 
 Ported: ``_block_digests`` (:829), ``BlockPool`` (:859, the digest half),
 ``Request`` (:1181) and ``ServingEngine`` (:1341) with ``submit``,
@@ -39,7 +41,8 @@ import torch
 
 from ..device import DeviceLike, dtype_name, resolve_device, to_dtype
 from ..models.generation import GenerationConfig, init_paged_kv_arena
-from .llm import chunk_prefill, paged_decode_block
+from .llm import (build_weight_quant_plan, chunk_prefill,
+                  normalize_weight_dtype, paged_decode_block)
 
 _INF = float("inf")
 
@@ -210,6 +213,14 @@ class ServingEngine:
     to ``compute_dtype`` in place once — the JAX engine's once-per-call
     hoisted cast (``_cast_params``).  The KV arenas live on the device
     and are updated in place by every program.
+
+    ``kv_cache_dtype="int8"`` stores the cache as int8 codes plus f32
+    per-entry per-kv-head scales (quantize on append, dequantize in the
+    attention read).  ``weight_dtype="int8"|"int4"`` quantizes the hot
+    projections once, from the weights as stored (before the cast), into
+    code planes and per-output-channel scales that every program reads
+    through the quantized-matmul kernel; the float model stays on the
+    device beside them.
     """
 
     def __init__(self, model, *, num_slots, prompt_len,
@@ -232,8 +243,6 @@ class ServingEngine:
                  "sampling and speculation"),
                 (bool(do_sample), False, "do_sample=True",
                  "sampling and speculation"),
-                (weight_dtype, None, "weight_dtype= (quantized weights)",
-                 "weight quantization"),
                 (mesh, None, "mesh= (tensor-parallel serving)",
                  "sharded serving"),
                 (str(role), "both", f"role={role!r} (disaggregation)",
@@ -313,35 +322,42 @@ class ServingEngine:
         if not cdt.is_floating_point:
             raise ValueError(f"compute_dtype must be a float dtype, got "
                              f"{compute_dtype!r}")
-        model.to(device=self.device, dtype=cdt)
-        model.eval()
-        self._model = model
-        self.weight_dtype = dtype_name(cdt)
-
+        # the KV dtype is validated before any weight is touched
         n_layers, hkv, d = model.kv_cache_spec()
         kvdt = (kv_cache_dtype if kv_cache_dtype is not None
                 else (self.cfg.cache_dtype or self.cfg.compute_dtype))
-        kv_dt = to_dtype(kvdt)
-        if kv_dt == torch.int8:
-            _not_ported('kv_cache_dtype="int8"', "int8 KV cache")
-        if not kv_dt.is_floating_point:
-            raise ValueError(
-                f"kv_cache_dtype must be a float dtype or 'int8' (the "
-                f"quantized KV cache), got {kvdt!r}")
-        if kv_dt != cdt:
+        kv_dt = self._kv_dtype(kvdt)
+        if kv_dt != torch.int8 and kv_dt != cdt:
             # the JAX gate sends a mixed (q, cache) dtype pair to its XLA
             # path; the port has no such path on the card
             raise NotImplementedError(
                 f"a KV cache dtype ({dtype_name(kv_dt)}) other than "
                 f"compute_dtype ({dtype_name(cdt)}) is not ported yet: the "
                 f"paged decode kernel takes one dtype")
+        # weight_dtype: the plan quantizes the weights AS STORED, before
+        # the cast to compute_dtype, as the JAX engine does
+        wq_dtype = normalize_weight_dtype(weight_dtype)
+        self._wq = (build_weight_quant_plan(model, wq_dtype).to(self.device)
+                    if wq_dtype is not None else None)
+        self._wq_ctx = self._wq.context() if self._wq is not None else None
+        model.to(device=self.device, dtype=cdt)
+        model.eval()
+        self._model = model
+        self.weight_dtype = wq_dtype or dtype_name(cdt)
+        self._weight_sweep_bytes = self._weight_bytes(model, cdt)
+
         self.kv_cache_dtype = dtype_name(kv_dt)
         self._arenas: List[torch.Tensor] = []
-        for k_arena, v_arena in init_paged_kv_arena(
+        for entry in init_paged_kv_arena(
                 n_layers, self.num_blocks, self.block_len, hkv, d, kv_dt,
                 self.device):
-            self._arenas += [k_arena, v_arena]
-        self._kv_row_bytes = 2 * hkv * d * kv_dt.itemsize * n_layers
+            self._arenas += list(entry)
+        # per-row KV bytes across all layers: codes plus the two f32
+        # scale planes for int8
+        row_bytes = 2 * hkv * d * kv_dt.itemsize
+        if kv_dt == torch.int8:
+            row_bytes += 2 * hkv * 4
+        self._kv_row_bytes = row_bytes * n_layers
         self._pool = BlockPool(self.num_blocks, self.block_len)
         self._digest_salt = ("ptpu-paged-kv/"
                              + self.kv_cache_dtype).encode()
@@ -366,6 +382,46 @@ class ServingEngine:
                        decode_steps=0, busy_slot_steps=0,
                        block_dispatches=0, prefix_hits=0, prefix_misses=0)
         self._decode_seconds = 0.0
+
+    @staticmethod
+    def _kv_dtype(kvdt) -> torch.dtype:
+        """The KV arena dtype: any float dtype, or int8 for the
+        quantized cache; everything else raises, int4 with a pointer at
+        ``weight_dtype``."""
+        if str(kvdt) == "int4":
+            raise ValueError(
+                "kv_cache_dtype must be a float dtype or 'int8' (the "
+                "quantized KV cache), got 'int4' — 'int4' is a WEIGHT "
+                "dtype: pass weight_dtype='int4' instead (the KV cache has "
+                "no int4 mode)")
+        try:
+            kv_dt = to_dtype(kvdt)
+        except ValueError:
+            raise ValueError(f"unknown kv_cache_dtype {kvdt!r}") from None
+        if kv_dt != torch.int8 and not kv_dt.is_floating_point:
+            raise ValueError(
+                f"kv_cache_dtype must be a float dtype or 'int8' (the "
+                f"quantized KV cache), got {kvdt!r}")
+        return kv_dt
+
+    def _weight_bytes(self, model, cdt) -> int:
+        """Modeled bytes ONE forward streams for the whole weight set:
+        float parameters at the compute dtype, other parameters and
+        buffers at their own width, quantized projections at their
+        code+scale width (the JAX engine's ``_weight_sweep_bytes``)."""
+        skip = self._wq.param_positions if self._wq is not None \
+            else frozenset()
+        wbytes = 0
+        for i, p in enumerate(model.parameters()):
+            if i in skip:
+                continue
+            item = cdt.itemsize if p.is_floating_point() \
+                else p.element_size()
+            wbytes += p.numel() * item
+        wbytes += sum(b.numel() * b.element_size() for b in model.buffers())
+        if self._wq is not None:
+            wbytes += self._wq.bytes_swept()
+        return wbytes
 
     # -- host <-> device --
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -582,7 +638,7 @@ class ServingEngine:
         outp = chunk_prefill(
             self._model, self._dev(req.chunk_ids[None, start:start + c]),
             start, req.seq_len, self._dev(self._tables[req.slot][None, :]),
-            self._arenas)
+            self._arenas, wq=self._wq_ctx)
         tok0 = int(outp[0][0])
         self._n["prefill_chunks"] += 1
         req.pf_pos = start + c
@@ -650,7 +706,7 @@ class ServingEngine:
         out = paged_decode_block(
             self._model, self.cfg, n, self._dev(self._tok),
             self._dev(self._lens), self._dev(self._done), self._dev(budget),
-            self._dev(self._decode_tables()), self._arenas)
+            self._dev(self._decode_tables()), self._arenas, wq=self._wq_ctx)
         toks = out[0].cpu().numpy()
         tok, lens, done = (out[1].cpu().numpy(), out[2].cpu().numpy(),
                            out[3].cpu().numpy())
@@ -716,7 +772,9 @@ class ServingEngine:
         ``prefix_hit_rate`` is block-granular over matchable prompt
         blocks; ``peak_blocks_in_use`` is the pool's refcount>0
         high-water mark; ``decode_seconds`` is host wall time spent in
-        decode blocks, device sync included."""
+        decode blocks, device sync included; ``weight_bytes_swept`` is
+        the modeled weight stream (every prefill chunk and every decode
+        step reads the whole weight set once)."""
         n = self._n
         steps = n["decode_steps"]
         hits, misses = n["prefix_hits"], n["prefix_misses"]
@@ -724,6 +782,10 @@ class ServingEngine:
         lats = [r.latency for r in self._finished if r.latency is not None]
         return {
             "num_slots": self.num_slots,
+            "kv_cache_dtype": self.kv_cache_dtype,
+            "weight_dtype": self.weight_dtype,
+            "weight_bytes_swept": int(
+                (n["prefill_chunks"] + steps) * self._weight_sweep_bytes),
             "finished": n["finished"],
             "prefills": n["prefills"],
             "prefill_chunks": n["prefill_chunks"],

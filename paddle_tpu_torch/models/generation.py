@@ -1,8 +1,9 @@
 """Paged-KV generation pieces of the serving path: port of
 ``paddle_tpu/models/generation.py`` — ``GenerationConfig`` (:56, the
-fields the engine reads), ``init_paged_kv_arena`` (:113, float dtypes),
-and the decode / chunk scatters with their trash routing (:174-201,
-:217-244).
+fields the engine reads), ``init_paged_kv_arena`` (:113, float and int8
+caches), ``quantize_kv_heads`` (:152), and the decode / chunk scatters
+with their trash routing and their quantize-on-append ``_q`` twins
+(:174-259).
 
 The JAX scatters return new arrays (the engine donates the old ones);
 here they write the arena IN PLACE with ``index_put_`` and return it, so
@@ -16,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..ops.decode_attention import paged_arena_shape
+from ..ops.decode_attention import paged_arena_shape, paged_scale_shape
 
 
 @dataclass(frozen=True)
@@ -37,16 +38,44 @@ def init_paged_kv_arena(num_layers, num_blocks, block_len, num_kv_heads,
     block: writes from vacant/frozen rows and from pad positions of a
     prefill chunk land there.  Zero fill is required, not cosmetic:
     reads past a row's ``lens`` are masked to weight 0, which is exact
-    only against finite data (0 * NaN = NaN)."""
-    if not dtype.is_floating_point:
-        raise NotImplementedError(
-            f"KV arena dtype {dtype}: only float caches are ported yet "
-            f"(ROADMAP.md, Queue 1: int8 KV cache)")
+    only against finite data (0 * NaN = NaN).
+
+    ``dtype=torch.int8`` selects the QUANTIZED cache: each layer yields
+    ``(k_codes, v_codes, k_scales, v_scales)``, int8 code arenas plus
+    zeroed f32 ``[num_blocks + 1, block_len, H_kv]`` scale arenas
+    (``paged_scale_shape``, trash row included; ``quantize_kv_heads``)."""
     shape = paged_arena_shape(num_blocks + 1, num_kv_heads, block_len,
                               head_dim)
+    if dtype == torch.int8:
+        sshape = paged_scale_shape(num_blocks + 1, num_kv_heads, block_len)
+        return [(torch.zeros(shape, dtype=torch.int8, device=device),
+                 torch.zeros(shape, dtype=torch.int8, device=device),
+                 torch.zeros(sshape, dtype=torch.float32, device=device),
+                 torch.zeros(sshape, dtype=torch.float32, device=device))
+                for _ in range(num_layers)]
+    if not dtype.is_floating_point:
+        raise ValueError(f"KV arena dtype {dtype}: a float dtype or int8 "
+                         f"(the quantized cache)")
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(num_layers)]
+
+
+def quantize_kv_heads(kv):
+    """Per-entry per-kv-head absmax int8 quantization of K/V planes:
+    ``kv`` [..., H_kv, D] -> ``(codes int8 [..., H_kv, D], scales f32
+    [..., H_kv])`` with ``codes * scales[..., None] ~= kv``.  One scale
+    per WRITTEN entry per kv head, so every append quantizes exactly
+    what it writes and a value's dequantized form never changes after
+    its write.  The absmax is floored at 1e-8, so an all-zero plane
+    gets a tiny finite scale and codes 0."""
+    f = kv.float()
+    absmax = torch.clamp_min(torch.amax(f.abs(), dim=-1), 1e-8)
+    # a true division by a tensor (CUDA divides by a Python scalar as a
+    # product with its reciprocal, which is not the same float)
+    scales = absmax / torch.full_like(absmax, 127.0)
+    codes = torch.clamp(torch.round(f / scales[..., None]), -127, 127)
+    return codes.to(torch.int8), scales
 
 
 def _paged_decode_route(arena, tables, lens):
@@ -72,6 +101,24 @@ def paged_cache_scatter(arena, tables, lens, new_kv):
     return arena
 
 
+def paged_cache_scatter_q(arena, scales, tables, lens, new_kv):
+    """Quantize-on-append twin of ``paged_cache_scatter`` for the int8
+    cache: the new [B, H_kv, D] entry is quantized per kv head
+    (``quantize_kv_heads``) and its codes and scales are written in
+    place through ONE route (``_paged_decode_route``), so the two planes
+    cannot desynchronise.  Vacant rows all write the trash row at
+    their frozen slot: with duplicate (blk, off) coordinates
+    ``index_put_`` may take one writer's codes and another's scale, in
+    the trash row only, and both are finite.  Returns
+    ``(arena, scales)``."""
+    codes, s = quantize_kv_heads(new_kv)
+    blk, off = _paged_decode_route(arena, tables, lens)
+    arena.index_put_((blk, off), codes.reshape(
+        (tables.shape[0],) + tuple(arena.shape[2:])))
+    scales.index_put_((blk, off), s)
+    return arena, scales
+
+
 def _paged_chunk_route(arena, tables, start: int, n_valid: int, c: int):
     """(blk, off) coordinates of a batch-1 chunk of ``c`` consecutive
     positions ``start .. start+c-1`` through ``tables`` ([1,
@@ -95,3 +142,21 @@ def paged_chunk_scatter(arena, tables, start: int, n_valid: int, new_kv):
     new_kv = new_kv.reshape((c,) + tuple(arena.shape[2:]))
     arena.index_put_((blk, off), new_kv.to(arena.dtype))
     return arena
+
+
+def paged_chunk_scatter_q(arena, scales, tables, start: int, n_valid: int,
+                          new_kv):
+    """Quantize-on-append twin of ``paged_chunk_scatter``: the chunk's
+    [C, H_kv, D] planes are quantized per position per kv head and both
+    codes and scales are written in place through one
+    ``_paged_chunk_route``,
+    pad-tail positions (``>= n_valid``) trash-routed in both arenas.  The
+    pad positions all land in the trash row, where ``index_put_`` may
+    pair one writer's codes with another's scale; both are finite.
+    Returns ``(arena, scales)``."""
+    c = new_kv.shape[0]
+    codes, s = quantize_kv_heads(new_kv)
+    blk, off = _paged_chunk_route(arena, tables, start, n_valid, c)
+    arena.index_put_((blk, off), codes.reshape((c,) + tuple(arena.shape[2:])))
+    scales.index_put_((blk, off), s)
+    return arena, scales

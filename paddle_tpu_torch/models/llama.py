@@ -7,10 +7,14 @@ What is here: ``LlamaConfig`` (the fields serving and training read),
 
 - Serving: ``kv_cache_spec`` (:485), ``decode_step`` (:514) and
   ``prefill_chunk`` (:528) over the PAGED kv triple
-  ``(k_arena, v_arena, block_tables)`` only, on top of the layer-level
-  ``decode_step`` (:187) and ``chunk_step`` (:233).  K/V are written into
-  the arenas IN PLACE (``index_put_``), which takes the place of JAX's
-  buffer donation: the caller's arena tensors are the updated arenas.
+  ``(k_arena, v_arena, block_tables)`` or the quantized 5-tuple
+  ``(k_codes, v_codes, k_scales, v_scales, block_tables)`` of the int8
+  cache, on top of the layer-level ``decode_step`` (:187) and
+  ``chunk_step`` (:233).  K/V are written into the arenas IN PLACE
+  (``index_put_``), which takes the place of JAX's buffer donation: the
+  caller's arena tensors are the updated arenas.  ``quant_projections``
+  (:469) and the ``wq_linear`` projection sites (:133, :144-148,
+  :339-345) carry quantized weights (``models/wquant.py``).
 - Training: the ``forward`` of every layer (:159-176, :332-345, :363-374,
   :416-420, :438-457) without a kv cache, with full recompute of each
   decoder layer when ``config.recompute`` and the model is in
@@ -19,9 +23,10 @@ What is here: ``LlamaConfig`` (the fields serving and training read),
 Module and parameter names match the JAX model's ``named_parameters()``
 so the weight bridge (``models/convert.py``) is a rename-free mapping.
 The projections and ``lm_head`` are ``nn.Linear`` (a library GEMM, as
-the JAX package leaves them to XLA); RMSNorm, RoPE (without position
-ids), causal attention and paged decode attention run the port's CUDA
-kernels on the card.
+the JAX package leaves them to XLA) unless a weight-quant context routes
+a projection through the quantized-matmul kernel; RMSNorm, RoPE (without
+position ids), causal attention and paged decode attention (float and
+int8 cache) run the port's CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -39,9 +44,13 @@ from ..nn.functional import (cross_entropy, llama_rope,
 from ..nn.norm import RMSNorm
 from ..ops.decode_attention import (decode_attention_paged,
                                     paged_prefix_attention)
-from .generation import paged_cache_scatter, paged_chunk_scatter
+from .generation import (paged_cache_scatter, paged_cache_scatter_q,
+                         paged_chunk_scatter, paged_chunk_scatter_q)
+from .wquant import wq_linear
 
-PagedKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# (k_arena, v_arena, tables) or, for the int8 cache, (k_codes, v_codes,
+# k_scales, v_scales, tables)
+PagedKV = Tuple[torch.Tensor, ...]
 
 
 @dataclass
@@ -100,9 +109,10 @@ def _linear(i, o, factory):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, factory):
+    def __init__(self, config: LlamaConfig, factory, layer_idx: int = 0):
         super().__init__()
         self.config = config
+        self.layer_idx = layer_idx
         h = config.hidden_size
         self.head_dim = config.head_dim
         kv_out = config.num_key_value_heads * self.head_dim
@@ -111,11 +121,20 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(h, kv_out, factory)
         self.o_proj = _linear(h, h, factory)
 
+    def _o(self, t):
+        """The output projection, quantized inside a weight-quant
+        context (``wq_linear``)."""
+        return wq_linear(self.o_proj, t, "o_proj", self.layer_idx)
+
     def _qkv_rope(self, x, position_ids):
         b, s, _ = x.shape
-        q = self.q_proj(x).reshape(b, s, -1, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, -1, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, -1, self.head_dim)
+        li = self.layer_idx
+        q = wq_linear(self.q_proj, x, "q_proj", li)
+        k = wq_linear(self.k_proj, x, "k_proj", li)
+        v = wq_linear(self.v_proj, x, "v_proj", li)
+        q = q.reshape(b, s, -1, self.head_dim)
+        k = k.reshape(b, s, -1, self.head_dim)
+        v = v.reshape(b, s, -1, self.head_dim)
         q, k = llama_rope(q, k, rotary_emb_base=self.config.rope_theta,
                           position_ids=position_ids)
         return q, k, v
@@ -134,19 +153,28 @@ class LlamaAttention(nn.Module):
         q, k, v = self._qkv_rope(x, position_ids)
         out = scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
                                            is_causal=attention_mask is None)
-        return self.o_proj(out.reshape(b, s, -1))
+        return self._o(out.reshape(b, s, -1))
 
     def decode_step(self, x, kv: PagedKV, lens):
         """One cached decode step.  x: [B, 1, hidden]; kv: the paged
-        triple; lens: [B] int32 write slot = last valid index after the
-        write.  Returns (out [B, 1, hidden], kv)."""
+        triple, or the int8 cache's 5-tuple (quantize on append,
+        dequantize in the attention read); lens: [B] int32 write slot =
+        last valid index after the write.  Returns (out [B, 1, hidden],
+        kv)."""
         q, k, v = self._qkv_rope(x, lens[:, None])
-        k_arena, v_arena, tables = kv
-        paged_cache_scatter(k_arena, tables, lens, k[:, 0])
-        paged_cache_scatter(v_arena, tables, lens, v[:, 0])
-        out = decode_attention_paged(q[:, 0].contiguous(), k_arena, v_arena,
-                                     tables, lens)
-        return self.o_proj(out[:, None, :]), kv
+        q1 = q[:, 0].contiguous()
+        if len(kv) == 5:
+            k_arena, v_arena, k_s, v_s, tables = kv
+            paged_cache_scatter_q(k_arena, k_s, tables, lens, k[:, 0])
+            paged_cache_scatter_q(v_arena, v_s, tables, lens, v[:, 0])
+            out = decode_attention_paged(q1, k_arena, v_arena, tables, lens,
+                                         kv_scales=(k_s, v_s))
+        else:
+            k_arena, v_arena, tables = kv
+            paged_cache_scatter(k_arena, tables, lens, k[:, 0])
+            paged_cache_scatter(v_arena, tables, lens, v[:, 0])
+            out = decode_attention_paged(q1, k_arena, v_arena, tables, lens)
+        return self._o(out[:, None, :]), kv
 
     def chunk_step(self, x, kv: PagedKV, start: int, n_valid: int):
         """One chunked-prefill step of ONE sequence: x [1, C, hidden]
@@ -156,31 +184,43 @@ class LlamaAttention(nn.Module):
         b, c, _ = x.shape
         pos = start + torch.arange(c, dtype=torch.int32, device=x.device)
         q, k, v = self._qkv_rope(x, pos[None, :])
-        k_arena, v_arena, tables = kv
-        paged_chunk_scatter(k_arena, tables, start, n_valid, k[0])
-        paged_chunk_scatter(v_arena, tables, start, n_valid, v[0])
         start_t = torch.full((1,), start, dtype=torch.int32, device=x.device)
-        out = paged_prefix_attention(q, k_arena, v_arena, tables, start_t)
-        return self.o_proj(out.reshape(b, c, -1)), kv
+        if len(kv) == 5:
+            k_arena, v_arena, k_s, v_s, tables = kv
+            paged_chunk_scatter_q(k_arena, k_s, tables, start, n_valid, k[0])
+            paged_chunk_scatter_q(v_arena, v_s, tables, start, n_valid, v[0])
+            out = paged_prefix_attention(q, k_arena, v_arena, tables,
+                                         start_t, kv_scales=(k_s, v_s))
+        else:
+            k_arena, v_arena, tables = kv
+            paged_chunk_scatter(k_arena, tables, start, n_valid, k[0])
+            paged_chunk_scatter(v_arena, tables, start, n_valid, v[0])
+            out = paged_prefix_attention(q, k_arena, v_arena, tables,
+                                         start_t)
+        return self._o(out.reshape(b, c, -1)), kv
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, factory):
+    def __init__(self, config: LlamaConfig, factory, layer_idx: int = 0):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
+        self.layer_idx = layer_idx
         self.gate_proj = _linear(h, m, factory)
         self.up_proj = _linear(h, m, factory)
         self.down_proj = _linear(m, h, factory)
 
     def forward(self, x):
-        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+        li = self.layer_idx
+        g = wq_linear(self.gate_proj, x, "gate_proj", li)
+        u = wq_linear(self.up_proj, x, "up_proj", li)
+        return wq_linear(self.down_proj, swiglu(g, u), "down_proj", li)
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, factory):
+    def __init__(self, config: LlamaConfig, factory, layer_idx: int = 0):
         super().__init__()
-        self.self_attn = LlamaAttention(config, factory)
-        self.mlp = LlamaMLP(config, factory)
+        self.self_attn = LlamaAttention(config, factory, layer_idx)
+        self.mlp = LlamaMLP(config, factory, layer_idx)
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        config.rms_norm_eps, **factory)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
@@ -218,8 +258,8 @@ class LlamaModel(nn.Module):
         self.embed_tokens = nn.Embedding(config.vocab_size,
                                          config.hidden_size, **factory)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, factory)
-             for _ in range(config.num_hidden_layers)])
+            [LlamaDecoderLayer(config, factory, i)
+             for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             **factory)
 
@@ -284,6 +324,20 @@ class LlamaForCausalLM(nn.Module):
                                                           labels), logits
         return logits
 
+    def quant_projections(self):
+        """Per-layer ``{target: Linear}`` views of every hot projection
+        (attention q/k/v/o and MLP gate/up/down), in layer order: the
+        weight-quantization surface (``models/wquant.py``).  Embeddings,
+        norms and ``lm_head`` stay float."""
+        return [{"q_proj": l.self_attn.q_proj,
+                 "k_proj": l.self_attn.k_proj,
+                 "v_proj": l.self_attn.v_proj,
+                 "o_proj": l.self_attn.o_proj,
+                 "gate_proj": l.mlp.gate_proj,
+                 "up_proj": l.mlp.up_proj,
+                 "down_proj": l.mlp.down_proj}
+                for l in self.llama.layers]
+
     def kv_cache_spec(self):
         return (self.config.num_hidden_layers,
                 self.config.num_key_value_heads, self.config.head_dim)
@@ -291,8 +345,8 @@ class LlamaForCausalLM(nn.Module):
     def decode_step(self, tokens, lens, kvs: Sequence[PagedKV]
                     ) -> Tuple[torch.Tensor, List[PagedKV]]:
         """One cached decode step over all layers.  tokens: [B] int;
-        lens: [B] int32; kvs: one paged triple per layer (updated in
-        place).  Returns (logits [B, vocab], kvs)."""
+        lens: [B] int32; kvs: one paged triple (or int8 5-tuple) per
+        layer, updated in place.  Returns (logits [B, vocab], kvs)."""
         x = self.llama.embed_tokens(tokens[:, None].long())
         new_kvs = []
         for layer, kv in zip(self.llama.layers, kvs):

@@ -2,20 +2,22 @@
 ``csrc/paged_decode_attention.cu`` and its plain PyTorch version, plus
 the chunk-prefill attention (plain math in the JAX package too).
 
-Port of the paged float-cache path of
-``paddle_tpu/ops/pallas/decode_attention.py``: the at-rest layout helpers
-``packed_ok`` (:130), ``paged_arena_shape`` (:145) and
-``paged_gather_view`` (:164) unchanged, ``decode_attention_paged``
+Port of the paged path of ``paddle_tpu/ops/pallas/decode_attention.py``:
+the at-rest layout helpers ``packed_ok`` (:130), ``paged_arena_shape``
+(:145), ``paged_scale_shape`` (:156), ``paged_gather_view`` (:164) and
+``paged_dequant_view`` (:177) unchanged, ``decode_attention_paged``
 (:1175) over ``_decode_attention_xla`` (:1136) math, and
 ``paged_prefix_attention`` (:1219) over the ``_paged_multi_xla`` body
 (:1280-1311).
 
-``decode_attention_paged`` launches the kernel for CUDA tensors (or
-raises on what the kernel cannot take) and runs
-``decode_attention_paged_plain`` for CPU tensors; nothing sends a CUDA
-tensor to the plain version.  The kernel has no backward: on the card it
-raises when grad mode is on and an input requires grad, rather than
-return an output detached from them.
+``decode_attention_paged`` launches a kernel for CUDA tensors (or raises
+on what the kernel cannot take) and runs ``decode_attention_paged_plain``
+for CPU tensors; nothing sends a CUDA tensor to the plain version.  A
+float cache launches ``csrc/paged_decode_attention.cu``; an int8 cache
+(``kv_scales`` given) launches ``csrc/paged_decode_attention_int8.cu``.
+The kernels have no backward: on the card they raise when grad mode is
+on and an input requires grad, rather than return an output detached
+from them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ _SMEM_MAX = 227 * 1024
 KERNEL = _build.register(_build.Kernel(
     "paged_decode_attention", "ptt_paged_decode_attention",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
+KERNEL_INT8 = _build.register(_build.Kernel(
+    "paged_decode_attention_int8", "ptt_paged_decode_attention_int8",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 
 
@@ -54,6 +60,12 @@ def paged_arena_shape(num_blocks, num_kv_heads, block_len, head_dim):
     return (num_blocks, block_len, num_kv_heads, head_dim)
 
 
+def paged_scale_shape(num_blocks, num_kv_heads, block_len):
+    """At-rest shape of an int8 arena's absmax-scale plane: one f32
+    scale per block slot per kv head (``quantize_kv_heads``)."""
+    return (num_blocks, block_len, num_kv_heads)
+
+
 def paged_gather_view(arena, tables):
     """Dense per-sequence view of a paged arena: gather each row's
     blocks through its table and fold the block axis into a
@@ -63,6 +75,29 @@ def paged_gather_view(arena, tables):
     g = arena[tables.long()]           # [B, max_blocks, L, ...]
     b, nb, blk_len = g.shape[:3]
     return g.reshape((b, nb * blk_len) + tuple(g.shape[3:]))
+
+
+def paged_dequant_view(arena, scales, tables, out_dtype):
+    """Dense DEQUANTIZED per-sequence view of an int8 paged arena: the
+    gather of ``paged_gather_view`` with each entry's per-kv-head scale
+    multiplied back in fp32, then cast to ``out_dtype`` (the compute
+    dtype).  The one definition of the dequant math that the plain
+    versions share and the int8 kernel repeats."""
+    if arena.dtype != torch.int8:
+        raise TypeError(
+            f"paged_dequant_view: kv_scales supplied for a {arena.dtype} "
+            f"arena — scale planes only ride an int8 code arena (a float "
+            f"cache must pass kv_scales=None)")
+    idx = tables.long()
+    g = arena[idx].float()                  # [B, max_blocks, L, ...]
+    s = scales[idx]                         # [B, max_blocks, L, H_kv]
+    if arena.ndim == 3:
+        s = s.repeat_interleave(arena.shape[2] // scales.shape[2], dim=-1)
+    else:
+        s = s[..., None]
+    deq = (g * s).to(out_dtype)
+    b, nb, blk_len = deq.shape[:3]
+    return deq.reshape((b, nb * blk_len) + tuple(deq.shape[3:]))
 
 
 def _decode_attention_math(q4, k_cache, v_cache, lens):
@@ -102,20 +137,30 @@ def _head_geometry(q, arena):
     return b, hq, d, hkv, hq // hkv
 
 
-def decode_attention_paged_plain(q, k_arena, v_arena, tables, lens):
-    """Plain version: the gather view of each row plus the
-    ``_decode_attention_xla`` math.  q: [B, H_q, D]; returns
-    [B, H_q * D] in q.dtype."""
+def _dense_views(k_arena, v_arena, tables, kv_scales, dtype):
+    """Each row's dense K and V: the gather view of a float cache, or the
+    dequantized view of an int8 cache (``kv_scales`` given)."""
+    if kv_scales is None:
+        return (paged_gather_view(k_arena, tables),
+                paged_gather_view(v_arena, tables))
+    return (paged_dequant_view(k_arena, kv_scales[0], tables, dtype),
+            paged_dequant_view(v_arena, kv_scales[1], tables, dtype))
+
+
+def decode_attention_paged_plain(q, k_arena, v_arena, tables, lens,
+                                 kv_scales=None):
+    """Plain version: each row's dense (dequantized, for an int8 cache)
+    view plus the ``_decode_attention_xla`` math.  q: [B, H_q, D];
+    returns [B, H_q * D] in q.dtype."""
     b, hq, d, hkv, g = _head_geometry(q, k_arena)
-    out = _decode_attention_math(q.reshape(b, hkv, g, d),
-                                 paged_gather_view(k_arena, tables),
-                                 paged_gather_view(v_arena, tables), lens)
+    kd, vd = _dense_views(k_arena, v_arena, tables, kv_scales, q.dtype)
+    out = _decode_attention_math(q.reshape(b, hkv, g, d), kd, vd, lens)
     return out.reshape(b, hq * d)
 
 
-def _check_operands(q, k_arena, v_arena, tables, lens):
-    """Raise on what the kernel cannot take; returns (B, Hq, D, Hkv,
-    G)."""
+def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
+    """Raise on what the kernel (the int8 one with ``kv_scales``) cannot
+    take; returns (B, Hq, D, Hkv, G)."""
     b, hq, d, hkv, g = _head_geometry(q, k_arena)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_arena, v_arena)):
@@ -126,22 +171,33 @@ def _check_operands(q, k_arena, v_arena, tables, lens):
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged decode kernel takes float32 or bfloat16 q, "
                         f"got {q.dtype}")
+    arena_dt = q.dtype if kv_scales is None else torch.int8
     for name, a in (("k_arena", k_arena), ("v_arena", v_arena)):
-        if a.dtype != q.dtype:
-            raise TypeError(f"paged decode kernel needs {name} dtype == q "
-                            f"dtype, got {a.dtype} vs {q.dtype}")
+        if a.dtype != arena_dt:
+            raise TypeError(f"paged decode kernel needs {name} dtype "
+                            f"{arena_dt} (q {q.dtype}, "
+                            f"{'int8 cache' if kv_scales is not None else 'float cache'}"
+                            f"), got {a.dtype}")
         if a.shape != k_arena.shape:
             raise ValueError("k_arena and v_arena shapes differ")
+    operands = [("q", q), ("k_arena", k_arena), ("v_arena", v_arena)]
+    if kv_scales is not None:
+        want = paged_scale_shape(k_arena.shape[0], hkv, k_arena.shape[1])
+        for name, t in zip(("k_scales", "v_scales"), kv_scales):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"int8 paged decode kernel needs float32 "
+                                 f"{name} of shape {want}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            operands.append((name, t))
     for name, t in (("tables", tables), ("lens", lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena),
-                    ("tables", tables), ("lens", lens)):
+    for name, t in operands + [("tables", tables), ("lens", lens)]:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"paged decode kernel needs a contiguous {name}")
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena)):
+    for name, t in operands:
         if t.data_ptr() % 16:
             raise ValueError(f"paged decode kernel needs a 16-byte aligned "
                              f"{name}")
@@ -150,8 +206,9 @@ def _check_operands(q, k_arena, v_arena, tables, lens):
         raise ValueError(f"tables must be [B, max_blocks] and lens [B] for "
                          f"B={b}, got {tuple(tables.shape)} and "
                          f"{tuple(lens.shape)}")
-    if d % 8:
-        raise ValueError(f"paged decode kernel needs head_dim % 8 == 0, "
+    vec = 8 if kv_scales is None else 16      # elements per 16-byte load
+    if d % vec:
+        raise ValueError(f"paged decode kernel needs head_dim % {vec} == 0, "
                          f"got {d}")
     if b > 65535:
         raise ValueError(f"paged decode kernel takes at most 65535 rows, "
@@ -164,53 +221,66 @@ def _check_operands(q, k_arena, v_arena, tables, lens):
     return b, hq, d, hkv, g
 
 
-def _decode_attention_paged_cuda(q, k_arena, v_arena, tables, lens):
-    b, hq, d, hkv, g = _check_operands(q, k_arena, v_arena, tables, lens)
+def _decode_attention_paged_cuda(q, k_arena, v_arena, tables, lens,
+                                 kv_scales=None):
+    b, hq, d, hkv, g = _check_operands(q, k_arena, v_arena, tables, lens,
+                                       kv_scales)
     out = torch.empty_like(q)
     if b == 0:
         return out.reshape(b, hq * d)
-    KERNEL.launch(
-        _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
-        _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
-        b, hkv, g, d, k_arena.shape[1], tables.shape[1], k_arena.shape[0],
-        1.0 / math.sqrt(d), _DTYPES[q.dtype], _build.stream_ptr(q))
+    geometry = (b, hkv, g, d, k_arena.shape[1], tables.shape[1],
+                k_arena.shape[0], 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                _build.stream_ptr(q))
+    if kv_scales is None:
+        KERNEL.launch(
+            _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+    else:
+        KERNEL_INT8.launch(
+            _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
+            _build.ptr(kv_scales[0]), _build.ptr(kv_scales[1]),
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
     return out.reshape(b, hq * d)
 
 
-def decode_attention_paged(q, k_arena, v_arena, tables, lens):
+def decode_attention_paged(q, k_arena, v_arena, tables, lens,
+                           kv_scales=None):
     """One-token GQA attention over a PAGED cache prefix.
 
     q: [B, H_q, D]; arenas: ``paged_arena_shape`` pools (packed
     [NB+1, L, H_kv*D] or unpacked [NB+1, L, H_kv, D], last row = trash
     block); tables: [B, max_blocks] int32 arena row per logical block;
-    lens: [B] int32 = index of the LAST valid slot.  Returns
-    [B, H_q * D] in q.dtype.  CUDA tensors launch the kernel; CPU
-    tensors run ``decode_attention_paged_plain``."""
+    lens: [B] int32 = index of the LAST valid slot; kv_scales: None for
+    a float cache, or the int8 cache's ``(k_scales, v_scales)`` pair of
+    [NB+1, L, H_kv] f32 planes.  Returns [B, H_q * D] in q.dtype.  CUDA
+    tensors launch the float or the int8 kernel; CPU tensors run
+    ``decode_attention_paged_plain``."""
     if q.device.type == "cuda":
         return _decode_attention_paged_cuda(q, k_arena, v_arena, tables,
-                                            lens)
+                                            lens, kv_scales)
     if q.device.type == "cpu":
         return decode_attention_paged_plain(q, k_arena, v_arena, tables,
-                                            lens)
+                                            lens, kv_scales)
     raise ValueError(f"decode_attention_paged: unsupported device {q.device}")
 
 
-def paged_prefix_attention(q, k_arena, v_arena, tables, start):
+def paged_prefix_attention(q, k_arena, v_arena, tables, start,
+                           kv_scales=None):
     """Chunked-prefill attention over the paged cache: C chunk queries
     at global positions ``start + row`` attend causally over everything
     already written through the block table (prefix-cached blocks,
     earlier chunks and this chunk's own K/V, scattered before this
     read).  Plain torch math on every device, as in the JAX package:
-    the gather view plus fp32 logits and softmax, probabilities cast to
+    the gather view (the dequantized view of an int8 cache, with
+    ``kv_scales``) plus fp32 logits and softmax, probabilities cast to
     q's dtype before PV.
 
-    q: [B, C, H_q, D]; arenas/tables as ``decode_attention_paged``;
-    start: [B] first global position of the chunk.  Returns
-    [B, C, H_q, D] in q.dtype; rows past the prompt's true length are
-    garbage the caller ignores."""
+    q: [B, C, H_q, D]; arenas/tables/kv_scales as
+    ``decode_attention_paged``; start: [B] first global position of the
+    chunk.  Returns [B, C, H_q, D] in q.dtype; rows past the prompt's
+    true length are garbage the caller ignores."""
     b, cc, hq, d = q.shape
-    kd = paged_gather_view(k_arena, tables)
-    vd = paged_gather_view(v_arena, tables)
+    kd, vd = _dense_views(k_arena, v_arena, tables, kv_scales, q.dtype)
     s = kd.shape[1]
     hkv = kd[0, 0].numel() // d
     kd = kd.reshape(b, s, hkv, d)

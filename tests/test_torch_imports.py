@@ -25,6 +25,9 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip, "
         "paddle_tpu_torch.distributed.utils, "
         "paddle_tpu_torch.ops.rope, paddle_tpu_torch.ops.flash_attention\n"
+        "import paddle_tpu_torch.ops.quantized_matmul, "
+        "paddle_tpu_torch.models.wquant, paddle_tpu_torch.quantization, "
+        "paddle_tpu_torch.quantization.observers\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
