@@ -11,7 +11,10 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
 2. each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (serving: paged decode over a float and an
    int8 cache, RMSNorm, the int8/int4 quantized matmul at the 8B decode
-   and prefill shapes; training: flash-attention forward and backward,
+   and prefill shapes; speculative decoding: the K-wide verify attention
+   over a float and an int8 cache at B=8, C=5, and the dense decode of
+   the draft model's ``generate()`` at S = max_context + max_draft;
+   training: flash-attention forward and backward,
    RoPE forward and backward, RMSNorm), bfloat16 and float32, with
    CUDA-event timings of the kernel, the plain version and one PyTorch
    library call that computes the same function where there is one (a
@@ -28,6 +31,17 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    the int8 paged decode once per layer per decode step, the float one
    never), with tokens/s, TTFT, decode step, peak memory and a profiled
    decode window;
+3c. speculative serving: the same model through three 8-slot engines
+   with spec_decode=4 and a ``ModelDrafter``: (a) over the target itself,
+   (b) the same with an int8 KV cache and int8 weights, (c) over a
+   2-layer model of the same width from another seed, on a trace with
+   shorter outputs (the draft model is cut to 2 layers so that rejection
+   and rollback run at full width in little time); exact launch counts
+   (the K-wide verify kernel once per layer per verify, the dense decode
+   once per draft layer per drafter decode step, the flash forward once
+   per draft layer per drafter prefill), acceptance above 0 in (a) and
+   (b) and below 1 in (c), tokens/s, TTFT, verify step, peak memory and
+   one profiled speculative step;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same request alone on a fresh 1-slot engine; then the
@@ -37,6 +51,14 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    CPU from the same state dict: identical weight plans, and the logits
    of every teacher-forced step and the greedy tokens agree within
    stated bounds;
+4c. speculative exactness: the 4-layer float32 model of phase 4 through
+   2-slot spec engines, a ``ModelDrafter`` over the target and over a
+   2-layer model, float and int8 KV cache: tokens equal to the non-spec
+   engine's up to each request's first position whose teacher-forced
+   top-2 margin is <= 0.01, 1-slot and 2-slot spec engines equal there,
+   greedy ``generate()`` equal to a 1-slot engine there, acceptance 1.0
+   with the target as drafter where every position is decisive, and no
+   block in use after the drain;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -317,6 +339,159 @@ def _decode_int8_case(torch, dtype, gen, rng):
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
+# the speculative path of phase 3c: verify width C = spec_decode + 1, and
+# the draft model's dense cache of max_context + max_draft slots
+SPEC = dict(k=4, max_context=512)
+MULTI_LENS = [2047 - (SPEC["k"] + 1), 1500, 1023, 700, 383, 100, 17, 0]
+
+
+def _multi_case(torch, dtype, gen, rng, int8):
+    """The K-wide verify attention at the serving geometry of
+    ``_decode_case`` with C = 5 queries per row (lens up to 2047 - C, so
+    the last query reaches slot 2046 of a full table), float or int8
+    cache, L2 flushed by a read.  A second launch checks a row outside
+    spec mode (all-trash table, n_valid 0, lens far past its blocks)
+    riding beside a real one: finite, and equal to its plain version."""
+    import numpy as np
+    from paddle_tpu_torch.models.generation import quantize_kv_heads
+    from paddle_tpu_torch.ops import decode_attention as da
+    b, cq, hkv, g, d, blk_len, mb = 8, SPEC["k"] + 1, 8, 4, 128, 16, 128
+    lens = np.array(MULTI_LENS, np.int32)
+    tables, need, nb = _paged_tables(np, rng, lens + cq - 1, blk_len, mb)
+    dt = getattr(torch, dtype)
+    shape = da.paged_arena_shape(nb + 1, hkv, blk_len, d)
+    if int8:
+        planes = []
+        for _ in range(2):
+            f = torch.randn(nb + 1, blk_len, hkv, d, generator=gen,
+                            device="cuda")
+            codes, sc = quantize_kv_heads(f)
+            planes.append((codes.reshape(shape), sc))
+        (ka, ks), (va, vs) = planes
+        scales = (ks, vs)
+    else:
+        ka = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        va = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        scales = None
+    q = torch.randn(b, cq, hkv * g, d, generator=gen, device="cuda").to(dt)
+    tb = torch.from_numpy(tables).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    name = "paged_decode_attention_multi" + ("_int8" if int8 else "")
+    tol = DECODE_INT8_TOL[dtype] if int8 else {}
+    got = da.decode_attention_paged_multi(q, ka, va, tb, ln, scales)
+    want = da.decode_attention_paged_multi_plain(q, ka, va, tb, ln, scales)
+    torch.cuda.synchronize()
+    err = _check(torch, f"{name} {dtype}", got, want, dtype, **tol)
+    # a real row beside a row outside spec mode (all-trash table)
+    tb2 = torch.stack([tb[1], torch.full_like(tb[1], nb)])
+    ln2 = torch.tensor([int(lens[1]), 1234], dtype=torch.int32,
+                       device="cuda")
+    got2 = da.decode_attention_paged_multi(q[1:3], ka, va, tb2, ln2, scales)
+    want2 = da.decode_attention_paged_multi_plain(q[1:3], ka, va, tb2, ln2,
+                                                  scales)
+    torch.cuda.synchronize()
+    _check(torch, f"{name} {dtype} with an all-trash row", got2, want2,
+           dtype, **tol)
+    if not torch.equal(got2[0], got[1]):
+        raise AssertionError(f"{name} {dtype}: a row's output changed with "
+                             f"the batch it rode in")
+    item = q.element_size()
+    slots = int((lens.astype(np.int64) + cq).sum())
+    per_slot = 2 * hkv * ((d + 4) if int8 else d * item)
+    nbytes = (slots * per_slot                    # staged K and V
+              + 2 * q.numel() * item              # q in, out
+              + sum(need) * 4 + b * 4)            # table entries, lens
+    bound_ms, by = _bound(nbytes, 4 * slots * cq * hkv * g * d, dtype)
+    scratch, flush = _read_flush(torch)
+    ms = _time_ms(torch, lambda: da.decode_attention_paged_multi(
+        q, ka, va, tb, ln, scales), flush)
+    plain_ms = _time_ms(torch, lambda: da.decode_attention_paged_multi_plain(
+        q, ka, va, tb, ln, scales), flush)
+    lib_ms = lib_err = None
+    if not int8:
+        # library yardstick: SDPA with an explicit causal boolean mask
+        # over the PRE-GATHERED dense view, kv heads repeated to Hq
+        s = mb * blk_len
+        kd = da.paged_gather_view(ka, tb).reshape(b, s, hkv, d)
+        vd = da.paged_gather_view(va, tb).reshape(b, s, hkv, d)
+        kd = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+        vd = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+        pos = ln.long()[:, None] + torch.arange(cq, device="cuda")[None, :]
+        mask = (torch.arange(s, device="cuda")[None, None, :]
+                <= pos[:, :, None])[:, None]              # [B, 1, C, S]
+        qt = q.transpose(1, 2)                            # [B, Hq, C, D]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(qt, kd, vd, attn_mask=mask).transpose(1, 2)
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        lib_ms = _time_ms(torch, lambda: sdpa(qt, kd, vd, attn_mask=mask),
+                          flush)
+    del scratch
+    row = dict(shape=f"B={b} C={cq} Hkv={hkv} G={g} D={d} L={blk_len} "
+                     f"max_blocks={mb} lens<={int(lens.max())}"
+                     + (" int8 cache" if int8 else ""),
+               dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    if lib_err is not None:
+        row["library_max_abs_err"] = lib_err
+    return row
+
+
+def _dense_case(torch, dtype, gen):
+    """The dense decode attention of the draft model's ``generate()``:
+    B=1, the 8B head geometry, S = max_context + max_draft of phase 3c's
+    drafter (516, not a multiple of the kernel's 16-slot chunk), lens at
+    the last decode step's frontier; a second launch with lens past S
+    (clamped) and an odd S, both against the plain version."""
+    from paddle_tpu_torch.ops import decode_attention as da
+    hkv, g, d = 8, 4, 128
+    s = SPEC["max_context"] + SPEC["k"]
+    dt = getattr(torch, dtype)
+    shape = da.cache_shape(1, hkv, s, d)
+    kc = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    q = torch.randn(1, hkv * g, d, generator=gen, device="cuda").to(dt)
+    ln = torch.tensor([s - 2], dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, kc, vc, ln)
+    want = da.decode_attention_plain(q, kc, vc, ln)
+    torch.cuda.synchronize()
+    err = _check(torch, f"decode_attention {dtype}", got, want, dtype)
+    odd = s - 3
+    q3 = torch.randn(3, hkv * g, d, generator=gen, device="cuda").to(dt)
+    k3 = torch.randn(da.cache_shape(3, hkv, odd, d), generator=gen,
+                     device="cuda").to(dt)
+    v3 = torch.randn(k3.shape, generator=gen, device="cuda").to(dt)
+    l3 = torch.tensor([0, odd - 1, odd + 40], dtype=torch.int32,
+                      device="cuda")
+    _check(torch, f"decode_attention {dtype} S={odd}",
+           da.decode_attention(q3, k3, v3, l3),
+           da.decode_attention_plain(q3, k3, v3, l3), dtype)
+    item = q.element_size()
+    slots = s - 1
+    nbytes = slots * 2 * hkv * d * item + 2 * q.numel() * item + 4
+    bound_ms, by = _bound(nbytes, 4 * slots * hkv * g * d, dtype)
+    scratch, flush = _read_flush(torch)
+    ms = _time_ms(torch, lambda: da.decode_attention(q, kc, vc, ln), flush)
+    plain_ms = _time_ms(torch, lambda: da.decode_attention_plain(
+        q, kc, vc, ln), flush)
+    # library yardstick: SDPA over the dense cache with a boolean mask
+    kt = kc.reshape(1, s, hkv, d).permute(0, 2, 1, 3) \
+        .repeat_interleave(g, dim=1).contiguous()
+    vt = vc.reshape(1, s, hkv, d).permute(0, 2, 1, 3) \
+        .repeat_interleave(g, dim=1).contiguous()
+    mask = (torch.arange(s, device="cuda") <= ln.long()[:, None])[:, None,
+                                                                   None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(q4, kt, vt, attn_mask=mask)
+    lib_err = (lib.reshape(1, -1).float() - want.float()).abs().max().item()
+    lib_ms = _time_ms(torch, lambda: sdpa(q4, kt, vt, attn_mask=mask), flush)
+    del scratch
+    return dict(shape=f"B=1 Hkv={hkv} G={g} D={d} S={s} lens={s - 2}",
+                dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                library_max_abs_err=lib_err)
+
+
 def _qmm_case(torch, dtype, bits, m, k, n, gen):
     """The quantized matmul on x [M, K] and codes of a random [K, N]
     weight (std 0.02) quantized per output channel by the serving rule.
@@ -511,7 +686,8 @@ def phase_kernels(torch, seed):
     rows = {"rms_norm": [], "paged_decode_attention": [],
             "paged_decode_attention_int8": [], "quantized_matmul": [],
             "flash_attention_fwd": [], "flash_attention_bwd": [],
-            "rope": []}
+            "rope": [], "paged_decode_attention_multi": [],
+            "paged_decode_attention_multi_int8": [], "decode_attention": []}
     for dtype in ("bfloat16", "float32"):
         for n in (8, 256):
             rows["rms_norm"].append(_rms_case(torch, n, dtype, gen))
@@ -519,6 +695,11 @@ def phase_kernels(torch, seed):
             _decode_case(torch, dtype, gen, rng))
         rows["paged_decode_attention_int8"].append(
             _decode_int8_case(torch, dtype, gen, rng))
+        rows["paged_decode_attention_multi"].append(
+            _multi_case(torch, dtype, gen, rng, int8=False))
+        rows["paged_decode_attention_multi_int8"].append(
+            _multi_case(torch, dtype, gen, rng, int8=True))
+        rows["decode_attention"].append(_dense_case(torch, dtype, gen))
         for bits in (8, 4):
             for m, k, n in QMM_SHAPES:
                 rows["quantized_matmul"].append(
@@ -722,6 +903,185 @@ def phase_quant_serving(torch, seed, cfg, model):
     return by_path
 
 
+# phase 3c's trace: 8 requests whose prompt plus output fit the draft
+# model's 512-token context grid, so a drafter over the target sees the
+# whole sequence; (prompt length, max_new_tokens)
+SPEC_TRACE = [(64, 32), (128, 40), (200, 24), (256, 48), (300, 16),
+              (96, 36), (384, 28), (150, 44)]
+SPEC_TRACE_SHORT = [(n, 12) for n, _m in SPEC_TRACE]
+
+
+def _spec_launches(nl, st, n_draft_layers=None, quant=False):
+    """Launches of one spec-engine trace, by kernel: the target's forwards
+    (prefill chunks, decode steps of the iterations whose drafts all came
+    back empty, verify forwards) and the ModelDrafter's (one dense prefill
+    and ``SPEC['k'] - 1`` dense decode steps per proposal; a proposal is
+    a draft hit or miss)."""
+    from paddle_tpu_torch.ops import KERNELS
+    forwards = st["prefill_chunks"] + st["decode_steps"] \
+        + st["spec_verify_steps"]
+    proposals = st["spec_draft_hits"] + st["spec_draft_misses"]
+    nd = nl if n_draft_layers is None else n_draft_layers
+    draft_steps = (SPEC["k"] - 1) * proposals
+    want = {name: 0 for name in KERNELS}
+    want.update({
+        "rms_norm": (2 * nl + 1) * forwards
+        + (2 * nd + 1) * (proposals + draft_steps),
+        "paged_decode_attention" + ("_int8" if quant else ""):
+            nl * st["decode_steps"],
+        "paged_decode_attention_multi" + ("_int8" if quant else ""):
+            nl * st["spec_verify_steps"],
+        "decode_attention": nd * draft_steps,
+        "flash_attention_fwd": nd * proposals,
+        "rope": 2 * nd * proposals})
+    if quant:
+        want["quantized_matmul"] = 7 * nl * forwards
+    return want
+
+
+def _spec_trace(torch, eng, cfg, seed, specs):
+    """Phase 3c's trace through a spec engine: every request with
+    ``spec_decode=SPEC['k']``; launch counters set to 0 just before and
+    read just after.  Every request must finish with in-vocabulary
+    tokens.  Returns (launches, stats, wall seconds, tokens, rng)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import KERNELS
+    rng = np.random.default_rng(seed)
+    trace = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+             for n, m in specs]
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(ids, max_new_tokens=m, spec_decode=SPEC["k"])
+            for ids, m in trace]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    for r, (_ids, m) in zip(reqs, trace):
+        out = r.output
+        if r.state != "finished" or out.shape != (m,):
+            raise AssertionError(f"spec request {r.request_id}: state "
+                                 f"{r.state}, {out.shape[0]} tokens of {m}")
+        if out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"spec request {r.request_id}: token "
+                                 f"outside the vocabulary")
+    return launches, eng.stats(), wall, sum(m for _, m in trace), rng
+
+
+def _profile_verify(torch, eng, rng, vocab):
+    """Where a speculative step's time goes: 8 fresh 64-token spec
+    requests fill the slots; once all are prefilled, one step runs
+    unprofiled and one under ``torch.profiler`` (the step drafts for every
+    slot, then runs one verify forward).  Reports the step's wall, the
+    verify forward's wall (host, synced) and the device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
+                       max_new_tokens=24, spec_decode=SPEC["k"])
+            for _ in range(eng.num_slots)]
+    while any(r.state in ("queued", "prefill") for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    v0 = eng.stats()["verify_seconds"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    verify = eng.stats()["verify_seconds"] - v0
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us())
+    eng.run()
+    if not per_kernel:
+        _log(f"  verify profile: step wall {wall * 1e3:.1f} ms; device time "
+             f"not measured (the profiler recorded no CUDA kernels)")
+        return
+    busy = sum(per_kernel.values()) / 1e3
+    multi = sum(us for n, us in per_kernel.items()
+                if "paged_multi_kernel" in n) / 1e3
+    _log(f"  verify profile: 1 step x {eng.num_slots} spec slots: wall "
+         f"{wall * 1e3:.1f} ms unprofiled, {wall_prof * 1e3:.1f} ms "
+         f"profiled, of which the verify forward {verify * 1e3:.1f} ms; "
+         f"device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% of "
+         f"the unprofiled wall; K-wide verify kernel {multi:.3f} ms), "
+         f"{len(per_kernel)} distinct kernels")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        _log(f"  {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def phase_spec_serving(torch, seed, cfg, model):
+    """Phase 3c: greedy speculative decoding at full Llama-3-8B width
+    (phase 3's model) through three 8-slot engines with spec_decode=4:
+    (a) a ModelDrafter over the target itself, (b) the same with an int8
+    KV cache and int8 weights, (c) a ModelDrafter over a 2-layer model of
+    the same width from another seed, on a shorter trace.  Exact launch
+    counts; acceptance above 0 in (a) and (b), below 1 in (c).  Returns
+    the launch counts summed over the three traces."""
+    from paddle_tpu_torch.inference import ModelDrafter, ServingEngine
+    nl = cfg.num_hidden_layers
+    kw = dict(num_slots=8, prompt_len=512, chunk_len=256, max_cache_len=1024,
+              block_len=16, compute_dtype="bfloat16")
+    dkw = dict(max_context=SPEC["max_context"], max_draft=SPEC["k"],
+               compute_dtype="bfloat16")
+    total = {}
+    _, other = _build_8b(torch, 2, "bfloat16", seed + 5)
+    engines = [("a: drafter = target", dict(), model, SPEC_TRACE),
+               ("b: drafter = target, int8 KV + int8 weights",
+                dict(kv_cache_dtype="int8", weight_dtype="int8"), model,
+                SPEC_TRACE),
+               ("c: drafter = 2-layer model", dict(), other,
+                SPEC_TRACE_SHORT)]
+    for tag, extra, draft_model, specs in engines:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(model, drafter=ModelDrafter(draft_model, **dkw),
+                            **kw, **extra)
+        launches, st, wall, n_tok, rng = _spec_trace(torch, eng, cfg, seed,
+                                                     specs)
+        peak = torch.cuda.max_memory_allocated()
+        want = _spec_launches(
+            nl, st, draft_model.config.num_hidden_layers,
+            quant="weight_dtype" in extra)
+        _check_launches(launches, want, st)
+        rate = st["spec_acceptance_rate"]
+        if draft_model is model and not rate > 0:
+            raise AssertionError(f"spec {tag}: acceptance {rate}, the target "
+                                 f"as its own drafter must accept")
+        if draft_model is other and not rate < 1:
+            raise AssertionError(f"spec {tag}: acceptance {rate}, another "
+                                 f"model's drafts must be rejected")
+        if st["blocks_in_use"] != 0:
+            raise AssertionError(f"spec {tag}: {st['blocks_in_use']} blocks "
+                                 f"still in use after the drain")
+        _log(f"spec serving {tag}: {len(specs)} requests, {n_tok} tokens in "
+             f"{wall:.3f} s = {n_tok / wall:.2f} tokens/s; mean TTFT "
+             f"{st['mean_ttft_s'] * 1e3:.2f} ms; verify step "
+             f"{st['verify_seconds'] / st['spec_verify_steps'] * 1e3:.3f} ms "
+             f"over {st['spec_verify_steps']} verifies; acceptance "
+             f"{rate:.3f}, mean accepted {st['spec_mean_accepted_len']:.3f} "
+             f"per verify; drafts {st['spec_draft_tokens']} "
+             f"(hits {st['spec_draft_hits']}, misses "
+             f"{st['spec_draft_misses']}); decode steps "
+             f"{st['decode_steps']}; prefill chunks {st['prefill_chunks']}; "
+             f"peak memory {peak / 2 ** 30:.2f} GiB; launches {launches}")
+        _profile_verify(torch, eng, rng, cfg.vocab_size)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng
+    del other
+    torch.cuda.empty_cache()
+    return total
+
+
 def _profile_decode(torch, eng, rng, vocab, steps=8):
     """Where a decode step's time goes: 8 fresh 64-token requests fill
     the slots; once all are prefilled, ``steps`` decode steps run
@@ -824,6 +1184,124 @@ def phase_exactness(torch, seed):
     torch.cuda.empty_cache()
 
 
+def _margins_on_card(torch, model, trace, outs, kv_dtype):
+    """Teacher-forced top-2 margins of ``model`` on the card along each
+    request's output (``_teacher_forced`` over a float or int8 paged
+    cache)."""
+    dev = next(model.parameters()).device
+    out = []
+    for (ids, _m), o in zip(trace, outs):
+        lg = _teacher_forced(torch, model, None, ids, o[:-1], dev,
+                             kv_dtype=kv_dtype)
+        top2 = lg.topk(2, dim=-1).values
+        out.append((top2[:, 0] - top2[:, 1]).numpy())
+    return out
+
+
+def _upto(margin, tol=0.01):
+    import numpy as np
+    close = np.flatnonzero(margin <= tol)
+    return int(close[0]) if close.size else len(margin)
+
+
+def phase_spec_exactness(torch, seed):
+    """Phase 4c: a 4-layer float32 model at 8B width.  Over a float and an
+    int8 KV cache, 2-slot spec engines (spec_decode=4) with a ModelDrafter
+    over the target and over a 2-layer model of another seed give the
+    non-spec engine's tokens up to each request's first position whose
+    teacher-forced top-2 margin is <= 0.01 (the ROADMAP rule); the
+    target-drafter engine equals fresh 1-slot spec engines there too;
+    greedy ``generate()`` equals a fresh 1-slot engine there; the target
+    as its own drafter accepts everything unless a position is not
+    decisive; no block stays in use after a drain."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ModelDrafter, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model = _build_8b(torch, 4, "float32", seed + 1)
+    _, other = _build_8b(torch, 2, "float32", seed + 6)
+    rng = np.random.default_rng(seed + 1)
+    specs = [(40, 12), (17, 5), (64, 9), (33, 7), (5, 10)]
+    trace = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+             for n, m in specs]
+    base = dict(prompt_len=64, chunk_len=32, max_cache_len=128, block_len=16,
+                compute_dtype="float32")
+    dkw = dict(max_context=96, max_draft=SPEC["k"], compute_dtype="float32")
+    notes = []
+    for kv in (None, "int8"):
+        kw = dict(base, kv_cache_dtype=kv)
+        plain = ServingEngine(model, num_slots=2, **kw)
+        preqs = [plain.submit(ids, max_new_tokens=m) for ids, m in trace]
+        plain.run()
+        margins = _margins_on_card(torch, model, trace,
+                                   [r.output for r in preqs],
+                                   torch.int8 if kv else torch.float32)
+        decisive = all(_upto(mg) == len(mg) for mg in margins)
+        if kv is None:
+            for (ids, m), r, mg in zip(trace, preqs, margins):
+                one = ServingEngine(model, num_slots=1, **kw)
+                alone = one.submit(ids, max_new_tokens=m)
+                one.run()
+                padded = np.zeros((64,), np.int32)
+                padded[:ids.size] = ids
+                gen = model.generate(padded[None],
+                                     seq_lens=np.array([ids.size]),
+                                     max_new_tokens=m, max_cache_len=128,
+                                     compute_dtype="float32")[0].cpu().numpy()
+                u = _upto(mg)
+                if not np.array_equal(gen[:u], alone.output[:u]):
+                    raise AssertionError(
+                        f"spec exactness: generate() {gen} != 1-slot engine "
+                        f"{alone.output} before position {u}")
+        for name, dm in (("target", model), ("other", other)):
+            eng = ServingEngine(model, num_slots=2,
+                                drafter=ModelDrafter(dm, **dkw), **kw)
+            sreqs = [eng.submit(ids, max_new_tokens=m, spec_decode=SPEC["k"])
+                     for ids, m in trace]
+            eng.run()
+            st = eng.stats()
+            for r, p, mg in zip(sreqs, preqs, margins):
+                u = _upto(mg)
+                if not np.array_equal(r.output[:u], p.output[:u]):
+                    raise AssertionError(
+                        f"spec exactness ({name} drafter, {kv or 'float'} "
+                        f"KV): spec tokens {r.output} != non-spec "
+                        f"{p.output} before position {u}")
+            if st["blocks_in_use"] != 0 or st["spec_verify_steps"] == 0:
+                raise AssertionError(f"spec exactness: {st}")
+            rate = st["spec_acceptance_rate"]
+            if name == "target" and decisive and rate != 1.0:
+                raise AssertionError(
+                    f"spec exactness: the target as its own drafter "
+                    f"accepted {rate} with every position decisive")
+            if name == "target" and kv is None:
+                for (ids, m), r, mg in zip(trace, sreqs, margins):
+                    one = ServingEngine(model, num_slots=1,
+                                        drafter=ModelDrafter(model, **dkw),
+                                        **kw)
+                    alone = one.submit(ids, max_new_tokens=m,
+                                       spec_decode=SPEC["k"])
+                    one.run()
+                    u = _upto(mg)
+                    if not np.array_equal(alone.output[:u], r.output[:u]):
+                        raise AssertionError(
+                            f"spec exactness: 1-slot spec engine "
+                            f"{alone.output} != 2-slot {r.output} before "
+                            f"position {u}")
+            notes.append(f"{name} drafter, {kv or 'float'} KV: acceptance "
+                         f"{rate:.3f} over {st['spec_verify_steps']} "
+                         f"verifies, whole requests equal "
+                         f"{[bool(np.array_equal(r.output, p.output)) for r, p in zip(sreqs, preqs)]}")
+            del eng
+        notes.append(f"{kv or 'float'} KV: smallest margin "
+                     f"{min(float(mg.min()) for mg in margins):.4g}, every "
+                     f"position decisive: {decisive}")
+    _log("spec exactness: 4 layers at 8B width, float32, 5 requests: "
+         + "; ".join(notes))
+    del model, other
+    torch.cuda.empty_cache()
+
+
 # phase 4b: largest |logit difference| allowed between the card and the
 # CPU at every teacher-forced step, stated before the first run.  Logits
 # of the random 2-layer model are ~0.25 in size; both sides sum the same
@@ -835,10 +1313,12 @@ def phase_exactness(torch, seed):
 QUANT_LOGIT_ATOL = 2e-3
 
 
-def _teacher_forced(torch, model, wq, prompt, forced, device, block_len=16):
-    """Logits of ``model`` over int8 arenas under the weight context
-    ``wq``: the prompt as one chunk, then one decode step per token of
-    ``forced``.  Returns [1 + len(forced), vocab] float32 on the CPU."""
+def _teacher_forced(torch, model, wq, prompt, forced, device, block_len=16,
+                    kv_dtype=None):
+    """Logits of ``model`` over paged arenas (int8 unless ``kv_dtype``
+    says otherwise) under the weight context ``wq``: the prompt as one
+    chunk, then one decode step per token of ``forced``.  Returns
+    [1 + len(forced), vocab] float32 on the CPU."""
     from paddle_tpu_torch.models.generation import init_paged_kv_arena
     from paddle_tpu_torch.models.wquant import wquant_context
     nl, hkv, d = model.kv_cache_spec()
@@ -846,7 +1326,7 @@ def _teacher_forced(torch, model, wq, prompt, forced, device, block_len=16):
     mb = -(-(n + len(forced)) // block_len)
     tables = torch.arange(mb, dtype=torch.int32, device=device)[None, :]
     kvs = [tuple(e) + (tables,) for e in init_paged_kv_arena(
-        nl, mb, block_len, hkv, d, torch.int8, device)]
+        nl, mb, block_len, hkv, d, kv_dtype or torch.int8, device)]
     rows = []
     with torch.no_grad(), wquant_context(wq):
         lg, kvs = model.prefill_chunk(
@@ -1154,10 +1634,12 @@ def main(argv=None) -> int:
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
     by_path = {"serving": phase_serving(torch, args.seed, cfg, model)}
     by_path.update(phase_quant_serving(torch, args.seed, cfg, model))
+    by_path["speculative"] = phase_spec_serving(torch, args.seed, cfg, model)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
     phase_quant_exactness(torch, args.seed)
+    phase_spec_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     phase_train_exactness(torch, args.seed)
     # the case of each kernel's row: bf16 on its main path's shape
@@ -1167,7 +1649,9 @@ def main(argv=None) -> int:
                  "paged_decode_attention_int8": 0,
                  "quantized_matmul": QMM_SHAPES.index((8, 4096, 14336)),
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                 "rope": 0}
+                 "rope": 0, "paged_decode_attention_multi": 0,
+                 "paged_decode_attention_multi_int8": 0,
+                 "decode_attention": 0}
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                          "paddle_tpu/ops/pallas/rms_norm.py:63"),
             "paged_decode_attention": (
@@ -1186,7 +1670,16 @@ def main(argv=None) -> int:
                 "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                 "paddle_tpu/ops/pallas/flash_attention.py:292"),
             "rope": ("paddle_tpu_torch/csrc/rope.cu",
-                     "paddle_tpu/ops/pallas/rope.py:41")}
+                     "paddle_tpu/ops/pallas/rope.py:41"),
+            "paged_decode_attention_multi": (
+                "paddle_tpu_torch/csrc/paged_decode_attention_multi.cu",
+                "paddle_tpu/ops/pallas/decode_attention.py:692"),
+            "paged_decode_attention_multi_int8": (
+                "paddle_tpu_torch/csrc/paged_decode_attention_multi.cu",
+                "paddle_tpu/ops/pallas/decode_attention.py:787"),
+            "decode_attention": (
+                "paddle_tpu_torch/csrc/decode_attention.cu",
+                "paddle_tpu/ops/pallas/decode_attention.py:398")}
     kernels = []
     for name, (source, replaces) in meta.items():
         c = rows[name][main_case[name]]

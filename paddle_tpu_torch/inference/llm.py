@@ -1,8 +1,10 @@
-"""The serving engine's two device programs as plain torch functions:
-port of ``build_chunk_prefill`` (:516) and ``_build_paged_decode_block``
-(:350) of ``paddle_tpu/inference/llm.py`` with ``_pack_paged_kvs`` /
+"""The serving engine's device programs as plain torch functions: port of
+``build_chunk_prefill`` (:516) and ``_build_paged_decode_block`` (:350)
+of ``paddle_tpu/inference/llm.py`` with ``_pack_paged_kvs`` /
 ``_flatten_paged_kvs`` (:331-347), float or int8 KV cache and greedy
-only, plus the weight-quantization plan: ``normalize_weight_dtype``
+only, and ``spec_verify``, the body of the speculative verifier
+(``inference/speculative.py:296-310``), plus the weight-quantization
+plan: ``normalize_weight_dtype``
 (:56), ``WeightQuantPlan`` (:83) and ``build_weight_quant_plan`` (:133).
 
 They take and return what the JAX programs take and return, minus the
@@ -24,7 +26,7 @@ import torch
 from ..device import to_dtype
 from ..models.generation import GenerationConfig
 from ..models.wquant import WeightQuantContext, wquant_context
-from .sampling import decode_scan_step, sample_rows
+from .sampling import decode_scan_step, sample_rows, spec_greedy_rows
 
 
 def normalize_weight_dtype(weight_dtype) -> Optional[str]:
@@ -177,3 +179,20 @@ def paged_decode_block(model, cfg: GenerationConfig, steps: int, tok, lens,
     tok_f, lens_f, kvs_f, done_f, budget_f = carry
     return ((torch.stack(toks, dim=1), tok_f, lens_f, done_f, budget_f)
             + tuple(_flatten_paged_kvs(kvs_f)))
+
+
+@torch.no_grad()
+def spec_verify(model, toks, lens, n_valid, tables,
+                flat_arenas: Sequence[torch.Tensor],
+                wq: Optional[WeightQuantContext] = None):
+    """ONE speculative verify forward over every slot row: toks [B, C]
+    int32 (each spec row's last emitted token, then its drafts, then
+    pad), lens [B] int32 (global slot of column 0), n_valid [B] int32 (a
+    row's real columns; 0 for rows not in spec mode, whose tables are
+    all trash), tables [B, max_blocks] int32; ``wq`` the weight-quant
+    context or None.  Returns ``(greedy [B, C] int32, *flat_arenas)``:
+    every position's argmax, the greedy acceptance path."""
+    with wquant_context(wq):
+        logits, kvs = model.verify_step(
+            toks, lens, n_valid, _pack_paged_kvs(flat_arenas, tables))
+    return (spec_greedy_rows(logits),) + tuple(_flatten_paged_kvs(kvs))

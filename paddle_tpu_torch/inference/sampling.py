@@ -1,9 +1,9 @@
 """Greedy token selection of the serving path: port of the all-False
 (argmax-only) build of ``paddle_tpu/inference/sampling.py`` —
-``sample_rows`` (:288) and the per-step body of
-``sampled_decode_scan_body`` (:306-355).  Sampling, penalties and token
-masks are not ported yet (ROADMAP.md, Queue 1: sampling and
-speculation)."""
+``sample_rows`` (:288), the per-step body of ``sampled_decode_scan_body``
+(:306-355) and ``spec_greedy_rows`` (:371, the verify forward's
+per-position argmax).  Sampling, penalties and token masks are not ported
+yet (ROADMAP.md, Queue 1: sampling and speculation)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,13 @@ def sample_rows(logits: torch.Tensor) -> torch.Tensor:
     first index on ties, like ``jnp.argmax``.  logits [B, V] -> [B]
     int32."""
     return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+def spec_greedy_rows(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy half of a verify forward: the per-position argmax of
+    the f32 cast of the logits (``process_logits`` with every flag off),
+    first index on ties.  logits [B, C, V] -> [B, C] int32."""
+    return sample_rows(logits)
 
 
 def decode_scan_step(model, cfg: GenerationConfig, carry):

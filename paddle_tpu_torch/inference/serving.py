@@ -1,20 +1,25 @@
 """Continuous-batching serving over a paged KV block pool: port of the
 synchronous, greedy core of ``paddle_tpu/inference/serving.py``, with a
-float or int8 KV cache (``kv_cache_dtype="int8"``) and float or int8/int4
-weights (``weight_dtype=``), in any combination.
+float or int8 KV cache (``kv_cache_dtype="int8"``), float or int8/int4
+weights (``weight_dtype=``) and greedy speculative decoding
+(``submit(spec_decode=K)`` with an ``NGramDrafter`` or ``ModelDrafter``),
+in any combination.
 
 Ported: ``_block_digests`` (:829), ``BlockPool`` (:859, the digest half),
 ``Request`` (:1181) and ``ServingEngine`` (:1341) with ``submit``,
 ``_admit`` (no preemption, no swap), ``_prefill_chunk`` (digest
-registration included), ``_decode_tables``, the synchronous branch of
-``_step_inner``, ``_absorb_block``, ``_finish``, ``_release_blocks``,
-``run``, ``engine_spec`` and ``stats`` (a subset of keys, kept in plain
-integer counters instead of the metrics registry).
+registration included), ``_count_kv_sweep`` (:1813), ``_block_rides``
+and ``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, greedy
+rows), the synchronous branch of ``_step_inner``, ``_absorb_block``,
+``_finish``, ``_release_blocks``, ``run``, ``engine_spec`` and ``stats``
+(a subset of keys, kept in plain integer counters instead of the metrics
+registry).
 
 Scheduling is the JAX engine's: requests are admitted priority-then-EDF
-(FIFO within a class) into vacant slots, each step runs at most one
-prefill chunk and then one decode block over every slot, and the
-digest prefix cache maps whole prompt blocks a finished chunk published.
+(FIFO within a class) into vacant slots, and each step runs at most one
+prefill chunk, then one speculative verify forward over the spec-mode
+slots, then one decode block over the plain slots; the digest prefix
+cache maps whole prompt blocks a finished chunk published.
 On the same trace the port makes the same decisions (admissions,
 dispatch counts, prefix hits) as the JAX engine with
 ``async_dispatch=False, prefix_cache_mode="digest",
@@ -43,6 +48,7 @@ from ..device import DeviceLike, dtype_name, resolve_device, to_dtype
 from ..models.generation import GenerationConfig, init_paged_kv_arena
 from .llm import (build_weight_quant_plan, chunk_prefill,
                   normalize_weight_dtype, paged_decode_block)
+from .speculative import NGramDrafter, accept_drafts, build_spec_verify
 
 _INF = float("inf")
 
@@ -181,6 +187,7 @@ class Request:
     digests: List[bytes] = field(default_factory=list)
     registered: int = 0                # blocks published so far
     chunk_ids: Optional[np.ndarray] = None  # prompt padded to chunk grid
+    spec_k: Optional[int] = None       # speculative mode: drafts/verify
 
     @property
     def output(self) -> np.ndarray:
@@ -205,7 +212,8 @@ class ServingEngine:
 
     ``submit()`` enqueues requests (optionally with a future
     ``arrival_time`` for trace replay); ``step()`` runs one scheduler
-    iteration (admit + at most one prefill chunk + one decode block);
+    iteration (admit + at most one prefill chunk + one verify forward
+    over the spec-mode slots + one decode block);
     ``run()`` drains everything and returns the finished requests.
 
     The engine runs on ``device`` (default: the CUDA card; ``"cpu"``
@@ -221,6 +229,14 @@ class ServingEngine:
     code planes and per-output-channel scales that every program reads
     through the quantized-matmul kernel; the float model stays on the
     device beside them.
+
+    ``submit(spec_decode=K)`` puts a request in greedy speculative mode:
+    each iteration the engine-level ``drafter`` (an ``NGramDrafter`` unless
+    one is given; a ``ModelDrafter`` runs a draft model's ``generate()``)
+    proposes up to K tokens per spec slot, one verify forward scores them
+    at the engine-lifetime width ``max(spec_decode) + 1``, and the
+    accepted prefix plus a correction token is emitted.  The tokens are
+    the sequential greedy stream's.
     """
 
     def __init__(self, model, *, num_slots, prompt_len,
@@ -239,8 +255,6 @@ class ServingEngine:
                  adapter_store=None, tenant_weights=None, mesh=None,
                  role="both", device: DeviceLike = None):
         for value, off, what, item in (
-                (drafter, None, "drafter= (speculative decoding)",
-                 "sampling and speculation"),
                 (bool(do_sample), False, "do_sample=True",
                  "sampling and speculation"),
                 (mesh, None, "mesh= (tensor-parallel serving)",
@@ -380,8 +394,20 @@ class ServingEngine:
         # registry; stats() reads them back)
         self._n = dict(finished=0, prefills=0, prefill_chunks=0,
                        decode_steps=0, busy_slot_steps=0,
-                       block_dispatches=0, prefix_hits=0, prefix_misses=0)
+                       block_dispatches=0, prefix_hits=0, prefix_misses=0,
+                       kv_bytes_swept=0, spec_verify_steps=0,
+                       spec_draft_hits=0, spec_draft_misses=0,
+                       spec_draft_tokens=0, spec_accepted_tokens=0)
         self._decode_seconds = 0.0
+        self._verify_seconds = 0.0
+        # speculative decoding: per-request mode (submit(spec_decode=K));
+        # the drafter is engine-level and installed lazily (an
+        # NGramDrafter) the first time a spec request is accepted
+        self._drafter = drafter
+        self._spec_k_max = 0           # engine-lifetime max spec_decode
+        self._spec_fallback = set()    # this iteration's spec slots that
+        #                                drafted nothing and ride the block
+        self._verify_fns = {}          # width -> verifier
 
     @staticmethod
     def _kv_dtype(kvdt) -> torch.dtype:
@@ -436,6 +462,18 @@ class ServingEngine:
     def _update_block_gauges(self):
         self._peak_blocks = max(self._peak_blocks, self._pool.in_use())
 
+    def _count_kv_sweep(self, last_indices):
+        """Model one dispatch's KV read traffic into ``kv_bytes_swept``:
+        one entry per (row, scanned step) giving that sweep's last valid
+        index, rounded up to whole blocks (the paged kernels' ``length //
+        L + 1`` block walk, clamped to the table span) and charged the
+        per-row cost of every layer (codes plus scale planes for int8).
+        Modeled, not measured, and participating rows only: vacant and
+        frozen rows in the same dispatch are not charged."""
+        rows = sum(min(int(ix) // self.block_len + 1, self.max_blocks)
+                   * self.block_len for ix in last_indices)
+        self._n["kv_bytes_swept"] += rows * self._kv_row_bytes
+
     def _release_blocks(self, req: Request):
         """Unpin every block the request holds and trash its table row.
         Idempotent: the block list is cleared before returning."""
@@ -462,8 +500,6 @@ class ServingEngine:
         blocks are probed against the cache here and any hits are
         PINNED so they cannot be reclaimed while the request waits."""
         for value, off, what, item in (
-                (spec_decode, None, "submit(spec_decode=)",
-                 "sampling and speculation"),
                 (sampling, None, "submit(sampling=)",
                  "sampling and speculation"),
                 (max_queue_delay_s, None, "submit(max_queue_delay_s=)",
@@ -486,6 +522,13 @@ class ServingEngine:
         m = int(max_new_tokens)
         if m < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {m}")
+        spec_k = None
+        if spec_decode is not None:
+            spec_k = int(spec_decode)
+            if spec_k < 1:
+                raise ValueError(
+                    f"spec_decode must be >= 1 draft tokens, got "
+                    f"{spec_decode}")
         if n + m - 1 > self.max_cache_len:
             raise ValueError(
                 f"prompt ({n}) + max_new_tokens ({m}) - 1 = {n + m - 1} "
@@ -514,6 +557,7 @@ class ServingEngine:
         req.priority = int(priority)
         req.deadline = None if deadline_s is None \
             else arrival + float(deadline_s)
+        req.spec_k = spec_k
         # chunk grid: any slice [start, start + chunk_len) with
         # start < seq_len must be in range
         req.chunk_ids = np.full((self.prompt_len + self.chunk_len,),
@@ -526,6 +570,13 @@ class ServingEngine:
             # the prompt's LAST token is always recomputed — sampling
             # the first output token needs its hidden state
             self._match_prefix(req)
+        if spec_k is not None:
+            # only after every validation: a rejected submit must not
+            # widen the engine-lifetime verify width or install the
+            # default drafter
+            if self._drafter is None:
+                self._drafter = NGramDrafter()
+            self._spec_k_max = max(self._spec_k_max, spec_k)
         self._next_id += 1
         self._queue.append(req)
         self._peak_queue = max(self._peak_queue, len(self._queue))
@@ -641,6 +692,7 @@ class ServingEngine:
             self._arenas, wq=self._wq_ctx)
         tok0 = int(outp[0][0])
         self._n["prefill_chunks"] += 1
+        self._count_kv_sweep([min(start + c, req.seq_len) - 1])
         req.pf_pos = start + c
         if self.enable_prefix_cache:
             full = min(req.pf_pos, req.seq_len) // self.block_len
@@ -668,30 +720,147 @@ class ServingEngine:
         req.state = "decode"
         self._tok[slot] = tok0
         self._lens[slot] = req.seq_len
-        self._done[slot] = False
+        # spec-mode rows never ride the plain decode block: their row
+        # stays done there (frozen lens, trash-routed writes) and all
+        # progress happens in the verify forward, which reads host truth
+        self._done[slot] = req.spec_k is not None
+
+    def _block_rides(self, i: int, r: Request) -> bool:
+        """Does slot ``i`` ride THIS iteration's plain decode block?
+        Plain-decode rows always do; a spec-mode row only on an
+        iteration where the whole spec mix drafted nothing
+        (``_spec_fallback``): a zero-draft verify would pay the K+1-wide
+        forward for one token."""
+        return r.state == "decode" and (r.spec_k is None
+                                        or i in self._spec_fallback)
 
     def _decode_tables(self) -> np.ndarray:
-        """The decode block's table view: real rows for slots in the
-        decode mix, all-trash rows for vacant and prefilling slots (a
-        frozen row's write at its pinned ``lens`` must never land in a
-        block another sequence owns)."""
+        """The decode block's table view: real rows for slots riding the
+        block, all-trash rows for vacant, prefilling and verifying spec
+        slots (a frozen row's write at its pinned ``lens`` must never
+        land in a block another sequence owns, and a verifying row's
+        blocks belong to the verify forward)."""
         tbl = np.full_like(self._tables, self._pool.trash)
         for i, r in enumerate(self._slots):
-            if r is not None and r.state == "decode":
+            if r is not None and self._block_rides(i, r):
                 tbl[i] = self._tables[i]
         return tbl
 
+    def _verify_fn(self, width: int):
+        fn = self._verify_fns.get(width)
+        if fn is None:
+            fn = build_spec_verify(
+                self._model, self.cfg, width,
+                kv_int8=self.kv_cache_dtype == "int8", wq=self._wq_ctx)
+            self._verify_fns[width] = fn
+        return fn
+
+    def _spec_verify(self, out: List[Request]):
+        """One speculative iteration over every spec-mode decode slot:
+        draft (host), verify (ONE batched forward of width
+        ``max(spec_decode) + 1`` over the engine's lifetime, narrower
+        rows masked by ``n_valid``), accept (host), then advance each
+        row's ``lens`` by exactly its emitted count: rejected draft
+        positions stay behind the ``lens`` mask until the next forward
+        overwrites them.  An iteration where no spec slot drafted
+        anything sends the spec slots to the plain block instead."""
+        spec = [i for i, r in enumerate(self._slots)
+                if r is not None and r.state == "decode"
+                and r.spec_k is not None]
+        if not spec:
+            return
+        drafts = {}
+        for i in spec:
+            req = self._slots[i]
+            # budget clamp: a verify emits <= k_eff + 1 tokens and its
+            # last WRITE lands at lens + k_eff <= seq_len + max_new - 2,
+            # never past the request's allocated blocks
+            k_eff = min(req.spec_k, req.remaining - 1)
+            d = self._drafter.propose(
+                np.concatenate([req.prompt[:req.seq_len],
+                                np.asarray(req.tokens, np.int32)]),
+                k_eff) if k_eff > 0 else np.zeros((0,), np.int32)
+            d = np.asarray(d).reshape(-1).astype(np.int32)[:k_eff]
+            if k_eff > 0:
+                # hit/miss score the drafter; budget-clamped tails
+                # (k_eff == 0) never consulted it and count as neither
+                self._n["spec_draft_hits" if d.size
+                        else "spec_draft_misses"] += 1
+                self._n["spec_draft_tokens"] += int(d.size)
+            drafts[i] = d
+        if not any(drafts[i].size for i in spec):
+            self._spec_fallback = set(spec)
+            return
+        width = self._spec_k_max + 1
+        toks = np.full((self.num_slots, width), self.cfg.pad_token_id,
+                       np.int32)
+        n_valid = np.zeros((self.num_slots,), np.int32)
+        tbl = np.full_like(self._tables, self._pool.trash)
+        for i in spec:
+            req = self._slots[i]
+            d = drafts[i]
+            toks[i, 0] = req.tokens[-1]   # the still-unfed last token
+            toks[i, 1:1 + d.size] = d
+            n_valid[i] = 1 + d.size
+            tbl[i] = self._tables[i]
+        t0 = self._clock()
+        outp = self._verify_fn(width)(
+            self._dev(toks), self._dev(self._lens), self._dev(n_valid),
+            self._dev(tbl), *self._arenas)
+        greedy = outp[0].cpu().numpy()                  # [B, width]
+        self._verify_seconds += self._clock() - t0
+        self._n["spec_verify_steps"] += 1
+        # the K-wide kernel walks the STATIC width's frontier
+        # (lens + width - 1) of every spec row, however few columns
+        # n_valid marks valid
+        self._count_kv_sweep([int(self._lens[i]) + width - 1 for i in spec])
+        if greedy.size and (int(greedy.min()) < 0
+                            or int(greedy.max()) >= self._vocab):
+            raise RuntimeError(
+                f"verify forward at step {self._step_idx} produced token "
+                f"ids outside [0, {self._vocab})")
+        t = self._clock()
+        for i in spec:
+            req = self._slots[i]
+            emitted, accepted = accept_drafts(greedy[i], drafts[i],
+                                              self.cfg.eos_token_id)
+            self._n["spec_accepted_tokens"] += accepted
+            req.tokens.extend(emitted)
+            req.remaining -= len(emitted)
+            self._lens[i] += len(emitted)
+            self._tok[i] = emitted[-1]
+            hit_eos = (self.cfg.eos_token_id is not None
+                       and emitted[-1] == self.cfg.eos_token_id)
+            if hit_eos or req.remaining == 0:
+                self._slots[i] = None
+                self._done[i] = True
+                self._release_blocks(req)
+                self._finish(req, t, out)
+
     def step(self, now: Optional[float] = None) -> List[Request]:
         """One scheduler iteration: admit into vacant slots, run at
-        most one prefill chunk, then one decode block over the decode
+        most one prefill chunk, then one speculative verify forward over
+        the spec-mode slots and one decode block over the plain decode
         mix.  Returns the requests that finished this iteration."""
         self._step_idx += 1
         finished: List[Request] = []
         t_now = self._clock() if now is None else now
         self._admit(t_now, finished)
         self._prefill_chunk(finished)
+        self._spec_fallback = set()
+        self._spec_verify(finished)
+        # re-assert spec rows' block state for THIS iteration: fallback
+        # rows thaw into the block, verifying rows stay frozen, and a
+        # thawing row's fed token comes from host truth (a frozen row's
+        # block carry may hold pad or a garbage argmax)
+        for i, r in enumerate(self._slots):
+            if r is not None and r.state == "decode" \
+                    and r.spec_k is not None:
+                self._done[i] = i not in self._spec_fallback
+                if i in self._spec_fallback:
+                    self._tok[i] = r.tokens[-1]
         active = [i for i, r in enumerate(self._slots)
-                  if r is not None and r.state == "decode"]
+                  if r is not None and self._block_rides(i, r)]
         if not active:
             return finished
         # a full block only when no active request can finish inside it
@@ -702,6 +871,7 @@ class ServingEngine:
         for i in active:
             budget[i] = self._slots[i].remaining
         reqs = [self._slots[i] for i in active]
+        pre_lens = np.array(self._lens)
         t_blk = self._clock()
         out = paged_decode_block(
             self._model, self.cfg, n, self._dev(self._tok),
@@ -714,14 +884,17 @@ class ServingEngine:
         self._n["decode_steps"] += n
         self._n["busy_slot_steps"] += n * len(active)
         self._n["block_dispatches"] += 1
-        self._absorb_block(active, reqs, toks, tok, lens, done, finished)
+        self._absorb_block(active, reqs, toks, tok, lens, done, pre_lens,
+                           finished)
         return finished
 
-    def _absorb_block(self, active, reqs, toks, tok, lens, done,
+    def _absorb_block(self, active, reqs, toks, tok, lens, done, pre_lens,
                       out: List[Request]):
         """Adopt a decode block's outputs as host truth: extend each
-        rider's token stream and retire riders that emitted EOS or ran
-        out of budget."""
+        rider's token stream, charge its per-step KV sweep (scanned step
+        s attends up to ``pre_lens + s``, clamped to the row's final
+        ``lens`` where an EOS froze it) and retire riders that emitted
+        EOS or ran out of budget."""
         self._tok = tok
         self._lens = lens
         eos = self.cfg.eos_token_id
@@ -732,6 +905,8 @@ class ServingEngine:
             raise RuntimeError(
                 f"decode block at step {self._step_idx} produced token "
                 f"ids outside [0, {self._vocab})")
+        self._count_kv_sweep([min(int(pre_lens[i]) + s, int(lens[i]))
+                              for i in active for s in range(per)])
         for i, req in zip(active, reqs):
             row = toks[i]
             req.tokens.extend(int(x) for x in row)
@@ -771,12 +946,20 @@ class ServingEngine:
         of (decode step x slot) cells that held a live request;
         ``prefix_hit_rate`` is block-granular over matchable prompt
         blocks; ``peak_blocks_in_use`` is the pool's refcount>0
-        high-water mark; ``decode_seconds`` is host wall time spent in
-        decode blocks, device sync included; ``weight_bytes_swept`` is
-        the modeled weight stream (every prefill chunk and every decode
-        step reads the whole weight set once)."""
+        high-water mark; ``decode_seconds`` and ``verify_seconds`` are
+        host wall time spent in decode blocks and verify forwards, device
+        sync included; ``weight_bytes_swept`` and ``kv_bytes_swept`` are
+        the modeled weight and KV streams (every prefill chunk, decode
+        step and verify forward reads the whole weight set once).  The
+        ``spec_*`` keys cover speculative decoding:
+        ``spec_acceptance_rate`` is accepted over drafted tokens and
+        ``spec_mean_accepted_len`` accepted draft tokens per verify
+        forward, summed over its spec slots."""
         n = self._n
         steps = n["decode_steps"]
+        verifies = n["spec_verify_steps"]
+        drafted = n["spec_draft_tokens"]
+        accepted = n["spec_accepted_tokens"]
         hits, misses = n["prefix_hits"], n["prefix_misses"]
         ttfts = [r.ttft for r in self._finished if r.ttft is not None]
         lats = [r.latency for r in self._finished if r.latency is not None]
@@ -784,8 +967,10 @@ class ServingEngine:
             "num_slots": self.num_slots,
             "kv_cache_dtype": self.kv_cache_dtype,
             "weight_dtype": self.weight_dtype,
+            "kv_bytes_swept": int(n["kv_bytes_swept"]),
             "weight_bytes_swept": int(
-                (n["prefill_chunks"] + steps) * self._weight_sweep_bytes),
+                (n["prefill_chunks"] + steps + verifies)
+                * self._weight_sweep_bytes),
             "finished": n["finished"],
             "prefills": n["prefills"],
             "prefill_chunks": n["prefill_chunks"],
@@ -805,6 +990,16 @@ class ServingEngine:
             "mean_latency_s": (sum(lats) / len(lats)) if lats else None,
             "mean_ttft_s": (sum(ttfts) / len(ttfts)) if ttfts else None,
             "decode_seconds": self._decode_seconds,
+            "verify_seconds": self._verify_seconds,
+            "spec_verify_steps": int(verifies),
+            "spec_draft_hits": int(n["spec_draft_hits"]),
+            "spec_draft_misses": int(n["spec_draft_misses"]),
+            "spec_draft_tokens": int(drafted),
+            "spec_accepted_tokens": int(accepted),
+            "spec_acceptance_rate": (accepted / drafted
+                                     if drafted else 0.0),
+            "spec_mean_accepted_len": (accepted / verifies
+                                       if verifies else 0.0),
         }
 
     def engine_spec(self) -> dict:

@@ -5,16 +5,20 @@ What is here: ``LlamaConfig`` (the fields serving and training read),
 ``llama_3_8b_config``/``tiny_llama_config``, ``LlamaForCausalLM`` and
 ``LlamaPretrainingCriterion``.
 
-- Serving: ``kv_cache_spec`` (:485), ``decode_step`` (:514) and
-  ``prefill_chunk`` (:528) over the PAGED kv triple
-  ``(k_arena, v_arena, block_tables)`` or the quantized 5-tuple
-  ``(k_codes, v_codes, k_scales, v_scales, block_tables)`` of the int8
-  cache, on top of the layer-level ``decode_step`` (:187) and
-  ``chunk_step`` (:233).  K/V are written into the arenas IN PLACE
+- Serving: ``kv_cache_spec`` (:485), ``decode_step`` (:514),
+  ``prefill_chunk`` (:528) and ``verify_step`` (:549, the speculative
+  verify forward) over the PAGED kv triple ``(k_arena, v_arena,
+  block_tables)`` or the quantized 5-tuple ``(k_codes, v_codes,
+  k_scales, v_scales, block_tables)`` of the int8 cache, on top of the
+  layer-level ``decode_step`` (:187), ``chunk_step`` (:233) and
+  ``verify_step`` (:271).  K/V are written into the arenas IN PLACE
   (``index_put_``), which takes the place of JAX's buffer donation: the
   caller's arena tensors are the updated arenas.  ``quant_projections``
   (:469) and the ``wq_linear`` projection sites (:133, :144-148,
   :339-345) carry quantized weights (``models/wquant.py``).
+- Greedy ``generate()`` (``models/generation.py`` ``GenerationMixin``)
+  over the dense ``(k, v)`` cache: ``prefill`` (:489, :178, :376) and the
+  dense branch of ``decode_step`` (:222-229).
 - Training: the ``forward`` of every layer (:159-176, :332-345, :363-374,
   :416-420, :438-457) without a kv cache, with full recompute of each
   decoder layer when ``config.recompute`` and the model is in
@@ -25,8 +29,9 @@ so the weight bridge (``models/convert.py``) is a rename-free mapping.
 The projections and ``lm_head`` are ``nn.Linear`` (a library GEMM, as
 the JAX package leaves them to XLA) unless a weight-quant context routes
 a projection through the quantized-matmul kernel; RMSNorm, RoPE (without
-position ids), causal attention and paged decode attention (float and
-int8 cache) run the port's CUDA kernels on the card.
+position ids), causal attention, paged decode and verify attention (float
+and int8 cache) and dense decode attention run the port's CUDA kernels on
+the card.
 """
 
 from __future__ import annotations
@@ -43,13 +48,18 @@ from ..nn.functional import (cross_entropy, llama_rope,
                              scaled_dot_product_attention, swiglu)
 from ..nn.norm import RMSNorm
 from ..ops.decode_attention import (decode_attention_paged,
+                                    decode_attention_paged_multi,
                                     paged_prefix_attention)
-from .generation import (paged_cache_scatter, paged_cache_scatter_q,
-                         paged_chunk_scatter, paged_chunk_scatter_q)
+from .generation import (GenerationMixin, cache_prefill_write, cache_scatter,
+                         cached_decode_attention, paged_cache_scatter,
+                         paged_cache_scatter_q, paged_chunk_scatter,
+                         paged_chunk_scatter_q, paged_verify_scatter,
+                         paged_verify_scatter_q)
 from .wquant import wq_linear
 
 # (k_arena, v_arena, tables) or, for the int8 cache, (k_codes, v_codes,
-# k_scales, v_scales, tables)
+# k_scales, v_scales, tables); decode_step also takes generate()'s dense
+# (k_cache, v_cache) pair
 PagedKV = Tuple[torch.Tensor, ...]
 
 
@@ -143,27 +153,43 @@ class LlamaAttention(nn.Module):
                 cache=None):
         """Training/full-sequence attention: causal flash attention
         without a mask (the kernels on the card), the masked math with
-        one.  The dense kv-cache form is not ported."""
+        one.  The reference's ``cache=`` form (past K/V concatenated in
+        front of the new ones) is not ported; ``generate()`` runs on
+        ``prefill`` and the dense branch of ``decode_step``."""
         if cache is not None:
             raise NotImplementedError(
-                "LlamaAttention.forward with a dense kv cache is not ported "
-                "(ROADMAP.md, Queue 1: LLMPredictor and the dense generate "
-                "programs)")
+                "LlamaAttention.forward(cache=...) (past K/V concatenated "
+                "before the new tokens) is not ported (ROADMAP.md, Queue 1: "
+                "LLMPredictor and the dense generate programs)")
         b, s, _ = x.shape
         q, k, v = self._qkv_rope(x, position_ids)
         out = scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
                                            is_causal=attention_mask is None)
         return self._o(out.reshape(b, s, -1))
 
+    def prefill(self, x, position_ids=None):
+        """Causal forward over a whole (right-padded) prompt that also
+        returns the post-RoPE K/V planes ([B, S, H_kv, D]) for the dense
+        generation cache."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv_rope(x, position_ids)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self._o(out.reshape(b, s, -1)), (k, v)
+
     def decode_step(self, x, kv: PagedKV, lens):
         """One cached decode step.  x: [B, 1, hidden]; kv: the paged
-        triple, or the int8 cache's 5-tuple (quantize on append,
-        dequantize in the attention read); lens: [B] int32 write slot =
-        last valid index after the write.  Returns (out [B, 1, hidden],
-        kv)."""
+        triple, the int8 cache's 5-tuple (quantize on append, dequantize
+        in the attention read) or ``generate()``'s dense (k_cache,
+        v_cache) pair; lens: [B] int32 write slot = last valid index
+        after the write.  Returns (out [B, 1, hidden], kv)."""
         q, k, v = self._qkv_rope(x, lens[:, None])
         q1 = q[:, 0].contiguous()
-        if len(kv) == 5:
+        if len(kv) == 2:
+            k_cache, v_cache = kv
+            cache_scatter(k_cache, lens, k[:, 0])
+            cache_scatter(v_cache, lens, v[:, 0])
+            out = cached_decode_attention(q1, k_cache, v_cache, lens)
+        elif len(kv) == 5:
             k_arena, v_arena, k_s, v_s, tables = kv
             paged_cache_scatter_q(k_arena, k_s, tables, lens, k[:, 0])
             paged_cache_scatter_q(v_arena, v_s, tables, lens, v[:, 0])
@@ -197,6 +223,32 @@ class LlamaAttention(nn.Module):
             paged_chunk_scatter(v_arena, tables, start, n_valid, v[0])
             out = paged_prefix_attention(q, k_arena, v_arena, tables,
                                          start_t)
+        return self._o(out.reshape(b, c, -1)), kv
+
+    def verify_step(self, x, kv: PagedKV, lens, n_valid):
+        """One speculative-verify step over the paged cache: x holds C =
+        K+1 tokens per row ([B, C, hidden]), the row's last emitted
+        token plus K draft candidates, at per-row global positions
+        ``lens[b] .. lens[b]+C-1``.  K/V scatter through each row's table
+        with columns ``>= n_valid[b]`` trash-routed, then attention is
+        causal per query offset (``decode_attention_paged_multi``)."""
+        b, c, _ = x.shape
+        pos = lens[:, None] + torch.arange(c, dtype=torch.int32,
+                                           device=x.device)[None, :]
+        q, k, v = self._qkv_rope(x, pos)
+        q = q.contiguous()
+        if len(kv) == 5:
+            k_arena, v_arena, k_s, v_s, tables = kv
+            paged_verify_scatter_q(k_arena, k_s, tables, lens, n_valid, k)
+            paged_verify_scatter_q(v_arena, v_s, tables, lens, n_valid, v)
+            out = decode_attention_paged_multi(q, k_arena, v_arena, tables,
+                                               lens, kv_scales=(k_s, v_s))
+        else:
+            k_arena, v_arena, tables = kv
+            paged_verify_scatter(k_arena, tables, lens, n_valid, k)
+            paged_verify_scatter(v_arena, tables, lens, n_valid, v)
+            out = decode_attention_paged_multi(q, k_arena, v_arena, tables,
+                                               lens)
         return self._o(out.reshape(b, c, -1)), kv
 
 
@@ -239,6 +291,12 @@ class LlamaDecoderLayer(nn.Module):
                              attention_mask)
         return self._forward_impl(x, position_ids, attention_mask)
 
+    def prefill(self, x, position_ids=None):
+        attn_out, kv = self.self_attn.prefill(self.input_layernorm(x),
+                                              position_ids)
+        h = x + attn_out
+        return h + self.mlp(self.post_attention_layernorm(h)), kv
+
     def decode_step(self, x, kv, lens):
         attn_out, kv = self.self_attn.decode_step(self.input_layernorm(x),
                                                   kv, lens)
@@ -248,6 +306,12 @@ class LlamaDecoderLayer(nn.Module):
     def chunk_step(self, x, kv, start, n_valid):
         attn_out, kv = self.self_attn.chunk_step(self.input_layernorm(x),
                                                  kv, start, n_valid)
+        h = x + attn_out
+        return h + self.mlp(self.post_attention_layernorm(h)), kv
+
+    def verify_step(self, x, kv, lens, n_valid):
+        attn_out, kv = self.self_attn.verify_step(self.input_layernorm(x),
+                                                  kv, lens, n_valid)
         h = x + attn_out
         return h + self.mlp(self.post_attention_layernorm(h)), kv
 
@@ -270,8 +334,9 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
-    """Llama with the paged serving surface and the training forward.
+class LlamaForCausalLM(nn.Module, GenerationMixin):
+    """Llama with the paged serving surface, greedy ``generate()`` and
+    the training forward.
 
     ``device`` defaults to the CUDA card (``device="cpu"`` for tests);
     ``dtype`` is the parameter dtype.  Parameters are random from
@@ -342,11 +407,33 @@ class LlamaForCausalLM(nn.Module):
         return (self.config.num_hidden_layers,
                 self.config.num_key_value_heads, self.config.head_dim)
 
+    def prefill(self, ids, lens, kvs) -> Tuple[torch.Tensor, List]:
+        """Prompt pass of ``generate()``: write the prompt's K/V into the
+        dense (k_cache, v_cache) pairs ``kvs`` from slot 0 and return the
+        logits at each row's last valid position ``lens[b] - 1`` only
+        ([B, vocab]; the [B, S, vocab] logits are never formed)."""
+        b = ids.shape[0]
+        hidden, new_kvs = self._prefill_hidden(ids)
+        out_kvs = [(cache_prefill_write(kc, k), cache_prefill_write(vc, v))
+                   for (kc, vc), (k, v) in zip(kvs, new_kvs)]
+        last = hidden[torch.arange(b, device=hidden.device),
+                      lens.long() - 1]                         # [B, hidden]
+        return self.lm_head(last[:, None, :])[:, 0], out_kvs
+
+    def _prefill_hidden(self, ids):
+        x = self.llama.embed_tokens(ids.long())
+        kvs = []
+        for layer in self.llama.layers:
+            x, kv = layer.prefill(x)
+            kvs.append(kv)
+        return self.llama.norm(x), kvs
+
     def decode_step(self, tokens, lens, kvs: Sequence[PagedKV]
                     ) -> Tuple[torch.Tensor, List[PagedKV]]:
         """One cached decode step over all layers.  tokens: [B] int;
-        lens: [B] int32; kvs: one paged triple (or int8 5-tuple) per
-        layer, updated in place.  Returns (logits [B, vocab], kvs)."""
+        lens: [B] int32; kvs: one paged triple (or int8 5-tuple, or
+        dense (k, v) pair) per layer, updated in place.  Returns (logits
+        [B, vocab], kvs)."""
         x = self.llama.embed_tokens(tokens[:, None].long())
         new_kvs = []
         for layer, kv in zip(self.llama.layers, kvs):
@@ -372,6 +459,21 @@ class LlamaForCausalLM(nn.Module):
         h = self.llama.norm(x)
         idx = min(max(n_valid - 1 - start, 0), c - 1)
         return self.lm_head(h[0, idx][None, :]), new_kvs
+
+    def verify_step(self, tokens, lens, n_valid, kvs: Sequence[PagedKV]
+                    ) -> Tuple[torch.Tensor, List[PagedKV]]:
+        """One speculative-verify pass over all layers: tokens [B, C],
+        each row's last emitted token plus its K draft candidates, at
+        per-row global positions ``lens[b] + c``; n_valid [B] int32
+        counts each row's real columns.  Returns the logits at ALL C
+        positions ([B, C, vocab]) and the kvs; columns ``>= n_valid[b]``
+        compute trash-routed garbage the engine ignores."""
+        x = self.llama.embed_tokens(tokens.long())
+        new_kvs = []
+        for layer, kv in zip(self.llama.layers, kvs):
+            x, kv = layer.verify_step(x, kv, lens, n_valid)
+            new_kvs.append(kv)
+        return self.lm_head(self.llama.norm(x)), new_kvs
 
 
 class LlamaPretrainingCriterion(nn.Module):

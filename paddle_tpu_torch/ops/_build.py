@@ -59,13 +59,17 @@ class Kernel:
     ``launches`` counts the kernel launches made through ``launch``: the
     wrapper that owns this object calls ``launch`` exactly once per
     kernel launch, so a run can show that it went through the kernel.
+    Two kernels may share one source (``source=``, the file's stem): they
+    share its library and each keeps its own entry point and count.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence):
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 source: Optional[str] = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.source = os.path.join(CSRC_DIR, name + ".cu")
+        self.stem = source or name
+        self.source = os.path.join(CSRC_DIR, self.stem + ".cu")
         self.launches = 0
         self._fn = None
 
@@ -81,7 +85,7 @@ class Kernel:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR,
-                            f"{self.name}-{h.hexdigest()[:16]}.so")
+                            f"{self.stem}-{h.hexdigest()[:16]}.so")
 
     def built(self) -> bool:
         return os.path.isfile(self.library_path())
@@ -116,11 +120,14 @@ def register(kernel: Kernel) -> Kernel:
 
 def build_all(kernels: Optional[Iterable[Kernel]] = None) -> Dict[str, str]:
     """Compile every kernel whose library is missing, one nvcc process
-    per source, all started together.  Returns ``{name: ptxas report}``
-    for the kernels built by this call.  Raises with nvcc's output when
-    any build fails."""
-    todo = [k for k in (KERNELS.values() if kernels is None else kernels)
-            if not k.built()]
+    per source, all started together.  Returns ``{source stem: ptxas
+    report}`` for the sources built by this call.  Raises with nvcc's
+    output when any build fails."""
+    todo, seen = [], set()
+    for k in (KERNELS.values() if kernels is None else kernels):
+        if not k.built() and k.library_path() not in seen:
+            seen.add(k.library_path())
+            todo.append(k)
     if not todo:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -140,7 +147,7 @@ def build_all(kernels: Optional[Iterable[Kernel]] = None) -> Dict[str, str]:
             errors.append(f"--- {k.source} (nvcc exit {p.returncode})\n{log}")
             continue
         os.replace(tmp, out)      # atomic: a reader never sees half a file
-        reports[k.name] = log
+        reports[k.stem] = log
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return reports

@@ -1,23 +1,27 @@
-"""Paged decode attention: the CUDA kernel
-``csrc/paged_decode_attention.cu`` and its plain PyTorch version, plus
-the chunk-prefill attention (plain math in the JAX package too).
+"""Decode attention: the CUDA kernels ``csrc/paged_decode_attention.cu``,
+``csrc/paged_decode_attention_int8.cu``,
+``csrc/paged_decode_attention_multi.cu`` and ``csrc/decode_attention.cu``
+and their plain PyTorch versions, plus the chunk-prefill attention (plain
+math in the JAX package too).
 
-Port of the paged path of ``paddle_tpu/ops/pallas/decode_attention.py``:
-the at-rest layout helpers ``packed_ok`` (:130), ``paged_arena_shape``
-(:145), ``paged_scale_shape`` (:156), ``paged_gather_view`` (:164) and
-``paged_dequant_view`` (:177) unchanged, ``decode_attention_paged``
-(:1175) over ``_decode_attention_xla`` (:1136) math, and
-``paged_prefix_attention`` (:1219) over the ``_paged_multi_xla`` body
-(:1280-1311).
+Port of ``paddle_tpu/ops/pallas/decode_attention.py``: the at-rest layout
+helpers ``packed_ok`` (:130), ``cache_shape`` (:137),
+``paged_arena_shape`` (:145), ``paged_scale_shape`` (:156),
+``paged_gather_view`` (:164) and ``paged_dequant_view`` (:177) unchanged;
+``decode_attention`` (:1155, the dense cache of ``generate()``) and
+``decode_attention_paged`` (:1175) over ``_decode_attention_xla`` (:1136)
+math; ``decode_attention_paged_multi`` (:1243, the speculative verify
+forward's K-wide attention) and ``paged_prefix_attention`` (:1219), both
+over the ``_paged_multi_xla`` body (:1280-1311).
 
-``decode_attention_paged`` launches a kernel for CUDA tensors (or raises
-on what the kernel cannot take) and runs ``decode_attention_paged_plain``
-for CPU tensors; nothing sends a CUDA tensor to the plain version.  A
-float cache launches ``csrc/paged_decode_attention.cu``; an int8 cache
-(``kv_scales`` given) launches ``csrc/paged_decode_attention_int8.cu``.
-The kernels have no backward: on the card they raise when grad mode is
-on and an input requires grad, rather than return an output detached
-from them.
+``decode_attention``, ``decode_attention_paged`` and
+``decode_attention_paged_multi`` launch a kernel for CUDA tensors (or
+raise on what the kernel cannot take) and run their plain versions for
+CPU tensors; nothing sends a CUDA tensor to a plain version.  A float
+paged cache launches the float kernel, an int8 one (``kv_scales`` given)
+the int8 kernel.  The kernels have no backward: on the card they raise
+when grad mode is on and an input requires grad, rather than return an
+output detached from them.
 """
 
 from __future__ import annotations
@@ -41,6 +45,22 @@ KERNEL_INT8 = _build.register(_build.Kernel(
     "paged_decode_attention_int8", "ptt_paged_decode_attention_int8",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
+# the K-wide verify kernels: one source, a float and an int8 entry point
+KERNEL_MULTI = _build.register(_build.Kernel(
+    "paged_decode_attention_multi", "ptt_paged_decode_attention_multi",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
+KERNEL_MULTI_INT8 = _build.register(_build.Kernel(
+    "paged_decode_attention_multi_int8",
+    "ptt_paged_decode_attention_multi_int8",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    source="paged_decode_attention_multi"))
+KERNEL_DENSE = _build.register(_build.Kernel(
+    "decode_attention", "ptt_decode_attention",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
+_DENSE_CHUNK = 16       # cache slots the dense kernel stages per step
 
 
 def packed_ok(num_kv_heads: int, head_dim: int) -> bool:
@@ -48,6 +68,14 @@ def packed_ok(num_kv_heads: int, head_dim: int) -> bool:
     w = num_kv_heads * head_dim
     return w % _LANES == 0 and (_LANES % head_dim == 0
                                 or head_dim % _LANES == 0)
+
+
+def cache_shape(batch, num_kv_heads, max_cache_len, head_dim):
+    """At-rest DENSE KV cache shape (``generate()``): packed
+    [B, S, H*D] when the head geometry allows, else [B, S, H, D]."""
+    if packed_ok(num_kv_heads, head_dim):
+        return (batch, max_cache_len, num_kv_heads * head_dim)
+    return (batch, max_cache_len, num_kv_heads, head_dim)
 
 
 def paged_arena_shape(num_blocks, num_kv_heads, block_len, head_dim):
@@ -118,7 +146,9 @@ def _decode_attention_math(q4, k_cache, v_cache, lens):
 
 
 def _head_geometry(q, arena):
-    b, hq, d = q.shape
+    """(B, Hq, D, Hkv, G) of q [B, Hq, D] or [B, C, Hq, D] over a packed
+    [.., L or S, Hkv*D] or unpacked [.., L or S, Hkv, D] cache."""
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     if arena.ndim == 3:
         if arena.shape[2] % d:
             raise ValueError(f"arena row width {arena.shape[2]} is not a "
@@ -159,9 +189,11 @@ def decode_attention_paged_plain(q, k_arena, v_arena, tables, lens,
 
 
 def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
-    """Raise on what the kernel (the int8 one with ``kv_scales``) cannot
-    take; returns (B, Hq, D, Hkv, G)."""
+    """Raise on what a paged kernel (the int8 one with ``kv_scales``; the
+    K-wide one for q [B, C, Hq, D]) cannot take; returns (B, Hq, D, Hkv,
+    G)."""
     b, hq, d, hkv, g = _head_geometry(q, k_arena)
+    rows = g * (q.shape[1] if q.ndim == 4 else 1)   # query rows per CTA
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_arena, v_arena)):
         raise RuntimeError(
@@ -214,10 +246,12 @@ def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
         raise ValueError(f"paged decode kernel takes at most 65535 rows, "
                          f"got {b}")
     blk_len = k_arena.shape[1]
-    smem = 4 * (2 * g * d + blk_len * (2 * d + 1) + g * blk_len + 3 * g)
+    smem = 4 * (2 * rows * d + blk_len * (2 * d + 1) + rows * blk_len
+                + 3 * rows)
     if smem > _SMEM_MAX:
-        raise ValueError(f"paged decode kernel: G={g}, D={d}, L={blk_len} "
-                         f"need {smem} bytes of shared memory (> {_SMEM_MAX})")
+        raise ValueError(f"paged decode kernel: {rows} query rows, D={d}, "
+                         f"L={blk_len} need {smem} bytes of shared memory "
+                         f"(> {_SMEM_MAX})")
     return b, hq, d, hkv, g
 
 
@@ -264,21 +298,12 @@ def decode_attention_paged(q, k_arena, v_arena, tables, lens,
     raise ValueError(f"decode_attention_paged: unsupported device {q.device}")
 
 
-def paged_prefix_attention(q, k_arena, v_arena, tables, start,
-                           kv_scales=None):
-    """Chunked-prefill attention over the paged cache: C chunk queries
-    at global positions ``start + row`` attend causally over everything
-    already written through the block table (prefix-cached blocks,
-    earlier chunks and this chunk's own K/V, scattered before this
-    read).  Plain torch math on every device, as in the JAX package:
-    the gather view (the dequantized view of an int8 cache, with
-    ``kv_scales``) plus fp32 logits and softmax, probabilities cast to
-    q's dtype before PV.
-
-    q: [B, C, H_q, D]; arenas/tables/kv_scales as
-    ``decode_attention_paged``; start: [B] first global position of the
-    chunk.  Returns [B, C, H_q, D] in q.dtype; rows past the prompt's
-    true length are garbage the caller ignores."""
+def decode_attention_paged_multi_plain(q, k_arena, v_arena, tables, lens,
+                                       kv_scales=None):
+    """``_paged_multi_xla``: each row's dense (dequantized, for an int8
+    cache) view plus fp32 logits and softmax, query c masked to slots
+    ``<= lens[b] + c``, probabilities cast to q's dtype before PV.
+    q: [B, C, H_q, D]; returns [B, C, H_q, D] in q.dtype."""
     b, cc, hq, d = q.shape
     kd, vd = _dense_views(k_arena, v_arena, tables, kv_scales, q.dtype)
     s = kd.shape[1]
@@ -289,10 +314,161 @@ def paged_prefix_attention(q, k_arena, v_arena, tables, start,
     q5 = q.reshape(b, cc, hkv, g, d)
     logits = torch.einsum("bckgd,bskd->bckgs", q5.float(), kd.float())
     logits = logits / math.sqrt(d)
-    pos = (start.reshape(b, 1).long()
+    pos = (lens.reshape(b, 1).long()
            + torch.arange(cc, device=q.device)[None, :])          # [B, C]
     keep = torch.arange(s, device=q.device)[None, None, :] <= pos[:, :, None]
     logits = logits.masked_fill(~keep[:, :, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bckgs,bskd->bckgd", probs, vd.to(q.dtype))
     return out.reshape(b, cc, hq, d)
+
+
+def _decode_attention_paged_multi_cuda(q, k_arena, v_arena, tables, lens,
+                                       kv_scales=None):
+    b, hq, d, hkv, g = _check_operands(q, k_arena, v_arena, tables, lens,
+                                       kv_scales)
+    cc = q.shape[1]
+    out = torch.empty_like(q)
+    if b == 0 or cc == 0:
+        return out
+    geometry = (b, cc, hkv, g, d, k_arena.shape[1], tables.shape[1],
+                k_arena.shape[0], 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                _build.stream_ptr(q))
+    if kv_scales is None:
+        KERNEL_MULTI.launch(
+            _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+    else:
+        KERNEL_MULTI_INT8.launch(
+            _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
+            _build.ptr(kv_scales[0]), _build.ptr(kv_scales[1]),
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+    return out
+
+
+def decode_attention_paged_multi(q, k_arena, v_arena, tables, lens,
+                                 kv_scales=None):
+    """K-wide GQA attention over a PAGED cache prefix: the speculative
+    verify forward's attention (one target forward scores the last
+    emitted token plus K draft candidates).
+
+    q: [B, C, H_q, D], query c at global slot ``lens[b] + c`` (its K/V
+    scattered through the table before this read); arenas/tables/
+    kv_scales as ``decode_attention_paged``; lens: [B] int32 global slot
+    of the FIRST query.  Query c attends over slots ``<= lens[b] + c``,
+    the prefix sequential decode would have given it.  Returns
+    [B, C, H_q, D] in q.dtype.  CUDA tensors launch the float or the int8
+    K-wide kernel; CPU tensors run ``decode_attention_paged_multi_plain``."""
+    if q.device.type == "cuda":
+        return _decode_attention_paged_multi_cuda(q, k_arena, v_arena,
+                                                  tables, lens, kv_scales)
+    if q.device.type == "cpu":
+        return decode_attention_paged_multi_plain(q, k_arena, v_arena,
+                                                  tables, lens, kv_scales)
+    raise ValueError(f"decode_attention_paged_multi: unsupported device "
+                     f"{q.device}")
+
+
+def paged_prefix_attention(q, k_arena, v_arena, tables, start,
+                           kv_scales=None):
+    """Chunked-prefill attention over the paged cache: C chunk queries
+    at global positions ``start + row`` attend causally over everything
+    already written through the block table (prefix-cached blocks,
+    earlier chunks and this chunk's own K/V, scattered before this
+    read).  Plain torch math on every device, as in the JAX package (the
+    ``_paged_multi_xla`` body it shares with the verify attention's
+    plain version): prefill is compute-bound over the chunk, not
+    cache-sweep-bound.
+
+    q: [B, C, H_q, D]; arenas/tables/kv_scales as
+    ``decode_attention_paged``; start: [B] first global position of the
+    chunk.  Returns [B, C, H_q, D] in q.dtype; rows past the prompt's
+    true length are garbage the caller ignores."""
+    return decode_attention_paged_multi_plain(q, k_arena, v_arena, tables,
+                                              start, kv_scales)
+
+
+def decode_attention_plain(q, k_cache, v_cache, lens):
+    """Plain version of the dense decode: the ``_decode_attention_xla``
+    math.  q: [B, H_q, D]; returns [B, H_q * D] in q.dtype."""
+    b, hq, d, hkv, g = _head_geometry(q, k_cache)
+    out = _decode_attention_math(q.reshape(b, hkv, g, d), k_cache, v_cache,
+                                 lens)
+    return out.reshape(b, hq * d)
+
+
+def _check_dense(q, k_cache, v_cache, lens):
+    """Raise on what the dense kernel cannot take; returns (B, Hq, D,
+    Hkv, G)."""
+    b, hq, d, hkv, g = _head_geometry(q, k_cache)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError(
+            "decode attention kernel has no backward (it serves under "
+            "torch.no_grad()); its output would silently drop the "
+            "gradient of q, k_cache and v_cache")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"decode attention kernel takes float32 or bfloat16 "
+                        f"q, got {q.dtype}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"decode attention kernel needs {name} dtype == "
+                            f"q dtype ({q.dtype}), got {t.dtype}")
+        if t.shape != k_cache.shape:
+            raise ValueError("k_cache and v_cache shapes differ")
+    if k_cache.shape[0] != b or k_cache.shape[1] < 1:
+        raise ValueError(f"caches must be [B, S, ...] with B={b}, S >= 1, "
+                         f"got {tuple(k_cache.shape)}")
+    if lens.dtype != torch.int32 or lens.shape != (b,):
+        raise TypeError(f"lens must be int32 [{b}], got {lens.dtype} "
+                        f"{tuple(lens.shape)}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lens", lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"decode attention kernel needs a contiguous "
+                             f"{name}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode attention kernel needs a 16-byte "
+                             f"aligned {name}")
+    if d % 8:
+        raise ValueError(f"decode attention kernel needs head_dim % 8 == 0, "
+                         f"got {d}")
+    if b > 65535 or g > 128:
+        raise ValueError(f"decode attention kernel takes at most 65535 rows "
+                         f"and 128 query heads per kv head, got B={b}, G={g}")
+    smem = 4 * (2 * g * d + _DENSE_CHUNK * (2 * d + 1) + g * _DENSE_CHUNK
+                + 3 * g)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"decode attention kernel: G={g}, D={d} need "
+                         f"{smem} bytes of shared memory (> {_SMEM_MAX})")
+    return b, hq, d, hkv, g
+
+
+def _decode_attention_cuda(q, k_cache, v_cache, lens):
+    b, hq, d, hkv, g = _check_dense(q, k_cache, v_cache, lens)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out.reshape(b, hq * d)
+    KERNEL_DENSE.launch(
+        _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+        _build.ptr(lens), _build.ptr(out), b, hkv, g, d, k_cache.shape[1],
+        1.0 / math.sqrt(d), _DTYPES[q.dtype], _build.stream_ptr(q))
+    return out.reshape(b, hq * d)
+
+
+def decode_attention(q, k_cache, v_cache, lens):
+    """One-token GQA attention over the valid prefix of a DENSE cache.
+
+    q: [B, H_q, D]; k_cache/v_cache: packed [B, S, H_kv*D] or unpacked
+    [B, S, H_kv, D] (``cache_shape``), any S; lens: [B] int32 = index of
+    the LAST valid slot (the just-written token); slots ``<= lens``
+    participate.  Returns [B, H_q * D] in q.dtype.  CUDA tensors launch
+    the dense kernel; CPU tensors run ``decode_attention_plain``."""
+    if q.device.type == "cuda":
+        return _decode_attention_cuda(q, k_cache, v_cache, lens)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lens)
+    raise ValueError(f"decode_attention: unsupported device {q.device}")

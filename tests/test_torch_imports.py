@@ -28,6 +28,9 @@ def test_import_loads_no_jax():
         "import paddle_tpu_torch.ops.quantized_matmul, "
         "paddle_tpu_torch.models.wquant, paddle_tpu_torch.quantization, "
         "paddle_tpu_torch.quantization.observers\n"
+        "import paddle_tpu_torch.inference.speculative, "
+        "paddle_tpu_torch.inference.sampling, "
+        "paddle_tpu_torch.models.generation\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -84,5 +87,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     eng = ServingEngine(model, num_slots=1, prompt_len=4, max_cache_len=8,
                         compute_dtype="float32", device="cpu")
     req = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=2)
+    spec = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=3,
+                      spec_decode=2)
     eng.run()
-    assert req.output.shape == (2,)
+    assert req.output.shape == (2,) and spec.output.shape == (3,)
+    out = model.generate(np.arange(3, dtype=np.int32)[None],
+                         max_new_tokens=2, compute_dtype="float32")
+    assert out.device.type == "cpu" and out.shape == (1, 2)

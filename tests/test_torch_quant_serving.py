@@ -236,7 +236,8 @@ def test_quant_engine_scheduling_and_spec_identical_to_jax(served, wd):
     for key in ("finished", "prefills", "prefill_chunks", "decode_steps",
                 "block_dispatches", "peak_queue", "prefix_hit_rate",
                 "prefix_hits", "peak_blocks_in_use", "mean_slot_occupancy",
-                "weight_dtype", "kv_cache_dtype", "weight_bytes_swept"):
+                "weight_dtype", "kv_cache_dtype", "weight_bytes_swept",
+                "kv_bytes_swept"):
         assert ts[key] == js[key], key
     assert ts["prefix_hits"] > 0
     assert ts["finished"] == len(trace)

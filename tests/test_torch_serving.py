@@ -132,7 +132,8 @@ def test_scheduling_identical_to_jax_engine(served):
         [r.request_id for r in jeng._finished]
     for key in ("finished", "prefills", "decode_steps", "block_dispatches",
                 "peak_queue", "prefix_hit_rate", "prefix_hits",
-                "peak_blocks_in_use", "mean_slot_occupancy"):
+                "peak_blocks_in_use", "mean_slot_occupancy",
+                "kv_bytes_swept"):
         assert ts[key] == js[key], key
     assert ts["prefix_hits"] > 0 and js["prefix_hits"] > 0
     assert ts["finished"] == len(served["trace"])
@@ -140,7 +141,7 @@ def test_scheduling_identical_to_jax_engine(served):
 
 
 @pytest.mark.parametrize("kw", [
-    {"drafter": object()}, {"do_sample": True},
+    {"do_sample": True},
     # int8 KV and int8/int4 weights are ported; what stays unported there
     # is a float KV dtype other than compute_dtype and quantized weights
     # on a tensor-parallel mesh
@@ -160,7 +161,7 @@ def test_unported_engine_features_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"spec_decode": 2}, {"sampling": object()}, {"adapter": "a"},
+    {"sampling": object()}, {"adapter": "a"},
     {"stream": True}, {"tenant": "t"}, {"max_queue_delay_s": 1.0},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_submit_features_raise(kw):
