@@ -14,8 +14,12 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    and prefill shapes; speculative decoding: the K-wide verify attention
    over a float and an int8 cache at B=8, C=5, and the dense decode of
    the draft model's ``generate()`` at S = max_context + max_draft;
-   training: flash-attention forward and backward,
-   RoPE forward and backward, RMSNorm), bfloat16 and float32, with
+   training: flash-attention forward and backward (one-pass, and the
+   two-pass dQ and dK/dV kernels, whose dQ must be bit-identical over two
+   launches), RoPE forward and backward, RMSNorm, and the fused AdamW
+   update, bit-identical to its plain version for every parameter and
+   moment dtype, with and without stochastic rounding), bfloat16 and
+   float32, with
    CUDA-event timings of the kernel, the plain version and one PyTorch
    library call that computes the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
@@ -66,9 +70,21 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    timed steps on the same batch; losses finite and falling, parameters
    finite, launch counters up by exactly their per-step counts; step
    time, tokens/s, MFU and peak memory, then one profiled step;
+5b. training with the flag-selected routes: the same model with
+   ``FLAGS_flash_onepass_bwd=False`` (the two-pass backward) and
+   ``FLAGS_use_fused_adamw_kernel=True``, AdamW with bf16 moments by
+   stochastic rounding (``multi_precision=False``) under a linear
+   warm-up over cosine decay, and gradient merge over 2 calls: 6 calls
+   (3 updates) with exact launch counts per call (the fused update once
+   per parameter tensor on a firing call, never on a holding one),
+   losses finite and falling, parameters finite, call times, tokens/s,
+   MFU, peak memory and one profiled firing call;
 6. training exactness: a 2-layer float32 model at the same width takes 2
    train steps on the card and, from the same state dict, on the CPU
-   (plain versions); losses and parameters agree within stated bounds.
+   (plain versions); losses and parameters agree within stated bounds;
+6b. the same under the routes of 5b, with Adam (the unfused update) and
+   then AdamW under a schedule (the fused kernel on the card, its plain
+   version on the CPU).
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -678,6 +694,226 @@ def _rope_case(torch, dtype, gen):
                 library_ms=None)
 
 
+def _flash_twopass_case(torch, dtype, b, gen, causal=True,
+                        hkv=TRAIN["kv_heads"], time_it=True):
+    """The two-pass backward (``flash_onepass_bwd=False``) at S=2048,
+    Hq=32, D=64: dQ, dK and dV through ``flash_attention_bwd`` against
+    the plain backward within FLASH_BF16_TOL in bfloat16 (its reasons
+    are stated there) and TOL in float32, and the dQ kernel's output
+    bit-identical over two launches (it writes every element once, no
+    atomics).  With ``time_it``: the dQ and dK/dV kernels alone, their
+    plain versions, and SDPA's backward (no single PyTorch call computes
+    dQ alone or dK and dV alone).  Returns (dq row, dkv row)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    s, hq, d = TRAIN["seq"], TRAIN["heads"], TRAIN["head_dim"]
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
+    do = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1) \
+        .contiguous()
+    shape = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+             + ("causal" if causal else "non-causal"))
+    tag = f"{shape} {dtype}"
+    dq1 = fa._dq_cuda(q, k, v, do, lse, delta, causal)
+    dq2 = fa._dq_cuda(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    if not torch.equal(dq1.view(torch.int16 if dtype == "bfloat16"
+                                else torch.int32),
+                       dq2.view(torch.int16 if dtype == "bfloat16"
+                                else torch.int32)):
+        raise AssertionError(f"flash dQ kernel {tag}: two launches gave "
+                             f"different bits")
+    del dq1, dq2
+    ptt.set_flags({"FLAGS_flash_onepass_bwd": False})
+    try:
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    finally:
+        ptt.set_flags({"FLAGS_flash_onepass_bwd": True})
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+
+    def check(what, got, want):
+        row_atol, rtol = FLASH_BF16_TOL[what] if dtype == "bfloat16" \
+            else (None, None)
+        return _check(torch, f"flash two-pass {what} {tag}", got, want,
+                      dtype, row_atol, rtol)
+
+    err_dq = check("dQ", grads[0], refs[0])
+    err_dkv = max(check("dK", grads[1], refs[1]),
+                  check("dV", grads[2], refs[2]))
+    del grads, refs
+    torch.cuda.empty_cache()
+    if not time_it:
+        return None, None
+    item = q.element_size()
+    score = 2.0 * b * hq * s * s * d * (0.5 if causal else 1.0)
+    stats = 2 * lse.numel() * 4                  # lse and delta, fp32
+    ins = (2 * q.numel() + k.numel() + v.numel()) * item + stats
+    dq_b, dq_by = _bound(ins + q.numel() * item, 3 * score, dtype)
+    dkv_b, dkv_by = _bound(ins + (k.numel() + v.numel()) * item, 4 * score,
+                           dtype)
+    args = (q, k, v, do, lse, delta, causal)
+    dq_ms = _time_ms(torch, lambda: fa._dq_cuda(*args), iters=10)
+    dkv_ms = _time_ms(torch, lambda: fa._dkv_cuda(*args), iters=10)
+    dq_plain_ms = _time_ms(torch, lambda: fa._dq_plain(*args), warmup=2,
+                           iters=5)
+    dkv_plain_ms = _time_ms(torch, lambda: fa._dkv_plain(*args), warmup=2,
+                            iters=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del out, qt, kt, vt
+    torch.cuda.empty_cache()
+    dq_row = dict(shape=shape, dtype=dtype, max_abs_err=err_dq, ms=dq_ms,
+                  plain_ms=dq_plain_ms, bound_ms=dq_b, bound_by=dq_by,
+                  library_ms=lib_ms)
+    dkv_row = dict(shape=shape, dtype=dtype, max_abs_err=err_dkv,
+                   ms=dkv_ms, plain_ms=dkv_plain_ms, bound_ms=dkv_b,
+                   bound_by=dkv_by, library_ms=lib_ms)
+    _log(f"  flash two-pass {tag}: dQ {dq_ms:.4f} + dK/dV {dkv_ms:.4f} = "
+         f"{dq_ms + dkv_ms:.4f} ms (SDPA backward {lib_ms:.4f} ms)")
+    return dq_row, dkv_row
+
+
+# the fused AdamW checks: the 1.1B model's MLP weight and embedding, a
+# norm weight and an odd length; hyperparameters of a late step
+ADAMW_SHAPES = [(TRAIN["inter"], TRAIN["hidden"]),
+                (TRAIN["vocab"], TRAIN["hidden"]), (TRAIN["hidden"],),
+                (1000,)]
+ADAMW_HP = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
+_ADAMW_OPS = {"p": "p'' = p*(1 - lr*wd) - (lr*(m'/bc1)) / (sqrt(v'/bc2) "
+                   "+ eps), cast to p's dtype",
+              "m": "m' = b1*m + (1-b1)*g, stored in m's dtype",
+              "v": "v' = b2*v + ((1-b2)*g)*g, stored in v's dtype"}
+
+
+def _adamw_inputs(torch, shape, p_dtype, m_dtype, gen):
+    def rnd(scale, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+    p = rnd(0.02, p_dtype)
+    g = rnd(1e-3, p_dtype)
+    m = rnd(1e-4, m_dtype)
+    v = (rnd(1e-3, torch.float32) ** 2).to(m_dtype)
+    return p, g, m, v
+
+
+def _adamw_case(torch, shape, p_dtype, m_dtype, seed, gen, time_it=False):
+    """The fused AdamW kernel against its plain version on the card, on
+    the same inputs: p, m and v must be BIT-identical (the kernel does
+    each operation as one fp32 IEEE op in the plain version's order, and
+    both draw the same noise).  With ``time_it``: the kernel, the plain
+    version and ``torch._fused_adamw_`` (the op behind
+    ``torch.optim.AdamW(fused=True)``, which the port never calls) on
+    fp32 copies, beside the byte bound."""
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    pdt, mdt = getattr(torch, p_dtype), getattr(torch, m_dtype)
+    p, g, m, v = _adamw_inputs(torch, shape, pdt, mdt, gen)
+    lr = torch.tensor(3e-4, dtype=torch.float32, device="cuda")
+    step = torch.tensor(7.0, dtype=torch.float32, device="cuda")
+    tag = (f"{list(shape)} p {p_dtype} moments {m_dtype} "
+           + ("seed" if seed is not None else "no seed"))
+    kern = [t.clone() for t in (p, m, v)]
+    plain = [t.clone() for t in (p, m, v)]
+    fo.fused_adamw_update(kern[0], g, kern[1], kern[2], lr, step,
+                          seed=seed, **ADAMW_HP)
+    fo.fused_adamw_update_plain(plain[0], g, plain[1], plain[2], lr, step,
+                                seed=seed, **ADAMW_HP)
+    torch.cuda.synchronize()
+    for name, a, b in zip("pmv", kern, plain):
+        bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        diff = a.view(bits) != b.view(bits)
+        if diff.any():
+            i = int(diff.reshape(-1).nonzero()[0])
+            raise AssertionError(
+                f"fused_adamw {name} {tag}: {int(diff.sum())} elements "
+                f"differ from the plain version (first at flat index {i}: "
+                f"kernel {a.reshape(-1)[i].item()!r} plain "
+                f"{b.reshape(-1)[i].item()!r}); the operation: "
+                f"{_ADAMW_OPS[name]}")
+    moved = (kern[0] != p).float().mean().item()
+    _log(f"  fused_adamw {tag}: p, m, v bit-identical to the plain "
+         f"version ({100 * moved:.1f}% of p changed)")
+    del kern, plain
+    if not time_it:
+        return None
+    n = p.numel()
+    ps, ms_ = p.element_size(), m.element_size()
+    bound_ms, by = _bound(n * (2 * ps + 2 * ms_) + n * (ps + 2 * ms_),
+                          20 * n, "float32")
+    hp = dict(seed=seed, **ADAMW_HP)
+    # the kernel alone, its scalars made once; the wrapper's time adds
+    # its checks, as the train step calls it (the scalars made once per
+    # step and shared by every parameter)
+    sc = fo.adamw_scalars(lr, step, ADAMW_HP["beta1"], ADAMW_HP["beta2"],
+                          p.device)
+    ms = _time_ms(torch, lambda: fo._launch(p, g, m, v, sc, **hp))
+    wrapper_ms = _time_ms(torch, lambda: fo.fused_adamw_update(
+        p, g, m, v, lr, step, scalars=sc, **hp))
+    plain_ms = _time_ms(torch, lambda: fo.fused_adamw_update_plain(
+        p, g, m, v, lr, step, **hp), iters=10)
+    # library yardstick: torch._fused_adamw_ takes one dtype for p, g, m
+    # and v, so it runs on fp32 copies (fp32 moments, as the port's
+    # multi_precision route keeps them)
+    lp, lg, lm, lv = (t.float() for t in (p, g, m, v))
+    steps = [torch.tensor(7.0, device="cuda")]
+    lib_ms = _time_ms(torch, lambda: torch._fused_adamw_(
+        [lp], [lg], [lm], [lv], [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+    del lp, lg, lm, lv
+    _log(f"  fused_adamw {tag}: kernel {ms:.4f} ms, wrapper {wrapper_ms:.4f} "
+         f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+         f"{bound_ms:.4f} ms")
+    return dict(shape=str(list(shape)),
+                dtype=f"p {p_dtype}, moments {m_dtype}", max_abs_err=0.0,
+                ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def _train5_rows(torch, seed):
+    """Phase 2's rows of the slice-5 kernels: the two-pass flash
+    backward and the fused AdamW update.  Returns {name: [rows]}, the
+    main path's case first."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 5)
+    rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
+            "fused_adamw": []}
+    for dtype, b in (("bfloat16", TRAIN["batch"]), ("float32", 2)):
+        dq, dkv = _flash_twopass_case(torch, dtype, b, gen)
+        rows["flash_attention_bwd_dq"].append(dq)
+        rows["flash_attention_bwd_dkv"].append(dkv)
+    _flash_twopass_case(torch, "bfloat16", 2, gen, causal=False,
+                        time_it=False)
+    _flash_twopass_case(torch, "bfloat16", 2, gen, hkv=TRAIN["heads"],
+                        time_it=False)
+    # timed: the main path's case first (phase 5b: bf16 p, bf16 moments,
+    # a seed), then the embedding, then fp32 moments (phase 5's route)
+    timed = [(0, "bfloat16", "bfloat16", True), (1, "bfloat16", "bfloat16",
+                                                  True),
+             (0, "bfloat16", "float32", False), (1, "bfloat16", "float32",
+                                                 False)]
+    for i, pd, md, with_seed in timed:
+        rows["fused_adamw"].append(_adamw_case(
+            torch, ADAMW_SHAPES[i], pd, md, 1234 + i if with_seed else None,
+            gen, time_it=True))
+    for i, shape in enumerate(ADAMW_SHAPES):
+        for pd in ("bfloat16", "float32"):
+            for md in ("bfloat16", "float32"):
+                for with_seed in (True, False):
+                    if (i, pd, md, with_seed) not in timed:
+                        _adamw_case(torch, shape, pd, md,
+                                    1234 + i if with_seed else None, gen)
+    return rows
+
+
 def phase_kernels(torch, seed):
     import numpy as np
     gen = torch.Generator(device="cuda")
@@ -716,6 +952,7 @@ def phase_kernels(torch, seed):
     rows["rms_norm"].append(_rms_case(
         torch, TRAIN["batch"] * TRAIN["seq"], "bfloat16", gen,
         d=TRAIN["hidden"]))
+    rows.update(_train5_rows(torch, seed))
     for name, cases in rows.items():
         for c in cases:
             lib = c["library_ms"]
@@ -1420,10 +1657,13 @@ def phase_quant_exactness(torch, seed):
     torch.cuda.empty_cache()
 
 
-def _train_setup(torch, layers, dtype, seed, device=None):
-    """``examples/llama_pretrain.py``'s model, criterion, AdamW and
+def _train_setup(torch, layers, dtype, seed, device=None, make_opt=None,
+                 **step_kw):
+    """``examples/llama_pretrain.py``'s model, criterion, optimizer and
     TrainStep at the full 1.1B width (``layers`` deep), parameters
-    random from ``seed`` on the card (or built on ``device``)."""
+    random from ``seed`` on the card (or built on ``device``).  The
+    optimizer is the example's AdamW (fp32 moments, global-norm clip
+    1.0) unless ``make_opt(parameters)`` makes another."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          LlamaPretrainingCriterion)
@@ -1439,9 +1679,13 @@ def _train_setup(torch, layers, dtype, seed, device=None):
                              init=device is None)
     model.train()
     crit = LlamaPretrainingCriterion(cfg)
-    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
-                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
-    step = TrainStep(model, lambda net, t, l: crit(net(t), l), opt)
+    if make_opt is None:
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
+    else:
+        opt = make_opt(model.parameters())
+    step = TrainStep(model, lambda net, t, l: crit(net(t), l), opt,
+                     **step_kw)
     return cfg, model, opt, step
 
 
@@ -1552,47 +1796,200 @@ def _profile_train_step(torch, step, tokens, labels):
     _log(f"train profile: 1 step, wall {wall * 1e3:.1f} ms profiled; device "
          f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of the "
          f"wall), {len(per_kernel)} distinct kernels")
+    # busy time by origin: the port's kernels (the fused AdamW apart),
+    # cuBLAS GEMMs, and PyTorch's own kernels (elementwise, reductions,
+    # copies: the unfused optimizer update lands here)
+    groups = {"port kernels": 0.0, "of which fused AdamW": 0.0,
+              "cuBLAS GEMMs": 0.0, "other PyTorch kernels": 0.0}
+    for name, us in per_kernel.items():
+        if "(anonymous namespace)::" in name:
+            groups["port kernels"] += us
+            if "fused_adamw_kernel" in name:
+                groups["of which fused AdamW"] += us
+        elif name.startswith("nvjet") or "gemm" in name.lower():
+            groups["cuBLAS GEMMs"] += us
+        else:
+            groups["other PyTorch kernels"] += us
+    _log("  by origin: " + "; ".join(
+        f"{k} {us / 1e3:.3f} ms ({100 * us / 1e3 / busy:.1f}%)"
+        for k, us in groups.items()))
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         _log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy:5.1f}%  "
              f"{name[:90]}")
 
 
-def phase_train_exactness(torch, seed):
+def _warmup_cosine(peak=3e-4):
+    """(make_opt, scheduler): the 1.1B recipe's AdamW with bf16 moments
+    by stochastic rounding (``multi_precision=False``, the JAX package's
+    default) under a linear warm-up over cosine decay."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(peak, T_max=100),
+                            warmup_steps=1, start_lr=peak / 2, end_lr=peak)
+    return (lambda params: AdamW(learning_rate=sched, parameters=params,
+                                 grad_clip=ClipGradByGlobalNorm(1.0),
+                                 multi_precision=False)), sched
+
+
+ROUTE_FLAGS = {"FLAGS_flash_onepass_bwd": False,
+               "FLAGS_use_fused_adamw_kernel": True}
+
+
+def phase_training_routes(torch, seed, smi):
+    """Phase 5b: the 1.1B model with the flag-selected routes (two-pass
+    flash backward, fused AdamW with bf16 moments by stochastic
+    rounding), an LR schedule and gradient merge over 2 calls; 6 calls
+    (3 updates) with exact launch counts per call.  Returns the
+    kernels' launch counts of the 6 calls."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import KERNELS
+    b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
+    old_flags = ptt.get_flags(list(ROUTE_FLAGS))
+    ptt.set_flags(ROUTE_FLAGS)
+    try:
+        t0 = time.perf_counter()
+        make_opt, sched = _warmup_cosine()
+        cfg, model, opt, step = _train_setup(torch, nl, "bfloat16", seed,
+                                             make_opt=make_opt,
+                                             accumulate_steps=2)
+        tokens, labels = _train_batch(torch, cfg, b, s, seed, "cuda")
+        torch.cuda.synchronize()
+        n_tensors = len(step._params)
+        n_params = sum(p.numel() for p in step._params)
+        _log(f"training routes: {nl} layers at 1.1B width, bfloat16, "
+             f"{n_tensors} parameter tensors, AdamW(multi_precision=False) "
+             f"with LinearWarmup over CosineAnnealingDecay, "
+             f"accumulate_steps=2, flags {ROUTE_FLAGS}; built in "
+             f"{time.perf_counter() - t0:.2f} s")
+        hold = {name: 0 for name in KERNELS}
+        hold.update({"flash_attention_fwd": 2 * nl,
+                     "flash_attention_bwd_dq": nl,
+                     "flash_attention_bwd_dkv": nl,
+                     "rope": 6 * nl, "rms_norm": 4 * nl + 1})
+        fire = dict(hold, fused_adamw=n_tensors)
+        for k in KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, lrs = [], [], []
+        for call in range(1, 7):
+            before = {name: k.launches for name, k in KERNELS.items()}
+            lrs.append(opt.get_lr())
+            t0 = time.perf_counter()
+            losses.append(float(step(tokens, labels)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = {name: k.launches - before[name]
+                   for name, k in KERNELS.items()}
+            want = fire if call % 2 == 0 else hold
+            if got != want:
+                raise AssertionError(f"training routes call {call}: "
+                                     f"launches {got} != expected {want}")
+            if call % 2 == 0:
+                sched.step()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        if not all(x == x and abs(x) != float("inf") for x in losses):
+            raise AssertionError(f"training routes: losses not finite: "
+                                 f"{losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"training routes: loss did not fall: "
+                                 f"{losses}")
+        _finite_params(torch, model)
+        if any(st["m"].dtype != torch.bfloat16 for st in step._state):
+            raise AssertionError("training routes: moments are not bf16")
+        peak = torch.cuda.max_memory_allocated()
+        n_embed = model.llama.embed_tokens.weight.numel()
+        flops_per_token = (6.0 * (n_params - n_embed)
+                           + 6.0 * nl * s * cfg.hidden_size)
+        call_s = sum(times[1:]) / 5
+        tok_s = b * s / call_s
+        mfu = flops_per_token * tok_s / PEAK_OPS["bfloat16"]
+        _log(f"training routes: losses {['%.4f' % x for x in losses]}; lr "
+             f"{['%.3g' % x for x in lrs]}; call times ms "
+             f"{['%.1f' % (t * 1e3) for t in times]} (firing calls 2, 4, "
+             f"6); mean of calls 2-6 {call_s * 1e3:.1f} ms = {tok_s:.1f} "
+             f"tokens/s, MFU {100 * mfu:.2f}% on {smi}; peak memory "
+             f"{peak / 2 ** 30:.2f} GiB; launches {launches}")
+        step(tokens, labels)                 # call 7 holds; 8 fires
+        _profile_train_step(torch, step, tokens, labels)
+        del step, opt, model
+        torch.cuda.empty_cache()
+    finally:
+        ptt.set_flags(old_flags)
+    return launches
+
+
+def phase_train_exactness(torch, seed, label="train exactness",
+                          make_opt=None, flags=None,
+                          launched=("flash_attention_bwd",),
+                          not_launched=("flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv",
+                                        "fused_adamw"),
+                          accumulate_steps=1):
     """Phase 6: 2 float32 train steps of a 2-layer model at 1.1B width,
     batch 1 x 256, on the card (kernels) and on the CPU (plain versions)
-    from the same state dict and batch.  Bounds, set with room around
+    from the same state dict and batch (2 updates: with
+    ``accumulate_steps`` k, 2 k calls, each update merging k).  Bounds, set with room around
     what the run measures (float32 sums in other orders give a loss
     difference near 1e-7 relative and parameters within about 1e-5):
     losses within rtol 1e-6; parameters: at most 1e-6 of the elements
     past 1e-4, and none past lr (a gradient of the wrong sign puts a
-    parameter about 2 lr off after one Adam step)."""
+    parameter about 2 lr off after one Adam step).  ``make_opt(params)``
+    (once per side) returns (optimizer, scheduler or None); the
+    scheduler steps after each step.  ``flags`` are set for the phase
+    and restored after.  The kernels in ``launched`` must have run on
+    the card, those in ``not_launched`` must not."""
+    import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    n_steps, lr = 2, 3e-4
-    cfg, gpu, _, gstep = _train_setup(torch, 2, "float32", seed + 2)
-    _, cpu, _, cstep = _train_setup(torch, 2, "float32", seed + 2, "cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 2, "cpu")
-    for k in KERNELS.values():
-        k.launches = 0
-    gl, cl = [], []
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        gl.append(float(gstep(tokens, labels)))
-    launches = {name: k.launches for name, k in KERNELS.items()}
-    t_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        cl.append(float(cstep(tokens, labels)))
-    t_cpu = time.perf_counter() - t0
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "rope",
-                 "rms_norm"):
+    n_steps, lr = 2 * accumulate_steps, 3e-4
+    old_flags = ptt.get_flags(list(flags or {}))
+    ptt.set_flags(flags or {})
+    try:
+        scheds = []
+
+        def opt_for(params):
+            opt, sched = make_opt(params)
+            scheds.append(sched)
+            return opt
+
+        kw = {} if make_opt is None else dict(make_opt=opt_for)
+        if accumulate_steps > 1:
+            kw["accumulate_steps"] = accumulate_steps
+        cfg, gpu, _, gstep = _train_setup(torch, 2, "float32", seed + 2,
+                                          **kw)
+        _, cpu, _, cstep = _train_setup(torch, 2, "float32", seed + 2,
+                                        "cpu", **kw)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 2, "cpu")
+        for k in KERNELS.values():
+            k.launches = 0
+        gl, cl = [], []
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            gl.append(float(gstep(tokens, labels)))
+            if scheds and scheds[0] is not None:
+                scheds[0].step()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        t_gpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            cl.append(float(cstep(tokens, labels)))
+            if scheds and scheds[1] is not None:
+                scheds[1].step()
+        t_cpu = time.perf_counter() - t0
+    finally:
+        ptt.set_flags(old_flags)
+    for name in ("flash_attention_fwd", "rope", "rms_norm") + tuple(launched):
         if launches[name] == 0:
-            raise AssertionError(f"train exactness: {name} never launched")
+            raise AssertionError(f"{label}: {name} never launched")
+    for name in not_launched:
+        if launches[name] != 0:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times")
     rel = max(abs(g - c) / abs(c) for g, c in zip(gl, cl))
     if rel > 1e-6:
-        raise AssertionError(f"train exactness: card losses {gl} vs CPU "
+        raise AssertionError(f"{label}: card losses {gl} vs CPU "
                              f"{cl} (rel {rel:.3g})")
     cparams = dict(cpu.named_parameters())
     worst, n_bad, n_all = 0.0, 0, 0
@@ -1603,15 +2000,61 @@ def phase_train_exactness(torch, seed):
         n_all += diff.numel()
     if worst > lr or n_bad > 1e-6 * n_all:
         raise AssertionError(
-            f"train exactness: parameters differ by up to {worst:.3g} "
+            f"{label}: parameters differ by up to {worst:.3g} "
             f"(bound {lr:.3g}), {n_bad} of {n_all} elements past 1e-4")
-    _log(f"train exactness: 2 layers at 1.1B width, float32, batch 1x256, "
-         f"{n_steps} steps: losses card {gl} CPU {cl} (max rel diff "
+    _log(f"{label}: 2 layers at 1.1B width, float32, batch 1x256, "
+         f"{n_steps} calls, accumulate_steps={accumulate_steps}: losses card {gl} CPU {cl} (max rel diff "
          f"{rel:.3g}); parameters max |diff| {worst:.3g}, {n_bad} of "
          f"{n_all} elements past 1e-4; card {t_gpu:.2f} s, CPU "
          f"{t_cpu:.2f} s; launches {launches}")
     del gpu, cpu, gstep, cstep
     torch.cuda.empty_cache()
+
+
+def phase_train_exactness_routes(torch, seed):
+    """Phase 6b: phase 6 under the flag-selected routes (two-pass flash
+    backward, fused AdamW), first with Adam (coupled decay: the unfused
+    update), then with AdamW under a warm-up/cosine schedule and gradient
+    merge over 2 calls (the fused kernel on the card, its plain version
+    on the CPU, fed the merged gradients)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Adam, AdamW, lr
+
+    def adam(params):
+        return Adam(learning_rate=3e-4, parameters=params, weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0),
+                    multi_precision=True), None
+
+    def adamw(params):
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=10),
+                                warmup_steps=1, start_lr=1e-4, end_lr=3e-4)
+        return AdamW(learning_rate=sched, parameters=params,
+                     grad_clip=ClipGradByGlobalNorm(1.0),
+                     multi_precision=True), sched
+
+    # the unfused update's bf16 moment store (one noise tile per store,
+    # broadcast over the rows): the card's bits must be the CPU's
+    from paddle_tpu_torch.jit import train_step as tts
+    gen = torch.Generator().manual_seed(seed + 6)
+    x = torch.randn(TRAIN["inter"], TRAIN["hidden"], generator=gen) * 1e-3
+    key = 0x9E3779B97F4A7C15 ^ seed
+    card = tts._stochastic_round_bf16(x.cuda(), key).cpu()
+    host = tts._stochastic_round_bf16(x, key)
+    n_diff = int((card.view(torch.int16) != host.view(torch.int16)).sum())
+    if n_diff:
+        raise AssertionError(f"train exactness routes: tile-form stochastic "
+                             f"rounding differs between card and CPU in "
+                             f"{n_diff} of {x.numel()} elements")
+    _log(f"train exactness routes: tile-form stochastic rounding of "
+         f"{list(x.shape)} bit-identical on card and CPU")
+    twopass = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    phase_train_exactness(torch, seed, "train exactness routes, Adam", adam,
+                          ROUTE_FLAGS, twopass,
+                          ("flash_attention_bwd", "fused_adamw"))
+    phase_train_exactness(torch, seed, "train exactness routes, AdamW + "
+                          "schedule + merge", adamw, ROUTE_FLAGS,
+                          twopass + ("fused_adamw",),
+                          ("flash_attention_bwd",), accumulate_steps=2)
 
 
 def main(argv=None) -> int:
@@ -1642,6 +2085,9 @@ def main(argv=None) -> int:
     phase_spec_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     phase_train_exactness(torch, args.seed)
+    by_path["training_routes"] = phase_training_routes(torch, args.seed,
+                                                       smi)
+    phase_train_exactness_routes(torch, args.seed)
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)
@@ -1651,7 +2097,8 @@ def main(argv=None) -> int:
                  "flash_attention_fwd": 0, "flash_attention_bwd": 0,
                  "rope": 0, "paged_decode_attention_multi": 0,
                  "paged_decode_attention_multi_int8": 0,
-                 "decode_attention": 0}
+                 "decode_attention": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0, "fused_adamw": 0}
     meta = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                          "paddle_tpu/ops/pallas/rms_norm.py:63"),
             "paged_decode_attention": (
@@ -1679,7 +2126,16 @@ def main(argv=None) -> int:
                 "paddle_tpu/ops/pallas/decode_attention.py:787"),
             "decode_attention": (
                 "paddle_tpu_torch/csrc/decode_attention.cu",
-                "paddle_tpu/ops/pallas/decode_attention.py:398")}
+                "paddle_tpu/ops/pallas/decode_attention.py:398"),
+            "flash_attention_bwd_dq": (
+                "paddle_tpu_torch/csrc/flash_attention_bwd_twopass.cu",
+                "paddle_tpu/ops/pallas/flash_attention.py:212"),
+            "flash_attention_bwd_dkv": (
+                "paddle_tpu_torch/csrc/flash_attention_bwd_twopass.cu",
+                "paddle_tpu/ops/pallas/flash_attention.py:248"),
+            "fused_adamw": (
+                "paddle_tpu_torch/csrc/fused_adamw.cu",
+                "paddle_tpu/ops/pallas/fused_optimizer.py:71")}
     kernels = []
     for name, (source, replaces) in meta.items():
         c = rows[name][main_case[name]]
@@ -1692,7 +2148,8 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], "dtype": c["dtype"],
-            **{k: c[k] for k in ("cuda_core_bound_ms",) if k in c}})
+            **{k: c[k] for k in ("cuda_core_bound_ms", "wrapper_ms")
+               if k in c}})
     _log(json.dumps({"kernels": kernels}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,19 +13,21 @@ beside it slice by slice and imports nothing of it (nor JAX).
 - Slice 3, quantized serving: the same engine with an int8 KV cache
   and int8/int4 weights (``quantization`` holds the absmax rule), with
   int8 paged flash-decode and the quantized matmul as CUDA kernels.
+- Slice 4, greedy speculative decoding: ``submit(spec_decode=K)`` with
+  an n-gram or a draft-model drafter (``inference.speculative``) and the
+  greedy dense ``generate()``, with the K-wide paged verify attention
+  (float and int8) and dense flash-decode as CUDA kernels.
+- Slice 5, the rest of single-device pretraining: the flag registry
+  (``core.flags``) and the key generator (``core.generator``), LR
+  schedulers (``optimizer.lr``), SGD, Momentum and Adam, bf16 moments
+  by stochastic rounding, gradient merge and ``run_steps``, with the
+  fused AdamW update and the two-pass flash-attention backward as CUDA
+  kernels.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 
-from . import (device, distributed, inference, jit,  # noqa: F401
-               models, nn, ops, optimizer, quantization)
-
-
-def set_flags(flags) -> None:
-    """The JAX package's ``set_flags``.  The port reads no flags: each
-    ported path runs the JAX package's default route, and the routes the
-    flags choose instead (``adamw_rsqrt_update``, the fused AdamW kernel,
-    the two-pass flash backward) are not ported, so every call raises."""
-    raise NotImplementedError(
-        f"set_flags({dict(flags)!r}): the port reads no flags and runs "
-        f"only the default routes (ROADMAP.md, Queue 1: training)")
+from . import (core, device, distributed, inference,  # noqa: F401
+               jit, models, nn, ops, optimizer, quantization)
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.generator import seed  # noqa: F401

@@ -1,14 +1,17 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``, their plain PyTorch versions, and the
-autograd Function over both.
+"""Flash attention: the CUDA kernels ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_twopass.cu``,
+their plain PyTorch versions, and the autograd Function over them.
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py``: the forward
 ``_fwd_kernel`` (:161) behind ``_flash_fwd_impl`` (:400), the one-pass
 backward ``_onepass_bwd_kernel`` (:292) behind ``_flash_bwd_onepass``
-(:351), the ``delta = rowsum(dO * O)`` prologue (:443-452, XLA there,
-plain torch here), and ``flash_attention`` (:504-537) with its GQA and
-its ``ValueError``s.  The two-pass ``_dq_kernel``/``_dkv_kernel`` (the
-``flash_onepass_bwd=False`` route) are not ported.
+(:351), the two-pass backward ``_dq_kernel`` (:212) and ``_dkv_kernel``
+(:248) behind ``_flash_bwd`` (:443), the ``delta = rowsum(dO * O)``
+prologue (:443-452, XLA there, plain torch here), and
+``flash_attention`` (:504-537) with its GQA and its ``ValueError``s.
+``flash_attention_bwd`` reads the ``flash_onepass_bwd`` flag where the
+reference reads it (:454-457): on (the default) the one-pass kernel, off
+the dQ kernel and then the dK/dV kernel.
 
 The arithmetic is the kernels': scale ``1/sqrt(D)``, mask value -1e30,
 fp32 scores, softmax statistics and accumulation; ``P`` cast to v's
@@ -20,15 +23,17 @@ GQA: the JAX package repeats K and V to Hq heads, so their gradients sum
 over each group of G = Hq / Hkv query heads.  The kernels read kv head
 ``h // G`` directly; the backward writes fp32 dK and dV per QUERY head
 and ``flash_attention_bwd`` sums each group of G in fp32, then casts.
-dQ is summed with fp32 atomics across key blocks, so its last bits vary
-from run to run on the card.
+The one-pass kernel sums dQ with fp32 atomics across key blocks, so its
+last bits vary from run to run on the card; the two-pass dQ kernel sums
+each query block's dQ in one CTA and writes it once, so its dQ is the
+same on every run.
 
-``flash_attention_fwd``/``flash_attention_bwd`` launch the kernels for
-CUDA tensors (or raise on what they cannot take) and run the plain
-versions for CPU tensors; nothing sends a CUDA tensor to a plain
-version.  The TPU gates of ``should_use_pallas`` (``s % 128``, ``d`` in
-{64, 128, 256}, the VMEM budget) are not carried over; the CUDA kernels
-take D in {64, 128} and any S.
+``flash_attention_fwd``, ``_bwd_core_onepass``, ``_dq`` and ``_dkv``
+launch the kernels for CUDA tensors (or raise on what they cannot take)
+and run the plain versions for CPU tensors; nothing sends a CUDA tensor
+to a plain version.  The TPU gates of ``should_use_pallas`` (``s %
+128``, ``d`` in {64, 128, 256}, the VMEM budget) are not carried over;
+the CUDA kernels take D in {64, 128} and any S.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import math
 import torch
 
 from . import _build
+from ..core.flags import flag
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,6 +59,18 @@ KERNEL_BWD = _build.register(_build.Kernel(
     "flash_attention_bwd", "ptt_flash_attention_bwd",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]))
+
+KERNEL_DQ = _build.register(_build.Kernel(
+    "flash_attention_bwd_dq", "ptt_flash_attention_bwd_dq",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    source="flash_attention_bwd_twopass"))
+
+KERNEL_DKV = _build.register(_build.Kernel(
+    "flash_attention_bwd_dkv", "ptt_flash_attention_bwd_dkv",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    source="flash_attention_bwd_twopass"))
 
 
 def _geometry(q, k, v, causal):
@@ -110,21 +128,56 @@ def flash_attention_fwd_plain(q, k, v, causal):
     return o.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
 
 
-def _bwd_core_plain(q, k, v, do, lse, delta, causal):
-    """The backward kernel's contract in plain torch: fp32 dQ
-    [B, Sq, Hq, D] and fp32 dK, dV PER QUERY HEAD [B, Sk, Hq, D]."""
+def _p_ds(q, k, v, do, lse, delta, causal):
+    """P and dS [B, Hq, Sq, Sk] in the compute dtype, as both backward
+    kernels rebuild them."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    p = torch.exp(_scores(q, k, causal, ct) - lse[..., None].to(ct))
+    dp = _heads(do.to(ct)) @ _heads(v.to(ct), q.shape[2] // k.shape[2]) \
+        .transpose(-1, -2)
+    return p, p * (dp - delta[..., None].to(ct))
+
+
+def _dq_of(q, k, ds):
+    """scale * dS K with dS cast to k's dtype, summed in the compute
+    dtype: [B, Hq, Sq, D]."""
     ct = torch.promote_types(q.dtype, torch.float32)
     g = q.shape[2] // k.shape[2]
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_scores(q, k, causal, ct) - lse[..., None].to(ct))
-    dout = _heads(do.to(ct))
-    dp = dout @ _heads(v.to(ct), g).transpose(-1, -2)
-    ds = p * (dp - delta[..., None].to(ct))
-    dv = p.to(do.dtype).to(ct).transpose(-1, -2) @ dout
+    return (ds.to(k.dtype).to(ct) @ _heads(k.to(ct), g)) \
+        * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def _dkv_of(q, do, p, ds):
+    """dK = scale * dS^T Q with dS cast to q's dtype and dV = P^T dO with
+    P cast to dO's dtype, PER QUERY HEAD: [B, Hq, Sk, D] each."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    dv = p.to(do.dtype).to(ct).transpose(-1, -2) @ _heads(do.to(ct))
     dk = (ds.to(q.dtype).to(ct).transpose(-1, -2) @ _heads(q.to(ct))) \
-        * scale
-    dq = (ds.to(k.dtype).to(ct) @ _heads(k.to(ct), g)) * scale
-    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+        * (1.0 / math.sqrt(q.shape[-1]))
+    return dk, dv
+
+
+def _dq_plain(q, k, v, do, lse, delta, causal):
+    """The dQ kernel's contract in plain torch: dQ [B, Sq, Hq, D] in q's
+    dtype."""
+    _, ds = _p_ds(q, k, v, do, lse, delta, causal)
+    return _dq_of(q, k, ds).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, lse, delta, causal):
+    """The dK/dV kernel's contract in plain torch: fp32 dK, dV PER QUERY
+    HEAD [B, Sk, Hq, D]."""
+    dk, dv = _dkv_of(q, do, *_p_ds(q, k, v, do, lse, delta, causal))
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _bwd_core_plain(q, k, v, do, lse, delta, causal):
+    """The one-pass backward kernel's contract in plain torch, P and dS
+    built once: fp32 dQ [B, Sq, Hq, D] and fp32 dK, dV PER QUERY HEAD
+    [B, Sk, Hq, D]."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, causal)
+    return tuple(t.permute(0, 2, 1, 3)
+                 for t in (_dq_of(q, k, ds),) + _dkv_of(q, do, p, ds))
 
 
 def _bwd_wiring(core, q, k, v, o, lse, do, causal):
@@ -197,12 +250,17 @@ def _fwd_cuda(q, k, v, causal):
     return o, lse
 
 
-def _bwd_core_cuda(q, k, v, do, lse, delta, causal):
+def _check_bwd(q, k, v, do, lse, delta, causal):
     b, sq, sk, hq, hk, d = _check_operands(q, k, v, causal, ("do", do))
     if lse.shape != (b, hq, sq) or delta.shape != (b, hq, sq) \
             or lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError(f"flash attention backward needs fp32 lse and delta "
                          f"of shape {(b, hq, sq)}")
+    return b, sq, sk, hq, hk, d
+
+
+def _bwd_core_cuda(q, k, v, do, lse, delta, causal):
+    b, sq, sk, hq, hk, d = _check_bwd(q, k, v, do, lse, delta, causal)
     q, k, v, do, lse, delta = _contig(q, k, v, do, lse, delta)
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.zeros(b, sq, hq, d, **f32)
@@ -218,26 +276,86 @@ def _bwd_core_cuda(q, k, v, do, lse, delta, causal):
     return dq, dk, dv
 
 
-def flash_attention_fwd(q, k, v, causal):
-    """(O, LSE) on q's device: the forward kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def _dq_cuda(q, k, v, do, lse, delta, causal):
+    """dQ in q's dtype [B, Sq, Hq, D] from the dQ kernel."""
+    b, sq, sk, hq, hk, d = _check_bwd(q, k, v, do, lse, delta, causal)
+    q, k, v, do, lse, delta = _contig(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0 or sk == 0:
+        return dq.zero_()
+    KERNEL_DQ.launch(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+        _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), b, sq, sk, hq,
+        hk, d, 1.0 / math.sqrt(d), int(causal), _DTYPES[q.dtype],
+        _build.stream_ptr(q))
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, lse, delta, causal):
+    """fp32 dK, dV per query head [B, Sk, Hq, D] from the dK/dV kernel."""
+    b, sq, sk, hq, hk, d = _check_bwd(q, k, v, do, lse, delta, causal)
+    q, k, v, do, lse, delta = _contig(q, k, v, do, lse, delta)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.empty(b, sk, hq, d, **f32)
+    dv = torch.empty(b, sk, hq, d, **f32)
+    if dk.numel() == 0 or sq == 0:
+        return dk.zero_(), dv.zero_()
+    KERNEL_DKV.launch(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+        _build.ptr(lse), _build.ptr(delta), _build.ptr(dk), _build.ptr(dv),
+        b, sq, sk, hq, hk, d, 1.0 / math.sqrt(d), int(causal),
+        _DTYPES[q.dtype], _build.stream_ptr(q))
+    return dk, dv
+
+
+def _on_device(cuda_fn, plain_fn, q, *args):
     if q.device.type == "cuda":
-        return _fwd_cuda(q, k, v, causal)
+        return cuda_fn(q, *args)
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal)
+        return plain_fn(q, *args)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def _bwd_core_onepass(q, k, v, do, lse, delta, causal):
+    """The one-pass kernel for CUDA tensors, its plain core for CPU
+    tensors."""
+    return _on_device(_bwd_core_cuda, _bwd_core_plain, q, k, v, do, lse,
+                      delta, causal)
+
+
+def _dq(q, k, v, do, lse, delta, causal):
+    """The dQ kernel for CUDA tensors, ``_dq_plain`` for CPU tensors."""
+    return _on_device(_dq_cuda, _dq_plain, q, k, v, do, lse, delta, causal)
+
+
+def _dkv(q, k, v, do, lse, delta, causal):
+    """The dK/dV kernel for CUDA tensors, ``_dkv_plain`` for CPU
+    tensors."""
+    return _on_device(_dkv_cuda, _dkv_plain, q, k, v, do, lse, delta,
+                      causal)
+
+
+def _bwd_core_twopass(q, k, v, do, lse, delta, causal):
+    """The two-pass route: the dQ pass, then the dK/dV pass."""
+    return (_dq(q, k, v, do, lse, delta, causal),) \
+        + _dkv(q, k, v, do, lse, delta, causal)
+
+
+def flash_attention_fwd(q, k, v, causal):
+    """(O, LSE) on q's device: the forward kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    return _on_device(_fwd_cuda, flash_attention_fwd_plain, q, k, v, causal)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal):
-    """(dQ, dK, dV) on q's device: delta, then the backward kernel for
-    CUDA tensors or its plain core for CPU tensors, then the GQA sum and
-    the casts."""
-    if q.device.type == "cuda":
-        core = _bwd_core_cuda
-    elif q.device.type == "cpu":
-        core = _bwd_core_plain
-    else:
+    """(dQ, dK, dV) on q's device: delta, then the one-pass backward
+    (``flash_onepass_bwd``, the default) or the dQ and dK/dV passes, each
+    a kernel for CUDA tensors and its plain version for CPU tensors, then
+    the GQA sum and the casts."""
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    core = _bwd_core_onepass if flag("flash_onepass_bwd") \
+        else _bwd_core_twopass
     return _bwd_wiring(core, q, k, v, o, lse, do, causal)
 
 

@@ -31,6 +31,9 @@ def test_import_loads_no_jax():
         "import paddle_tpu_torch.inference.speculative, "
         "paddle_tpu_torch.inference.sampling, "
         "paddle_tpu_torch.models.generation\n"
+        "import paddle_tpu_torch.core.flags, paddle_tpu_torch.core.generator, "
+        "paddle_tpu_torch.optimizer.lr, "
+        "paddle_tpu_torch.ops.fused_optimizer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"

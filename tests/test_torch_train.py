@@ -171,27 +171,16 @@ def _step_for(opt_cls=AdamW, **kw):
 
 
 @pytest.mark.parametrize("case", [
-    "accumulate_steps", "mesh", "base_optimizer", "run_steps",
-    "bf16_moments", "lr_ratio", "lr_scheduler", "eager_step",
+    "mesh", "base_optimizer", "lr_ratio", "lr_scheduler", "eager_step",
     "fused_linear_loss", "recompute_policy", "tensor_parallel",
     "tie_word_embeddings", "attention_cache", "recompute_named_policy"])
 def test_unported_keywords_raise(case):
     from paddle_tpu_torch.distributed import recompute
     with pytest.raises(NotImplementedError):
-        if case == "accumulate_steps":
-            _step_for(accumulate_steps=2)
-        elif case == "mesh":
+        if case == "mesh":
             _step_for(mesh=object())
         elif case == "base_optimizer":
             _step_for(Optimizer)
-        elif case == "run_steps":
-            _step_for().run_steps(np.zeros((1, 4), np.int32),
-                                  np.zeros((1, 4), np.int32), steps=2)
-        elif case == "bf16_moments":
-            tnet = LlamaForCausalLM(tiny_llama_config(), device="cpu",
-                                    dtype="bfloat16")
-            TrainStep(tnet, lambda net, t: net(t).sum(),
-                      AdamW(parameters=tnet.parameters()))
         elif case == "lr_ratio":
             AdamW(lr_ratio=lambda p: 1.0)
         elif case == "lr_scheduler":

@@ -375,9 +375,9 @@ def test_cross_entropy_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("FLAGS_adamw_rsqrt_update", True),
-    ("FLAGS_flash_onepass_bwd", False),
-    ("FLAGS_use_fused_adamw_kernel", True),
+    ("FLAGS_use_decode_attention_kernel", False),
+    ("FLAGS_use_int8_matmul_kernel", True),
+    ("FLAGS_prefer_pallas_kernels", False),
 ])
 def test_set_flags_refuses_the_unported_routes(flag, value):
     with pytest.raises(NotImplementedError, match=flag):
