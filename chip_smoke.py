@@ -16,10 +16,13 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    the draft model's ``generate()`` at S = max_context + max_draft;
    training: flash-attention forward and backward (one-pass, and the
    two-pass dQ and dK/dV kernels, whose dQ must be bit-identical over two
-   launches), RoPE forward and backward, RMSNorm, and the fused AdamW
-   update, bit-identical to its plain version for every parameter and
-   moment dtype, with and without stochastic rounding), bfloat16 and
-   float32, with
+   launches) at the training shape, and beyond it the forward at the 8B
+   drafter's prefill (B=1 S=512 D=128), at a ragged causal length
+   (S=1000, D=128) and non-causal with Sq != Sk, and the two-pass
+   backward at the ragged length with G = 4 and G = 1; RoPE forward and
+   backward, RMSNorm, and the fused AdamW update, bit-identical to its
+   plain version for every parameter and moment dtype, with and without
+   stochastic rounding), bfloat16 and float32, with
    CUDA-event timings of the kernel, the plain version and one PyTorch
    library call that computes the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
@@ -578,6 +581,16 @@ FLASH_BF16_TOL = {"O": (2.0 ** -5, 2.0 ** -7), "dQ": (2.0 ** -8, 2.0 ** -7),
 LSE_TOL = (1e-4, 1e-5)
 
 
+def _check_lse(torch, tag, lse, lse_ref):
+    """Max |err| of the LSE after asserting it within LSE_TOL."""
+    atol, rtol = LSE_TOL
+    err = (lse - lse_ref).abs()
+    if (err > atol + rtol * lse_ref.abs()).any():
+        raise AssertionError(f"flash_attention_fwd LSE {tag}: max |err| "
+                             f"{err.max().item():.3g} past atol {atol}")
+    return err.max().item()
+
+
 def _flash_case(torch, dtype, b, gen):
     """Causal flash attention at the training geometry (S=2048, Hq=32,
     Hkv=8, D=64), forward and backward, each against its plain version
@@ -602,11 +615,7 @@ def _flash_case(torch, dtype, b, gen):
                       dtype, row_atol, rtol)
 
     err_o = check("O", o, o_ref)
-    atol, rtol = LSE_TOL
-    err_lse = (lse - lse_ref).abs()
-    if (err_lse > atol + rtol * lse_ref.abs()).any():
-        raise AssertionError(f"flash_attention_fwd LSE {tag}: max |err| "
-                             f"{err_lse.max().item():.3g} past atol {atol}")
+    err_lse = _check_lse(torch, tag, lse, lse_ref)
     del o_ref, lse_ref
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
@@ -650,8 +659,8 @@ def _flash_case(torch, dtype, b, gen):
         out, (qt, kt, vt), dot, retain_graph=True), iters=10)
     del out, qt, kt, vt
     shape = f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal"
-    fwd = dict(shape=shape, dtype=dtype, max_abs_err=max(err_o,
-               err_lse.max().item()), ms=fwd_ms, plain_ms=fwd_plain_ms,
+    fwd = dict(shape=shape, dtype=dtype, max_abs_err=max(err_o, err_lse),
+               ms=fwd_ms, plain_ms=fwd_plain_ms,
                bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
                library_max_abs_err=lib_err)
     bwd = dict(shape=shape, dtype=dtype, max_abs_err=err_b, ms=bwd_ms,
@@ -695,9 +704,11 @@ def _rope_case(torch, dtype, gen):
 
 
 def _flash_twopass_case(torch, dtype, b, gen, causal=True,
-                        hkv=TRAIN["kv_heads"], time_it=True):
-    """The two-pass backward (``flash_onepass_bwd=False``) at S=2048,
-    Hq=32, D=64: dQ, dK and dV through ``flash_attention_bwd`` against
+                        hkv=TRAIN["kv_heads"], time_it=True, s=TRAIN["seq"],
+                        d=TRAIN["head_dim"]):
+    """The two-pass backward (``flash_onepass_bwd=False``) at Hq=32 (by
+    default the training shape S=2048, D=64): dQ, dK and dV through
+    ``flash_attention_bwd`` against
     the plain backward within FLASH_BF16_TOL in bfloat16 (its reasons
     are stated there) and TOL in float32, and the dQ kernel's output
     bit-identical over two launches (it writes every element once, no
@@ -706,7 +717,7 @@ def _flash_twopass_case(torch, dtype, b, gen, causal=True,
     dQ alone or dK and dV alone).  Returns (dq row, dkv row)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import flash_attention as fa
-    s, hq, d = TRAIN["seq"], TRAIN["heads"], TRAIN["head_dim"]
+    hq = TRAIN["heads"]
     dt = getattr(torch, dtype)
     q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
     k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
@@ -781,6 +792,76 @@ def _flash_twopass_case(torch, dtype, b, gen, causal=True,
     _log(f"  flash two-pass {tag}: dQ {dq_ms:.4f} + dK/dV {dkv_ms:.4f} = "
          f"{dq_ms + dkv_ms:.4f} ms (SDPA backward {lib_ms:.4f} ms)")
     return dq_row, dkv_row
+
+
+def _flash_fwd_case(torch, dtype, gen, b, sq, sk, hq, hkv, d, causal,
+                    time_it=False):
+    """The flash forward alone at one geometry: O within FLASH_BF16_TOL
+    (bfloat16) or TOL (float32) and the LSE within LSE_TOL of the plain
+    version.  With ``time_it``: the kernel, the plain version and SDPA
+    (GQA in the call, never called by the port) beside the bound.
+    Returns the row, or None."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dt)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    shape = (f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
+             + ("causal" if causal else "non-causal"))
+    tag = f"{shape} {dtype}"
+    row_atol, rtol = FLASH_BF16_TOL["O"] if dtype == "bfloat16" \
+        else (None, None)
+    err = max(_check(torch, f"flash_attention O {tag}", o, o_ref, dtype,
+                     row_atol, rtol),
+              _check_lse(torch, tag, lse, lse_ref))
+    del o_ref, lse_ref
+    if not time_it:
+        return None
+    item = q.element_size()
+    ops = 4.0 * b * hq * sq * sk * d * (0.5 if causal else 1.0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4
+    bound_ms, by = _bound(nbytes, ops, dtype)
+    ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal))
+    plain_ms = _time_ms(torch, lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal), iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=True))
+    _log(f"  flash_attention_fwd {tag}: kernel {ms:.4f} ms, SDPA "
+         f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return dict(shape=shape, dtype=dtype, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def _flash_shape_rows(torch, seed):
+    """Phase 2's flash cases beyond the training shape, at B <= 2, in
+    bfloat16 (the tensor-core kernels) and float32 (the CUDA-core ones):
+    the forward at the 8B drafter's prefill (B=1 S=512 Hq=32 Hkv=8
+    D=128 causal; timed in bfloat16), at a ragged causal length (S=1000,
+    D=128) and non-causal with Sq != Sk (300 against 1000, D=64); the
+    two-pass backward at the ragged length with G = 4 and G = 1, dQ
+    bit-identical over two launches there as at D=64.  Returns the timed
+    forward rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 6)
+    hq, hkv = TRAIN["heads"], TRAIN["kv_heads"]
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        row = _flash_fwd_case(torch, dtype, gen, 1, 512, 512, hq, hkv, 128,
+                              True, time_it=dtype == "bfloat16")
+        if row is not None:
+            rows.append(row)
+        _flash_fwd_case(torch, dtype, gen, 2, 1000, 1000, hq, hkv, 128, True)
+        _flash_fwd_case(torch, dtype, gen, 2, 300, 1000, hq, hkv, 64, False)
+        for g_kv in (hkv, hq):
+            _flash_twopass_case(torch, dtype, 2, gen, hkv=g_kv,
+                                time_it=False, s=1000, d=128)
+    return rows
 
 
 # the fused AdamW checks: the 1.1B model's MLP weight and embedding, a
@@ -953,6 +1034,7 @@ def phase_kernels(torch, seed):
         torch, TRAIN["batch"] * TRAIN["seq"], "bfloat16", gen,
         d=TRAIN["hidden"]))
     rows.update(_train5_rows(torch, seed))
+    rows["flash_attention_fwd"] += _flash_shape_rows(torch, seed)
     for name, cases in rows.items():
         for c in cases:
             lib = c["library_ms"]

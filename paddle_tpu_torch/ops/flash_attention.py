@@ -20,13 +20,23 @@ dtype before ``P V``, ``dS`` cast to the input dtype before ``dQ`` and
 ``[B, S, H, D]``; the kernels read it directly (no head-major copies).
 
 GQA: the JAX package repeats K and V to Hq heads, so their gradients sum
-over each group of G = Hq / Hkv query heads.  The kernels read kv head
-``h // G`` directly; the backward writes fp32 dK and dV per QUERY head
-and ``flash_attention_bwd`` sums each group of G in fp32, then casts.
+over each group of G = Hq / Hkv query heads, in fp32, once.  The kernels
+read kv head ``h // G`` directly.  Where the sum happens differs by
+route: the one-pass kernel, and the two-pass dK/dV kernel in float32,
+write fp32 dK and dV per QUERY head and the wrapper sums each group;
+the two-pass dK/dV kernel in bfloat16 walks the group's query heads in
+one CTA, sums in fp32 registers and writes [B, Sk, Hkv, D] in k's dtype.
 The one-pass kernel sums dQ with fp32 atomics across key blocks, so its
 last bits vary from run to run on the card; the two-pass dQ kernel sums
 each query block's dQ in one CTA and writes it once, so its dQ is the
 same on every run.
+
+In bfloat16 the forward runs on the tensor cores (``mma.sync`` fed by
+``cp.async``, ``csrc/flash_mma.cuh``), and so do the two-pass kernels'
+dS K, P^T dO and dS^T Q; their S and dP run on CUDA cores in the order of
+the plain version's float32 matmul, so P and dS round as there.  In
+float32 every flash kernel runs on CUDA cores, since TF32 would break the
+float32 tolerance.
 
 ``flash_attention_fwd``, ``_bwd_core_onepass``, ``_dq`` and ``_dkv``
 launch the kernels for CUDA tensors (or raise on what they cannot take)
@@ -164,11 +174,20 @@ def _dq_plain(q, k, v, do, lse, delta, causal):
     return _dq_of(q, k, ds).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _group_sum(x, hk):
+    """[B, S, Hq, D] per query head -> [B, S, Hkv, D], each group of G =
+    Hq / Hkv heads summed in x's dtype."""
+    b, s, hq, d = x.shape
+    return x.reshape(b, s, hk, hq // hk, d).sum(dim=3) if hq > hk else x
+
+
 def _dkv_plain(q, k, v, do, lse, delta, causal):
-    """The dK/dV kernel's contract in plain torch: fp32 dK, dV PER QUERY
-    HEAD [B, Sk, Hq, D]."""
+    """The dK/dV kernel's contract in plain torch: dK, dV [B, Sk, Hkv, D]
+    in k's dtype, each group of query heads summed in the compute
+    dtype."""
     dk, dv = _dkv_of(q, do, *_p_ds(q, k, v, do, lse, delta, causal))
-    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+    return tuple(_group_sum(t.permute(0, 2, 1, 3), k.shape[2]).to(k.dtype)
+                 for t in (dk, dv))
 
 
 def _bwd_core_plain(q, k, v, do, lse, delta, causal):
@@ -181,16 +200,15 @@ def _bwd_core_plain(q, k, v, do, lse, delta, causal):
 
 
 def _bwd_wiring(core, q, k, v, o, lse, do, causal):
-    """delta, the backward core, the GQA sum and the casts."""
+    """delta, the backward core, the GQA sum (for a core that returns dK
+    and dV per query head) and the casts."""
     _geometry(q, k, v, causal)
     ct = torch.promote_types(q.dtype, torch.float32)
     delta = (do.to(ct) * o.to(ct)).sum(dim=-1).permute(0, 2, 1).contiguous()
     dq, dk, dv = core(q, k, v, do, lse, delta, causal)
-    b, sk, hk, d = k.shape
-    g = q.shape[2] // hk
-    if g > 1:
-        dk = dk.reshape(b, sk, hk, g, d).sum(dim=3)
-        dv = dv.reshape(b, sk, hk, g, d).sum(dim=3)
+    hk = k.shape[2]
+    if dk.shape[2] != hk:
+        dk, dv = _group_sum(dk, hk), _group_sum(dv, hk)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -292,20 +310,22 @@ def _dq_cuda(q, k, v, do, lse, delta, causal):
 
 
 def _dkv_cuda(q, k, v, do, lse, delta, causal):
-    """fp32 dK, dV per query head [B, Sk, Hq, D] from the dK/dV kernel."""
+    """dK, dV [B, Sk, Hkv, D] in k's dtype from the dK/dV kernel.  In
+    bfloat16 the kernel sums each GQA group in fp32 registers; in float32
+    it writes fp32 per query head and the group is summed here."""
     b, sq, sk, hq, hk, d = _check_bwd(q, k, v, do, lse, delta, causal)
     q, k, v, do, lse, delta = _contig(q, k, v, do, lse, delta)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dk = torch.empty(b, sk, hq, d, **f32)
-    dv = torch.empty(b, sk, hq, d, **f32)
+    heads = hq if q.dtype == torch.float32 else hk
+    dk = torch.empty(b, sk, heads, d, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     if dk.numel() == 0 or sq == 0:
-        return dk.zero_(), dv.zero_()
+        return _group_sum(dk.zero_(), hk), _group_sum(dv.zero_(), hk)
     KERNEL_DKV.launch(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
         _build.ptr(lse), _build.ptr(delta), _build.ptr(dk), _build.ptr(dv),
         b, sq, sk, hq, hk, d, 1.0 / math.sqrt(d), int(causal),
         _DTYPES[q.dtype], _build.stream_ptr(q))
-    return dk, dv
+    return _group_sum(dk, hk), _group_sum(dv, hk)
 
 
 def _on_device(cuda_fn, plain_fn, q, *args):

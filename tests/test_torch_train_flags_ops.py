@@ -127,7 +127,9 @@ def test_twopass_gradients_match_dq_and_dkv_kernels(twopass, causal, hq,
 def test_twopass_and_onepass_plain_cores_agree():
     """On the CPU both routes compute the same function: the one-pass
     plain core is the dQ and dK/dV plain versions together, bit for
-    bit, and the two routes' gradients are equal."""
+    bit (its per-query-head dK and dV summed over each GQA group, as
+    the dK/dV kernel returns them), and the two routes' gradients are
+    equal."""
     rng = np.random.default_rng(31)
     q, k, v, do = (_t(rng.standard_normal(shape).astype(np.float32))
                    for shape in ((2, 70, 4, 16), (2, 70, 2, 16),
@@ -146,10 +148,11 @@ def test_twopass_and_onepass_plain_cores_agree():
     dq = tfa._dq_plain(q, k, v, do, lse, delta, True)
     dk, dv = tfa._dkv_plain(q, k, v, do, lse, delta, True)
     assert dq.shape == (2, 70, 4, 16) and dk.shape == dv.shape == \
-        (2, 70, 4, 16)
-    for a, b_ in zip(tfa._bwd_core_plain(q, k, v, do, lse, delta, True),
-                     (dq, dk, dv)):
-        assert torch.equal(a, b_)
+        (2, 70, 2, 16)
+    core = tfa._bwd_core_plain(q, k, v, do, lse, delta, True)
+    assert torch.equal(core[0], dq)
+    for a, b_ in zip(core[1:], (dk, dv)):
+        assert torch.equal(tfa._group_sum(a, 2), b_)
 
 
 # ---- fused AdamW ----
