@@ -12,14 +12,17 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    shapes its path gives it (serving: paged decode over a float and an
    int8 cache, RMSNorm, the int8/int4 quantized matmul at the 8B decode
    and prefill shapes; speculative decoding: the K-wide verify attention
-   over a float and an int8 cache at B=8, C=5, and the dense decode of
-   the draft model's ``generate()`` at S = max_context + max_draft;
+   over a float and an int8 cache at B=8, C=5, timed there and at B=1,
+   each row bit-equal to itself alone, beside an all-trash row and in a
+   ragged pair, and the dense decode of the draft model's ``generate()``
+   at S = max_context + max_draft;
    training: flash-attention forward and backward (one-pass, and the
    two-pass dQ and dK/dV kernels, whose dQ must be bit-identical over two
    launches) at the training shape, and beyond it the forward at the 8B
    drafter's prefill (B=1 S=512 D=128), at a ragged causal length
-   (S=1000, D=128) and non-causal with Sq != Sk, and the two-pass
-   backward at the ragged length with G = 4 and G = 1; RoPE forward and
+   (S=1000, D=128) and non-causal with Sq != Sk, and both backward
+   routes at the ragged length with G = 4 and G = 1 (the one-pass also
+   non-causal at D=64); RoPE forward and
    backward, RMSNorm, and the fused AdamW update, bit-identical to its
    plain version for every parameter and moment dtype, with and without
    stochastic rounding), bfloat16 and float32, with
@@ -364,13 +367,63 @@ SPEC = dict(k=4, max_context=512)
 MULTI_LENS = [2047 - (SPEC["k"] + 1), 1500, 1023, 700, 383, 100, 17, 0]
 
 
+def _multi_timing(torch, q, ka, va, tb, ln, scales, lens, need, int8, flush):
+    """The K-wide kernel, its plain version and (float cache) SDPA over
+    the pre-gathered dense view, timed on one batch beside its bound.
+    Returns (ms, plain_ms, bound_ms, bound_by, library_ms, library
+    max_abs_err against the plain version)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import decode_attention as da
+    b, cq, hq, d = q.shape
+    hkv = ka.shape[-1] // d
+    g = hq // hkv
+    blk_len, mb = ka.shape[1], tb.shape[1]
+    dtype = str(q.dtype).split(".")[-1]
+    item = q.element_size()
+    slots = int((lens.astype(np.int64) + cq).sum())
+    per_slot = 2 * hkv * ((d + 4) if int8 else d * item)
+    nbytes = (slots * per_slot                    # staged K and V
+              + 2 * q.numel() * item              # q in, out
+              + sum(need) * 4 + b * 4)            # table entries, lens
+    bound_ms, by = _bound(nbytes, 4 * slots * cq * hq * d, dtype)
+    ms = _time_ms(torch, lambda: da.decode_attention_paged_multi(
+        q, ka, va, tb, ln, scales), flush)
+    plain_ms = _time_ms(torch, lambda: da.decode_attention_paged_multi_plain(
+        q, ka, va, tb, ln, scales), flush)
+    lib_ms = lib_err = None
+    if not int8:
+        # library yardstick: SDPA with an explicit causal boolean mask
+        # over the PRE-GATHERED dense view, kv heads repeated to Hq
+        s = mb * blk_len
+        kd = da.paged_gather_view(ka, tb).reshape(b, s, hkv, d)
+        vd = da.paged_gather_view(va, tb).reshape(b, s, hkv, d)
+        kd = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+        vd = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+        pos = ln.long()[:, None] + torch.arange(cq, device="cuda")[None, :]
+        mask = (torch.arange(s, device="cuda")[None, None, :]
+                <= pos[:, :, None])[:, None]              # [B, 1, C, S]
+        qt = q.transpose(1, 2)                            # [B, Hq, C, D]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        want = da.decode_attention_paged_multi_plain(q, ka, va, tb, ln,
+                                                     scales)
+        lib = sdpa(qt, kd, vd, attn_mask=mask).transpose(1, 2)
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        lib_ms = _time_ms(torch, lambda: sdpa(qt, kd, vd, attn_mask=mask),
+                          flush)
+    return ms, plain_ms, bound_ms, by, lib_ms, lib_err
+
+
 def _multi_case(torch, dtype, gen, rng, int8):
     """The K-wide verify attention at the serving geometry of
     ``_decode_case`` with C = 5 queries per row (lens up to 2047 - C, so
     the last query reaches slot 2046 of a full table), float or int8
-    cache, L2 flushed by a read.  A second launch checks a row outside
-    spec mode (all-trash table, n_valid 0, lens far past its blocks)
-    riding beside a real one: finite, and equal to its plain version."""
+    cache, L2 flushed by a read.  Further launches hold each row to
+    itself, bit for bit, whatever batch it rides in: a real row beside a
+    row outside spec mode (all-trash table, n_valid 0, lens far past its
+    blocks; finite, and equal to its plain version), the longest row
+    alone (B=1, the 1-slot engine's shape), and a ragged pair, that row
+    beside a short one (lens 3, one block), each equal to itself
+    launched alone.  Timed at B=8 and at B=1.  Returns the two rows."""
     import numpy as np
     from paddle_tpu_torch.models.generation import quantize_kv_heads
     from paddle_tpu_torch.ops import decode_attention as da
@@ -397,62 +450,58 @@ def _multi_case(torch, dtype, gen, rng, int8):
     ln = torch.from_numpy(lens).cuda()
     name = "paged_decode_attention_multi" + ("_int8" if int8 else "")
     tol = DECODE_INT8_TOL[dtype] if int8 else {}
-    got = da.decode_attention_paged_multi(q, ka, va, tb, ln, scales)
-    want = da.decode_attention_paged_multi_plain(q, ka, va, tb, ln, scales)
-    torch.cuda.synchronize()
-    err = _check(torch, f"{name} {dtype}", got, want, dtype, **tol)
+
+    def run(rows, row_lens, what, tables=None):
+        """The kernel on rows ``rows`` of q and tb (or ``tables``) at
+        ``row_lens``, checked against its plain version."""
+        qq, tt = q[rows], tb[rows] if tables is None else tables
+        ll = torch.tensor(row_lens, dtype=torch.int32, device="cuda")
+        got = da.decode_attention_paged_multi(qq, ka, va, tt, ll, scales)
+        want = da.decode_attention_paged_multi_plain(qq, ka, va, tt, ll,
+                                                     scales)
+        torch.cuda.synchronize()
+        return got, _check(torch, f"{name} {dtype}{what}", got, want, dtype,
+                           **tol)
+
+    def same(a, b_, what):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"{name} {dtype}: a row's output changed "
+                                 f"with the batch it rode in ({what})")
+
+    got, err = run(list(range(b)), lens.tolist(), "")
     # a real row beside a row outside spec mode (all-trash table)
-    tb2 = torch.stack([tb[1], torch.full_like(tb[1], nb)])
-    ln2 = torch.tensor([int(lens[1]), 1234], dtype=torch.int32,
-                       device="cuda")
-    got2 = da.decode_attention_paged_multi(q[1:3], ka, va, tb2, ln2, scales)
-    want2 = da.decode_attention_paged_multi_plain(q[1:3], ka, va, tb2, ln2,
-                                                  scales)
-    torch.cuda.synchronize()
-    _check(torch, f"{name} {dtype} with an all-trash row", got2, want2,
-           dtype, **tol)
-    if not torch.equal(got2[0], got[1]):
-        raise AssertionError(f"{name} {dtype}: a row's output changed with "
-                             f"the batch it rode in")
-    item = q.element_size()
-    slots = int((lens.astype(np.int64) + cq).sum())
-    per_slot = 2 * hkv * ((d + 4) if int8 else d * item)
-    nbytes = (slots * per_slot                    # staged K and V
-              + 2 * q.numel() * item              # q in, out
-              + sum(need) * 4 + b * 4)            # table entries, lens
-    bound_ms, by = _bound(nbytes, 4 * slots * cq * hkv * g * d, dtype)
+    got2, _ = run([1, 2], [int(lens[1]), 1234], " with an all-trash row",
+                  torch.stack([tb[1], torch.full_like(tb[1], nb)]))
+    same(got2[0], got[1], "beside an all-trash row")
+    # the longest row alone, then beside a short row, which is itself
+    # launched alone
+    got1, _ = run([0], [int(lens[0])], " B=1")
+    same(got1[0], got[0], "B=1 alone")
+    got_pair, _ = run([0, 7], [int(lens[0]), 3], " ragged pair")
+    got_short, _ = run([7], [3], " short row alone")
+    same(got_pair[0], got[0], "ragged pair, long row")
+    same(got_pair[1], got_short[0], "ragged pair, short row")
     scratch, flush = _read_flush(torch)
-    ms = _time_ms(torch, lambda: da.decode_attention_paged_multi(
-        q, ka, va, tb, ln, scales), flush)
-    plain_ms = _time_ms(torch, lambda: da.decode_attention_paged_multi_plain(
-        q, ka, va, tb, ln, scales), flush)
-    lib_ms = lib_err = None
-    if not int8:
-        # library yardstick: SDPA with an explicit causal boolean mask
-        # over the PRE-GATHERED dense view, kv heads repeated to Hq
-        s = mb * blk_len
-        kd = da.paged_gather_view(ka, tb).reshape(b, s, hkv, d)
-        vd = da.paged_gather_view(va, tb).reshape(b, s, hkv, d)
-        kd = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
-        vd = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
-        pos = ln.long()[:, None] + torch.arange(cq, device="cuda")[None, :]
-        mask = (torch.arange(s, device="cuda")[None, None, :]
-                <= pos[:, :, None])[:, None]              # [B, 1, C, S]
-        qt = q.transpose(1, 2)                            # [B, Hq, C, D]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = sdpa(qt, kd, vd, attn_mask=mask).transpose(1, 2)
-        lib_err = (lib.float() - want.float()).abs().max().item()
-        lib_ms = _time_ms(torch, lambda: sdpa(qt, kd, vd, attn_mask=mask),
-                          flush)
+    rows = []
+    for sel, tag in ((slice(None), ""), (slice(0, 1), " B=1")):
+        ms, plain_ms, bound_ms, by, lib_ms, lib_err = _multi_timing(
+            torch, q[sel], ka, va, tb[sel], ln[sel], scales, lens[sel],
+            need[sel], int8, flush)
+        row = dict(shape=f"B={q[sel].shape[0]} C={cq} Hkv={hkv} G={g} "
+                         f"D={d} L={blk_len} max_blocks={mb} "
+                         f"lens<={int(lens[sel].max())}"
+                         + (" int8 cache" if int8 else ""),
+                   dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+        if lib_err is not None:
+            row["library_max_abs_err"] = lib_err
+        rows.append(row)
+        _log(f"  {name} {dtype}{tag}: kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, library "
+             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+             + f", bound {bound_ms:.4f} ms")
     del scratch
-    row = dict(shape=f"B={b} C={cq} Hkv={hkv} G={g} D={d} L={blk_len} "
-                     f"max_blocks={mb} lens<={int(lens.max())}"
-                     + (" int8 cache" if int8 else ""),
-               dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
-    if lib_err is not None:
-        row["library_max_abs_err"] = lib_err
-    return row
+    return rows
 
 
 def _dense_case(torch, dtype, gen):
@@ -838,6 +887,36 @@ def _flash_fwd_case(torch, dtype, gen, b, sq, sk, hq, hkv, d, causal,
                 library_ms=lib_ms)
 
 
+def _flash_onepass_case(torch, dtype, gen, b, s, hkv, d, causal):
+    """The one-pass backward (the default route, ``flash_onepass_bwd``)
+    at one geometry beyond the training shape, Hq=32: dQ, dK and dV
+    through ``flash_attention_bwd`` against the plain backward within
+    FLASH_BF16_TOL in bfloat16 (its reasons are stated there) and TOL in
+    float32, one launch of its kernel."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    hq = TRAIN["heads"]
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dt)
+    do = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dt)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    before = fa.KERNEL_BWD.launches
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    tag = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+           + ("causal" if causal else "non-causal") + f" {dtype}")
+    if fa.KERNEL_BWD.launches != before + 1:
+        raise AssertionError(f"flash one-pass {tag}: the backward did not "
+                             f"launch the one-pass kernel once")
+    for what, got, want in zip(("dQ", "dK", "dV"), grads, refs):
+        row_atol, rtol = FLASH_BF16_TOL[what] if dtype == "bfloat16" \
+            else (None, None)
+        _check(torch, f"flash one-pass {what} {tag}", got, want, dtype,
+               row_atol, rtol)
+
+
 def _flash_shape_rows(torch, seed):
     """Phase 2's flash cases beyond the training shape, at B <= 2, in
     bfloat16 (the tensor-core kernels) and float32 (the CUDA-core ones):
@@ -845,8 +924,9 @@ def _flash_shape_rows(torch, seed):
     D=128 causal; timed in bfloat16), at a ragged causal length (S=1000,
     D=128) and non-causal with Sq != Sk (300 against 1000, D=64); the
     two-pass backward at the ragged length with G = 4 and G = 1, dQ
-    bit-identical over two launches there as at D=64.  Returns the timed
-    forward rows."""
+    bit-identical over two launches there as at D=64; the one-pass
+    backward at the ragged length with G = 4 and G = 1 and non-causal at
+    Sq = Sk = 1000, D=64.  Returns the timed forward rows."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 6)
     hq, hkv = TRAIN["heads"], TRAIN["kv_heads"]
@@ -861,6 +941,8 @@ def _flash_shape_rows(torch, seed):
         for g_kv in (hkv, hq):
             _flash_twopass_case(torch, dtype, 2, gen, hkv=g_kv,
                                 time_it=False, s=1000, d=128)
+            _flash_onepass_case(torch, dtype, gen, 2, 1000, g_kv, 128, True)
+        _flash_onepass_case(torch, dtype, gen, 2, 1000, hkv, 64, False)
     return rows
 
 
@@ -1012,10 +1094,10 @@ def phase_kernels(torch, seed):
             _decode_case(torch, dtype, gen, rng))
         rows["paged_decode_attention_int8"].append(
             _decode_int8_case(torch, dtype, gen, rng))
-        rows["paged_decode_attention_multi"].append(
-            _multi_case(torch, dtype, gen, rng, int8=False))
-        rows["paged_decode_attention_multi_int8"].append(
-            _multi_case(torch, dtype, gen, rng, int8=True))
+        rows["paged_decode_attention_multi"] += _multi_case(
+            torch, dtype, gen, rng, int8=False)
+        rows["paged_decode_attention_multi_int8"] += _multi_case(
+            torch, dtype, gen, rng, int8=True)
         rows["decode_attention"].append(_dense_case(torch, dtype, gen))
         for bits in (8, 4):
             for m, k, n in QMM_SHAPES:

@@ -96,7 +96,7 @@
 //   aligned pointers (the wrapper checks).  Return cudaGetLastError().
 
 #include "flash_common.cuh"
-#include "flash_mma.cuh"
+#include "flash_bwd_tc.cuh"
 
 #include <math.h>
 
@@ -354,140 +354,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // bfloat16: S and dP on CUDA cores (the plain version's rounding), the other
-// products on tensor cores
+// products on tensor cores; the shared pieces and dkv_tc_kernel are in
+// flash_bwd_tc.cuh, which the one-pass kernel shares
 
-using fmma::bf16;
-
-constexpr int kT = 128;   // threads of the bf16 kernels: 4 warps
-constexpr int kB = 64;    // rows of a query block and of a key block
-constexpr int kH = 64;    // threads of a CUDA-core half (0 builds S, 1 dP)
-
-// The transposed fp32 tile t[d][r] (rows of kB floats) of rows r < kB of
-// a bf16 tile in shared or device memory (row r at src + r * row_stride),
-// zero at r >= valid.  Consecutive lanes take consecutive r, so the column
-// stores are conflict-free.
-template <int D>
-__device__ __forceinline__ void to_f32_t(float* t, const bf16* src,
-                                         long long row_stride, int valid) {
-#pragma unroll
-  for (int c = threadIdx.x / kB; c < D / 8; c += kT / kB) {
-    const int r = threadIdx.x % kB;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid)
-      raw = *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-    const bf16* x = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      t[(c * 8 + i) * kB + r] = __bfloat162float(x[i]);
-  }
-}
-
-// One score-shaped product of a kB x kB tile on CUDA cores,
-//   acc[i][j] = sum_d At[d][row(i)] * Bt[d][col(j)],
-// one fmaf per d in ascending d from zero: the chain that PyTorch's float32
-// matmul on the card (the plain version's q k^T and dO v^T) runs, so S and
-// dP equal the plain version's bit for bit.  The kH threads of a half own
-// 8 x 8 micro-tiles, rows row(i) = 4 ty + i (i < 4) and 32 + 4 ty + i - 4,
-// columns the same in tx (ty = lt / 8, tx = lt % 8): four float4 reads of
-// the transposed tiles per 64 fmaf, each quarter-warp reading one
-// contiguous 128 bytes or one broadcast 16, so no bank conflicts.
-__device__ __forceinline__ int micro(int x, int i) {
-  return i < 4 ? 4 * x + i : 32 + 4 * x + i - 4;
-}
-
-template <int D>
-__device__ __forceinline__ void tile_ffma(const float* At, const float* Bt,
-                                          int ty, int tx,
-                                          float (&acc)[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const float* ar = At + 4 * ty;
-  const float* br = Bt + 4 * tx;
-  // operands of step d + 1 are read while step d's fmaf run
-  float4 a0 = *reinterpret_cast<const float4*>(ar);
-  float4 a1 = *reinterpret_cast<const float4*>(ar + 32);
-  float4 b0 = *reinterpret_cast<const float4*>(br);
-  float4 b1 = *reinterpret_cast<const float4*>(br + 32);
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-    if (d + 1 < D) {
-      ar += kB;
-      br += kB;
-      a0 = *reinterpret_cast<const float4*>(ar);
-      a1 = *reinterpret_cast<const float4*>(ar + 32);
-      b0 = *reinterpret_cast<const float4*>(br);
-      b1 = *reinterpret_cast<const float4*>(br + 32);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Barrier of the kH threads of half 0 (warps 0-1), barrier 1.
-__device__ __forceinline__ void half0_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kH) : "memory");
-}
-
-// Row-major kB x kB fp32 tile: the 8 x 8 micro-tile of (ty, tx) as float4s.
-__device__ __forceinline__ void put_tile(float* t, int ty, int tx,
-                                         const float (&x)[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float4*>(t + micro(ty, i) * kB + 32 * h + 4 * tx) =
-          make_float4(x[i][4 * h], x[i][4 * h + 1], x[i][4 * h + 2],
-                      x[i][4 * h + 3]);
-}
-
-// dS = P * (dP - delta) in place of dP, P read from the row-major fp32
-// tile t; delta per micro-tile row (kRowDelta) or column.
-template <bool kRowDelta>
-__device__ __forceinline__ void ds_of(const float* t, const float* delta,
-                                      int ty, int tx, float (&x)[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          t + micro(ty, i) * kB + 32 * h + 4 * tx);
-      const float p[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * h + e;
-        const float dlt =
-            kRowDelta ? delta[micro(ty, i)] : delta[micro(tx, j)];
-        x[i][j] = p[e] * (x[i][j] - dlt);
-      }
-    }
-}
-
-// The micro-tile rounded to bf16 into a padded [kB][kB + kPad] bf16 tile.
-__device__ __forceinline__ void put_tile_bf16(bf16* t, int ty, int tx,
-                                              const float (&x)[8][8]) {
-  constexpr int LDS = kB + fmma::kPad;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint2 v;
-      v.x = fmma::pack_bf16(x[i][4 * h], x[i][4 * h + 1]);
-      v.y = fmma::pack_bf16(x[i][4 * h + 2], x[i][4 * h + 3]);
-      *reinterpret_cast<uint2*>(t + micro(ty, i) * LDS + 32 * h + 4 * tx) = v;
-    }
-}
-
-// P = exp(s * scale - lse), each operation rounded on its own (no FMA
-// contraction) with the accurate expf: the plain version's arithmetic.
-__device__ __forceinline__ float p_of(float s, float scale, float lse) {
-  return expf(__fsub_rn(__fmul_rn(s, scale), lse));
-}
+using namespace flash_tc;
 
 template <int D>
 constexpr int dq_tc_smem_bytes() {
@@ -637,172 +507,6 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-constexpr int dkv_tc_smem_bytes() {
-  // Kt, Vt, Qt, dOt fp32 [D][kB]; 2 stages of Q, dO bf16 [kB][D + kPad]
-  // and of lse, delta [kB]; P^T bf16 [kB][kB + kPad].  P^T in fp32
-  // ([kB][kB]) reuses Qt, dS^T (bf16) reuses dOt.
-  return 4 * D * kB * 4 + 4 * kB * (D + fmma::kPad) * 2 + 4 * kB * 4
-         + kB * (kB + fmma::kPad) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kT)
-dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
-              int Hq, int Hkv, float scale, int causal) {
-  using namespace fmma;
-  constexpr int LD = D + kPad;
-  constexpr int LDS = kB + kPad;
-  constexpr int DT = D / 8;
-  extern __shared__ uint4 smem_tc[];
-  float* sKt = reinterpret_cast<float*>(smem_tc);
-  float* sVt = sKt + D * kB;
-  float* sQt = sVt + D * kB;
-  float* sdOt = sQt + D * kB;
-  bf16* sQ = reinterpret_cast<bf16*>(sdOt + D * kB);   // 2 stages
-  bf16* sdO = sQ + 2 * kB * LD;                            // 2 stages
-  float* sL = reinterpret_cast<float*>(sdO + 2 * kB * LD);   // 2 x [kB]
-  float* sD = sL + 2 * kB;                                   // 2 x [kB]
-  bf16* sPt = reinterpret_cast<bf16*>(sD + 2 * kB);
-  float* sP32 = sQt;                            // after S^T is built
-  bf16* sdSt = reinterpret_cast<bf16*>(sdOt);   // after dP^T is built
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int half = threadIdx.x / kH;        // 0 builds S^T and P^T, 1 dP^T
-  const int ty = (threadIdx.x % kH) >> 3;   // micro-tile rows: keys
-  const int tx = threadIdx.x & 7;           // micro-tile columns: queries
-  const int kb = blockIdx.x;               // heaviest causal blocks first
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int k0 = kb * kB;
-
-  const long long q_stride = (long long)Hq * D;
-  const long long kv_stride = (long long)Hkv * D;
-
-  const int nqb = (Sq + kB - 1) / kB;
-  const int qb_start = causal ? kb : 0;
-  const int nq = nqb - qb_start;
-  const int n_it = G * nq;   // (query head, query block) pairs of the group
-
-  // queue the Q, dO, LSE and delta of iteration `it` into stage `st`
-  auto load_q_block = [&](int it, int st) {
-    const int h = hk * G + it / nq;
-    const int q0 = (qb_start + it % nq) * kB;
-    const long long head = (long long)b * Sq * Hq + h;
-    const long long row = ((long long)b * Hq + h) * Sq;
-    load_tile_async<kB, D, kT>(sQ + st * kB * LD, q + head * D, q_stride, q0,
-                               Sq - q0);
-    load_tile_async<kB, D, kT>(sdO + st * kB * LD, dout + head * D, q_stride,
-                               q0, Sq - q0);
-    load_row_async<kB, kT>(sL + st * kB, lse + row, q0, Sq - q0);
-    load_row_async<kB, kT>(sD + st * kB, delta + row, q0, Sq - q0);
-  };
-
-  load_q_block(0, 0);
-  cp_async_commit();
-  const bf16* kg = k + ((long long)b * Sk * Hkv + hk) * D;
-  const bf16* vg = v + ((long long)b * Sk * Hkv + hk) * D;
-  to_f32_t<D>(sKt, kg + (long long)k0 * kv_stride, kv_stride, Sk - k0);
-  to_f32_t<D>(sVt, vg + (long long)k0 * kv_stride, kv_stride, Sk - k0);
-
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk_acc[dt][e] = 0.f;
-      dv_acc[dt][e] = 0.f;
-    }
-
-  for (int it = 0; it < n_it; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_it) load_q_block(it + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cQ = sQ + st * kB * LD;
-    const bf16* cdO = sdO + st * kB * LD;
-    const float* cL = sL + st * kB;
-    const float* cD = sD + st * kB;
-    const int q0 = (qb_start + it % nq) * kB;
-    to_f32_t<D>(sQt, cQ, LD, kB);
-    to_f32_t<D>(sdOt, cdO, LD, kB);
-    __syncthreads();
-
-    // S^T (half 0) and dP^T (half 1) on CUDA cores, then P^T and dS^T
-    float x[8][8];
-    tile_ffma<D>(half ? sVt : sKt, half ? sdOt : sQt, ty, tx, x);
-    const bool need_mask =
-        (causal && k0 + kB - 1 > q0) || (k0 + kB > Sk) || (q0 + kB > Sq);
-    if (half == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int query = q0 + micro(tx, j);
-        const float lse_q = cL[micro(tx, j)];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int key = k0 + micro(ty, i);
-          float p = p_of(x[i][j], scale, lse_q);
-          if (need_mask &&
-              (key >= Sk || query >= Sq || (causal && key > query)))
-            p = 0.f;
-          x[i][j] = p;
-        }
-      }
-      put_tile_bf16(sPt, ty, tx, x);
-      half0_sync();   // every read of Qt by this half is done
-      put_tile(sP32, ty, tx, x);
-    }
-    __syncthreads();
-    if (half == 1) {
-      ds_of<false>(sP32, cD, ty, tx, x);
-      put_tile_bf16(sdSt, ty, tx, x);
-    }
-    __syncthreads();
-
-    // dV += P^T(bf16) dO, dK += dS^T(bf16) Q on the tensor cores; warp w
-    // owns keys 16 w .. + 15
-#pragma unroll
-    for (int j = 0; j < kB / 16; ++j) {
-      uint32_t pa[4], da[4];
-      load_a<LDS>(pa, sPt, warp * 16, j * 16, lane);
-      load_a<LDS>(da, sdSt, warp * 16, j * 16, lane);
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bb[4];
-        load_b_trans<LD>(bb, cdO, j * 16, dt * 8, lane);
-        mma(dv_acc[dt], pa, bb[0], bb[1]);
-        mma(dv_acc[dt + 1], pa, bb[2], bb[3]);
-        load_b_trans<LD>(bb, cQ, j * 16, dt * 8, lane);
-        mma(dk_acc[dt], da, bb[0], bb[1]);
-        mma(dk_acc[dt + 1], da, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();   // P^T, dS^T and stage st are free
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + warp * 16 + g + r * 8;
-    if (row >= Sk) continue;
-    const long long off = (((long long)b * Sk + row) * Hkv + hk) * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8) = fmma::pack_bf16(
-          dk_acc[dt][2 * r] * scale, dk_acc[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8) =
-          fmma::pack_bf16(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
-    }
-  }
-}
-
 template <typename Kern>
 int set_smem(Kern kern, int smem, bool& done) {
   if (done) return 0;
@@ -868,16 +572,16 @@ int launch_dq_tc(const Args& a) {
 
 template <int D>
 int launch_dkv_tc(const Args& a) {
-  constexpr int smem = dkv_tc_smem_bytes<D>();
+  constexpr int smem = dkv_tc_smem_bytes<D, false>();
   static bool attr_set = false;
-  if (int e = set_smem(dkv_tc_kernel<D>, smem, attr_set)) return e;
+  if (int e = set_smem(dkv_tc_kernel<D, false>, smem, attr_set)) return e;
   dim3 grid((a.Sk + kB - 1) / kB, a.Hkv, a.B);
-  dkv_tc_kernel<D><<<grid, kT, smem, a.stream>>>(
+  dkv_tc_kernel<D, false><<<grid, kT, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.Sq, a.Sk,
-      a.Hq, a.Hkv, a.scale, a.causal);
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), nullptr, a.Sq,
+      a.Sk, a.Hq, a.Hkv, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 

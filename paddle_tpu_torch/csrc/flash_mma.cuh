@@ -1,5 +1,6 @@
 // Tensor-core pieces of the bf16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd_twopass.cu): the warp-level
+// (flash_attention_fwd.cu, flash_bwd_tc.cuh) and of the K-wide verify
+// kernel's cp.async ring (paged_decode_attention_multi.cu): the warp-level
 // bf16 product mma.sync m16n8k16 with fp32 accumulators, ldmatrix
 // fragment loads from shared memory, cp.async copies from device memory
 // into shared memory, and the quad-wide row reductions of an m16n8
@@ -99,6 +100,17 @@ template <int LD>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
                                        int m0, int k0, int lane) {
   ldmatrix_x4(a, s + (m0 + (lane & 15)) * LD + k0 + ((lane >> 4) << 3));
+}
+
+// The A fragment (rows m0..m0+15, cols k0..k0+15) of the product from a
+// tile stored transposed, [k][m] (dS from the key-major dS^T), by
+// ldmatrix.trans: lanes 0-7 address matrix (m0, k0), 8-15 (m0 + 8, k0),
+// 16-23 (m0, k0 + 8), 24-31 (m0 + 8, k0 + 8), each by its 8 rows of k.
+template <int LD>
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4], const bf16* s,
+                                             int m0, int k0, int lane) {
+  ldmatrix_x4_trans(a, s + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LD + m0
+                           + (((lane >> 3) & 1) << 3));
 }
 
 // B fragments of the n8 tiles n0 and n0 + 8 over k0..k0+15, from a tile

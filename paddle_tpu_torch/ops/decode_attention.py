@@ -48,14 +48,18 @@ KERNEL_INT8 = _build.register(_build.Kernel(
 # the K-wide verify kernels: one source, a float and an int8 entry point
 KERNEL_MULTI = _build.register(_build.Kernel(
     "paged_decode_attention_multi", "ptt_paged_decode_attention_multi",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 KERNEL_MULTI_INT8 = _build.register(_build.Kernel(
     "paged_decode_attention_multi_int8",
     "ptt_paged_decode_attention_multi_int8",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     source="paged_decode_attention_multi"))
+_SPLIT_SLOTS = 128      # cache slots one CTA of the K-wide kernel walks
+_MULTI_HEAD_DIMS = (32, 64, 128, 256)
+_MULTI_MAX_THREADS = 512   # threads of one K-wide split CTA
+_MULTI_STAGES = 3       # blocks in the K-wide kernel's cp.async ring
 KERNEL_DENSE = _build.register(_build.Kernel(
     "decode_attention", "ptt_decode_attention",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -188,12 +192,58 @@ def decode_attention_paged_plain(q, k_arena, v_arena, tables, lens,
     return out.reshape(b, hq * d)
 
 
+def verify_split_plan(max_blocks, blk_len):
+    """(blocks per split, number of splits) of the K-wide kernel: each CTA
+    walks a fixed run of ``max(1, 128 // blk_len)`` blocks of a row's
+    table, and the grid holds enough splits for a full table.  A function
+    of ``max_blocks`` and ``blk_len`` alone, never of the batch, the
+    verify width or the card, so a row's split boundaries (and so its
+    output bits) are the same whatever batch it rides in."""
+    bps = max(1, _SPLIT_SLOTS // blk_len)
+    return bps, -(-max_blocks // bps)
+
+
+def verify_partials(b, cq, hkv, g, d, max_blocks, blk_len, device):
+    """The K-wide kernel's scratch: each split's unnormalized accumulator
+    ``[B, Hkv, n_splits, C*G, D]`` and its (running max, denominator)
+    ``[B, Hkv, n_splits, C*G, 2]``, fp32, uninitialized (a split writes
+    the rows it walks; the merge reads only a row's own splits)."""
+    _, n_splits = verify_split_plan(max_blocks, blk_len)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(b, hkv, n_splits, cq * g, d, **f32),
+            torch.empty(b, hkv, n_splits, cq * g, 2, **f32))
+
+
+def _multi_smem(blk_len, d, item, int8):
+    """Shared memory of the K-wide split kernel: the ring of K and V
+    blocks, or for int8 the ring of codes and scales (padded to 16 bytes)
+    and one dequantized K and V tile, plus the split's table entries (512
+    bytes).  A bfloat16 tile (the tensor-core route) holds the block's
+    slots rounded up to 16, in rows padded by 16 bytes."""
+    tc = item == 2
+    tile = (-(-blk_len // 16) * 16 if tc else blk_len) \
+        * (d + 8 if tc else d) * item
+    if not int8:
+        return _MULTI_STAGES * 2 * tile + 512
+    return _MULTI_STAGES * 2 * blk_len * d \
+        + -(-_MULTI_STAGES * 2 * blk_len * 4 // 16) * 16 + 2 * tile + 512
+
+
+def _multi_threads(rows, d, item):
+    """Threads of a K-wide split CTA: two warps per 16 query rows on the
+    tensor cores (bfloat16), D/16 lanes per row on CUDA cores
+    (float32)."""
+    if item == 2:
+        return 64 * -(-rows // 16)
+    return max(128, -(-rows * d // 16 // 32) * 32)
+
+
 def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
     """Raise on what a paged kernel (the int8 one with ``kv_scales``; the
     K-wide one for q [B, C, Hq, D]) cannot take; returns (B, Hq, D, Hkv,
     G)."""
     b, hq, d, hkv, g = _head_geometry(q, k_arena)
-    rows = g * (q.shape[1] if q.ndim == 4 else 1)   # query rows per CTA
+    multi = q.ndim == 4
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_arena, v_arena)):
         raise RuntimeError(
@@ -246,8 +296,21 @@ def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
         raise ValueError(f"paged decode kernel takes at most 65535 rows, "
                          f"got {b}")
     blk_len = k_arena.shape[1]
-    smem = 4 * (2 * rows * d + blk_len * (2 * d + 1) + rows * blk_len
-                + 3 * rows)
+    rows = g * (q.shape[1] if multi else 1)     # query rows per CTA
+    if multi:
+        if d not in _MULTI_HEAD_DIMS:
+            raise ValueError(f"K-wide paged decode kernel takes head_dim in "
+                             f"{_MULTI_HEAD_DIMS}, got {d}")
+        threads = _multi_threads(rows, d, q.element_size())
+        if threads > _MULTI_MAX_THREADS:
+            raise ValueError(f"K-wide paged decode kernel: C*G={rows} query "
+                             f"rows at D={d} need {threads} threads "
+                             f"(> {_MULTI_MAX_THREADS})")
+        smem = _multi_smem(blk_len, d, q.element_size(),
+                           kv_scales is not None)
+    else:
+        smem = 4 * (2 * rows * d + blk_len * (2 * d + 1) + rows * blk_len
+                    + 3 * rows)
     if smem > _SMEM_MAX:
         raise ValueError(f"paged decode kernel: {rows} query rows, D={d}, "
                          f"L={blk_len} need {smem} bytes of shared memory "
@@ -331,18 +394,24 @@ def _decode_attention_paged_multi_cuda(q, k_arena, v_arena, tables, lens,
     out = torch.empty_like(q)
     if b == 0 or cc == 0:
         return out
-    geometry = (b, cc, hkv, g, d, k_arena.shape[1], tables.shape[1],
-                k_arena.shape[0], 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+    blk_len, mb = k_arena.shape[1], tables.shape[1]
+    bps, n_splits = verify_split_plan(mb, blk_len)
+    part_acc, part_ml = verify_partials(b, cc, hkv, g, d, mb, blk_len,
+                                        q.device)
+    geometry = (b, cc, hkv, g, d, blk_len, mb, k_arena.shape[0], bps,
+                n_splits, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
                 _build.stream_ptr(q))
     if kv_scales is None:
         KERNEL_MULTI.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
-            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
+            _build.ptr(part_acc), _build.ptr(part_ml), *geometry)
     else:
         KERNEL_MULTI_INT8.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
             _build.ptr(kv_scales[0]), _build.ptr(kv_scales[1]),
-            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
+            _build.ptr(part_acc), _build.ptr(part_ml), *geometry)
     return out
 
 

@@ -21,22 +21,22 @@ dtype before ``P V``, ``dS`` cast to the input dtype before ``dQ`` and
 
 GQA: the JAX package repeats K and V to Hq heads, so their gradients sum
 over each group of G = Hq / Hkv query heads, in fp32, once.  The kernels
-read kv head ``h // G`` directly.  Where the sum happens differs by
-route: the one-pass kernel, and the two-pass dK/dV kernel in float32,
-write fp32 dK and dV per QUERY head and the wrapper sums each group;
-the two-pass dK/dV kernel in bfloat16 walks the group's query heads in
-one CTA, sums in fp32 registers and writes [B, Sk, Hkv, D] in k's dtype.
-The one-pass kernel sums dQ with fp32 atomics across key blocks, so its
-last bits vary from run to run on the card; the two-pass dQ kernel sums
-each query block's dQ in one CTA and writes it once, so its dQ is the
-same on every run.
+read kv head ``h // G`` directly.  Every backward core returns dK and dV
+per KV head.  In bfloat16 the one-pass kernel and the two-pass dK/dV
+kernel walk the group's query heads in one CTA, sum in fp32 registers
+and write [B, Sk, Hkv, D] in k's dtype; in float32 both write fp32 per
+QUERY head and their wrappers sum each group (``_group_sum``), as the
+plain cores sum theirs, in the compute dtype.  The one-pass kernel sums
+dQ with fp32 atomics across key blocks, so its last bits vary from run
+to run on the card; the two-pass dQ kernel sums each query block's dQ
+in one CTA and writes it once, so its dQ is the same on every run.
 
 In bfloat16 the forward runs on the tensor cores (``mma.sync`` fed by
-``cp.async``, ``csrc/flash_mma.cuh``), and so do the two-pass kernels'
-dS K, P^T dO and dS^T Q; their S and dP run on CUDA cores in the order of
-the plain version's float32 matmul, so P and dS round as there.  In
-float32 every flash kernel runs on CUDA cores, since TF32 would break the
-float32 tolerance.
+``cp.async``, ``csrc/flash_mma.cuh``), and so do the backward kernels'
+dS K, P^T dO and dS^T Q (``csrc/flash_bwd_tc.cuh``); their S and dP run
+on CUDA cores in the order of the plain version's float32 matmul, so P
+and dS round as there.  In float32 every flash kernel runs on CUDA
+cores, since TF32 would break the float32 tolerance.
 
 ``flash_attention_fwd``, ``_bwd_core_onepass``, ``_dq`` and ``_dkv``
 launch the kernels for CUDA tensors (or raise on what they cannot take)
@@ -192,23 +192,23 @@ def _dkv_plain(q, k, v, do, lse, delta, causal):
 
 def _bwd_core_plain(q, k, v, do, lse, delta, causal):
     """The one-pass backward kernel's contract in plain torch, P and dS
-    built once: fp32 dQ [B, Sq, Hq, D] and fp32 dK, dV PER QUERY HEAD
-    [B, Sk, Hq, D]."""
+    built once: dQ [B, Sq, Hq, D] and dK, dV [B, Sk, Hkv, D], each group
+    of query heads summed, all in the compute dtype (fp32 for bf16
+    inputs)."""
     p, ds = _p_ds(q, k, v, do, lse, delta, causal)
-    return tuple(t.permute(0, 2, 1, 3)
-                 for t in (_dq_of(q, k, ds),) + _dkv_of(q, do, p, ds))
+    dk, dv = (_group_sum(t.permute(0, 2, 1, 3), k.shape[2])
+              for t in _dkv_of(q, do, p, ds))
+    return _dq_of(q, k, ds).permute(0, 2, 1, 3), dk, dv
 
 
 def _bwd_wiring(core, q, k, v, o, lse, do, causal):
-    """delta, the backward core, the GQA sum (for a core that returns dK
-    and dV per query head) and the casts."""
+    """delta, the backward core (dK and dV per KV head) and the casts."""
     _geometry(q, k, v, causal)
     ct = torch.promote_types(q.dtype, torch.float32)
-    delta = (do.to(ct) * o.to(ct)).sum(dim=-1).permute(0, 2, 1).contiguous()
+    # rowsum(dO * O) in the compute dtype; O widens inside the product
+    delta = do.to(ct, copy=True).mul_(o).sum(dim=-1).permute(0, 2, 1) \
+        .contiguous()
     dq, dk, dv = core(q, k, v, do, lse, delta, causal)
-    hk = k.shape[2]
-    if dk.shape[2] != hk:
-        dk, dv = _group_sum(dk, hk), _group_sum(dv, hk)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -278,20 +278,24 @@ def _check_bwd(q, k, v, do, lse, delta, causal):
 
 
 def _bwd_core_cuda(q, k, v, do, lse, delta, causal):
+    """fp32 dQ [B, Sq, Hq, D] and dK, dV [B, Sk, Hkv, D] from the one-pass
+    kernel.  In bfloat16 the kernel sums each GQA group in fp32 registers
+    and writes k's dtype; in float32 it writes fp32 per query head and
+    the group is summed here."""
     b, sq, sk, hq, hk, d = _check_bwd(q, k, v, do, lse, delta, causal)
     q, k, v, do, lse, delta = _contig(q, k, v, do, lse, delta)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.zeros(b, sq, hq, d, **f32)
-    dk = torch.empty(b, sk, hq, d, **f32)
-    dv = torch.empty(b, sk, hq, d, **f32)
+    dq = torch.zeros(b, sq, hq, d, dtype=torch.float32, device=q.device)
+    heads = hq if q.dtype == torch.float32 else hk
+    dk = torch.empty(b, sk, heads, d, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return dq, _group_sum(dk.zero_(), hk), _group_sum(dv.zero_(), hk)
     KERNEL_BWD.launch(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
         _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
         _build.ptr(dv), b, sq, sk, hq, hk, d, 1.0 / math.sqrt(d),
         int(causal), _DTYPES[q.dtype], _build.stream_ptr(q))
-    return dq, dk, dv
+    return dq, _group_sum(dk, hk), _group_sum(dv, hk)
 
 
 def _dq_cuda(q, k, v, do, lse, delta, causal):
@@ -371,7 +375,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal):
     """(dQ, dK, dV) on q's device: delta, then the one-pass backward
     (``flash_onepass_bwd``, the default) or the dQ and dK/dV passes, each
     a kernel for CUDA tensors and its plain version for CPU tensors, then
-    the GQA sum and the casts."""
+    the casts."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     core = _bwd_core_onepass if flag("flash_onepass_bwd") \
