@@ -2,6 +2,12 @@
 """Chip smoke of the PyTorch/CUDA port (``paddle_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --decode-window [--root TREE]
+
+The second form measures only the decode attention kernels, alone and
+in the serving step (``phase_decode_window``), of this checkout or of
+the port in another tree (a parent commit unpacked beside it), and
+prints no result line.
 
 Phases, each of which raises (nonzero exit, no result line) on failure:
 
@@ -10,12 +16,13 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    ``paddle_tpu_torch/csrc/`` (one nvcc per source, all in parallel);
 2. each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (serving: paged decode over a float and an
-   int8 cache, RMSNorm, the int8/int4 quantized matmul at the 8B decode
+   int8 cache, each float row bit-equal alone and beside an all-trash
+   row, RMSNorm, the int8/int4 quantized matmul at the 8B decode
    and prefill shapes; speculative decoding: the K-wide verify attention
    over a float and an int8 cache at B=8, C=5, timed there and at B=1,
    each row bit-equal to itself alone, beside an all-trash row and in a
    ragged pair, and the dense decode of the draft model's ``generate()``
-   at S = max_context + max_draft;
+   at S = max_context + max_draft, a row bit-equal at B=1 and B=3;
    training: flash-attention forward and backward (one-pass, and the
    two-pass dQ and dK/dV kernels, whose dQ must be bit-identical over two
    launches) at the training shape, and beyond it the forward at the 8B
@@ -100,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -240,10 +248,20 @@ def _paged_tables(np, rng, lens, blk_len, mb):
     return tables, need, nb
 
 
+def _same(torch, name, a, b_, what):
+    """A row's output must not change with the batch it rides in."""
+    if not torch.equal(a, b_):
+        raise AssertionError(f"{name}: a row's output changed with the "
+                             f"batch it rode in ({what})")
+
+
 def _decode_case(torch, dtype, gen, rng):
     """B=8 rows, Hkv=8, G=4, D=128, L=16, 128-block tables: ragged lens
     up to 2047 (a full table), mid-block frontiers, trash-padded
-    tables and a random (finite) trash row."""
+    tables and a random (finite) trash row.  Each row of the B=8 launch
+    must be bit-equal to the same row launched alone and beside an
+    all-trash row (a vacant slot; lens far past its table).  Timed with
+    the L2 flushed by a read, beside the host time of one call."""
     import numpy as np
     from paddle_tpu_torch.ops import decode_attention as da
     b, hkv, g, d, blk_len, mb = 8, 8, 4, 128, 16, 128
@@ -256,20 +274,38 @@ def _decode_case(torch, dtype, gen, rng):
     q = torch.randn(b, hkv * g, d, generator=gen, device="cuda").to(dt)
     tb = torch.from_numpy(tables).cuda()
     ln = torch.from_numpy(lens).cuda()
+    name = f"paged_decode_attention {dtype}"
     got = da.decode_attention_paged(q, ka, va, tb, ln)
     want = da.decode_attention_paged_plain(q, ka, va, tb, ln)
     torch.cuda.synchronize()
-    err = _check(torch, f"paged_decode_attention {dtype}", got, want, dtype)
+    err = _check(torch, name, got, want, dtype)
+    trash = torch.full_like(tb[:1], nb)
+    for i in range(b):
+        alone = da.decode_attention_paged(q[i:i + 1], ka, va, tb[i:i + 1],
+                                          ln[i:i + 1])
+        pair_ln = torch.tensor([int(lens[i]), 1234], dtype=torch.int32,
+                               device="cuda")
+        pair = da.decode_attention_paged(q[[i, (i + 1) % b]], ka, va,
+                                         torch.cat([tb[i:i + 1], trash]),
+                                         pair_ln)
+        _same(torch, name, alone[0], got[i], f"row {i} alone")
+        _same(torch, name, pair[0], got[i], f"row {i} beside an all-trash "
+                                            f"row")
+        if not torch.isfinite(pair[1]).all():
+            raise AssertionError(f"{name}: an all-trash row is not finite")
+    _log(f"  {name}: each of the {b} rows bit-equal alone and beside an "
+         f"all-trash row")
     item = q.element_size()
     slots = int((lens.astype(np.int64) + 1).sum())
     nbytes = (slots * 2 * hkv * d * item          # valid K and V
               + 2 * q.numel() * item              # q in, out
               + sum(need) * 4 + b * 4)            # table entries, lens
     bound_ms, by = _bound(nbytes, 4 * slots * hkv * g * d, dtype)
-    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    flush = scratch.zero_
+    scratch, flush = _read_flush(torch)
     ms = _time_ms(torch, lambda: da.decode_attention_paged(q, ka, va, tb, ln),
                   flush)
+    host_us = _host_us(torch, lambda: da.decode_attention_paged(
+        q, ka, va, tb, ln))
     plain_ms = _time_ms(
         torch, lambda: da.decode_attention_paged_plain(q, ka, va, tb, ln),
         flush)
@@ -290,11 +326,14 @@ def _decode_case(torch, dtype, gen, rng):
         torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, kd, vd, attn_mask=mask), flush)
     del scratch
+    _log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+         f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms; host {host_us:.1f} us "
+         f"a call")
     return dict(shape=f"B={b} Hkv={hkv} G={g} D={d} L={blk_len} "
                       f"max_blocks={mb} lens<={int(lens.max())}",
                 dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                library_max_abs_err=lib_err)
+                library_max_abs_err=lib_err, host_us=host_us)
 
 
 # int8 paged decode: float32 atol 1e-5 (the same fp32 math in another
@@ -464,9 +503,7 @@ def _multi_case(torch, dtype, gen, rng, int8):
                            **tol)
 
     def same(a, b_, what):
-        if not torch.equal(a, b_):
-            raise AssertionError(f"{name} {dtype}: a row's output changed "
-                                 f"with the batch it rode in ({what})")
+        _same(torch, f"{name} {dtype}", a, b_, what)
 
     got, err = run(list(range(b)), lens.tolist(), "")
     # a real row beside a row outside spec mode (all-trash table)
@@ -508,21 +545,29 @@ def _dense_case(torch, dtype, gen):
     """The dense decode attention of the draft model's ``generate()``:
     B=1, the 8B head geometry, S = max_context + max_draft of phase 3c's
     drafter (516, not a multiple of the kernel's 16-slot chunk), lens at
-    the last decode step's frontier; a second launch with lens past S
-    (clamped) and an odd S, both against the plain version."""
+    the last decode step's frontier; the same row at B=3 (beside a row at
+    lens 0 and one past S) must give the same bits; a launch with lens
+    past S (clamped) and an odd S, against the plain version."""
     from paddle_tpu_torch.ops import decode_attention as da
     hkv, g, d = 8, 4, 128
     s = SPEC["max_context"] + SPEC["k"]
     dt = getattr(torch, dtype)
-    shape = da.cache_shape(1, hkv, s, d)
-    kc = torch.randn(shape, generator=gen, device="cuda").to(dt)
-    vc = torch.randn(shape, generator=gen, device="cuda").to(dt)
-    q = torch.randn(1, hkv * g, d, generator=gen, device="cuda").to(dt)
+    shape = da.cache_shape(3, hkv, s, d)
+    kc3 = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    vc3 = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    q3 = torch.randn(3, hkv * g, d, generator=gen, device="cuda").to(dt)
+    kc, vc, q = kc3[1:2].contiguous(), vc3[1:2].contiguous(), q3[1:2]
     ln = torch.tensor([s - 2], dtype=torch.int32, device="cuda")
+    name = f"decode_attention {dtype}"
     got = da.decode_attention(q, kc, vc, ln)
     want = da.decode_attention_plain(q, kc, vc, ln)
     torch.cuda.synchronize()
-    err = _check(torch, f"decode_attention {dtype}", got, want, dtype)
+    err = _check(torch, name, got, want, dtype)
+    ln3 = torch.tensor([0, s - 2, s + 40], dtype=torch.int32, device="cuda")
+    got3 = da.decode_attention(q3, kc3, vc3, ln3)
+    _check(torch, f"{name} B=3", got3,
+           da.decode_attention_plain(q3, kc3, vc3, ln3), dtype)
+    _same(torch, name, got3[1], got[0], "B=1 against B=3")
     odd = s - 3
     q3 = torch.randn(3, hkv * g, d, generator=gen, device="cuda").to(dt)
     k3 = torch.randn(da.cache_shape(3, hkv, odd, d), generator=gen,
@@ -553,11 +598,15 @@ def _dense_case(torch, dtype, gen):
     lib = sdpa(q4, kt, vt, attn_mask=mask)
     lib_err = (lib.reshape(1, -1).float() - want.float()).abs().max().item()
     lib_ms = _time_ms(torch, lambda: sdpa(q4, kt, vt, attn_mask=mask), flush)
+    host_us = _host_us(torch, lambda: da.decode_attention(q, kc, vc, ln))
     del scratch
+    _log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+         f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms; host {host_us:.1f} us "
+         f"a call")
     return dict(shape=f"B=1 Hkv={hkv} G={g} D={d} S={s} lens={s - 2}",
                 dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                library_max_abs_err=lib_err)
+                library_max_abs_err=lib_err, host_us=host_us)
 
 
 def _qmm_case(torch, dtype, bits, m, k, n, gen):
@@ -1371,6 +1420,32 @@ def _spec_trace(torch, eng, cfg, seed, specs):
     return launches, eng.stats(), wall, sum(m for _, m in trace), rng
 
 
+# the decode attention kernels in a profile, by the names the profiler
+# gives them: the split and merge kernels of csrc/decode_split.cuh by
+# their walk (PagedWalk: the one-token paged decode and the K-wide verify;
+# DenseWalk: the dense decode), and the int8 one-token kernel
+DECODE_KERNELS = {"paged (split+merge)": "PagedWalk",
+                  "dense (split+merge)": "DenseWalk",
+                  "int8 paged": "paged_decode_int8_kernel"}
+
+
+def _decode_ms(per_kernel, steps=1):
+    """Device ms per step of each decode attention kernel in a profile's
+    ``{kernel name: us}``."""
+    return {tag: sum(us for n, us in per_kernel.items() if key in n)
+            / 1e3 / steps for tag, key in DECODE_KERNELS.items()}
+
+
+def _log_decode_kernels(per_kernel, steps=1):
+    """Every decode attention kernel of a profile by its full name (any
+    name with "decode" or "paged_multi", so another tree's kernels show
+    too), device ms per step."""
+    for name, us in sorted(per_kernel.items()):
+        if "decode" in name or "paged_multi" in name:
+            _log(f"  {us / 1e3 / steps:8.3f} ms/step  decode attention: "
+                 f"{name[:120]}")
+
+
 def _profile_verify(torch, eng, rng, vocab):
     """Where a speculative step's time goes: 8 fresh 64-token spec
     requests fill the slots; once all are prefilled, one step runs
@@ -1407,16 +1482,18 @@ def _profile_verify(torch, eng, rng, vocab):
              f"not measured (the profiler recorded no CUDA kernels)")
         return
     busy = sum(per_kernel.values()) / 1e3
-    multi = sum(us for n, us in per_kernel.items()
-                if "paged_multi_kernel" in n) / 1e3
+    dec = _decode_ms(per_kernel)
     _log(f"  verify profile: 1 step x {eng.num_slots} spec slots: wall "
          f"{wall * 1e3:.1f} ms unprofiled, {wall_prof * 1e3:.1f} ms "
          f"profiled, of which the verify forward {verify * 1e3:.1f} ms; "
          f"device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% of "
-         f"the unprofiled wall; K-wide verify kernel {multi:.3f} ms), "
+         f"the unprofiled wall; K-wide verify kernel "
+         f"{dec['paged (split+merge)']:.3f} ms, the drafter's dense decode "
+         f"{dec['dense (split+merge)']:.3f} ms), "
          f"{len(per_kernel)} distinct kernels")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         _log(f"  {us / 1e3:8.3f} ms  {name[:90]}")
+    _log_decode_kernels(per_kernel)
 
 
 def phase_spec_serving(torch, seed, cfg, model):
@@ -1524,13 +1601,67 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
         _log(f"decode profile: wall {wall * 1e3:.3f} ms/step; device time "
              f"not measured (the profiler recorded no CUDA kernels)")
         return
+    dec = ", ".join(f"{tag} {ms:.3f}" for tag, ms in
+                    _decode_ms(per_kernel, steps).items() if ms)
     _log(f"decode profile: {steps}+{steps} steps x {eng.num_slots} slots: "
          f"wall {wall * 1e3:.3f} ms/step unprofiled, "
          f"{wall_prof * 1e3:.3f} ms/step profiled; device busy "
          f"{busy:.3f} ms/step ({100 * busy / (wall * 1e3):.1f}% of the "
-         f"unprofiled wall), {len(per_kernel)} distinct kernels")
+         f"unprofiled wall; decode attention ms/step: {dec or 'none'}), "
+         f"{len(per_kernel)} distinct kernels")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         _log(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}")
+    _log_decode_kernels(per_kernel, steps)
+
+
+def phase_decode_window(torch, seed):
+    """``--decode-window``: the decode attention kernels alone and in the
+    serving step.  Phase 2's paged and dense cases in bf16 (kernel, plain
+    and SDPA times, host time a call), two tiny launches timed the same
+    way (the floor of a kernel that is two launches), the dense split
+    length swept where the tree has one; then phase 3's decode window and
+    one phase 3c (a) spec step, profiled, on the 8B model.  With
+    ``--root`` the package comes from another tree (a parent commit
+    unpacked beside this checkout), so one script measures two trees, in
+    turns within one call."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ModelDrafter, ServingEngine
+    from paddle_tpu_torch.ops import decode_attention as da
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for row in (_decode_case(torch, "bfloat16", gen, rng),
+                _dense_case(torch, "bfloat16", gen)):
+        _log(f"decode window: {row['shape']}: kernel {row['ms']:.4f} ms, "
+             f"host {row['host_us']:.1f} us a call")
+    scratch, flush = _read_flush(torch)
+    x = torch.zeros(1, device="cuda")
+    _log(f"decode window: two tiny launches "
+         f"{_time_ms(torch, lambda: (x.add_(1), x.add_(1)), flush):.4f} ms")
+    if hasattr(da, "_DENSE_SPLIT_SLOTS"):
+        s, hkv, d = SPEC["max_context"] + SPEC["k"], 8, 128
+        kc, vc = (torch.randn(1, s, hkv * d, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(2))
+        q = torch.randn(1, 4 * hkv, d, generator=gen,
+                        device="cuda").bfloat16()
+        ln = torch.tensor([s - 2], dtype=torch.int32, device="cuda")
+        keep = da._DENSE_SPLIT_SLOTS
+        for slots in (16, 32, 64, 128):
+            da._DENSE_SPLIT_SLOTS = slots
+            ms = _time_ms(torch, lambda: da.decode_attention(q, kc, vc, ln),
+                          flush)
+            _log(f"decode window: dense S={s} in {slots}-slot splits "
+                 f"{ms:.4f} ms")
+        da._DENSE_SPLIT_SLOTS = keep
+    del scratch
+    cfg, model = _build_8b(torch, 32, "bfloat16", seed)
+    kw = dict(num_slots=8, prompt_len=512, chunk_len=256, max_cache_len=1024,
+              block_len=16, compute_dtype="bfloat16")
+    _profile_decode(torch, ServingEngine(model, **kw), rng, cfg.vocab_size)
+    eng = ServingEngine(model, drafter=ModelDrafter(
+        model, max_context=SPEC["max_context"], max_draft=SPEC["k"],
+        compute_dtype="bfloat16"), **kw)
+    _profile_verify(torch, eng, rng, cfg.vocab_size)
 
 
 def phase_exactness(torch, seed):
@@ -2224,7 +2355,17 @@ def phase_train_exactness_routes(torch, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-window", action="store_true",
+                    help="measure the decode attention kernels alone and "
+                         "in the serving step (phase_decode_window), then "
+                         "stop without a result line")
+    ap.add_argument("--root", help="import paddle_tpu_torch from this tree "
+                                   "instead of the checkout (with "
+                                   "--decode-window: measure another "
+                                   "commit)")
     args = ap.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this smoke needs one "
@@ -2237,6 +2378,9 @@ def main(argv=None) -> int:
               f"from the root of the repository", file=sys.stderr)
         return 2
     smi = phase_env(torch)
+    if args.decode_window:
+        phase_decode_window(torch, args.seed)
+        return 0
     rows = phase_kernels(torch, args.seed)
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
     by_path = {"serving": phase_serving(torch, args.seed, cfg, model)}
@@ -2312,8 +2456,8 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], "dtype": c["dtype"],
-            **{k: c[k] for k in ("cuda_core_bound_ms", "wrapper_ms")
-               if k in c}})
+            **{k: c[k] for k in ("cuda_core_bound_ms", "wrapper_ms",
+                                 "host_us") if k in c}})
     _log(json.dumps({"kernels": kernels}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

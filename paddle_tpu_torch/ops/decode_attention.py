@@ -19,9 +19,12 @@ over the ``_paged_multi_xla`` body (:1280-1311).
 raise on what the kernel cannot take) and run their plain versions for
 CPU tensors; nothing sends a CUDA tensor to a plain version.  A float
 paged cache launches the float kernel, an int8 one (``kv_scales`` given)
-the int8 kernel.  The kernels have no backward: on the card they raise
-when grad mode is on and an input requires grad, rather than return an
-output detached from them.
+the int8 kernel.  The float paged, the K-wide and the dense kernels are
+one split-K template (``csrc/decode_split.cuh``): a split kernel and a
+merge kernel behind one wrapper call and one launch count, with an fp32
+scratch of partial results the wrapper allocates.  The kernels have no
+backward: on the card they raise when grad mode is on and an input
+requires grad, rather than return an output detached from them.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ _SMEM_MAX = 227 * 1024
 
 KERNEL = _build.register(_build.Kernel(
     "paged_decode_attention", "ptt_paged_decode_attention",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 KERNEL_INT8 = _build.register(_build.Kernel(
     "paged_decode_attention_int8", "ptt_paged_decode_attention_int8",
@@ -48,23 +51,25 @@ KERNEL_INT8 = _build.register(_build.Kernel(
 # the K-wide verify kernels: one source, a float and an int8 entry point
 KERNEL_MULTI = _build.register(_build.Kernel(
     "paged_decode_attention_multi", "ptt_paged_decode_attention_multi",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 KERNEL_MULTI_INT8 = _build.register(_build.Kernel(
     "paged_decode_attention_multi_int8",
     "ptt_paged_decode_attention_multi_int8",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     source="paged_decode_attention_multi"))
-_SPLIT_SLOTS = 128      # cache slots one CTA of the K-wide kernel walks
-_MULTI_HEAD_DIMS = (32, 64, 128, 256)
-_MULTI_MAX_THREADS = 512   # threads of one K-wide split CTA
-_MULTI_STAGES = 3       # blocks in the K-wide kernel's cp.async ring
 KERNEL_DENSE = _build.register(_build.Kernel(
     "decode_attention", "ptt_decode_attention",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
-_DENSE_CHUNK = 16       # cache slots the dense kernel stages per step
+# the split-K template of the float paged, K-wide and dense kernels
+_SPLIT_SLOTS = 128      # cache slots one paged split CTA walks
+_DENSE_SPLIT_SLOTS = 64  # cache slots one dense split CTA walks
+_DENSE_CHUNK = 16       # cache slots of one dense block of the walk
+_SPLIT_HEAD_DIMS = (32, 64, 128, 256)
+_SPLIT_MAX_THREADS = 512   # threads of one split CTA
+_SPLIT_STAGES = 3       # blocks in the split kernel's cp.async ring
 
 
 def packed_ok(num_kv_heads: int, head_dim: int) -> bool:
@@ -193,7 +198,8 @@ def decode_attention_paged_plain(q, k_arena, v_arena, tables, lens,
 
 
 def verify_split_plan(max_blocks, blk_len):
-    """(blocks per split, number of splits) of the K-wide kernel: each CTA
+    """(blocks per split, number of splits) of the paged split-K kernels
+    (the K-wide verify, and the one-token decode at C = 1): each CTA
     walks a fixed run of ``max(1, 128 // blk_len)`` blocks of a row's
     table, and the grid holds enough splits for a full table.  A function
     of ``max_blocks`` and ``blk_len`` alone, never of the batch, the
@@ -203,39 +209,76 @@ def verify_split_plan(max_blocks, blk_len):
     return bps, -(-max_blocks // bps)
 
 
+def decode_split_plan(s, chunk=_DENSE_CHUNK):
+    """(chunks per split, number of splits) of the dense split-K kernel
+    over a cache of ``s`` slots walked in chunks of ``chunk``: each CTA
+    walks a fixed run of ``max(1, 64 // chunk)`` chunks of a row, and the
+    grid holds enough splits for the whole cache.  A function of ``s``
+    and ``chunk`` alone, never of the batch, so a row's output bits are
+    the same whatever batch it rides in.  The drafter's rows are short
+    (``s`` = 516 at phase 3c) and its batch small, so the split is half
+    the paged one: more CTAs for a launch that is latency-bound."""
+    cps = max(1, _DENSE_SPLIT_SLOTS // chunk)
+    n_chunks = -(-s // chunk)
+    return cps, -(-n_chunks // cps)
+
+
+def split_partials(b, hkv, n_splits, rows, d, device):
+    """A split-K kernel's scratch ``[B, Hkv, n_splits, rows, D + 4]``,
+    fp32, uninitialized: per split and query row the unnormalized
+    accumulator (columns 0 .. D-1), then the running max and the
+    denominator (columns D, D+1; a row of D + 4 floats keeps the
+    accumulator 16-byte aligned).  A split writes the rows it walks; the
+    merge reads only a row's own splits.  One allocation a call."""
+    return torch.empty(b, hkv, n_splits, rows, d + 4, dtype=torch.float32,
+                       device=device)
+
+
 def verify_partials(b, cq, hkv, g, d, max_blocks, blk_len, device):
-    """The K-wide kernel's scratch: each split's unnormalized accumulator
-    ``[B, Hkv, n_splits, C*G, D]`` and its (running max, denominator)
-    ``[B, Hkv, n_splits, C*G, 2]``, fp32, uninitialized (a split writes
-    the rows it walks; the merge reads only a row's own splits)."""
+    """The paged split-K kernel's scratch for C queries of G heads per kv
+    head (``split_partials`` over ``verify_split_plan``'s splits)."""
     _, n_splits = verify_split_plan(max_blocks, blk_len)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty(b, hkv, n_splits, cq * g, d, **f32),
-            torch.empty(b, hkv, n_splits, cq * g, 2, **f32))
+    return split_partials(b, hkv, n_splits, cq * g, d, device)
 
 
-def _multi_smem(blk_len, d, item, int8):
-    """Shared memory of the K-wide split kernel: the ring of K and V
-    blocks, or for int8 the ring of codes and scales (padded to 16 bytes)
-    and one dequantized K and V tile, plus the split's table entries (512
+def _split_smem(blk_len, d, item, int8):
+    """Shared memory of a split CTA: the ring of K and V blocks, or for
+    int8 the ring of codes and scales (padded to 16 bytes) and one
+    dequantized K and V tile, plus the split's table entries (512
     bytes).  A bfloat16 tile (the tensor-core route) holds the block's
     slots rounded up to 16, in rows padded by 16 bytes."""
     tc = item == 2
     tile = (-(-blk_len // 16) * 16 if tc else blk_len) \
         * (d + 8 if tc else d) * item
     if not int8:
-        return _MULTI_STAGES * 2 * tile + 512
-    return _MULTI_STAGES * 2 * blk_len * d \
-        + -(-_MULTI_STAGES * 2 * blk_len * 4 // 16) * 16 + 2 * tile + 512
+        return _SPLIT_STAGES * 2 * tile + 512
+    return _SPLIT_STAGES * 2 * blk_len * d \
+        + -(-_SPLIT_STAGES * 2 * blk_len * 4 // 16) * 16 + 2 * tile + 512
 
 
-def _multi_threads(rows, d, item):
-    """Threads of a K-wide split CTA: two warps per 16 query rows on the
-    tensor cores (bfloat16), D/16 lanes per row on CUDA cores
-    (float32)."""
+def _split_threads(rows, d, item):
+    """Threads of a split CTA: two warps per 16 query rows on the tensor
+    cores (bfloat16), D/16 lanes per row on CUDA cores (float32)."""
     if item == 2:
         return 64 * -(-rows // 16)
     return max(128, -(-rows * d // 16 // 32) * 32)
+
+
+def _check_split(what, rows, d, blk_len, item, int8):
+    """Raise on a geometry the split-K template cannot take: ``rows``
+    query rows per kv head at head dim ``d`` over blocks of ``blk_len``
+    slots."""
+    if d not in _SPLIT_HEAD_DIMS:
+        raise ValueError(f"{what} takes head_dim in {_SPLIT_HEAD_DIMS}, "
+                         f"got {d}")
+    threads = _split_threads(rows, d, item)
+    if threads > _SPLIT_MAX_THREADS:
+        raise ValueError(f"{what}: {rows} query rows per kv head at D={d} "
+                         f"need {threads} threads (> {_SPLIT_MAX_THREADS})")
+    smem = _split_smem(blk_len, d, item, int8)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{what}: D={d}, L={blk_len} need {smem} bytes of "
+                         f"shared memory (> {_SMEM_MAX})")
 
 
 def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
@@ -292,29 +335,21 @@ def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
     if d % vec:
         raise ValueError(f"paged decode kernel needs head_dim % {vec} == 0, "
                          f"got {d}")
-    if b > 65535:
-        raise ValueError(f"paged decode kernel takes at most 65535 rows, "
-                         f"got {b}")
+    if b > 65535 or hkv > 65535:
+        raise ValueError(f"paged decode kernel takes at most 65535 rows and "
+                         f"65535 kv heads, got B={b}, Hkv={hkv}")
     blk_len = k_arena.shape[1]
-    rows = g * (q.shape[1] if multi else 1)     # query rows per CTA
-    if multi:
-        if d not in _MULTI_HEAD_DIMS:
-            raise ValueError(f"K-wide paged decode kernel takes head_dim in "
-                             f"{_MULTI_HEAD_DIMS}, got {d}")
-        threads = _multi_threads(rows, d, q.element_size())
-        if threads > _MULTI_MAX_THREADS:
-            raise ValueError(f"K-wide paged decode kernel: C*G={rows} query "
-                             f"rows at D={d} need {threads} threads "
-                             f"(> {_MULTI_MAX_THREADS})")
-        smem = _multi_smem(blk_len, d, q.element_size(),
-                           kv_scales is not None)
+    if multi or kv_scales is None:
+        _check_split("K-wide paged decode kernel" if multi
+                     else "paged decode kernel",
+                     g * (q.shape[1] if multi else 1), d, blk_len,
+                     q.element_size(), kv_scales is not None)
     else:
-        smem = 4 * (2 * rows * d + blk_len * (2 * d + 1) + rows * blk_len
-                    + 3 * rows)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"paged decode kernel: {rows} query rows, D={d}, "
-                         f"L={blk_len} need {smem} bytes of shared memory "
-                         f"(> {_SMEM_MAX})")
+        smem = 4 * (2 * g * d + blk_len * (2 * d + 1) + g * blk_len + 3 * g)
+        if smem > _SMEM_MAX:
+            raise ValueError(f"int8 paged decode kernel: G={g}, D={d}, "
+                             f"L={blk_len} need {smem} bytes of shared "
+                             f"memory (> {_SMEM_MAX})")
     return b, hq, d, hkv, g
 
 
@@ -325,18 +360,24 @@ def _decode_attention_paged_cuda(q, k_arena, v_arena, tables, lens,
     out = torch.empty_like(q)
     if b == 0:
         return out.reshape(b, hq * d)
-    geometry = (b, hkv, g, d, k_arena.shape[1], tables.shape[1],
-                k_arena.shape[0], 1.0 / math.sqrt(d), _DTYPES[q.dtype],
-                _build.stream_ptr(q))
+    blk_len, mb, num_rows = k_arena.shape[1], tables.shape[1], \
+        k_arena.shape[0]
+    scale, dt, stream = 1.0 / math.sqrt(d), _DTYPES[q.dtype], \
+        _build.stream_ptr(q)
     if kv_scales is None:
+        bps, n_splits = verify_split_plan(mb, blk_len)
+        part = verify_partials(b, 1, hkv, g, d, mb, blk_len, q.device)
         KERNEL.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
-            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
+            _build.ptr(part), b, hkv, g, d, blk_len, mb, num_rows, bps,
+            n_splits, scale, dt, stream)
     else:
         KERNEL_INT8.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
             _build.ptr(kv_scales[0]), _build.ptr(kv_scales[1]),
-            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), *geometry)
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), b, hkv,
+            g, d, blk_len, mb, num_rows, scale, dt, stream)
     return out.reshape(b, hq * d)
 
 
@@ -396,8 +437,7 @@ def _decode_attention_paged_multi_cuda(q, k_arena, v_arena, tables, lens,
         return out
     blk_len, mb = k_arena.shape[1], tables.shape[1]
     bps, n_splits = verify_split_plan(mb, blk_len)
-    part_acc, part_ml = verify_partials(b, cc, hkv, g, d, mb, blk_len,
-                                        q.device)
+    part = verify_partials(b, cc, hkv, g, d, mb, blk_len, q.device)
     geometry = (b, cc, hkv, g, d, blk_len, mb, k_arena.shape[0], bps,
                 n_splits, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
                 _build.stream_ptr(q))
@@ -405,13 +445,13 @@ def _decode_attention_paged_multi_cuda(q, k_arena, v_arena, tables, lens,
         KERNEL_MULTI.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
             _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
-            _build.ptr(part_acc), _build.ptr(part_ml), *geometry)
+            _build.ptr(part), *geometry)
     else:
         KERNEL_MULTI_INT8.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
             _build.ptr(kv_scales[0]), _build.ptr(kv_scales[1]),
             _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
-            _build.ptr(part_acc), _build.ptr(part_ml), *geometry)
+            _build.ptr(part), *geometry)
     return out
 
 
@@ -502,17 +542,11 @@ def _check_dense(q, k_cache, v_cache, lens):
         if t.data_ptr() % 16:
             raise ValueError(f"decode attention kernel needs a 16-byte "
                              f"aligned {name}")
-    if d % 8:
-        raise ValueError(f"decode attention kernel needs head_dim % 8 == 0, "
-                         f"got {d}")
-    if b > 65535 or g > 128:
+    if b > 65535 or hkv > 65535:
         raise ValueError(f"decode attention kernel takes at most 65535 rows "
-                         f"and 128 query heads per kv head, got B={b}, G={g}")
-    smem = 4 * (2 * g * d + _DENSE_CHUNK * (2 * d + 1) + g * _DENSE_CHUNK
-                + 3 * g)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"decode attention kernel: G={g}, D={d} need "
-                         f"{smem} bytes of shared memory (> {_SMEM_MAX})")
+                         f"and 65535 kv heads, got B={b}, Hkv={hkv}")
+    _check_split("decode attention kernel", g, d, _DENSE_CHUNK,
+                 q.element_size(), False)
     return b, hq, d, hkv, g
 
 
@@ -521,9 +555,13 @@ def _decode_attention_cuda(q, k_cache, v_cache, lens):
     out = torch.empty_like(q)
     if b == 0:
         return out.reshape(b, hq * d)
+    s = k_cache.shape[1]
+    cps, n_splits = decode_split_plan(s)
+    part = split_partials(b, hkv, n_splits, g, d, q.device)
     KERNEL_DENSE.launch(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
-        _build.ptr(lens), _build.ptr(out), b, hkv, g, d, k_cache.shape[1],
+        _build.ptr(lens), _build.ptr(out), _build.ptr(part), b, hkv, g, d,
+        s, cps, n_splits,
         1.0 / math.sqrt(d), _DTYPES[q.dtype], _build.stream_ptr(q))
     return out.reshape(b, hq * d)
 

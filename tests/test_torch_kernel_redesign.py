@@ -58,11 +58,11 @@ def test_verify_split_plan_depends_on_table_and_block_length_only(
     assert (n_splits - 1) * bps < max_blocks <= n_splits * bps
     for b in (1, 8):
         for cq in (1, 5):
-            acc, ml = tda.verify_partials(b, cq, 2, 4, 32, max_blocks,
-                                          blk_len, "cpu")
-            assert acc.shape == (b, 2, n_splits, cq * 4, 32)
-            assert ml.shape == (b, 2, n_splits, cq * 4, 2)
-            assert acc.dtype == ml.dtype == torch.float32
+            part = tda.verify_partials(b, cq, 2, 4, 32, max_blocks,
+                                       blk_len, "cpu")
+            # per split and query row: the accumulator, then (m, l)
+            assert part.shape == (b, 2, n_splits, cq * 4, 32 + 4)
+            assert part.dtype == torch.float32
 
 
 def _split_merge(q, k_arena, v_arena, tables, lens):

@@ -234,7 +234,7 @@ def test_rms_norm_kernel_operand_checks(case):
 
 
 def _decode_bad(case):
-    b, hkv, g, blk_len, nb, mb, d = 2, 2, 2, 4, 6, 3, 16
+    b, hkv, g, blk_len, nb, mb, d = 2, 2, 2, 4, 6, 3, 32
     q = torch.zeros(b, hkv * g, d)
     ka = torch.zeros(nb + 1, blk_len, hkv * d)
     va = torch.zeros_like(ka)
@@ -254,8 +254,9 @@ def _decode_bad(case):
                               ValueError),
         "non_contiguous": (q, ka, va.transpose(0, 1).contiguous()
                            .transpose(0, 1), tables, lens, ValueError),
-        "smem": (torch.zeros(1, 64, 512), torch.zeros(3, 64, 512),
-                 torch.zeros(3, 64, 512), torch.zeros(1, 1,
+        # float32, L=64, D=256: a 3-stage ring of 393216 bytes
+        "smem": (torch.zeros(1, 4, 256), torch.zeros(3, 64, 256),
+                 torch.zeros(3, 64, 256), torch.zeros(1, 1,
                                                       dtype=torch.int32),
                  torch.zeros(1, dtype=torch.int32), ValueError),
     }
@@ -271,7 +272,7 @@ def _decode_bad(case):
 def test_paged_decode_kernel_operand_checks(case):
     *args, exc = _decode_bad(case)
     if exc is None:
-        assert tda._check_operands(*args) == (2, 4, 16, 2, 2)
+        assert tda._check_operands(*args) == (2, 4, 32, 2, 2)
         return
     with pytest.raises(exc):
         tda._check_operands(*args)

@@ -64,7 +64,12 @@ def twopass():
 
 
 def _t(a, grad=False):
-    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+    """A torch tensor that owns a copy of ``a``.  The JAX side may read a
+    numpy input through a zero-copy alias, after the call returns (its
+    dispatch is asynchronous); a tensor sharing ``a``'s memory would let
+    the port's in-place update (AdamW's p, m, v) race with that read."""
+    return torch.from_numpy(np.array(a, order="C", copy=True)) \
+        .requires_grad_(grad)
 
 
 def _bf16_np(a):

@@ -298,7 +298,7 @@ def test_paged_decode_kernel_refuses_grad_mode():
     """On the card the paged decode kernel would return an output
     detached from q and the arenas; its wrapper raises instead (checked
     here through the device-independent operand checks)."""
-    b, hkv, g, blk_len, nb, mb, d = 2, 2, 2, 4, 6, 3, 16
+    b, hkv, g, blk_len, nb, mb, d = 2, 2, 2, 4, 6, 3, 32
     q = torch.zeros(b, hkv * g, d, requires_grad=True)
     ka = torch.zeros(nb + 1, blk_len, hkv * d)
     tables = torch.zeros(b, mb, dtype=torch.int32)
@@ -307,7 +307,7 @@ def test_paged_decode_kernel_refuses_grad_mode():
         tda._check_operands(q, ka, ka, tables, lens)
     with torch.no_grad():
         assert tda._check_operands(q, ka, ka, tables, lens) == \
-            (2, 4, 16, 2, 2)
+            (2, 4, 32, 2, 2)
 
 
 # ---- attention and loss functionals ----
