@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --decode-window [--root TREE]
+    python3 chip_smoke.py --quant-window [--root TREE]
 
 The second form measures only the decode attention kernels, alone and
-in the serving step (``phase_decode_window``), of this checkout or of
-the port in another tree (a parent commit unpacked beside it), and
-prints no result line.
+in the serving step (``phase_decode_window``), the third the quantized
+matmul and the int8 decode, alone and in the quantized serving step
+(``phase_quant_window``), of this checkout or of the port in another
+tree (a parent commit unpacked beside it); neither prints a result line.
 
 Phases, each of which raises (nonzero exit, no result line) on failure:
 
@@ -16,9 +18,11 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    ``paddle_tpu_torch/csrc/`` (one nvcc per source, all in parallel);
 2. each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (serving: paged decode over a float and an
-   int8 cache, each float row bit-equal alone and beside an all-trash
-   row, RMSNorm, the int8/int4 quantized matmul at the 8B decode
-   and prefill shapes; speculative decoding: the K-wide verify attention
+   int8 cache, each row bit-equal alone and beside an all-trash row,
+   RMSNorm, also against ``F.rms_norm`` in turns in device time, the
+   int8/int4 quantized matmul at the 8B projections at M = 1, 8, 40
+   (decode, verify) and 256 (a prefill chunk), a row bit-equal at every
+   M with and without bias and act; speculative decoding: the K-wide verify attention
    over a float and an int8 cache at B=8, C=5, timed there and at B=1,
    each row bit-equal to itself alone, beside an all-trash row and in a
    ragged pair, and the dense decode of the draft model's ``generate()``
@@ -131,10 +135,19 @@ def _bound(nbytes, nops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# device cycles of the spin that holds the device busy ahead of a timed
+# run with no flush: about 100 us at the H100's 1.7-2.0 GHz clock
+HOLD_CYCLES = 200_000
+
+
 def _time_ms(torch, fn, flush=None, warmup=5, iters=25):
     """Median CUDA-event time of ``fn`` in ms over ``iters`` runs after
     ``warmup``; ``flush`` (if given) runs between timed launches, outside
-    the events, so the launch finds the L2 cache cold."""
+    the events, so the launch finds the L2 cache cold.  Host time stays
+    out of the window: each timed run is enqueued behind device work (the
+    flush, about 80 us, or else a spin of ``HOLD_CYCLES``), so the device
+    is still busy while the host records the start event and runs the
+    wrapper, and the events time the device alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -142,6 +155,8 @@ def _time_ms(torch, fn, flush=None, warmup=5, iters=25):
     for _ in range(iters):
         if flush is not None:
             flush()
+        else:
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -160,27 +175,35 @@ def _check(torch, name, got, want, dtype, row_atol=None, rtol=None,
     ``want``'s row, and ``rtol``.  Logs the largest share of the limit any
     element used."""
     atol, rt = tol or TOL[dtype]
-    g, w = got.float(), want.float()
     if row_atol is not None:
+        w = want.float()
         atol, rt = row_atol * w.square().mean(-1, keepdim=True).sqrt(), rtol
         how = f"atol {row_atol:.3g} x row RMS"
     else:
         how = f"atol {atol:.3g}"
+    err, share = _within(torch, name, got, want, atol, rt, how)
+    _log(f"  {name}: max |err| {err:.3g}, {share:.3f} of the limit ({how}, "
+         f"rtol {rt:.3g})")
+    return err
+
+
+def _within(torch, name, got, want, atol, rtol, how=None):
+    """Assert every element of ``got`` finite and within ``atol + rtol *
+    |want|`` of ``want``; returns (max |err|, the largest share of the
+    limit any element used)."""
+    g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (g - w).abs()
-    limit = atol + rt * w.abs()
+    limit = atol + rtol * w.abs()
     bad = err > limit
     if bad.any():
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version "
             f"(max |err| {err.max().item():.3g}, {int(bad.sum())} elements "
-            f"past {how} rtol {rt:.3g})")
-    _log(f"  {name}: max |err| {err.max().item():.3g}, "
-         f"{torch.where(err == 0, 0.0, err / limit).max().item():.3f} of "
-         f"the limit ({how}, "
-         f"rtol {rt:.3g})")
-    return err.max().item()
+            f"past {how or f'atol {atol:.3g}'} rtol {rtol:.3g})")
+    return (err.max().item(),
+            torch.where(err == 0, 0.0, err / limit).max().item())
 
 
 def phase_env(torch):
@@ -223,6 +246,72 @@ def _rms_case(torch, rows, dtype, gen, d=4096):
     return dict(shape=f"[{rows},{d}]", dtype=dtype, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=lib_ms)
+
+
+def _device_us(torch, fn, n=50):
+    """Device time of one call of ``fn`` from ``torch.profiler``: the
+    CUDA kernel durations of ``n`` calls summed (a kernel's recorded
+    duration holds no host time), over the kernels recorded, in
+    microseconds, and the kernels recorded a call.  (None, 0) where the
+    profiler records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel, count = _profile_kernels(torch, prof)
+    launches = sum(count.values())
+    if not launches:
+        return None, 0
+    return sum(per_kernel.values()) / launches, launches / n
+
+
+# RMSNorm against F.rms_norm in device time: one decode step's rows and the
+# training step's (batch x seq rows of the 1.1B width), bfloat16
+RMS_TURN_SHAPES = [(8, 4096), (16384, 2048)]
+
+
+def _rms_turns(torch, rows, d, gen):
+    """The RMSNorm kernel and ``F.rms_norm`` (one PyTorch call computing
+    the same function) in turns, kernel, library, kernel, library, each
+    timed by ``_time_ms`` (device only), then each one's device time per
+    launch from the profiler's kernel durations and host time per call
+    (``_host_us``).  Returns the row of numbers."""
+    from paddle_tpu_torch.ops import rms_norm as rn
+    x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+
+    def kern():
+        return rn.rms_norm(x, w, 1e-5)
+
+    def lib():
+        return torch.nn.functional.rms_norm(x, (d,), w, 1e-5)
+
+    turns = []
+    for _ in range(2):
+        turns += [_time_ms(torch, kern), _time_ms(torch, lib)]
+    (k_us, k_n), (l_us, l_n) = _device_us(torch, kern), _device_us(torch,
+                                                                  lib)
+    row = dict(shape=f"[{rows},{d}]", kernel_ms=turns[0::2],
+               library_ms=turns[1::2], kernel_us_profiled=k_us,
+               library_us_profiled=l_us,
+               kernel_host_us=_host_us(torch, kern),
+               library_host_us=_host_us(torch, lib))
+    factor = statistics.mean(row["kernel_ms"]) \
+        / statistics.mean(row["library_ms"])
+    prof = ("not measured" if k_us is None or l_us is None else
+            f"{k_us:.2f} us against {l_us:.2f} us ({k_n:.2f} and "
+            f"{l_n:.2f} kernels recorded a call)")
+    _log(f"rms_norm turns {row['shape']} bfloat16: kernel "
+         f"{' / '.join(f'{t:.4f}' for t in row['kernel_ms'])} ms, "
+         f"F.rms_norm {' / '.join(f'{t:.4f}' for t in row['library_ms'])} "
+         f"ms (kernel / library {factor:.3f}); profiled per launch {prof}; "
+         f"host per call {row['kernel_host_us']:.1f} us against "
+         f"{row['library_host_us']:.1f} us")
+    return row
 
 
 def _read_flush(torch):
@@ -349,16 +438,27 @@ DECODE_INT8_TOL = {"float32": dict(tol=(1e-5, 1e-5)),
 # one ulp of the value (rtol 2^-7: both round an fp32 sum once) plus atol
 # 1e-4 for values near zero
 QMM_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 2.0 ** -7)}
-# the 8B projections (K, N) at decode (M = 8 slots) and one prefill chunk
+# the 8B projections (K, N) at decode (M = 8 slots), the gate/up
+# projection at the 8B drafter's one slot (M = 1), at a verify forward (8
+# slots x 5 queries) and at one prefill chunk (M = 256)
 QMM_SHAPES = [(8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
-              (8, 14336, 4096), (256, 4096, 14336)]
+              (8, 14336, 4096), (256, 4096, 14336), (1, 4096, 14336),
+              (40, 4096, 14336)]
+# a row's bits at every M: the rows of x[:M] for each M, and the epilogue
+# forms (bias, act) the kernel fuses
+QMM_ROW_MS = (1, 8, 40, 256)
+QMM_FORMS = [(False, None), (True, None), (True, "silu"), (False, "relu"),
+             (True, "gelu")]
 
 
 def _decode_int8_case(torch, dtype, gen, rng):
     """The serving shape of ``_decode_case`` (B=8, Hkv=8, G=4, D=128,
     L=16, 128-block tables, lens up to 2047, L2 flushed by a read) over
     an int8 cache: random float arenas quantized per entry per kv head
-    (``quantize_kv_heads``), the trash row included."""
+    (``quantize_kv_heads``), the trash row included.  Each row of the B=8
+    launch must be bit-equal to the same row launched alone and beside an
+    all-trash row, as in ``_decode_case``; the host time of one call
+    beside."""
     import numpy as np
     from paddle_tpu_torch.models.generation import quantize_kv_heads
     from paddle_tpu_torch.ops import decode_attention as da
@@ -376,12 +476,28 @@ def _decode_int8_case(torch, dtype, gen, rng):
     q = torch.randn(b, hkv * g, d, generator=gen, device="cuda").to(dt)
     tb = torch.from_numpy(tables).cuda()
     ln = torch.from_numpy(lens).cuda()
+    name = f"paged_decode_attention_int8 {dtype}"
     got = da.decode_attention_paged(q, kc, vc, tb, ln, kv_scales=(ks, vs))
     want = da.decode_attention_paged_plain(q, kc, vc, tb, ln,
                                            kv_scales=(ks, vs))
     torch.cuda.synchronize()
-    err = _check(torch, f"paged_decode_attention_int8 {dtype}", got, want,
-                 dtype, **DECODE_INT8_TOL[dtype])
+    err = _check(torch, name, got, want, dtype, **DECODE_INT8_TOL[dtype])
+    trash = torch.full_like(tb[:1], nb)
+    for i in range(b):
+        alone = da.decode_attention_paged(q[i:i + 1], kc, vc, tb[i:i + 1],
+                                          ln[i:i + 1], kv_scales=(ks, vs))
+        pair_ln = torch.tensor([int(lens[i]), 1234], dtype=torch.int32,
+                               device="cuda")
+        pair = da.decode_attention_paged(q[[i, (i + 1) % b]], kc, vc,
+                                         torch.cat([tb[i:i + 1], trash]),
+                                         pair_ln, kv_scales=(ks, vs))
+        _same(torch, name, alone[0], got[i], f"row {i} alone")
+        _same(torch, name, pair[0], got[i], f"row {i} beside an all-trash "
+                                            f"row")
+        if not torch.isfinite(pair[1]).all():
+            raise AssertionError(f"{name}: an all-trash row is not finite")
+    _log(f"  {name}: each of the {b} rows bit-equal alone and beside an "
+         f"all-trash row")
     item = q.element_size()
     slots = int((lens.astype(np.int64) + 1).sum())
     nbytes = (slots * 2 * hkv * (d + 4)           # valid codes and scales
@@ -391,13 +507,18 @@ def _decode_int8_case(torch, dtype, gen, rng):
     scratch, flush = _read_flush(torch)
     ms = _time_ms(torch, lambda: da.decode_attention_paged(
         q, kc, vc, tb, ln, kv_scales=(ks, vs)), flush)
+    host_us = _host_us(torch, lambda: da.decode_attention_paged(
+        q, kc, vc, tb, ln, kv_scales=(ks, vs)))
     plain_ms = _time_ms(torch, lambda: da.decode_attention_paged_plain(
         q, kc, vc, tb, ln, kv_scales=(ks, vs)), flush)
     del scratch
+    _log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+         f"{bound_ms:.4f} ms; host {host_us:.1f} us a call")
     return dict(shape=f"B={b} Hkv={hkv} G={g} D={d} L={blk_len} "
                       f"max_blocks={mb} lens<={int(lens.max())} int8 cache",
                 dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+                host_us=host_us)
 
 
 # the speculative path of phase 3c: verify width C = spec_decode + 1, and
@@ -612,13 +733,12 @@ def _dense_case(torch, dtype, gen):
 def _qmm_case(torch, dtype, bits, m, k, n, gen):
     """The quantized matmul on x [M, K] and codes of a random [K, N]
     weight (std 0.02) quantized per output channel by the serving rule.
-    ``bound_ms`` uses the peak of x's dtype (bf16 tensor cores);
-    ``cuda_core_bound_ms`` the 67 TFLOP/s of the fp32 CUDA cores this
-    kernel runs on.  ``library_ms`` is one ``torch.matmul`` in x's dtype
-    on the pre-dequantized weight: the GEMM of the same shape, not the
-    same function (it streams 2 or 4 bytes per weight, not 1 or 1/2).
-    Every timed call finds the L2 cold and clean (``_read_flush``), as a
-    decode step finds each layer's weights."""
+    ``bound_ms`` uses the peak of x's dtype (bf16: the tensor cores the
+    kernel runs on; float32: the CUDA cores).  ``library_ms`` is one
+    ``torch.matmul`` in x's dtype on the pre-dequantized weight: the GEMM
+    of the same shape, not the same function (it streams 2 or 4 bytes per
+    weight, not 1 or 1/2).  Every timed call finds the L2 cold and clean
+    (``_read_flush``), as a decode step finds each layer's weights."""
     from paddle_tpu_torch.ops import quantized_matmul as qm
     from paddle_tpu_torch.quantization import (absmax_to_scales,
                                                quantize_channelwise)
@@ -641,7 +761,6 @@ def _qmm_case(torch, dtype, bits, m, k, n, gen):
     nbytes = m * k * item + codes.numel() + 4 * n + m * n * item
     ops = 2.0 * m * k * n
     bound_ms, by = _bound(nbytes, ops, dtype)
-    cc_ms, cc_by = _bound(nbytes, ops, "float32")
     scratch, flush = _read_flush(torch)
     ms = _time_ms(torch, lambda: qm.quantized_matmul(x, codes, scales,
                                                      bits=bits), flush)
@@ -652,8 +771,45 @@ def _qmm_case(torch, dtype, bits, m, k, n, gen):
     del scratch, wd
     return dict(shape=tag, dtype=dtype, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                cuda_core_bound_ms=cc_ms, cuda_core_bound_by=cc_by,
                 library_ms=lib_ms)
+
+
+def _qmm_rows_case(torch, bits, gen, k=4096, n=14336):
+    """A row's bits at every M (bf16 x, the 8B gate/up projection): x
+    [256, K], and the launches on x[:M] for M in ``QMM_ROW_MS``, for each
+    epilogue form of ``QMM_FORMS`` (bias [N] of std 0.1).  Every launch
+    is held against its plain version (``QMM_TOL``), and the rows of each
+    launch must equal the same rows of the next larger one bit for bit."""
+    from paddle_tpu_torch.ops import quantized_matmul as qm
+    from paddle_tpu_torch.quantization import (absmax_to_scales,
+                                               quantize_channelwise)
+    x = torch.randn(max(QMM_ROW_MS), k, generator=gen,
+                    device="cuda").bfloat16()
+    w = 0.02 * torch.randn(k, n, generator=gen, device="cuda")
+    scales = absmax_to_scales(w.abs().amax(0), bits)
+    codes = quantize_channelwise(w, scales, bits)
+    del w
+    if bits == 4:
+        codes = qm.pack_int4(codes)
+    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    atol, rtol = QMM_TOL["bfloat16"]
+    for with_bias, act in QMM_FORMS:
+        kw = dict(bias=bias if with_bias else None, act=act, bits=bits)
+        tag = (f"quantized_matmul K={k} N={n} int{bits} bfloat16 "
+               f"bias={with_bias} act={act}")
+        outs, share = {}, 0.0
+        for m in QMM_ROW_MS:
+            got = qm.quantized_matmul(x[:m], codes, scales, **kw)
+            want = qm.quantized_matmul_plain(x[:m], codes, scales, **kw)
+            share = max(share, _within(torch, f"{tag} M={m}", got, want,
+                                       atol, rtol)[1])
+            outs[m] = got
+        for small, big in zip(QMM_ROW_MS, QMM_ROW_MS[1:]):
+            _same(torch, tag, outs[small], outs[big][:small],
+                  f"M={small} against the first {small} rows of M={big}")
+        _log(f"  {tag}: M={', '.join(map(str, QMM_ROW_MS))} within the "
+             f"limit ({share:.3f} of it at most), each row bit-equal at "
+             f"every M")
 
 
 # The training shapes of phase 5 (examples/llama_pretrain.py at full width)
@@ -1152,6 +1308,8 @@ def phase_kernels(torch, seed):
             for m, k, n in QMM_SHAPES:
                 rows["quantized_matmul"].append(
                     _qmm_case(torch, dtype, bits, m, k, n, gen))
+            if dtype == "bfloat16":
+                _qmm_rows_case(torch, bits, gen)
         # flash at the training batch in bf16 (the main path's shape), at
         # B=2 in f32 (the plain backward's fp32 score tensors at B=8 f32
         # would be 4.3 GB each)
@@ -1164,6 +1322,8 @@ def phase_kernels(torch, seed):
     rows["rms_norm"].append(_rms_case(
         torch, TRAIN["batch"] * TRAIN["seq"], "bfloat16", gen,
         d=TRAIN["hidden"]))
+    for n, d in RMS_TURN_SHAPES:
+        _rms_turns(torch, n, d, gen)
     rows.update(_train5_rows(torch, seed))
     rows["flash_attention_fwd"] += _flash_shape_rows(torch, seed)
     for name, cases in rows.items():
@@ -1176,10 +1336,7 @@ def phase_kernels(torch, seed):
                  f"library_ms="
                  + ("none" if lib is None else f"{lib:.4f}")
                  + (f" (library max_abs_err={c['library_max_abs_err']:.3g})"
-                    if "library_max_abs_err" in c else "")
-                 + (f" cuda_core_bound_ms={c['cuda_core_bound_ms']:.4f} "
-                    f"({c['cuda_core_bound_by']})"
-                    if "cuda_core_bound_ms" in c else ""))
+                    if "library_max_abs_err" in c else ""))
     return rows
 
 
@@ -1420,20 +1577,37 @@ def _spec_trace(torch, eng, cfg, seed, specs):
     return launches, eng.stats(), wall, sum(m for _, m in trace), rng
 
 
-# the decode attention kernels in a profile, by the names the profiler
-# gives them: the split and merge kernels of csrc/decode_split.cuh by
-# their walk (PagedWalk: the one-token paged decode and the K-wide verify;
-# DenseWalk: the dense decode), and the int8 one-token kernel
+# the kernels a profile sums by name: the split and merge kernels of
+# csrc/decode_split.cuh by their walk (PagedWalk: the one-token paged
+# decode, float or, in an int8-KV engine, int8, and the K-wide verify;
+# DenseWalk: the dense decode), the first design's int8 one-token kernel
+# (a parent tree's), the quantized matmul (every kernel of its source:
+# qmm_tc_kernel, or the float32 route's partial and epilogue kernels and a
+# parent tree's) and RMSNorm
 DECODE_KERNELS = {"paged (split+merge)": "PagedWalk",
                   "dense (split+merge)": "DenseWalk",
-                  "int8 paged": "paged_decode_int8_kernel"}
+                  "int8 paged (first design)": "paged_decode_int8_kernel",
+                  "quantized matmul": "qmm_",
+                  "rms_norm": "rms_norm"}
 
 
 def _decode_ms(per_kernel, steps=1):
-    """Device ms per step of each decode attention kernel in a profile's
-    ``{kernel name: us}``."""
+    """Device ms per step of each kernel of ``DECODE_KERNELS`` in a
+    profile's ``{kernel name: us}``."""
     return {tag: sum(us for n, us in per_kernel.items() if key in n)
             / 1e3 / steps for tag, key in DECODE_KERNELS.items()}
+
+
+def _profile_kernels(torch, prof):
+    """A profile's CUDA kernels: ``{name: us}`` summed, and ``{name:
+    launches}``."""
+    per_kernel, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us())
+            count[e.name] = count.get(e.name, 0) + 1
+    return per_kernel, count
 
 
 def _log_decode_kernels(per_kernel, steps=1):
@@ -1471,11 +1645,7 @@ def _profile_verify(torch, eng, rng, vocab):
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     verify = eng.stats()["verify_seconds"] - v0
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us())
+    per_kernel, _ = _profile_kernels(torch, prof)
     eng.run()
     if not per_kernel:
         _log(f"  verify profile: step wall {wall * 1e3:.1f} ms; device time "
@@ -1489,7 +1659,8 @@ def _profile_verify(torch, eng, rng, vocab):
          f"device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% of "
          f"the unprofiled wall; K-wide verify kernel "
          f"{dec['paged (split+merge)']:.3f} ms, the drafter's dense decode "
-         f"{dec['dense (split+merge)']:.3f} ms), "
+         f"{dec['dense (split+merge)']:.3f} ms, quantized matmul "
+         f"{dec['quantized matmul']:.3f} ms), "
          f"{len(per_kernel)} distinct kernels")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         _log(f"  {us / 1e3:8.3f} ms  {name[:90]}")
@@ -1587,11 +1758,7 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) / steps
     live = sum(r.state == "decode" for r in reqs)
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us())
+    per_kernel, count = _profile_kernels(torch, prof)
     busy = sum(per_kernel.values()) / 1e3 / steps
     eng.run()
     if live != eng.num_slots:
@@ -1603,15 +1770,54 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
         return
     dec = ", ".join(f"{tag} {ms:.3f}" for tag, ms in
                     _decode_ms(per_kernel, steps).items() if ms)
+    rms = [n for n in per_kernel if "rms_norm" in n]
+    rms_us = (sum(per_kernel[n] for n in rms) / sum(count[n] for n in rms)
+              if rms else None)
     _log(f"decode profile: {steps}+{steps} steps x {eng.num_slots} slots: "
          f"wall {wall * 1e3:.3f} ms/step unprofiled, "
          f"{wall_prof * 1e3:.3f} ms/step profiled; device busy "
          f"{busy:.3f} ms/step ({100 * busy / (wall * 1e3):.1f}% of the "
-         f"unprofiled wall; decode attention ms/step: {dec or 'none'}), "
+         f"unprofiled wall; by kernel, ms/step: {dec or 'none'}; rms_norm "
+         + ("not launched" if rms_us is None else
+            f"{rms_us:.2f} us a launch") + f"), "
          f"{len(per_kernel)} distinct kernels")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         _log(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}")
     _log_decode_kernels(per_kernel, steps)
+
+
+def _profile_prefill_chunk(torch, eng, rng, vocab):
+    """One prefill chunk (``chunk_len`` rows, the first of a fresh prompt
+    of ``prompt_len`` tokens) on an idle engine, under ``torch.profiler``:
+    the step's wall, the device busy time and the kernels that take most
+    of it."""
+    from torch.profiler import ProfilerActivity, profile
+    req = eng.submit(rng.integers(0, vocab, eng.prompt_len).astype("int32"),
+                     max_new_tokens=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel, count = _profile_kernels(torch, prof)
+    eng.run()
+    if req.state != "finished":
+        raise AssertionError(f"prefill profile: request {req.state}")
+    if not per_kernel:
+        _log(f"prefill chunk profile: wall {wall * 1e3:.3f} ms; device "
+             f"time not measured (the profiler recorded no CUDA kernels)")
+        return
+    busy = sum(per_kernel.values()) / 1e3
+    qmm = [n for n in per_kernel if "qmm_" in n]
+    _log(f"prefill chunk profile: {eng.chunk_len} rows: wall "
+         f"{wall * 1e3:.3f} ms profiled; device busy {busy:.3f} ms; "
+         f"quantized matmul {sum(per_kernel[n] for n in qmm) / 1e3:.3f} ms "
+         f"over {sum(count[n] for n in qmm)} kernel launches; "
+         f"{len(per_kernel)} distinct kernels")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        _log(f"  {us / 1e3:8.3f} ms  {name[:90]}")
 
 
 def phase_decode_window(torch, seed):
@@ -1662,6 +1868,100 @@ def phase_decode_window(torch, seed):
         model, max_context=SPEC["max_context"], max_draft=SPEC["k"],
         compute_dtype="bfloat16"), **kw)
     _profile_verify(torch, eng, rng, cfg.vocab_size)
+
+
+# phase 2's bf16 quantized-matmul shapes that --quant-window times
+QUANT_WINDOW_SHAPES = [(1, 4096, 14336), (8, 4096, 14336), (40, 4096, 14336),
+                       (256, 4096, 14336), (8, 4096, 1024), (8, 14336, 4096)]
+
+
+# the bf16 quantized matmul's CTA tiles (mt, ng, wn, wm) that
+# --quant-window sweeps, by shape (M, K, N)
+_SMALL_TILES = [(1, 1, 1, 1), (1, 1, 2, 1), (1, 1, 4, 1)]
+QMM_TILE_SWEEP = {
+    (8, 4096, 14336): _SMALL_TILES,
+    (8, 4096, 4096): _SMALL_TILES,
+    (8, 4096, 1024): _SMALL_TILES,
+    (8, 14336, 4096): _SMALL_TILES,
+    (40, 4096, 14336): [(5, 1, 1, 1), (5, 1, 2, 1), (5, 1, 4, 1)]}
+
+
+def _qmm_tile_sweep(torch, gen):
+    """The bf16 quantized matmul at each shape of ``QMM_TILE_SWEEP`` under
+    each CTA tile (the wrapper's ``tc_tile`` replaced for the sweep), int8
+    and int4, L2 flushed by a read; every tile's output must equal the
+    chosen tile's bit for bit (the tile only places the work)."""
+    from paddle_tpu_torch.ops import quantized_matmul as qm
+    from paddle_tpu_torch.quantization import (absmax_to_scales,
+                                               quantize_channelwise)
+    chosen = qm.tc_tile
+    scratch, flush = _read_flush(torch)
+    try:
+        for (m, k, n), tiles in QMM_TILE_SWEEP.items():
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            w = 0.02 * torch.randn(k, n, generator=gen, device="cuda")
+            for bits in (8, 4):
+                scales = absmax_to_scales(w.abs().amax(0), bits)
+                codes = quantize_channelwise(w, scales, bits)
+                if bits == 4:
+                    codes = qm.pack_int4(codes)
+                qm.tc_tile = chosen
+                want = qm.quantized_matmul(x, codes, scales, bits=bits)
+                res = []
+                for tile in tiles:
+                    qm.tc_tile = lambda *_a, t=tile: t
+                    got = qm.quantized_matmul(x, codes, scales, bits=bits)
+                    _same(torch, f"quantized_matmul M={m} K={k} N={n} "
+                                 f"int{bits}", got, want, f"tile {tile}")
+                    res.append(f"{tile}: {_time_ms(torch, lambda: qm.quantized_matmul(x, codes, scales, bits=bits), flush):.4f}")
+                _log(f"quant window: tiles (mt, ng, wn, wm) M={m} K={k} N={n} "
+                     f"int{bits} (chosen {chosen(m, n, qm.tc_split_plan(k, bits)[0])}), "
+                     f"ms: {'; '.join(res)}")
+            del w
+    finally:
+        qm.tc_tile = chosen
+        del scratch
+
+
+def phase_quant_window(torch, seed):
+    """``--quant-window``: the quantized matmul and the int8 one-token
+    decode alone and in the quantized serving step.  Phase 2's bf16
+    quantized-matmul cases at ``QUANT_WINDOW_SHAPES`` in int8 and int4
+    (kernel, plain and bf16 GEMM times), the CTA tiles of
+    ``QMM_TILE_SWEEP`` where the tree has them, and its int8 decode case
+    in bf16 (kernel and plain times, host time a call); then, on the 8B
+    model
+    through an int8-KV, int8-weight engine (phase 3b's), phase 3b's decode
+    window and one 256-row chunk prefill, profiled.  With ``--root`` the
+    package comes from another tree (a parent commit unpacked beside this
+    checkout), so one script measures two trees, in turns within one
+    call."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for m, k, n in QUANT_WINDOW_SHAPES:
+        for bits in (8, 4):
+            row = _qmm_case(torch, "bfloat16", bits, m, k, n, gen)
+            _log(f"quant window: quantized_matmul {row['shape']} bfloat16: "
+                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                 f"ms, bf16 GEMM {row['library_ms']:.4f} ms, bound "
+                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    from paddle_tpu_torch.ops import quantized_matmul as qm
+    if hasattr(qm, "tc_tile"):
+        _qmm_tile_sweep(torch, gen)
+    row = _decode_int8_case(torch, "bfloat16", gen, rng)
+    _log(f"quant window: int8 paged decode {row['shape']}: kernel "
+         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+         f"{row['bound_ms']:.4f} ms; host {row['host_us']:.1f} us a call")
+    cfg, model = _build_8b(torch, 32, "bfloat16", seed)
+    eng = ServingEngine(model, num_slots=8, prompt_len=512, chunk_len=256,
+                        max_cache_len=1024, block_len=16,
+                        compute_dtype="bfloat16", kv_cache_dtype="int8",
+                        weight_dtype="int8")
+    _profile_decode(torch, eng, rng, cfg.vocab_size)
+    _profile_prefill_chunk(torch, eng, rng, cfg.vocab_size)
 
 
 def phase_exactness(torch, seed):
@@ -2359,10 +2659,15 @@ def main(argv=None) -> int:
                     help="measure the decode attention kernels alone and "
                          "in the serving step (phase_decode_window), then "
                          "stop without a result line")
+    ap.add_argument("--quant-window", action="store_true",
+                    help="measure the quantized matmul and the int8 decode "
+                         "alone and in the quantized serving step "
+                         "(phase_quant_window), then stop without a result "
+                         "line")
     ap.add_argument("--root", help="import paddle_tpu_torch from this tree "
                                    "instead of the checkout (with "
-                                   "--decode-window: measure another "
-                                   "commit)")
+                                   "--decode-window or --quant-window: "
+                                   "measure another commit)")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2380,6 +2685,9 @@ def main(argv=None) -> int:
     smi = phase_env(torch)
     if args.decode_window:
         phase_decode_window(torch, args.seed)
+        return 0
+    if args.quant_window:
+        phase_quant_window(torch, args.seed)
         return 0
     rows = phase_kernels(torch, args.seed)
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
@@ -2456,8 +2764,7 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], "dtype": c["dtype"],
-            **{k: c[k] for k in ("cuda_core_bound_ms", "wrapper_ms",
-                                 "host_us") if k in c}})
+            **{k: c[k] for k in ("wrapper_ms", "host_us") if k in c}})
     _log(json.dumps({"kernels": kernels}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

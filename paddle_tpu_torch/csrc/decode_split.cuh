@@ -1,9 +1,10 @@
 // Split-K flash-decode attention for Hopper (sm_90a), shared by the
-// three decode kernels of the port: the K-wide paged verify attention
+// decode kernels of the port: the K-wide paged verify attention
 // (paged_decode_attention_multi.cu, float and int8 cache), the one-token
-// paged decode (paged_decode_attention.cu, the verify at C = 1) and the
-// one-token dense decode (decode_attention.cu).  Each source includes this
-// header and picks how a CTA finds slot t of row b (the Walk below).
+// paged decode (paged_decode_attention.cu and, over an int8 cache,
+// paged_decode_attention_int8.cu: the verify at C = 1) and the one-token
+// dense decode (decode_attention.cu).  Each source includes this header
+// and picks how a CTA finds slot t of row b (the Walk below).
 //
 // Each row brings C query tokens at global slots first .. first+C-1 (the
 // one-token kernels: C = 1); query c attends, grouped-query style, to
@@ -118,7 +119,7 @@
 #include <math.h>
 #include <stdint.h>
 
-// Internal linkage: the three sources are three libraries loaded into one
+// Internal linkage: the four sources are four libraries loaded into one
 // process, and a function-local static of a template with vague linkage
 // (launch's attr_set) would be one object across them.
 namespace dsplit {

@@ -19,11 +19,11 @@ over the ``_paged_multi_xla`` body (:1280-1311).
 raise on what the kernel cannot take) and run their plain versions for
 CPU tensors; nothing sends a CUDA tensor to a plain version.  A float
 paged cache launches the float kernel, an int8 one (``kv_scales`` given)
-the int8 kernel.  The float paged, the K-wide and the dense kernels are
-one split-K template (``csrc/decode_split.cuh``): a split kernel and a
-merge kernel behind one wrapper call and one launch count, with an fp32
-scratch of partial results the wrapper allocates.  The kernels have no
-backward: on the card they raise when grad mode is on and an input
+the int8 kernel.  The paged (float and int8), the K-wide and the dense
+kernels are one split-K template (``csrc/decode_split.cuh``): a split
+kernel and a merge kernel behind one wrapper call and one launch count,
+with an fp32 scratch of partial results the wrapper allocates.  The
+kernels have no backward: on the card they raise when grad mode is on and an input
 requires grad, rather than return an output detached from them.
 """
 
@@ -46,7 +46,7 @@ KERNEL = _build.register(_build.Kernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 KERNEL_INT8 = _build.register(_build.Kernel(
     "paged_decode_attention_int8", "ptt_paged_decode_attention_int8",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
 # the K-wide verify kernels: one source, a float and an int8 entry point
 KERNEL_MULTI = _build.register(_build.Kernel(
@@ -331,25 +331,13 @@ def _check_operands(q, k_arena, v_arena, tables, lens, kv_scales=None):
         raise ValueError(f"tables must be [B, max_blocks] and lens [B] for "
                          f"B={b}, got {tuple(tables.shape)} and "
                          f"{tuple(lens.shape)}")
-    vec = 8 if kv_scales is None else 16      # elements per 16-byte load
-    if d % vec:
-        raise ValueError(f"paged decode kernel needs head_dim % {vec} == 0, "
-                         f"got {d}")
     if b > 65535 or hkv > 65535:
         raise ValueError(f"paged decode kernel takes at most 65535 rows and "
                          f"65535 kv heads, got B={b}, Hkv={hkv}")
-    blk_len = k_arena.shape[1]
-    if multi or kv_scales is None:
-        _check_split("K-wide paged decode kernel" if multi
-                     else "paged decode kernel",
-                     g * (q.shape[1] if multi else 1), d, blk_len,
-                     q.element_size(), kv_scales is not None)
-    else:
-        smem = 4 * (2 * g * d + blk_len * (2 * d + 1) + g * blk_len + 3 * g)
-        if smem > _SMEM_MAX:
-            raise ValueError(f"int8 paged decode kernel: G={g}, D={d}, "
-                             f"L={blk_len} need {smem} bytes of shared "
-                             f"memory (> {_SMEM_MAX})")
+    what = ("K-wide " if multi else "") \
+        + ("int8 " if kv_scales is not None else "") + "paged decode kernel"
+    _check_split(what, g * (q.shape[1] if multi else 1), d,
+                 k_arena.shape[1], q.element_size(), kv_scales is not None)
     return b, hq, d, hkv, g
 
 
@@ -362,22 +350,21 @@ def _decode_attention_paged_cuda(q, k_arena, v_arena, tables, lens,
         return out.reshape(b, hq * d)
     blk_len, mb, num_rows = k_arena.shape[1], tables.shape[1], \
         k_arena.shape[0]
-    scale, dt, stream = 1.0 / math.sqrt(d), _DTYPES[q.dtype], \
-        _build.stream_ptr(q)
+    bps, n_splits = verify_split_plan(mb, blk_len)
+    part = verify_partials(b, 1, hkv, g, d, mb, blk_len, q.device)
+    geometry = (b, hkv, g, d, blk_len, mb, num_rows, bps, n_splits,
+                1.0 / math.sqrt(d), _DTYPES[q.dtype], _build.stream_ptr(q))
     if kv_scales is None:
-        bps, n_splits = verify_split_plan(mb, blk_len)
-        part = verify_partials(b, 1, hkv, g, d, mb, blk_len, q.device)
         KERNEL.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
             _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
-            _build.ptr(part), b, hkv, g, d, blk_len, mb, num_rows, bps,
-            n_splits, scale, dt, stream)
+            _build.ptr(part), *geometry)
     else:
         KERNEL_INT8.launch(
             _build.ptr(q), _build.ptr(k_arena), _build.ptr(v_arena),
             _build.ptr(kv_scales[0]), _build.ptr(kv_scales[1]),
-            _build.ptr(tables), _build.ptr(lens), _build.ptr(out), b, hkv,
-            g, d, blk_len, mb, num_rows, scale, dt, stream)
+            _build.ptr(tables), _build.ptr(lens), _build.ptr(out),
+            _build.ptr(part), *geometry)
     return out.reshape(b, hq * d)
 
 

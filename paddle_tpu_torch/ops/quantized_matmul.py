@@ -1,5 +1,7 @@
 """Int8/int4-weight matrix product: the CUDA kernel
-``csrc/quantized_matmul.cu`` and its plain PyTorch version.
+``csrc/quantized_matmul.cu`` (bf16 x on the tensor cores, K split over a
+thread-block cluster by ``tc_split_plan``; float32 x on CUDA cores, K
+split into slices by ``_num_slices``) and its plain PyTorch version.
 
 Port of ``paddle_tpu/ops/pallas/quantized_matmul.py``: ``pack_int4`` /
 ``unpack_int4`` (:126-156, the split-K-halves layout byte for byte),
@@ -29,12 +31,24 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
-# code rows per K slice of one CTA (csrc/quantized_matmul.cu kSliceRows*)
+# float32 x: code rows per K slice of one CTA (csrc/quantized_matmul.cu
+# kSliceRows*)
 _SLICE_ROWS = {8: 256, 4: 128}
+# bfloat16 x (tensor cores): code rows per mma step, the most pieces of K
+# (CTAs of a cluster) and the steps for each piece
+_TC_STEP = 16
+_TC_MAX_PIECES = 8
+_TC_MIN_STEPS = 16
+# the bfloat16 route's tiles (tc_tile): warps along N (32 columns each),
+# tried widest first, the fewest CTAs a launch should give the card, and
+# the tile past M = 64 (mt, ng, wn, wm)
+_TC_WNS = (4, 2, 1)
+_TC_MIN_CTAS = 132
+_TC_LARGE = (8, 2, 2, 2)
 
 KERNEL = _build.register(_build.Kernel(
     "quantized_matmul", "ptt_quantized_matmul",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]))
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]))
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -114,8 +128,45 @@ def quantized_matmul_plain(x, qweight, scales, out_dtype=None, bias=None,
 
 
 def _num_slices(k, bits):
+    """K slices of the float32 route: ceil(code rows / slice rows)."""
     rows = k // 2 if bits == 4 else k
     return -(-rows // _SLICE_ROWS[bits])
+
+
+def tc_split_plan(k, bits):
+    """(pieces, code rows a piece) of the bfloat16 route: the code rows (K,
+    or K/2 packed int4 rows) in mma steps of 16, cut into at most 8 pieces
+    and no more than one for each 16 steps, piece p covering rows
+    [p * rows_a_piece, (p + 1) * rows_a_piece).  Each piece is one mma chain
+    over its steps in ascending order, and the pieces are summed in order
+    0..P-1, so an output element's summation order is a function of K and
+    bits alone, never of M, N or the card."""
+    rows = k // 2 if bits == 4 else k
+    steps = -(-rows // _TC_STEP)
+    pieces = min(_TC_MAX_PIECES, max(1, -(-steps // _TC_MIN_STEPS)))
+    return pieces, -(-steps // pieces) * _TC_STEP
+
+
+def tc_tile(m, n, pieces):
+    """(mt, ng, wn, wm) of the bfloat16 route's CTA tile: a warp holds
+    ``mt`` n8 tiles of x rows and ``ng`` groups of 32 columns, ``wn`` warps
+    along N, ``wm`` along M.  Up to M = 64 one m tile of ceil(M / 8) n8
+    tiles, one group a warp and the most warps along N that still give
+    the card a CTA per SM; past it 128 x 128 tiles of four warps of 64
+    columns x 64 rows.  The tile only places the work: the summation
+    order is ``tc_split_plan``'s, so a row's bits do not depend on it."""
+    if m > 64:
+        return _TC_LARGE
+    mt = -(-m // 8)
+    for wn in _TC_WNS:
+        if -(-n // (32 * wn)) * pieces >= _TC_MIN_CTAS or wn == 1:
+            return mt, 1, wn, 1
+
+
+def _tile_code(tile):
+    """The C entry's encoding of a tile (mt, ng, wn, wm)."""
+    mt, ng, wn, wm = tile
+    return mt + 16 * ng + 256 * wn + 4096 * wm
 
 
 def _check_operands(x2, qweight, scales, out_dtype, bias, act, bits):
@@ -146,6 +197,12 @@ def _check_operands(x2, qweight, scales, out_dtype, bias, act, bits):
                          f"({_true_k(qweight, bits)})")
     if n % 8:
         raise ValueError(f"quantized_matmul kernel needs N % 8 == 0, got {n}")
+    if x2.dtype == torch.bfloat16:
+        kmul = 32 if bits == 4 else 16
+        if n % 16 or k % kmul:
+            raise ValueError(f"quantized_matmul tensor-core kernel (bf16 x) "
+                             f"needs N % 16 == 0 and K % {kmul} == 0 "
+                             f"(int{bits}), got N={n} K={k}")
     if m > (1 << 31) - 1 or n // 256 + 1 > 65535 \
             or _num_slices(k, bits) > 65535:
         raise ValueError(f"quantized_matmul kernel: shape M={m} K={k} N={n} "
@@ -175,13 +232,20 @@ def _qmm_cuda(x2, qweight, scales, out_dtype, bias, act, bits):
     y = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     if m == 0:
         return y
-    slices = _num_slices(k, bits)
-    part = torch.empty((slices * m * n,), dtype=torch.float32,
-                       device=x2.device)
+    if x2.dtype == torch.bfloat16:     # one launch, no scratch
+        split, piece_rows = tc_split_plan(k, bits)
+        tile = _tile_code(tc_tile(m, n, split))
+        part = None
+    else:
+        split, piece_rows, tile = _num_slices(k, bits), 0, 0
+        part = torch.empty((split * m * n,), dtype=torch.float32,
+                           device=x2.device)
     KERNEL.launch(
         _build.ptr(x2), _build.ptr(qweight), _build.ptr(scales),
         ctypes.c_void_p(None if bias is None else bias.data_ptr()),
-        _build.ptr(y), _build.ptr(part), m, k, n, bits, ACTS[act], slices,
+        _build.ptr(y), ctypes.c_void_p(None if part is None
+                                       else part.data_ptr()),
+        m, k, n, bits, ACTS[act], split, piece_rows, tile,
         _DTYPES[x2.dtype], _build.stream_ptr(x2))
     return y
 

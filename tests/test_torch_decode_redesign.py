@@ -18,10 +18,17 @@ dense decode (``csrc/decode_attention.cu``) are the split-K template of
   its table, S not a multiple of the 16-slot chunk, lens past S.
 - The emulated split-K gives a row the same bits at B=1 and inside a
   batch.
+- The int8 one-token decode is the verify kernel's int8 path at C = 1:
+  the same split-K emulation, each block dequantized as code x scale in
+  fp32 rounded to q's dtype, against its plain version and
+  ``_paged_kernel_q`` in interpret mode; its wrapper hands the kernel the
+  verify plan at C = 1.
 - The operand checks refuse what the template cannot take: head dims
-  outside {32, 64, 128, 256}, more than 512 threads a CTA.
+  outside {32, 64, 128, 256} (the int8 kernel's too), more than 512
+  threads a CTA.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -122,10 +129,12 @@ def _split_merge(q, kv_block, first, n_blocks, blk_len, per_split):
     return (num / den[..., None]).to(q.dtype).reshape(b, hq * d)
 
 
-def _paged_split_merge(q, k_arena, v_arena, tables, lens):
+def _paged_split_merge(q, k_arena, v_arena, tables, lens, kv_scales=None):
     """The one-token paged kernel: block j of row b is arena row
     tables[b, j] clamped into the arena, a row walks min(lens / L + 1,
-    max_blocks) blocks in splits of ``verify_split_plan``."""
+    max_blocks) blocks in splits of ``verify_split_plan``.  An int8 cache
+    (``kv_scales`` given) stages each block dequantized as the kernel's
+    int8 path does: code x scale in fp32, rounded to q's dtype."""
     blk_len, mb = k_arena.shape[1], tables.shape[1]
     d = q.shape[-1]
     hkv = k_arena[0, 0].numel() // d
@@ -133,13 +142,19 @@ def _paged_split_merge(q, k_arena, v_arena, tables, lens):
     lens = lens.long()
     n_blocks = torch.clamp(lens // blk_len + 1, max=mb)
 
+    def staged(arena, scales, rows):
+        blk = arena[rows].reshape(-1, blk_len, hkv, d)
+        if scales is None:
+            return blk
+        return (blk.float() * scales[rows][..., None]).to(q.dtype)
+
     def kv_block(j):
         if j >= mb:
             z = torch.zeros(q.shape[0], blk_len, hkv, d, dtype=q.dtype)
             return z, z
         rows = tables[:, j].long().clamp(0, k_arena.shape[0] - 1)
-        return (k_arena[rows].reshape(-1, blk_len, hkv, d),
-                v_arena[rows].reshape(-1, blk_len, hkv, d))
+        ks, vs = kv_scales if kv_scales is not None else (None, None)
+        return staged(k_arena, ks, rows), staged(v_arena, vs, rows)
 
     return _split_merge(q, kv_block, lens, n_blocks, blk_len, bps)
 
@@ -206,6 +221,99 @@ def test_paged_split_merge_matches_plain_and_pallas(g, blk_len):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref).reshape(b, -1),
                                atol=ATOL, rtol=0)
     assert torch.isfinite(got).all()
+
+
+def _int8_paged_case(seed, g, blk_len, hkv=2, d=64, mb=6):
+    """``_paged_case``'s rows and tables over an int8 cache: the float
+    arenas quantized per entry per kv head (``quantize_kv_heads``), the
+    trash row included."""
+    from paddle_tpu_torch.models.generation import quantize_kv_heads
+    q, ka, va, tables, lens = _paged_case(seed, g, blk_len, hkv, d, mb)
+    planes = []
+    for a in (ka, va):
+        codes, sc = quantize_kv_heads(_t(a).reshape(a.shape[0], blk_len,
+                                                    hkv, d))
+        planes.append((codes.reshape(a.shape).numpy(), sc.numpy()))
+    (kc, ks), (vc, vs) = planes
+    return q, kc, vc, ks, vs, tables, lens
+
+
+@pytest.mark.parametrize("g,blk_len", [(4, 16), (1, 16), (4, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_paged_split_merge_matches_plain_and_pallas(g, blk_len, dtype):
+    """The int8 one-token decode on the template: the K-wide verify's int8
+    path at C = 1, split-K over the verify plan, against its plain version
+    (float32 ``atol 1e-5``; bfloat16 one ulp plus ``atol 2^-5`` of the
+    row's RMS, as ``chip_smoke.DECODE_INT8_TOL``: P is rounded to bf16
+    against the split's running max, the plain version rounds the
+    normalized P) and against ``_paged_kernel_q`` in interpret mode."""
+    q, kc, vc, ks, vs, tables, lens = _int8_paged_case(g * 10 + blk_len, g,
+                                                       blk_len)
+    b, hq, d = q.shape
+    qt = _t(q).to(dtype)
+    scales = (_t(ks), _t(vs))
+    got = _paged_split_merge(qt, _t(kc), _t(vc), _t(tables), _t(lens),
+                             scales)
+    plain = tda.decode_attention_paged(qt, _t(kc), _t(vc), _t(tables),
+                                       _t(lens), kv_scales=scales)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    g32, p32 = got.float().numpy(), plain.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(g32, p32, atol=ATOL, rtol=0)
+    else:
+        rms = np.sqrt((p32.reshape(b, hq, d) ** 2).mean(-1, keepdims=True))
+        err = np.abs(g32 - p32).reshape(b, hq, d)
+        assert np.all(err <= 2.0 ** -5 * rms
+                      + 2.0 ** -7 * np.abs(p32.reshape(b, hq, d)))
+    hkv = kc.shape[2] // d
+    ref = jda._decode_attention_pallas_paged_q(
+        jnp.asarray(q.reshape(b, hkv, g, d)), jnp.asarray(kc),
+        jnp.asarray(vc), jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(tables), jnp.asarray(lens))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(g32, np.asarray(ref).reshape(b, -1),
+                                   atol=ATOL, rtol=1e-5)
+
+
+def test_int8_paged_split_merge_row_bits_do_not_depend_on_batch():
+    q, kc, vc, ks, vs, tables, lens = _int8_paged_case(3, 4, 16)
+    scales = (_t(ks), _t(vs))
+    full = _paged_split_merge(_t(q), _t(kc), _t(vc), _t(tables), _t(lens),
+                              scales)
+    for i in range(q.shape[0]):
+        row = _paged_split_merge(_t(q[i:i + 1]), _t(kc), _t(vc),
+                                 _t(tables[i:i + 1]), _t(lens[i:i + 1]),
+                                 scales)
+        assert torch.equal(row[0], full[i])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_one_token_wrappers_launch_the_verify_plan_at_c1(monkeypatch, int8):
+    """What the CUDA wrapper of the one-token paged decode hands its
+    kernel, float or int8 cache: the verify kernel's split plan and a
+    scratch of its partials at C = 1 (run on CPU tensors with the launch
+    captured)."""
+    q, kc, vc, ks, vs, tables, lens = _int8_paged_case(4, 4, 16)
+    if int8:
+        args, scales, kern = (_t(kc), _t(vc)), (_t(ks), _t(vs)), \
+            tda.KERNEL_INT8
+    else:
+        _, ka, va, _, _ = _paged_case(4, 4, 16)
+        args, scales, kern = (_t(ka), _t(va)), None, tda.KERNEL
+    seen = []
+    monkeypatch.setattr(kern, "launch", lambda *a: seen.append(a))
+    monkeypatch.setattr(tda._build, "stream_ptr",
+                        lambda t: ctypes.c_void_p(None))
+    out = tda._decode_attention_paged_cuda(_t(q), *args, _t(tables),
+                                           _t(lens), scales)
+    assert out.shape == (5, q.shape[1] * q.shape[2]) and len(seen) == 1
+    n_ptr = 9 if int8 else 7
+    part = seen[0][n_ptr - 1]
+    b, hkv, g, d, blk_len, mb, num_rows, bps, n_splits = \
+        seen[0][n_ptr:n_ptr + 9]
+    assert (bps, n_splits) == tda.verify_split_plan(mb, blk_len)
+    assert (b, hkv, g, d, blk_len, mb) == (5, 2, 4, 64, 16, 6)
+    assert part.value is not None and num_rows == args[0].shape[0]
 
 
 @pytest.mark.parametrize("s,g", [(37, 4), (64, 1), (100, 4)])
@@ -278,12 +386,12 @@ def test_split_checks_refuse_head_dims_outside_the_template(d):
         tda._check_operands(*_paged_operands(d))
     with pytest.raises(ValueError, match="head_dim in"):
         tda._check_dense(*_dense_operands(d))
-    # the int8 one-token kernel keeps its own geometry (D % 16)
+    # the int8 one-token kernel is the template's too (before, D % 16)
     args = _paged_operands(d)
     codes = [a.to(torch.int8) for a in args[1:3]]
     sc = tuple(torch.zeros(7, 4, 2) for _ in range(2))
-    assert tda._check_operands(args[0], *codes, *args[3:],
-                               kv_scales=sc)[2] == d
+    with pytest.raises(ValueError, match="head_dim in"):
+        tda._check_operands(args[0], *codes, *args[3:], kv_scales=sc)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256])

@@ -273,7 +273,7 @@ def test_int8_paged_prefix_attention_matches_jax(geom):
 
 
 def _int8_decode_bad(case):
-    b, hkv, g, blk_len, nb, mb, d = 2, 2, 2, 4, 6, 3, 16
+    b, hkv, g, blk_len, nb, mb, d = 2, 2, 2, 4, 6, 3, 32
     q = torch.zeros(b, hkv * g, d)
     kc = torch.zeros(nb + 1, blk_len, hkv * d, dtype=torch.int8)
     vc = torch.zeros_like(kc)
@@ -310,7 +310,7 @@ def test_int8_paged_decode_kernel_operand_checks(case):
     are device-independent, so they run here on CPU tensors)."""
     *args, sc, exc = _int8_decode_bad(case)
     if exc is None:
-        assert tda._check_operands(*args, kv_scales=sc) == (2, 4, 16, 2, 2)
+        assert tda._check_operands(*args, kv_scales=sc) == (2, 4, 32, 2, 2)
         return
     with pytest.raises(exc):
         tda._check_operands(*args, kv_scales=sc)
@@ -453,7 +453,13 @@ def test_quantized_matmul_kernel_operand_checks(case):
 
 def test_kernel_slices_depend_on_k_alone():
     """The kernel's K split (and so each element's summation order) is a
-    function of K and bits only: the same for every M."""
+    function of K and bits only: the same for every M.  bf16 x (the tensor
+    cores): pieces of ``tc_split_plan``, one cluster CTA each; float32 x:
+    slices of 256 code rows."""
+    assert tqmm.tc_split_plan(4096, 8) == (8, 512)
+    assert tqmm.tc_split_plan(4096, 4) == (8, 256)
+    assert tqmm.tc_split_plan(14336, 8) == (8, 1792)
+    assert tqmm.tc_split_plan(96, 8) == (1, 96)
     assert tqmm._num_slices(4096, 8) == tqmm._num_slices(4096, 4) == 16
     assert tqmm._num_slices(14336, 8) == 56
     assert tqmm._num_slices(100, 8) == 1
