@@ -4,12 +4,15 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --decode-window [--root TREE]
     python3 chip_smoke.py --quant-window [--root TREE]
+    python3 chip_smoke.py --norm-window [--root TREE]
 
 The second form measures only the decode attention kernels, alone and
 in the serving step (``phase_decode_window``), the third the quantized
 matmul and the int8 decode, alone and in the quantized serving step
-(``phase_quant_window``), of this checkout or of the port in another
-tree (a parent commit unpacked beside it); neither prints a result line.
+(``phase_quant_window``), the fourth RoPE and RMSNorm, alone, in a train
+step and in the serving decode step (``phase_norm_window``), of this
+checkout or of the port in another tree (a parent commit unpacked beside
+it); none prints a result line.
 
 Phases, each of which raises (nonzero exit, no result line) on failure:
 
@@ -19,7 +22,7 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
 2. each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (serving: paged decode over a float and an
    int8 cache, each row bit-equal alone and beside an all-trash row,
-   RMSNorm, also against ``F.rms_norm`` in turns in device time, the
+   RMSNorm (below), the
    int8/int4 quantized matmul at the 8B projections at M = 1, 8, 40
    (decode, verify) and 256 (a prefill chunk), a row bit-equal at every
    M with and without bias and act; speculative decoding: the K-wide verify attention
@@ -33,8 +36,14 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    drafter's prefill (B=1 S=512 D=128), at a ragged causal length
    (S=1000, D=128) and non-causal with Sq != Sk, and both backward
    routes at the ragged length with G = 4 and G = 1 (the one-pass also
-   non-causal at D=64); RoPE forward and
-   backward, RMSNorm, and the fused AdamW update, bit-identical to its
+   non-causal at D=64); RoPE forward and backward, bit-identical to the
+   plain version, at q and k of the training step, at the 8B drafter's
+   prefill and on the element route; RMSNorm at one decode step's rows,
+   a prefill chunk's and the training step's, each row's bits equal
+   alone and inside batches of 8 and 256 rows, against ``F.rms_norm`` in
+   turns beside the launch floor (``torch.cuda._sleep(0)``), both beside
+   torch's copy of the same bytes (``_copy_floor``); and the
+   fused AdamW update, bit-identical to its
    plain version for every parameter and moment dtype, with and without
    stochastic rounding), bfloat16 and float32, with
    CUDA-event timings of the kernel, the plain version and one PyTorch
@@ -248,6 +257,35 @@ def _rms_case(torch, rows, dtype, gen, d=4096):
                 library_ms=lib_ms)
 
 
+# bf16 copies timed beside the streaming kernels (``_copy_floor``)
+COPY_FLOORS = [((8, 2048, 32, 64), "RoPE on the training q"),
+               ((16384, 2048), "RMSNorm on the training rows")]
+
+# RMSNorm row widths whose row bits phase 2 holds alone and inside batches:
+# the 8B model's (serving) and the 1.1B model's (training)
+RMS_ROW_WIDTHS = (4096, 2048)
+
+
+def _rms_rows_case(torch, dtype, d, gen):
+    """A row's RMSNorm output bits depend on d and the dtype alone: rows
+    0, 3 and 7 normalised alone equal the same rows inside an N = 8 and
+    an N = 256 batch, bit for bit."""
+    from paddle_tpu_torch.ops import rms_norm as rn
+    dt = getattr(torch, dtype)
+    x = torch.randn(256, d, generator=gen, device="cuda").to(dt)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
+    n256, n8 = rn.rms_norm(x, w, 1e-5), rn.rms_norm(x[:8], w, 1e-5)
+    for r in (0, 3, 7):
+        alone = rn.rms_norm(x[r:r + 1], w, 1e-5)
+        _same(torch, f"rms_norm [{r}/{d}] {dtype}", alone, n8[r:r + 1],
+              "alone vs N=8")
+        _same(torch, f"rms_norm [{r}/{d}] {dtype}", alone, n256[r:r + 1],
+              "alone vs N=256")
+    torch.cuda.synchronize()
+    _log(f"  rms_norm d={d} {dtype}: rows 0, 3, 7 bit-equal alone, at N=8 "
+         f"and at N=256")
+
+
 def _device_us(torch, fn, n=50):
     """Device time of one call of ``fn`` from ``torch.profiler``: the
     CUDA kernel durations of ``n`` calls summed (a kernel's recorded
@@ -272,14 +310,18 @@ def _device_us(torch, fn, n=50):
 # RMSNorm against F.rms_norm in device time: one decode step's rows and the
 # training step's (batch x seq rows of the 1.1B width), bfloat16
 RMS_TURN_SHAPES = [(8, 4096), (16384, 2048)]
+# turns of host timing (kernel, library) whose least and mean are kept: the
+# host is shared, so the least is the wrapper's own cost
+RMS_HOST_TURNS = 5
 
 
 def _rms_turns(torch, rows, d, gen):
     """The RMSNorm kernel and ``F.rms_norm`` (one PyTorch call computing
     the same function) in turns, kernel, library, kernel, library, each
     timed by ``_time_ms`` (device only), then each one's device time per
-    launch from the profiler's kernel durations and host time per call
-    (``_host_us``).  Returns the row of numbers."""
+    launch from the profiler's kernel durations, host time per call
+    (``_host_us``, ``RMS_HOST_TURNS`` turns) and the launch floor.
+    Returns the row of numbers."""
     from paddle_tpu_torch.ops import rms_norm as rn
     x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
     w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
@@ -295,11 +337,17 @@ def _rms_turns(torch, rows, d, gen):
         turns += [_time_ms(torch, kern), _time_ms(torch, lib)]
     (k_us, k_n), (l_us, l_n) = _device_us(torch, kern), _device_us(torch,
                                                                   lib)
+    host = []
+    for _ in range(RMS_HOST_TURNS):
+        host += [_host_us(torch, kern), _host_us(torch, lib)]
     row = dict(shape=f"[{rows},{d}]", kernel_ms=turns[0::2],
                library_ms=turns[1::2], kernel_us_profiled=k_us,
                library_us_profiled=l_us,
-               kernel_host_us=_host_us(torch, kern),
-               library_host_us=_host_us(torch, lib))
+               kernel_host_us=min(host[0::2]),
+               library_host_us=min(host[1::2]),
+               kernel_host_mean_us=statistics.mean(host[0::2]),
+               library_host_mean_us=statistics.mean(host[1::2]),
+               floor_ms=_time_ms(torch, lambda: torch.cuda._sleep(0)))
     factor = statistics.mean(row["kernel_ms"]) \
         / statistics.mean(row["library_ms"])
     prof = ("not measured" if k_us is None or l_us is None else
@@ -310,8 +358,27 @@ def _rms_turns(torch, rows, d, gen):
          f"F.rms_norm {' / '.join(f'{t:.4f}' for t in row['library_ms'])} "
          f"ms (kernel / library {factor:.3f}); profiled per launch {prof}; "
          f"host per call {row['kernel_host_us']:.1f} us against "
-         f"{row['library_host_us']:.1f} us")
+         f"{row['library_host_us']:.1f} us (least of {RMS_HOST_TURNS} turns "
+         f"each; mean {row['kernel_host_mean_us']:.1f} against "
+         f"{row['library_host_mean_us']:.1f}); launch "
+         f"floor (torch.cuda._sleep(0) under _time_ms) "
+         f"{row['floor_ms']:.4f} ms")
     return row
+
+
+def _copy_floor(torch, shape, gen, what):
+    """The device time of torch's own copy of a bf16 tensor of ``shape``
+    into another (``Tensor.copy_``, timed by ``_time_ms``): it reads and
+    writes the bytes that a streaming kernel of that shape must move, so
+    it is the rate this card streams them at, beside the data sheet's
+    3.35 TB/s."""
+    a = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    b_ = torch.empty_like(a)
+    ms = _time_ms(torch, lambda: b_.copy_(a))
+    nbytes = 2 * a.numel() * a.element_size()
+    _log(f"copy floor {list(shape)} bfloat16 ({what}): torch copy_ "
+         f"{ms:.4f} ms = {nbytes / ms / 1e9:.3f} TB/s; byte bound "
+         f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms")
 
 
 def _read_flush(torch):
@@ -923,14 +990,20 @@ def _flash_case(torch, dtype, b, gen):
     return fwd, bwd
 
 
-def _rope_case(torch, dtype, gen):
-    """RoPE on q [8, 2048, 32, 64] (the training path's largest call),
-    forward and backward (-sin) against the plain version.  Both round
-    each fp32 product and sum on its own and cast once, so they agree
-    bit for bit (held to TOL all the same)."""
+# RoPE shapes of phase 2, [B, S, H, D]: the training path's q (its largest
+# call, the main case) and k, the 8B drafter's prefill q, and a head dim
+# whose D/2 = 18 takes the element route in both dtypes (S = 300: not a
+# multiple of the positions a CTA takes)
+ROPE_SHAPES = [(8, 2048, 32, 64), (8, 2048, 8, 64), (1, 512, 32, 128),
+               (4, 300, 8, 36)]
+
+
+def _rope_case(torch, dtype, gen, shape=ROPE_SHAPES[0]):
+    """RoPE forward and backward (-sin) against the plain version.  Both
+    round each fp32 product and sum on its own and cast once, so they
+    must agree bit for bit."""
     from paddle_tpu_torch.ops import rope as rp
-    b, s, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], \
-        TRAIN["head_dim"]
+    b, s, h, d = shape
     dt = getattr(torch, dtype)
     x = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
     g = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
@@ -945,14 +1018,21 @@ def _rope_case(torch, dtype, gen):
     want_y = rp.apply_rope_plain(x, cos, sin)
     want_gx = rp.apply_rope_plain(g, cos, -sin)
     torch.cuda.synchronize()
-    err = max(_check(torch, f"rope fwd {dtype}", y, want_y, dtype),
-              _check(torch, f"rope bwd {dtype}", gx, want_gx, dtype))
+    tag = f"[{b},{s},{h},{d}] {dtype}"
+    if hasattr(rp, "rope_plan"):
+        tag += f" ({rp.rope_plan(b, s, h, d, dt)})"
+    for what, got, want in (("fwd", y, want_y), ("bwd", gx, want_gx)):
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"rope {what} {tag}: not bit-identical to "
+                                 f"the plain version (max |err| {err:.3g})")
+    _log(f"  rope fwd and bwd {tag}: bit-identical to the plain version")
     item = x.element_size()
     bound_ms, by = _bound(2 * x.numel() * item + 2 * cos.numel() * 4,
                           3 * x.numel(), dtype)
     ms = _time_ms(torch, lambda: rp._rope(x, cos, sin, 1.0))
     plain_ms = _time_ms(torch, lambda: rp.apply_rope_plain(x, cos, sin))
-    return dict(shape=f"[{b},{s},{h},{d}]", dtype=dtype, max_abs_err=err,
+    return dict(shape=f"[{b},{s},{h},{d}]", dtype=dtype, max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=None)
 
@@ -1319,11 +1399,19 @@ def phase_kernels(torch, seed):
         rows["flash_attention_fwd"].append(fwd)
         rows["flash_attention_bwd"].append(bwd)
         rows["rope"].append(_rope_case(torch, dtype, gen))
+    for shape in ROPE_SHAPES[1:]:
+        for dtype in ("bfloat16", "float32"):
+            rows["rope"].append(_rope_case(torch, dtype, gen, shape))
     rows["rms_norm"].append(_rms_case(
         torch, TRAIN["batch"] * TRAIN["seq"], "bfloat16", gen,
         d=TRAIN["hidden"]))
+    for d in RMS_ROW_WIDTHS:
+        for dtype in ("bfloat16", "float32"):
+            _rms_rows_case(torch, dtype, d, gen)
     for n, d in RMS_TURN_SHAPES:
         _rms_turns(torch, n, d, gen)
+    for shape, what in COPY_FLOORS:
+        _copy_floor(torch, shape, gen, what)
     rows.update(_train5_rows(torch, seed))
     rows["flash_attention_fwd"] += _flash_shape_rows(torch, seed)
     for name, cases in rows.items():
@@ -1964,6 +2052,90 @@ def phase_quant_window(torch, seed):
     _profile_prefill_chunk(torch, eng, rng, cfg.vocab_size)
 
 
+def _by_name(per_kernel, count, key):
+    """(device ms, launches) of the profiled kernels whose name holds
+    ``key``."""
+    names = [n for n in per_kernel if key in n]
+    return (sum(per_kernel[n] for n in names) / 1e3,
+            sum(count[n] for n in names))
+
+
+def _decode_rms_host(torch, eng, rng, vocab, steps=8):
+    """Host time of one RMSNorm call inside bf16 decode steps: 8 fresh
+    64-token requests fill the slots and are prefilled, then ``steps``
+    decode steps run with the model's ``rms_norm`` (as ``nn.norm`` calls
+    it) timed on the host clock around every call; returns (us a call,
+    calls a step)."""
+    from paddle_tpu_torch.nn import norm
+    reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
+                       max_new_tokens=steps + 4)
+            for _ in range(eng.num_slots)]
+    while any(r.state in ("queued", "prefill") for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    inner, spent = norm.rms_norm, []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    norm.rms_norm = timed
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        norm.rms_norm = inner
+    torch.cuda.synchronize()
+    eng.run()
+    return 1e6 * sum(spent) / len(spent), len(spent) / steps
+
+
+def phase_norm_window(torch, seed):
+    """``--norm-window``: RoPE and RMSNorm alone and in the steps that run
+    them.  Phase 2's bf16 RoPE cases at the first three ``ROPE_SHAPES``
+    (kernel and plain times) and ``_rms_turns`` at ``RMS_TURN_SHAPES``
+    (kernel against ``F.rms_norm`` in device time, profiled device us and
+    host us a call, the launch floor), the copy floors of
+    ``COPY_FLOORS``; then one profiled phase-5 train step of the 1.1B
+    model (``_profile_train_step``: RoPE's and RMSNorm's device ms and
+    launches in it), and phase 3's bf16 8B decode window (RMSNorm's
+    device ms a step and us a launch, profiled) and RMSNorm's host us a
+    call in those decode steps.  With ``--root`` the package comes from
+    another tree (a parent commit unpacked beside this checkout), so one
+    script measures two trees, in turns within one call."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for shape in ROPE_SHAPES[:3]:
+        row = _rope_case(torch, "bfloat16", gen, shape)
+        _log(f"norm window: rope {row['shape']} bfloat16: kernel "
+             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for n, d in RMS_TURN_SHAPES:
+        _rms_turns(torch, n, d, gen)
+    for shape, what in COPY_FLOORS:
+        _copy_floor(torch, shape, gen, what)
+    b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
+    cfg, model, opt, step = _train_setup(torch, nl, "bfloat16", seed)
+    tokens, labels = _train_batch(torch, cfg, b, s, seed, "cuda")
+    step(tokens, labels)
+    _profile_train_step(torch, step, tokens, labels)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    cfg, model = _build_8b(torch, 32, "bfloat16", seed)
+    kw = dict(num_slots=8, prompt_len=512, chunk_len=256, max_cache_len=1024,
+              block_len=16, compute_dtype="bfloat16")
+    _profile_decode(torch, ServingEngine(model, **kw), rng, cfg.vocab_size)
+    us, calls = _decode_rms_host(torch, ServingEngine(model, **kw), rng,
+                                 cfg.vocab_size)
+    _log(f"norm window: decode step: rms_norm host {us:.2f} us a call, "
+         f"{calls:.0f} calls a step")
+
+
 def phase_exactness(torch, seed):
     """Phase 4: a mixed trace through a 2-slot engine against each
     request alone on a fresh 1-slot engine, token for token, in float32
@@ -2369,7 +2541,8 @@ def phase_training(torch, seed, smi):
 def _profile_train_step(torch, step, tokens, labels):
     """Where a train step's time goes: one step under ``torch.profiler``
     (device busy time = sum of CUDA kernel durations over the host wall
-    of the profiled step) and the kernels that take most of it."""
+    of the profiled step), the kernels that take most of it, and RoPE's
+    and RMSNorm's share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2378,11 +2551,7 @@ def _profile_train_step(torch, step, tokens, labels):
         step(tokens, labels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us())
+    per_kernel, count = _profile_kernels(torch, prof)
     if not per_kernel:
         _log(f"train profile: wall {wall * 1e3:.1f} ms; device time not "
              f"measured (the profiler recorded no CUDA kernels)")
@@ -2411,6 +2580,10 @@ def _profile_train_step(torch, step, tokens, labels):
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
         _log(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy:5.1f}%  "
              f"{name[:90]}")
+    for key in ("rope", "rms_norm"):
+        ms, launches = _by_name(per_kernel, count, key)
+        _log(f"  {key}: {ms:.3f} ms over {launches} launches "
+             f"({100 * ms / busy:.2f}% of busy)")
 
 
 def _warmup_cosine(peak=3e-4):
@@ -2664,10 +2837,14 @@ def main(argv=None) -> int:
                          "alone and in the quantized serving step "
                          "(phase_quant_window), then stop without a result "
                          "line")
+    ap.add_argument("--norm-window", action="store_true",
+                    help="measure RoPE and RMSNorm alone, in a train step "
+                         "and in the serving decode step "
+                         "(phase_norm_window), then stop without a result "
+                         "line")
     ap.add_argument("--root", help="import paddle_tpu_torch from this tree "
-                                   "instead of the checkout (with "
-                                   "--decode-window or --quant-window: "
-                                   "measure another commit)")
+                                   "instead of the checkout (with a "
+                                   "--*-window: measure another commit)")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2688,6 +2865,9 @@ def main(argv=None) -> int:
         return 0
     if args.quant_window:
         phase_quant_window(torch, args.seed)
+        return 0
+    if args.norm_window:
+        phase_norm_window(torch, args.seed)
         return 0
     rows = phase_kernels(torch, args.seed)
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)

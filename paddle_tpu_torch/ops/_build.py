@@ -153,15 +153,19 @@ def build_all(kernels: Optional[Iterable[Kernel]] = None) -> Dict[str, str]:
     return reports
 
 
-def stream_ptr(tensor) -> ctypes.c_void_p:
-    """The current CUDA stream of the tensor's device, for a C entry
-    point.  The C entry launches on the CURRENT device, so a tensor on
-    another device is refused."""
-    if tensor.device.index != torch.cuda.current_device():
+def stream_ptr(tensor) -> int:
+    """The current CUDA stream of the tensor's device, as the integer
+    value of its ``cudaStream_t``, for a C entry point.  The C entry
+    launches on the CURRENT device, so a tensor on another device is
+    refused.  Asked of torch at every call (two calls into its C++ core,
+    no Stream object built): nothing is cached, so a launch always goes
+    to the stream that is current at the time."""
+    dev = tensor.get_device()
+    cur = torch._C._cuda_getDevice()
+    if dev != cur:
         raise ValueError(f"kernel operands are on {tensor.device} but the "
-                         f"current CUDA device is "
-                         f"{torch.cuda.current_device()}")
-    return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
+                         f"current CUDA device is {cur}")
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def ptr(tensor) -> ctypes.c_void_p:

@@ -12,12 +12,15 @@ is the same rotation with ``-sin`` (rotations are orthogonal), as
 it cannot take) and runs ``apply_rope_plain`` for a CPU tensor; nothing
 sends a CUDA tensor to the plain version.  The TPU gates (``D >= 64``,
 VMEM blocks, :22-38) are tiling rules of that chip and are not carried
-over: the kernel takes any even D.
+over: the kernel takes any even D, 16 bytes an access where ``(D/2) %
+vec == 0`` (the vector route) and one element an access otherwise (the
+element route); ``rope_plan`` says which and how the work is cut.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,8 +30,40 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = _build.register(_build.Kernel(
     "rope", "ptt_rope",
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]))
+
+# threads a CTA aims at
+_CTA_THREADS = 256
+
+
+class RopePlan(NamedTuple):
+    """How ``csrc/rope.cu`` cuts x [B, S, H, D]: a thread owns ``vec``
+    consecutive rotation pairs of one head at one position and walks the
+    B rows of that (s, h).  A CTA is ``px`` threads over a head's
+    ``(D/2) / vec`` pair groups (looping where there are more), times
+    ``hb`` heads, times ``sy`` positions; the grid is ``grid`` = (ceil(S /
+    sy), ceil(H / hb))."""
+    vec: int
+    px: int
+    hb: int
+    sy: int
+    grid: Tuple[int, int]
+
+
+def rope_plan(b: int, s: int, h: int, d: int, dtype: torch.dtype,
+              aligned: bool = True) -> RopePlan:
+    """The vector route (``vec`` = 16 bytes of ``dtype``) where ``(D/2) %
+    vec == 0`` and the operands are 16-byte ``aligned``, else the element
+    route (``vec`` = 1)."""
+    half = d // 2
+    vec = 16 // dtype.itemsize
+    if half % vec or not aligned:
+        vec = 1
+    px = min(half // vec, _CTA_THREADS)
+    hb = min(h, max(1, _CTA_THREADS // px))
+    sy = min(64, max(1, _CTA_THREADS // (px * hb)))
+    return RopePlan(vec, px, hb, sy, (-(-s // sy), -(-h // hb)))
 
 
 def _check_tables(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -71,8 +106,9 @@ def _check_operands(x, cos, sin):
         if t.device != x.device:
             raise ValueError(f"rope: {name} on {t.device}, x on {x.device}")
     b, s, h, _ = x.shape
-    if s >= 2 ** 31 or h >= 2 ** 31:
-        raise ValueError(f"rope kernel takes S, H < 2**31, got {s}, {h}")
+    if max(b, s, h) >= 2 ** 31:
+        raise ValueError(f"rope kernel takes B, S, H < 2**31, got {b}, {s}, "
+                         f"{h}")
 
 
 def _rope_cuda(x, cos, sin, sign: float):
@@ -84,9 +120,14 @@ def _rope_cuda(x, cos, sin, sign: float):
         return y
     c = cos.reshape(s, d // 2).contiguous()
     sn = sin.reshape(s, d // 2).contiguous()
-    KERNEL.launch(_build.ptr(x), _build.ptr(c), _build.ptr(sn),
-                  _build.ptr(y), b * s * h, s, h, d, float(sign),
-                  _DTYPES[x.dtype], _build.stream_ptr(x))
+    ptrs = [t.data_ptr() for t in (x, c, sn, y)]
+    plan = rope_plan(b, s, h, d, x.dtype,
+                     aligned=not any(p % 16 for p in ptrs))
+    if plan.grid[1] > 65535:
+        raise ValueError(f"rope kernel: {h} heads need {plan.grid[1]} "
+                         f"head tiles, more than 65535")
+    KERNEL.launch(*ptrs, b, s, h, d, float(sign), _DTYPES[x.dtype],
+                  plan.vec, plan.px, plan.hb, plan.sy, _build.stream_ptr(x))
     return y
 
 
