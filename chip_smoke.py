@@ -51,8 +51,10 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    yardstick the port never calls), beside the least time the card could
    take (``bound_ms``);
 3. serving at full Llama-3-8B width (32 layers, bfloat16, random weights
-   from ``--seed``): 8 requests through an 8-slot ``ServingEngine``, two
-   of them sharing a 256-token prefix so the prefix cache hits; every
+   from ``--seed``): 8 requests through an 8-slot ``ServingEngine`` at
+   its defaults (the radix prefix cache with its host tier, preemption
+   on), two of them sharing a 256-token prefix so the prefix cache hits;
+   every
    request must finish with in-vocabulary tokens, and the kernels' launch
    counters must rise by exactly their per-step counts;
 3b. quantized serving: the same model and trace through two engines with
@@ -72,6 +74,19 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    per draft layer per drafter prefill), acceptance above 0 in (a) and
    (b) and below 1 in (c), tokens/s, TTFT, verify step, peak memory and
    one profiled speculative step;
+3d. preemption at the same width: a 4-slot engine over a 160-block pool
+   serves three priority-0 requests (512-token prompts, 200 new tokens,
+   45 blocks each); once all three decode, a priority-1 arrival (36
+   blocks, 25 free) swaps one out to host RAM, and it resumes when
+   blocks retire; preemptions and resumes counted, blocks and bytes
+   out == in (bytes = blocks x the arena block size), resumed rows
+   bit-equal to the host stacks, phase 3's launch formula; then with an
+   int8 KV cache; each swap's ms and GB/s;
+3e. the radix host tier at the same width: a 40-block pool, a finished
+   request's 16 oldest cached prompt blocks demoted to host RAM by the
+   next allocation and promoted back for a request sharing its first
+   256 tokens, bit-equal to the demoted parcels; demote and promote
+   times;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same request alone on a fresh 1-slot engine; then the
@@ -89,6 +104,14 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    greedy ``generate()`` equal to a 1-slot engine there, acceptance 1.0
    with the target as drafter where every position is decisive, and no
    block in use after the drain;
+4d. preemption exactness: the 4-layer float32 model of phase 4, token
+   for token: a 2-slot trace whose priority-1 arrival preempts, against
+   each request alone; ``_preempt`` forced mid-prefill and mid-decode
+   against the uninterrupted run; a radix engine that demotes and
+   promotes against ``prefix_cache_mode="none"``; the first and third
+   with an int8 KV cache; a ``ModelDrafter`` spec row preempted and
+   resumed against the uninterrupted run; each with its kernels
+   launched;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -1477,14 +1500,8 @@ def _serve_trace(torch, eng, cfg, seed):
     launches = {name: k.launches for name, k in KERNELS.items()}
     st = eng.stats()
     specs = first + [second]
-    for r, (ids, m) in zip(reqs, specs):
-        out = r.output
-        if r.state != "finished" or out.shape != (m,):
-            raise AssertionError(f"request {r.request_id}: state {r.state}, "
-                                 f"{out.shape[0]} tokens of {m}")
-        if out.min() < 0 or out.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {r.request_id}: token outside "
-                                 f"the vocabulary")
+    _finished_in_vocab(reqs, [m for _, m in specs], cfg.vocab_size,
+                       "serving")
     if st["prefix_hits"] <= 0:
         raise AssertionError(f"the shared prefix did not hit: {st}")
     return launches, st, wall, len(specs), sum(m for _, m in specs), rng
@@ -1511,18 +1528,13 @@ def _log_serving(tag, n_req, n_tok, wall, st, launches, extra=""):
 def phase_serving(torch, seed, cfg, model):
     """Phase 3.  Returns the kernels' launch counts of the run."""
     from paddle_tpu_torch.inference import ServingEngine
-    from paddle_tpu_torch.ops import KERNELS
     eng = ServingEngine(model, num_slots=8, prompt_len=512, chunk_len=256,
                         max_cache_len=1024, block_len=16,
                         compute_dtype="bfloat16")
     launches, st, wall, n_req, n_tok, rng = _serve_trace(torch, eng, cfg,
                                                          seed)
-    want = {name: 0 for name in KERNELS}       # training kernels: none
-    want.update({"rms_norm": (2 * cfg.num_hidden_layers + 1)
-                 * (st["prefill_chunks"] + st["decode_steps"]),
-                 "paged_decode_attention": cfg.num_hidden_layers
-                 * st["decode_steps"]})
-    _check_launches(launches, want, st)
+    _check_launches(launches,
+                    _serving_launches(cfg.num_hidden_layers, st, False), st)
     _log_serving("serving", n_req, n_tok, wall, st, launches)
     _profile_decode(torch, eng, rng, cfg.vocab_size)
     del eng
@@ -1654,14 +1666,8 @@ def _spec_trace(torch, eng, cfg, seed, specs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in KERNELS.items()}
-    for r, (_ids, m) in zip(reqs, trace):
-        out = r.output
-        if r.state != "finished" or out.shape != (m,):
-            raise AssertionError(f"spec request {r.request_id}: state "
-                                 f"{r.state}, {out.shape[0]} tokens of {m}")
-        if out.min() < 0 or out.max() >= cfg.vocab_size:
-            raise AssertionError(f"spec request {r.request_id}: token "
-                                 f"outside the vocabulary")
+    _finished_in_vocab(reqs, [m for _, m in trace], cfg.vocab_size,
+                       "spec serving")
     return launches, eng.stats(), wall, sum(m for _, m in trace), rng
 
 
@@ -1817,6 +1823,248 @@ def phase_spec_serving(torch, seed, cfg, model):
     del other
     torch.cuda.empty_cache()
     return total
+
+
+def _launched(tag, names):
+    """Raise unless every kernel of ``names`` launched since the counts
+    were last set to 0."""
+    from paddle_tpu_torch.ops import KERNELS
+    counts = {n: KERNELS[n].launches for n in names}
+    if not all(counts.values()):
+        raise AssertionError(f"{tag}: a kernel never launched: {counts}")
+    return counts
+
+
+def _zero_launches():
+    from paddle_tpu_torch.ops import KERNELS
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _swap_watch(torch, eng, log):
+    """Time every host-tier copy of ``eng`` (the synchronous gather of a
+    swap-out or demotion, the scatter of a resume or promotion, each
+    between two device syncs) into ``log`` as (kind, blocks, bytes, s),
+    and hold every scatter's destination rows against the host stacks it
+    wrote, bit for bit, right after it ran."""
+    import numpy as np
+    from paddle_tpu_torch.inference.prefixcache import host_rows
+    gather, scatter = eng._gather_rows, eng._scatter_rows
+    block_bytes = eng.block_len * eng._kv_row_bytes
+
+    def timed_gather(ids_row, keep):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(ids_row, keep)
+        torch.cuda.synchronize()
+        log.append(("out", keep, keep * block_bytes,
+                    time.perf_counter() - t0))
+        return out
+
+    def timed_scatter(ids_row, stacks, dtypes):
+        k = stacks[0].shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scatter(ids_row, stacks, dtypes)
+        torch.cuda.synchronize()
+        log.append(("in", k, k * block_bytes, time.perf_counter() - t0))
+        ids = torch.from_numpy(ids_row[:k].astype(np.int64)).to(eng.device)
+        for a, s in zip(eng._arenas, stacks):
+            got, _ = host_rows(a.index_select(0, ids))
+            if not np.array_equal(got.view(np.uint8), s.view(np.uint8)):
+                raise AssertionError(
+                    f"swap-in: arena rows {ids_row[:k].tolist()} differ "
+                    f"from the host stack they were restored from")
+    eng._gather_rows, eng._scatter_rows = timed_gather, timed_scatter
+
+
+def _log_swaps(tag, log):
+    parts = [f"{kind} {n} blocks {nbytes / 2 ** 20:.1f} MiB "
+             f"{s * 1e3:.3f} ms = {nbytes / s / 1e9:.2f} GB/s"
+             for kind, n, nbytes, s in log]
+    _log(f"{tag}: host-tier copies: " + "; ".join(parts))
+
+
+def _serving_launches(nl, st, int8):
+    """Phase 3's launch formula: RMSNorm 2L+1 per forward, the paged
+    decode (float or int8) L per decode step; a swap launches none."""
+    from paddle_tpu_torch.ops import KERNELS
+    want = {name: 0 for name in KERNELS}
+    want.update({"rms_norm": (2 * nl + 1)
+                 * (st["prefill_chunks"] + st["decode_steps"]),
+                 "paged_decode_attention" + ("_int8" if int8 else ""):
+                 nl * st["decode_steps"]})
+    return want
+
+
+def _arena_block_bytes(eng):
+    """Bytes of one block across every flat arena, from the arena
+    shapes."""
+    return sum(a[0].numel() * a.element_size() for a in eng._arenas)
+
+
+def _finished_in_vocab(reqs, specs, vocab, tag):
+    for r, m in zip(reqs, specs):
+        out = r.output
+        if r.state != "finished" or out.shape != (m,):
+            raise AssertionError(f"{tag}: request {r.request_id} state "
+                                 f"{r.state}, {out.shape[0]} tokens of {m}")
+        if out.min() < 0 or out.max() >= vocab:
+            raise AssertionError(f"{tag}: request {r.request_id}: token "
+                                 f"outside the vocabulary")
+
+
+def phase_preemption(torch, seed, cfg, model):
+    """Phase 3d: preemption at full Llama-3-8B width.  A 4-slot engine
+    over a 160-block pool serves three priority-0 requests (512-token
+    prompts, 200 new tokens: 45 blocks each); once all three decode, a
+    priority-1 arrival (512 + 64: 36 blocks, 25 free) must swap one out
+    to host RAM; the victim resumes when blocks retire.  The radix
+    cache's demotions are off (``host_cache_blocks=0``) so every host-tier
+    copy is the preemption's.  Checks: preemptions >= 1, as many resumes,
+    blocks and bytes out == in, the bytes equal to the blocks times the
+    arena block size, no swap parcel left, the pool audit, in-vocabulary
+    outputs, resumed rows bit-equal to the host stacks, phase 3's launch
+    formula.  Then the same with an int8 KV cache (codes and scale
+    planes travel).  Returns the launch counts summed over both runs."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import KERNELS
+    nl = cfg.num_hidden_layers
+    total = {}
+    for kv in (None, "int8"):
+        torch.cuda.empty_cache()
+        eng = ServingEngine(model, num_slots=4, prompt_len=512,
+                            chunk_len=256, max_cache_len=1024, block_len=16,
+                            num_blocks=160, host_cache_blocks=0,
+                            compute_dtype="bfloat16", kv_cache_dtype=kv)
+        block = _arena_block_bytes(eng)
+        # a bf16 block: layers x (K, V) x 16 rows x Hkv*D x 2 bytes (8B:
+        # 32 x 2 x 16 x 1024 x 2 B = 2 MiB)
+        width = cfg.num_key_value_heads * cfg.head_dim
+        if kv is None and block != nl * 2 * 16 * width * 2:
+            raise AssertionError(f"preemption: {block} bytes a bf16 block, "
+                                 f"expected {nl} x K,V x 16 x {width} x 2 B")
+        swaps = []
+        _swap_watch(torch, eng, swaps)
+        rng = np.random.default_rng(seed + 7)
+        specs = [200, 200, 200, 64]
+        prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+                   for _ in specs]
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=m)
+                for p, m in zip(prompts[:3], specs[:3])]
+        while any(r.state != "decode" for r in reqs):
+            eng.step()
+        reqs.append(eng.submit(prompts[3], max_new_tokens=specs[3],
+                               priority=1))
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        st = eng.stats()
+        tag = f"preemption ({kv or 'bf16'} KV)"
+        _finished_in_vocab(reqs, specs, cfg.vocab_size, tag)
+        if not (st["preemptions"] >= 1
+                and st["preempt_resumes"] == st["preemptions"]
+                and st["swap_blocks_out"] == st["swap_blocks_in"] > 0
+                and st["swap_bytes_out"] == st["swap_blocks_out"] * block
+                and st["swap_bytes_in"] == st["swap_bytes_out"]
+                and st["swap_host_blocks"] == 0 and st["blocks_in_use"] == 0):
+            raise AssertionError(f"{tag}: {st}")
+        if [k for k, *_ in swaps].count("in") != st["preempt_resumes"]:
+            raise AssertionError(f"{tag}: {swaps} for {st}")
+        eng._pool.check()
+        _check_launches(launches, _serving_launches(nl, st, kv == "int8"),
+                        st)
+        _log(f"{tag}: 4 requests in {wall:.3f} s; preemptions "
+             f"{st['preemptions']}, resumes {st['preempt_resumes']}, "
+             f"{st['swap_blocks_out']} blocks out and in, "
+             f"{st['swap_bytes_out'] / 2 ** 20:.1f} MiB each way "
+             f"({block / 2 ** 20:.3f} MiB a block); decode steps "
+             f"{st['decode_steps']}; launches {launches}")
+        _log_swaps(tag, swaps)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_radix_tier(torch, seed, cfg, model):
+    """Phase 3e: the radix cache's host tier at full Llama-3-8B width.  A
+    2-slot engine over a 40-block pool serves A (300-token prompt: 18
+    cached prompt blocks), then B (512 + 97 tokens: 38 blocks, 22 free),
+    whose allocation reclaims A's 16 oldest cached blocks and demotes them
+    to host RAM, then C, sharing A's first 256 tokens, whose admission
+    promotes those 16 blocks back.  Checks: prefix_host_hits >= 1,
+    host_swapin_blocks == 16, the promoted rows bit-equal to the demoted
+    parcels, the pool audit, in-vocabulary outputs, phase 3's launch
+    formula.  Returns the launch counts."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.prefixcache import host_rows
+    from paddle_tpu_torch.ops import KERNELS
+    nl = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, num_slots=2, prompt_len=512, chunk_len=256,
+                        max_cache_len=1024, block_len=16, num_blocks=40,
+                        compute_dtype="bfloat16")
+    swaps = []
+    _swap_watch(torch, eng, swaps)
+    rng = np.random.default_rng(seed + 8)
+    a = rng.integers(0, cfg.vocab_size, 300).astype(np.int32)
+    b = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    c = np.concatenate([a[:256], rng.integers(0, cfg.vocab_size, 64)
+                        ]).astype(np.int32)
+    specs = [16, 97, 32]
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(a, max_new_tokens=specs[0])]
+    eng.run()
+    reqs.append(eng.submit(b, max_new_tokens=specs[1]))
+    eng.run()
+    _m, span = eng._radix.match(c)
+    span = span[:16]
+    if [kind for kind, _ in span] != ["host"] * 16:
+        raise AssertionError(f"radix tier: C's span {span}, expected 16 "
+                             f"host-resident blocks")
+    saved = [[r.copy() for r in eng._host_tier.entry(k).rows]
+             for _, k in span]
+    reqs.append(eng.submit(c, max_new_tokens=specs[2]))
+    eng.step()                       # admission promotes, then one chunk
+    dest = torch.from_numpy(np.asarray(reqs[2].blocks[:16], np.int64)).to(
+        eng.device)
+    for ai, arena in enumerate(eng._arenas):
+        got, _ = host_rows(arena.index_select(0, dest))
+        want = np.concatenate([s[ai] for s in saved], axis=0)
+        if not np.array_equal(got.view(np.uint8), want.view(np.uint8)):
+            raise AssertionError(f"radix tier: promoted rows of arena {ai} "
+                                 f"differ from the demoted parcels")
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    st = eng.stats()
+    _finished_in_vocab(reqs, specs, cfg.vocab_size, "radix tier")
+    if not (st["prefix_host_hits"] >= 1 and st["host_swapin_blocks"] == 16
+            and st["swap_blocks_out"] >= 16 and st["blocks_in_use"] == 0):
+        raise AssertionError(f"radix tier: {st}")
+    eng._pool.check()
+    _check_launches(launches, _serving_launches(nl, st, False), st)
+    _log(f"radix tier: 3 requests in {wall:.3f} s; demoted "
+         f"{st['swap_blocks_out']} blocks, promoted "
+         f"{st['host_swapin_blocks']} (host hits {st['prefix_host_hits']}), "
+         f"prefix hit tokens {st['prefix_hit_tokens']}, host cache blocks "
+         f"{st['host_cache_blocks']}; prefill chunks {st['prefill_chunks']}; "
+         f"launches {launches}")
+    _log_swaps("radix tier", swaps)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _profile_decode(torch, eng, rng, vocab, steps=8):
@@ -2303,6 +2551,155 @@ def phase_spec_exactness(torch, seed):
     _log("spec exactness: 4 layers at 8B width, float32, 5 requests: "
          + "; ".join(notes))
     del model, other
+    torch.cuda.empty_cache()
+
+
+def _same_tokens(tag, got, want):
+    import numpy as np
+    for g, w in zip(got, want):
+        if g.state != "finished" or not np.array_equal(g.output, w.output):
+            raise AssertionError(f"{tag}: request {g.request_id} "
+                                 f"({g.state}) {g.output} != {w.output}")
+
+
+def phase_preempt_exactness(torch, seed):
+    """Phase 4d: phase 4's 4-layer float32 model at 8B width, TF32 off,
+    token for token: (a) a 2-slot trace with priorities on a 9-block pool
+    whose priority-1 arrival preempts, against each request alone on a
+    fresh 1-slot engine; (b) ``_preempt`` forced mid-prefill and
+    mid-decode, then resumed, against the uninterrupted run; (c) a radix
+    engine over an 8-block pool that demotes a finished request's prompt
+    blocks and promotes them for a sharer, against
+    ``prefix_cache_mode="none"``; (d) (a) and (c) with an int8 KV cache;
+    (e) a spec-mode request (spec_decode=2, a ``ModelDrafter`` over the
+    target) preempted mid-decode and resumed, against the uninterrupted
+    run.  Each sub-case holds that its kernels launched."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ModelDrafter, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model = _build_8b(torch, 4, "float32", seed + 1)
+    rng = np.random.default_rng(seed + 9)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+
+    base = dict(prompt_len=64, chunk_len=32, max_cache_len=128,
+                block_len=16, compute_dtype="float32")
+    notes = []
+    pa = [(prompt(40), 60), (prompt(17), 5), (prompt(64), 9)]
+    shared = prompt(48)
+    pc = [(shared, 8), (prompt(64), 40),
+          (np.concatenate([shared[:32], prompt(20)]), 12)]
+    for kv in (None, "int8"):
+        decode = "paged_decode_attention" + ("_int8" if kv else "")
+        kw = dict(base, kv_cache_dtype=kv)
+        # (a): r0 (7 blocks) and r1 (2) fill the 9-block pool; r1
+        # retires and the priority-1 arrival (5 blocks) preempts r0
+        _zero_launches()
+        eng = ServingEngine(model, num_slots=2, num_blocks=9, **kw)
+        reqs = [eng.submit(ids, max_new_tokens=m) for ids, m in pa[:2]]
+        while reqs[1].state != "finished":
+            eng.step()
+        reqs.append(eng.submit(pa[2][0], max_new_tokens=pa[2][1],
+                               priority=1))
+        eng.run()
+        eng._pool.check()
+        st = eng.stats()
+        if st["preemptions"] < 1 or \
+                st["preempt_resumes"] != st["preemptions"]:
+            raise AssertionError(f"exactness (a): {st}")
+        counts = _launched("exactness (a)", ("rms_norm", decode))
+        alone = []
+        for ids, m in pa:
+            one = ServingEngine(model, num_slots=1, **kw)
+            alone.append(one.submit(ids, max_new_tokens=m))
+            one.run()
+        _same_tokens(f"exactness (a, {kv or 'float'} KV)", reqs, alone)
+        notes.append(f"(a) {kv or 'float'} KV: {st['preemptions']} "
+                     f"preemptions, tokens equal alone; launches {counts}")
+        # (c): A's 3 cached prompt blocks; B (7 blocks) reclaims 2 of
+        # them to the host tier; C shares A's first 32 tokens and
+        # promotes them
+        outs = {}
+        for mode in ("radix", "none"):
+            _zero_launches()
+            eng = ServingEngine(model, num_slots=1, num_blocks=8,
+                                prefix_cache_mode=mode, **kw)
+            reqs = []
+            for ids, m in pc:
+                reqs.append(eng.submit(ids, max_new_tokens=m))
+                eng.run()
+            eng._pool.check()
+            outs[mode] = (reqs, eng.stats())
+        st = outs["radix"][1]
+        if st["prefix_host_hits"] < 1 or st["host_swapin_blocks"] != 2:
+            raise AssertionError(f"exactness (c): {st}")
+        counts = _launched("exactness (c)", ("rms_norm", decode))
+        _same_tokens(f"exactness (c, {kv or 'float'} KV)",
+                     outs["radix"][0], outs["none"][0])
+        notes.append(f"(c) {kv or 'float'} KV: {st['swap_blocks_out']} "
+                     f"blocks demoted, {st['host_swapin_blocks']} promoted, "
+                     f"tokens equal the uncached engine's")
+    # (b) forced preemption mid-prefill and mid-decode
+    pb = [(prompt(64), 20), (prompt(33), 24)]
+    runs = []
+    for forced in (True, False):
+        _zero_launches()
+        eng = ServingEngine(model, num_slots=2, **base)
+        reqs = [eng.submit(ids, max_new_tokens=m) for ids, m in pb]
+        eng.step()
+        if forced:
+            if reqs[0].state != "prefill" or reqs[0].pf_pos != 32:
+                raise AssertionError(f"exactness (b): {reqs[0].state}")
+            eng._preempt(reqs[0])
+        while reqs[1].state != "decode" or len(reqs[1].tokens) < 5:
+            eng.step()
+        if forced:
+            eng._preempt(reqs[1])
+        eng.run()
+        eng._pool.check()
+        runs.append((reqs, eng.stats()))
+    if runs[0][1]["preemptions"] != 2 or runs[1][1]["preemptions"] != 0:
+        raise AssertionError(f"exactness (b): {runs[0][1]}")
+    counts = _launched("exactness (b)", ("rms_norm", "paged_decode_attention"))
+    _same_tokens("exactness (b)", runs[0][0], runs[1][0])
+    notes.append("(b) preempted mid-prefill and mid-decode: tokens equal "
+                 "the uninterrupted run")
+    # (e) a spec-mode row preempted and resumed
+    dkw = dict(max_context=96, max_draft=2, compute_dtype="float32")
+    pe = [(prompt(40), 16), (prompt(25), 12)]
+    runs = []
+    for forced in (True, False):
+        _zero_launches()
+        eng = ServingEngine(model, num_slots=2,
+                            drafter=ModelDrafter(model, **dkw), **base)
+        reqs = [eng.submit(pe[0][0], max_new_tokens=pe[0][1],
+                           spec_decode=2),
+                eng.submit(pe[1][0], max_new_tokens=pe[1][1])]
+        while reqs[0].state != "decode" or len(reqs[0].tokens) < 4:
+            eng.step()
+        if forced:
+            eng._preempt(reqs[0])
+        eng.run()
+        eng._pool.check()
+        st = eng.stats()
+        if st["spec_verify_steps"] == 0:
+            raise AssertionError(f"exactness (e): {st}")
+        runs.append((reqs, st))
+        if forced:
+            counts = _launched("exactness (e)", (
+                "rms_norm", "paged_decode_attention",
+                "paged_decode_attention_multi", "decode_attention",
+                "flash_attention_fwd", "rope"))
+    if runs[0][1]["preemptions"] != 1:
+        raise AssertionError(f"exactness (e): {runs[0][1]}")
+    _same_tokens("exactness (e)", runs[0][0], runs[1][0])
+    notes.append(f"(e) spec row preempted and resumed: tokens equal the "
+                 f"uninterrupted run; launches {counts}")
+    _log("preemption exactness: 4 layers at 8B width, float32: "
+         + "; ".join(notes))
+    del model
     torch.cuda.empty_cache()
 
 
@@ -2874,11 +3271,14 @@ def main(argv=None) -> int:
     by_path = {"serving": phase_serving(torch, args.seed, cfg, model)}
     by_path.update(phase_quant_serving(torch, args.seed, cfg, model))
     by_path["speculative"] = phase_spec_serving(torch, args.seed, cfg, model)
+    by_path["preemption"] = phase_preemption(torch, args.seed, cfg, model)
+    by_path["radix"] = phase_radix_tier(torch, args.seed, cfg, model)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
     phase_quant_exactness(torch, args.seed)
     phase_spec_exactness(torch, args.seed)
+    phase_preempt_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     phase_train_exactness(torch, args.seed)
     by_path["training_routes"] = phase_training_routes(torch, args.seed,

@@ -11,6 +11,9 @@ They take and return what the JAX programs take and return, minus the
 parameter list (the model holds its weights) and the sampling planes
 (greedy).  The arenas are updated IN PLACE — the torch counterpart of the
 JAX programs' donated arena arguments — and handed back for symmetry.
+The host-RAM tier's swap programs ``build_swap_out_gather`` (:471) and
+``build_swap_in_scatter`` (:493) are plain indexing: an ``index_select``
+and an in-place ``index_put_``, no kernel.
 A weight-quant plan takes the place of ``_param_swapper``'s (:173)
 trailing code/scale values: the programs run the model inside
 ``wquant_context(plan.context())``.  The decode block is a Python loop of
@@ -196,3 +199,34 @@ def spec_verify(model, toks, lens, n_valid, tables,
         logits, kvs = model.verify_step(
             toks, lens, n_valid, _pack_paged_kvs(flat_arenas, tables))
     return (spec_greedy_rows(logits),) + tuple(_flatten_paged_kvs(kvs))
+
+
+def build_swap_out_gather():
+    """Swap-out reader for the host-RAM block tier: ``(ids [W],
+    *flat_arenas) -> tuple of [W, ...] row stacks``, one ``index_select``
+    per arena.  Preemption gathers a slot's table row and the radix
+    cache's demotion a reclaimed batch, both at table width ``W`` with
+    trash-padded ids.  The rows are the blocks' exact at-rest bytes
+    (float K/V, or int8 codes plus their f32 scale planes); rows gathered
+    from the trash row are finite garbage the callers drop."""
+    def gather(ids, *flat_arenas):
+        return tuple(a.index_select(0, ids) for a in flat_arenas)
+    return gather
+
+
+def build_swap_in_scatter(n_arenas: int):
+    """Re-scatter for host-RAM -> arena restores: ``(ids [W], *rows
+    (n_arenas of [W, ...]), *flat_arenas) -> flat_arenas``, each arena
+    written in place by ``index_put_`` (where the JAX program donates
+    them).  Preemption resume and the radix cache's promotion share it.
+    Entries of ``ids`` past the payload name the trash row, so pad rows
+    land there as every paged writer's masked writes do.  The rows must
+    already be the arena's dtype (``index_put_`` refuses another): a
+    restore never casts."""
+    def scatter(ids, *rows_and_arenas):
+        rows = rows_and_arenas[:n_arenas]
+        arenas = rows_and_arenas[n_arenas:]
+        for a, r in zip(arenas, rows):
+            a.index_put_((ids,), r)
+        return tuple(arenas)
+    return scatter

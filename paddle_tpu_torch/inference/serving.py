@@ -1,42 +1,56 @@
 """Continuous-batching serving over a paged KV block pool: port of the
 synchronous, greedy core of ``paddle_tpu/inference/serving.py``, with a
 float or int8 KV cache (``kv_cache_dtype="int8"``), float or int8/int4
-weights (``weight_dtype=``) and greedy speculative decoding
+weights (``weight_dtype=``), greedy speculative decoding
 (``submit(spec_decode=K)`` with an ``NGramDrafter`` or ``ModelDrafter``),
-in any combination.
+preemption to a host-RAM tier, a bounded queue, cancellation and the
+tiered radix prefix cache, in any combination.
 
-Ported: ``_block_digests`` (:829), ``BlockPool`` (:859, the digest half),
-``Request`` (:1181) and ``ServingEngine`` (:1341) with ``submit``,
-``_admit`` (no preemption, no swap), ``_prefill_chunk`` (digest
-registration included), ``_count_kv_sweep`` (:1813), ``_block_rides``
-and ``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, greedy
-rows), the synchronous branch of ``_step_inner``, ``_absorb_block``,
-``_finish``, ``_release_blocks``, ``run``, ``engine_spec`` and ``stats``
-(a subset of keys, kept in plain integer counters instead of the metrics
-registry).
+Ported: ``AdmissionError`` (:254), ``TERMINAL_STATES`` (:343),
+``_block_digests`` (:829), ``BlockPool`` (:859, the digest and the tree
+half, ``check()`` included), ``_SwapRecord`` (:1160), ``Request``
+(:1181) and ``ServingEngine`` (:1341) with ``submit`` (bounded-queue
+shedding, ``max_queue_delay_s``, the radix probe and its rollback),
+``cancel`` (:2924), ``_admit`` (:3525: swapped requests resume first in
+their class, the radix re-probe, the head-of-line valve, preemption
+under pressure), the terminals (``_terminate``, ``_drop_queued``,
+``_shed``, ``_sweep_timeouts``), preemption (``_preempt``,
+``_preempt_for``, ``_try_resume``), the host tier's synchronous gather,
+scatter and demotion (``_gather_rows`` :2210, ``_scatter_rows`` :2235,
+``_demote_blocks`` :2260, ``_audit_host_tier`` :2318), the radix
+admission (``_probe_radix``, ``_reprobe_radix``, ``_map_radix_span``,
+``_residency_rank``), ``_prefill_chunk`` (digest registration and the
+radix insert), ``_count_kv_sweep`` (:1813), ``_block_rides`` and
+``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, greedy rows),
+the synchronous branch of ``_step_inner``, ``_absorb_block``,
+``_finish``, ``_release_blocks``, ``run``, ``engine_spec``,
+``prefix_match`` and ``stats`` (kept in plain integer counters instead
+of the metrics registry).
 
-Scheduling is the JAX engine's: requests are admitted priority-then-EDF
-(FIFO within a class) into vacant slots, and each step runs at most one
-prefill chunk, then one speculative verify forward over the spec-mode
-slots, then one decode block over the plain slots; the digest prefix
-cache maps whole prompt blocks a finished chunk published.
+The defaults are the reference's, but for ``async_dispatch=False``:
+``prefix_cache_mode="radix"`` (with ``enable_prefix_cache=True``),
+``enable_preemption=True`` and ``host_cache_blocks=4 * num_blocks``.
 On the same trace the port makes the same decisions (admissions,
-dispatch counts, prefix hits) as the JAX engine with
-``async_dispatch=False, prefix_cache_mode="digest",
-enable_preemption=False``.
+preemptions, swaps, sheds, timeouts, dispatch counts, prefix hits) as
+the JAX engine with ``async_dispatch=False``, and its host-tier parcels
+hold the same bytes (a bf16 arena's as the ``uint16`` view of its bits,
+``inference/prefixcache.py``).
 
 Features not ported yet take only their off values and raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
-Known differences from the JAX engine: ``prefix_cache_mode`` defaults to
-``"digest"`` (JAX: ``"radix"``), ``async_dispatch`` to ``False`` and
-``enable_preemption`` to ``False``; there is no metrics registry, flight
-recorder or span tracing.
+Known differences from the JAX engine: ``async_dispatch`` defaults to
+``False``; the swap copies are synchronous (``.cpu()`` from pageable
+memory); admission has no fair-share term (``tenant_weights`` is not
+ported, and on a single tenant the term is a constant); there is no
+metrics registry, flight recorder, span tracing, goodput ledger or
+fault injector.
 """
 
 from __future__ import annotations
 
 import hashlib
 import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -46,11 +60,31 @@ import torch
 
 from ..device import DeviceLike, dtype_name, resolve_device, to_dtype
 from ..models.generation import GenerationConfig, init_paged_kv_arena
-from .llm import (build_weight_quant_plan, chunk_prefill,
+from .llm import (build_swap_in_scatter, build_swap_out_gather,
+                  build_weight_quant_plan, chunk_prefill,
                   normalize_weight_dtype, paged_decode_block)
+from .prefixcache import HostTier, RadixPrefixCache, device_rows, host_rows
 from .speculative import NGramDrafter, accept_drafts, build_spec_verify
 
 _INF = float("inf")
+
+# the terminal request states: a request in any of these will never emit
+# another token ("failed" belongs to the fleet layer's failover; the
+# engine itself never assigns it)
+TERMINAL_STATES = ("finished", "timeout", "shed", "cancelled", "failed")
+
+
+class AdmissionError(RuntimeError):
+    """A bounded queue (``ServingEngine(max_queue=N)``) refused an
+    arrival: the queue is full and no queued request is of strictly
+    lower scheduling class than the new one, so the arrival is shed.
+    Typed so callers can degrade (retry, spill to another replica,
+    answer 429) instead of matching a message."""
+
+    def __init__(self, msg, *, queue_depth=None, max_queue=None):
+        super().__init__(msg)
+        self.queue_depth = queue_depth
+        self.max_queue = max_queue
 
 
 def _not_ported(what: str, item: str):
@@ -76,16 +110,32 @@ def _block_digests(ids: np.ndarray, n: int, block_len: int,
     return out
 
 
+def _neg_deadline(deadline: Optional[float]) -> float:
+    """Deadline term of the "worseness" ordering: no deadline sorts as
+    infinitely late, and later deadlines sort before earlier ones."""
+    return -(deadline if deadline is not None else _INF)
+
+
 class BlockPool:
     """Host-side allocator for the device block arena: a free list over
-    ``num_blocks`` logical blocks plus a refcounted digest prefix cache.
+    ``num_blocks`` logical blocks plus a refcounted prefix cache.
 
     ``alloc`` hands a block out with refcount 1; ``pin``/``unpin`` move
     the refcount as prefix sharers map it in and requests retire; a
-    block whose refcount drops to 0 returns to the free list UNLESS it
-    is published in the digest map — then it parks in an LRU, still
-    mapped, and is reclaimed (unmapped) only when the free list runs
-    dry.  The arena's extra row ``trash`` is never allocated."""
+    block whose refcount drops to 0 returns to the free list UNLESS a
+    cache index holds it — then it parks, still mapped, and is reclaimed
+    only when the free list runs dry.  The arena's extra row ``trash``
+    is never allocated.
+
+    Two cache indices can park unpinned blocks: the chained-digest map
+    (``register``/``lookup``, ``prefix_cache_mode="digest"``) and the
+    radix tree of ``inference/prefixcache.py`` (``tree_hold``/
+    ``tree_touch``).  A tree-held block at refcount 0 parks in
+    ``_tree_lru``; when ``alloc`` reclaims some, ``reclaim_cb`` (the
+    engine's demote path) fires once with the reclaimed list before
+    alloc returns — the caller has not written the rows yet, so their
+    bytes can still be gathered to the host tier.  ``audit_hooks`` let
+    the owning cache fold its own invariants into ``check()``."""
 
     def __init__(self, num_blocks: int, block_len: int):
         self.num_blocks = int(num_blocks)
@@ -96,10 +146,14 @@ class BlockPool:
         self._digest_of: List[Optional[bytes]] = [None] * self.num_blocks
         self._by_digest = {}                   # digest -> block id
         self._lru: OrderedDict = OrderedDict()  # digest -> block, ref == 0
+        self._tree_ref = set()                 # radix-tree-held blocks
+        self._tree_lru: OrderedDict = OrderedDict()  # block -> True
+        self.reclaim_cb = None                 # fires on tree-LRU reclaim
+        self.audit_hooks = []                  # extra check() invariants
 
     def available(self) -> int:
         """Blocks allocatable right now (free + reclaimable cached)."""
-        return len(self._free) + len(self._lru)
+        return len(self._free) + len(self._lru) + len(self._tree_lru)
 
     def in_use(self) -> int:
         """Blocks pinned by live or queued requests (refcount > 0)."""
@@ -107,7 +161,7 @@ class BlockPool:
 
     def cached(self) -> int:
         """Unpinned blocks kept mapped for future prefix hits."""
-        return len(self._lru)
+        return len(self._lru) + len(self._tree_lru)
 
     def lookup(self, digest: bytes) -> Optional[int]:
         return self._by_digest.get(digest)
@@ -117,6 +171,7 @@ class BlockPool:
             dg = self._digest_of[block]
             if dg is not None:
                 self._lru.pop(dg, None)
+            self._tree_lru.pop(block, None)
         self._ref[block] += 1
 
     def unpin(self, block: int):
@@ -128,8 +183,27 @@ class BlockPool:
             dg = self._digest_of[block]
             if dg is not None:
                 self._lru[dg] = block          # reclaimable, still mapped
+            elif block in self._tree_ref:
+                self._tree_lru[block] = True   # reclaimable, still mapped
             else:
                 self._free.append(block)
+
+    def tree_hold(self, block: int):
+        """Mark a block referenced by the radix prefix tree.  The
+        caller must hold a pin (registration and promotion both run
+        under the owning request's refcount)."""
+        if not (0 <= block < self.num_blocks):
+            raise RuntimeError(f"tree_hold of non-pool block {block}")
+        if self._ref[block] <= 0:
+            raise RuntimeError(
+                f"tree_hold of unpinned block {block} — registration "
+                f"must run under the owning request's refcount")
+        self._tree_ref.add(block)
+
+    def tree_touch(self, block: int):
+        """LRU-refresh a tree-held reclaimable block on a cache hit."""
+        if block in self._tree_lru:
+            self._tree_lru.move_to_end(block)
 
     def register(self, block: int, digest: bytes):
         """Publish a fully-written prompt block for future prefix hits
@@ -142,20 +216,119 @@ class BlockPool:
     def alloc(self, n: int) -> Optional[List[int]]:
         """``n`` blocks with refcount 1 each, reclaiming the oldest
         refcount-0 cached blocks when the free list runs dry; None when
-        the pool cannot serve ``n``."""
+        the pool cannot serve ``n``.  Digest-cached blocks unmap;
+        tree-held blocks fire ``reclaim_cb`` (once, with the whole
+        reclaimed list) before alloc returns, while their bytes are
+        intact."""
         if n > self.available():
             return None
         out = []
+        reclaimed = []
         for _ in range(n):
             if self._free:
                 b = self._free.pop()
+            elif self._tree_lru:
+                b, _ = self._tree_lru.popitem(last=False)
+                self._tree_ref.discard(b)
+                reclaimed.append(b)
             else:
                 dg, b = self._lru.popitem(last=False)
                 del self._by_digest[dg]
                 self._digest_of[b] = None
             self._ref[b] = 1
             out.append(b)
+        if reclaimed and self.reclaim_cb is not None:
+            self.reclaim_cb(reclaimed)
         return out
+
+    def check(self) -> bool:
+        """Full invariant audit; raises ``RuntimeError`` listing every
+        violation, returns True when clean: free + pinned + cached covers
+        every block exactly once; free blocks are unmapped and never
+        tree-held; every LRU member has refcount 0 and maps back to
+        itself; the digest maps are a bijection; tree-held blocks are
+        never digest-mapped and park in the tree LRU at refcount 0; no
+        refcount is negative; and every ``audit_hooks`` entry returns no
+        errors."""
+        errs = []
+        free_set = set(self._free)
+        if len(free_set) != len(self._free):
+            errs.append(f"free list holds duplicates: {self._free}")
+        lru_set = set(self._lru.values())
+        tlru_set = set(self._tree_lru)
+        pinned = 0
+        for b in range(self.num_blocks):
+            ref = self._ref[b]
+            dg = self._digest_of[b]
+            cached_here = b in lru_set or b in tlru_set
+            if ref < 0:
+                errs.append(f"block {b}: negative refcount {ref}")
+            if ref > 0:
+                pinned += 1
+                if b in free_set or cached_here:
+                    errs.append(
+                        f"block {b}: refcount {ref} but on the "
+                        f"{'free list' if b in free_set else 'LRU'}")
+            elif not (b in free_set or cached_here):
+                errs.append(f"block {b}: refcount 0 but neither free "
+                            f"nor cached — leaked")
+            if b in free_set and (b in lru_set or b in tlru_set):
+                errs.append(f"block {b}: both free and LRU-cached")
+            if b in free_set and dg is not None:
+                errs.append(f"block {b}: free but still digest-mapped")
+            if b in free_set and b in self._tree_ref:
+                errs.append(f"block {b}: free but tree-referenced")
+            if b in self._tree_ref and dg is not None:
+                errs.append(f"block {b}: both tree-referenced and "
+                            f"digest-mapped")
+            if b in self._tree_ref and ref == 0 and b not in tlru_set:
+                errs.append(f"block {b}: tree-referenced at refcount 0 "
+                            f"but not in the tree LRU — unreclaimable")
+            if b in tlru_set and b not in self._tree_ref:
+                errs.append(f"block {b}: in the tree LRU but not "
+                            f"tree-referenced")
+            if dg is not None and self._by_digest.get(dg) != b:
+                errs.append(
+                    f"block {b}: digest points at block "
+                    f"{self._by_digest.get(dg)} in _by_digest")
+        for dg, b in self._by_digest.items():
+            if self._digest_of[b] != dg:
+                errs.append(f"_by_digest maps {dg.hex()} -> {b} but "
+                            f"block {b} carries another digest")
+        for dg, b in self._lru.items():
+            if self._ref[b] != 0:
+                errs.append(f"LRU block {b}: refcount {self._ref[b]}")
+            if self._digest_of[b] != dg:
+                errs.append(f"LRU digest {dg.hex()} maps block {b} "
+                            f"whose digest differs")
+        if len(self._free) + pinned + len(self._lru) \
+                + len(self._tree_lru) != self.num_blocks:
+            errs.append(
+                f"conservation: free({len(self._free)}) + "
+                f"pinned({pinned}) + cached({len(self._lru)} digest + "
+                f"{len(self._tree_lru)} tree) != "
+                f"num_blocks({self.num_blocks})")
+        for hook in self.audit_hooks:
+            errs.extend(hook())
+        if errs:
+            raise RuntimeError(
+                "BlockPool.check failed:\n  " + "\n  ".join(errs))
+        return True
+
+
+@dataclass
+class _SwapRecord:
+    """A preempted request's device state, parked in the shared
+    ``HostTier`` (reason ``"preempt"``): ``host_key`` names the parcel
+    holding one ``[n_blocks, ...]`` stack per flat arena (the request's
+    real blocks at their exact at-rest bytes); ``tok``/``lens`` are the
+    slot's carries at preemption.  With them and the bytes restored, the
+    resumed request is bit-identical to one never preempted."""
+    host_key: int
+    n_blocks: int
+    tok: int
+    lens: int
+    state: str                     # "prefill" | "decode"
 
 
 @dataclass
@@ -165,7 +338,13 @@ class Request:
     ``tokens`` accumulates generated ids; after EOS the stream is
     ``pad_token_id``, and ``output`` is always exactly
     ``max_new_tokens`` long.  ``state`` walks queued -> prefill ->
-    decode -> finished."""
+    decode -> finished, with the overload detours: ``swapped``
+    (preempted to the host-RAM tier, resumes into prefill/decode),
+    ``timeout`` (queue wait exceeded ``max_queue_delay_s``), ``shed``
+    (displaced from a full bounded queue) and ``cancelled``.
+    ``priority`` (higher = more important) and ``deadline`` define the
+    scheduling class: admission is priority-then-EDF, preemption
+    victims come from strictly lower classes only."""
     request_id: int
     prompt: np.ndarray                 # [prompt_len] padded
     seq_len: int
@@ -179,15 +358,21 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     state: str = "queued"
-    priority: int = 0                  # higher admits first
+    priority: int = 0                  # higher admits/survives first
     deadline: Optional[float] = None   # absolute clock() time
+    max_queue_delay_s: Optional[float] = None
+    swap: Optional[_SwapRecord] = None
+    preempt_count: int = 0
+    spec_k: Optional[int] = None       # speculative mode: drafts/verify
     pf_pos: int = 0                    # next prompt position to compute
     matched: List[int] = field(default_factory=list)   # prefix-hit blocks
+    host_pins: List[int] = field(default_factory=list)  # pinned tier keys
+    rspan: List = field(default_factory=list)  # radix span at last probe
+    rmatch_tokens: int = 0             # token-level match at last probe
     blocks: List[int] = field(default_factory=list)    # full block map
     digests: List[bytes] = field(default_factory=list)
     registered: int = 0                # blocks published so far
     chunk_ids: Optional[np.ndarray] = None  # prompt padded to chunk grid
-    spec_k: Optional[int] = None       # speculative mode: drafts/verify
 
     @property
     def output(self) -> np.ndarray:
@@ -211,16 +396,19 @@ class ServingEngine:
     """Continuous-batching serving session over a paged KV block pool.
 
     ``submit()`` enqueues requests (optionally with a future
-    ``arrival_time`` for trace replay); ``step()`` runs one scheduler
-    iteration (admit + at most one prefill chunk + one verify forward
-    over the spec-mode slots + one decode block);
-    ``run()`` drains everything and returns the finished requests.
+    ``arrival_time`` for trace replay); ``cancel()`` drops one from any
+    live phase; ``step()`` runs one scheduler iteration (timeouts, admit
+    and resume, at most one prefill chunk, one verify forward over the
+    spec-mode slots, one decode block); ``run()`` drains everything and
+    returns the terminal requests.
 
     The engine runs on ``device`` (default: the CUDA card; ``"cpu"``
     for tests) and moves the model there, casting its float parameters
     to ``compute_dtype`` in place once — the JAX engine's once-per-call
     hoisted cast (``_cast_params``).  The KV arenas live on the device
-    and are updated in place by every program.
+    and are updated in place by every program; only the host-RAM tier's
+    parcels (preemption swap-outs and radix-cache demotions) are host
+    copies.
 
     ``kv_cache_dtype="int8"`` stores the cache as int8 codes plus f32
     per-entry per-kv-head scales (quantize on append, dequantize in the
@@ -237,6 +425,16 @@ class ServingEngine:
     at the engine-lifetime width ``max(spec_decode) + 1``, and the
     accepted prefix plus a correction token is emitted.  The tokens are
     the sequential greedy stream's.
+
+    Overload: with ``enable_preemption`` a request the pool cannot serve
+    swaps strictly-worse running requests out to host RAM (exact
+    at-rest bytes; they resume bit-identically); ``max_queue`` bounds
+    the queue (shedding the worst queued request of a strictly lower
+    class, else raising ``AdmissionError``); ``submit(
+    max_queue_delay_s=)`` times a request out of the queue.  In
+    ``prefix_cache_mode="radix"`` cached prompt blocks the pool reclaims
+    are demoted to the host tier (``host_cache_blocks`` of them at most)
+    and promoted back on a later hit.
     """
 
     def __init__(self, model, *, num_slots, prompt_len,
@@ -249,54 +447,49 @@ class ServingEngine:
                  compute_dtype="bfloat16", cache_dtype=None,
                  kv_cache_dtype=None, weight_dtype=None,
                  seed=0, static_batching=False, clock=time.perf_counter,
-                 registry=None, max_queue=None, enable_preemption=False,
+                 registry=None, max_queue=None, enable_preemption=True,
                  fault_injector=None, flight_recorder=None,
                  async_dispatch=False, async_depth=1,
                  adapter_store=None, tenant_weights=None, mesh=None,
                  role="both", device: DeviceLike = None):
         for value, off, what, item in (
                 (bool(do_sample), False, "do_sample=True",
-                 "sampling and speculation"),
+                 "#4 Sampling and speculation, the sampled half"),
                 (mesh, None, "mesh= (tensor-parallel serving)",
-                 "sharded serving"),
+                 "#10 Sharded serving"),
                 (str(role), "both", f"role={role!r} (disaggregation)",
-                 "fleet layer"),
+                 "#9 Fleet layer"),
                 (adapter_store, None, "adapter_store= (LoRA serving)",
-                 "LoRA and fair share"),
+                 "#7 LoRA and fair share"),
                 (tenant_weights, None, "tenant_weights= (fair share)",
-                 "LoRA and fair share"),
-                (host_cache_blocks, None,
-                 "host_cache_blocks= (host-RAM block tier)",
-                 "preemption, host swap and the radix tiers"),
-                (bool(enable_preemption), False, "enable_preemption=True",
-                 "preemption, host swap and the radix tiers"),
-                (fault_injector, None, "fault_injector=", "fleet layer"),
-                (max_queue, None, "max_queue= (bounded queue shedding)",
-                 "preemption, host swap and the radix tiers"),
+                 "#7 LoRA and fair share"),
+                (fault_injector, None, "fault_injector=", "#9 Fleet layer"),
                 (registry, None, "registry= (metrics registry)",
-                 "observability"),
+                 "#1 Observability"),
                 (flight_recorder, None, "flight_recorder=",
-                 "observability"),
+                 "#1 Observability"),
                 (bool(async_dispatch), False, "async_dispatch=True",
-                 "dispatch-ahead"),
+                 "#6 Dispatch-ahead"),
                 (int(async_depth), 1, f"async_depth={async_depth}",
-                 "dispatch-ahead")):
+                 "#6 Dispatch-ahead")):
             if value != off:
                 _not_ported(what, item)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(
+                f"max_queue must be >= 1 (or None = unbounded), got "
+                f"{max_queue}")
+        self.enable_preemption = bool(enable_preemption)
         # an explicit prefix_cache_mode wins over the legacy bool, as in
-        # the JAX engine; unset, it is "digest" (the JAX default, "radix",
-        # is not ported yet)
+        # the JAX engine
         if prefix_cache_mode is None:
-            mode = "digest" if enable_prefix_cache else "none"
+            mode = "radix" if enable_prefix_cache else "none"
         else:
             mode = str(prefix_cache_mode)
-        if mode == "radix":
-            _not_ported('prefix_cache_mode="radix"',
-                        "preemption, host swap and the radix tiers")
-        if mode not in ("digest", "none"):
-            raise ValueError(
-                f"prefix_cache_mode must be 'digest' or 'none' (or "
-                f"'radix', not ported yet), got {prefix_cache_mode!r}")
+            if mode not in ("radix", "digest", "none"):
+                raise ValueError(
+                    f"prefix_cache_mode must be 'radix', 'digest' or "
+                    f"'none', got {prefix_cache_mode!r}")
         self.prefix_cache_mode = mode
         self.enable_prefix_cache = mode != "none"
         self.device = resolve_device(device)
@@ -347,7 +540,15 @@ class ServingEngine:
             raise NotImplementedError(
                 f"a KV cache dtype ({dtype_name(kv_dt)}) other than "
                 f"compute_dtype ({dtype_name(cdt)}) is not ported yet: the "
-                f"paged decode kernel takes one dtype")
+                f"paged decode kernel takes one dtype (ROADMAP.md, Queue 1: "
+                f"#11 LLMPredictor and the dense generate programs)")
+        # the host tier's capacity is validated before any weight is
+        # touched too
+        cache_cap = (int(host_cache_blocks) if host_cache_blocks is not None
+                     else 4 * self.num_blocks)
+        if cache_cap < 0:
+            raise ValueError(
+                f"host_cache_blocks must be >= 0, got {host_cache_blocks}")
         # weight_dtype: the plan quantizes the weights AS STORED, before
         # the cast to compute_dtype, as the JAX engine does
         wq_dtype = normalize_weight_dtype(weight_dtype)
@@ -375,6 +576,26 @@ class ServingEngine:
         self._pool = BlockPool(self.num_blocks, self.block_len)
         self._digest_salt = ("ptpu-paged-kv/"
                              + self.kv_cache_dtype).encode()
+        # ONE host-RAM block store for both uses: preemption swap-outs
+        # (reason "preempt", kept until resume) and radix-cache
+        # demotions (reason "cache", LRU-evicted beyond cache_cap)
+        self._host_tier = HostTier(cache_capacity_blocks=cache_cap)
+        self._radix: Optional[RadixPrefixCache] = None
+        # the pool and the tier call back into the engine and the tree
+        # through weak references: a dropped engine frees its device
+        # arenas at once, not at the next cyclic garbage collection
+        me = weakref.ref(self)
+        if mode == "radix":
+            self._radix = RadixPrefixCache(self.block_len, self._pool,
+                                           self._host_tier)
+            self._pool.reclaim_cb = lambda blocks: me()._demote_blocks(blocks)
+            drop_host = weakref.WeakMethod(self._radix.drop_host)
+            self._host_tier.evict_cb = lambda key: drop_host()(key)
+            self._pool.audit_hooks.append(
+                lambda: me()._radix.audit(me()._pool))
+        self._pool.audit_hooks.append(lambda: me()._audit_host_tier())
+        self._swap_out = build_swap_out_gather()
+        self._swap_in = build_swap_in_scatter(len(self._arenas))
         self._tables = np.full((self.num_slots, self.max_blocks),
                                self._pool.trash, np.int32)
         self._vocab = int(model.config.vocab_size)
@@ -384,6 +605,7 @@ class ServingEngine:
         self._slots: List[Optional[Request]] = [None] * self.num_slots
         self._queue: deque = deque()
         self._prefilling: deque = deque()
+        self._swapped: List[Request] = []   # preempted, host-RAM KV
         self._finished: List[Request] = []
         self._clock = clock
         self._next_id = 0
@@ -391,13 +613,20 @@ class ServingEngine:
         self._peak_queue = 0
         self._peak_blocks = 0
         # scheduler counters (the JAX engine keeps these in its metrics
-        # registry; stats() reads them back)
+        # registry, label-summed where it labels them; stats() reads
+        # them back)
         self._n = dict(finished=0, prefills=0, prefill_chunks=0,
                        decode_steps=0, busy_slot_steps=0,
                        block_dispatches=0, prefix_hits=0, prefix_misses=0,
+                       prefix_hit_tokens=0, prefix_partial_hits=0,
+                       prefix_host_hits=0, host_swapin_blocks=0,
                        kv_bytes_swept=0, spec_verify_steps=0,
                        spec_draft_hits=0, spec_draft_misses=0,
-                       spec_draft_tokens=0, spec_accepted_tokens=0)
+                       spec_draft_tokens=0, spec_accepted_tokens=0,
+                       preemptions=0, preempt_resumes=0,
+                       swap_blocks_out=0, swap_blocks_in=0,
+                       swap_bytes_out=0, swap_bytes_in=0,
+                       shed=0, timeouts=0, cancelled=0)
         self._decode_seconds = 0.0
         self._verify_seconds = 0.0
         # speculative decoding: per-request mode (submit(spec_decode=K));
@@ -485,6 +714,84 @@ class ServingEngine:
             self._tables[req.slot] = self._pool.trash
         self._update_block_gauges()
 
+    # -- host tier (shared by preemption swap and radix demotion) --
+    def _gather_rows(self, ids_row: np.ndarray, keep: int):
+        """The first ``keep`` rows of ``ids_row`` (table-width, trash-
+        padded) out of every arena at their exact at-rest bytes, copied
+        to the host synchronously: ``(stacks, dtypes)``, one numpy stack
+        ``[keep, ...]`` and one dtype name per flat arena (a bf16 stack
+        holds the ``uint16`` view of its bits, ``host_rows``)."""
+        ids = torch.from_numpy(ids_row.astype(np.int64)).to(self.device)
+        out = [host_rows(r[:keep]) for r in self._swap_out(ids,
+                                                           *self._arenas)]
+        return [s for s, _ in out], tuple(dt for _, dt in out)
+
+    def _scatter_rows(self, ids_row: np.ndarray, stacks: List[np.ndarray],
+                      dtypes):
+        """Write per-arena row ``stacks`` (k <= table-width rows each,
+        bits decoding to ``dtypes``) into the arena rows named by
+        ``ids_row`` through the swap-in scatter, shared by preemption
+        resume and radix promotion.  Stacks are zero-padded to table
+        width on the device; ``ids_row`` routes the pad rows at the
+        trash row.  A stack whose dtype or row shape is not its arena's
+        raises."""
+        if len(stacks) != len(self._arenas):
+            raise ValueError(f"host parcel holds {len(stacks)} row stacks "
+                             f"for {len(self._arenas)} arenas")
+        if dtypes is None:
+            dtypes = [str(s.dtype) for s in stacks]
+        padded = []
+        for s, dt, a in zip(stacks, dtypes, self._arenas):
+            t = device_rows(s, dt, a)
+            pr = torch.zeros((self.max_blocks,) + tuple(a.shape[1:]),
+                             dtype=a.dtype, device=a.device)
+            pr[:t.shape[0]] = t
+            padded.append(pr)
+        ids = torch.from_numpy(ids_row.astype(np.int64)).to(self.device)
+        self._swap_in(ids, *padded, *self._arenas)
+
+    def _demote_blocks(self, blocks: List[int]):
+        """``BlockPool.reclaim_cb`` (radix mode): gather the reclaimed
+        cached blocks' exact at-rest bytes out of every arena and demote
+        them to the host tier; the radix tree relabels the positions
+        host-resident so a later hit swaps the bytes back in rather than
+        recomputing.  One gather per table width of blocks.  When the
+        tier cannot take parcels the positions become holes and no
+        gather runs."""
+        if not self._host_tier.would_accept(1):
+            for b in blocks:
+                self._radix.drop_hbm(b)
+            return
+        demoted = 0
+        w = self.max_blocks
+        for i in range(0, len(blocks), w):
+            chunk = blocks[i:i + w]
+            ids = np.full((w,), self._pool.trash, np.int32)
+            ids[:len(chunk)] = chunk
+            stacks, dtypes = self._gather_rows(ids, len(chunk))
+            for j, b in enumerate(chunk):
+                rows = [np.ascontiguousarray(s[j:j + 1]) for s in stacks]
+                if self._radix.demote(b, rows, dtypes) is not None:
+                    demoted += 1
+        if demoted:
+            self._n["swap_blocks_out"] += demoted
+            self._n["swap_bytes_out"] += \
+                demoted * self.block_len * self._kv_row_bytes
+
+    def _audit_host_tier(self):
+        """``BlockPool.check()`` hook: tier-internal invariants plus the
+        preempt-key <-> swap-list bijection (cache keys are audited
+        against the tree by ``RadixPrefixCache.audit``)."""
+        errs = list(self._host_tier.audit())
+        want = sorted(r.swap.host_key for r in self._swapped)
+        got = sorted(self._host_tier.keys("preempt"))
+        if want != got:
+            errs.append(
+                f"host tier preempt keys {got} != swap-list records "
+                f"{want}")
+        return errs
+
+    # -- request intake --
     def submit(self, prompt_ids, seq_len=None, max_new_tokens=32,
                arrival_time=None, spec_decode=None, sampling=None,
                priority: int = 0, deadline_s: Optional[float] = None,
@@ -494,20 +801,25 @@ class ServingEngine:
         """Enqueue one request.  ``prompt_ids`` is a 1-D id array of at
         most ``prompt_len`` tokens (right-padded internally);
         ``arrival_time`` (in ``clock()`` units) lets a trace replay
-        future arrivals.  ``priority`` (higher admits first) and
-        ``deadline_s`` (seconds from arrival; EDF within a priority)
-        order admission.  With prefix caching on, the prompt's full
-        blocks are probed against the cache here and any hits are
-        PINNED so they cannot be reclaimed while the request waits."""
+        future arrivals.  ``priority`` (higher admits first, is preempted
+        last) and ``deadline_s`` (seconds from arrival; EDF within a
+        priority, never a kill) order admission; ``max_queue_delay_s``
+        bounds the queue wait (a request still queued after it ends
+        ``"timeout"``).  With prefix caching on, the prompt is probed
+        against the cache here and the hits are PINNED so they cannot be
+        reclaimed while the request waits.  With ``max_queue`` set, a
+        full queue sheds after every validation: expired entries are
+        swept first, then the worst queued request of a strictly lower
+        class than this one is displaced (``"shed"``) or this submit
+        raises ``AdmissionError`` and nothing is enqueued."""
         for value, off, what, item in (
                 (sampling, None, "submit(sampling=)",
-                 "sampling and speculation"),
-                (max_queue_delay_s, None, "submit(max_queue_delay_s=)",
-                 "preemption, host swap and the radix tiers"),
-                (adapter, None, "submit(adapter=)", "LoRA and fair share"),
-                (tenant, None, "submit(tenant=)", "LoRA and fair share"),
+                 "#4 Sampling and speculation, the sampled half"),
+                (adapter, None, "submit(adapter=)",
+                 "#7 LoRA and fair share"),
+                (tenant, None, "submit(tenant=)", "#7 LoRA and fair share"),
                 (bool(stream), False, "submit(stream=True)",
-                 "fleet layer")):
+                 "#9 Fleet layer")):
             if value != off:
                 _not_ported(what, item)
         ids = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
@@ -542,49 +854,101 @@ class ServingEngine:
                 f"{self.block_len} ({n + m - 1} tokens) but the pool "
                 f"only has num_blocks={self.num_blocks} — it could "
                 f"never be admitted")
+        prio = int(priority)
         if deadline_s is not None and float(deadline_s) <= 0:
             raise ValueError(
                 f"deadline_s must be > 0 seconds from arrival, got "
                 f"{deadline_s}")
+        if max_queue_delay_s is not None and float(max_queue_delay_s) < 0:
+            raise ValueError(
+                f"max_queue_delay_s must be >= 0, got {max_queue_delay_s}")
         padded = np.full((self.prompt_len,), self.cfg.pad_token_id,
                          np.int32)
         padded[:ids.size] = ids
         now = self._clock()
         arrival = now if arrival_time is None else float(arrival_time)
+        deadline = None if deadline_s is None \
+            else arrival + float(deadline_s)
         req = Request(self._next_id, padded, n, m, arrival,
                       pad_token_id=self.cfg.pad_token_id)
         req.submit_time = now
-        req.priority = int(priority)
-        req.deadline = None if deadline_s is None \
-            else arrival + float(deadline_s)
+        req.priority = prio
+        req.deadline = deadline
+        req.max_queue_delay_s = (None if max_queue_delay_s is None
+                                 else float(max_queue_delay_s))
         req.spec_k = spec_k
         # chunk grid: any slice [start, start + chunk_len) with
         # start < seq_len must be in range
         req.chunk_ids = np.full((self.prompt_len + self.chunk_len,),
                                 self.cfg.pad_token_id, np.int32)
         req.chunk_ids[:self.prompt_len] = padded
-        if self.enable_prefix_cache:
-            req.digests = _block_digests(padded, n, self.block_len,
-                                         salt=self._digest_salt)
-            # match at most (n-1)//block_len blocks: the block holding
-            # the prompt's LAST token is always recomputed — sampling
-            # the first output token needs its hidden state
-            self._match_prefix(req)
-        if spec_k is not None:
-            # only after every validation: a rejected submit must not
-            # widen the engine-lifetime verify width or install the
-            # default drafter
-            if self._drafter is None:
-                self._drafter = NGramDrafter()
-            self._spec_k_max = max(self._spec_k_max, spec_k)
-        self._next_id += 1
-        self._queue.append(req)
-        self._peak_queue = max(self._peak_queue, len(self._queue))
+        # past this point the prefix probe may hold pins: any failure
+        # must unpin them and drop the request, or each failed submit
+        # would leak refcounts until the pool wedges
+        try:
+            if self._radix is not None:
+                self._probe_radix(req)
+                if req.matched:
+                    self._update_block_gauges()
+            elif self.enable_prefix_cache:
+                req.digests = _block_digests(padded, n, self.block_len,
+                                             salt=self._digest_salt)
+                # match at most (n-1)//block_len blocks: the block holding
+                # the prompt's LAST token is always recomputed — sampling
+                # the first output token needs its hidden state
+                self._match_prefix(req)
+                if req.matched:
+                    self._update_block_gauges()
+            # the bounded queue LAST, after every validation: an invalid
+            # submission never displaces an innocent queued request
+            evict = None
+            if self.max_queue is not None and \
+                    len(self._queue) >= self.max_queue:
+                self._sweep_timeouts(now, [])
+            if self.max_queue is not None and \
+                    len(self._queue) >= self.max_queue:
+                worst = min(reversed(self._queue), key=self._shed_key)
+                if self._shed_key(worst) < (prio, _neg_deadline(deadline)):
+                    evict = worst
+                else:
+                    self._n["shed"] += 1
+                    raise AdmissionError(
+                        f"queue full ({len(self._queue)} >= max_queue="
+                        f"{self.max_queue}) and no queued request is "
+                        f"of strictly lower class than this arrival "
+                        f"(priority={prio}, deadline_s={deadline_s})",
+                        queue_depth=len(self._queue),
+                        max_queue=self.max_queue)
+            if spec_k is not None:
+                # only after every validation and the bounded-queue
+                # decision: a rejected submit must not widen the
+                # engine-lifetime verify width or install the default
+                # drafter
+                if self._drafter is None:
+                    self._drafter = NGramDrafter()
+                self._spec_k_max = max(self._spec_k_max, spec_k)
+            self._next_id += 1
+            self._queue.append(req)
+            if evict is not None:
+                self._shed(evict, now)
+            self._peak_queue = max(self._peak_queue, len(self._queue))
+        except BaseException:
+            if self._queue and self._queue[-1] is req:
+                self._queue.pop()
+            for b in req.matched:
+                self._pool.unpin(b)
+            req.matched = []
+            for k in req.host_pins:
+                self._host_tier.unpin(k)
+            req.host_pins = []
+            self._update_block_gauges()
+            raise
         return req
 
     def _match_prefix(self, req: Request):
-        """Extend ``req.matched`` with the published blocks of its next
-        prompt digests (pinned), stopping at the first miss."""
+        """Digest mode: extend ``req.matched`` with the published blocks
+        of its next prompt digests (pinned), stopping at the first
+        miss."""
         for dg in req.digests[len(req.matched):
                               (req.seq_len - 1) // self.block_len]:
             b = self._pool.lookup(dg)
@@ -592,9 +956,44 @@ class ServingEngine:
                 break
             self._pool.pin(b)
             req.matched.append(b)
-        if req.matched:
-            self._update_block_gauges()
 
+    def cancel(self, request_id: int) -> bool:
+        """Drop a request from any live phase.  Queued: removed from the
+        queue, its prefix pins released.  Swapped: its host-RAM copy is
+        dropped (its blocks were freed at preemption).  In flight
+        (prefill or decode): the slot freezes (``done`` plus an
+        all-trash table row) and its blocks release now.  A cancelled
+        request is terminal like shed and timeout: ``finish_time`` set,
+        output padded to ``max_new_tokens``.  Returns False for unknown
+        or already-terminal requests."""
+        now = self._clock()
+        for req in self._queue:
+            if req.request_id == request_id:
+                self._drop_queued(req, now, "cancelled")
+                self._n["cancelled"] += 1
+                return True
+        for req in self._swapped:
+            if req.request_id == request_id:
+                self._swapped.remove(req)
+                self._host_tier.drop(req.swap.host_key)
+                req.swap = None
+                self._terminate(req, now, "cancelled")
+                self._n["cancelled"] += 1
+                return True
+        for i, req in enumerate(self._slots):
+            if req is not None and req.request_id == request_id:
+                if req in self._prefilling:
+                    self._prefilling.remove(req)
+                self._release_blocks(req)   # also trashes the table row
+                self._slots[i] = None
+                self._done[i] = True
+                req.slot = None
+                self._terminate(req, now, "cancelled")
+                self._n["cancelled"] += 1
+                return True
+        return False
+
+    # -- scheduler --
     def _finish(self, req: Request, t: float, out: List[Request]):
         req.finish_time = t
         req.state = "finished"
@@ -616,52 +1015,374 @@ class ServingEngine:
         return (-r.priority, r.deadline if r.deadline is not None
                 else _INF)
 
+    @staticmethod
+    def _shed_key(r: Request):
+        """"Worseness" (smaller = worse = shed/preempt first): lowest
+        priority, then latest deadline (no deadline = latest)."""
+        return (r.priority, _neg_deadline(r.deadline))
+
+    @staticmethod
+    def _remaining_work(r: Request) -> int:
+        """Victim tie-breaker: tokens of compute still owed (prompt
+        positions left to prefill plus the decode budget)."""
+        if r.state == "prefill":
+            return (r.seq_len - r.pf_pos) + r.max_new_tokens
+        return r.remaining
+
+    def _terminate(self, req: Request, now: float, state: str):
+        """Mark a request terminal without it running to completion —
+        the one terminal shape of shed, timeout and cancel: terminal
+        state, ``finish_time`` set, output padded to exactly
+        ``max_new_tokens``."""
+        req.state = state
+        req.finish_time = now
+        req.tokens.extend([self.cfg.pad_token_id]
+                          * (req.max_new_tokens - len(req.tokens)))
+
+    def _drop_queued(self, req: Request, now: float, state: str):
+        """The one teardown of a queued request leaving without running
+        (shed, timed out or cancelled): off the queue, its prefix pins
+        (HBM blocks and host parcels) released, terminal.  The caller
+        counts it."""
+        self._queue.remove(req)
+        for b in req.matched:
+            self._pool.unpin(b)
+        req.matched = []
+        for k in req.host_pins:
+            self._host_tier.unpin(k)
+        req.host_pins = []
+        self._terminate(req, now, state)
+        self._update_block_gauges()
+
+    def _shed(self, req: Request, now: float):
+        """Displace a queued request from a full bounded queue."""
+        self._drop_queued(req, now, "shed")
+        self._n["shed"] += 1
+
+    def _sweep_timeouts(self, now: float, out: List[Request]):
+        """Finish queued requests whose wait exceeded their
+        ``max_queue_delay_s`` with state ``"timeout"``.  Only queued
+        requests time out: admitted (and swapped) ones always
+        complete."""
+        for r in [r for r in self._queue
+                  if r.max_queue_delay_s is not None
+                  and now - r.arrival_time > r.max_queue_delay_s]:
+            self._drop_queued(r, now, "timeout")
+            self._n["timeouts"] += 1
+            out.append(r)
+
+    # -- preemption + host-RAM swap --
+    def _preempt(self, req: Request):
+        """Swap an in-flight request out to the host-RAM tier: gather
+        its blocks' exact at-rest bytes, save the slot's ``tok``/``lens``
+        carries, release its blocks and park it on the swap list.  Its
+        host truth (``tokens``, ``pf_pos``) needs no saving."""
+        slot = req.slot
+        if slot is None or req.state not in ("prefill", "decode"):
+            raise RuntimeError(
+                f"request {req.request_id} is not in flight "
+                f"(state={req.state}, slot={slot}) — only admitted "
+                f"prefill/decode requests can be preempted")
+        ids = self._tables[slot].copy()     # before release trashes it
+        n = len(req.blocks)
+        rows, dtypes = self._gather_rows(ids, n)
+        key = self._host_tier.put(rows, n, "preempt", dtypes)
+        req.swap = _SwapRecord(host_key=key, n_blocks=n,
+                               tok=int(self._tok[slot]),
+                               lens=int(self._lens[slot]),
+                               state=req.state)
+        if req in self._prefilling:
+            self._prefilling.remove(req)
+        self._release_blocks(req)
+        self._slots[slot] = None
+        self._done[slot] = True
+        req.slot = None
+        req.state = "swapped"
+        req.preempt_count += 1
+        self._swapped.append(req)
+        self._n["preemptions"] += 1
+        self._n["swap_blocks_out"] += n
+        self._n["swap_bytes_out"] += n * self.block_len * self._kv_row_bytes
+
+    def _preempt_for(self, cand: Request, needed: int) -> bool:
+        """Free blocks for ``cand`` by swapping out strictly-worse
+        victims (lowest priority first, then latest deadline, then most
+        remaining work) until ``needed`` blocks are allocatable.  Strict
+        eligibility means a resumed victim never preempts its preemptor
+        back and equal requests never thrash.  Returns True when the
+        target was reached."""
+        cand_key = self._shed_key(cand)
+        while self._pool.available() < needed:
+            eligible = [
+                r for r in self._slots
+                if r is not None and r.state in ("prefill", "decode")
+                and self._shed_key(r) < cand_key]
+            if not eligible:
+                return False
+            victim = min(eligible, key=lambda v: (
+                self._shed_key(v) + (-self._remaining_work(v),)))
+            self._preempt(victim)
+        return True
+
+    def _try_resume(self, req: Request, slot: int) -> bool:
+        """Re-admit a swapped request: allocate fresh blocks (with the
+        valve and preemption under pressure), re-scatter the saved bytes
+        and restore the slot carries.  The fresh blocks keep the logical
+        block order, so the resumed stream is bit-identical to one never
+        preempted."""
+        rec = req.swap
+        fresh = self._pool.alloc(rec.n_blocks)
+        if fresh is None and \
+                not any(r is not None for r in self._slots):
+            self._release_queue_pins()
+            fresh = self._pool.alloc(rec.n_blocks)
+        if fresh is None and self.enable_preemption and \
+                self._preempt_for(req, rec.n_blocks):
+            fresh = self._pool.alloc(rec.n_blocks)
+        if fresh is None:
+            return False
+        row = np.full((self.max_blocks,), self._pool.trash, np.int32)
+        row[:rec.n_blocks] = fresh
+        # the scatter runs before any scheduler state changes; a failure
+        # unpins the fresh blocks and leaves a valid swap-list member
+        try:
+            ent = self._host_tier.entry(rec.host_key)
+            self._scatter_rows(row, ent.rows, ent.dtypes)
+        except BaseException:
+            for b in fresh:
+                self._pool.unpin(b)
+            self._update_block_gauges()
+            raise
+        self._swapped.remove(req)
+        req.blocks = list(fresh)
+        req.matched = []
+        self._tables[slot] = row
+        req.slot = slot
+        self._slots[slot] = req
+        self._tok[slot] = rec.tok
+        self._lens[slot] = rec.lens
+        req.state = rec.state
+        if rec.state == "prefill":
+            self._done[slot] = True       # not decoding yet
+            self._prefilling.append(req)
+        else:
+            # spec-mode rows stay frozen out of the plain decode block
+            # (their progress happens in the verify forward)
+            self._done[slot] = req.spec_k is not None
+        req.swap = None
+        self._host_tier.drop(rec.host_key)
+        self._n["preempt_resumes"] += 1
+        self._n["swap_blocks_in"] += rec.n_blocks
+        self._n["swap_bytes_in"] += \
+            rec.n_blocks * self.block_len * self._kv_row_bytes
+        self._update_block_gauges()
+        return True
+
     def _release_queue_pins(self):
-        """Head-of-line valve: drop every queued request's submit-time
-        prefix pins so a cold, full-width allocation can succeed."""
+        """Head-of-line valve: nothing is running, so drop every queued
+        request's prefix pins (HBM blocks and host parcels) so a cold,
+        full-width allocation can succeed."""
         for r in self._queue:
             for b in r.matched:
                 self._pool.unpin(b)
             r.matched = []
+            for k in r.host_pins:
+                self._host_tier.unpin(k)
+            r.host_pins = []
+            r.rspan = []
+            r.rmatch_tokens = 0   # else a valve (cold) admission would
+            #                       count a spurious partial hit
+
+    # -- radix prefix cache (tiered) --
+    def _probe_radix(self, req: Request):
+        """Probe the radix tree for ``req``'s prompt and pin the matched
+        span: HBM blocks against pool reclaim (``req.matched``), host
+        parcels against tier eviction (``req.host_pins``).  The span is
+        capped at the block before the prompt's last token, whose hidden
+        state samples the first output token."""
+        n = req.seq_len
+        m_tok, span = self._radix.match(req.prompt[:n])
+        span = span[:(n - 1) // self.block_len]
+        self._radix.touch_span(span)
+        for kind, ref in span:
+            if kind == "hbm":
+                self._pool.pin(ref)
+                req.matched.append(ref)
+            else:
+                self._host_tier.pin(ref)
+                req.host_pins.append(ref)
+        req.rmatch_tokens = min(m_tok, n - 1)
+        req.rspan = span
+
+    def _reprobe_radix(self, req: Request):
+        """Admission-time revalidation of the submit-time probe: the
+        tree may have grown, demoted spans to host or promoted them
+        back.  Old pins release first so pin accounting stays exact."""
+        for b in req.matched:
+            self._pool.unpin(b)
+        req.matched = []
+        for k in req.host_pins:
+            self._host_tier.unpin(k)
+        req.host_pins = []
+        self._probe_radix(req)
         self._update_block_gauges()
 
+    def _map_radix_span(self, req: Request, fresh: List[int]):
+        """Resolve the matched span into arena blocks: HBM entries map
+        directly, host entries are PROMOTED — their exact at-rest bytes
+        re-scatter into the leading ``fresh`` blocks and the tree
+        relabels them HBM-resident.  Returns ``(mapped, leftover_fresh,
+        n_promoted)``.  A raise mid-promotion unpins every fresh block
+        and releases the request's probe pins, leaving a valid queue
+        member that holds nothing."""
+        span = req.rspan
+        host_keys = [ref for kind, ref in span if kind == "host"]
+        n_promote = len(host_keys)
+        if n_promote:
+            dest = fresh[:n_promote]
+            entries = [self._host_tier.entry(k) for k in host_keys]
+            ids_row = np.full((self.max_blocks,), self._pool.trash,
+                              np.int32)
+            ids_row[:n_promote] = dest
+            try:
+                self._scatter_rows(ids_row, [
+                    np.concatenate([e.rows[ai] for e in entries], axis=0)
+                    for ai in range(len(self._arenas))], entries[0].dtypes)
+            except BaseException:
+                for b in fresh:
+                    self._pool.unpin(b)
+                for b in req.matched:
+                    self._pool.unpin(b)
+                req.matched = []
+                for k in req.host_pins:
+                    self._host_tier.unpin(k)
+                req.host_pins = []
+                req.rspan = []
+                req.rmatch_tokens = 0
+                self._update_block_gauges()
+                raise
+            for k, b in zip(host_keys, dest):
+                self._host_tier.unpin(k)       # the probe pin
+                self._radix.promote(k, b)      # consumes the parcel
+                req.host_pins.remove(k)
+            self._n["swap_blocks_in"] += n_promote
+            self._n["swap_bytes_in"] += \
+                n_promote * self.block_len * self._kv_row_bytes
+            self._n["prefix_host_hits"] += 1
+            self._n["host_swapin_blocks"] += n_promote
+        it = iter(fresh[:n_promote])
+        mapped = [ref if kind == "hbm" else next(it)
+                  for kind, ref in span]
+        return mapped, fresh[n_promote:], n_promote
+
+    def _residency_rank(self, r: Request) -> int:
+        """Fresh radix probe (no pinning) classifying a queued request's
+        matched prefix: 0 = some of it is HBM-resident, 1 = host-resident
+        only, 2 = cold."""
+        _m, span = self._radix.match(r.prompt[:r.seq_len])
+        span = span[:(r.seq_len - 1) // self.block_len]
+        if any(kind == "hbm" for kind, _ in span):
+            return 0
+        return 1 if span else 2
+
+    def prefix_match(self, prompt_ids) -> int:
+        """Token-granular longest-prefix match of ``prompt_ids`` against
+        this engine's radix tree (0 outside radix mode); read-only (no
+        pin, no LRU touch)."""
+        if self._radix is None:
+            return 0
+        ids = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
+        matched, _span = self._radix.match(ids)
+        return int(matched)
+
     def _admit(self, now: float, out: List[Request]):
-        """Admit the best-class arrived candidates into vacant slots.
-        Admission is head-of-line: when the pool cannot serve the head
-        candidate (even after the valve, with nothing running), nothing
-        behind it is admitted until blocks retire.  ``static_batching``
-        admits only into an EMPTY pool (the gang baseline)."""
+        """Admit the best-class candidates into vacant slots.  Queue-
+        delay timeouts are swept first.  Candidates are the swap list
+        plus the arrived queue, ordered priority-then-EDF; within a class
+        swapped requests come first, then queued ones whose matched
+        prefix is HBM-resident, then host-resident, then cold (radix
+        mode), FIFO inside each rank.  The JAX engine's fair-share term
+        sits between class and rank; it is left out here: without
+        ``tenant_weights`` (not ported) every request is one tenant's
+        and the term is a constant.  When the pool cannot serve the head
+        candidate, the head-of-line valve (nothing running) and then
+        preemption of strictly-worse victims are tried before giving up
+        until blocks retire; a stuck head is never skipped for a worse
+        candidate that would fit.  ``static_batching`` admits only into
+        an EMPTY pool (the gang baseline)."""
+        self._sweep_timeouts(now, out)
         if self.static_batching and \
                 any(r is not None for r in self._slots):
             return
+        ranks: dict = {}
+
+        def _state_rank(r):
+            # probed once per candidate per call: the tree only improves
+            # mid-call, and a stale rank costs order, never correctness
+            if r.state == "swapped":
+                return -1
+            if self._radix is None:
+                return 0
+            rank = ranks.get(r.request_id)
+            if rank is None:
+                rank = self._residency_rank(r)
+                ranks[r.request_id] = rank
+            return rank
+
         while True:
             slot = next((i for i, r in enumerate(self._slots)
                          if r is None), None)
             if slot is None:
                 break
-            cands = sorted((r for r in self._queue
-                            if r.arrival_time <= now), key=self._sched_key)
+            arrived = [r for r in self._queue if r.arrival_time <= now]
+            cands = sorted(self._swapped + arrived,
+                           key=lambda r: self._sched_key(r)
+                           + (_state_rank(r),))
             if not cands:
                 break
             req = cands[0]
-            if self.enable_prefix_cache:
-                # blocks computed between submit and now may extend the
-                # match (the prefix holder prefilled while this queued)
+            if req.state == "swapped":
+                if not self._try_resume(req, slot):
+                    break
+                continue
+            if self._radix is not None:
+                # the tree may have grown while this request queued:
+                # re-probe and re-pin before sizing the allocation
+                self._reprobe_radix(req)
+            elif self.enable_prefix_cache:
+                # blocks published between submit and now may extend
+                # the match
                 self._match_prefix(req)
             n_hbm = len(req.matched)
             total = self._blocks_needed(req.seq_len, req.max_new_tokens)
             fresh = self._pool.alloc(total - n_hbm)
             if fresh is None and \
                     not any(r is not None for r in self._slots):
+                # head-of-line valve: a cold, full-width admission
                 self._release_queue_pins()
                 n_hbm = 0
                 fresh = self._pool.alloc(total)
+            if fresh is None and self.enable_preemption and \
+                    self._preempt_for(req, total - n_hbm):
+                fresh = self._pool.alloc(total - n_hbm)
             if fresh is None:
                 break                     # pool drains as requests retire
             matchable = ((req.seq_len - 1) // self.block_len
                          if self.enable_prefix_cache else 0)
-            mapped = req.matched
-            req.blocks = req.matched + fresh
+            if self._radix is not None:
+                mapped, fresh, _n_promoted = self._map_radix_span(req,
+                                                                  fresh)
+                req.blocks = mapped + fresh
+                hit_tokens = len(mapped) * self.block_len
+                self._n["prefix_hit_tokens"] += hit_tokens
+                if req.rmatch_tokens > hit_tokens:
+                    self._n["prefix_partial_hits"] += 1
+                req.matched = []
+                req.rspan = []
+            else:
+                mapped = req.matched
+                req.blocks = req.matched + fresh
+                self._n["prefix_hit_tokens"] += len(mapped) * self.block_len
             self._queue.remove(req)
             self._n["prefix_hits"] += len(mapped)
             self._n["prefix_misses"] += matchable - len(mapped)
@@ -694,8 +1415,15 @@ class ServingEngine:
         self._n["prefill_chunks"] += 1
         self._count_kv_sweep([min(start + c, req.seq_len) - 1])
         req.pf_pos = start + c
-        if self.enable_prefix_cache:
-            full = min(req.pf_pos, req.seq_len) // self.block_len
+        full = min(req.pf_pos, req.seq_len) // self.block_len
+        if self._radix is not None:
+            if full > req.registered:
+                # token runs and block spans enter the tree as soon as
+                # the blocks are fully written (first writer wins)
+                self._radix.insert(req.prompt, req.blocks, full,
+                                   start_block=req.registered)
+                req.registered = full
+        elif self.enable_prefix_cache:
             while req.registered < min(full, len(req.digests)):
                 i = req.registered
                 self._pool.register(req.blocks[i], req.digests[i])
@@ -838,10 +1566,13 @@ class ServingEngine:
                 self._finish(req, t, out)
 
     def step(self, now: Optional[float] = None) -> List[Request]:
-        """One scheduler iteration: admit into vacant slots, run at
-        most one prefill chunk, then one speculative verify forward over
-        the spec-mode slots and one decode block over the plain decode
-        mix.  Returns the requests that finished this iteration."""
+        """One scheduler iteration: sweep queue-delay timeouts, admit and
+        resume into vacant slots (preempting strictly-worse victims under
+        block pressure), run at most one prefill chunk, then one
+        speculative verify forward over the spec-mode slots and one
+        decode block over the plain decode mix.  Returns the requests
+        that reached a terminal state this iteration (finished or
+        timeout)."""
         self._step_idx += 1
         finished: List[Request] = []
         t_now = self._clock() if now is None else now
@@ -919,15 +1650,18 @@ class ServingEngine:
         self._done = done
 
     def run(self, max_iters: Optional[int] = None) -> List[Request]:
-        """Drain the queue: admit/prefill/decode until every submitted
-        request has finished.  Sleeps only when idle ahead of a future
-        arrival.  Returns this call's finished requests in submission
+        """Drain the queue and the swap list: admit/resume/prefill/
+        decode until every submitted request is terminal.  Sleeps only
+        when idle ahead of a future arrival.  Returns this call's
+        terminal requests (finished and timed out) in submission
         order."""
         finished: List[Request] = []
         iters = 0
-        while self._queue or any(r is not None for r in self._slots):
+        while self._queue or self._swapped \
+                or any(r is not None for r in self._slots):
             now = self._clock()
-            if not any(r is not None for r in self._slots):
+            if (not any(r is not None for r in self._slots)
+                    and not self._swapped and self._queue):
                 next_arrival = min(r.arrival_time for r in self._queue)
                 if next_arrival > now:
                     time.sleep(min(0.005, next_arrival - now))
@@ -938,6 +1672,7 @@ class ServingEngine:
                 raise RuntimeError(
                     f"serving loop exceeded max_iters={max_iters} with "
                     f"{len(self._queue)} queued / "
+                    f"{len(self._swapped)} swapped / "
                     f"{sum(r is not None for r in self._slots)} active")
         return sorted(finished, key=lambda r: r.request_id)
 
@@ -954,7 +1689,19 @@ class ServingEngine:
         ``spec_*`` keys cover speculative decoding:
         ``spec_acceptance_rate`` is accepted over drafted tokens and
         ``spec_mean_accepted_len`` accepted draft tokens per verify
-        forward, summed over its spec slots."""
+        forward, summed over its spec slots.  The overload keys:
+        ``preemptions``/``preempt_resumes`` count swap-outs and
+        re-admissions, ``swap_blocks_out/in`` and ``swap_bytes_out/in``
+        the block traffic through the host-RAM tier (preemption and
+        radix demotion/promotion together), ``swap_host_blocks``/
+        ``swapped_waiting`` the preempt half's current footprint and
+        ``host_cache_blocks`` the cache half's, ``shed``/``timeouts``/
+        ``cancelled`` the requests dropped.  The tiered prefix cache's:
+        ``prefix_hit_tokens`` (mapped blocks x block_len),
+        ``prefix_partial_hits`` (admissions whose token-level match ran
+        past the last mappable block), ``prefix_host_hits``/
+        ``host_swapin_blocks`` (hits served by a host->device swap-in).
+        """
         n = self._n
         steps = n["decode_steps"]
         verifies = n["spec_verify_steps"]
@@ -972,6 +1719,7 @@ class ServingEngine:
                 (n["prefill_chunks"] + steps + verifies)
                 * self._weight_sweep_bytes),
             "finished": n["finished"],
+            "cancelled": n["cancelled"],
             "prefills": n["prefills"],
             "prefill_chunks": n["prefill_chunks"],
             "decode_steps": steps,
@@ -981,12 +1729,19 @@ class ServingEngine:
                                     / (steps * self.num_slots)
                                     if steps else 0.0),
             "peak_queue": self._peak_queue,
+            "block_len": self.block_len,
+            "num_blocks": self.num_blocks,
             "blocks_in_use": self._pool.in_use(),
             "peak_blocks_in_use": self._peak_blocks,
+            "prefix_cached_blocks": self._pool.cached(),
             "prefix_hits": hits,
             "prefix_misses": misses,
             "prefix_hit_rate": (hits / (hits + misses)
                                 if hits + misses else 0.0),
+            "prefix_hit_tokens": n["prefix_hit_tokens"],
+            "prefix_partial_hits": n["prefix_partial_hits"],
+            "prefix_host_hits": n["prefix_host_hits"],
+            "host_swapin_blocks": n["host_swapin_blocks"],
             "mean_latency_s": (sum(lats) / len(lats)) if lats else None,
             "mean_ttft_s": (sum(ttfts) / len(ttfts)) if ttfts else None,
             "decode_seconds": self._decode_seconds,
@@ -1000,6 +1755,17 @@ class ServingEngine:
                                      if drafted else 0.0),
             "spec_mean_accepted_len": (accepted / verifies
                                        if verifies else 0.0),
+            "preemptions": n["preemptions"],
+            "preempt_resumes": n["preempt_resumes"],
+            "swap_blocks_out": n["swap_blocks_out"],
+            "swap_blocks_in": n["swap_blocks_in"],
+            "swap_bytes_out": n["swap_bytes_out"],
+            "swap_bytes_in": n["swap_bytes_in"],
+            "swap_host_blocks": self._host_tier.blocks("preempt"),
+            "host_cache_blocks": self._host_tier.blocks("cache"),
+            "swapped_waiting": len(self._swapped),
+            "shed": n["shed"],
+            "timeouts": n["timeouts"],
         }
 
     def engine_spec(self) -> dict:

@@ -8,9 +8,9 @@ weights carried by the weight bridge.
   plan (float32; both plans are bit-identical).
 - Engine layer (one module-scoped trace per weight dtype, the trace of
   ``tests/test_torch_serving.py``): the port engine with
-  ``kv_cache_dtype="int8"`` against the JAX engine
-  (``async_dispatch=False, prefix_cache_mode="digest",
-  enable_preemption=False``): identical scheduling counters,
+  ``kv_cache_dtype="int8"`` against the JAX engine, both with
+  ``prefix_cache_mode="digest", enable_preemption=False`` (the JAX one
+  with ``async_dispatch=False`` too): identical scheduling counters,
   ``engine_spec()`` and modeled ``weight_bytes_swept``; tokens equal up to
   each request's first non-decisive position (top-2 margin <= 0.01 of the
   JAX model's teacher-forced logits under the same quantized
@@ -128,7 +128,9 @@ def served(bridged):
     trace = _trace(tiny_llama_config().vocab_size)
     runs = {}
     for wd in WDS:
-        teng = ServingEngine(tnet, num_slots=2, device="cpu", **_engine_kw(wd))
+        teng = ServingEngine(tnet, num_slots=2, device="cpu",
+                             prefix_cache_mode="digest",
+                             enable_preemption=False, **_engine_kw(wd))
         treqs = _serve(teng, trace)
         alone = [_serve(ServingEngine(tnet, num_slots=1, device="cpu",
                                       **_engine_kw(wd)), [(ids, m)])[0].output

@@ -5,7 +5,10 @@ The trace is the JAX serving test's mixed-length specs plus a shared-
 prefix pair whose second request queues behind the first, so it is
 admitted after the first's full prompt blocks are published and its
 leading block is a digest-cache hit.  Both engines serve it in float32
-on the same weights (the JAX model's, carried by the weight bridge):
+on the same weights (the JAX model's, carried by the weight bridge),
+both built with ``prefix_cache_mode="digest", enable_preemption=False``
+(the port's defaults are now the reference's radix cache and
+preemption; the fresh 1-slot port engines keep those defaults):
 
 - the port's tokens equal a fresh 1-slot port engine's, request by
   request (slot reuse and batching never change a token);
@@ -90,7 +93,9 @@ def served():
     tnet.load_state_dict(llama_state_from_jax(arrays))
     trace = _trace(tiny_llama_config().vocab_size)
 
-    teng = ServingEngine(tnet, num_slots=2, device="cpu", **_engine_kw())
+    teng = ServingEngine(tnet, num_slots=2, device="cpu",
+                         prefix_cache_mode="digest", enable_preemption=False,
+                         **_engine_kw())
     treqs = _serve(teng, trace)
     alone = []
     for ids, m in trace:
@@ -148,9 +153,9 @@ def test_scheduling_identical_to_jax_engine(served):
     {"kv_cache_dtype": "bfloat16"}, {"weight_dtype": "int8",
                                      "mesh": object()},
     {"mesh": object()}, {"role": "prefill"}, {"adapter_store": object()},
-    {"host_cache_blocks": 8}, {"fault_injector": object()},
+    {"fault_injector": object()},
     {"async_dispatch": True}, {"async_depth": 2},
-    {"prefix_cache_mode": "radix"}, {"enable_preemption": True},
+    {"tenant_weights": {"a": 1.0}}, {"registry": object()},
     {"cache_dtype": "bfloat16"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_features_raise(kw):
@@ -161,8 +166,81 @@ def test_unported_engine_features_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
+    {"host_cache_blocks": 8}, {"prefix_cache_mode": "radix"},
+    {"enable_preemption": True}, {"max_queue": 2},
+], ids=lambda kw: next(iter(kw)))
+def test_overload_engine_keywords_construct(kw):
+    """The keywords of preemption, the host tier, the radix cache and the
+    bounded queue are ported: they construct an engine that serves."""
+    net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    eng = ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                        compute_dtype="float32", device="cpu", **kw)
+    req = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=2,
+                     max_queue_delay_s=5.0)
+    eng.run()
+    assert req.state == "finished" and req.output.shape == (2,)
+    assert eng._pool.check()
+
+
+@pytest.mark.parametrize("mode", ["radix", "digest"])
+def test_dropped_engine_frees_its_arenas(mode):
+    """The pool's and the host tier's callbacks hold the engine weakly:
+    with the cyclic garbage collector off, dropping an engine that served
+    (and demoted to its host tier) frees its arenas at once."""
+    import gc
+    import weakref
+    net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    rng = np.random.default_rng(1)
+    eng = ServingEngine(net, num_slots=1, prompt_len=8, max_cache_len=16,
+                        block_len=2, num_blocks=8, compute_dtype="float32",
+                        device="cpu", prefix_cache_mode=mode)
+    for _ in range(3):
+        eng.submit(rng.integers(0, 256, (8,)).astype(np.int32),
+                   max_new_tokens=4)
+        eng.run()
+    assert eng._pool.check()
+    if mode == "radix":
+        assert eng.stats()["swap_blocks_out"] > 0
+    arena, engine = weakref.ref(eng._arenas[0]), weakref.ref(eng)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        del eng
+        assert engine() is None and arena() is None
+    finally:
+        if was:
+            gc.enable()
+
+
+def test_engine_defaults_are_the_reference_engines():
+    """``ServingEngine()`` defaults: the radix cache, preemption on, a
+    host tier of 4 x num_blocks, synchronous dispatch."""
+    net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    eng = ServingEngine(net, num_slots=2, prompt_len=4, max_cache_len=8,
+                        compute_dtype="float32", device="cpu")
+    assert eng.prefix_cache_mode == "radix" and eng._radix is not None
+    assert eng.enable_preemption and eng.max_queue is None
+    assert eng._host_tier.cache_capacity == 4 * eng.num_blocks
+    off = ServingEngine(net, num_slots=2, prompt_len=4, max_cache_len=8,
+                        compute_dtype="float32", device="cpu",
+                        enable_prefix_cache=False)
+    assert off.prefix_cache_mode == "none" and off._radix is None
+    with pytest.raises(ValueError, match="prefix_cache_mode"):
+        ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                      compute_dtype="float32", device="cpu",
+                      prefix_cache_mode="lru")
+    with pytest.raises(ValueError, match="host_cache_blocks"):
+        ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                      compute_dtype="float32", device="cpu",
+                      host_cache_blocks=-1)
+    with pytest.raises(ValueError, match="max_queue"):
+        ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                      compute_dtype="float32", device="cpu", max_queue=0)
+
+
+@pytest.mark.parametrize("kw", [
     {"sampling": object()}, {"adapter": "a"},
-    {"stream": True}, {"tenant": "t"}, {"max_queue_delay_s": 1.0},
+    {"stream": True}, {"tenant": "t"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_submit_features_raise(kw):
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")

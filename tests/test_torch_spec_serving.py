@@ -8,8 +8,9 @@ the CPU, on the JAX models' weights carried by the weight bridge.
   against JAX's.
 - Engine layer (one module-scoped trace): the port's spec engine with a
   ``ModelDrafter`` over the target and over another model against the
-  JAX spec engine with the same drafters (``async_dispatch=False,
-  prefix_cache_mode="digest", enable_preemption=False``): tokens equal up
+  JAX spec engine with the same drafters (both with
+  ``prefix_cache_mode="digest", enable_preemption=False``, the JAX one
+  with ``async_dispatch=False`` too): tokens equal up
   to each request's first non-decisive position (teacher-forced top-2
   margin <= 0.01), and, on this trace where every position is decisive,
   the ``spec_*`` counters, the scheduling counters and the modeled
@@ -132,7 +133,8 @@ def served(bridged):
     runs = {}
     for name, (jdr, tdr) in _drafters(bridged).items():
         teng = ServingEngine(tnet, num_slots=2, device="cpu", drafter=tdr,
-                             **_engine_kw())
+                             prefix_cache_mode="digest",
+                             enable_preemption=False, **_engine_kw())
         treqs = _serve(teng, trace)
         jeng = JaxEngine(jnet, num_slots=2, drafter=jdr,
                          async_dispatch=False, prefix_cache_mode="digest",
@@ -140,7 +142,9 @@ def served(bridged):
                          **_engine_kw())
         jreqs = _serve(jeng, trace)
         runs[name] = dict(teng=teng, treqs=treqs, jeng=jeng, jreqs=jreqs)
-    plain = ServingEngine(tnet, num_slots=2, device="cpu", **_engine_kw())
+    plain = ServingEngine(tnet, num_slots=2, device="cpu",
+                          prefix_cache_mode="digest", enable_preemption=False,
+                          **_engine_kw())
     preqs = _serve(plain, trace, spec=False)
     jplain = JaxEngine(jnet, num_slots=2, async_dispatch=False,
                        prefix_cache_mode="digest", enable_preemption=False,
