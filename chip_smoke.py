@@ -50,13 +50,29 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    library call that computes the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
    take (``bound_ms``);
-3. serving at full Llama-3-8B width (32 layers, bfloat16, random weights
-   from ``--seed``): 8 requests through an 8-slot ``ServingEngine`` at
-   its defaults (the radix prefix cache with its host tier, preemption
-   on), two of them sharing a 256-token prefix so the prefix cache hits;
-   every
-   request must finish with in-vocabulary tokens, and the kernels' launch
-   counters must rise by exactly their per-step counts;
+3a. the decode block as a CUDA graph at full Llama-3-8B width (32
+   layers, bfloat16, random weights from ``--seed``): the engine's
+   captured program against the eager ``paged_decode_block`` at B=8
+   (every slot live at a ragged length) for 1 and 2 scanned steps, in
+   bf16 and with an int8 KV cache and int8 weights, on the same inputs
+   and copies of the same arenas: tokens, carries and arenas bit-equal,
+   and one replay counting exactly the launches of one eager block;
+3. serving at the same width: 8 requests through an 8-slot
+   ``ServingEngine`` at its defaults (dispatch-ahead at depth 1, the
+   decode block a captured CUDA graph, the radix prefix cache with its
+   host tier, preemption on), two of them sharing a 256-token prefix so
+   the prefix cache hits, in three arms in turns, twice each: the
+   lockstep arm (``async_dispatch=False``), the default and
+   ``async_depth=2``; every request must finish with in-vocabulary
+   tokens, the arms' tokens must be equal, and the kernels' launch
+   counters must rise by exactly their per-step counts (a graph replay
+   counts the launches its capture recorded); each run logs tokens/s,
+   TTFT, the forced syncs by reason, overlap seconds, the graphs and
+   peak memory, and a decode window's unprofiled wall, device busy time
+   and idle share (the union of the device intervals against the
+   window's wall); the first default run also runs 8 steady-state decode
+   steps under ``torch.cuda.set_sync_debug_mode("error")`` (no hidden
+   host sync, every harvest deferred);
 3b. quantized serving: the same model and trace through two engines with
    an int8 KV cache, one with int8 and one with int4 weights, under the
    same checks (the quantized matmul launches 7 per layer per forward,
@@ -81,16 +97,17 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    blocks retire; preemptions and resumes counted, blocks and bytes
    out == in (bytes = blocks x the arena block size), resumed rows
    bit-equal to the host stacks, phase 3's launch formula; then with an
-   int8 KV cache; each swap's ms and GB/s;
+   int8 KV cache; each swap's ms and GB/s (through pinned host memory);
 3e. the radix host tier at the same width: a 40-block pool, a finished
    request's 16 oldest cached prompt blocks demoted to host RAM by the
    next allocation and promoted back for a request sharing its first
-   256 tokens, bit-equal to the demoted parcels; demote and promote
-   times;
+   256 tokens, bit-equal to the demoted parcels; demote (a lazy gather
+   reconciled at the next harvest point) and promote times;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
-   against the same request alone on a fresh 1-slot engine; then the
-   same with an int8 KV cache and int8 weights;
+   against the same trace through the lockstep arm and against the same
+   request alone on a fresh 1-slot engine; then the same with an int8 KV
+   cache and int8 weights;
 4b. quantized card-vs-CPU agreement: a 2-layer float32 model at the same
    width with an int8 KV cache and int4 weights, on the card and on the
    CPU from the same state dict: identical weight plans, and the logits
@@ -1470,7 +1487,8 @@ def _serve_trace(torch, eng, cfg, seed):
     an 8th sharing its 256-token prefix (16 full blocks).  The launch
     counters are set to 0 just before and read just after.  Every request
     must finish with in-vocabulary tokens and the prefix must hit.
-    Returns (launches, stats, wall seconds, requests, tokens, rng)."""
+    Returns (launches, stats, wall seconds, requests, tokens, rng, the
+    Request objects)."""
     import numpy as np
     from paddle_tpu_torch.ops import KERNELS
     rng = np.random.default_rng(seed)
@@ -1504,7 +1522,8 @@ def _serve_trace(torch, eng, cfg, seed):
                        "serving")
     if st["prefix_hits"] <= 0:
         raise AssertionError(f"the shared prefix did not hit: {st}")
-    return launches, st, wall, len(specs), sum(m for _, m in specs), rng
+    return (launches, st, wall, len(specs), sum(m for _, m in specs), rng,
+            reqs)
 
 
 def _check_launches(launches, want, st):
@@ -1515,31 +1534,208 @@ def _check_launches(launches, want, st):
 
 
 def _log_serving(tag, n_req, n_tok, wall, st, launches, extra=""):
+    """One serving run's line.  ``decode dispatch`` is the host time of
+    the decode dispatches (with the wait of a harvest that syncs at once)
+    per scanned step, not a step's wall: that comes from the unprofiled
+    window of ``_profile_decode``."""
     _log(f"{tag}: {n_req} requests, {n_tok} tokens in {wall:.3f} s "
          f"= {n_tok / wall:.2f} tokens/s; mean TTFT "
-         f"{st['mean_ttft_s'] * 1e3:.2f} ms; decode step "
-         f"{st['decode_seconds'] / st['decode_steps'] * 1e3:.3f} ms over "
-         f"{st['decode_steps']} steps; prefill chunks "
+         f"{st['mean_ttft_s'] * 1e3:.2f} ms; decode dispatch "
+         f"{st['decode_seconds'] / st['decode_steps'] * 1e3:.3f} ms a step "
+         f"over {st['decode_steps']} steps in {st['block_dispatches']} "
+         f"dispatches; prefill chunks "
          f"{st['prefill_chunks']}; prefix hits {st['prefix_hits']} "
          f"(rate {st['prefix_hit_rate']:.3f}); peak blocks "
          f"{st['peak_blocks_in_use']}; {extra}launches {launches}")
 
 
+# phase 3's arms, run in turns (each twice): the lockstep arm, the
+# engine's default (dispatch-ahead at depth 1) and depth 2
+SERVING_ARMS = (("lockstep", dict(async_dispatch=False)),
+                ("depth 1", {}),
+                ("depth 2", dict(async_depth=2)))
+SERVING_TURNS = (0, 1, 2, 2, 1, 0)
+
+
 def phase_serving(torch, seed, cfg, model):
-    """Phase 3.  Returns the kernels' launch counts of the run."""
+    """Phase 3: the serving trace through an 8-slot engine in three arms
+    (``SERVING_ARMS``), in turns, twice each.  Every run holds the launch
+    formula; the arms' tokens must be equal; each run logs tokens/s, TTFT,
+    the unprofiled wall and the device busy time of a decode step, the
+    device's idle share (1 - the union of its kernel intervals over the
+    window's wall), the forced syncs by reason, the overlap seconds, the
+    decode graphs and peak memory.  The first depth-1 run also runs the
+    sync-debug window.  Returns the launch counts of the first depth-1
+    run (the engine's defaults)."""
     from paddle_tpu_torch.inference import ServingEngine
-    eng = ServingEngine(model, num_slots=8, prompt_len=512, chunk_len=256,
-                        max_cache_len=1024, block_len=16,
-                        compute_dtype="bfloat16")
-    launches, st, wall, n_req, n_tok, rng = _serve_trace(torch, eng, cfg,
-                                                         seed)
-    _check_launches(launches,
-                    _serving_launches(cfg.num_hidden_layers, st, False), st)
-    _log_serving("serving", n_req, n_tok, wall, st, launches)
-    _profile_decode(torch, eng, rng, cfg.vocab_size)
-    del eng
+    nl = cfg.num_hidden_layers
+    tokens, first, main_launches = None, None, None
+    for turn, ai in enumerate(SERVING_TURNS):
+        tag, arm = SERVING_ARMS[ai]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(model, num_slots=8, prompt_len=512,
+                            chunk_len=256, max_cache_len=1024, block_len=16,
+                            compute_dtype="bfloat16", **arm)
+        launches, st, wall, n_req, n_tok, rng, reqs = _serve_trace(
+            torch, eng, cfg, seed)
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches(launches, _serving_launches(nl, st, False), st)
+        outs = [r.output.tolist() for r in reqs]
+        if tokens is None:
+            tokens, first = outs, tag
+        elif outs != tokens:
+            raise AssertionError(f"serving: the {tag} arm's tokens differ "
+                                 f"from the {first} arm's")
+        g = st["decode_graphs"]
+        syncs = {k: v for k, v in st["async_syncs_by_reason"].items() if v}
+        _log_serving(f"serving [{tag}, turn {turn + 1}]", n_req, n_tok, wall,
+                     st, launches,
+                     f"syncs {syncs or 'none'}, harvests after the next "
+                     f"dispatch {st['async_harvests']}, overlap "
+                     f"{st['overlap_seconds'] * 1e3:.1f} ms, dispatch "
+                     f"{st['dispatch_seconds'] * 1e3:.1f} ms, host "
+                     f"{st['host_seconds'] * 1e3:.1f} ms; decode graphs "
+                     f"{g['captures']} captured in "
+                     f"{g['capture_seconds'] * 1e3:.1f} ms, "
+                     f"{g['replays']} replays; peak memory "
+                     f"{peak / 2 ** 30:.2f} GiB; ")
+        prof = _profile_decode(torch, eng, rng, cfg.vocab_size)
+        if ai == 1 and main_launches is None:
+            main_launches = launches
+            _sync_debug_window(torch, eng, rng, cfg.vocab_size)
+            if prof is not None:
+                ratio = prof["wall_ms"] / prof["busy_ms"]
+                _log(f"serving [depth 1]: unprofiled wall per decode step "
+                     f"{prof['wall_ms']:.3f} ms = {ratio:.2f} x the device "
+                     f"busy time {prof['busy_ms']:.3f} ms (acceptance: at "
+                     f"most 2 x)")
+        del eng
     torch.cuda.empty_cache()
-    return launches
+    _log(f"serving: the {len(SERVING_TURNS)} runs of "
+         f"{len(SERVING_ARMS)} arms gave equal tokens")
+    return main_launches
+
+
+def _sync_debug_window(torch, eng, rng, vocab, steps=8):
+    """No hidden host sync on the steady-state path: 8 fresh requests
+    fill the slots and decode until every harvest defers, then ``steps``
+    decode steps run under ``torch.cuda.set_sync_debug_mode("error")``
+    (a ``.item()``, ``.cpu()``, pageable copy or boolean-mask index
+    raises there; the harvest's wait on its event is not such a sync).
+    Every step must defer its harvest, with no forced sync."""
+    reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
+                       max_new_tokens=2 * steps + 8)
+            for _ in range(eng.num_slots)]
+    while any(r.state in ("queued", "prefill") for r in reqs) \
+            or not eng._pend_q:
+        eng.step()
+    eng.step()
+    before = eng.stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = eng.stats()
+    eng.run()
+    if after["async_syncs"] != before["async_syncs"] or \
+            after["async_harvests"] - before["async_harvests"] != steps:
+        raise AssertionError(
+            f"sync-debug window: syncs {before['async_syncs']} -> "
+            f"{after['async_syncs']}, deferred harvests "
+            f"{before['async_harvests']} -> {after['async_harvests']} over "
+            f"{steps} steps")
+    _log(f"sync-debug window: {steps} steady-state depth-1 decode steps "
+         f"under set_sync_debug_mode('error'): no hidden sync, every "
+         f"harvest deferred")
+
+
+def _graph_inputs(torch, eng, rng, vocab):
+    """Decode-block inputs of an 8-slot engine at the serving shape: every
+    slot live at a ragged length (100 .. 900 tokens) over its own blocks,
+    the arenas filled with random bytes (int8 codes and positive scales
+    for an int8 cache)."""
+    import numpy as np
+    dev = eng.device
+    b, mb = eng.num_slots, eng.max_blocks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2 ** 31)))
+    for a in eng._arenas:
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
+                                  device=dev, dtype=torch.int8))
+        elif a.dtype == torch.float32 and eng.kv_cache_dtype == "int8":
+            a.copy_(torch.rand(a.shape, generator=gen, device=dev) * 0.02
+                    + 1e-3)
+        else:
+            a.copy_(torch.randn(a.shape, generator=gen, device=dev,
+                                dtype=torch.float32).to(a.dtype))
+    lens = rng.integers(100, 900, b).astype(np.int32)
+    tables = np.full((b, mb), eng._pool.trash, np.int32)
+    for i in range(b):
+        tables[i] = np.arange(i * mb, (i + 1) * mb)
+    tok = rng.integers(0, vocab, b).astype(np.int32)
+    as_t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return (as_t(tok), as_t(lens), torch.zeros(b, dtype=torch.bool,
+                                               device=dev),
+            as_t(np.full(b, 50, np.int32)), as_t(tables))
+
+
+def phase_graphs(torch, seed, cfg, model):
+    """Phase 3a: the engine's captured decode block against the eager
+    ``paged_decode_block`` at B=8 (every slot live at a ragged length)
+    for n = 1 and 2 scanned steps, in bf16 and with an int8 KV cache and
+    int8 weights: on the same inputs and copies of the same arenas, the
+    tokens, the carries and every arena must be bit-equal, and one
+    replay must count exactly the launches of one eager block."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.llm import paged_decode_block
+    from paddle_tpu_torch.ops import KERNELS
+    rng = np.random.default_rng(seed + 11)
+    for quant in ({}, dict(kv_cache_dtype="int8", weight_dtype="int8")):
+        torch.cuda.empty_cache()
+        eng = ServingEngine(model, num_slots=8, prompt_len=512,
+                            chunk_len=256, max_cache_len=1024, block_len=16,
+                            compute_dtype="bfloat16", **quant)
+        tag = "int8 KV + int8 W" if quant else "bf16"
+        for n in (1, 2):
+            inputs = _graph_inputs(torch, eng, rng, cfg.vocab_size)
+            t0 = time.perf_counter()
+            prog = eng._block_program(n)
+            torch.cuda.synchronize()
+            t_cap = time.perf_counter() - t0
+            copies = [a.clone() for a in eng._arenas]
+            _zero_launches()
+            want = paged_decode_block(model, eng.cfg, n, *inputs, copies,
+                                      wq=eng._wq_ctx)[:5]
+            torch.cuda.synchronize()
+            eager = {k: v.launches for k, v in KERNELS.items()}
+            _zero_launches()
+            got = prog(*inputs)
+            torch.cuda.synchronize()
+            replay = {k: v.launches for k, v in KERNELS.items()}
+            for name, g, w in zip(("toks", "tok", "lens", "done", "budget"),
+                                  got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"graph vs eager ({tag}, n={n}): "
+                                         f"{name} differ")
+            for i, (a, c) in enumerate(zip(eng._arenas, copies)):
+                if not torch.equal(a.view(torch.uint8), c.view(torch.uint8)):
+                    raise AssertionError(f"graph vs eager ({tag}, n={n}): "
+                                         f"arena {i} differs")
+            if replay != eager or not any(eager.values()):
+                raise AssertionError(f"graph vs eager ({tag}, n={n}): "
+                                     f"launches {replay} != {eager}")
+            _log(f"graph vs eager ({tag}, B=8, n={n}): tokens, carries and "
+                 f"{len(copies)} arenas bit-equal; capture "
+                 f"{t_cap * 1e3:.1f} ms; launches per replay "
+                 f"{ {k: v for k, v in replay.items() if v} }")
+            del copies
+        del eng
+    torch.cuda.empty_cache()
 
 
 def _host_us(torch, fn, n=500):
@@ -1588,8 +1784,8 @@ def phase_quant_serving(torch, seed, cfg, model):
                             weight_dtype=wd)
         torch.cuda.synchronize()
         t_plan = time.perf_counter() - t0
-        launches, st, wall, n_req, n_tok, rng = _serve_trace(torch, eng, cfg,
-                                                             seed)
+        launches, st, wall, n_req, n_tok, rng, _ = _serve_trace(
+            torch, eng, cfg, seed)
         peak = torch.cuda.max_memory_allocated()
         forwards = st["prefill_chunks"] + st["decode_steps"]
         want = {name: 0 for name in KERNELS}
@@ -1842,34 +2038,42 @@ def _zero_launches():
 
 
 def _swap_watch(torch, eng, log):
-    """Time every host-tier copy of ``eng`` (the synchronous gather of a
-    swap-out or demotion, the scatter of a resume or promotion, each
-    between two device syncs) into ``log`` as (kind, blocks, bytes, s),
-    and hold every scatter's destination rows against the host stacks it
-    wrote, bit for bit, right after it ran."""
+    """Time every host-tier copy of ``eng`` (the gather of a swap-out or
+    demotion with its copy into pinned host memory, the scatter of a
+    resume or promotion from pinned staging, each between two device
+    syncs) into ``log`` as (kind, blocks, bytes, s), and hold every
+    scatter's destination rows against the host stacks it wrote, bit for
+    bit, right after it ran.  A lazy demotion's gather ("demote") is
+    timed to the end of its device copy; its numpy copy happens at the
+    next harvest point, outside the timing.  The wrappers reach the
+    engine through a weak reference: stored on the engine, a strong one
+    would make a cycle that keeps a dropped engine (and its model) on the
+    card until the cyclic garbage collector runs."""
+    import weakref
+
     import numpy as np
     from paddle_tpu_torch.inference.prefixcache import host_rows
-    gather, scatter = eng._gather_rows, eng._scatter_rows
+    me, cls = weakref.ref(eng), type(eng)
     block_bytes = eng.block_len * eng._kv_row_bytes
 
-    def timed_gather(ids_row, keep):
+    def timed_gather(ids_row, keep, materialize=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = gather(ids_row, keep)
+        out = cls._gather_rows(me(), ids_row, keep, materialize)
         torch.cuda.synchronize()
-        log.append(("out", keep, keep * block_bytes,
-                    time.perf_counter() - t0))
+        log.append(("out" if materialize else "demote", keep,
+                    keep * block_bytes, time.perf_counter() - t0))
         return out
 
     def timed_scatter(ids_row, stacks, dtypes):
         k = stacks[0].shape[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        scatter(ids_row, stacks, dtypes)
+        cls._scatter_rows(me(), ids_row, stacks, dtypes)
         torch.cuda.synchronize()
         log.append(("in", k, k * block_bytes, time.perf_counter() - t0))
-        ids = torch.from_numpy(ids_row[:k].astype(np.int64)).to(eng.device)
-        for a, s in zip(eng._arenas, stacks):
+        ids = torch.from_numpy(ids_row[:k].astype(np.int64)).to(me().device)
+        for a, s in zip(me()._arenas, stacks):
             got, _ = host_rows(a.index_select(0, ids))
             if not np.array_equal(got.view(np.uint8), s.view(np.uint8)):
                 raise AssertionError(
@@ -2067,35 +2271,66 @@ def phase_radix_tier(torch, seed, cfg, model):
     return launches
 
 
+def _union_us(torch, prof):
+    """The union of the profile's device intervals (kernels and copies),
+    in us, and the span from the first start to the last end."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, cur = 0.0, None
+    for a, b in iv:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total, (iv[-1][1] - iv[0][0]) if iv else 0.0
+
+
 def _profile_decode(torch, eng, rng, vocab, steps=8):
     """Where a decode step's time goes: 8 fresh 64-token requests fill
     the slots; once all are prefilled, ``steps`` decode steps run
     unprofiled (host wall) and ``steps`` more under ``torch.profiler``
-    (device busy time = sum of CUDA kernel durations, and the kernels
-    that take most of it).  Budgets keep every slot decoding through
-    both windows."""
+    (device busy time = sum of CUDA kernel durations, the union of the
+    device intervals against the window's wall, and the kernels that
+    take most of it).  Budgets keep every slot decoding through both
+    windows.  A step is one scanned decode step: at ``async_depth`` >= 2
+    one ``step()`` may dispatch a fused window of several, so the windows
+    are divided by the decode steps they ran.  Returns ``{"wall_ms",
+    "busy_ms", "union_ms", "idle"}`` per decode step, or None when the
+    profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
+    depth = getattr(eng, "async_depth", 1)
     reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
-                       max_new_tokens=eng.num_slots + 2 * steps + 4)
+                       max_new_tokens=eng.num_slots + 2 * steps * depth + 4)
             for _ in range(eng.num_slots)]
     while any(r.state in ("queued", "prefill") for r in reqs):
         eng.step()
     torch.cuda.synchronize()
+    d0 = eng.stats()["decode_steps"]
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps
+    wall = time.perf_counter() - t0
+    d1 = eng.stats()["decode_steps"]
+    wall /= d1 - d0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        wall_prof = (time.perf_counter() - t0) / steps
+        wall_prof = time.perf_counter() - t0
+    steps = eng.stats()["decode_steps"] - d1
+    wall_prof /= steps
     live = sum(r.state == "decode" for r in reqs)
     per_kernel, count = _profile_kernels(torch, prof)
     busy = sum(per_kernel.values()) / 1e3 / steps
+    union_us, span_us = _union_us(torch, prof)
+    union = union_us / 1e3 / steps
     eng.run()
     if live != eng.num_slots:
         raise AssertionError(f"decode profile: {live} of {eng.num_slots} "
@@ -2103,23 +2338,29 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
     if not per_kernel:
         _log(f"decode profile: wall {wall * 1e3:.3f} ms/step; device time "
              f"not measured (the profiler recorded no CUDA kernels)")
-        return
+        return None
     dec = ", ".join(f"{tag} {ms:.3f}" for tag, ms in
                     _decode_ms(per_kernel, steps).items() if ms)
     rms = [n for n in per_kernel if "rms_norm" in n]
     rms_us = (sum(per_kernel[n] for n in rms) / sum(count[n] for n in rms)
               if rms else None)
-    _log(f"decode profile: {steps}+{steps} steps x {eng.num_slots} slots: "
+    _log(f"decode profile: {d1 - d0}+{steps} steps x {eng.num_slots} "
+         f"slots: "
          f"wall {wall * 1e3:.3f} ms/step unprofiled, "
          f"{wall_prof * 1e3:.3f} ms/step profiled; device busy "
          f"{busy:.3f} ms/step ({100 * busy / (wall * 1e3):.1f}% of the "
          f"unprofiled wall; by kernel, ms/step: {dec or 'none'}; rms_norm "
          + ("not launched" if rms_us is None else
             f"{rms_us:.2f} us a launch") + f"), "
-         f"{len(per_kernel)} distinct kernels")
+         f"{len(per_kernel)} distinct kernels; union of device intervals "
+         f"{union:.3f} ms/step over a {span_us / 1e3 / steps:.3f} ms/step "
+         f"span: device idle {100 * (1 - union / (wall_prof * 1e3)):.1f}% "
+         f"of the profiled wall")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         _log(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}")
     _log_decode_kernels(per_kernel, steps)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy, "union_ms": union,
+            "idle": 1 - union / (wall_prof * 1e3)}
 
 
 def _profile_prefill_chunk(torch, eng, rng, vocab):
@@ -2337,6 +2578,8 @@ def _decode_rms_host(torch, eng, rng, vocab, steps=8):
         norm.rms_norm = inner
     torch.cuda.synchronize()
     eng.run()
+    if not spent:
+        return None, 0       # graph replays call no wrapper
     return 1e6 * sum(spent) / len(spent), len(spent) / steps
 
 
@@ -2380,8 +2623,10 @@ def phase_norm_window(torch, seed):
     _profile_decode(torch, ServingEngine(model, **kw), rng, cfg.vocab_size)
     us, calls = _decode_rms_host(torch, ServingEngine(model, **kw), rng,
                                  cfg.vocab_size)
-    _log(f"norm window: decode step: rms_norm host {us:.2f} us a call, "
-         f"{calls:.0f} calls a step")
+    _log("norm window: decode step: rms_norm host " + (
+        "not measured (the decode block replays a CUDA graph, which calls "
+        "no wrapper)" if us is None else
+        f"{us:.2f} us a call, {calls:.0f} calls a step"))
 
 
 def phase_exactness(torch, seed):
@@ -2404,9 +2649,19 @@ def phase_exactness(torch, seed):
                   block_len=16, compute_dtype="float32", **quant)
         for k in KERNELS.values():
             k.launches = 0
+        # both arms: the lockstep one and the default (dispatch-ahead)
+        lock = ServingEngine(model, num_slots=2, async_dispatch=False, **kw)
+        locked = [lock.submit(ids, max_new_tokens=m) for ids, m in trace]
+        lock.run()
+        del lock
         eng = ServingEngine(model, num_slots=2, **kw)
         mixed = [eng.submit(ids, max_new_tokens=m) for ids, m in trace]
         eng.run()
+        for r, q in zip(mixed, locked):
+            if not np.array_equal(r.output, q.output):
+                raise AssertionError(
+                    f"request {r.request_id}: dispatch-ahead {r.output} != "
+                    f"lockstep {q.output} ({quant or 'float'})")
         for r, (ids, m) in zip(mixed, trace):
             one = ServingEngine(model, num_slots=1, **kw)
             alone = one.submit(ids, max_new_tokens=m)
@@ -2424,13 +2679,14 @@ def phase_exactness(torch, seed):
                 raise AssertionError(f"exactness: a quantized kernel never "
                                      f"launched: {counts}")
             _log(f"exactness: {len(trace)} requests token-exact (2-slot "
-                 f"mixed trace vs 1-slot engines, float32, int8 KV cache "
+                 f"mixed trace vs 1-slot engines and the lockstep arm, "
+                 f"float32, int8 KV cache "
                  f"and int8 weights, 4 layers at 8B width); launches "
                  f"{counts}")
         else:
             _log(f"exactness: {len(trace)} requests token-exact (2-slot "
-                 f"mixed trace vs 1-slot engines, float32, 4 layers at 8B "
-                 f"width)")
+                 f"mixed trace vs 1-slot engines and the lockstep arm, "
+                 f"float32, 4 layers at 8B width)")
         del eng
     del model
     torch.cuda.empty_cache()
@@ -3268,6 +3524,7 @@ def main(argv=None) -> int:
         return 0
     rows = phase_kernels(torch, args.seed)
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
+    phase_graphs(torch, args.seed, cfg, model)
     by_path = {"serving": phase_serving(torch, args.seed, cfg, model)}
     by_path.update(phase_quant_serving(torch, args.seed, cfg, model))
     by_path["speculative"] = phase_spec_serving(torch, args.seed, cfg, model)

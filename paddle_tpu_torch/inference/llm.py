@@ -17,7 +17,9 @@ and an in-place ``index_put_``, no kernel.
 A weight-quant plan takes the place of ``_param_swapper``'s (:173)
 trailing code/scale values: the programs run the model inside
 ``wquant_context(plan.context())``.  The decode block is a Python loop of
-``steps`` decode steps; capturing it as a CUDA graph is later work.
+``steps`` decode steps; on the card the engine runs it as a captured CUDA
+graph (``DecodeBlockGraph``, one per total step count, the counterpart of
+the JAX engine's compiled block program), on the CPU eagerly.
 """
 
 from __future__ import annotations
@@ -182,6 +184,102 @@ def paged_decode_block(model, cfg: GenerationConfig, steps: int, tok, lens,
     tok_f, lens_f, kvs_f, done_f, budget_f = carry
     return ((torch.stack(toks, dim=1), tok_f, lens_f, done_f, budget_f)
             + tuple(_flatten_paged_kvs(kvs_f)))
+
+
+# one side stream per device for warm-ups and captures, made at the first
+# capture: cuBLAS keeps a workspace for every stream it has run on, so a
+# new stream per capture would grow device memory with every graph
+_CAPTURE_STREAMS = {}
+
+
+class DecodeBlockGraph:
+    """``paged_decode_block`` of ``steps`` steps captured as ONE CUDA
+    graph over static ``tok``/``lens``/``done``/``budget``/``tables``
+    buffers and the engine's own arenas: the counterpart of the JAX
+    engine's compiled block program (``_block_fn``), one per total step
+    count, so a fused depth-S window of S x n steps replays the same
+    graph as a plain block of S x n.
+
+    The capture runs the block once on a side stream first (warm-up),
+    on inputs that route every write to the trash row (all rows done,
+    all-trash tables), then captures it on the same stream, ordered
+    after the current stream's work by stream waits (no device-wide
+    synchronize, garbage collection or cache release, which
+    ``torch.cuda.graph`` adds); neither runs a launch that the kernel
+    counts keep (``_build.launches_taken_out``).  A call copies
+    its inputs into the static buffers on the current stream (device
+    carries device to device), replays, adds the captured launches to
+    the counts and returns the static outputs ``(toks [B, steps], tok,
+    lens, done, budget)``.  The next replay overwrites them: a caller
+    that keeps them reads them (or copies them) before it replays this
+    graph again.  The arenas' addresses are baked in, so a call raises
+    when an entry of ``flat_arenas`` (the engine's own list) no longer
+    holds the captured tensor.  A capture or replay that fails raises;
+    nothing falls back to the eager block."""
+
+    def __init__(self, model, cfg: GenerationConfig, steps: int,
+                 num_slots: int, tables_width: int,
+                 flat_arenas: Sequence[torch.Tensor],
+                 wq: Optional[WeightQuantContext] = None):
+        from ..ops import _build
+        dev = flat_arenas[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs CUDA arenas, got {dev}")
+        self.steps = int(steps)
+        self.arenas = flat_arenas
+        self.arena_ptrs = [a.data_ptr() for a in flat_arenas]
+        trash = flat_arenas[0].shape[0] - 1
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.tok = torch.zeros(num_slots, **i32)
+        self.lens = torch.zeros(num_slots, **i32)
+        self.done = torch.ones(num_slots, dtype=torch.bool, device=dev)
+        self.budget = torch.zeros(num_slots, **i32)
+        self.tables = torch.full((num_slots, tables_width), trash, **i32)
+        arenas = list(flat_arenas)
+
+        def block():
+            return paged_decode_block(
+                model, cfg, self.steps, self.tok, self.lens, self.done,
+                self.budget, self.tables, arenas, wq=wq)
+
+        side = _CAPTURE_STREAMS.get(dev)
+        if side is None:
+            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self.launches = {}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            with _build.launches_taken_out({}):
+                block()
+            with _build.launches_taken_out(self.launches):
+                self.graph.capture_begin()
+                try:
+                    out = block()
+                finally:
+                    self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.out = tuple(out[:5])
+        self.replays = 0
+
+    def __call__(self, tok, lens, done, budget, tables):
+        """Copy the inputs in, replay, count; returns the static
+        outputs."""
+        from ..ops import _build
+        if len(self.arenas) != len(self.arena_ptrs) or any(
+                a.data_ptr() != p
+                for a, p in zip(self.arenas, self.arena_ptrs)):
+            raise RuntimeError(
+                f"decode block graph of {self.steps} steps: the arenas "
+                f"are not the ones it was captured over")
+        for dst, src in ((self.tok, tok), (self.lens, lens),
+                         (self.done, done), (self.budget, budget),
+                         (self.tables, tables)):
+            if src is not dst:
+                dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        self.replays += 1
+        return self.out
 
 
 @torch.no_grad()

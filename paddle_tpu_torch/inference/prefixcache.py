@@ -57,16 +57,28 @@ def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).replace("torch.", "")
 
 
+def row_bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor whose bytes a parcel keeps: ``t`` itself, or for a
+    dtype numpy lacks (bfloat16) its signed-integer view of the same
+    width.  A view: no copy, no sync."""
+    view = _BIT_VIEWS.get(t.dtype)
+    return t if view is None else t.view(view[0])
+
+
+def bits_array(t: torch.Tensor) -> np.ndarray:
+    """A host ``row_bits`` tensor as a numpy array that OWNS its bytes
+    (a copy, never a view of ``t``, which may be a staging buffer that
+    is reused); int16 bits come out as the ``uint16`` view."""
+    a = np.array(t.numpy(), copy=True)
+    return a.view(np.uint16) if a.dtype == np.int16 else a
+
+
 def host_rows(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """One arena row stack to the host at its exact bytes: ``(numpy
     stack, name of the dtype its bits decode to)``.  A bfloat16 stack
     travels as the ``uint16`` view of its bits.  Synchronous
     (``.cpu()``)."""
-    view = _BIT_VIEWS.get(t.dtype)
-    if view is None:
-        return t.detach().cpu().numpy(), _dtype_name(t.dtype)
-    return (t.detach().view(view[0]).cpu().numpy().view(view[2]),
-            _dtype_name(t.dtype))
+    return bits_array(row_bits(t.detach()).cpu()), _dtype_name(t.dtype)
 
 
 def device_rows(rows: np.ndarray, dtype_name: str,
@@ -74,6 +86,13 @@ def device_rows(rows: np.ndarray, dtype_name: str,
     """A host row stack back on ``arena``'s device as ``arena``'s dtype,
     bit for bit.  Raises when the stack's dtype or row shape is not the
     arena's: a parcel is never cast."""
+    return parcel_tensor(rows, dtype_name, arena).to(arena.device)
+
+
+def parcel_tensor(rows: np.ndarray, dtype_name: str,
+                  arena: torch.Tensor) -> torch.Tensor:
+    """``device_rows``' host half: the stack as a CPU tensor of
+    ``arena``'s dtype over the same bytes, validated the same way."""
     want = _dtype_name(arena.dtype)
     if dtype_name != want:
         raise ValueError(
@@ -99,7 +118,7 @@ def device_rows(rows: np.ndarray, dtype_name: str,
             raise ValueError(f"host parcel rows of {rows.dtype} cannot "
                              f"hold {want} bits")
         t = torch.from_numpy(rows.view(view[1])).view(arena.dtype)
-    return t.to(arena.device)
+    return t
 
 
 class _HostEntry:

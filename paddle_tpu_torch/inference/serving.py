@@ -1,5 +1,6 @@
 """Continuous-batching serving over a paged KV block pool: port of the
-synchronous, greedy core of ``paddle_tpu/inference/serving.py``, with a
+greedy core of ``paddle_tpu/inference/serving.py`` with its dispatch-ahead
+step pipeline, with a
 float or int8 KV cache (``kv_cache_dtype="int8"``), float or int8/int4
 weights (``weight_dtype=``), greedy speculative decoding
 (``submit(spec_decode=K)`` with an ``NGramDrafter`` or ``ModelDrafter``),
@@ -22,28 +23,43 @@ admission (``_probe_radix``, ``_reprobe_radix``, ``_map_radix_span``,
 ``_residency_rank``), ``_prefill_chunk`` (digest registration and the
 radix insert), ``_count_kv_sweep`` (:1813), ``_block_rides`` and
 ``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, greedy rows),
-the synchronous branch of ``_step_inner``, ``_absorb_block``,
+``_step_inner``, ``_absorb_block``,
 ``_finish``, ``_release_blocks``, ``run``, ``engine_spec``,
 ``prefix_match`` and ``stats`` (kept in plain integer counters instead
-of the metrics registry).
+of the metrics registry).  The dispatch-ahead pipeline
+(``async_dispatch=True``, ``async_depth=S``): ``ASYNC_SYNC_REASONS``
+(:324), ``_PendingBlock`` (:1093), ``_LazyStacks`` (:1129),
+``_charge_overlap`` (:1948), ``_block_sync_reason`` (:1956),
+``_harvest_next`` (:2004), ``_flush_async`` (:2037),
+``_reconcile_host_tier`` (:2058), ``_resolve_entries`` (:2080),
+``_checked_harvest`` (:2092), ``_absorb_block`` with the re-split of a
+fused window (:2119), the lazy demotion (:2260) and the async branch of
+``_step_inner`` (:4336) with the fused depth-S windows.
 
-The defaults are the reference's, but for ``async_dispatch=False``:
-``prefix_cache_mode="radix"`` (with ``enable_prefix_cache=True``),
-``enable_preemption=True`` and ``host_cache_blocks=4 * num_blocks``.
-On the same trace the port makes the same decisions (admissions,
-preemptions, swaps, sheds, timeouts, dispatch counts, prefix hits) as
-the JAX engine with ``async_dispatch=False``, and its host-tier parcels
-hold the same bytes (a bf16 arena's as the ``uint16`` view of its bits,
-``inference/prefixcache.py``).
+The defaults are the reference's: ``async_dispatch=True`` with
+``async_depth=1``, ``prefix_cache_mode="radix"`` (with
+``enable_prefix_cache=True``), ``enable_preemption=True`` and
+``host_cache_blocks=4 * num_blocks``.  On the same trace the port makes
+the same decisions (admissions, preemptions, swaps, sheds, timeouts,
+dispatch counts, forced syncs, prefix hits) as the JAX engine built the
+same way, and its host-tier parcels hold the same bytes (a bf16 arena's
+as the ``uint16`` view of its bits, ``inference/prefixcache.py``).
+
+On the card the decode block runs as a captured CUDA graph, one per
+total step count (``llm.DecodeBlockGraph``); host inputs reach the card
+from pinned memory, and every device output the host reads (a decode
+dispatch's tokens and carries, a final chunk's token, a verify's
+argmaxes, a host-tier gather) comes back by a non-blocking copy into
+pinned memory behind a ``torch.cuda.Event``, the only thing a harvest
+waits on.  On the CPU the block runs eagerly.
 
 Features not ported yet take only their off values and raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
-Known differences from the JAX engine: ``async_dispatch`` defaults to
-``False``; the swap copies are synchronous (``.cpu()`` from pageable
-memory); admission has no fair-share term (``tenant_weights`` is not
-ported, and on a single tenant the term is a constant); there is no
-metrics registry, flight recorder, span tracing, goodput ledger or
-fault injector.
+Known differences from the JAX engine: admission has no fair-share term
+(``tenant_weights`` is not ported, and on a single tenant the term is a
+constant); there is no metrics registry, flight recorder, span tracing,
+goodput ledger or fault injector (a harvest whose tokens fall outside
+the vocabulary raises ``RuntimeError``).
 """
 
 from __future__ import annotations
@@ -60,10 +76,11 @@ import torch
 
 from ..device import DeviceLike, dtype_name, resolve_device, to_dtype
 from ..models.generation import GenerationConfig, init_paged_kv_arena
-from .llm import (build_swap_in_scatter, build_swap_out_gather,
-                  build_weight_quant_plan, chunk_prefill,
-                  normalize_weight_dtype, paged_decode_block)
-from .prefixcache import HostTier, RadixPrefixCache, device_rows, host_rows
+from .llm import (DecodeBlockGraph, build_swap_in_scatter,
+                  build_swap_out_gather, build_weight_quant_plan,
+                  chunk_prefill, normalize_weight_dtype, paged_decode_block)
+from .prefixcache import (HostTier, RadixPrefixCache, bits_array,
+                          parcel_tensor, row_bits)
 from .speculative import NGramDrafter, accept_drafts, build_spec_verify
 
 _INF = float("inf")
@@ -72,6 +89,24 @@ _INF = float("inf")
 # another token ("failed" belongs to the fleet layer's failover; the
 # engine itself never assigns it)
 TERMINAL_STATES = ("finished", "timeout", "shed", "cancelled", "failed")
+
+# the dispatch-ahead pipeline's closed forced-sync vocabulary: every
+# iteration that must bring device outputs to the host EARLY (before the
+# next dispatch was enqueued) charges exactly ONE of these.  "mask" and
+# "penalty" belong to the sampled half (not ported), so the port never
+# charges them; the vocabulary stays the reference's
+ASYNC_SYNC_REASONS = (
+    "eos",          # EOS detection must observe every emitted token
+    "budget",       # a rider's token budget can exhaust inside the block
+    "mask",         # a token-mask row's host state machine needs the token
+    "penalty",      # a repetition-penalty presence plane is host-built
+    "spec",         # speculative accept/rollback is a host decision
+    "chunk_final",  # a prompt's final chunk samples the first token
+    "resume",       # a swap-in rewrites the slot's host carries
+    "preempt",      # a swap-out reads the slot's host carries
+    "cancel",       # cancel() must know which tokens already exist
+    "drain",        # run() is about to raise/hand control to the caller
+)
 
 
 class AdmissionError(RuntimeError):
@@ -317,6 +352,135 @@ class BlockPool:
 
 
 @dataclass
+class _PendingBlock:
+    """One dispatched-but-not-yet-harvested decode dispatch: an entry of
+    the pipeline's bounded pending deque (depth 1 = the double buffer).
+
+    ``out`` holds the dispatch's device outputs ``(toks [B, n], tok,
+    lens, done, budget)``; on the card they are a CUDA graph's static
+    outputs, valid as the NEXT dispatch's carries only (the next replay
+    of that graph overwrites them), and ``host`` holds their copies in
+    pinned memory, enqueued right after the replay, behind ``event``:
+    a harvest waits on the event and reads ``host``, nothing else.  On
+    the CPU ``host`` is ``out`` itself and ``event`` is None.  ``done``
+    is the in-trace FINISH BITMAP (EOS hit or budget exhausted).
+
+    A FUSED dispatch covers ``iters`` logical iterations of ``per_iter``
+    scanned steps each (``n = iters * per_iter``); the harvest re-splits
+    it iteration by iteration.  ``pre_lens`` is the host-true per-slot
+    lens entering the dispatch (the KV-sweep model needs it);
+    ``active``/``reqs`` pin the riding set: a rider that finished in an
+    EARLIER pending dispatch rides later in-flight ones frozen on the
+    device and is skipped at their harvest."""
+    step_idx: int
+    n: int                         # scanned steps in this dispatch
+    per_iter: int                  # steps per logical iteration
+    iters: int                     # logical iterations (n // per_iter)
+    active: List[int]              # riding slot indices
+    reqs: List["Request"]          # parallel to ``active``
+    pre_lens: np.ndarray           # host lens mirror entering dispatch
+    out: tuple                     # device (toks, tok, lens, done, budget)
+    host: tuple                    # their host copies (pinned on the card)
+    event: Optional[object] = None     # torch.cuda.Event after the copies
+    slot: Optional[dict] = None        # the pinned ring slot it holds
+
+
+class _HostStaging:
+    """The engine's two page-locked staging buffers for the host copies
+    it waits on: a preemption's gather, a swap-in or promotion, a final
+    chunk's token, a verify's argmaxes.  Pieces go through them in turn,
+    so one buffer's copy runs while the host moves the other's bytes; a
+    buffer is rewritten only after the event behind its last copy has
+    fired, and grows to the largest piece seen, so after the first
+    pieces no copy pays for a fresh page-locked allocation.  On the CPU
+    the copies are plain."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._bufs = [None, None]
+        self._events = ([torch.cuda.Event(), torch.cuda.Event()]
+                        if self.cuda else [None, None])
+        self._held = [None, None]      # (index, host view) awaiting read
+        self._next = 0
+
+    def _take(self, t: torch.Tensor, out: List):
+        """``(k, view)``: the next buffer ``k``, its last copy run and its
+        bytes read into ``out``, as a host view of ``t``'s dtype and
+        shape."""
+        k = self._next
+        self._next ^= 1
+        self._events[k].synchronize()
+        if self._held[k] is not None:
+            i, h = self._held[k]
+            out[i] = bits_array(h)
+            self._held[k] = None
+        nbytes = t.numel() * t.element_size()
+        if self._bufs[k] is None or self._bufs[k].numel() < nbytes:
+            self._bufs[k] = torch.empty(max(nbytes, 1 << 16),
+                                        dtype=torch.uint8, pin_memory=True)
+        return k, self._bufs[k][:nbytes].view(t.dtype).view(t.shape)
+
+    def to_host(self, tensors) -> List[np.ndarray]:
+        """Device tensors (contiguous) to numpy arrays that own their
+        bytes (``bits_array``: int16 bits as ``uint16``)."""
+        if not self.cuda:
+            return [bits_array(t) for t in tensors]
+        out: List = [None] * len(tensors)
+        for i, t in enumerate(tensors):
+            k, h = self._take(t, out)
+            h.copy_(t, non_blocking=True)
+            self._events[k].record()
+            self._held[k] = (i, h)
+        for k in (0, 1):
+            if self._held[k] is not None:
+                self._events[k].synchronize()
+                i, h = self._held[k]
+                out[i] = bits_array(h)
+                self._held[k] = None
+        return out
+
+    def to_device(self, t: torch.Tensor, out: torch.Tensor):
+        """Copy the host tensor ``t`` into the device tensor ``out`` (same
+        dtype and shape) without blocking the host."""
+        if not self.cuda:
+            out.copy_(t)
+            return
+        k, h = self._take(t, [])
+        h.copy_(t)
+        out.copy_(h, non_blocking=True)
+        self._events[k].record()
+
+
+class _LazyStacks:
+    """One deferred demote gather: the gathered row stacks (a copy out
+    of the arenas, so later in-place arena writes cannot reach them),
+    already on their way to pinned host memory behind ``event``,
+    materialized to numpy ONCE on first need.  Shared by every host-tier
+    parcel the gather covered: resolving any parcel resolves the
+    page."""
+
+    __slots__ = ("_host", "_event", "_np")
+
+    def __init__(self, host, event):
+        self._host = list(host)
+        self._event = event
+        self._np = None
+
+    def resolve(self) -> List[np.ndarray]:
+        if self._np is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._np = [bits_array(h) for h in self._host]
+            self._host = self._event = None
+        return self._np
+
+    def block_rows(self, j: int) -> List[np.ndarray]:
+        """Parcel rows for gathered row ``j``: one ``[1, ...]``
+        contiguous slice per flat arena."""
+        return [np.ascontiguousarray(s[j:j + 1]) for s in self.resolve()]
+
+
+@dataclass
 class _SwapRecord:
     """A preempted request's device state, parked in the shared
     ``HostTier`` (reason ``"preempt"``): ``host_key`` names the parcel
@@ -435,6 +599,19 @@ class ServingEngine:
     ``prefix_cache_mode="radix"`` cached prompt blocks the pool reclaims
     are demoted to the host tier (``host_cache_blocks`` of them at most)
     and promoted back on a later hit.
+
+    Dispatch-ahead (``async_dispatch=True``, the default): ``step()``
+    plans on host truth that may be one dispatch stale and enqueues its
+    decode dispatch before it harvests the previous one, so the host's
+    scheduling runs while the card decodes.  A harvest is deferred only
+    when the next iteration's scheduling cannot depend on it; everywhere
+    host truth is required the iteration syncs and charges one reason of
+    ``ASYNC_SYNC_REASONS``, so at ``async_depth=1`` tokens and scheduling
+    equal ``async_dispatch=False``'s.  ``async_depth=S >= 2`` reads EOS
+    from the in-trace finish bitmap one harvest late and dispatches
+    provably eventless windows of S iterations as one fused program.
+    Demote gathers of the radix cache ride the same pipeline and reach
+    the host at the next harvest point.
     """
 
     def __init__(self, model, *, num_slots, prompt_len,
@@ -449,7 +626,7 @@ class ServingEngine:
                  seed=0, static_batching=False, clock=time.perf_counter,
                  registry=None, max_queue=None, enable_preemption=True,
                  fault_injector=None, flight_recorder=None,
-                 async_dispatch=False, async_depth=1,
+                 async_dispatch=True, async_depth=1,
                  adapter_store=None, tenant_weights=None, mesh=None,
                  role="both", device: DeviceLike = None):
         for value, off, what, item in (
@@ -467,13 +644,22 @@ class ServingEngine:
                 (registry, None, "registry= (metrics registry)",
                  "#1 Observability"),
                 (flight_recorder, None, "flight_recorder=",
-                 "#1 Observability"),
-                (bool(async_dispatch), False, "async_dispatch=True",
-                 "#6 Dispatch-ahead"),
-                (int(async_depth), 1, f"async_depth={async_depth}",
-                 "#6 Dispatch-ahead")):
+                 "#1 Observability")):
             if value != off:
                 _not_ported(what, item)
+        # async_dispatch=False is the lockstep arm; async_depth=1 keeps
+        # its scheduling bit for bit, S >= 2 opts into the finish bitmap
+        # and the fused windows
+        self.async_dispatch = bool(async_dispatch)
+        self.async_depth = int(async_depth)
+        if self.async_depth < 1:
+            raise ValueError(
+                f"async_depth must be >= 1, got {async_depth}")
+        if self.async_depth > 1 and not self.async_dispatch:
+            raise ValueError(
+                f"async_depth={self.async_depth} needs "
+                f"async_dispatch=True — the lockstep kill-switch arm "
+                f"has no pipeline to deepen")
         self.max_queue = None if max_queue is None else int(max_queue)
         if self.max_queue is not None and self.max_queue < 1:
             raise ValueError(
@@ -629,6 +815,33 @@ class ServingEngine:
                        shed=0, timeouts=0, cancelled=0)
         self._decode_seconds = 0.0
         self._verify_seconds = 0.0
+        # the step's wall split (the reference's serving.step.* seconds,
+        # kept as engine totals): dispatch sites, waits on a PREVIOUS
+        # iteration's outputs (overlap) and the host remainder
+        self._disp_s = 0.0
+        self._overlap_s = 0.0
+        self._in_step = False
+        self._time = dict(dispatch=0.0, overlap=0.0, host=0.0)
+        # dispatch-ahead pipeline: the pending decode dispatches (at most
+        # async_depth), demote parcels awaiting their rows, and finishes
+        # a flush outside a step discovered (handed to the next step)
+        self._pend_q: deque = deque()
+        self._lazy_parcels: List[int] = []
+        self._flush_finishes: List[Request] = []
+        self._syncs = {r: 0 for r in ASYNC_SYNC_REASONS}
+        self._harvests = 0
+        # step-rate estimate for the arrival-aware fused window: only
+        # from explicit step(now=) clocks
+        self._last_now = None
+        self._step_dt = 0.0
+        # decode-block programs keyed by total scanned steps (the JAX
+        # engine's _block_fn cache): CUDA graphs on the card, the eager
+        # block on the CPU; and the pinned ring their outputs land in
+        self._blocks = {}
+        self._graph_capture_s = 0.0
+        self._ring: List[dict] = []
+        self._ring_next = 0
+        self._staging = _HostStaging(self.device)
         # speculative decoding: per-request mode (submit(spec_decode=K));
         # the drafter is engine-level and installed lazily (an
         # NGramDrafter) the first time a spec request is accepted
@@ -680,7 +893,109 @@ class ServingEngine:
 
     # -- host <-> device --
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host plane on the engine's device.  On the card it is staged
+        in pinned memory and copied without blocking the host; the
+        caching host allocator keeps the staging buffer until the copy
+        has run, so it is never rewritten early."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage_out(self, tensors):
+        """Enqueue device -> host copies of ``tensors`` into fresh pinned
+        buffers behind one event, all at once (a lazy demotion's copy
+        rides the stream ahead of later work): ``(host tensors, event)``.
+        On the CPU the tensors are already host tensors and the event is
+        None."""
+        if self.device.type == "cpu":
+            return list(tensors), None
+        host = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _fetch(self, tensors) -> List[np.ndarray]:
+        """Device tensors to host numpy arrays that own their bytes,
+        through the pinned staging buffers (the wait on their events is
+        the one sync an intended host read makes)."""
+        return self._staging.to_host(tensors)
+
+    def _block_program(self, n: int):
+        """The decode-block program of ``n`` total scanned steps, built
+        on first use: ``program(tok, lens, done, budget, tables) ->
+        (toks, tok', lens', done', budget')``.  On the card a
+        ``DecodeBlockGraph`` captured over this engine's arenas (the
+        capture's seconds go to ``decode_graphs``); on the CPU the eager
+        block."""
+        prog = self._blocks.get(n)
+        if prog is not None:
+            return prog
+        # the program holds what it runs, never the engine: a dropped
+        # engine frees its arenas and graph pools at once
+        model, cfg, arenas, wq = (self._model, self.cfg, self._arenas,
+                                  self._wq_ctx)
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            prog = DecodeBlockGraph(model, cfg, n, self.num_slots,
+                                    self.max_blocks, arenas, wq=wq)
+            self._graph_capture_s += time.perf_counter() - t0
+        else:
+            def prog(tok, lens, done, budget, tables):
+                return paged_decode_block(model, cfg, n, tok, lens, done,
+                                          budget, tables, arenas,
+                                          wq=wq)[:5]
+        self._blocks[n] = prog
+        return prog
+
+    def _stage_block(self, out):
+        """Enqueue the host copies of one decode dispatch's outputs into
+        a slot of the pinned ring (``async_depth + 1`` slots: at most
+        ``async_depth`` dispatches are pending when the next one lands),
+        right behind the dispatch on the same stream.  Returns
+        ``(host tensors, event, slot)``; on the CPU the outputs
+        themselves."""
+        if self.device.type == "cpu":
+            return tuple(out), None, None
+        if not self._ring:
+            b, nmax = self.num_slots, self.steps_per_call * self.async_depth
+            for _ in range(self.async_depth + 1):
+                self._ring.append(dict(
+                    toks=torch.empty(b * nmax, dtype=torch.int32,
+                                     pin_memory=True),
+                    carries=[torch.empty(b, dtype=t.dtype, pin_memory=True)
+                             for t in out[1:]],
+                    event=torch.cuda.Event(), busy=False))
+        slot = self._ring[self._ring_next]
+        if slot["busy"]:
+            raise RuntimeError(
+                "dispatch-ahead: the pinned harvest ring is full — a "
+                "dispatch landed while async_depth + 1 were unharvested")
+        self._ring_next = (self._ring_next + 1) % len(self._ring)
+        toks = out[0]
+        host_toks = slot["toks"][:toks.numel()].view(toks.shape)
+        host_toks.copy_(toks, non_blocking=True)
+        for h, t in zip(slot["carries"], out[1:]):
+            h.copy_(t, non_blocking=True)
+        slot["event"].record()
+        slot["busy"] = True
+        return (host_toks, *slot["carries"]), slot["event"], slot
+
+    def _block_host(self, p: _PendingBlock):
+        """A pending dispatch's outputs as owned host arrays ``(toks,
+        tok, lens, done)`` (the wait on its event is the harvest's only
+        sync); frees its ring slot."""
+        if p.event is not None:
+            p.event.synchronize()
+        arrays = [np.array(t.numpy(), copy=True) for t in p.host[:4]]
+        if p.slot is not None:
+            p.slot["busy"] = False
+            p.slot = None
+        return arrays
 
     # -- block accounting --
     def _blocks_needed(self, n: int, m: int) -> int:
@@ -715,16 +1030,26 @@ class ServingEngine:
         self._update_block_gauges()
 
     # -- host tier (shared by preemption swap and radix demotion) --
-    def _gather_rows(self, ids_row: np.ndarray, keep: int):
+    def _gather_rows(self, ids_row: np.ndarray, keep: int,
+                     materialize: bool = True):
         """The first ``keep`` rows of ``ids_row`` (table-width, trash-
-        padded) out of every arena at their exact at-rest bytes, copied
-        to the host synchronously: ``(stacks, dtypes)``, one numpy stack
-        ``[keep, ...]`` and one dtype name per flat arena (a bf16 stack
-        holds the ``uint16`` view of its bits, ``host_rows``)."""
-        ids = torch.from_numpy(ids_row.astype(np.int64)).to(self.device)
-        out = [host_rows(r[:keep]) for r in self._swap_out(ids,
-                                                           *self._arenas)]
-        return [s for s, _ in out], tuple(dt for _, dt in out)
+        padded) out of every arena at their exact at-rest bytes:
+        ``(stacks, dtypes)``, one stack ``[keep, ...]`` and one dtype
+        name per flat arena (a bf16 stack holds the ``uint16`` view of
+        its bits).  The gather and its copy into pinned host memory are
+        enqueued on the engine's stream.  ``materialize=True`` waits for
+        them and returns numpy stacks (preemption: a swap record's bytes
+        are correctness-bearing); ``materialize=False`` returns a
+        ``_LazyStacks`` that resolves at the next harvest point (the
+        dispatch-ahead demotion)."""
+        t0 = self._clock()
+        ids = self._dev(ids_row.astype(np.int64))
+        dev = [row_bits(r[:keep])
+               for r in self._swap_out(ids, *self._arenas)]
+        stacks = (self._fetch(dev) if materialize
+                  else _LazyStacks(*self._stage_out(dev)))
+        self._disp_s += self._clock() - t0
+        return stacks, tuple(dtype_name(a.dtype) for a in self._arenas)
 
     def _scatter_rows(self, ids_row: np.ndarray, stacks: List[np.ndarray],
                       dtypes):
@@ -740,15 +1065,17 @@ class ServingEngine:
                              f"for {len(self._arenas)} arenas")
         if dtypes is None:
             dtypes = [str(s.dtype) for s in stacks]
+        t0 = self._clock()
         padded = []
         for s, dt, a in zip(stacks, dtypes, self._arenas):
-            t = device_rows(s, dt, a)
+            t = parcel_tensor(s, dt, a)
             pr = torch.zeros((self.max_blocks,) + tuple(a.shape[1:]),
                              dtype=a.dtype, device=a.device)
-            pr[:t.shape[0]] = t
+            self._staging.to_device(t, pr[:t.shape[0]])
             padded.append(pr)
-        ids = torch.from_numpy(ids_row.astype(np.int64)).to(self.device)
-        self._swap_in(ids, *padded, *self._arenas)
+        self._swap_in(self._dev(ids_row.astype(np.int64)), *padded,
+                      *self._arenas)
+        self._disp_s += self._clock() - t0
 
     def _demote_blocks(self, blocks: List[int]):
         """``BlockPool.reclaim_cb`` (radix mode): gather the reclaimed
@@ -768,6 +1095,21 @@ class ServingEngine:
             chunk = blocks[i:i + w]
             ids = np.full((w,), self._pool.trash, np.int32)
             ids[:len(chunk)] = chunk
+            if self.async_dispatch:
+                # overlapped swap-out: the gather is ENQUEUED now (a copy
+                # out of the arenas, ordered before any later write to
+                # the reclaimed blocks on the same stream) and each
+                # parcel gets a lazy row view, resolved at the next
+                # harvest point (_reconcile_host_tier)
+                lazy, dtypes = self._gather_rows(ids, len(chunk),
+                                                 materialize=False)
+                for j, b in enumerate(chunk):
+                    key = self._radix.demote(
+                        b, lambda ls=lazy, j=j: ls.block_rows(j), dtypes)
+                    if key is not None:
+                        demoted += 1
+                        self._lazy_parcels.append(key)
+                continue
             stacks, dtypes = self._gather_rows(ids, len(chunk))
             for j, b in enumerate(chunk):
                 rows = [np.ascontiguousarray(s[j:j + 1]) for s in stacks]
@@ -777,6 +1119,33 @@ class ServingEngine:
             self._n["swap_blocks_out"] += demoted
             self._n["swap_bytes_out"] += \
                 demoted * self.block_len * self._kv_row_bytes
+
+    def _reconcile_host_tier(self):
+        """Materialize every demote parcel enqueued during plan, at a
+        harvest point instead of inside admission: each live parcel ends
+        up owning its contiguous per-block rows.  Dropped, evicted and
+        promoted keys are skipped.  The wait charges to overlap."""
+        if not self._lazy_parcels:
+            return
+        keys, self._lazy_parcels = self._lazy_parcels, []
+        t0 = self._clock()
+        for k in keys:
+            e = self._host_tier.entry(k)
+            if e is not None and not e.resolved:
+                e.rows     # the property materializes on first access
+        self._charge_overlap(self._clock() - t0)
+
+    def _resolve_entries(self, entries):
+        """Force still-lazy parcels a consumer (promotion, resume) needs
+        now; the wait is on a previous iteration's gather, so it charges
+        to overlap."""
+        lazy = [e for e in entries if e is not None and not e.resolved]
+        if not lazy:
+            return
+        t0 = self._clock()
+        for e in lazy:
+            e.rows
+        self._charge_overlap(self._clock() - t0)
 
     def _audit_host_tier(self):
         """``BlockPool.check()`` hook: tier-internal invariants plus the
@@ -982,6 +1351,16 @@ class ServingEngine:
                 return True
         for i, req in enumerate(self._slots):
             if req is not None and req.request_id == request_id:
+                # only an IN-FLIGHT cancel needs host truth (the output
+                # pads from the tokens that already exist, and a pending
+                # harvest must not outlive its riding set)
+                self._flush_async("cancel")
+                if req.state in TERMINAL_STATES:
+                    # the flush itself retired it (its finish bit was
+                    # already set on the device, depth >= 2): it
+                    # FINISHED, and the already-terminal contract holds
+                    # (the finish reaches the next step()'s return)
+                    return False
                 if req in self._prefilling:
                     self._prefilling.remove(req)
                 self._release_blocks(req)   # also trashes the table row
@@ -1072,12 +1451,21 @@ class ServingEngine:
             out.append(r)
 
     # -- preemption + host-RAM swap --
-    def _preempt(self, req: Request):
+    def _preempt(self, req: Request, out=None) -> bool:
         """Swap an in-flight request out to the host-RAM tier: gather
         its blocks' exact at-rest bytes, save the slot's ``tok``/``lens``
         carries, release its blocks and park it on the swap list.  Its
-        host truth (``tokens``, ``pf_pos``) needs no saving."""
+        host truth (``tokens``, ``pf_pos``) needs no saving.  Returns
+        False when the harvest flush itself retired the victim (its
+        finish was already on the device, depth >= 2), True after a
+        swap-out."""
+        # the swap record saves the slot's HOST carries: a deferred
+        # harvest must land first, and before validating, since at depth
+        # >= 2 the flush can discover that the victim finished
+        self._flush_async("preempt", out)
         slot = req.slot
+        if req.state in TERMINAL_STATES:
+            return False
         if slot is None or req.state not in ("prefill", "decode"):
             raise RuntimeError(
                 f"request {req.request_id} is not in flight "
@@ -1103,8 +1491,9 @@ class ServingEngine:
         self._n["preemptions"] += 1
         self._n["swap_blocks_out"] += n
         self._n["swap_bytes_out"] += n * self.block_len * self._kv_row_bytes
+        return True
 
-    def _preempt_for(self, cand: Request, needed: int) -> bool:
+    def _preempt_for(self, cand: Request, needed: int, out=None) -> bool:
         """Free blocks for ``cand`` by swapping out strictly-worse
         victims (lowest priority first, then latest deadline, then most
         remaining work) until ``needed`` blocks are allocatable.  Strict
@@ -1121,10 +1510,10 @@ class ServingEngine:
                 return False
             victim = min(eligible, key=lambda v: (
                 self._shed_key(v) + (-self._remaining_work(v),)))
-            self._preempt(victim)
+            self._preempt(victim, out)
         return True
 
-    def _try_resume(self, req: Request, slot: int) -> bool:
+    def _try_resume(self, req: Request, slot: int, out=None) -> bool:
         """Re-admit a swapped request: allocate fresh blocks (with the
         valve and preemption under pressure), re-scatter the saved bytes
         and restore the slot carries.  The fresh blocks keep the logical
@@ -1137,16 +1526,22 @@ class ServingEngine:
             self._release_queue_pins()
             fresh = self._pool.alloc(rec.n_blocks)
         if fresh is None and self.enable_preemption and \
-                self._preempt_for(req, rec.n_blocks):
+                self._preempt_for(req, rec.n_blocks, out):
             fresh = self._pool.alloc(rec.n_blocks)
         if fresh is None:
             return False
+        # the resume REWRITES the slot's host carries, so the next decode
+        # dispatch must come from host mirrors: harvest first.  Flushed
+        # only here, after the blocks are secured: an attempt that cannot
+        # allocate keeps the pipeline deferred
+        self._flush_async("resume", out)
         row = np.full((self.max_blocks,), self._pool.trash, np.int32)
         row[:rec.n_blocks] = fresh
         # the scatter runs before any scheduler state changes; a failure
         # unpins the fresh blocks and leaves a valid swap-list member
         try:
             ent = self._host_tier.entry(rec.host_key)
+            self._resolve_entries([ent])
             self._scatter_rows(row, ent.rows, ent.dtypes)
         except BaseException:
             for b in fresh:
@@ -1241,6 +1636,7 @@ class ServingEngine:
         if n_promote:
             dest = fresh[:n_promote]
             entries = [self._host_tier.entry(k) for k in host_keys]
+            self._resolve_entries(entries)
             ids_row = np.full((self.max_blocks,), self._pool.trash,
                               np.int32)
             ids_row[:n_promote] = dest
@@ -1342,7 +1738,7 @@ class ServingEngine:
                 break
             req = cands[0]
             if req.state == "swapped":
-                if not self._try_resume(req, slot):
+                if not self._try_resume(req, slot, out):
                     break
                 continue
             if self._radix is not None:
@@ -1363,7 +1759,7 @@ class ServingEngine:
                 n_hbm = 0
                 fresh = self._pool.alloc(total)
             if fresh is None and self.enable_preemption and \
-                    self._preempt_for(req, total - n_hbm):
+                    self._preempt_for(req, total - n_hbm, out):
                 fresh = self._pool.alloc(total - n_hbm)
             if fresh is None:
                 break                     # pool drains as requests retire
@@ -1407,11 +1803,22 @@ class ServingEngine:
             return
         req = self._prefilling[0]
         start, c = req.pf_pos, self.chunk_len
+        is_final = start + c >= req.seq_len
+        if is_final:
+            # the final chunk samples the first token, host truth THIS
+            # step (EOS check, decode-mix entry, the slot's carries)
+            self._flush_async("chunk_final", out)
+        t0 = self._clock()
         outp = chunk_prefill(
             self._model, self._dev(req.chunk_ids[None, start:start + c]),
             start, req.seq_len, self._dev(self._tables[req.slot][None, :]),
             self._arenas, wq=self._wq_ctx)
-        tok0 = int(outp[0][0])
+        # a non-final chunk's token means nothing: the dispatch-ahead
+        # engine leaves it on the device and the chunk runs under the
+        # next iterations' host work
+        tok0 = (int(self._fetch(outp[:1])[0][0])
+                if is_final or not self.async_dispatch else None)
+        self._disp_s += self._clock() - t0
         self._n["prefill_chunks"] += 1
         self._count_kv_sweep([min(start + c, req.seq_len) - 1])
         req.pf_pos = start + c
@@ -1497,6 +1904,10 @@ class ServingEngine:
                 and r.spec_k is not None]
         if not spec:
             return
+        # defensive: spec entry goes through a chunk_final or resume
+        # sync, so nothing is pending here; the verify reads host lens
+        # mirrors, so a stale one must sync loudly rather than drift
+        self._flush_async("spec", out)
         drafts = {}
         for i in spec:
             req = self._slots[i]
@@ -1535,8 +1946,9 @@ class ServingEngine:
         outp = self._verify_fn(width)(
             self._dev(toks), self._dev(self._lens), self._dev(n_valid),
             self._dev(tbl), *self._arenas)
-        greedy = outp[0].cpu().numpy()                  # [B, width]
+        greedy = self._fetch(outp[:1])[0]               # [B, width]
         self._verify_seconds += self._clock() - t0
+        self._disp_s += self._clock() - t0
         self._n["spec_verify_steps"] += 1
         # the K-wide kernel walks the STATIC width's frontier
         # (lens + width - 1) of every spec row, however few columns
@@ -1565,6 +1977,97 @@ class ServingEngine:
                 self._release_blocks(req)
                 self._finish(req, t, out)
 
+    # -- dispatch-ahead pipeline (plan / harvest) --
+    def _charge_overlap(self, dt: float):
+        """Account time spent waiting on a PREVIOUS iteration's device
+        outputs: carved out of this step's host seconds."""
+        self._time["overlap"] += dt
+        if self._in_step:
+            self._overlap_s += dt
+
+    def _block_sync_reason(self, n: int, active: List[int],
+                           lag: int = 0) -> Optional[str]:
+        """Why THIS decode dispatch's outputs cannot be deferred (None =
+        deferrable).  A harvest may be deferred only when the next
+        iteration's scheduling cannot depend on it: no speculative slot
+        needs a host accept/rollback decision and no rider's token
+        BUDGET can run out inside the dispatch (``lag`` corrects host
+        truth for steps still in flight).  EOS depends on the depth: at
+        depth 1 every EOS-configured iteration syncs (scheduling equal
+        to lockstep's); at depth >= 2 the finish bitmap is read one
+        harvest late instead.  The first matching reason is charged."""
+        if not self.async_dispatch:
+            return "off"              # lockstep arm: never charged
+        if self.cfg.eos_token_id is not None and self.async_depth == 1:
+            return "eos"
+        for i in active:
+            r = self._slots[i]
+            if r is None or r.state != "decode":
+                continue              # retired by a same-step harvest
+            if r.remaining - lag <= n:
+                return "budget"
+            if r.spec_k is not None:
+                return "spec"
+        # a verifying spec slot anywhere keeps the iteration sync: the
+        # verify path reads host mirrors
+        if any(r is not None and r.spec_k is not None
+               and r.state == "decode" for r in self._slots):
+            return "spec"
+        return None
+
+    def _harvest_next(self, out: List[Request]):
+        """Bring the OLDEST pending dispatch's outputs to the host and
+        absorb them: the finish-bitmap poll site.  Harvests are FIFO, so
+        host truth is fresh up to the popped dispatch.  The wait charges
+        to overlap, never to host time."""
+        if not self._pend_q:
+            return
+        p = self._pend_q.popleft()
+        t0 = self._clock()
+        toks, tok, lens, done = self._block_host(p)
+        self._charge_overlap(self._clock() - t0)
+        toks = self._checked_harvest(toks)
+        n_before = len(out)
+        self._absorb_block(p, toks, tok, lens, done, out)
+        if self.async_depth == 1 and len(out) > n_before:
+            # at depth 1 deferral is legal only when no rider can finish
+            # inside the block: a finish here means the defer predicate
+            # regressed
+            raise RuntimeError(
+                "deferred harvest produced a finish at async_depth=1 "
+                "— the defer predicate (_block_sync_reason) is broken")
+        self._reconcile_host_tier()
+
+    def _flush_async(self, reason: str,
+                     out: Optional[List[Request]] = None):
+        """Harvest EVERY pending dispatch early (oldest first) because
+        host truth is required now; charged ONCE to ``reason`` however
+        deep the pipeline ran, and not at all when nothing is pending.
+        Finishes it discovers (depth >= 2) land in ``out`` inside a step,
+        else in the next step()'s return."""
+        if not self._pend_q:
+            return
+        if reason not in ASYNC_SYNC_REASONS:
+            raise ValueError(
+                f"unknown forced-sync reason {reason!r} — known: "
+                f"{ASYNC_SYNC_REASONS}")
+        self._syncs[reason] += 1
+        sink = out if out is not None else self._flush_finishes
+        while self._pend_q:
+            self._harvest_next(sink)
+
+    def _checked_harvest(self, toks: np.ndarray) -> np.ndarray:
+        """Validate one decode harvest before it becomes host truth:
+        every token id must lie in the vocabulary (vacant and frozen
+        rows emit the pad id, which does)."""
+        if toks.size and (int(toks.min()) < 0
+                          or int(toks.max()) >= self._vocab):
+            raise RuntimeError(
+                f"decode harvest at step {self._step_idx} produced token "
+                f"ids outside [0, {self._vocab}) — the harvest was not "
+                f"adopted as host truth")
+        return toks
+
     def step(self, now: Optional[float] = None) -> List[Request]:
         """One scheduler iteration: sweep queue-delay timeouts, admit and
         resume into vacant slots (preempting strictly-worse victims under
@@ -1572,10 +2075,49 @@ class ServingEngine:
         speculative verify forward over the spec-mode slots and one
         decode block over the plain decode mix.  Returns the requests
         that reached a terminal state this iteration (finished or
-        timeout)."""
+        timeout).
+
+        Also splits the iteration's wall time: every dispatch site
+        (chunk, verify, decode block, swap gathers and scatters) adds to
+        ``dispatch_seconds``, waits on a PREVIOUS iteration's outputs to
+        ``overlap_seconds``, and the remainder is ``host_seconds``, the
+        host-scheduler slice the pipeline hides under device time.
+        Steps that dispatched nothing add to neither host nor
+        dispatch."""
         self._step_idx += 1
-        finished: List[Request] = []
+        self._disp_s = 0.0
+        self._overlap_s = 0.0
+        self._in_step = True
+        t0 = self._clock()
+        try:
+            out = self._step_inner(now)
+            # reconcile the demote gathers this step enqueued so their
+            # wait lands here
+            self._reconcile_host_tier()
+        finally:
+            self._in_step = False
+        if self._disp_s > 0.0:
+            self._time["dispatch"] += self._disp_s
+            self._time["host"] += max(
+                (self._clock() - t0) - self._disp_s - self._overlap_s, 0.0)
+        return out
+
+    def _step_inner(self, now: Optional[float] = None) -> List[Request]:
+        # finishes a between-steps flush discovered (cancel()) hand over
+        # to THIS step's return
+        finished: List[Request] = self._flush_finishes
+        self._flush_finishes = []
         t_now = self._clock() if now is None else now
+        # step-rate estimate for the arrival-aware fused window, from
+        # explicit step(now=) clocks only: a wall-clock-driven engine
+        # never sizes windows from its own nondeterministic rate
+        if now is not None:
+            if self._last_now is not None and t_now > self._last_now:
+                self._step_dt = t_now - self._last_now
+            self._last_now = t_now
+        else:
+            self._step_dt = 0.0
+            self._last_now = None
         self._admit(t_now, finished)
         self._prefill_chunk(finished)
         self._spec_fallback = set()
@@ -1593,68 +2135,157 @@ class ServingEngine:
         active = [i for i, r in enumerate(self._slots)
                   if r is not None and self._block_rides(i, r)]
         if not active:
+            if self._pend_q:
+                # the pipeline ran DRY because every rider finished
+                # inside an in-flight dispatch (EOS seen on the device):
+                # flush the ghost tail so the finishes retire
+                self._flush_async("eos", finished)
             return finished
+        pend = self._pend_q[-1] if self._pend_q else None
+        if pend is not None:
+            # new decode entrants sync (chunk_final, resume), cancel and
+            # preempt flush: a drift means the invariant broke.  At depth
+            # 1 the set must match exactly; at depth >= 2 riders may
+            # only LEAVE a deferred set (by finishing on the device)
+            if self.async_depth == 1:
+                if pend.active != active:
+                    raise RuntimeError(
+                        f"dispatch-ahead riding set drifted while a "
+                        f"harvest was deferred: pending {pend.active} vs "
+                        f"now {active}")
+            elif not set(active) <= set(pend.active):
+                raise RuntimeError(
+                    f"dispatch-ahead riding set grew while a harvest was "
+                    f"deferred: pending {pend.active} vs now {active}")
+        # stale-truth correction: every rider's host truth is behind by
+        # exactly the steps still in flight
+        lag = sum(p.n for p in self._pend_q)
         # a full block only when no active request can finish inside it
         # (a block never overshoots a budget); otherwise single steps
-        min_budget = min(self._slots[i].remaining for i in active)
+        min_budget = min(self._slots[i].remaining for i in active) - lag
         n = 1 if min_budget < self.steps_per_call else self.steps_per_call
-        budget = np.zeros((self.num_slots,), np.int32)
-        for i in active:
-            budget[i] = self._slots[i].remaining
-        reqs = [self._slots[i] for i in active]
+        # fused window (depth >= 2): when the next S iterations are
+        # provably eventless (nothing queued or swapped to admit, no
+        # chunk, a deferrable dispatch, budget headroom beyond the whole
+        # window) dispatch them as ONE program of S x n steps
+        iters = 1
+        fuse_cap = self.async_depth
+        if self._queue:
+            # a queued request blocks fusing, unless every queued entry
+            # is a known FUTURE arrival on an explicit step(now=) clock:
+            # then the window shrinks to close at the arrival step
+            fuse_cap = 0
+            if self._step_dt > 0 and \
+                    all(r.arrival_time > t_now for r in self._queue):
+                nxt = min(r.arrival_time for r in self._queue)
+                until = int(-(-(nxt - t_now) // self._step_dt))
+                fuse_cap = min(self.async_depth, until)
+        if (self.async_depth > 1 and not self._prefilling
+                and not self._swapped and fuse_cap > 1
+                and min_budget > self.async_depth * n
+                and self._block_sync_reason(n, active, lag) is None):
+            iters = fuse_cap
+        n_total = n * iters
         pre_lens = np.array(self._lens)
+        tables = self._dev(self._decode_tables())
+        if pend is not None:
+            # every current rider rode every pending dispatch, so its
+            # true pre-dispatch lens is the mirror plus the steps in
+            # flight; the carries feed straight in, device to device
+            pre_lens[active] += lag
+            carries = pend.out[1:5]
+        else:
+            budget = np.zeros((self.num_slots,), np.int32)
+            for i in active:
+                budget[i] = self._slots[i].remaining
+            carries = (self._dev(self._tok), self._dev(self._lens),
+                       self._dev(self._done), self._dev(budget))
         t_blk = self._clock()
-        out = paged_decode_block(
-            self._model, self.cfg, n, self._dev(self._tok),
-            self._dev(self._lens), self._dev(self._done), self._dev(budget),
-            self._dev(self._decode_tables()), self._arenas, wq=self._wq_ctx)
-        toks = out[0].cpu().numpy()
-        tok, lens, done = (out[1].cpu().numpy(), out[2].cpu().numpy(),
-                           out[3].cpu().numpy())
-        self._decode_seconds += self._clock() - t_blk
-        self._n["decode_steps"] += n
-        self._n["busy_slot_steps"] += n * len(active)
+        out = self._block_program(n_total)(*carries, tables)
+        host, event, slot = self._stage_block(out)
+        dt = self._clock() - t_blk
+        self._disp_s += dt
+        self._decode_seconds += dt
+        # plan-known accounting lands at DISPATCH (the lockstep step);
+        # token streams and the KV sweep land at harvest
+        self._n["decode_steps"] += n_total
+        self._n["busy_slot_steps"] += n_total * len(active)
         self._n["block_dispatches"] += 1
-        self._absorb_block(active, reqs, toks, tok, lens, done, pre_lens,
-                           finished)
+        new_pend = _PendingBlock(
+            step_idx=self._step_idx, n=n_total, per_iter=n, iters=iters,
+            active=list(active), reqs=[self._slots[i] for i in active],
+            pre_lens=pre_lens, out=tuple(out), host=host, event=event,
+            slot=slot)
+        self._pend_q.append(new_pend)
+        # THE overlap point: older dispatches are harvested only now,
+        # after this iteration's dispatch was enqueued
+        while len(self._pend_q) > self.async_depth:
+            self._harvest_next(finished)
+            self._harvests += 1
+        reason = self._block_sync_reason(
+            n_total, active, lag=sum(p.n for p in self._pend_q) - n_total)
+        if reason is not None:
+            if self.async_dispatch:
+                self._syncs[reason] += 1
+            # older dispatches flush first, FIFO (their waits charge to
+            # overlap: they ran under later host work) ...
+            while len(self._pend_q) > 1:
+                self._harvest_next(finished)
+            self._pend_q.pop()
+            t_mat = self._clock()
+            toks, tok, lens, done = self._block_host(new_pend)
+            # ... and the new dispatch's own wait is part of the
+            # dispatch, the lockstep engine's attribution
+            dt = self._clock() - t_mat
+            self._disp_s += dt
+            self._decode_seconds += dt
+            toks = self._checked_harvest(toks)
+            self._absorb_block(new_pend, toks, tok, lens, done, finished)
         return finished
 
-    def _absorb_block(self, active, reqs, toks, tok, lens, done, pre_lens,
+    def _absorb_block(self, p: _PendingBlock, toks, tok, lens, done,
                       out: List[Request]):
-        """Adopt a decode block's outputs as host truth: extend each
-        rider's token stream, charge its per-step KV sweep (scanned step
-        s attends up to ``pre_lens + s``, clamped to the row's final
-        ``lens`` where an EOS froze it) and retire riders that emitted
-        EOS or ran out of budget."""
+        """The harvest half of one decode dispatch: adopt the host copies
+        of its carries as host truth, extend each rider's token stream,
+        charge its per-step KV sweep (scanned step s attends up to
+        ``pre_lens + s``, clamped to the row's final ``lens`` where an
+        EOS froze it) and retire riders whose finish bit flipped.  Shared
+        by the sync path and the deferred one.  A fused dispatch is
+        re-split here, iteration by iteration, so token streams and the
+        sweep equal the unfused engine's; riders that finished in an
+        EARLIER pending dispatch or an earlier iteration of this one were
+        frozen on the device and are skipped."""
+        per, active = p.per_iter, p.active
         self._tok = tok
         self._lens = lens
         eos = self.cfg.eos_token_id
         t = self._clock()
-        per = toks.shape[1]
-        if toks.size and (int(toks.min()) < 0
-                          or int(toks.max()) >= self._vocab):
-            raise RuntimeError(
-                f"decode block at step {self._step_idx} produced token "
-                f"ids outside [0, {self._vocab})")
-        self._count_kv_sweep([min(int(pre_lens[i]) + s, int(lens[i]))
-                              for i in active for s in range(per)])
-        for i, req in zip(active, reqs):
-            row = toks[i]
-            req.tokens.extend(int(x) for x in row)
-            req.remaining -= per
-            if (eos is not None and eos in row) or req.remaining == 0:
-                self._slots[i] = None
-                done[i] = True         # freeze the row until re-use
-                self._release_blocks(req)
-                self._finish(req, t, out)
+        sweep: List[int] = []
+        for j in range(p.iters):
+            for idx, i in enumerate(active):
+                req = p.reqs[idx]
+                if req.state != "decode":
+                    continue           # ghost / finished-earlier rider
+                row = toks[i, j * per:(j + 1) * per]
+                base = int(p.pre_lens[i]) + j * per
+                sweep.extend(min(base + s, int(lens[i]))
+                             for s in range(per))
+                req.tokens.extend(int(x) for x in row)
+                req.remaining -= per
+                if (eos is not None and eos in row) or req.remaining == 0:
+                    self._slots[i] = None
+                    done[i] = True     # freeze the row until re-use
+                    self._release_blocks(req)
+                    self._finish(req, t, out)
+        self._count_kv_sweep(sweep)
         self._done = done
 
     def run(self, max_iters: Optional[int] = None) -> List[Request]:
         """Drain the queue and the swap list: admit/resume/prefill/
         decode until every submitted request is terminal.  Sleeps only
         when idle ahead of a future arrival.  Returns this call's
-        terminal requests (finished and timed out) in submission
-        order."""
+        terminal requests (finished and timed out) in submission order,
+        with the pipeline flushed."""
         finished: List[Request] = []
         iters = 0
         while self._queue or self._swapped \
@@ -1669,11 +2300,22 @@ class ServingEngine:
             finished.extend(self.step(now))
             iters += 1
             if max_iters is not None and iters > max_iters:
+                # flush before raising: every token the device produced
+                # reaches its request, and the engine stays consistent
+                self._flush_async("drain")
+                self._reconcile_host_tier()
                 raise RuntimeError(
                     f"serving loop exceeded max_iters={max_iters} with "
                     f"{len(self._queue)} queued / "
                     f"{len(self._swapped)} swapped / "
                     f"{sum(r is not None for r in self._slots)} active")
+        # at depth 1 a drained loop leaves nothing pending (the last
+        # rider's final block is a budget or eos sync); at depth >= 2
+        # ghost dispatches after an in-flight EOS can remain
+        self._flush_async("drain", finished)
+        self._reconcile_host_tier()
+        finished.extend(self._flush_finishes)
+        self._flush_finishes = []
         return sorted(finished, key=lambda r: r.request_id)
 
     def stats(self) -> dict:
@@ -1682,9 +2324,11 @@ class ServingEngine:
         ``prefix_hit_rate`` is block-granular over matchable prompt
         blocks; ``peak_blocks_in_use`` is the pool's refcount>0
         high-water mark; ``decode_seconds`` and ``verify_seconds`` are
-        host wall time spent in decode blocks and verify forwards, device
-        sync included; ``weight_bytes_swept`` and ``kv_bytes_swept`` are
-        the modeled weight and KV streams (every prefill chunk, decode
+        host wall time spent dispatching decode blocks and verify
+        forwards, with the wait of a harvest that syncs at once (a
+        deferred harvest's wait is ``overlap_seconds``);
+        ``weight_bytes_swept`` and ``kv_bytes_swept`` are the modeled
+        weight and KV streams (every prefill chunk, decode
         step and verify forward reads the whole weight set once).  The
         ``spec_*`` keys cover speculative decoding:
         ``spec_acceptance_rate`` is accepted over drafted tokens and
@@ -1701,8 +2345,20 @@ class ServingEngine:
         ``prefix_partial_hits`` (admissions whose token-level match ran
         past the last mappable block), ``prefix_host_hits``/
         ``host_swapin_blocks`` (hits served by a host->device swap-in).
+        The dispatch-ahead keys: ``async_syncs`` and
+        ``async_syncs_by_reason`` count forced early harvests by the
+        closed ``ASYNC_SYNC_REASONS`` vocabulary, ``async_harvests`` the
+        harvests that ran after the next dispatch was enqueued;
+        ``dispatch_seconds``/``overlap_seconds``/``host_seconds`` split
+        the steps' wall (``step()``); ``decode_graphs`` counts the
+        decode block's CUDA graphs, their replays and the seconds their
+        captures took (none on the CPU).  While a harvest is deferred
+        the output-dependent counters (``kv_bytes_swept``, tokens) lag
+        by at most the pipeline's depth; ``run()`` returns flushed.
         """
         n = self._n
+        graphs = [p for p in self._blocks.values()
+                  if isinstance(p, DecodeBlockGraph)]
         steps = n["decode_steps"]
         verifies = n["spec_verify_steps"]
         drafted = n["spec_draft_tokens"]
@@ -1766,6 +2422,18 @@ class ServingEngine:
             "swapped_waiting": len(self._swapped),
             "shed": n["shed"],
             "timeouts": n["timeouts"],
+            "async_dispatch": self.async_dispatch,
+            "async_depth": self.async_depth,
+            "async_syncs": sum(self._syncs.values()),
+            "async_harvests": self._harvests,
+            "async_syncs_by_reason": dict(self._syncs),
+            "dispatch_seconds": self._time["dispatch"],
+            "overlap_seconds": self._time["overlap"],
+            "host_seconds": self._time["host"],
+            "decode_graphs": {
+                "captures": len(graphs),
+                "replays": sum(g.replays for g in graphs),
+                "capture_seconds": self._graph_capture_s},
         }
 
     def engine_spec(self) -> dict:

@@ -23,6 +23,7 @@ it is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,8 +60,10 @@ class Kernel:
     ``launches`` counts the kernel launches made through ``launch``: the
     wrapper that owns this object calls ``launch`` exactly once per
     kernel launch, so a run can show that it went through the kernel.
-    Two kernels may share one source (``source=``, the file's stem): they
-    share its library and each keeps its own entry point and count.
+    A replay of a captured CUDA graph calls no wrapper: the graph adds
+    the launches its capture recorded (``add_launches``).  Two kernels
+    may share one source (``source=``, the file's stem): they share its
+    library and each keeps its own entry point and count.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence,
@@ -116,6 +119,31 @@ KERNELS: Dict[str, Kernel] = {}
 def register(kernel: Kernel) -> Kernel:
     KERNELS[kernel.name] = kernel
     return kernel
+
+
+@contextlib.contextmanager
+def launches_taken_out(record: Dict[str, int]):
+    """Take the launches made inside the block back out of every
+    ``Kernel.launches`` and add them to ``record`` (name -> count).  A
+    CUDA graph's warm-up and capture run the wrappers, so their counts
+    rise, but a capture runs nothing on the card; the graph keeps what
+    its capture launched and ``add_launches`` charges it per replay."""
+    before = {name: k.launches for name, k in KERNELS.items()}
+    try:
+        yield record
+    finally:
+        for name, k in KERNELS.items():
+            made = k.launches - before.get(name, 0)
+            if made:
+                record[name] = record.get(name, 0) + made
+            k.launches = before.get(name, 0)
+
+
+def add_launches(record: Dict[str, int]):
+    """Count one replay of a captured graph: every kernel launch its
+    capture recorded (``launches_taken_out``) is made again."""
+    for name, n in record.items():
+        KERNELS[name].launches += n
 
 
 def build_all(kernels: Optional[Iterable[Kernel]] = None) -> Dict[str, str]:

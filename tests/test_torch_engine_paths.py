@@ -173,7 +173,8 @@ def _engines(jnet, tnet, opts, eos_id=None, engine_kw=None, drafters=None):
     kw = dict(_engine_kw() if engine_kw is None else engine_kw, **opts)
     jdr, tdr = drafters if drafters is not None else (None, None)
     tclock, jclock = StepClock(), StepClock()
-    teng = ServingEngine(tnet, device="cpu", clock=tclock, drafter=tdr, **kw)
+    teng = ServingEngine(tnet, device="cpu", async_dispatch=False,
+                         clock=tclock, drafter=tdr, **kw)
     jeng = JaxEngine(jnet, async_dispatch=False,
                      registry=MetricsRegistry(), clock=jclock, drafter=jdr,
                      **kw)

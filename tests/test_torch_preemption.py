@@ -166,7 +166,8 @@ def _pair(jnet, tnet, kw, jkw=None):
     jclock, tclock = StepClock(), StepClock()
     jeng = JaxEngine(jnet, async_dispatch=False, registry=MetricsRegistry(),
                      clock=jclock, **kw, **(jkw or {}))
-    teng = ServingEngine(tnet, device="cpu", clock=tclock, **kw)
+    teng = ServingEngine(tnet, device="cpu", async_dispatch=False,
+                         clock=tclock, **kw)
     return [Run(jeng, jclock), Run(teng, tclock)]
 
 
@@ -392,7 +393,8 @@ def test_bounded_queue_shed_and_admission_error_as_jax(bridged):
     for eng_cls, net, extra in (
             (JaxEngine, jnet, dict(async_dispatch=False,
                                    registry=MetricsRegistry())),
-            (ServingEngine, tnet, dict(device="cpu"))):
+            (ServingEngine, tnet, dict(device="cpu",
+                                       async_dispatch=False))):
         clock = StepClock()
         eng = eng_cls(net, clock=clock, **_kw(num_slots=1, max_queue=1),
                       **extra)
@@ -451,7 +453,8 @@ def test_spec_row_preempted_and_resumed(bridged):
                           registry=MetricsRegistry(), clock=jclock,
                           drafter=JaxModelDrafter(jnet, **dkw), **kw),
                 jclock),
-            Run(ServingEngine(tnet, device="cpu", clock=tclock,
+            Run(ServingEngine(tnet, device="cpu", async_dispatch=False,
+                              clock=tclock,
                               drafter=ModelDrafter(tnet, **dkw), **kw),
                 tclock)]
     logs = {}

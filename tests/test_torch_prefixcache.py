@@ -294,7 +294,8 @@ def _multiturn(jnet, tnet, compute, kv, turns):
     vocab = tiny_llama_config().vocab_size
     sys_ids = rng.integers(0, vocab, (4,)).astype(np.int32)
     tclock, jclock = StepClock(), StepClock()
-    teng = ServingEngine(tnet, device="cpu", clock=tclock,
+    teng = ServingEngine(tnet, device="cpu", async_dispatch=False,
+                         clock=tclock,
                          **_kw(compute, kv))
     jeng = JaxEngine(jnet, async_dispatch=False, registry=MetricsRegistry(),
                      clock=jclock, **_kw(compute, kv))
@@ -461,7 +462,8 @@ def test_cache_aware_admission_order_matches_jax(bridged):
     jrounds, jc = _admission_order(
         JaxEngine, jnet, dict(async_dispatch=False,
                               registry=MetricsRegistry()))
-    trounds, tc = _admission_order(ServingEngine, tnet, dict(device="cpu"))
+    trounds, tc = _admission_order(ServingEngine, tnet,
+                                   dict(device="cpu", async_dispatch=False))
     assert trounds == jrounds and tc == jc == 5
     # the resident sharer (id 3) admits ahead of earlier cold requests;
     # priority dominates residency (the cold priority-1 id 4 before the

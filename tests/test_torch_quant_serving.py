@@ -129,6 +129,7 @@ def served(bridged):
     runs = {}
     for wd in WDS:
         teng = ServingEngine(tnet, num_slots=2, device="cpu",
+                             async_dispatch=False,
                              prefix_cache_mode="digest",
                              enable_preemption=False, **_engine_kw(wd))
         treqs = _serve(teng, trace)

@@ -94,6 +94,7 @@ def served():
     trace = _trace(tiny_llama_config().vocab_size)
 
     teng = ServingEngine(tnet, num_slots=2, device="cpu",
+                         async_dispatch=False,
                          prefix_cache_mode="digest", enable_preemption=False,
                          **_engine_kw())
     treqs = _serve(teng, trace)
@@ -154,7 +155,6 @@ def test_scheduling_identical_to_jax_engine(served):
                                      "mesh": object()},
     {"mesh": object()}, {"role": "prefill"}, {"adapter_store": object()},
     {"fault_injector": object()},
-    {"async_dispatch": True}, {"async_depth": 2},
     {"tenant_weights": {"a": 1.0}}, {"registry": object()},
     {"cache_dtype": "bfloat16"},
 ], ids=lambda kw: next(iter(kw)))
@@ -168,10 +168,12 @@ def test_unported_engine_features_raise(kw):
 @pytest.mark.parametrize("kw", [
     {"host_cache_blocks": 8}, {"prefix_cache_mode": "radix"},
     {"enable_preemption": True}, {"max_queue": 2},
+    {"async_dispatch": True}, {"async_depth": 2}, {"async_depth": 3},
 ], ids=lambda kw: next(iter(kw)))
 def test_overload_engine_keywords_construct(kw):
-    """The keywords of preemption, the host tier, the radix cache and the
-    bounded queue are ported: they construct an engine that serves."""
+    """The keywords of preemption, the host tier, the radix cache, the
+    bounded queue and the dispatch-ahead pipeline are ported: they
+    construct an engine that serves."""
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
     eng = ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
                         compute_dtype="float32", device="cpu", **kw)
@@ -214,10 +216,11 @@ def test_dropped_engine_frees_its_arenas(mode):
 
 def test_engine_defaults_are_the_reference_engines():
     """``ServingEngine()`` defaults: the radix cache, preemption on, a
-    host tier of 4 x num_blocks, synchronous dispatch."""
+    host tier of 4 x num_blocks, dispatch-ahead at depth 1."""
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
     eng = ServingEngine(net, num_slots=2, prompt_len=4, max_cache_len=8,
                         compute_dtype="float32", device="cpu")
+    assert eng.async_dispatch is True and eng.async_depth == 1
     assert eng.prefix_cache_mode == "radix" and eng._radix is not None
     assert eng.enable_preemption and eng.max_queue is None
     assert eng._host_tier.cache_capacity == 4 * eng.num_blocks

@@ -133,6 +133,7 @@ def served(bridged):
     runs = {}
     for name, (jdr, tdr) in _drafters(bridged).items():
         teng = ServingEngine(tnet, num_slots=2, device="cpu", drafter=tdr,
+                             async_dispatch=False,
                              prefix_cache_mode="digest",
                              enable_preemption=False, **_engine_kw())
         treqs = _serve(teng, trace)
@@ -143,6 +144,7 @@ def served(bridged):
         jreqs = _serve(jeng, trace)
         runs[name] = dict(teng=teng, treqs=treqs, jeng=jeng, jreqs=jreqs)
     plain = ServingEngine(tnet, num_slots=2, device="cpu",
+                          async_dispatch=False,
                           prefix_cache_mode="digest", enable_preemption=False,
                           **_engine_kw())
     preqs = _serve(plain, trace, spec=False)
