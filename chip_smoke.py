@@ -49,14 +49,23 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    CUDA-event timings of the kernel, the plain version and one PyTorch
    library call that computes the same function where there is one (a
    yardstick the port never calls), beside the least time the card could
-   take (``bound_ms``);
+   take (``bound_ms``); and the sampler (``phase_sampler``): threefry
+   bits and uniforms of 8 keys over ``[8, 128256]`` bit-equal card vs
+   CPU, ``categorical_rows`` over 65536 draws of one 16-token row against
+   its softmax by a chi-square test at the 0.999 quantile, and
+   ``sample_rows`` alone timed in the greedy, sampled and sampled +
+   filtered buckets, eagerly and as a captured graph;
 3a. the decode block as a CUDA graph at full Llama-3-8B width (32
    layers, bfloat16, random weights from ``--seed``): the engine's
    captured program against the eager ``paged_decode_block`` at B=8
    (every slot live at a ragged length) for 1 and 2 scanned steps, in
    bf16 and with an int8 KV cache and int8 weights, on the same inputs
    and copies of the same arenas: tokens, carries and arenas bit-equal,
-   and one replay counting exactly the launches of one eager block;
+   and one replay counting exactly the launches of one eager block; then
+   the sampled block (all four sampling flags: a greedy/sampled mix with
+   top-k, top-p, penalties, a presence plane and a mask bias), n = 1 and
+   2: tokens, carries, ``pos``, ``presence`` and arenas bit-equal, the
+   same launches;
 3. serving at the same width: 8 requests through an 8-slot
    ``ServingEngine`` at its defaults (dispatch-ahead at depth 1, the
    decode block a captured CUDA graph, the radix prefix cache with its
@@ -68,9 +77,9 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    counters must rise by exactly their per-step counts (a graph replay
    counts the launches its capture recorded); each run logs tokens/s,
    TTFT, the forced syncs by reason, overlap seconds, the graphs and
-   peak memory, and a decode window's unprofiled wall, device busy time
-   and idle share (the union of the device intervals against the
-   window's wall); the first default run also runs 8 steady-state decode
+   peak memory, and each arm's first run a decode window's unprofiled
+   wall, device busy time and idle share (the union of the device
+   intervals against the window's wall); the first default run also runs 8 steady-state decode
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (no hidden
    host sync, every harvest deferred);
 3b. quantized serving: the same model and trace through two engines with
@@ -103,12 +112,25 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    next allocation and promoted back for a request sharing its first
    256 tokens, bit-equal to the demoted parcels; demote (a lazy gather
    reconciled at the next harvest point) and promote times;
+3f. sampled serving at the same width: 8 requests (2 greedy, 2 seeded at
+   T=0.8, top_k=50 top_p=0.9, repetition_penalty=1.2, a DFA token mask
+   over a token subset, a seedless top_p=0.95) through phase 3's three
+   arms in turns, twice each: tokens equal across the six runs, greedy
+   rows equal an all-greedy engine's, tokens in the vocabulary, the mask
+   row legal under its DFA, phase 3's launch formula, no sync in the
+   lockstep arm and the same syncs by reason (mask and penalty among
+   them) in both runs of an arm; a profiled decode window of the mix and
+   of its deferrable rows against phase 3's greedy one (sampler kernels
+   by group), and the sync-debug window on a sampled mix; then the mix
+   with an int8 KV cache and int8 weights, and a sampled spec trace
+   (spec_decode=4, a ModelDrafter over the target, T=0.8) with its
+   acceptance and residual resamples;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same trace through the lockstep arm and against the same
    request alone on a fresh 1-slot engine; then the same with an int8 KV
    cache and int8 weights;
-4b. quantized card-vs-CPU agreement: a 2-layer float32 model at the same
+4b. quantized card-vs-CPU agreement: a 1-layer float32 model at the same
    width with an int8 KV cache and int4 weights, on the card and on the
    CPU from the same state dict: identical weight plans, and the logits
    of every teacher-forced step and the greedy tokens agree within
@@ -129,6 +151,11 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    with an int8 KV cache; a ``ModelDrafter`` spec row preempted and
    resumed against the uninterrupted run; each with its kernels
    launched;
+4f. sampled exactness: a 4-layer float32 model at 8B width serves a
+   sampled mix on the card and, from the same state dict, on the CPU:
+   tokens equal up to each request's first position whose CPU top-two
+   decisive margin is <= 0.01; then ``generate(do_sample=True)`` on the
+   card against the CPU under the same rule;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -1561,15 +1588,15 @@ def phase_serving(torch, seed, cfg, model):
     """Phase 3: the serving trace through an 8-slot engine in three arms
     (``SERVING_ARMS``), in turns, twice each.  Every run holds the launch
     formula; the arms' tokens must be equal; each run logs tokens/s, TTFT,
-    the unprofiled wall and the device busy time of a decode step, the
-    device's idle share (1 - the union of its kernel intervals over the
-    window's wall), the forced syncs by reason, the overlap seconds, the
-    decode graphs and peak memory.  The first depth-1 run also runs the
+    the forced syncs by reason, the overlap seconds, the decode graphs and
+    peak memory, and each arm's first run the unprofiled wall and the
+    device busy time of a decode step and the device's idle share (1 -
+    the union of its kernel intervals over the window's wall).  The first depth-1 run also runs the
     sync-debug window.  Returns the launch counts of the first depth-1
-    run (the engine's defaults)."""
+    run (the engine's defaults) and that run's decode profile."""
     from paddle_tpu_torch.inference import ServingEngine
     nl = cfg.num_hidden_layers
-    tokens, first, main_launches = None, None, None
+    tokens, first, main_launches, main_prof = None, None, None, None
     for turn, ai in enumerate(SERVING_TURNS):
         tag, arm = SERVING_ARMS[ai]
         torch.cuda.empty_cache()
@@ -1600,9 +1627,11 @@ def phase_serving(torch, seed, cfg, model):
                      f"{g['capture_seconds'] * 1e3:.1f} ms, "
                      f"{g['replays']} replays; peak memory "
                      f"{peak / 2 ** 30:.2f} GiB; ")
-        prof = _profile_decode(torch, eng, rng, cfg.vocab_size)
+        # one decode profile per arm, on its first run
+        prof = (_profile_decode(torch, eng, rng, cfg.vocab_size)
+                if SERVING_TURNS.index(ai) == turn else None)
         if ai == 1 and main_launches is None:
-            main_launches = launches
+            main_launches, main_prof = launches, prof
             _sync_debug_window(torch, eng, rng, cfg.vocab_size)
             if prof is not None:
                 ratio = prof["wall_ms"] / prof["busy_ms"]
@@ -1614,19 +1643,21 @@ def phase_serving(torch, seed, cfg, model):
     torch.cuda.empty_cache()
     _log(f"serving: the {len(SERVING_TURNS)} runs of "
          f"{len(SERVING_ARMS)} arms gave equal tokens")
-    return main_launches
+    return main_launches, main_prof
 
 
-def _sync_debug_window(torch, eng, rng, vocab, steps=8):
+def _sync_debug_window(torch, eng, rng, vocab, steps=8, sampling=None):
     """No hidden host sync on the steady-state path: 8 fresh requests
-    fill the slots and decode until every harvest defers, then ``steps``
-    decode steps run under ``torch.cuda.set_sync_debug_mode("error")``
-    (a ``.item()``, ``.cpu()``, pageable copy or boolean-mask index
-    raises there; the harvest's wait on its event is not such a sync).
-    Every step must defer its harvest, with no forced sync."""
+    (``sampling``: their per-request configurations, or greedy) fill the
+    slots and decode until every harvest defers, then ``steps`` decode
+    steps run under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    ``.item()``, ``.cpu()``, pageable copy or boolean-mask index raises
+    there; the harvest's wait on its event is not such a sync).  Every
+    step must defer its harvest, with no forced sync."""
+    mix = sampling if sampling is not None else [None] * eng.num_slots
     reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
-                       max_new_tokens=2 * steps + 8)
-            for _ in range(eng.num_slots)]
+                       max_new_tokens=2 * steps + 8, sampling=sp)
+            for sp in mix]
     while any(r.state in ("queued", "prefill") for r in reqs) \
             or not eng._pend_q:
         eng.step()
@@ -1647,9 +1678,10 @@ def _sync_debug_window(torch, eng, rng, vocab, steps=8):
             f"{after['async_syncs']}, deferred harvests "
             f"{before['async_harvests']} -> {after['async_harvests']} over "
             f"{steps} steps")
-    _log(f"sync-debug window: {steps} steady-state depth-1 decode steps "
-         f"under set_sync_debug_mode('error'): no hidden sync, every "
-         f"harvest deferred")
+    _log(f"sync-debug window ({'sampled mix' if sampling else 'greedy'}): "
+         f"{steps} steady-state depth-1 decode steps under "
+         f"set_sync_debug_mode('error'): no hidden sync, every harvest "
+         f"deferred")
 
 
 def _graph_inputs(torch, eng, rng, vocab):
@@ -1809,8 +1841,8 @@ def phase_quant_serving(torch, seed, cfg, model):
 # phase 3c's trace: 8 requests whose prompt plus output fit the draft
 # model's 512-token context grid, so a drafter over the target sees the
 # whole sequence; (prompt length, max_new_tokens)
-SPEC_TRACE = [(64, 32), (128, 40), (200, 24), (256, 48), (300, 16),
-              (96, 36), (384, 28), (150, 44)]
+SPEC_TRACE = [(64, 16), (128, 20), (200, 12), (256, 24), (300, 8),
+              (96, 18), (384, 14), (150, 22)]
 SPEC_TRACE_SHORT = [(n, 12) for n, _m in SPEC_TRACE]
 
 
@@ -2271,6 +2303,561 @@ def phase_radix_tier(torch, seed, cfg, model):
     return launches
 
 
+# -- the sampled half (phases 2's sampler row, 3a's sampled graph, 3f, 4f) --
+
+def _cycle_dfa(np, vocab, seed, states=4, width=2048):
+    """A ``[states, vocab]`` DFA over a token subset that never ends:
+    state s allows ``width`` tokens of its own random subset and moves to
+    state s + 1 (mod ``states``)."""
+    rng = np.random.default_rng(seed)
+    t = np.full((states, vocab), -1, np.int32)
+    for s in range(states):
+        t[s, rng.choice(vocab, width, replace=False)] = (s + 1) % states
+    return t
+
+
+def _sampled_mix(np, vocab, seed):
+    """The eight per-request configurations of phase 3f (fresh mask
+    processors on every call: they are stateful): 2 greedy, 2 seeded at
+    T=0.8, one at top_k=50 top_p=0.9, one with repetition_penalty=1.2,
+    one under a DFA token mask and one seedless at top_p=0.95."""
+    from paddle_tpu_torch.inference import DfaTokenMask, SamplingParams
+    return [None, None,
+            SamplingParams(temperature=0.8, seed=seed + 1),
+            SamplingParams(temperature=0.8, seed=seed + 2),
+            SamplingParams(top_k=50, top_p=0.9, seed=seed + 3),
+            SamplingParams(repetition_penalty=1.2, seed=seed + 4),
+            SamplingParams(temperature=0.8, seed=seed + 5,
+                           mask_processor=DfaTokenMask(
+                               _cycle_dfa(np, vocab, seed))),
+            SamplingParams(top_p=0.95)]
+
+
+def _planes_on_card(torch, np, rng, b, vocab, dev, flags):
+    """Sampling planes of every flag in ``flags`` for ``b`` rows on the
+    card: random keys and positions, a greedy/sampled mix, top-k and
+    top-p rows, penalties, a random presence plane and mask bias."""
+    from paddle_tpu_torch.inference.sampling import MASK_BIAS
+    sampled, _f, penalty, bias = flags
+    as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    planes = {}
+    if sampled:
+        planes.update(
+            base=as_t(rng.integers(0, 2 ** 32, (b, 2)).astype(np.int64)),
+            pos=as_t(rng.integers(0, 500, b).astype(np.int64)),
+            temp=as_t(np.where(np.arange(b) % 2, 0.8, 1.0).astype(
+                np.float32)),
+            top_k=as_t(np.where(np.arange(b) % 3 == 0, 50, 0).astype(
+                np.int64)),
+            top_p=as_t(np.where(np.arange(b) % 4 == 1, 0.9, 1.0).astype(
+                np.float32)),
+            greedy=as_t(np.arange(b) % 4 == 3))
+    if penalty:
+        planes.update(rep=as_t(np.full(b, 1.2, np.float32)),
+                      presence=as_t(rng.random((b, vocab)) < 0.01))
+    if bias:
+        banned = rng.random((b, vocab)) < 0.5
+        banned[:, 0] = False
+        planes["bias"] = as_t(np.where(banned, MASK_BIAS, 0.0).astype(
+            np.float32))
+    return planes
+
+
+def phase_sampler(torch, seed):
+    """Phase 2's sampler row: the threefry bits and uniforms of 8 keys over
+    ``[8, 128256]`` on the card bit-equal to the same call on the CPU;
+    ``categorical_rows`` over 65536 positions of one fixed 16-token row
+    against its softmax by a chi-square test at the 0.999 quantile; and
+    ``sample_rows`` alone at one decode step's shape (bf16 logits
+    ``[8, 128256]``) timed in the greedy, the sampled and the sampled +
+    filtered buckets (CUDA events), eagerly (a few hundred launches, so
+    the host's launch gaps count) and as a captured CUDA graph (device
+    time, as inside the decode block's graph)."""
+    import numpy as np
+    from scipy.stats import chi2
+    from paddle_tpu_torch.inference import sampling, threefry
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 41)
+    keys = rng.integers(0, 2 ** 32, (8, 2)).astype(np.int64)
+    kc, kg = torch.from_numpy(keys), torch.from_numpy(keys).to(dev)
+    shape = (128256,)
+    bits_c = threefry.random_bits(kc, shape)
+    bits_g = threefry.random_bits(kg, shape)
+    u_c = threefry.uniform(kc, shape)
+    u_g = threefry.uniform(kg, shape)
+    torch.cuda.synchronize()
+    if not torch.equal(bits_g.cpu(), bits_c):
+        raise AssertionError("sampler: threefry bits on the card differ "
+                             "from the CPU's")
+    if not torch.equal(u_g.cpu().view(torch.int32), u_c.view(torch.int32)):
+        raise AssertionError("sampler: uniforms on the card differ from "
+                             "the CPU's")
+    n, v = 65536, 16
+    row = torch.linspace(-2.0, 2.0, v)
+    base = threefry.as_key(threefry.prng_key(seed)).to(dev).expand(n, 2)
+    ks = sampling._fold_keys(base, torch.arange(n, device=dev), 1)
+    draws = sampling.categorical_rows(row.to(dev).expand(n, v).contiguous(),
+                                      ks)
+    counts = torch.bincount(draws.long(), minlength=v).cpu().double()
+    expect = torch.softmax(row.double(), 0) * n
+    stat = float(((counts - expect) ** 2 / expect).sum())
+    limit = float(chi2.ppf(0.999, v - 1))
+    if not stat < limit:
+        raise AssertionError(f"sampler: chi-square {stat:.2f} over {n} "
+                             f"draws >= the 0.999 quantile {limit:.2f}")
+    logits = torch.randn(8, 128256, device=dev).to(torch.bfloat16)
+    times = {}
+    for tag, flags in (("greedy", sampling.NO_FLAGS),
+                       ("sampled", (True, False, False, False)),
+                       ("sampled + filtered", (True, True, False, False))):
+        planes = _planes_on_card(torch, np, rng, 8, 128256, dev, flags)
+
+        def fn():
+            return sampling.sample_rows(logits, planes, flags)
+        eager = _time_ms(torch, fn)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        times[tag] = (eager, _time_ms(torch, graph.replay))
+        del graph
+    _log(f"sampler: threefry bits and uniforms over [8, 128256] bit-equal "
+         f"card vs CPU; categorical_rows over {n} draws of one 16-token row: "
+         f"chi-square {stat:.2f} < {limit:.2f} (0.999 quantile, {v - 1} "
+         f"dof); sample_rows [8, 128256] bf16 alone, eager / as a graph: "
+         + ", ".join(f"{k} {e:.4f} / {g:.4f} ms"
+                     for k, (e, g) in times.items()))
+    return times
+
+
+def phase_sampled_graph(torch, seed, cfg, model):
+    """Phase 3a, sampled: the decode block graph with all four sampling
+    flags on (a greedy/sampled mix with top-k, top-p, penalties, a
+    presence plane and a mask bias) against the eager
+    ``decode_block_carries`` on the same inputs and copies of the same
+    arenas, n = 1 and 2: tokens, carries, ``pos``, ``presence`` and every
+    arena bit-equal, and one replay counting the launches of one eager
+    block."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.llm import decode_block_carries
+    from paddle_tpu_torch.ops import KERNELS
+    rng = np.random.default_rng(seed + 12)
+    flags = (True, True, True, True)
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, num_slots=8, prompt_len=512, chunk_len=256,
+                        max_cache_len=1024, block_len=16,
+                        compute_dtype="bfloat16")
+    for n in (1, 2):
+        inputs = _graph_inputs(torch, eng, rng, cfg.vocab_size)
+        planes = _planes_on_card(torch, np, rng, 8, cfg.vocab_size,
+                                 eng.device, flags)
+        t0 = time.perf_counter()
+        prog = eng._block_program(n, flags)
+        torch.cuda.synchronize()
+        t_cap = time.perf_counter() - t0
+        copies = [a.clone() for a in eng._arenas]
+        _zero_launches()
+        want = decode_block_carries(model, eng.cfg, n, *inputs, copies,
+                                    samp={k: v.clone()
+                                          for k, v in planes.items()},
+                                    flags=flags)
+        torch.cuda.synchronize()
+        eager = {k: v.launches for k, v in KERNELS.items()}
+        _zero_launches()
+        got = prog(*inputs, samp=planes)
+        torch.cuda.synchronize()
+        replay = {k: v.launches for k, v in KERNELS.items()}
+        got = tuple(got) + (prog.pos, prog.presence)
+        for name, g, w in zip(("toks", "tok", "lens", "done", "budget",
+                               "pos", "presence"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"sampled graph vs eager (n={n}): "
+                                     f"{name} differ")
+        for i, (a, c) in enumerate(zip(eng._arenas, copies)):
+            if not torch.equal(a.view(torch.uint8), c.view(torch.uint8)):
+                raise AssertionError(f"sampled graph vs eager (n={n}): "
+                                     f"arena {i} differs")
+        if replay != eager or not any(eager.values()):
+            raise AssertionError(f"sampled graph vs eager (n={n}): "
+                                 f"launches {replay} != {eager}")
+        _log(f"sampled graph vs eager (all four flags, bf16, B=8, n={n}): "
+             f"tokens, carries, pos, presence and {len(copies)} arenas "
+             f"bit-equal; capture {t_cap * 1e3:.1f} ms; launches per replay "
+             f"{ {k: v for k, v in replay.items() if v} }")
+        del copies
+    del eng
+    torch.cuda.empty_cache()
+
+
+# phase 3f's trace: (prompt length, max_new_tokens) of the 8 requests of
+# _sampled_mix, in slot order; the penalty row (5) rides before the mask
+# row (6) and finishes first, so both forced-sync reasons are charged
+SAMPLED_TRACE = [(384, 32), (64, 64), (512, 16), (200, 48), (130, 24),
+                 (450, 40), (96, 56), (320, 20)]
+
+
+def _sampled_trace(torch, eng, cfg, prompts, mix, specs=None,
+                   spec_decode=None):
+    """One run of a sampled trace: the launch counters set to 0 just
+    before and read just after.  Every request must finish with
+    in-vocabulary tokens.  Returns (launches, stats, wall, requests)."""
+    from paddle_tpu_torch.ops import KERNELS
+    specs = SAMPLED_TRACE if specs is None else specs
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(ids, max_new_tokens=m, sampling=sp,
+                       spec_decode=spec_decode)
+            for ids, (_n, m), sp in zip(prompts, specs, mix)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    _finished_in_vocab(reqs, [m for _, m in specs], cfg.vocab_size,
+                       "sampled serving")
+    return launches, eng.stats(), wall, reqs
+
+
+def _legal_under_dfa(table, out, tag):
+    s = 0
+    for t in out:
+        nxt = int(table[s, int(t)])
+        if nxt < 0:
+            raise AssertionError(f"{tag}: token {int(t)} illegal in DFA "
+                                 f"state {s}")
+        s = nxt
+
+
+def _add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase_sampled_serving(torch, seed, cfg, model, greedy_prof):
+    """Phase 3f: sampled serving at full Llama-3-8B width (phase 3's
+    model, bf16, 8 slots at the defaults).  The 8 requests of
+    ``_sampled_mix`` (``SAMPLED_TRACE``) run in phase 3's three arms in
+    turns, twice each: the tokens of every request equal across all six
+    runs, the greedy rows' tokens equal an all-greedy engine's on the
+    same prompts, every token in the vocabulary, the mask row's tokens
+    legal under its DFA, the launch formula of phase 3 (the sampler
+    launches no counted kernel), no forced sync in the lockstep arm and
+    the same syncs by reason in both runs of an arm, ``mask`` and
+    ``penalty`` among them.  The first depth-1 run logs a profiled decode
+    window against phase 3's greedy one (``greedy_prof``) and runs the
+    sync-debug window on a sampled mix.  Then one int8 KV + int8 W run of
+    the mix and one sampled spec run (spec_decode=4, a ModelDrafter over
+    the target, T=0.8).  Returns the launch counts summed over every
+    run."""
+    import numpy as np
+    from paddle_tpu_torch.inference import (ModelDrafter, SamplingParams,
+                                            ServingEngine)
+    nl = cfg.num_hidden_layers
+    rng = np.random.default_rng(seed + 17)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _m in SAMPLED_TRACE]
+    kw = dict(num_slots=8, prompt_len=512, chunk_len=256, max_cache_len=1024,
+              block_len=16, compute_dtype="bfloat16")
+    total = {}
+    torch.cuda.empty_cache()
+    ref = ServingEngine(model, **kw)
+    _, _, _, greedy_reqs = _sampled_trace(
+        torch, ref, cfg, prompts, [None] * len(prompts))
+    del ref
+    tokens, syncs = None, {}
+    table = _cycle_dfa(np, cfg.vocab_size, seed)
+    for turn, ai in enumerate(SERVING_TURNS):
+        tag, arm = SERVING_ARMS[ai]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(model, **kw, **arm)
+        mix = _sampled_mix(np, cfg.vocab_size, seed)
+        launches, st, wall, reqs = _sampled_trace(torch, eng, cfg, prompts,
+                                                  mix)
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches(launches, _serving_launches(nl, st, False), st)
+        _add_launches(total, launches)
+        outs = [r.output.tolist() for r in reqs]
+        if tokens is None:
+            tokens = outs
+            for i, sp in enumerate(mix):
+                if sp is None and outs[i] != greedy_reqs[i].output.tolist():
+                    raise AssertionError(
+                        f"sampled serving: greedy row {i} differs from the "
+                        f"all-greedy engine's")
+            _legal_under_dfa(table, reqs[6].output, "sampled serving")
+        elif outs != tokens:
+            raise AssertionError(f"sampled serving: the {tag} arm's tokens "
+                                 f"(turn {turn + 1}) differ from the first "
+                                 f"run's")
+        by = {k: v for k, v in st["async_syncs_by_reason"].items() if v}
+        if ai == 0 and by:
+            raise AssertionError(f"sampled serving: the lockstep arm "
+                                 f"charged syncs {by}")
+        if ai != 0 and not (by.get("mask") and by.get("penalty")):
+            raise AssertionError(f"sampled serving [{tag}]: syncs {by} lack "
+                                 f"mask or penalty")
+        if syncs.setdefault(tag, by) != by:
+            raise AssertionError(f"sampled serving [{tag}]: syncs {by} != "
+                                 f"{syncs[tag]} in the arm's other run")
+        g = st["decode_graphs"]
+        _log_serving(f"sampled serving [{tag}, turn {turn + 1}]",
+                     len(reqs), sum(m for _, m in SAMPLED_TRACE), wall, st,
+                     launches,
+                     f"sampled / greedy / masked tokens "
+                     f"{st['sampled_tokens']} / {st['greedy_tokens']} / "
+                     f"{st['masked_tokens']}; syncs {by or 'none'}; decode "
+                     f"graphs {g['captures']} captured in "
+                     f"{g['capture_seconds'] * 1e3:.1f} ms, {g['replays']} "
+                     f"replays; peak memory {peak / 2 ** 30:.2f} GiB; ")
+        if turn == 1:
+            # the whole mix (its mask and penalty rows sync every step),
+            # then the rows whose harvests defer (the sampler's device
+            # cost with the host hidden)
+            deferrable = [None, SamplingParams(temperature=0.8, seed=1),
+                          SamplingParams(top_k=50, top_p=0.9, seed=2),
+                          SamplingParams(top_p=0.95)] * 2
+            for what, mixf in (
+                    ("the mix", lambda: _sampled_mix(np, cfg.vocab_size,
+                                                     seed + 7)),
+                    ("deferrable rows (no mask, no penalty)",
+                     lambda: list(deferrable))):
+                prof = _profile_decode(torch, eng, rng, cfg.vocab_size,
+                                       sampling=mixf)
+                if prof is None or greedy_prof is None:
+                    continue
+                _log(f"sampled serving [depth 1, {what}]: unprofiled decode "
+                     f"step {prof['wall_ms']:.3f} ms against the greedy "
+                     f"arm's {greedy_prof['wall_ms']:.3f} ms "
+                     f"({prof['wall_ms'] / greedy_prof['wall_ms']:.3f} x); "
+                     f"device busy {prof['busy_ms']:.3f} against "
+                     f"{greedy_prof['busy_ms']:.3f} ms a step; idle "
+                     f"{100 * prof['idle']:.1f}% against "
+                     f"{100 * greedy_prof['idle']:.1f}%; sampler kernels "
+                     f"ms/step (sampled / greedy): "
+                     + ", ".join(
+                         f"{k} {prof['groups'][k]:.3f} / "
+                         f"{greedy_prof['groups'][k]:.3f}"
+                         for k in prof["groups"]))
+            _sync_debug_window(torch, eng, rng, cfg.vocab_size,
+                               sampling=list(deferrable))
+        del eng
+    _log(f"sampled serving: the {len(SERVING_TURNS)} runs of "
+         f"{len(SERVING_ARMS)} arms gave equal tokens; greedy rows equal "
+         f"the all-greedy engine's; the mask row legal under its DFA")
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, kv_cache_dtype="int8", weight_dtype="int8",
+                        **kw)
+    launches, st, wall, reqs = _sampled_trace(
+        torch, eng, cfg, prompts, _sampled_mix(np, cfg.vocab_size, seed))
+    forwards = st["prefill_chunks"] + st["decode_steps"]
+    want = {name: 0 for name in launches}
+    want.update({"rms_norm": (2 * nl + 1) * forwards,
+                 "quantized_matmul": 7 * nl * forwards,
+                 "paged_decode_attention_int8": nl * st["decode_steps"]})
+    _check_launches(launches, want, st)
+    _legal_under_dfa(table, reqs[6].output, "sampled serving int8")
+    _add_launches(total, launches)
+    _log_serving("sampled serving int8 KV + int8 weights", len(reqs),
+                 sum(m for _, m in SAMPLED_TRACE), wall, st, launches,
+                 f"syncs { {k: v for k, v in st['async_syncs_by_reason'].items() if v} }; ")
+    del eng
+    torch.cuda.empty_cache()
+    dkw = dict(max_context=SPEC["max_context"], max_draft=SPEC["k"],
+               compute_dtype="bfloat16")
+    eng = ServingEngine(model, drafter=ModelDrafter(model, **dkw), **kw)
+    srng = np.random.default_rng(seed + 19)
+    sprompts = [srng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n, _m in SPEC_TRACE_SHORT]
+    mix = [SamplingParams(temperature=0.8, seed=seed + i)
+           for i in range(len(sprompts))]
+    launches, st, wall, reqs = _sampled_trace(
+        torch, eng, cfg, sprompts, mix, specs=SPEC_TRACE_SHORT,
+        spec_decode=SPEC["k"])
+    _check_launches(launches, _spec_launches(nl, st, nl), st)
+    if not st["spec_verify_steps"] or st["sampled_tokens"] <= 0:
+        raise AssertionError(f"sampled spec: no sampled verify ran: {st}")
+    _add_launches(total, launches)
+    n_tok = sum(m for _, m in SPEC_TRACE_SHORT)
+    _log(f"sampled spec (drafter = target, T=0.8, spec_decode={SPEC['k']}): "
+         f"{len(reqs)} requests, {n_tok} tokens in {wall:.3f} s = "
+         f"{n_tok / wall:.2f} tokens/s; mean TTFT "
+         f"{st['mean_ttft_s'] * 1e3:.2f} ms; verify step "
+         f"{st['verify_seconds'] / st['spec_verify_steps'] * 1e3:.3f} ms over "
+         f"{st['spec_verify_steps']} verifies; acceptance "
+         f"{st['spec_acceptance_rate']:.3f}, mean accepted "
+         f"{st['spec_mean_accepted_len']:.3f} per verify; sample_resamples "
+         f"{st['sample_resamples']}; launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return total
+
+
+def _sampled_margins(torch, lg, req):
+    """Per output position of a CPU request: the top-two margin of the
+    scores that decide it (teacher-forced CPU logits ``lg`` [n, V],
+    processed as the engine does, / T, filtered, plus the Gumbel noise of
+    the request's key at that position; greedy rows: the processed
+    logits)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import sampling, threefry
+    from paddle_tpu_torch.models.generation import filter_top_k_top_p
+    sp = req.sampling or sampling.GREEDY
+    ids = req.prompt[:req.seq_len]
+    out = req.output
+    mp = sp.mask_processor
+    state = mp.start_state if mp is not None else None
+    v = lg.shape[-1]
+    margins = np.zeros(len(out))
+    for t in range(len(out)):
+        row = lg[t:t + 1].float()
+        if sp.needs_penalty:
+            pres = torch.zeros((1, v), dtype=torch.bool)
+            pres[0, torch.from_numpy(ids.astype(np.int64))] = True
+            pres[0, torch.from_numpy(out[:t].astype(np.int64))] = True
+            rep = torch.full_like(row, sp.repetition_penalty)
+            row = torch.where(pres, torch.where(row > 0, row / rep,
+                                                row * rep), row)
+        if mp is not None:
+            allowed = torch.from_numpy(mp.table[state] >= 0)
+            row = row + torch.where(allowed, 0.0, sampling.MASK_BIAS)
+            state = int(mp.table[state, int(out[t])])
+        if not sp.is_greedy:
+            temp, top_k, top_p, _g = sampling.row_planes(sp)
+            row = row / torch.full_like(row, temp)
+            if top_k > 0 or top_p < 1.0:
+                row = filter_top_k_top_p(row, torch.tensor([top_k]),
+                                         torch.tensor([top_p]))
+            key = sampling._fold_keys(threefry.as_key(req.samp_base[None]),
+                                      torch.tensor([t]), 1)
+            row = row + threefry.gumbel(key, (v,))
+        top2 = row[0].topk(2).values
+        margins[t] = float(top2[0] - top2[1])
+    return margins
+
+
+def _generate_margins(torch, lg, kw, seed):
+    """Per generated position of a batch-1 ``generate(do_sample=True)``:
+    the top-two margin of the scores that decide it (teacher-forced CPU
+    logits ``lg`` [n, V] / T, filtered as ``sample_token`` filters, plus
+    the Gumbel noise of that step's key: ``PRNGKey(seed)`` split into the
+    first token's key and the loop's, the loop's split once a step)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import threefry
+    from paddle_tpu_torch.models.generation import filter_top_k_top_p
+    key0, keyr = threefry.split(threefry.as_key(threefry.prng_key(seed)))
+    keys = [key0]
+    for _ in range(lg.shape[0] - 1):
+        kt, keyr = threefry.split(keyr)
+        keys.append(kt)
+    margins = np.zeros(lg.shape[0])
+    for t, key in enumerate(keys):
+        row = lg[t:t + 1].float()
+        row = row / torch.full_like(row, kw["temperature"])
+        row = filter_top_k_top_p(row, torch.tensor([kw["top_k"]]),
+                                 torch.tensor([kw["top_p"]]))
+        row = row + threefry.gumbel(key, tuple(row.shape))
+        top2 = row[0].topk(2).values
+        margins[t] = float(top2[0] - top2[1])
+    return margins
+
+
+def phase_sampled_exactness(torch, seed):
+    """Phase 4f: a 4-layer float32 model at 8B width serves a sampled mix
+    (greedy, seeded T=0.8, top-k/top-p, a repetition penalty, a DFA mask)
+    through a 5-slot engine on the card and, from the same state dict, on
+    the CPU: the card's tokens equal the CPU's up to each request's first
+    position whose CPU top-two decisive margin is <= 0.01 (teacher-forced
+    CPU logits, processed, tempered, filtered, plus the request's Gumbel
+    noise), and the kernels of the path launched; then
+    ``generate(do_sample=True)`` (temperature, top-k and top-p) of the same
+    model on the card against the CPU, under the same rule."""
+    import numpy as np
+    from paddle_tpu_torch.inference import (DfaTokenMask, SamplingParams,
+                                            ServingEngine)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu = _build_8b(torch, 4, "float32", seed + 13)
+    cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed + 13)
+    specs = [(40, 10), (17, 10), (33, 10), (25, 10), (12, 10)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _m in specs]
+
+    def mix():
+        return [None, SamplingParams(temperature=0.8, seed=seed + 1),
+                SamplingParams(top_k=50, top_p=0.9, seed=seed + 2),
+                SamplingParams(repetition_penalty=1.2, seed=seed + 3),
+                SamplingParams(temperature=0.8, seed=seed + 4,
+                               mask_processor=DfaTokenMask(
+                                   _cycle_dfa(np, cfg.vocab_size, seed)))]
+    kw = dict(num_slots=5, prompt_len=64, chunk_len=32, max_cache_len=128,
+              block_len=16, compute_dtype="float32")
+    _zero_launches()
+    t0 = time.perf_counter()
+    geng = ServingEngine(gpu, **kw)
+    greqs = [geng.submit(ids, max_new_tokens=m, sampling=sp)
+             for ids, (_n, m), sp in zip(prompts, specs, mix())]
+    geng.run()
+    t_gpu = time.perf_counter() - t0
+    launched = _launched("sampled exactness",
+                         ("rms_norm", "paged_decode_attention"))
+    t0 = time.perf_counter()
+    ceng = ServingEngine(cpu, device="cpu", **kw)
+    creqs = [ceng.submit(ids, max_new_tokens=m, sampling=sp)
+             for ids, (_n, m), sp in zip(prompts, specs, mix())]
+    ceng.run()
+    t_cpu = time.perf_counter() - t0
+    compared = total = 0
+    for g, c, ids in zip(greqs, creqs, prompts):
+        lg = _teacher_forced(torch, cpu, None, ids, c.output[:-1], "cpu",
+                             kv_dtype=torch.float32)
+        margin = _sampled_margins(torch, lg, c)
+        upto = _upto(margin)
+        if not np.array_equal(g.output[:upto], c.output[:upto]):
+            raise AssertionError(f"sampled exactness: request "
+                                 f"{c.request_id}: card {g.output} != CPU "
+                                 f"{c.output} before position {upto}")
+        compared += upto
+        total += len(margin)
+    if compared < total // 2:
+        raise AssertionError(f"sampled exactness: only {compared} of {total} "
+                             f"positions decisive")
+    _log(f"sampled exactness: 4 layers at 8B width, float32, a 5-request "
+         f"sampled mix (greedy, T=0.8, top-k/top-p, penalty, DFA mask): "
+         f"card tokens equal the CPU's at {compared} of {total} positions "
+         f"(each request up to its first CPU margin <= 0.01); whole requests "
+         f"equal {[bool(np.array_equal(g.output, c.output)) for g, c in zip(greqs, creqs)]}; "
+         f"card {t_gpu:.2f} s, CPU {t_cpu:.2f} s; launches {launched}")
+    gkw = dict(temperature=0.8, top_k=50, top_p=0.9)
+    ids = prompts[0][None, :]
+    _zero_launches()
+    g_out = gpu.generate(ids, max_new_tokens=8, do_sample=True, seed=seed,
+                         compute_dtype="float32", **gkw)[0].cpu().numpy()
+    launched = _launched("sampled generate",
+                         ("flash_attention_fwd", "decode_attention"))
+    c_out = cpu.generate(ids, max_new_tokens=8, do_sample=True, seed=seed,
+                         compute_dtype="float32", **gkw)[0].numpy()
+    lg = _teacher_forced(torch, cpu, None, prompts[0], c_out[:-1], "cpu",
+                         kv_dtype=torch.float32)
+    upto = _upto(_generate_margins(torch, lg, gkw, seed))
+    if not np.array_equal(g_out[:upto], c_out[:upto]):
+        raise AssertionError(f"sampled generate: card {g_out} != CPU "
+                             f"{c_out} before position {upto}")
+    _log(f"sampled generate (T=0.8, top_k=50, top_p=0.9, seed {seed}): card "
+         f"tokens equal the CPU's at {upto} of {len(c_out)} positions; "
+         f"whole stream equal {bool(np.array_equal(g_out, c_out))}; "
+         f"launches {launched}")
+    del geng, ceng, gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def _union_us(torch, prof):
     """The union of the profile's device intervals (kernels and copies),
     in us, and the span from the first start to the last end."""
@@ -2289,9 +2876,24 @@ def _union_us(torch, prof):
     return total, (iv[-1][1] - iv[0][0]) if iv else 0.0
 
 
-def _profile_decode(torch, eng, rng, vocab, steps=8):
+# the kernels of the sampler in a profile, by name: threefry and the
+# other int64 elementwise work (the paged routes' index math too), the
+# filtered bucket's sort and scan, and the softmax
+SAMPLER_KERNELS = {"int64 elementwise": ("long",), "sort": ("sort", "radix"),
+                   "scan": ("scan",), "softmax": ("softmax",)}
+
+
+def _sampler_ms(per_kernel, steps):
+    """Device ms per step of each group of ``SAMPLER_KERNELS``."""
+    return {tag: sum(us for n, us in per_kernel.items()
+                     if any(k in n.lower() for k in keys)) / 1e3 / steps
+            for tag, keys in SAMPLER_KERNELS.items()}
+
+
+def _profile_decode(torch, eng, rng, vocab, steps=8, sampling=None):
     """Where a decode step's time goes: 8 fresh 64-token requests fill
-    the slots; once all are prefilled, ``steps`` decode steps run
+    the slots (``sampling``, if given, returns their per-request
+    configurations); once all are prefilled, ``steps`` decode steps run
     unprofiled (host wall) and ``steps`` more under ``torch.profiler``
     (device busy time = sum of CUDA kernel durations, the union of the
     device intervals against the window's wall, and the kernels that
@@ -2299,13 +2901,15 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
     windows.  A step is one scanned decode step: at ``async_depth`` >= 2
     one ``step()`` may dispatch a fused window of several, so the windows
     are divided by the decode steps they ran.  Returns ``{"wall_ms",
-    "busy_ms", "union_ms", "idle"}`` per decode step, or None when the
-    profiler saw no kernel."""
+    "busy_ms", "union_ms", "idle", "groups"}`` per decode step (``groups``:
+    ``_sampler_ms``), or None when the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
     depth = getattr(eng, "async_depth", 1)
+    mix = sampling() if sampling is not None else [None] * eng.num_slots
     reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
-                       max_new_tokens=eng.num_slots + 2 * steps * depth + 4)
-            for _ in range(eng.num_slots)]
+                       max_new_tokens=eng.num_slots + 2 * steps * depth + 4,
+                       sampling=sp)
+            for sp in mix]
     while any(r.state in ("queued", "prefill") for r in reqs):
         eng.step()
     torch.cuda.synchronize()
@@ -2360,7 +2964,8 @@ def _profile_decode(torch, eng, rng, vocab, steps=8):
         _log(f"  {us / 1e3 / steps:8.3f} ms/step  {name[:90]}")
     _log_decode_kernels(per_kernel, steps)
     return {"wall_ms": wall * 1e3, "busy_ms": busy, "union_ms": union,
-            "idle": 1 - union / (wall_prof * 1e3)}
+            "idle": 1 - union / (wall_prof * 1e3),
+            "groups": _sampler_ms(per_kernel, steps)}
 
 
 def _profile_prefill_chunk(torch, eng, rng, vocab):
@@ -2998,7 +3603,7 @@ def _teacher_forced(torch, model, wq, prompt, forced, device, block_len=16,
 
 
 def phase_quant_exactness(torch, seed):
-    """Phase 4b: a 2-layer float32 model at 8B width with an int8 KV cache
+    """Phase 4b: a 1-layer float32 model at 8B width with an int8 KV cache
     and int4 weights, on the card and on the CPU (plain versions) from
     the same state dict.  The two weight plans must be bit-identical; a
     2-request trace runs through a 2-slot engine on each side; then the
@@ -3012,7 +3617,7 @@ def phase_quant_exactness(torch, seed):
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops import KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, gpu = _build_8b(torch, 2, "float32", seed + 3)
+    cfg, gpu = _build_8b(torch, 1, "float32", seed + 3)
     cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     kw = dict(prompt_len=64, chunk_len=32, max_cache_len=128, block_len=16,
@@ -3020,7 +3625,7 @@ def phase_quant_exactness(torch, seed):
               weight_dtype="int4", num_slots=2)
     rng = np.random.default_rng(seed + 3)
     trace = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
-             for n, m in [(40, 12), (17, 8)]]
+             for n, m in [(40, 6), (17, 4)]]
     for k in KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
@@ -3066,7 +3671,7 @@ def phase_quant_exactness(torch, seed):
                              f"tokens {creqs[0].output} before step {upto}")
     same = [bool(np.array_equal(g.output, c.output))
             for g, c in zip(greqs, creqs)]
-    _log(f"quant exactness: 2 layers at 8B width, float32, int8 KV + int4 "
+    _log(f"quant exactness: 1 layer at 8B width, float32, int8 KV + int4 "
          f"weights: plans bit-identical; teacher-forced logits max |diff| "
          f"{diff.max().item():.3g} over {len(diff)} steps (last step "
          f"{diff[-1].item():.3g}; bound {QUANT_LOGIT_ATOL}); tokens equal "
@@ -3523,19 +4128,25 @@ def main(argv=None) -> int:
         phase_norm_window(torch, args.seed)
         return 0
     rows = phase_kernels(torch, args.seed)
+    phase_sampler(torch, args.seed)
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
     phase_graphs(torch, args.seed, cfg, model)
-    by_path = {"serving": phase_serving(torch, args.seed, cfg, model)}
+    phase_sampled_graph(torch, args.seed, cfg, model)
+    serving, greedy_prof = phase_serving(torch, args.seed, cfg, model)
+    by_path = {"serving": serving}
     by_path.update(phase_quant_serving(torch, args.seed, cfg, model))
     by_path["speculative"] = phase_spec_serving(torch, args.seed, cfg, model)
     by_path["preemption"] = phase_preemption(torch, args.seed, cfg, model)
     by_path["radix"] = phase_radix_tier(torch, args.seed, cfg, model)
+    by_path["sampling"] = phase_sampled_serving(torch, args.seed, cfg, model,
+                                                greedy_prof)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
     phase_quant_exactness(torch, args.seed)
     phase_spec_exactness(torch, args.seed)
     phase_preempt_exactness(torch, args.seed)
+    phase_sampled_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     phase_train_exactness(torch, args.seed)
     by_path["training_routes"] = phase_training_routes(torch, args.seed,

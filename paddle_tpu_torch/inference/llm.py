@@ -1,16 +1,19 @@
 """The serving engine's device programs as plain torch functions: port of
 ``build_chunk_prefill`` (:516) and ``_build_paged_decode_block`` (:350)
 of ``paddle_tpu/inference/llm.py`` with ``_pack_paged_kvs`` /
-``_flatten_paged_kvs`` (:331-347), float or int8 KV cache and greedy
-only, and ``spec_verify``, the body of the speculative verifier
+``_flatten_paged_kvs`` (:331-347), float or int8 KV cache, greedy or
+sampled, and ``spec_verify``, the body of the speculative verifier
 (``inference/speculative.py:296-310``), plus the weight-quantization
 plan: ``normalize_weight_dtype``
 (:56), ``WeightQuantPlan`` (:83) and ``build_weight_quant_plan`` (:133).
 
 They take and return what the JAX programs take and return, minus the
-parameter list (the model holds its weights) and the sampling planes
-(greedy).  The arenas are updated IN PLACE — the torch counterpart of the
-JAX programs' donated arena arguments — and handed back for symmetry.
+parameter list (the model holds its weights).  The sampling planes
+``samp`` and the static flags ``(sampled, filtered, penalty, bias)`` are
+the reference's (``inference/sampling.py``); ``flags`` all False is the
+greedy program.  The arenas are updated IN PLACE — the torch counterpart
+of the JAX programs' donated arena arguments — and handed back for
+symmetry.
 The host-RAM tier's swap programs ``build_swap_out_gather`` (:471) and
 ``build_swap_in_scatter`` (:493) are plain indexing: an ``index_select``
 and an in-place ``index_put_``, no kernel.
@@ -18,8 +21,9 @@ A weight-quant plan takes the place of ``_param_swapper``'s (:173)
 trailing code/scale values: the programs run the model inside
 ``wquant_context(plan.context())``.  The decode block is a Python loop of
 ``steps`` decode steps; on the card the engine runs it as a captured CUDA
-graph (``DecodeBlockGraph``, one per total step count, the counterpart of
-the JAX engine's compiled block program), on the CPU eagerly.
+graph (``DecodeBlockGraph``, one per total step count and flag bucket,
+the counterpart of the JAX engine's compiled block program), on the CPU
+eagerly.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 from ..device import to_dtype
 from ..models.generation import GenerationConfig
 from ..models.wquant import WeightQuantContext, wquant_context
-from .sampling import decode_scan_step, sample_rows, spec_greedy_rows
+from .sampling import (NO_FLAGS, decode_scan_step, sample_rows,
+                       spec_greedy_rows, spec_sampling_draws)
 
 
 def normalize_weight_dtype(weight_dtype) -> Optional[str]:
@@ -153,37 +158,87 @@ def _flatten_paged_kvs(kvs) -> List[torch.Tensor]:
 @torch.no_grad()
 def chunk_prefill(model, ids, start: int, n_valid: int, tables,
                   flat_arenas: Sequence[torch.Tensor],
-                  wq: Optional[WeightQuantContext] = None):
+                  wq: Optional[WeightQuantContext] = None, samp=None,
+                  flags=NO_FLAGS):
     """ONE prompt chunk of ONE sequence: ids [1, C] at global positions
     ``start .. start+C-1``, K/V written through ``tables`` ([1,
     max_blocks]); ``n_valid`` is the prompt's true length; ``wq`` the
-    weight-quant context or None.  Returns ``(tok [1] int32,
-    *flat_arenas)``: the greedy token at prompt position ``n_valid - 1``,
-    meaningful only on the chunk that covers it."""
+    weight-quant context or None; ``samp``/``flags`` the batch-1 sampling
+    planes of the request (at PRNG position 0).  Returns ``(tok [1]
+    int32, *flat_arenas)``: the token sampled at prompt position
+    ``n_valid - 1``, meaningful only on the chunk that covers it."""
     with wquant_context(wq):
         logits, kvs = model.prefill_chunk(
             ids, start, n_valid, _pack_paged_kvs(flat_arenas, tables))
-    return (sample_rows(logits),) + tuple(_flatten_paged_kvs(kvs))
+    tok = sample_rows(logits, samp, flags,
+                      samp["presence"] if flags[2] else None)
+    return (tok,) + tuple(_flatten_paged_kvs(kvs))
 
 
 @torch.no_grad()
-def paged_decode_block(model, cfg: GenerationConfig, steps: int, tok, lens,
-                       done, budget, tables,
-                       flat_arenas: Sequence[torch.Tensor],
-                       wq: Optional[WeightQuantContext] = None):
-    """``steps`` greedy decode steps over every slot row.  tok/lens/
-    budget [B] int32, done [B] bool, tables [B, max_blocks] int32; ``wq``
-    the weight-quant context or None.  Returns ``(toks [B, steps], tok',
-    lens', done', budget', *flat_arenas)``."""
-    carry = (tok, lens, _pack_paged_kvs(flat_arenas, tables), done, budget)
+def decode_block_carries(model, cfg: GenerationConfig, steps: int, tok, lens,
+                         done, budget, tables,
+                         flat_arenas: Sequence[torch.Tensor],
+                         wq: Optional[WeightQuantContext] = None, samp=None,
+                         flags=NO_FLAGS):
+    """``paged_decode_block``'s loop with its whole final carry: returns
+    ``(toks [B, steps], tok', lens', done', budget', pos', presence')``
+    (``pos'`` None without the sampled flag, ``presence'`` None without
+    the penalty flag); the arenas are written in place."""
+    pos = samp["pos"] if flags[0] else None
+    presence = samp["presence"] if flags[2] else None
+    carry = (tok, lens, _pack_paged_kvs(flat_arenas, tables), pos, presence,
+             done, budget)
     toks = []
     with wquant_context(wq):
         for _ in range(int(steps)):
-            carry, nxt = decode_scan_step(model, cfg, carry)
+            carry, nxt = decode_scan_step(model, cfg, carry, samp, flags)
             toks.append(nxt)
-    tok_f, lens_f, kvs_f, done_f, budget_f = carry
-    return ((torch.stack(toks, dim=1), tok_f, lens_f, done_f, budget_f)
-            + tuple(_flatten_paged_kvs(kvs_f)))
+    tok_f, lens_f, _kvs, pos_f, pres_f, done_f, budget_f = carry
+    return (torch.stack(toks, dim=1), tok_f, lens_f, done_f, budget_f,
+            pos_f, pres_f)
+
+
+def paged_decode_block(model, cfg: GenerationConfig, steps: int, tok, lens,
+                       done, budget, tables,
+                       flat_arenas: Sequence[torch.Tensor],
+                       wq: Optional[WeightQuantContext] = None, samp=None,
+                       flags=NO_FLAGS):
+    """``steps`` decode steps over every slot row.  tok/lens/budget [B]
+    int32, done [B] bool, tables [B, max_blocks] int32; ``wq`` the
+    weight-quant context or None; ``samp``/``flags`` the sampling planes
+    and their flag bucket (all False: greedy, ``samp`` unused).  Returns
+    ``(toks [B, steps], tok', lens', done', budget', *flat_arenas)``."""
+    out = decode_block_carries(model, cfg, steps, tok, lens, done, budget,
+                               tables, flat_arenas, wq=wq, samp=samp,
+                               flags=flags)
+    return out[:5] + tuple(flat_arenas)
+
+
+def plane_buffers(flags, num_slots: int, vocab: int, device):
+    """Static sampling planes of one flag bucket at their neutral values
+    (every row greedy, position 0, no penalty, no bias): the planes
+    ``sample_rows`` reads under ``flags``."""
+    sampled, _filtered, penalty, bias = flags
+    b = num_slots
+    planes = {}
+    if sampled:
+        planes.update(
+            base=torch.zeros((b, 2), dtype=torch.int64, device=device),
+            pos=torch.zeros(b, dtype=torch.int64, device=device),
+            temp=torch.ones(b, dtype=torch.float32, device=device),
+            top_k=torch.zeros(b, dtype=torch.int64, device=device),
+            top_p=torch.ones(b, dtype=torch.float32, device=device),
+            greedy=torch.ones(b, dtype=torch.bool, device=device))
+    if penalty:
+        planes.update(
+            rep=torch.ones(b, dtype=torch.float32, device=device),
+            presence=torch.zeros((b, vocab), dtype=torch.bool,
+                                 device=device))
+    if bias:
+        planes["bias"] = torch.zeros((b, vocab), dtype=torch.float32,
+                                     device=device)
+    return planes
 
 
 # one side stream per device for warm-ups and captures, made at the first
@@ -193,24 +248,28 @@ _CAPTURE_STREAMS = {}
 
 
 class DecodeBlockGraph:
-    """``paged_decode_block`` of ``steps`` steps captured as ONE CUDA
-    graph over static ``tok``/``lens``/``done``/``budget``/``tables``
-    buffers and the engine's own arenas: the counterpart of the JAX
-    engine's compiled block program (``_block_fn``), one per total step
-    count, so a fused depth-S window of S x n steps replays the same
-    graph as a plain block of S x n.
+    """``paged_decode_block`` of ``steps`` steps under one sampling flag
+    bucket, captured as ONE CUDA graph over static ``tok``/``lens``/
+    ``done``/``budget``/``tables`` buffers, the bucket's static sampling
+    planes (``samp``, ``plane_buffers``) and the engine's own arenas: the
+    counterpart of the JAX engine's compiled block program
+    (``_block_fn``), one per total step count and flag bucket, so a fused
+    depth-S window of S x n steps replays the same graph as a plain block
+    of S x n.
 
     The capture runs the block once on a side stream first (warm-up),
     on inputs that route every write to the trash row (all rows done,
-    all-trash tables), then captures it on the same stream, ordered
-    after the current stream's work by stream waits (no device-wide
-    synchronize, garbage collection or cache release, which
+    all-trash tables, neutral planes), then captures it on the same
+    stream, ordered after the current stream's work by stream waits (no
+    device-wide synchronize, garbage collection or cache release, which
     ``torch.cuda.graph`` adds); neither runs a launch that the kernel
-    counts keep (``_build.launches_taken_out``).  A call copies
-    its inputs into the static buffers on the current stream (device
-    carries device to device), replays, adds the captured launches to
+    counts keep (``_build.launches_taken_out``).  A call copies its
+    inputs (and the given planes) into the static buffers on the current
+    stream (device carries device to device; a caller may also write a
+    plane straight into ``samp``), replays, adds the captured launches to
     the counts and returns the static outputs ``(toks [B, steps], tok,
-    lens, done, budget)``.  The next replay overwrites them: a caller
+    lens, done, budget)``; ``pos``/``presence`` hold the final position
+    and presence carries.  The next replay overwrites them: a caller
     that keeps them reads them (or copies them) before it replays this
     graph again.  The arenas' addresses are baked in, so a call raises
     when an entry of ``flat_arenas`` (the engine's own list) no longer
@@ -220,12 +279,13 @@ class DecodeBlockGraph:
     def __init__(self, model, cfg: GenerationConfig, steps: int,
                  num_slots: int, tables_width: int,
                  flat_arenas: Sequence[torch.Tensor],
-                 wq: Optional[WeightQuantContext] = None):
+                 wq: Optional[WeightQuantContext] = None, flags=NO_FLAGS):
         from ..ops import _build
         dev = flat_arenas[0].device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA arenas, got {dev}")
         self.steps = int(steps)
+        self.flags = tuple(bool(f) for f in flags)
         self.arenas = flat_arenas
         self.arena_ptrs = [a.data_ptr() for a in flat_arenas]
         trash = flat_arenas[0].shape[0] - 1
@@ -235,12 +295,15 @@ class DecodeBlockGraph:
         self.done = torch.ones(num_slots, dtype=torch.bool, device=dev)
         self.budget = torch.zeros(num_slots, **i32)
         self.tables = torch.full((num_slots, tables_width), trash, **i32)
+        self.samp = plane_buffers(self.flags, num_slots,
+                                  int(model.config.vocab_size), dev)
         arenas = list(flat_arenas)
 
         def block():
-            return paged_decode_block(
+            return decode_block_carries(
                 model, cfg, self.steps, self.tok, self.lens, self.done,
-                self.budget, self.tables, arenas, wq=wq)
+                self.budget, self.tables, arenas, wq=wq, samp=self.samp,
+                flags=self.flags)
 
         side = _CAPTURE_STREAMS.get(dev)
         if side is None:
@@ -259,9 +322,10 @@ class DecodeBlockGraph:
                     self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.out = tuple(out[:5])
+        self.pos, self.presence = out[5], out[6]
         self.replays = 0
 
-    def __call__(self, tok, lens, done, budget, tables):
+    def __call__(self, tok, lens, done, budget, tables, samp=None):
         """Copy the inputs in, replay, count; returns the static
         outputs."""
         from ..ops import _build
@@ -271,9 +335,15 @@ class DecodeBlockGraph:
             raise RuntimeError(
                 f"decode block graph of {self.steps} steps: the arenas "
                 f"are not the ones it was captured over")
-        for dst, src in ((self.tok, tok), (self.lens, lens),
-                         (self.done, done), (self.budget, budget),
-                         (self.tables, tables)):
+        pairs = [(self.tok, tok), (self.lens, lens), (self.done, done),
+                 (self.budget, budget), (self.tables, tables)]
+        if samp is not None:
+            if set(samp) != set(self.samp):
+                raise ValueError(
+                    f"decode block graph of flags {self.flags} takes the "
+                    f"planes {sorted(self.samp)}, got {sorted(samp)}")
+            pairs += [(self.samp[k], v) for k, v in samp.items()]
+        for dst, src in pairs:
             if src is not dst:
                 dst.copy_(src, non_blocking=True)
         self.graph.replay()
@@ -285,18 +355,26 @@ class DecodeBlockGraph:
 @torch.no_grad()
 def spec_verify(model, toks, lens, n_valid, tables,
                 flat_arenas: Sequence[torch.Tensor],
-                wq: Optional[WeightQuantContext] = None):
+                wq: Optional[WeightQuantContext] = None, samp=None,
+                flags=NO_FLAGS):
     """ONE speculative verify forward over every slot row: toks [B, C]
     int32 (each spec row's last emitted token, then its drafts, then
     pad), lens [B] int32 (global slot of column 0), n_valid [B] int32 (a
     row's real columns; 0 for rows not in spec mode, whose tables are
     all trash), tables [B, max_blocks] int32; ``wq`` the weight-quant
-    context or None.  Returns ``(greedy [B, C] int32, *flat_arenas)``:
-    every position's argmax, the greedy acceptance path."""
+    context or None; ``samp``/``flags`` the spec rows' sampling planes.
+    Returns ``(greedy [B, C] int32, *flat_arenas)`` (every position's
+    argmax of the processed logits, the greedy acceptance path) or, with
+    the sampled flag, ``(greedy, u, accept_p, resample, sample,
+    *flat_arenas)`` (``sampling.spec_sampling_draws``)."""
     with wquant_context(wq):
         logits, kvs = model.verify_step(
             toks, lens, n_valid, _pack_paged_kvs(flat_arenas, tables))
-    return (spec_greedy_rows(logits),) + tuple(_flatten_paged_kvs(kvs))
+    flat = tuple(_flatten_paged_kvs(kvs))
+    pres = samp["presence"] if flags[2] else None
+    if flags[0]:
+        return spec_sampling_draws(logits, toks, samp, flags, pres) + flat
+    return (spec_greedy_rows(logits, toks, samp, flags, pres),) + flat
 
 
 def build_swap_out_gather():

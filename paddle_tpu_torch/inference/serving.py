@@ -1,11 +1,13 @@
-"""Continuous-batching serving over a paged KV block pool: port of the
-greedy core of ``paddle_tpu/inference/serving.py`` with its dispatch-ahead
-step pipeline, with a
+"""Continuous-batching serving over a paged KV block pool: port of
+``paddle_tpu/inference/serving.py`` with its dispatch-ahead step
+pipeline, with a
 float or int8 KV cache (``kv_cache_dtype="int8"``), float or int8/int4
-weights (``weight_dtype=``), greedy speculative decoding
-(``submit(spec_decode=K)`` with an ``NGramDrafter`` or ``ModelDrafter``),
-preemption to a host-RAM tier, a bounded queue, cancellation and the
-tiered radix prefix cache, in any combination.
+weights (``weight_dtype=``), per-request sampling and constrained decoding
+(``do_sample=``, ``submit(sampling=SamplingParams(...))``: temperature,
+top-k, top-p, repetition penalty, token masks), speculative decoding
+(``submit(spec_decode=K)`` with an ``NGramDrafter`` or ``ModelDrafter``,
+greedy or sampled), preemption to a host-RAM tier, a bounded queue,
+cancellation and the tiered radix prefix cache, in any combination.
 
 Ported: ``AdmissionError`` (:254), ``TERMINAL_STATES`` (:343),
 ``_block_digests`` (:829), ``BlockPool`` (:859, the digest and the tree
@@ -22,8 +24,8 @@ scatter and demotion (``_gather_rows`` :2210, ``_scatter_rows`` :2235,
 admission (``_probe_radix``, ``_reprobe_radix``, ``_map_radix_span``,
 ``_residency_rank``), ``_prefill_chunk`` (digest registration and the
 radix insert), ``_count_kv_sweep`` (:1813), ``_block_rides`` and
-``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, greedy rows),
-``_step_inner``, ``_absorb_block``,
+``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, with the
+sampled accept path :4218-4260), ``_step_inner``, ``_absorb_block``,
 ``_finish``, ``_release_blocks``, ``run``, ``engine_spec``,
 ``prefix_match`` and ``stats`` (kept in plain integer counters instead
 of the metrics registry).  The dispatch-ahead pipeline
@@ -34,7 +36,14 @@ of the metrics registry).  The dispatch-ahead pipeline
 ``_reconcile_host_tier`` (:2058), ``_resolve_entries`` (:2080),
 ``_checked_harvest`` (:2092), ``_absorb_block`` with the re-split of a
 fused window (:2119), the lazy demotion (:2260) and the async branch of
-``_step_inner`` (:4336) with the fused depth-S windows.
+``_step_inner`` (:4336) with the fused depth-S windows.  The sampled half:
+the engine defaults ``do_sample``/``temperature``/``top_k``/``top_p``
+(:1360, :1437), ``Request.sampling`` and ``samp_base`` (:1222),
+``submit(sampling=)`` with its validation, the mask's ``begin`` and the
+dead-start check (:2332-2560), ``_build_samp`` (:3761, with ``pos_lag``
+for deferred dispatches), ``_count_sample_route`` (:3858),
+``_mask_dead_end`` (:3873), the single-step clamp of mask rows and the
+``mask``/``penalty`` forced syncs (:1990).
 
 The defaults are the reference's: ``async_dispatch=True`` with
 ``async_depth=1``, ``prefix_cache_mode="radix"`` (with
@@ -46,8 +55,10 @@ same way, and its host-tier parcels hold the same bytes (a bf16 arena's
 as the ``uint16`` view of its bits, ``inference/prefixcache.py``).
 
 On the card the decode block runs as a captured CUDA graph, one per
-total step count (``llm.DecodeBlockGraph``); host inputs reach the card
-from pinned memory, and every device output the host reads (a decode
+total step count and sampling flag bucket (``llm.DecodeBlockGraph``);
+host inputs reach the card from pinned memory (the ``[B, V]`` presence
+and bias planes through the engine's pinned staging, straight into the
+graph's static planes), and every device output the host reads (a decode
 dispatch's tokens and carries, a final chunk's token, a verify's
 argmaxes, a host-tier gather) comes back by a non-blocking copy into
 pinned memory behind a ``torch.cuda.Event``, the only thing a harvest
@@ -76,12 +87,16 @@ import torch
 
 from ..device import DeviceLike, dtype_name, resolve_device, to_dtype
 from ..models.generation import GenerationConfig, init_paged_kv_arena
+from . import threefry
 from .llm import (DecodeBlockGraph, build_swap_in_scatter,
                   build_swap_out_gather, build_weight_quant_plan,
                   chunk_prefill, normalize_weight_dtype, paged_decode_block)
 from .prefixcache import (HostTier, RadixPrefixCache, bits_array,
                           parcel_tensor, row_bits)
-from .speculative import NGramDrafter, accept_drafts, build_spec_verify
+from .sampling import (MASK_BIAS, NO_FLAGS, SamplingParams, base_key,
+                       flags_of, row_planes)
+from .speculative import (NGramDrafter, accept_drafts,
+                          accept_drafts_sampled, build_spec_verify)
 
 _INF = float("inf")
 
@@ -92,9 +107,7 @@ TERMINAL_STATES = ("finished", "timeout", "shed", "cancelled", "failed")
 
 # the dispatch-ahead pipeline's closed forced-sync vocabulary: every
 # iteration that must bring device outputs to the host EARLY (before the
-# next dispatch was enqueued) charges exactly ONE of these.  "mask" and
-# "penalty" belong to the sampled half (not ported), so the port never
-# charges them; the vocabulary stays the reference's
+# next dispatch was enqueued) charges exactly ONE of these
 ASYNC_SYNC_REASONS = (
     "eos",          # EOS detection must observe every emitted token
     "budget",       # a rider's token budget can exhaust inside the block
@@ -528,6 +541,8 @@ class Request:
     swap: Optional[_SwapRecord] = None
     preempt_count: int = 0
     spec_k: Optional[int] = None       # speculative mode: drafts/verify
+    sampling: Optional[SamplingParams] = None  # None = plain greedy
+    samp_base: Optional[np.ndarray] = None     # [2] u32 PRNG base key
     pf_pos: int = 0                    # next prompt position to compute
     matched: List[int] = field(default_factory=list)   # prefix-hit blocks
     host_pins: List[int] = field(default_factory=list)  # pinned tier keys
@@ -630,8 +645,6 @@ class ServingEngine:
                  adapter_store=None, tenant_weights=None, mesh=None,
                  role="both", device: DeviceLike = None):
         for value, off, what, item in (
-                (bool(do_sample), False, "do_sample=True",
-                 "#4 Sampling and speculation, the sampled half"),
                 (mesh, None, "mesh= (tensor-parallel serving)",
                  "#10 Sharded serving"),
                 (str(role), "both", f"role={role!r} (disaggregation)",
@@ -711,6 +724,13 @@ class ServingEngine:
             eos_token_id=eos_token_id, pad_token_id=int(pad_token_id),
             compute_dtype=str(compute_dtype),
             cache_dtype=None if cache_dtype is None else str(cache_dtype))
+        # the engine-level sampling knobs are the DEFAULT per-request
+        # params (submit(sampling=) overrides); default-sampled requests
+        # draw from fold_in(PRNGKey(seed), request_id)
+        self._default_sampling = (SamplingParams(
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p)).validate() if do_sample else None)
+        self._seed = int(seed)
         cdt = to_dtype(self.cfg.compute_dtype)
         if not cdt.is_floating_point:
             raise ValueError(f"compute_dtype must be a float dtype, got "
@@ -812,7 +832,9 @@ class ServingEngine:
                        preemptions=0, preempt_resumes=0,
                        swap_blocks_out=0, swap_blocks_in=0,
                        swap_bytes_out=0, swap_bytes_in=0,
-                       shed=0, timeouts=0, cancelled=0)
+                       shed=0, timeouts=0, cancelled=0,
+                       sampled_tokens=0, greedy_tokens=0, masked_tokens=0,
+                       sample_resamples=0)
         self._decode_seconds = 0.0
         self._verify_seconds = 0.0
         # the step's wall split (the reference's serving.step.* seconds,
@@ -834,9 +856,10 @@ class ServingEngine:
         # from explicit step(now=) clocks
         self._last_now = None
         self._step_dt = 0.0
-        # decode-block programs keyed by total scanned steps (the JAX
-        # engine's _block_fn cache): CUDA graphs on the card, the eager
-        # block on the CPU; and the pinned ring their outputs land in
+        # decode-block programs keyed by total scanned steps, then by
+        # sampling flag bucket (the JAX engine's _block_fn cache keys
+        # (steps, flags, lora)): CUDA graphs on the card, the eager block
+        # on the CPU; and the pinned ring their outputs land in
         self._blocks = {}
         self._graph_capture_s = 0.0
         self._ring: List[dict] = []
@@ -849,7 +872,7 @@ class ServingEngine:
         self._spec_k_max = 0           # engine-lifetime max spec_decode
         self._spec_fallback = set()    # this iteration's spec slots that
         #                                drafted nothing and ride the block
-        self._verify_fns = {}          # width -> verifier
+        self._verify_fns = {}          # (width, flags) -> verifier
 
     @staticmethod
     def _kv_dtype(kvdt) -> torch.dtype:
@@ -925,14 +948,17 @@ class ServingEngine:
         the one sync an intended host read makes)."""
         return self._staging.to_host(tensors)
 
-    def _block_program(self, n: int):
-        """The decode-block program of ``n`` total scanned steps, built
-        on first use: ``program(tok, lens, done, budget, tables) ->
-        (toks, tok', lens', done', budget')``.  On the card a
+    def _block_program(self, n: int, flags=NO_FLAGS):
+        """The decode-block program of ``n`` total scanned steps under the
+        sampling flag bucket ``flags``, built on first use:
+        ``program(tok, lens, done, budget, tables, samp=None) -> (toks,
+        tok', lens', done', budget')``.  On the card a
         ``DecodeBlockGraph`` captured over this engine's arenas (the
         capture's seconds go to ``decode_graphs``); on the CPU the eager
         block."""
-        prog = self._blocks.get(n)
+        flags = tuple(bool(f) for f in flags)
+        progs = self._blocks.setdefault(n, {})
+        prog = progs.get(flags)
         if prog is not None:
             return prog
         # the program holds what it runs, never the engine: a dropped
@@ -942,15 +968,34 @@ class ServingEngine:
         if self.device.type == "cuda":
             t0 = time.perf_counter()
             prog = DecodeBlockGraph(model, cfg, n, self.num_slots,
-                                    self.max_blocks, arenas, wq=wq)
+                                    self.max_blocks, arenas, wq=wq,
+                                    flags=flags)
             self._graph_capture_s += time.perf_counter() - t0
         else:
-            def prog(tok, lens, done, budget, tables):
+            def prog(tok, lens, done, budget, tables, samp=None):
                 return paged_decode_block(model, cfg, n, tok, lens, done,
-                                          budget, tables, arenas,
-                                          wq=wq)[:5]
-        self._blocks[n] = prog
+                                          budget, tables, arenas, wq=wq,
+                                          samp=samp, flags=flags)[:5]
+        progs[flags] = prog
         return prog
+
+    def _samp_tensors(self, planes: dict, dst: Optional[dict] = None):
+        """A dispatch's host sampling planes (``_build_samp``) as device
+        tensors: the ``[B]`` planes through ``_dev``, the ``[B, V]``
+        presence and bias planes through the pinned staging, into
+        ``dst[name]`` (a graph's static plane) when given, else into a
+        fresh device tensor."""
+        out = {}
+        for k, a in planes.items():
+            if k not in ("presence", "bias") or self.device.type == "cpu":
+                out[k] = self._dev(a)
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            d = dst[k] if dst is not None else torch.empty(
+                t.shape, dtype=t.dtype, device=self.device)
+            self._staging.to_device(t, d)
+            out[k] = d
+        return out
 
     def _stage_block(self, out):
         """Enqueue the host copies of one decode dispatch's outputs into
@@ -1180,10 +1225,15 @@ class ServingEngine:
         full queue sheds after every validation: expired entries are
         swept first, then the worst queued request of a strictly lower
         class than this one is displaced (``"shed"``) or this submit
-        raises ``AdmissionError`` and nothing is enqueued."""
+        raises ``AdmissionError`` and nothing is enqueued.
+
+        ``sampling=SamplingParams(...)`` gives this request its own
+        decode configuration (temperature, top-k, top-p, repetition
+        penalty, seed, token-mask processor); the default is the engine's
+        (``do_sample=True`` knobs, or greedy).  A sampled spec request
+        runs speculative sampling; ``spec_decode`` with a mask processor
+        raises."""
         for value, off, what, item in (
-                (sampling, None, "submit(sampling=)",
-                 "#4 Sampling and speculation, the sampled half"),
                 (adapter, None, "submit(adapter=)",
                  "#7 LoRA and fair share"),
                 (tenant, None, "submit(tenant=)", "#7 LoRA and fair share"),
@@ -1203,6 +1253,13 @@ class ServingEngine:
         m = int(max_new_tokens)
         if m < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {m}")
+        if sampling is not None:
+            if not isinstance(sampling, SamplingParams):
+                raise ValueError(
+                    f"sampling must be a SamplingParams, got "
+                    f"{type(sampling).__name__}")
+            sampling.validate()
+        sp = sampling if sampling is not None else self._default_sampling
         spec_k = None
         if spec_decode is not None:
             spec_k = int(spec_decode)
@@ -1210,6 +1267,13 @@ class ServingEngine:
                 raise ValueError(
                     f"spec_decode must be >= 1 draft tokens, got "
                     f"{spec_decode}")
+            if sp is not None and sp.mask_processor is not None:
+                raise ValueError(
+                    "spec_decode cannot compose with a token-mask "
+                    "processor: a draft position's mask depends on "
+                    "host-side state the drafter bypasses — submit "
+                    "the request without spec_decode (sampling "
+                    "without a mask composes fine)")
         if n + m - 1 > self.max_cache_len:
             raise ValueError(
                 f"prompt ({n}) + max_new_tokens ({m}) - 1 = {n + m - 1} "
@@ -1246,6 +1310,15 @@ class ServingEngine:
         req.max_queue_delay_s = (None if max_queue_delay_s is None
                                  else float(max_queue_delay_s))
         req.spec_k = spec_k
+        req.sampling = sp
+        if sp is not None and not sp.is_greedy:
+            # an explicit seed draws from the user's stream; a seedless
+            # sampled request folds its id into the engine seed, so
+            # concurrent streams differ and a replayed trace reproduces
+            req.samp_base = (base_key(sp.seed) if sp.seed is not None
+                             else threefry.fold_in(threefry.as_key(
+                                 threefry.prng_key(self._seed)),
+                                 req.request_id).numpy().astype(np.uint32))
         # chunk grid: any slice [start, start + chunk_len) with
         # start < seq_len must be in range
         req.chunk_ids = np.full((self.prompt_len + self.chunk_len,),
@@ -1268,6 +1341,22 @@ class ServingEngine:
                 self._match_prefix(req)
                 if req.matched:
                     self._update_block_gauges()
+            if sp is not None and sp.mask_processor is not None:
+                # the state machine's init and the width check, after the
+                # probe: a raise rolls back through the unpin path below
+                sp.mask_processor.begin(ids[:n])
+                allowed0 = np.asarray(sp.mask_processor.allowed(), bool)
+                if allowed0.size != self._vocab:
+                    raise ValueError(
+                        f"mask_processor.allowed() is {allowed0.size} "
+                        f"wide but the model vocabulary is {self._vocab}")
+                if not allowed0.any():
+                    # an all-banned state would make the bias plane a
+                    # uniform shift and the first token illegal; a dead
+                    # end mid-stream finishes the request instead
+                    raise ValueError(
+                        "mask_processor allows no token in its start "
+                        "state — the grammar has no legal first output")
             # the bounded queue LAST, after every validation: an invalid
             # submission never displaces an innocent queued request
             evict = None
@@ -1808,11 +1897,13 @@ class ServingEngine:
             # the final chunk samples the first token, host truth THIS
             # step (EOS check, decode-mix entry, the slot's carries)
             self._flush_async("chunk_final", out)
+        flags, planes = self._build_samp([req])
         t0 = self._clock()
         outp = chunk_prefill(
             self._model, self._dev(req.chunk_ids[None, start:start + c]),
             start, req.seq_len, self._dev(self._tables[req.slot][None, :]),
-            self._arenas, wq=self._wq_ctx)
+            self._arenas, wq=self._wq_ctx,
+            samp=self._samp_tensors(planes), flags=flags)
         # a non-final chunk's token means nothing: the dispatch-ahead
         # engine leaves it on the device and the chunk runs under the
         # next iterations' host work
@@ -1843,10 +1934,15 @@ class ServingEngine:
         req.first_token_time = t
         req.tokens.append(tok0)
         req.remaining = req.max_new_tokens - 1
+        self._count_sample_route([(req, 1)])
         slot = req.slot
         if (self.cfg.eos_token_id is not None and
-                tok0 == self.cfg.eos_token_id) or req.remaining == 0:
-            # finished at the first token: never enters the decode mix
+                tok0 == self.cfg.eos_token_id) or req.remaining == 0 or (
+                    req.sampling is not None
+                    and req.sampling.mask_processor is not None
+                    and self._mask_dead_end(req)):
+            # finished at the first token (EOS, budget, or a grammar
+            # complete after it): never enters the decode mix
             self._slots[slot] = None
             self._done[slot] = True
             self._release_blocks(req)
@@ -1859,6 +1955,87 @@ class ServingEngine:
         # stays done there (frozen lens, trash-routed writes) and all
         # progress happens in the verify forward, which reads host truth
         self._done[slot] = req.spec_k is not None
+
+    def _build_samp(self, reqs, pos_lag: int = 0):
+        """The sampling planes of one dispatch as host arrays: ``reqs`` is
+        the dispatch's batch view (one Optional[Request] per row; None =
+        vacant, frozen or not riding).  The flags come from the riding
+        rows only; other rows get neutral values (greedy, temperature 1,
+        zero bias), their draws computed and discarded.  PRNG positions
+        are re-derived from host truth (``len(req.tokens)``) every
+        dispatch, which rewinds a speculative rollback for free;
+        ``pos_lag`` corrects that truth on a deferred dispatch (the
+        pending steps' tokens are not harvested yet).  A penalty or bias
+        plane under lag raises: such rows force a sync.  Returns
+        ``(flags, planes)``."""
+        flags = flags_of([r.sampling for r in reqs if r is not None])
+        sampled, _filtered, penalty, bias = flags
+        if pos_lag and (penalty or bias):
+            raise RuntimeError(
+                "deferred dispatch with a host-built logit plane "
+                "(penalty/bias) — the defer predicate must have forced a "
+                "sync for these rows")
+        n = len(reqs)
+        planes = {}
+        if sampled:
+            base = np.zeros((n, 2), np.int64)
+            pos = np.zeros((n,), np.int64)
+            temp = np.ones((n,), np.float32)
+            top_k = np.zeros((n,), np.int64)
+            top_p = np.ones((n,), np.float32)
+            greedy = np.ones((n,), bool)
+            for i, r in enumerate(reqs):
+                if r is None:
+                    continue
+                temp[i], top_k[i], top_p[i], greedy[i] = \
+                    row_planes(r.sampling)
+                pos[i] = len(r.tokens) + pos_lag
+                if r.samp_base is not None:
+                    base[i] = r.samp_base
+            planes.update(base=base, pos=pos, temp=temp, top_k=top_k,
+                          top_p=top_p, greedy=greedy)
+        if penalty:
+            rep = np.ones((n,), np.float32)
+            presence = np.zeros((n, self._vocab), bool)
+            for i, r in enumerate(reqs):
+                if r is None or r.sampling is None \
+                        or not r.sampling.needs_penalty:
+                    continue
+                rep[i] = r.sampling.repetition_penalty
+                presence[i, r.prompt[:r.seq_len]] = True
+                if r.tokens:
+                    presence[i, np.asarray(r.tokens, np.int32)] = True
+            planes.update(rep=rep, presence=presence)
+        if bias:
+            bias_p = np.zeros((n, self._vocab), np.float32)
+            for i, r in enumerate(reqs):
+                if r is None or r.sampling is None \
+                        or r.sampling.mask_processor is None:
+                    continue
+                allowed = np.asarray(r.sampling.mask_processor.allowed(),
+                                     bool)
+                bias_p[i, ~allowed] = MASK_BIAS
+            planes["bias"] = bias_p
+        return flags, planes
+
+    def _count_sample_route(self, reqs_tokens):
+        """Classify emitted tokens into the sample route counters;
+        ``reqs_tokens`` is (request, n_emitted) pairs."""
+        for r, k in reqs_tokens:
+            sp = r.sampling
+            self._n["greedy_tokens" if sp is None or sp.is_greedy
+                    else "sampled_tokens"] += k
+            if sp is not None and sp.mask_processor is not None:
+                self._n["masked_tokens"] += k
+
+    def _mask_dead_end(self, req: Request) -> bool:
+        """Advance the request's token-mask state machine past its last
+        emitted token and report whether the grammar completed (no legal
+        continuation: the EOS of a constrained stream).  Called for live
+        mask requests only, at the chunk-final and decode-block sites."""
+        mp = req.sampling.mask_processor
+        mp.advance(int(req.tokens[-1]))
+        return not np.asarray(mp.allowed(), bool).any()
 
     def _block_rides(self, i: int, r: Request) -> bool:
         """Does slot ``i`` ride THIS iteration's plain decode block?
@@ -1881,13 +2058,14 @@ class ServingEngine:
                 tbl[i] = self._tables[i]
         return tbl
 
-    def _verify_fn(self, width: int):
-        fn = self._verify_fns.get(width)
+    def _verify_fn(self, width: int, flags=NO_FLAGS):
+        fn = self._verify_fns.get((width, flags))
         if fn is None:
             fn = build_spec_verify(
                 self._model, self.cfg, width,
-                kv_int8=self.kv_cache_dtype == "int8", wq=self._wq_ctx)
-            self._verify_fns[width] = fn
+                kv_int8=self.kv_cache_dtype == "int8", samp_flags=flags,
+                wq=self._wq_ctx)
+            self._verify_fns[(width, flags)] = fn
         return fn
 
     def _spec_verify(self, out: List[Request]):
@@ -1942,11 +2120,18 @@ class ServingEngine:
             toks[i, 1:1 + d.size] = d
             n_valid[i] = 1 + d.size
             tbl[i] = self._tables[i]
+        spec_set = set(spec)
+        flags, planes = self._build_samp(
+            [r if i in spec_set else None for i, r in enumerate(self._slots)])
         t0 = self._clock()
-        outp = self._verify_fn(width)(
+        outp = self._verify_fn(width, flags)(
             self._dev(toks), self._dev(self._lens), self._dev(n_valid),
-            self._dev(tbl), *self._arenas)
-        greedy = self._fetch(outp[:1])[0]               # [B, width]
+            self._dev(tbl), self._samp_tensors(planes), *self._arenas)
+        if flags[0]:
+            # a sampled mix: the position-keyed draws too ([B, width] each)
+            greedy, u, accept_p, resample, sample = self._fetch(outp[:5])
+        else:
+            greedy = self._fetch(outp[:1])[0]           # [B, width]
         self._verify_seconds += self._clock() - t0
         self._disp_s += self._clock() - t0
         self._n["spec_verify_steps"] += 1
@@ -1962,9 +2147,17 @@ class ServingEngine:
         t = self._clock()
         for i in spec:
             req = self._slots[i]
-            emitted, accepted = accept_drafts(greedy[i], drafts[i],
-                                              self.cfg.eos_token_id)
+            sp = req.sampling
+            if sp is not None and not sp.is_greedy:
+                emitted, accepted, resamples = accept_drafts_sampled(
+                    drafts[i], u[i], accept_p[i], resample[i], sample[i],
+                    self.cfg.eos_token_id)
+                self._n["sample_resamples"] += resamples
+            else:
+                emitted, accepted = accept_drafts(greedy[i], drafts[i],
+                                                  self.cfg.eos_token_id)
             self._n["spec_accepted_tokens"] += accepted
+            self._count_sample_route([(req, len(emitted))])
             req.tokens.extend(emitted)
             req.remaining -= len(emitted)
             self._lens[i] += len(emitted)
@@ -1992,7 +2185,9 @@ class ServingEngine:
         iteration's scheduling cannot depend on it: no speculative slot
         needs a host accept/rollback decision and no rider's token
         BUDGET can run out inside the dispatch (``lag`` corrects host
-        truth for steps still in flight).  EOS depends on the depth: at
+        truth for steps still in flight) and no host-built logit plane
+        (mask bias, repetition-penalty presence) needs the emitted token
+        before the next dispatch.  EOS depends on the depth: at
         depth 1 every EOS-configured iteration syncs (scheduling equal
         to lockstep's); at depth >= 2 the finish bitmap is read one
         harvest late instead.  The first matching reason is charged."""
@@ -2006,6 +2201,11 @@ class ServingEngine:
                 continue              # retired by a same-step harvest
             if r.remaining - lag <= n:
                 return "budget"
+            sp = r.sampling
+            if sp is not None and sp.mask_processor is not None:
+                return "mask"
+            if sp is not None and sp.needs_penalty:
+                return "penalty"
             if r.spec_k is not None:
                 return "spec"
         # a verifying spec slot anywhere keeps the iteration sync: the
@@ -2163,7 +2363,13 @@ class ServingEngine:
         # a full block only when no active request can finish inside it
         # (a block never overshoots a budget); otherwise single steps
         min_budget = min(self._slots[i].remaining for i in active) - lag
-        n = 1 if min_budget < self.steps_per_call else self.steps_per_call
+        # a mask row's host state machine must see every token: single
+        # steps
+        masked = any(self._slots[i].sampling is not None and
+                     self._slots[i].sampling.mask_processor is not None
+                     for i in active)
+        n = 1 if (min_budget < self.steps_per_call or masked) \
+            else self.steps_per_call
         # fused window (depth >= 2): when the next S iterations are
         # provably eventless (nothing queued or swapped to admit, no
         # chunk, a deferrable dispatch, budget headroom beyond the whole
@@ -2180,12 +2386,16 @@ class ServingEngine:
                 nxt = min(r.arrival_time for r in self._queue)
                 until = int(-(-(nxt - t_now) // self._step_dt))
                 fuse_cap = min(self.async_depth, until)
-        if (self.async_depth > 1 and not self._prefilling
+        if (self.async_depth > 1 and not masked and not self._prefilling
                 and not self._swapped and fuse_cap > 1
                 and min_budget > self.async_depth * n
                 and self._block_sync_reason(n, active, lag) is None):
             iters = fuse_cap
         n_total = n * iters
+        active_set = set(active)
+        flags, planes = self._build_samp(
+            [self._slots[i] if i in active_set else None
+             for i in range(self.num_slots)], pos_lag=lag)
         pre_lens = np.array(self._lens)
         tables = self._dev(self._decode_tables())
         if pend is not None:
@@ -2201,7 +2411,9 @@ class ServingEngine:
             carries = (self._dev(self._tok), self._dev(self._lens),
                        self._dev(self._done), self._dev(budget))
         t_blk = self._clock()
-        out = self._block_program(n_total)(*carries, tables)
+        prog = self._block_program(n_total, flags)
+        samp = self._samp_tensors(planes, getattr(prog, "samp", None))
+        out = prog(*carries, tables, samp)
         host, event, slot = self._stage_block(out)
         dt = self._clock() - t_blk
         self._disp_s += dt
@@ -2211,6 +2423,8 @@ class ServingEngine:
         self._n["decode_steps"] += n_total
         self._n["busy_slot_steps"] += n_total * len(active)
         self._n["block_dispatches"] += 1
+        self._count_sample_route(
+            [(self._slots[i], n_total) for i in active])
         new_pend = _PendingBlock(
             step_idx=self._step_idx, n=n_total, per_iter=n, iters=iters,
             active=list(active), reqs=[self._slots[i] for i in active],
@@ -2272,7 +2486,13 @@ class ServingEngine:
                              for s in range(per))
                 req.tokens.extend(int(x) for x in row)
                 req.remaining -= per
-                if (eos is not None and eos in row) or req.remaining == 0:
+                if (eos is not None and eos in row) or req.remaining == 0 \
+                        or (req.sampling is not None
+                            and req.sampling.mask_processor is not None
+                            and self._mask_dead_end(req)):
+                    # the finish bitmap seen on the host (EOS in this
+                    # iteration's segment, the budget ran out), or a mask
+                    # row's grammar completed (per == 1 for mask rows)
                     self._slots[i] = None
                     done[i] = True     # freeze the row until re-use
                     self._release_blocks(req)
@@ -2345,7 +2565,11 @@ class ServingEngine:
         ``prefix_partial_hits`` (admissions whose token-level match ran
         past the last mappable block), ``prefix_host_hits``/
         ``host_swapin_blocks`` (hits served by a host->device swap-in).
-        The dispatch-ahead keys: ``async_syncs`` and
+        ``sampled_tokens``/``greedy_tokens`` split emitted tokens by
+        sampling route (``masked_tokens`` of them under an active token
+        mask; counted at dispatch, as the reference does); and
+        ``sample_resamples`` counts residual draws consumed by
+        speculative sampling.  The dispatch-ahead keys: ``async_syncs`` and
         ``async_syncs_by_reason`` count forced early harvests by the
         closed ``ASYNC_SYNC_REASONS`` vocabulary, ``async_harvests`` the
         harvests that ran after the next dispatch was enqueued;
@@ -2357,8 +2581,8 @@ class ServingEngine:
         by at most the pipeline's depth; ``run()`` returns flushed.
         """
         n = self._n
-        graphs = [p for p in self._blocks.values()
-                  if isinstance(p, DecodeBlockGraph)]
+        graphs = [p for progs in self._blocks.values()
+                  for p in progs.values() if isinstance(p, DecodeBlockGraph)]
         steps = n["decode_steps"]
         verifies = n["spec_verify_steps"]
         drafted = n["spec_draft_tokens"]
@@ -2411,6 +2635,10 @@ class ServingEngine:
                                      if drafted else 0.0),
             "spec_mean_accepted_len": (accepted / verifies
                                        if verifies else 0.0),
+            "sampled_tokens": n["sampled_tokens"],
+            "greedy_tokens": n["greedy_tokens"],
+            "masked_tokens": n["masked_tokens"],
+            "sample_resamples": n["sample_resamples"],
             "preemptions": n["preemptions"],
             "preempt_resumes": n["preempt_resumes"],
             "swap_blocks_out": n["swap_blocks_out"],

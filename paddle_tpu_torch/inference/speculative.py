@@ -4,21 +4,24 @@ verifier.  Port of ``paddle_tpu/inference/speculative.py``.
 A DRAFTER proposes up to K candidate tokens per sequence; ONE target
 forward (``LlamaForCausalLM.verify_step`` over the paged arena, whose
 attention is the K-wide verify kernel on the card) scores all K+1
-positions; the longest draft prefix that matches the target's own greedy
-argmax is accepted and the first mismatch's argmax is emitted as the
-correction token.  Every emitted token is a token the sequential greedy
-loop would have produced: only the number of forwards changes.
+positions.  For a greedy row the longest draft prefix that matches the
+target's own argmax is accepted and the first mismatch's argmax is
+emitted as the correction token: every emitted token is a token the
+sequential greedy loop would have produced.  For a sampled row draft j
+is accepted with probability ``p_j(d_j)`` and the first rejection emits
+a draw from the residual (speculative sampling): the output distribution
+is the sequential sampled engine's.
 
 - ``Drafter`` and ``NGramDrafter`` (:55, :70) are pure numpy, copied.
 - ``ModelDrafter`` (:117) runs a draft model's greedy ``generate()``
   (``models/generation.py``: dense prefill, then decode steps through the
   dense decode kernel) on a fixed ``max_context`` grid.
-- ``accept_drafts`` (:196) is the greedy rule, copied.
+- ``accept_drafts`` (:196) and ``accept_drafts_sampled`` (:160) are the
+  greedy and the stochastic rules, copied.
 - ``build_spec_verify`` (:227) is the eager counterpart of the compiled
-  verifier, for greedy rows with a float or int8 KV cache and float or
-  quantized weights.  Sampled rows (``accept_drafts_sampled``,
-  ``spec_sampling_draws``), LoRA and a mesh are not ported (ROADMAP.md,
-  Queue 1).
+  verifier with its flag buckets (greedy, sampled, penalised), over a
+  float or int8 KV cache and float or quantized weights.  LoRA and a
+  mesh are not ported (ROADMAP.md, Queue 1).
 
 KV rollback costs nothing: the verify forward writes all K+1 positions'
 K/V through the row's block table (pad columns trash-routed), and a
@@ -135,6 +138,30 @@ class ModelDrafter(Drafter):
         return out[0, :min(k, self._k)].cpu().numpy().astype(np.int32)
 
 
+def accept_drafts_sampled(drafts, u_row, accept_p_row, resample_row,
+                          sample_row,
+                          eos_token_id: Optional[int] = None
+                          ) -> Tuple[List[int], int, int]:
+    """The stochastic acceptance rule (speculative sampling, one-hot
+    drafts): draft j is accepted iff ``u_row[j] < accept_p_row[j]``; the
+    first rejection emits the residual draw ``resample_row[j]``, and full
+    acceptance emits the bonus draw ``sample_row[K]``.  An accepted EOS
+    stops acceptance.  Returns ``(emitted, accepted, resamples)``, the
+    last 1 when a residual draw was consumed."""
+    emitted: List[int] = []
+    a = 0
+    while a < len(drafts) and float(u_row[a]) < float(accept_p_row[a]):
+        emitted.append(int(drafts[a]))
+        a += 1
+        if eos_token_id is not None and emitted[-1] == eos_token_id:
+            return emitted, a, 0
+    if a < len(drafts):
+        emitted.append(int(resample_row[a]))
+        return emitted, a, 1
+    emitted.append(int(sample_row[a]))
+    return emitted, a, 0
+
+
 def accept_drafts(greedy_row, drafts,
                   eos_token_id: Optional[int] = None
                   ) -> Tuple[List[int], int]:
@@ -161,16 +188,20 @@ def accept_drafts(greedy_row, drafts,
 def build_spec_verify(model, cfg, steps: int, kv_int8: bool = False,
                       samp_flags=(False, False, False, False),
                       lora=False, wq=None, shard=None):
-    """The verifier for greedy rows: ONE target forward scores ``steps``
-    positions per slot (the last emitted token plus up to ``steps - 1``
-    draft candidates) against the paged arena and returns every
-    position's argmax.  The JAX package compiles this program; here it
-    is a closure over ``inference/llm.py``'s ``spec_verify``.
+    """The verifier: ONE target forward scores ``steps`` positions per
+    slot (the last emitted token plus up to ``steps - 1`` draft
+    candidates) against the paged arena.  The JAX package compiles this
+    program; here it is a closure over ``inference/llm.py``'s
+    ``spec_verify``.  ``samp_flags`` selects the output: every position's
+    argmax of the processed logits (greedy mix), or with the sampled
+    flag also the draws of ``sampling.spec_sampling_draws``.  A
+    token-mask row never rides a verify.
 
     ``kv_int8`` declares the int8 cache (the arenas must match it); ``wq``
     is the weight-quant context of quantized weights or None.  Signature:
     ``(toks [B, steps], lens [B], n_valid [B], tables [B, max_blocks],
-    *flat_arenas) -> (greedy [B, steps], *flat_arenas)``."""
+    samp, *flat_arenas) -> (greedy [B, steps][, u, accept_p, resample,
+    sample], *flat_arenas)``."""
     if steps < 1:
         raise ValueError(f"verify steps must be >= 1, got {steps}")
     if samp_flags[3]:
@@ -178,8 +209,6 @@ def build_spec_verify(model, cfg, steps: int, kv_int8: bool = False,
             "token-mask constrained decoding cannot ride a verify "
             "forward (mask state is host-side and per emitted token)")
     for on, what, item in (
-            (any(samp_flags[:3]), "a sampled or penalised verify mix",
-             "sampling and speculation"),
             (bool(lora), "LoRA in the verify forward",
              "LoRA and fair share"),
             (shard is not None, "a sharded verify forward",
@@ -188,8 +217,9 @@ def build_spec_verify(model, cfg, steps: int, kv_int8: bool = False,
             raise NotImplementedError(
                 f"{what} is not ported to paddle_tpu_torch yet "
                 f"(ROADMAP.md, Queue 1: {item})")
+    flags = tuple(bool(f) for f in samp_flags)
 
-    def verify(toks, lens, n_valid, tables, *flat_arenas):
+    def verify(toks, lens, n_valid, tables, samp, *flat_arenas):
         if toks.shape[1] != steps:
             raise ValueError(f"verify built for {steps} positions got "
                              f"toks of shape {tuple(toks.shape)}")
@@ -197,6 +227,6 @@ def build_spec_verify(model, cfg, steps: int, kv_int8: bool = False,
             raise ValueError(f"verify built with kv_int8={kv_int8} got "
                              f"{flat_arenas[0].dtype} arenas")
         return spec_verify(model, toks, lens, n_valid, tables, flat_arenas,
-                           wq=wq)
+                           wq=wq, samp=samp, flags=flags)
 
     return verify

@@ -5,8 +5,13 @@ the fields the engine reads), the dense cache of ``generate()``
 :314, ``cached_decode_attention`` :325), ``init_paged_kv_arena`` (:113,
 float and int8 caches), ``quantize_kv_heads`` (:152), the decode / chunk
 / verify scatters with their trash routing and their quantize-on-append
-``_q`` twins (:174-311), and the greedy half of ``decode_scan_body``
-(:437) and ``GenerationMixin.generate`` (:638).
+``_q`` twins (:174-311), ``filter_top_k_top_p`` (:342), ``sample_token``
+(:368), ``decode_scan_body`` (:437) and ``GenerationMixin.generate``
+(:638), greedy or sampled.  The sampled draws are JAX's threefry bits
+(``inference/threefry.py``): ``generate(do_sample=True, seed=s)`` splits
+``PRNGKey(s)`` into the first token's key and the loop's, splits the
+loop's key once a step, and draws one categorical over the whole ``[B,
+V]`` batch from each key, as the JAX ``generate()`` does.
 
 The JAX scatters return new arrays (the engine donates the old ones);
 here they write the cache IN PLACE with ``index_put_`` and return it, so
@@ -29,7 +34,13 @@ from ..ops.decode_attention import (cache_shape, decode_attention,
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """The generation options the greedy serving path reads."""
+    """The generation options ``generate()`` and the serving path read
+    (the serving engine's per-request planes override the sampling
+    fields there)."""
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
     compute_dtype: str = "bfloat16"
@@ -258,16 +269,69 @@ def paged_verify_scatter_q(arena, scales, tables, lens, n_valid, new_kv):
     return arena, scales
 
 
+def filter_top_k_top_p(lg, top_k, top_p):
+    """Per-row filtering of temperature-scaled logits ``lg [..., V]``:
+    top-k (``top_k[...] <= 0`` keeps everything), then nucleus top-p over
+    the top-k-filtered distribution (``top_p[...] = 1`` keeps everything).
+    One descending sort serves both: each filter keeps a prefix of sorted
+    order, so the cut is a per-row threshold logit and ties at the
+    threshold are kept.  Dropped logits become ``-inf``."""
+    v = lg.shape[-1]
+    srt = torch.sort(lg, dim=-1, descending=True).values
+    j = torch.arange(v, device=lg.device)
+    tk = top_k[..., None]
+    keep_k = (tk <= 0) | (j < tk)
+    probs = torch.softmax(torch.where(keep_k, srt, float("-inf")), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # the smallest prefix with cumulative mass >= p; position 0 always kept
+    keep = keep_k & ((cum - probs) < top_p[..., None])
+    nkeep = torch.clamp_min(keep.sum(-1), 1)
+    kth = torch.gather(srt, -1, (nkeep - 1)[..., None])
+    return torch.where(lg < kth, float("-inf"), lg)
+
+
+def sample_token(logits, key, cfg: GenerationConfig):
+    """Greedy argmax, or the temperature/top-k/top-p categorical of the
+    whole ``[B, V]`` batch from one key (``key`` [2] int64 words): the
+    static config of ``generate()``.  Pure top-k takes the k-th largest
+    logit (``torch.topk``, as ``lax.top_k``) as its threshold; any top-p
+    goes through ``filter_top_k_top_p``."""
+    from ..inference import threefry
+    if not cfg.do_sample:
+        return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    lg = logits.float()
+    # a division by a tensor keeps the card's bits equal to the CPU's
+    lg = lg / torch.full_like(lg, max(cfg.temperature, 1e-6))
+    if cfg.top_k and cfg.top_k > 0 and cfg.top_p >= 1.0:
+        kth = torch.topk(lg, cfg.top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, float("-inf"), lg)
+    elif (cfg.top_k and cfg.top_k > 0) or cfg.top_p < 1.0:
+        rows = lg.shape[:-1]
+        lg = filter_top_k_top_p(
+            lg, torch.full(rows, int(cfg.top_k or 0), dtype=torch.int64,
+                           device=lg.device),
+            torch.full(rows, float(cfg.top_p), dtype=torch.float32,
+                       device=lg.device))
+    return threefry.categorical(key, lg).to(torch.int32)
+
+
 def decode_scan_body(model, cfg: GenerationConfig):
-    """The greedy per-token body of ``generate()``'s decode loop:
-    decode_step -> argmax -> EOS mask -> lens advance.  carry = (tok,
-    lens, kvs, done); returns (carry', emitted tokens [B] int32).  Done
-    rows emit ``pad_token_id`` (when an EOS is configured) and hold
-    their ``lens``."""
+    """The per-token body of ``generate()``'s decode loop: decode_step ->
+    sample -> EOS mask -> lens advance.  carry = (tok, lens, kvs, key,
+    done); a sampled config splits the carried key once a step (the
+    first half draws, the second is carried).  Returns (carry', emitted
+    tokens [B] int32).  Done rows emit ``pad_token_id`` (when an EOS is
+    configured) and hold their ``lens``."""
+    from ..inference import threefry
+
     def body(carry):
-        tok, lens, kvs, done = carry
+        tok, lens, kvs, key, done = carry
         logits, kvs = model.decode_step(tok, lens, kvs)
-        nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        if cfg.do_sample:
+            key_t, key = threefry.split(key)
+        else:
+            key_t = key
+        nxt = sample_token(logits, key_t, cfg)
         if cfg.eos_token_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, cfg.pad_token_id),
                               nxt)
@@ -275,7 +339,7 @@ def decode_scan_body(model, cfg: GenerationConfig):
         else:
             done_n = done
         lens_n = torch.where(done, lens, lens + 1)
-        return (nxt, lens_n, kvs, done_n), nxt
+        return (nxt, lens_n, kvs, key, done_n), nxt
     return body
 
 
@@ -299,7 +363,7 @@ def _params_as(model, dtype: torch.dtype):
 
 
 class GenerationMixin:
-    """Adds greedy ``generate`` to a causal LM that implements
+    """Adds ``generate`` to a causal LM that implements
     ``prefill(ids, lens, kvs) -> (last logits [B, V], kvs)`` over dense
     caches, ``decode_step(tokens [B], lens, kvs)`` (the dense ``(k, v)``
     form among others) and ``kv_cache_spec()``.  The JAX package compiles
@@ -313,11 +377,13 @@ class GenerationMixin:
                  num_beams=1, length_penalty=0.0, eos_token_id=None,
                  pad_token_id=0, max_cache_len=None,
                  compute_dtype="bfloat16", cache_dtype=None, seed=0):
-        """Generate ``max_new_tokens`` greedy tokens after the
-        (right-padded) prompt ``input_ids`` [B, S]; ``seq_lens`` [B] are
-        the true prompt lengths (default: S).  Returns an int32 tensor
-        [B, max_new_tokens] on the model's device (``pad_token_id`` after
-        EOS).  Sampling and beam search are not ported."""
+        """Generate ``max_new_tokens`` tokens after the (right-padded)
+        prompt ``input_ids`` [B, S]; ``seq_lens`` [B] are the true prompt
+        lengths (default: S).  Greedy, or with ``do_sample=True`` a
+        temperature/top-k/top-p draw from the threefry stream of
+        ``seed``.  Returns an int32 tensor [B, max_new_tokens] on the
+        model's device (``pad_token_id`` after EOS).  Beam search is not
+        ported."""
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -327,10 +393,6 @@ class GenerationMixin:
             raise ValueError(
                 "num_beams > 1 is greedy beam search; do_sample=True is "
                 "not supported together with beams")
-        if do_sample:
-            raise NotImplementedError(
-                "generate(do_sample=True) is not ported to paddle_tpu_torch "
-                "yet (ROADMAP.md, Queue 1: sampling and speculation)")
         if num_beams > 1:
             raise NotImplementedError(
                 f"generate(num_beams={num_beams}) (beam search) is not "
@@ -357,6 +419,7 @@ class GenerationMixin:
             raise ValueError(
                 f"max_cache_len ({max_cache_len}) < prompt + new tokens "
                 f"({s} + {max_new_tokens})")
+        from ..inference import threefry
         cdt = to_dtype(compute_dtype)
         kdt = to_dtype(cache_dtype) if cache_dtype is not None else cdt
         if kdt != cdt:
@@ -367,7 +430,10 @@ class GenerationMixin:
                 f"compute_dtype ({compute_dtype!r}) is not ported yet "
                 f"(ROADMAP.md, Queue 1: LLMPredictor and the dense "
                 f"generate programs)")
-        cfg = GenerationConfig(eos_token_id=eos_token_id,
+        cfg = GenerationConfig(do_sample=bool(do_sample),
+                               temperature=float(temperature),
+                               top_k=int(top_k), top_p=float(top_p),
+                               eos_token_id=eos_token_id,
                                pad_token_id=int(pad_token_id),
                                compute_dtype=str(compute_dtype))
         n_layers, hkv, d = self.kv_cache_spec()
@@ -378,11 +444,14 @@ class GenerationMixin:
                 kvs = init_kv_cache(n_layers, b, int(max_cache_len), hkv, d,
                                     kdt, dev)
                 logits, kvs = self.prefill(ids, lens, kvs)
-                tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+                key = threefry.as_key(threefry.prng_key(seed), dev)
+                key0, keyr = (threefry.split(key) if cfg.do_sample
+                              else (key, key))
+                tok = sample_token(logits, key0, cfg)
                 done = (torch.zeros((b,), dtype=torch.bool, device=dev)
                         if eos_token_id is None else tok == eos_token_id)
                 toks = [tok]
-                carry = (tok, lens, kvs, done)
+                carry = (tok, lens, kvs, keyr, done)
                 body = decode_scan_body(self, cfg)
                 for _ in range(int(max_new_tokens) - 1):
                     carry, nxt = body(carry)

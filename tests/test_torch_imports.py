@@ -30,6 +30,7 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.quantization.observers\n"
         "import paddle_tpu_torch.inference.speculative, "
         "paddle_tpu_torch.inference.sampling, "
+        "paddle_tpu_torch.inference.threefry, "
         "paddle_tpu_torch.inference.prefixcache, "
         "paddle_tpu_torch.models.generation\n"
         "import paddle_tpu_torch.core.flags, paddle_tpu_torch.core.generator, "

@@ -147,7 +147,6 @@ def test_scheduling_identical_to_jax_engine(served):
 
 
 @pytest.mark.parametrize("kw", [
-    {"do_sample": True},
     # int8 KV and int8/int4 weights are ported; what stays unported there
     # is a float KV dtype other than compute_dtype and quantized weights
     # on a tensor-parallel mesh
@@ -242,7 +241,7 @@ def test_engine_defaults_are_the_reference_engines():
 
 
 @pytest.mark.parametrize("kw", [
-    {"sampling": object()}, {"adapter": "a"},
+    {"adapter": "a"},
     {"stream": True}, {"tenant": "t"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_submit_features_raise(kw):

@@ -18,8 +18,9 @@ the CPU, on the JAX models' weights carried by the weight bridge.
 - The port against itself: spec tokens (n-gram, target and other-model
   drafters; float and int8 cache) equal the non-spec engine's, greedy
   ``generate()``'s, and a fresh 1-slot spec engine's.
-- What stays unported (sampling with spec, LoRA, a mesh, sampled or
-  beam ``generate()``) raises ``NotImplementedError``.
+- What stays unported (LoRA, a mesh, beam ``generate()``) raises
+  ``NotImplementedError``; a spec request with a token mask raises the
+  reference's ``ValueError``.
 """
 
 import dataclasses
@@ -38,7 +39,8 @@ from paddle_tpu.inference.speculative import ModelDrafter as JaxModelDrafter
 from paddle_tpu.models.generation import init_paged_kv_arena as j_arena
 from paddle_tpu.models.wquant import wquant_context as j_wquant
 from paddle_tpu.observability.metrics import MetricsRegistry
-from paddle_tpu_torch.inference import (ModelDrafter, NGramDrafter,
+from paddle_tpu_torch.inference import (DfaTokenMask, ModelDrafter,
+                                        NGramDrafter, SamplingParams,
                                         ServingEngine, build_spec_verify)
 from paddle_tpu_torch.inference.llm import build_weight_quant_plan
 from paddle_tpu_torch.models import (GenerationConfig, LlamaForCausalLM,
@@ -391,18 +393,20 @@ def test_spec_submit_guards_and_default_drafter(bridged):
     assert eng._spec_k_max == 2 and isinstance(eng._drafter, NGramDrafter)
 
 
-@pytest.mark.parametrize("case", ["sampling_with_spec", "do_sample",
-                                  "lora", "mesh"])
+@pytest.mark.parametrize("case", ["sampling_with_spec", "lora", "mesh"])
 def test_unported_spec_compositions_raise(bridged, case):
     (_jnet, tnet), _ = bridged
     if case == "sampling_with_spec":
+        # sampling composes with spec (speculative sampling); a token
+        # mask does not, as in the reference
         eng = ServingEngine(tnet, num_slots=1, device="cpu", **_engine_kw())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        table = np.zeros((1, tiny_llama_config().vocab_size), np.int32)
+        with pytest.raises(ValueError, match="token-mask"):
             eng.submit(np.zeros((3,), np.int32), spec_decode=2,
-                       sampling=object())
+                       sampling=SamplingParams(
+                           mask_processor=DfaTokenMask(table)))
         return
-    kw = {"do_sample": {"do_sample": True},
-          "lora": {"adapter_store": object()},
+    kw = {"lora": {"adapter_store": object()},
           "mesh": {"mesh": object()}}[case]
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tnet, num_slots=1, device="cpu", drafter=NGramDrafter(),
@@ -416,13 +420,10 @@ def test_build_spec_verify_guards_and_generate_raises(bridged):
         build_spec_verify(tnet, cfg, 0)
     with pytest.raises(ValueError, match="mask"):
         build_spec_verify(tnet, cfg, 4, samp_flags=(True, False, False, True))
-    for kw in ({"samp_flags": (True, False, False, False)}, {"lora": True},
-               {"shard": object()}):
+    for kw in ({"lora": True}, {"shard": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_spec_verify(tnet, cfg, 4, **kw)
     ids = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tnet.generate(ids, do_sample=True, compute_dtype="float32")
     with pytest.raises(NotImplementedError, match="beam"):
         tnet.generate(ids, num_beams=2, compute_dtype="float32")
     with pytest.raises(ValueError, match="max_new_tokens"):
