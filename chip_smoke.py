@@ -125,6 +125,28 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    with an int8 KV cache and int8 weights, and a sampled spec trace
    (spec_decode=4, a ModelDrafter over the target, T=0.8) with its
    acceptance and residual resamples;
+3g. observability at the same width, on phase 3's model and trace: a
+   private enabled ``MetricsRegistry`` with an enabled ``FlightRecorder``
+   against both disabled, in turns (enabled, disabled, disabled,
+   enabled), in the default engine and in lockstep: tokens equal phase
+   3's in every run, the enabled runs hold phase 3's launch formula and
+   the disabled ones launch the same; each run's steady decode window
+   (wall per step, the means per step of its dispatch, overlap and host
+   seconds; device busy time and idle share in each arm's first run)
+   and the enabled-vs-disabled overhead of the step wall per mode; each
+   enabled run's goodput ledger conserves exactly and ``stats()`` equals
+   its registry key for key; the two enabled runs of a mode give equal
+   flight records modulo wall; a profiled warm decode window's torch
+   chrome trace merged with the flight-recorder lanes
+   (``merge_chrome_traces``) holds one ``serving.decode_block`` range per
+   block dispatch and the paged decode and RMSNorm kernels; and a fault
+   trace modelled on phase 3d (4 slots over 160 blocks: an allocation
+   failure, a forced swap with a 50 ms stall, a tier eviction, then a
+   poisoned harvest raising ``PoisonedDispatchError``), the stall charged
+   to ``serving.fault.stall_seconds`` and not to the step's host seconds,
+   the survivors finished, the pool audit clean; after phase 4d, (f)
+   phase 4d's trace (a) on the card and on the CPU gives equal flight
+   records modulo wall, ledgers and counters;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same trace through the lockstep arm and against the same
@@ -1508,14 +1530,15 @@ def _build_8b(torch, n_layers, dtype, seed):
     return cfg, model
 
 
-def _serve_trace(torch, eng, cfg, seed):
-    """The serving trace of phases 3 and 3b, from ``seed``: 7 requests of
-    64-512 prompt tokens, then (once the first has finished its prefill)
-    an 8th sharing its 256-token prefix (16 full blocks).  The launch
-    counters are set to 0 just before and read just after.  Every request
-    must finish with in-vocabulary tokens and the prefix must hit.
-    Returns (launches, stats, wall seconds, requests, tokens, rng, the
-    Request objects)."""
+def _serve_trace(torch, eng, cfg, seed, check_hits=True):
+    """The serving trace of phases 3, 3b and 3g, from ``seed``: 7 requests
+    of 64-512 prompt tokens, then (once the first has finished its
+    prefill) an 8th sharing its 256-token prefix (16 full blocks).  The
+    launch counters are set to 0 just before and read just after.  Every
+    request must finish with in-vocabulary tokens and (``check_hits``,
+    which needs an enabled registry) the prefix must hit.  Returns
+    (launches, stats, wall seconds, requests, tokens, rng, the Request
+    objects)."""
     import numpy as np
     from paddle_tpu_torch.ops import KERNELS
     rng = np.random.default_rng(seed)
@@ -1547,7 +1570,7 @@ def _serve_trace(torch, eng, cfg, seed):
     specs = first + [second]
     _finished_in_vocab(reqs, [m for _, m in specs], cfg.vocab_size,
                        "serving")
-    if st["prefix_hits"] <= 0:
+    if check_hits and st["prefix_hits"] <= 0:
         raise AssertionError(f"the shared prefix did not hit: {st}")
     return (launches, st, wall, len(specs), sum(m for _, m in specs), rng,
             reqs)
@@ -1593,7 +1616,8 @@ def phase_serving(torch, seed, cfg, model):
     device busy time of a decode step and the device's idle share (1 -
     the union of its kernel intervals over the window's wall).  The first depth-1 run also runs the
     sync-debug window.  Returns the launch counts of the first depth-1
-    run (the engine's defaults) and that run's decode profile."""
+    run (the engine's defaults), that run's decode profile and the
+    trace's tokens."""
     from paddle_tpu_torch.inference import ServingEngine
     nl = cfg.num_hidden_layers
     tokens, first, main_launches, main_prof = None, None, None, None
@@ -1643,7 +1667,7 @@ def phase_serving(torch, seed, cfg, model):
     torch.cuda.empty_cache()
     _log(f"serving: the {len(SERVING_TURNS)} runs of "
          f"{len(SERVING_ARMS)} arms gave equal tokens")
-    return main_launches, main_prof
+    return main_launches, main_prof, tokens
 
 
 def _sync_debug_window(torch, eng, rng, vocab, steps=8, sampling=None):
@@ -1920,15 +1944,25 @@ def _decode_ms(per_kernel, steps=1):
             / 1e3 / steps for tag, key in DECODE_KERNELS.items()}
 
 
+def _device_events(torch, prof):
+    """A profile's device work (kernels and copies): its CUDA events
+    without the device-side ranges of user annotations (the engine's
+    spans open ``record_function`` ranges while a profiler runs, and
+    their device ranges cover the kernels they launched)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("serving.")]
+
+
 def _profile_kernels(torch, prof):
     """A profile's CUDA kernels: ``{name: us}`` summed, and ``{name:
     launches}``."""
     per_kernel, count = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us())
-            count[e.name] = count.get(e.name, 0) + 1
+    for e in _device_events(torch, prof):
+        per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                              + e.time_range.elapsed_us())
+        count[e.name] = count.get(e.name, 0) + 1
     return per_kernel, count
 
 
@@ -2304,6 +2338,486 @@ def phase_radix_tier(torch, seed, cfg, model):
 
 
 # -- the sampled half (phases 2's sampler row, 3a's sampled graph, 3f, 4f) --
+
+# phase 3g: the engine's registry/recorder arms, in turns (enabled,
+# disabled, disabled, enabled), in the default engine and in lockstep
+OBS_ARMS = (("enabled", True), ("disabled", False))
+OBS_TURNS = (0, 1, 1, 0)
+OBS_MODES = (("depth 1", {}), ("lockstep", dict(async_dispatch=False)))
+OBS_WINDOW_STEPS = 16
+
+# stats() keys read out of the registry, and the instrument each is
+STATS_INSTRUMENTS = {
+    "kv_bytes_swept": "serving.kv.bytes_swept",
+    "weight_bytes_swept": "serving.weights.bytes_swept",
+    "finished": "serving.requests_finished",
+    "cancelled": "serving.requests_cancelled",
+    "prefills": "serving.prefills",
+    "prefill_chunks": "serving.prefill_chunks",
+    "decode_steps": "serving.decode_steps",
+    "busy_slot_steps": "serving.busy_slot_steps",
+    "block_dispatches": "serving.block_dispatches",
+    "prefix_hits": "serving.prefix_hits",
+    "prefix_misses": "serving.prefix_misses",
+    "prefix_hit_tokens": "serving.prefix.hit_tokens",
+    "prefix_partial_hits": "serving.prefix.partial_hits",
+    "prefix_host_hits": "serving.prefix.host_hits",
+    "host_swapin_blocks": "serving.prefix.host_swapin_blocks",
+    "spec_verify_steps": "serving.spec.verify_steps",
+    "spec_draft_hits": "serving.spec.draft_hits",
+    "spec_draft_misses": "serving.spec.draft_misses",
+    "spec_draft_tokens": "serving.spec.draft_tokens",
+    "spec_accepted_tokens": "serving.spec.accepted_tokens",
+    "sampled_tokens": "serving.sample.sampled_tokens",
+    "greedy_tokens": "serving.sample.greedy_tokens",
+    "masked_tokens": "serving.sample.masked_tokens",
+    "sample_resamples": "serving.sample.resamples",
+    "preemptions": "serving.preempt.requests",
+    "preempt_resumes": "serving.preempt.resumes",
+    "swap_blocks_out": "serving.swap.blocks_out",
+    "swap_blocks_in": "serving.swap.blocks_in",
+    "swap_bytes_out": "serving.swap.bytes_out",
+    "swap_bytes_in": "serving.swap.bytes_in",
+    "shed": "serving.shed.requests",
+    "timeouts": "serving.timeout.requests",
+    "useful_tokens": "serving.goodput.useful_tokens",
+    "wasted_tokens": "serving.goodput.wasted_tokens",
+    "dispatched_tokens": "serving.goodput.dispatched_tokens",
+    "handoffs": "serving.handoff.requests",
+    "slo_attained": "serving.slo.attained",
+    "slo_missed": "serving.slo.missed",
+    "async_syncs": "serving.async.syncs",
+    "async_harvests": "serving.async.harvests",
+}
+STATS_SECONDS = {"host_seconds": "serving.step.host_seconds",
+                 "dispatch_seconds": "serving.step.dispatch_seconds",
+                 "overlap_seconds": "serving.step.overlap_seconds"}
+
+
+def _strip_events(events):
+    """Flight events without their wall times: (seq, step, request,
+    kind, attrs)."""
+    return [(e.seq, e.step, e.request, e.kind,
+             tuple(sorted((k, str(v)) for k, v in e.attrs.items())))
+            for e in events]
+
+
+def _check_ledger(tag, eng):
+    """Phase 3g (b): exact goodput conservation, and ``stats()`` equal to
+    the engine's private registry key for key (counters label-summed,
+    the per-reason breakdowns per label, the step split's seconds to the
+    histograms' sums)."""
+    st, reg = eng.stats(), eng.metrics_registry
+    if not (st["useful_tokens"] + st["wasted_tokens"]
+            == st["dispatched_tokens"] > 0
+            and st["wasted_tokens"] == sum(st["wasted_by_reason"].values())):
+        raise AssertionError(f"{tag}: goodput ledger {st}")
+    bad = {k: (st[k], reg.get(n).total())
+           for k, n in STATS_INSTRUMENTS.items()
+           if st[k] != reg.get(n).total()}
+    syncs = reg.get("serving.async.syncs")
+    bad.update({f"syncs[{r}]": (v, syncs.value(reason=r))
+                for r, v in st["async_syncs_by_reason"].items()
+                if v != syncs.value(reason=r)})
+    wasted = reg.get("serving.goodput.wasted_tokens")
+    bad.update({f"wasted[{r}]": (v, wasted.value(reason=r,
+                                                 tenant="default"))
+                for r, v in st["wasted_by_reason"].items()
+                if v != wasted.value(reason=r, tenant="default")})
+    bad.update({k: (st[k], reg.get(n).summary()["sum"])
+                for k, n in STATS_SECONDS.items()
+                if st[k] != reg.get(n).summary()["sum"]})
+    if st["peak_queue"] != reg.get("serving.queue_depth").hwm():
+        bad["peak_queue"] = (st["peak_queue"],
+                             reg.get("serving.queue_depth").hwm())
+    if bad:
+        raise AssertionError(f"{tag}: stats() != registry: {bad}")
+    return st
+
+
+def _window_split(torch, eng, rng, vocab, profiled,
+                  steps=OBS_WINDOW_STEPS, prof_steps=8):
+    """A steady decode window of ``steps`` step() calls on 8 fresh
+    64-token requests (every slot decoding, every step dispatching one
+    decode step: depth 1 fuses nothing): the unprofiled wall per step and
+    the means per step of the engine's dispatch, overlap and host seconds
+    (its totals, which advance with the registry disabled too); with
+    ``profiled``, ``prof_steps`` more steps under ``torch.profiler`` give
+    the device busy time per step and the idle share (1 - the union of
+    the device intervals over the profiled wall).  Returns (wall s,
+    split, busy ms or None, idle or None)."""
+    reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
+                       max_new_tokens=steps + prof_steps + 12)
+            for _ in range(eng.num_slots)]
+    while any(r.state in ("queued", "prefill") for r in reqs):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = dict(eng._time)
+    w0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - w0) / steps
+    split = {k: (eng._time[k] - t0[k]) / steps for k in t0}
+    busy = idle = None
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            for _ in range(prof_steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - w0
+        per_kernel, _count = _profile_kernels(torch, prof)
+        if per_kernel:
+            busy = sum(per_kernel.values()) / 1e3 / prof_steps
+            idle = 1 - _union_us(torch, prof)[0] / 1e6 / wall_prof
+    live = sum(r.state == "decode" for r in reqs)
+    eng.run()
+    if live != eng.num_slots:
+        raise AssertionError(f"observability window: {live} slots "
+                             f"decoding of {eng.num_slots}")
+    return wall, split, busy, idle
+
+
+def _merged_trace(torch, eng, rng, vocab, steps=8):
+    """Phase 3g (d): a warm decode window (the decode graph already
+    captured: no capture runs under the profiler) profiled with
+    ``torch.profiler``, exported as a chrome trace and merged with the
+    flight recorder's lanes through ``merge_chrome_traces``.  The merged
+    file's ``serving.decode_block`` ranges must number the window's
+    block dispatches and its device lanes must hold the paged decode and
+    RMSNorm kernels."""
+    import tempfile
+
+    from paddle_tpu_torch.observability import merge_chrome_traces
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
+                       max_new_tokens=steps + 12)
+            for _ in range(eng.num_slots)]
+    while any(r.state in ("queued", "prefill") for r in reqs):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    d0 = eng.stats()["block_dispatches"]
+    graphs0 = eng.stats()["decode_graphs"]["captures"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    dispatches = eng.stats()["block_dispatches"] - d0
+    if eng.stats()["decode_graphs"]["captures"] != graphs0:
+        raise AssertionError("merged trace: a decode graph was captured "
+                             "inside the profiled window")
+    eng.run()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        dev = os.path.join(tmp, "decode.pt.trace.json")
+        prof.export_chrome_trace(dev)
+        out = os.path.join(tmp, "merged.json")
+        info = merge_chrome_traces(
+            out, host=eng.flight_recorder.chrome_events(),
+            device_trace_dir=dev)
+        with open(out) as f:
+            evs = json.load(f)["traceEvents"]
+    spans = [e for e in evs if e.get("name") == "serving.decode_block"
+             and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    kernels = [e["name"] for e in evs if e.get("cat") == "kernel"]
+    paged = sum("PagedWalk" in n for n in kernels)
+    rms = sum("rms_norm" in n for n in kernels)
+    lanes = sum(1 for e in evs if e.get("pid") == 0
+                and str(e.get("name", "")).startswith("flightrec."))
+    if len(spans) != dispatches or not paged or not rms or not lanes:
+        raise AssertionError(
+            f"merged trace: {len(spans)} serving.decode_block ranges for "
+            f"{dispatches} block dispatches, {paged} paged decode and "
+            f"{rms} RMSNorm kernels, {lanes} flight-recorder events; "
+            f"{info}")
+    if not all(int(e["args"]["steps"]) >= 1 for e in spans):
+        raise AssertionError(f"merged trace: span attrs {spans[:2]}")
+    _log(f"observability (d): merged trace {info['host_events']} host "
+         f"events ({lanes} flight-recorder instants), "
+         f"{info['device_events']} profiler events in "
+         f"{info['device_processes']} processes; {len(spans)} "
+         f"serving.decode_block ranges = {dispatches} block dispatches of "
+         f"the window; device lanes: {paged} paged decode and {rms} "
+         f"RMSNorm kernels")
+    return info
+
+
+def _fault_trace(torch, seed, cfg, model):
+    """Phase 3g (e): faults at 8B width, modelled on phase 3d.  A 4-slot
+    engine over a 160-block pool with its own ``FaultInjector``: a
+    request that leaves its 32 prompt blocks cached, then three 512 +
+    200-token requests (45 blocks each) whose first allocation fails and
+    whose pressure demotes cached blocks to the host tier; once all three
+    decode, a forced swap and a 50 ms stall in one step, then a tier
+    eviction; every request finishes.  Then a poisoned harvest at a fixed
+    step raises ``PoisonedDispatchError``.  Holds: the fired faults, the
+    pool audit after each, ``serving.fault.stall_seconds`` >= 0.05 s with
+    the stalled step's host seconds below the stall, in-vocabulary
+    outputs, no poisoned token adopted, and the path's kernels
+    launched."""
+    import numpy as np
+    from paddle_tpu_torch.inference import (FaultInjector,
+                                            PoisonedDispatchError,
+                                            ServingEngine)
+    from paddle_tpu_torch.observability import (FlightRecorder,
+                                                MetricsRegistry)
+    fi = FaultInjector()
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, num_slots=4, prompt_len=512, chunk_len=256,
+                        max_cache_len=1024, block_len=16, num_blocks=160,
+                        compute_dtype="bfloat16", fault_injector=fi,
+                        registry=MetricsRegistry(),
+                        flight_recorder=FlightRecorder())
+    rng = np.random.default_rng(seed + 21)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+               for _ in range(4)]
+    _zero_launches()
+    warm = eng.submit(prompts[3], max_new_tokens=16)
+    eng.run()
+    fi.fail_allocs(1)
+    reqs = [eng.submit(p, max_new_tokens=200) for p in prompts[:3]]
+    while any(r.state != "decode" for r in reqs):
+        eng.step()
+    host0 = eng._time["host"]
+    fi.force_swap(reqs[0].request_id)
+    fi.stall_steps(1, 0.05)
+    eng.step()
+    stalled_host = eng._time["host"] - host0
+    fi.force_tier_evicts(4)
+    eng.run()
+    eng._pool.check()
+    st = eng.stats()
+    stall = eng.metrics_registry.get(
+        "serving.fault.stall_seconds").summary()
+    _finished_in_vocab([warm] + reqs, [16, 200, 200, 200], cfg.vocab_size,
+                       "fault trace")
+    fired = [k for k, _ in fi.events]
+    if not (fired.count("alloc_fail") == 1 and "forced_swap" in fired
+            and "stall" in fired and "tier_evict" in fired
+            and st["preemptions"] >= 1
+            and st["preempt_resumes"] == st["preemptions"]
+            and stall["count"] == 1 and stall["sum"] >= 0.05
+            and stalled_host < 0.05):
+        raise AssertionError(
+            f"fault trace: fired {fi.events}, stall {stall}, stalled step's "
+            f"host {stalled_host:.6f} s, stats {st}")
+    _check_ledger("fault trace", eng)
+    counts = _launched("fault trace", ("rms_norm", "paged_decode_attention"))
+    # a poisoned harvest: raised before its outputs become host truth
+    more = [eng.submit(p[:128], max_new_tokens=24) for p in prompts[:2]]
+    while any(r.state != "decode" for r in more):
+        eng.step()
+    fi.poison_at_step(eng._step_idx + 2)
+    before = [list(r.tokens) for r in more]
+    raised, steps = None, 0
+    while raised is None and steps < 6:
+        before = [list(r.tokens) for r in more]
+        try:
+            eng.step()
+        except PoisonedDispatchError as e:
+            raised = e
+        steps += 1
+    eng._pool.check()
+    if raised is None or [list(r.tokens) for r in more] != before \
+            or any(not 0 <= t < cfg.vocab_size
+                   for r in more for t in r.tokens) \
+            or ("poison", None) not in fi.events:
+        raise AssertionError(f"fault trace: poison at step "
+                             f"{eng._step_idx}: {raised!r}, {fi.events}")
+    _log(f"observability (e): fault trace at 8B width (4 slots, 160 "
+         f"blocks): fired {[k for k, _ in fi.events]}; preemptions "
+         f"{st['preemptions']}, resumes {st['preempt_resumes']}, "
+         f"{st['swap_blocks_out']} blocks out; stall "
+         f"{stall['sum'] * 1e3:.3f} ms in serving.fault.stall_seconds, the "
+         f"stalled step's host {stalled_host * 1e3:.3f} ms; survivors "
+         f"finished; then PoisonedDispatchError at step {eng._step_idx} "
+         f"({raised}), streams untouched, pool audit clean; launches "
+         f"{counts}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_observability(torch, seed, cfg, model, want_tokens):
+    """Phase 3g: the metrics registry, the flight recorder, spans, the
+    goodput ledger and the fault injector on phase 3's model and trace.
+
+    (a) Two arms, in turns, twice each, in the default engine (dispatch-
+    ahead at depth 1) and in lockstep: a private enabled
+    ``MetricsRegistry`` with an enabled ``FlightRecorder``, and both
+    disabled.  Every run's tokens equal phase 3's; the enabled runs hold
+    phase 3's launch formula and the disabled ones launch the same.  Each
+    run then times ``OBS_WINDOW_STEPS`` steady decode steps (the step's
+    wall and the means of its dispatch, overlap and host seconds), and
+    each arm's first run profiles a decode window (device busy time).
+    The enabled-vs-disabled overhead is the relative difference of the
+    arms' mean step walls.  (b) Each enabled run's ledger conserves
+    exactly and ``stats()`` equals its registry key for key.  (c) The two
+    enabled runs of a mode give equal flight records modulo wall.  (d)
+    The merged trace (``_merged_trace``) on the first enabled depth-1
+    engine.  (e) The fault trace (``_fault_trace``).  Returns the launch
+    counts of the first enabled depth-1 run."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability import (FlightRecorder,
+                                                MetricsRegistry)
+    nl = cfg.num_hidden_layers
+    path_launches, summary = None, []
+    for mode_tag, mode in OBS_MODES:
+        walls = {tag: [] for tag, _ in OBS_ARMS}
+        records, on_launches = [], None
+        for turn, ai in enumerate(OBS_TURNS):
+            tag, on = OBS_ARMS[ai]
+            torch.cuda.empty_cache()
+            eng = ServingEngine(model, num_slots=8, prompt_len=512,
+                                chunk_len=256, max_cache_len=1024,
+                                block_len=16, compute_dtype="bfloat16",
+                                registry=MetricsRegistry(enabled=on),
+                                flight_recorder=FlightRecorder(enabled=on),
+                                **mode)
+            launches, st, wall, n_req, n_tok, rng, reqs = _serve_trace(
+                torch, eng, cfg, seed, check_hits=on)
+            name = f"observability [{mode_tag}, {tag}, turn {turn + 1}]"
+            if [r.output.tolist() for r in reqs] != want_tokens:
+                raise AssertionError(f"{name}: tokens differ from phase 3")
+            if on:
+                _check_launches(launches, _serving_launches(nl, st, False),
+                                st)
+                if on_launches is None:
+                    on_launches = launches
+                st = _check_ledger(name, eng)
+                records.append(_strip_events(eng.flight_recorder.events()))
+                if path_launches is None:
+                    path_launches = launches
+            elif launches != on_launches:
+                raise AssertionError(f"{name}: launches {launches} != the "
+                                     f"enabled arm's {on_launches}")
+            elif any(st[k] for k in ("decode_steps", "finished")) or \
+                    eng.flight_recorder.events():
+                raise AssertionError(f"{name}: a disabled registry or "
+                                     f"recorder recorded: {st}")
+            step_wall, split, busy_ms, idle = _window_split(
+                torch, eng, rng, cfg.vocab_size,
+                profiled=OBS_TURNS.index(ai) == turn)
+            walls[tag].append(step_wall)
+            busy = ("" if OBS_TURNS.index(ai) != turn else
+                    "; device busy not measured (the profiler recorded no "
+                    "CUDA kernel)" if busy_ms is None else
+                    f"; profiled: device busy {busy_ms:.3f} ms/step, idle "
+                    f"{100 * idle:.1f}% of the profiled wall")
+            if on and mode_tag == "depth 1" and turn == 0:
+                _merged_trace(torch, eng, rng, cfg.vocab_size)
+            ledger = (f"useful {st['useful_tokens']} + wasted "
+                      f"{st['wasted_tokens']} = dispatched "
+                      f"{st['dispatched_tokens']} tokens "
+                      f"({dict((k, v) for k, v in st['wasted_by_reason'].items() if v)}), "
+                      if on else "")
+            _log(f"{name}: {n_req} requests, {n_tok} tokens in {wall:.3f} s "
+                 f"= {n_tok / wall:.2f} tokens/s; {ledger}decode window "
+                 f"{OBS_WINDOW_STEPS} steps: wall {step_wall * 1e3:.3f} "
+                 f"ms/step, means per step: dispatch "
+                 f"{split['dispatch'] * 1e3:.3f} ms, overlap "
+                 f"{split['overlap'] * 1e3:.3f} ms, host "
+                 f"{split['host'] * 1e3:.3f} ms{busy}")
+            del eng
+        if records[0] != records[1]:
+            diff = next(i for i, (a, b) in enumerate(zip(*records))
+                        if a != b) if len(records[0]) == len(records[1]) \
+                else "length"
+            raise AssertionError(f"observability [{mode_tag}]: the enabled "
+                                 f"runs' flight records differ ({diff})")
+        on_ms = statistics.mean(walls["enabled"]) * 1e3
+        off_ms = statistics.mean(walls["disabled"]) * 1e3
+        summary.append(f"{mode_tag}: enabled {on_ms:.3f} ms/step, disabled "
+                       f"{off_ms:.3f} ms/step, overhead "
+                       f"{100 * (on_ms - off_ms) / off_ms:+.2f}% "
+                       f"(walls {[round(w * 1e3, 3) for w in walls['enabled']]}"
+                       f" vs {[round(w * 1e3, 3) for w in walls['disabled']]})"
+                       f"; the enabled runs' {len(records[0])} flight events "
+                       f"equal modulo wall")
+    torch.cuda.empty_cache()
+    _log("observability (a, c): " + "; ".join(summary))
+    _fault_trace(torch, seed, cfg, model)
+    return path_launches
+
+
+def phase_observability_exactness(torch, seed):
+    """Phase 3g (f): phase 4d's preemption trace (a) on phase 4's 4-layer
+    float32 model at 8B width, TF32 off, on the card and, from the same
+    state dict, on the CPU, each engine with a private registry and an
+    enabled flight recorder: the two flight records are equal modulo
+    wall, and so are the goodput ledgers and every counter of the two
+    registries.  (No EOS is configured, so the schedule, the events and
+    the ledger do not depend on the tokens; the tokens are phase 4d's
+    business.)"""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.observability import (FlightRecorder,
+                                                MetricsRegistry)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, gpu = _build_8b(torch, 4, "float32", seed + 1)
+    cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed + 9)
+    pa = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+          for n, m in ((40, 60), (17, 5), (64, 9))]
+    kw = dict(num_slots=2, num_blocks=9, prompt_len=64, chunk_len=32,
+              max_cache_len=128, block_len=16, compute_dtype="float32")
+    runs = {}
+    for where, model in (("card", gpu), ("cpu", cpu)):
+        if where == "card":
+            _zero_launches()
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, device=None if where == "card" else "cpu",
+                            registry=MetricsRegistry(),
+                            flight_recorder=FlightRecorder(), **kw)
+        reqs = [eng.submit(ids, max_new_tokens=m) for ids, m in pa[:2]]
+        while reqs[1].state != "finished":
+            eng.step()
+        reqs.append(eng.submit(pa[2][0], max_new_tokens=pa[2][1],
+                               priority=1))
+        eng.run()
+        eng._pool.check()
+        runs[where] = (eng, _check_ledger(f"card vs CPU ({where})", eng),
+                       time.perf_counter() - t0)
+        if where == "card":
+            counts = _launched("card vs CPU", ("rms_norm",
+                                               "paged_decode_attention"))
+    (ge, gst, gwall), (ce, cst, cwall) = runs["card"], runs["cpu"]
+    if gst["preemptions"] < 1:
+        raise AssertionError(f"card vs CPU: no preemption: {gst}")
+    gev = _strip_events(ge.flight_recorder.events())
+    if gev != _strip_events(ce.flight_recorder.events()):
+        raise AssertionError("card vs CPU: flight records differ")
+    ledger = ("useful_tokens", "wasted_tokens", "dispatched_tokens",
+              "wasted_by_reason")
+    if any(gst[k] != cst[k] for k in ledger):
+        raise AssertionError(f"card vs CPU: ledgers differ: "
+                             f"{[(k, gst[k], cst[k]) for k in ledger]}")
+    greg, creg = ge.metrics_registry, ce.metrics_registry
+    bad = [n for n in greg.names()
+           if greg.get(n)._snap()["type"] == "counter"
+           and greg.get(n)._snap() != creg.get(n)._snap()]
+    if bad:
+        raise AssertionError(f"card vs CPU: counters differ: {bad}")
+    _log(f"observability (f): phase 4d's trace (a) on the card "
+         f"({gwall:.2f} s) and the CPU ({cwall:.2f} s), 4 layers float32 "
+         f"at 8B width: {len(gev)} flight events equal modulo wall, "
+         f"ledgers equal (useful {gst['useful_tokens']}, wasted "
+         f"{gst['wasted_tokens']}, dispatched {gst['dispatched_tokens']}), "
+         f"every counter equal; {gst['preemptions']} preemption; launches "
+         f"{counts}")
+    del ge, ce, gpu, cpu
+    torch.cuda.empty_cache()
+
 
 def _cycle_dfa(np, vocab, seed, states=4, width=2048):
     """A ``[states, vocab]`` DFA over a token subset that never ends:
@@ -2861,8 +3375,8 @@ def phase_sampled_exactness(torch, seed):
 def _union_us(torch, prof):
     """The union of the profile's device intervals (kernels and copies),
     in us, and the span from the first start to the last end."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    iv = sorted((e.time_range.start, e.time_range.end)
+                for e in _device_events(torch, prof))
     total, cur = 0.0, None
     for a, b in iv:
         if cur is None or a > cur[1]:
@@ -4132,7 +4646,8 @@ def main(argv=None) -> int:
     cfg, model = _build_8b(torch, 32, "bfloat16", args.seed)
     phase_graphs(torch, args.seed, cfg, model)
     phase_sampled_graph(torch, args.seed, cfg, model)
-    serving, greedy_prof = phase_serving(torch, args.seed, cfg, model)
+    serving, greedy_prof, serve_tokens = phase_serving(torch, args.seed,
+                                                       cfg, model)
     by_path = {"serving": serving}
     by_path.update(phase_quant_serving(torch, args.seed, cfg, model))
     by_path["speculative"] = phase_spec_serving(torch, args.seed, cfg, model)
@@ -4140,12 +4655,15 @@ def main(argv=None) -> int:
     by_path["radix"] = phase_radix_tier(torch, args.seed, cfg, model)
     by_path["sampling"] = phase_sampled_serving(torch, args.seed, cfg, model,
                                                 greedy_prof)
+    by_path["observability"] = phase_observability(torch, args.seed, cfg,
+                                                   model, serve_tokens)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
     phase_quant_exactness(torch, args.seed)
     phase_spec_exactness(torch, args.seed)
     phase_preempt_exactness(torch, args.seed)
+    phase_observability_exactness(torch, args.seed)
     phase_sampled_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     phase_train_exactness(torch, args.seed)

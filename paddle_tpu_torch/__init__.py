@@ -23,11 +23,16 @@ beside it slice by slice and imports nothing of it (nor JAX).
   by stochastic rounding, gradient merge and ``run_steps``, with the
   fused AdamW update and the two-pass flash-attention backward as CUDA
   kernels.
+- Slice 14, observability: the metrics registry, the flight recorder,
+  spans and the goodput ledger (``observability``, ``runtime``) around
+  the serving engine, and the engine's fault injector
+  (``inference.faultinject``); no kernel is added.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 
 from . import (core, device, distributed, inference,  # noqa: F401
-               jit, models, nn, ops, optimizer, quantization)
+               jit, models, nn, observability, ops, optimizer,
+               quantization, runtime)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.generator import seed  # noqa: F401

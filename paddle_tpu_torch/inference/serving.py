@@ -27,8 +27,7 @@ radix insert), ``_count_kv_sweep`` (:1813), ``_block_rides`` and
 ``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, with the
 sampled accept path :4218-4260), ``_step_inner``, ``_absorb_block``,
 ``_finish``, ``_release_blocks``, ``run``, ``engine_spec``,
-``prefix_match`` and ``stats`` (kept in plain integer counters instead
-of the metrics registry).  The dispatch-ahead pipeline
+``prefix_match`` and ``stats``.  The dispatch-ahead pipeline
 (``async_dispatch=True``, ``async_depth=S``): ``ASYNC_SYNC_REASONS``
 (:324), ``_PendingBlock`` (:1093), ``_LazyStacks`` (:1129),
 ``_charge_overlap`` (:1948), ``_block_sync_reason`` (:1956),
@@ -43,16 +42,28 @@ the engine defaults ``do_sample``/``temperature``/``top_k``/``top_p``
 dead-start check (:2332-2560), ``_build_samp`` (:3761, with ``pos_lag``
 for deferred dispatches), ``_count_sample_route`` (:3858),
 ``_mask_dead_end`` (:3873), the single-step clamp of mask rows and the
-``mask``/``penalty`` forced syncs (:1990).
+``mask``/``penalty`` forced syncs (:1990).  The observability half:
+``GOODPUT_REASONS`` (:308), ``_ServingInstruments`` (:386, without the
+fair-share instruments), ``_ledger`` (:1845), ``_slo_account`` (:1900),
+every flight-recorder emit site and span, ``stats()`` as per-engine
+registry deltas (:4695), ``metrics_registry``, ``flight_recorder`` and
+``explain()`` (:4984).  The fault half: ``EngineStalledError``,
+``ReplicaKilledError``, ``PoisonedDispatchError`` (:268-291),
+``fault_injector=`` with ``_alloc`` (:1938), the poison hook of
+``_checked_harvest`` (:2092), the swap-in failure of ``_reprobe_radix``
+(:3371), the step's fault block (:4353) and ``run(wall_timeout_s=)``
+with ``_stall_diagnosis`` (:4610).
 
 The defaults are the reference's: ``async_dispatch=True`` with
 ``async_depth=1``, ``prefix_cache_mode="radix"`` (with
-``enable_prefix_cache=True``), ``enable_preemption=True`` and
-``host_cache_blocks=4 * num_blocks``.  On the same trace the port makes
-the same decisions (admissions, preemptions, swaps, sheds, timeouts,
+``enable_prefix_cache=True``), ``enable_preemption=True``,
+``host_cache_blocks=4 * num_blocks``, the process-wide metrics registry
+and a disabled flight recorder.  On the same trace the port makes the
+same decisions (admissions, preemptions, swaps, sheds, timeouts,
 dispatch counts, forced syncs, prefix hits) as the JAX engine built the
-same way, and its host-tier parcels hold the same bytes (a bf16 arena's
-as the ``uint16`` view of its bits, ``inference/prefixcache.py``).
+same way, emits the same flight-recorder events (modulo wall time), and
+its host-tier parcels hold the same bytes (a bf16 arena's as the
+``uint16`` view of its bits, ``inference/prefixcache.py``).
 
 On the card the decode block runs as a captured CUDA graph, one per
 total step count and sampling flag bucket (``llm.DecodeBlockGraph``);
@@ -68,9 +79,9 @@ Features not ported yet take only their off values and raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 Known differences from the JAX engine: admission has no fair-share term
 (``tenant_weights`` is not ported, and on a single tenant the term is a
-constant); there is no metrics registry, flight recorder, span tracing,
-goodput ledger or fault injector (a harvest whose tokens fall outside
-the vocabulary raises ``RuntimeError``).
+constant), so the ``serving.fairshare.*`` instruments, ``submit(tenant=)``
+and the tenant keys of ``stats()`` are absent, and every ledger and SLO
+count carries ``tenant="default"``.
 """
 
 from __future__ import annotations
@@ -87,6 +98,10 @@ import torch
 
 from ..device import DeviceLike, dtype_name, resolve_device, to_dtype
 from ..models.generation import GenerationConfig, init_paged_kv_arena
+from ..observability import metrics as obs_metrics
+from ..observability.flightrec import ENGINE_EVENT, FlightRecorder
+from ..observability.spans import instant as _span_instant
+from ..observability.spans import span as _span
 from . import threefry
 from .llm import (DecodeBlockGraph, build_swap_in_scatter,
                   build_swap_out_gather, build_weight_quant_plan,
@@ -120,6 +135,460 @@ ASYNC_SYNC_REASONS = (
     "cancel",       # cancel() must know which tokens already exist
     "drain",        # run() is about to raise/hand control to the caller
 )
+
+
+class EngineStalledError(RuntimeError):
+    """``run(wall_timeout_s=...)`` exceeded its wall budget without
+    draining — the diagnosable form of a wedged scheduler (pool
+    exhausted with nothing running, an injected fault, a dispatch that
+    never returns).  The message carries the queue / slot / block-pool
+    state at the moment of the raise.  ``step()`` also raises it
+    directly under an injected PERMANENT stall
+    (``FaultInjector.stall_forever``)."""
+
+
+class ReplicaKilledError(RuntimeError):
+    """The replica died: an injected kill (``FaultInjector.
+    kill_at_step``) raised at the top of ``step()``, modeling what a
+    multi-process deployment sees as a lost connection to a crashed
+    worker.  Host-side request records and host-RAM swap parcels
+    survive."""
+
+
+class PoisonedDispatchError(RuntimeError):
+    """A dispatch came back corrupted: the harvest validation found
+    token ids outside the model vocabulary — the int-token analogue of
+    non-finite logits.  Raised BEFORE the corrupt outputs are adopted
+    as host truth, so no request's token stream ever carries a
+    poisoned value."""
+
+
+# the goodput ledger's closed waste vocabulary: every dispatched
+# token-position is either useful or charged to exactly one of these
+# (serving.goodput.wasted_tokens{reason=}).  ``recompute_preempt`` is
+# structurally ZERO in this engine — preemption swaps exact at-rest
+# bytes, never recomputes — and is kept in the vocabulary as the
+# ledger's proof of that.
+GOODPUT_REASONS = (
+    "spec_reject",
+    "recompute_preempt",
+    "recompute_cache",
+    "pad",
+)
+
+# sub-ms resolution for the host-vs-dispatch step split: on real
+# accelerators the host scheduler slice this histogram isolates is the
+# tens-of-microseconds gap the dispatch-ahead pipeline must hide under
+# device time
+_STEP_BUCKETS = (
+    0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+    0.025, 0.05, 0.1, 0.25, 1.0, 5.0,
+)
+
+
+class _ServingInstruments:
+    """The engine's registry handles plus per-engine baselines.
+
+    Instruments live in a (usually process-wide) ``MetricsRegistry`` —
+    a second engine in the same process shares them — so each engine
+    snapshots its counters at construction and ``stats()`` reports the
+    delta while the registry keeps the process-wide totals an exporter
+    scrapes.  Two sharing caveats: (1) the delta is exact for engines
+    used SEQUENTIALLY on one registry; engines running interleaved on
+    the same registry see each other's increments — pass each a
+    private ``registry=`` for exact isolation; (2) disabling the
+    registry freezes the counters, so ``stats()`` stops advancing too
+    (the price of stats() being registry-derived).  The names, help
+    strings, labels and buckets are the JAX engine's; its fair-share
+    instruments are not registered here (no ``tenant_weights``)."""
+
+    def __init__(self, registry):
+        self.registry = registry
+        r = registry
+        self.prefills = r.counter(
+            "serving.prefills", "prompt prefills completed (requests "
+            "that reached their first token)")
+        self.prefill_chunks = r.counter(
+            "serving.prefill_chunks", "prompt chunks computed (chunked-"
+            "prefill dispatches; prefix-cached blocks never become "
+            "chunks)")
+        self.decode_steps = r.counter(
+            "serving.decode_steps", "decode steps executed (block size "
+            "x dispatches)")
+        self.busy_slot_steps = r.counter(
+            "serving.busy_slot_steps",
+            "decode step x slot cells holding a live PLAIN-decode "
+            "request (spec-mode slots progress via verify forwards, "
+            "not decode steps, and are excluded — see serving.spec.*)")
+        self.block_dispatches = r.counter(
+            "serving.block_dispatches", "compiled decode block calls")
+        self.tokens_emitted = r.counter(
+            "serving.tokens_emitted", "tokens emitted to requests "
+            "(prefill first-tokens + decode-block harvest; "
+            "block-granular, so a request hitting EOS mid-block counts "
+            "its pad tail — exact only at steps_per_call=1)")
+        self.requests_submitted = r.counter(
+            "serving.requests_submitted", "requests accepted into the queue")
+        self.requests_finished = r.counter(
+            "serving.requests_finished", "requests retired (EOS or budget)")
+        self.requests_cancelled = r.counter(
+            "serving.requests_cancelled",
+            "requests dropped by cancel(); the label says which phase "
+            "the request was cancelled from (queued / prefill / "
+            "decode / swapped)", labels=("phase",))
+        self.preempts = r.counter(
+            "serving.preempt.requests",
+            "in-flight requests preempted (KV blocks swapped to the "
+            "host-RAM tier, slot freed) so a higher-class request "
+            "could be admitted — or a fault-injection forced swap")
+        self.preempt_resumes = r.counter(
+            "serving.preempt.resumes",
+            "preempted requests re-admitted from the swap list (fresh "
+            "blocks allocated, saved bytes re-scattered, decode state "
+            "restored)")
+        self.swap_out_blocks = r.counter(
+            "serving.swap.blocks_out",
+            "KV blocks copied out of the arenas into the host-RAM "
+            "tier; reason='preempt' at preemption, reason='cache' "
+            "when the prefix cache demotes a reclaimed block",
+            labels=("reason",))
+        self.swap_in_blocks = r.counter(
+            "serving.swap.blocks_in",
+            "KV blocks re-scattered from the host-RAM tier into "
+            "freshly allocated arena rows; reason='preempt' at "
+            "resume, reason='cache' at a host-tier prefix hit",
+            labels=("reason",))
+        self.swap_out_bytes = r.counter(
+            "serving.swap.bytes_out",
+            "at-rest KV bytes (codes + scale planes for the int8 "
+            "cache) swapped out to host RAM, by reason",
+            labels=("reason",))
+        self.swap_in_bytes = r.counter(
+            "serving.swap.bytes_in",
+            "at-rest KV bytes swapped back into the arenas, by reason",
+            labels=("reason",))
+        self.swap_host_blocks = r.gauge(
+            "serving.swap.host_blocks",
+            "KV blocks currently parked in the host-RAM tier (hwm = "
+            "peak footprint in blocks); reason='preempt' = swapped "
+            "requests awaiting resume, reason='cache' = demoted "
+            "prefix-cache spans", labels=("reason",))
+        self.handoff_requests = r.counter(
+            "serving.handoff.requests",
+            "requests that left a prefill-role replica with their KV "
+            "parcel staged for a decode replica instead of decoding "
+            "in place, by closed reason vocabulary (HANDOFF_REASONS: "
+            "today only 'chunk_final' — the disaggregation point "
+            "itself)", labels=("reason",))
+        self.handoff_blocks = r.counter(
+            "serving.handoff.blocks",
+            "KV blocks gathered into handoff parcels at chunk-final "
+            "(exact at-rest bytes; the decode replica re-scatters "
+            "the same count, so a fleet's migrated-block ledger "
+            "balances)")
+        self.handoff_bytes = r.counter(
+            "serving.handoff.bytes",
+            "at-rest KV bytes (codes + scale planes for the int8 "
+            "cache) gathered into handoff parcels at chunk-final")
+        self.role = r.gauge(
+            "serving.role",
+            "1 for this engine's disaggregation role ('prefill', "
+            "'decode', or the monolithic default 'both'); a fleet "
+            "registry's per-label sum counts replicas by role",
+            labels=("role",))
+        self.shed = r.counter(
+            "serving.shed.requests",
+            "requests shed by the bounded queue: 'evicted' = a queued "
+            "request displaced by a strictly-higher-class arrival, "
+            "'rejected' = an arrival refused with AdmissionError",
+            labels=("reason",))
+        self.timeouts = r.counter(
+            "serving.timeout.requests",
+            "queued requests finished with status 'timeout' because "
+            "their wait exceeded max_queue_delay_s — shed-by-deadline "
+            "instead of served-late")
+        self.evictions = r.counter(
+            "serving.slot_evictions", "slot frees at request retirement")
+        self.prefix_hits = r.counter(
+            "serving.prefix_hits", "prompt blocks mapped from the prefix "
+            "cache at admission instead of being recomputed")
+        self.prefix_misses = r.counter(
+            "serving.prefix_misses", "matchable prompt blocks that had "
+            "to be computed (no cached twin at admission)")
+        self.prefix_hit_tokens = r.counter(
+            "serving.prefix.hit_tokens",
+            "prompt tokens served from the prefix cache at admission "
+            "(mapped blocks x block_len — token-granular cache "
+            "effectiveness; PR-3's serving.prefix_hits counts whole "
+            "blocks only)")
+        self.prefix_partial_hits = r.counter(
+            "serving.prefix.partial_hits",
+            "admissions whose token-level radix match extended past "
+            "the last mappable full block (the partial tail was "
+            "recomputed — the match lengths the block-aligned digest "
+            "cache could not even see)")
+        self.prefix_host_hits = r.counter(
+            "serving.prefix.host_hits",
+            "admissions whose matched span included >= 1 host-RAM-"
+            "resident block (served by exact-bytes swap-in instead of "
+            "recompute)")
+        self.prefix_host_swapin = r.counter(
+            "serving.prefix.host_swapin_blocks",
+            "blocks promoted host-RAM -> HBM on prefix-cache hits "
+            "(the cache-reason slice of serving.swap.blocks_in)")
+        self.queue_depth = r.gauge(
+            "serving.queue_depth", "requests waiting for a slot")
+        self.slot_occupancy = r.gauge(
+            "serving.slot_occupancy", "slots holding a live request")
+        self.slots_total = r.gauge(
+            "serving.slots_total", "KV-cache slot pool size")
+        self.blocks_free = r.gauge(
+            "serving.blocks_free", "KV block-pool blocks with refcount 0 "
+            "(free list + reclaimable prefix-cached)")
+        self.blocks_in_use = r.gauge(
+            "serving.blocks_in_use", "KV block-pool blocks pinned by "
+            "live or queued requests (hwm = high-water mark)")
+        self.latency = r.histogram(
+            "serving.request_latency_seconds",
+            "request latency, arrival -> last token")
+        self.ttft = r.histogram(
+            "serving.ttft_seconds",
+            "time to first token, arrival -> last prefill chunk")
+        self.chunk_latency = r.histogram(
+            "serving.prefill_chunk_seconds",
+            "wall time of one chunked-prefill dispatch (a dispatch-"
+            "ahead engine's non-final chunks are pure enqueues, so "
+            "only final chunks include compute+materialization there)")
+        self.spec_verifies = r.counter(
+            "serving.spec.verify_steps", "speculative verify forwards "
+            "dispatched (one K+1-position target forward per scheduler "
+            "iteration with >= 1 spec-mode slot) — against "
+            "serving.block_dispatches this is the plain-vs-speculative "
+            "decode route split")
+        self.spec_draft_hits = r.counter(
+            "serving.spec.draft_hits",
+            "drafter proposals that produced >= 1 candidate token")
+        self.spec_draft_misses = r.counter(
+            "serving.spec.draft_misses", "drafter proposals that came "
+            "back empty (the verify degrades to a plain 1-token step "
+            "for that slot)")
+        self.spec_draft_tokens = r.counter(
+            "serving.spec.draft_tokens",
+            "candidate tokens proposed by the drafter")
+        self.spec_accepted_tokens = r.counter(
+            "serving.spec.accepted_tokens", "draft tokens accepted by "
+            "the verifier (each saved one target forward)")
+        self.spec_accepted_len = r.histogram(
+            "serving.spec.accepted_length",
+            "accepted draft-prefix length per spec slot per verify "
+            "forward (tokens; the +1 correction/bonus emit is not "
+            "counted)",
+            buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0,
+                     24.0, 32.0))
+        self.sample_sampled_tokens = r.counter(
+            "serving.sample.sampled_tokens",
+            "tokens emitted by rows with a stochastic sampling config "
+            "(temperature > 0 and top_k != 1), across decode blocks, "
+            "chunk-final prefills and speculative verifies — against "
+            "serving.sample.greedy_tokens this is the engine's "
+            "sampled-vs-greedy route split")
+        self.sample_greedy_tokens = r.counter(
+            "serving.sample.greedy_tokens",
+            "tokens emitted by greedy rows (no sampling config, "
+            "temperature 0, or top_k=1) — the bit-exact argmax route")
+        self.sample_masked_tokens = r.counter(
+            "serving.sample.masked_tokens",
+            "tokens emitted under an active token-mask constraint "
+            "(a per-request TokenMaskProcessor biased the row's "
+            "logits this step)")
+        self.sample_resamples = r.counter(
+            "serving.sample.resamples",
+            "residual resamples consumed by stochastic speculative "
+            "sampling (one per verify forward whose draft prefix was "
+            "cut by the accept test; the residual draw preserves the "
+            "output distribution)")
+        self.kv_bytes_swept = r.counter(
+            "serving.kv.bytes_swept",
+            "modeled KV-arena bytes read by decode/verify/prefill-chunk "
+            "dispatches, at the paged kernels' block-DMA granularity "
+            "(valid prefix rounded up to whole blocks; codes + scale "
+            "planes for the int8 cache) — the roofline denominator of "
+            "the serving bench's achieved_GBps")
+        self.kv_quant_dtype = r.gauge(
+            "serving.kv.quant_dtype",
+            "1 for each KV-cache at-rest dtype an engine in this "
+            "process serves with (the label carries the dtype name)",
+            labels=("dtype",))
+        self.weights_bytes_swept = r.counter(
+            "serving.weights.bytes_swept",
+            "modeled model-weight bytes streamed from HBM by decode/"
+            "verify/prefill-chunk dispatches: one full weight sweep per "
+            "forward (non-quantized params at the compute dtype; "
+            "quantized projections at their code width — int8 codes, "
+            "packed int4 nibbles — plus f32 scale planes).  The "
+            "weight-side twin of serving.kv.bytes_swept and the "
+            "roofline denominator of the weight_quant bench arm")
+        self.shard_groups = r.gauge(
+            "serving.shard.groups",
+            "1 per engine serving as a tensor-parallel shard group "
+            "over a device mesh, 0 for single-chip engines — a fleet "
+            "registry's sum counts its live shard groups")
+        self.shard_width = r.gauge(
+            "serving.shard.width",
+            "kv-head tensor-parallel degree of this engine's paged "
+            "arenas (shards per group; 1 = single-chip or the "
+            "replicated mesh_geom fallback)")
+        self.weights_quant_dtype = r.gauge(
+            "serving.weights.quant_dtype",
+            "1 for each weight at-rest dtype an engine in this process "
+            "serves with — the compute dtype name for full-precision "
+            "engines, 'int8'/'int4' for quantized weight planes (the "
+            "label carries the dtype name)",
+            labels=("dtype",))
+        self.goodput_useful = r.counter(
+            "serving.goodput.useful_tokens",
+            "dispatched token-positions that produced kept work: "
+            "first-time prompt prefill positions and emitted output "
+            "tokens that survive in the request's final stream; the "
+            "tenant label attributes the work to the submitting "
+            "tenant ('default' for tenant-less requests)",
+            labels=("tenant",))
+        self.goodput_wasted = r.counter(
+            "serving.goodput.wasted_tokens",
+            "dispatched token-positions that produced discarded work, "
+            "by reason: 'spec_reject' = rejected/cut speculative draft "
+            "positions, 'recompute_preempt' = positions recomputed "
+            "after preemption (structurally 0 under exact-bytes swap), "
+            "'recompute_cache' = prompt positions the prefix cache "
+            "matched token-level but could not map (partial tails, "
+            "dropped host parcels, tier-evict holes), 'pad' = grid/"
+            "mask padding (chunk-grid tails, post-EOS block tails, "
+            "masked verify lanes); the tenant label attributes the "
+            "waste to the submitting tenant",
+            labels=("reason", "tenant"))
+        self.goodput_dispatched = r.counter(
+            "serving.goodput.dispatched_tokens",
+            "total dispatched token-positions over participating rows "
+            "(the _count_kv_sweep convention: vacant/frozen rows are "
+            "excluded), per submitting tenant — conservation: useful "
+            "+ wasted == this, exactly, by construction of the ledger "
+            "helper (and per tenant label too, since every call "
+            "charges one tenant)", labels=("tenant",))
+        self.tpot = r.histogram(
+            "serving.tpot_seconds",
+            "per-output-token decode latency, one observation per "
+            "finished request with >= 2 output tokens: (last token - "
+            "first token) / (n_tokens - 1)")
+        self.step_host = r.histogram(
+            "serving.step.host_seconds",
+            "host-side scheduler time of one step(): step wall minus "
+            "the time spent inside compiled dispatches — the lockstep "
+            "gap a dispatch-ahead pipeline must hide under device "
+            "time (observed only for steps that dispatched work)",
+            buckets=_STEP_BUCKETS)
+        self.step_dispatch = r.histogram(
+            "serving.step.dispatch_seconds",
+            "time one step() spent inside compiled dispatches (chunk "
+            "prefill, decode block, spec verify, swap gathers/"
+            "scatters), including output materialization for sync-"
+            "harvested dispatches; a DEFERRED dispatch contributes its "
+            "enqueue time here and its materialization wait to "
+            "serving.step.overlap_seconds", buckets=_STEP_BUCKETS)
+        self.step_overlap = r.histogram(
+            "serving.step.overlap_seconds",
+            "time spent blocking on a PREVIOUS iteration's in-flight "
+            "device outputs — deferred-harvest materialization and "
+            "lazy host-tier parcel resolution; one observation per "
+            "wait.  This is the slice the dispatch-ahead pipeline "
+            "hides under device time: it is excluded from "
+            "serving.step.host_seconds, which stays pure "
+            "host-scheduler work", buckets=_STEP_BUCKETS)
+        self.stall_seconds = r.histogram(
+            "serving.fault.stall_seconds",
+            "injected fault-stall sleep time (FaultInjector."
+            "stall_steps), one observation per stalled step — charged "
+            "here so fault-injection runs never pollute the "
+            "serving.step.host_seconds baseline the dispatch-ahead "
+            "pipeline is judged against", buckets=_STEP_BUCKETS)
+        self.async_syncs = r.counter(
+            "serving.async.syncs",
+            "dispatch-ahead iterations that forced an EARLY harvest "
+            "(materialized device outputs before the next dispatch "
+            "was enqueued) because host truth was semantically "
+            "required, by closed reason vocabulary (ASYNC_SYNC_"
+            "REASONS: eos/budget/mask/penalty/spec/chunk_final/"
+            "resume/preempt/cancel/drain)", labels=("reason",))
+        self.async_harvests = r.counter(
+            "serving.async.harvests",
+            "deferred harvests completed at the pipeline's natural "
+            "point — AFTER the next compiled dispatch was enqueued — "
+            "i.e. iterations whose host-scheduler work actually "
+            "overlapped device time")
+        self.async_depth = r.gauge(
+            "serving.async.depth",
+            "un-harvested in-flight decode dispatches right now (hwm "
+            "= peak pipeline depth reached; bounded by the engine's "
+            "async_depth — 1 for the default double-buffered pipeline)")
+        self.slo_attained = r.counter(
+            "serving.slo.attained",
+            "SLO-carrying requests (deadline_s or max_queue_delay_s "
+            "set) that finished within their deadline; the class "
+            "label is the priority class (p<N>) and the tenant label "
+            "the submitting tenant ('default' when unset) — per-"
+            "tenant SLO attainment is one exporter group-by away",
+            labels=("class", "tenant"))
+        self.slo_missed = r.counter(
+            "serving.slo.missed",
+            "SLO-carrying requests that finished past their deadline "
+            "or were shed/timed out before running, by priority "
+            "class and submitting tenant; cancelled requests are a "
+            "user action, not an SLO outcome, and count in neither",
+            labels=("class", "tenant"))
+        self._base = {}
+        for c in (self.prefills, self.prefill_chunks, self.decode_steps,
+                  self.busy_slot_steps, self.block_dispatches,
+                  self.requests_finished, self.requests_cancelled,
+                  self.prefix_hits, self.prefix_misses,
+                  self.spec_verifies, self.spec_draft_hits,
+                  self.spec_draft_misses, self.spec_draft_tokens,
+                  self.spec_accepted_tokens, self.kv_bytes_swept,
+                  self.weights_bytes_swept,
+                  self.prefix_hit_tokens, self.prefix_partial_hits,
+                  self.prefix_host_hits, self.prefix_host_swapin,
+                  self.sample_sampled_tokens, self.sample_greedy_tokens,
+                  self.sample_masked_tokens, self.sample_resamples,
+                  self.preempts, self.preempt_resumes,
+                  self.swap_out_blocks, self.swap_in_blocks,
+                  self.swap_out_bytes, self.swap_in_bytes,
+                  self.handoff_requests, self.handoff_blocks,
+                  self.handoff_bytes,
+                  self.shed, self.timeouts,
+                  self.goodput_useful, self.goodput_wasted,
+                  self.goodput_dispatched,
+                  self.async_syncs, self.async_harvests,
+                  self.slo_attained, self.slo_missed):
+            # total() sums label sets, so labeled counters (cancelled
+            # by phase, shed by reason) baseline the same way the
+            # unlabeled ones do
+            self._base[c.name] = c.total()
+        # per-reason forced-sync baselines: the reason vocabulary is
+        # closed, so stats() reports exact per-engine per-reason
+        # deltas on a shared registry the same way since_init does for
+        # totals (the per-reason wasted-token breakdown is a host-side
+        # mirror in the engine, ServingEngine._wasted_reason: the
+        # goodput counters carry the open-vocabulary tenant label)
+        self._syncs_base = {reason: self.async_syncs.value(reason=reason)
+                            for reason in ASYNC_SYNC_REASONS}
+
+    def syncs_since(self, reason: str) -> float:
+        """Per-reason forced-sync delta attributable to THIS engine."""
+        return (self.async_syncs.value(reason=reason)
+                - self._syncs_base.get(reason, 0))
+
+    def since_init(self, counter) -> float:
+        """Counter delta attributable to THIS engine (summed over
+        label sets for labeled counters)."""
+        return counter.total() - self._base.get(counter.name, 0)
 
 
 class AdmissionError(RuntimeError):
@@ -541,6 +1010,7 @@ class Request:
     swap: Optional[_SwapRecord] = None
     preempt_count: int = 0
     spec_k: Optional[int] = None       # speculative mode: drafts/verify
+    tenant: str = "default"            # the ledger's and SLO's label
     sampling: Optional[SamplingParams] = None  # None = plain greedy
     samp_base: Optional[np.ndarray] = None     # [2] u32 PRNG base key
     pf_pos: int = 0                    # next prompt position to compute
@@ -548,6 +1018,14 @@ class Request:
     host_pins: List[int] = field(default_factory=list)  # pinned tier keys
     rspan: List = field(default_factory=list)  # radix span at last probe
     rmatch_tokens: int = 0             # token-level match at last probe
+    # goodput ledger: prompt positions in [gp_recompute_from,
+    # gp_recompute_to) were matched token-level by the prefix cache at
+    # admission but could NOT be mapped (partial tail past the last
+    # full block, dropped host parcels, tier-evict holes) — their
+    # prefill recompute is charged wasted{reason="recompute_cache"}
+    gp_recompute_from: int = 0
+    gp_recompute_to: int = 0
+    n_emitted: int = 0                 # tokens at finish, before padding
     blocks: List[int] = field(default_factory=list)    # full block map
     digests: List[bytes] = field(default_factory=list)
     registered: int = 0                # blocks published so far
@@ -652,14 +1130,10 @@ class ServingEngine:
                 (adapter_store, None, "adapter_store= (LoRA serving)",
                  "#7 LoRA and fair share"),
                 (tenant_weights, None, "tenant_weights= (fair share)",
-                 "#7 LoRA and fair share"),
-                (fault_injector, None, "fault_injector=", "#9 Fleet layer"),
-                (registry, None, "registry= (metrics registry)",
-                 "#1 Observability"),
-                (flight_recorder, None, "flight_recorder=",
-                 "#1 Observability")):
+                 "#7 LoRA and fair share")):
             if value != off:
                 _not_ported(what, item)
+        self._fault = fault_injector
         # async_dispatch=False is the lockstep arm; async_depth=1 keeps
         # its scheduling bit for bit, S >= 2 opts into the finish bitmap
         # and the fused windows
@@ -815,33 +1289,55 @@ class ServingEngine:
         self._finished: List[Request] = []
         self._clock = clock
         self._next_id = 0
-        self._step_idx = 0
         self._peak_queue = 0
         self._peak_blocks = 0
-        # scheduler counters (the JAX engine keeps these in its metrics
-        # registry, label-summed where it labels them; stats() reads
-        # them back)
-        self._n = dict(finished=0, prefills=0, prefill_chunks=0,
-                       decode_steps=0, busy_slot_steps=0,
-                       block_dispatches=0, prefix_hits=0, prefix_misses=0,
-                       prefix_hit_tokens=0, prefix_partial_hits=0,
-                       prefix_host_hits=0, host_swapin_blocks=0,
-                       kv_bytes_swept=0, spec_verify_steps=0,
-                       spec_draft_hits=0, spec_draft_misses=0,
-                       spec_draft_tokens=0, spec_accepted_tokens=0,
-                       preemptions=0, preempt_resumes=0,
-                       swap_blocks_out=0, swap_blocks_in=0,
-                       swap_bytes_out=0, swap_bytes_in=0,
-                       shed=0, timeouts=0, cancelled=0,
-                       sampled_tokens=0, greedy_tokens=0, masked_tokens=0,
-                       sample_resamples=0)
+        # host-side per-reason wasted-token mirror (the goodput counters
+        # carry a tenant label; this keeps the closed per-reason
+        # breakdown exact per engine)
+        self._wasted_reason = {r: 0 for r in GOODPUT_REASONS}
+        # scheduler accounting lives in the metrics registry (stats()
+        # reads per-engine counter deltas back out of it);
+        # peak_queue/peak_blocks mirror the gauges' high-water marks as
+        # plain ints so stats() stays exact if the registry is disabled
+        self._m = _ServingInstruments(
+            registry if registry is not None else obs_metrics.get_registry())
+        self._m.slots_total.set(self.num_slots)
+        self._m.kv_quant_dtype.set(1, dtype=self.kv_cache_dtype)
+        self._m.weights_quant_dtype.set(1, dtype=self.weight_dtype)
+        self._m.swap_host_blocks.set(0, reason="preempt")
+        self._m.swap_host_blocks.set(0, reason="cache")
+        self._m.slot_occupancy.set(0)
+        self._m.blocks_free.set(self.num_blocks)
+        self._m.blocks_in_use.set(0)
+        self._m.shard_groups.set(0)
+        self._m.shard_width.set(1)
+        self._m.role.set(1, role=self.role)
+        self._m.async_depth.set(0)
+        # per-request flight recorder: every lifecycle transition emits
+        # a structured event.  The default is a DISABLED instance so the
+        # emit sites stay uniform (one bool test per call) and
+        # ``engine.flight_recorder.enable()`` can be flipped live;
+        # bind_clock puts event wall times on the engine's clock unless
+        # the recorder was constructed with a clock of its own
+        self._fr = (flight_recorder if flight_recorder is not None
+                    else FlightRecorder(enabled=False))
+        self._fr.bind_clock(clock)
+        # scheduler iteration index: stamped into every flight-recorder
+        # event and incremented at step() start; submit()/cancel()
+        # events between steps carry the last index
+        self._step_idx = 0
+        # host wall of the decode and verify dispatches (port-only
+        # stats keys)
         self._decode_seconds = 0.0
         self._verify_seconds = 0.0
-        # the step's wall split (the reference's serving.step.* seconds,
-        # kept as engine totals): dispatch sites, waits on a PREVIOUS
-        # iteration's outputs (overlap) and the host remainder
+        # the step's wall split (serving.step.* histograms, and their
+        # sums kept as engine totals so stats() has them with the
+        # registry disabled too): dispatch sites, waits on a PREVIOUS
+        # iteration's outputs (overlap), injected fault stalls and the
+        # host remainder
         self._disp_s = 0.0
         self._overlap_s = 0.0
+        self._stall_s = 0.0
         self._in_step = False
         self._time = dict(dispatch=0.0, overlap=0.0, host=0.0)
         # dispatch-ahead pipeline: the pending decode dispatches (at most
@@ -850,8 +1346,6 @@ class ServingEngine:
         self._pend_q: deque = deque()
         self._lazy_parcels: List[int] = []
         self._flush_finishes: List[Request] = []
-        self._syncs = {r: 0 for r in ASYNC_SYNC_REASONS}
-        self._harvests = 0
         # step-rate estimate for the arrival-aware fused window: only
         # from explicit step(now=) clocks
         self._last_now = None
@@ -1049,7 +1543,20 @@ class ServingEngine:
         return -(-(n + m - 1) // self.block_len)
 
     def _update_block_gauges(self):
-        self._peak_blocks = max(self._peak_blocks, self._pool.in_use())
+        free = self._pool.available()
+        in_use = self._pool.in_use()
+        self._m.blocks_free.set(free)
+        self._m.blocks_in_use.set(in_use)
+        self._peak_blocks = max(self._peak_blocks, in_use)
+
+    def _update_host_gauge(self):
+        self._m.swap_host_blocks.set(
+            self._host_tier.blocks("preempt"), reason="preempt")
+        self._m.swap_host_blocks.set(
+            self._host_tier.blocks("cache"), reason="cache")
+
+    def _set_occupancy(self):
+        self._m.slot_occupancy.set(sum(r is not None for r in self._slots))
 
     def _count_kv_sweep(self, last_indices):
         """Model one dispatch's KV read traffic into ``kv_bytes_swept``:
@@ -1061,7 +1568,69 @@ class ServingEngine:
         frozen rows in the same dispatch are not charged."""
         rows = sum(min(int(ix) // self.block_len + 1, self.max_blocks)
                    * self.block_len for ix in last_indices)
-        self._n["kv_bytes_swept"] += rows * self._kv_row_bytes
+        self._m.kv_bytes_swept.inc(rows * self._kv_row_bytes)
+
+    def _count_weight_sweep(self, forwards: int):
+        """Modeled weight-streaming traffic: every dispatched forward
+        (one decode scan step, one prefill chunk, one verify pass)
+        streams the whole weight set once (``_weight_sweep_bytes``)."""
+        self._m.weights_bytes_swept.inc(
+            int(forwards) * self._weight_sweep_bytes)
+
+    # -- goodput ledger --
+    def _ledger(self, useful: int, tenant: str = "default",
+                **wasted: int):
+        """Account one dispatch's token-positions into the goodput
+        ledger.  Conservation (useful + wasted == dispatched) holds by
+        construction: the dispatched counter is incremented by exactly
+        the sum of the classified parts.  Positions are counted over
+        PARTICIPATING rows only (the ``_count_kv_sweep`` convention:
+        vacant and frozen rows are excluded)."""
+        total = useful
+        for reason, n in wasted.items():
+            if reason not in GOODPUT_REASONS:
+                raise ValueError(
+                    f"unknown goodput waste reason {reason!r} — known: "
+                    f"{GOODPUT_REASONS}")
+            if n < 0:
+                raise ValueError(
+                    f"goodput ledger: negative {reason} count {n} — a "
+                    f"dispatch was mis-split")
+            total += n
+        if useful < 0:
+            raise ValueError(
+                f"goodput ledger: negative useful count {useful}")
+        if total == 0:
+            return
+        self._m.goodput_dispatched.inc(total, tenant=tenant)
+        if useful:
+            self._m.goodput_useful.inc(useful, tenant=tenant)
+        for reason, n in wasted.items():
+            if n:
+                self._m.goodput_wasted.inc(n, reason=reason,
+                                           tenant=tenant)
+                self._wasted_reason[reason] += n
+
+    @staticmethod
+    def _slo_class(req: Request) -> str:
+        """The SLO-attainment class label: the priority class."""
+        return f"p{req.priority}"
+
+    def _slo_account(self, req: Request):
+        """Score a terminal request against its SLO, by class.  Only
+        SLO-carrying requests (a deadline or a queue-delay bound)
+        count; a late finish is the 'missed' outcome a deadline feeds;
+        cancelled requests are a user action, not an SLO outcome."""
+        if req.deadline is None and req.max_queue_delay_s is None:
+            return
+        cls = self._slo_class(req)
+        if req.state == "finished" and (
+                req.deadline is None or req.finish_time <= req.deadline):
+            self._m.slo_attained.inc(**{"class": cls,
+                                        "tenant": req.tenant})
+        elif req.state in ("finished", "timeout", "shed"):
+            self._m.slo_missed.inc(**{"class": cls,
+                                      "tenant": req.tenant})
 
     def _release_blocks(self, req: Request):
         """Unpin every block the request holds and trash its table row.
@@ -1073,6 +1642,15 @@ class ServingEngine:
         if req.slot is not None:
             self._tables[req.slot] = self._pool.trash
         self._update_block_gauges()
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """``BlockPool.alloc`` behind the fault-injection hook: an armed
+        allocation failure makes the pool look dry to exactly this call
+        — admission back-off, the valve and preemption all run their
+        real paths."""
+        if self._fault is not None and self._fault.take_alloc_failure():
+            return None
+        return self._pool.alloc(n)
 
     # -- host tier (shared by preemption swap and radix demotion) --
     def _gather_rows(self, ids_row: np.ndarray, keep: int,
@@ -1136,34 +1714,43 @@ class ServingEngine:
             return
         demoted = 0
         w = self.max_blocks
-        for i in range(0, len(blocks), w):
-            chunk = blocks[i:i + w]
-            ids = np.full((w,), self._pool.trash, np.int32)
-            ids[:len(chunk)] = chunk
-            if self.async_dispatch:
-                # overlapped swap-out: the gather is ENQUEUED now (a copy
-                # out of the arenas, ordered before any later write to
-                # the reclaimed blocks on the same stream) and each
-                # parcel gets a lazy row view, resolved at the next
-                # harvest point (_reconcile_host_tier)
-                lazy, dtypes = self._gather_rows(ids, len(chunk),
-                                                 materialize=False)
+        with _span("serving.cache_swap_out", blocks=len(blocks)):
+            for i in range(0, len(blocks), w):
+                chunk = blocks[i:i + w]
+                ids = np.full((w,), self._pool.trash, np.int32)
+                ids[:len(chunk)] = chunk
+                if self.async_dispatch:
+                    # overlapped swap-out: the gather is ENQUEUED now (a
+                    # copy out of the arenas, ordered before any later
+                    # write to the reclaimed blocks on the same stream)
+                    # and each parcel gets a lazy row view, resolved at
+                    # the next harvest point (_reconcile_host_tier)
+                    lazy, dtypes = self._gather_rows(ids, len(chunk),
+                                                     materialize=False)
+                    for j, b in enumerate(chunk):
+                        key = self._radix.demote(
+                            b, lambda ls=lazy, j=j: ls.block_rows(j),
+                            dtypes)
+                        if key is not None:
+                            demoted += 1
+                            self._lazy_parcels.append(key)
+                    continue
+                stacks, dtypes = self._gather_rows(ids, len(chunk))
                 for j, b in enumerate(chunk):
-                    key = self._radix.demote(
-                        b, lambda ls=lazy, j=j: ls.block_rows(j), dtypes)
-                    if key is not None:
+                    rows = [np.ascontiguousarray(s[j:j + 1])
+                            for s in stacks]
+                    if self._radix.demote(b, rows, dtypes) is not None:
                         demoted += 1
-                        self._lazy_parcels.append(key)
-                continue
-            stacks, dtypes = self._gather_rows(ids, len(chunk))
-            for j, b in enumerate(chunk):
-                rows = [np.ascontiguousarray(s[j:j + 1]) for s in stacks]
-                if self._radix.demote(b, rows, dtypes) is not None:
-                    demoted += 1
         if demoted:
-            self._n["swap_blocks_out"] += demoted
-            self._n["swap_bytes_out"] += \
-                demoted * self.block_len * self._kv_row_bytes
+            self._m.swap_out_blocks.inc(demoted, reason="cache")
+            self._m.swap_out_bytes.inc(
+                demoted * self.block_len * self._kv_row_bytes,
+                reason="cache")
+            # engine-scoped (the pool demotes on behalf of the cache,
+            # not of one request): lane -1 in the chrome export
+            self._fr.emit("swap_out", ENGINE_EVENT, self._step_idx,
+                          blocks=demoted, reason="cache")
+        self._update_host_gauge()
 
     def _reconcile_host_tier(self):
         """Materialize every demote parcel enqueued during plan, at a
@@ -1369,7 +1956,9 @@ class ServingEngine:
                 if self._shed_key(worst) < (prio, _neg_deadline(deadline)):
                     evict = worst
                 else:
-                    self._n["shed"] += 1
+                    self._m.shed.inc(reason="rejected")
+                    _span_instant("serving.request.reject",
+                                  queue_depth=len(self._queue))
                     raise AdmissionError(
                         f"queue full ({len(self._queue)} >= max_queue="
                         f"{self.max_queue}) and no queued request is "
@@ -1387,9 +1976,20 @@ class ServingEngine:
                 self._spec_k_max = max(self._spec_k_max, spec_k)
             self._next_id += 1
             self._queue.append(req)
+            _span_instant("serving.request.queued",
+                          request=req.request_id, seq_len=n, max_new=m)
+            self._fr.emit("submit", req.request_id, self._step_idx,
+                          seq_len=n, max_new=m, priority=prio,
+                          queue_depth=len(self._queue))
             if evict is not None:
                 self._shed(evict, now)
+            # peak AFTER a pending eviction: the one-element overshoot
+            # between append and shed is submit-internal
             self._peak_queue = max(self._peak_queue, len(self._queue))
+            # counters LAST: a failure above rolls the queue and pins
+            # back, but a counter cannot be decremented
+            self._m.requests_submitted.inc()
+            self._m.queue_depth.set(len(self._queue))
         except BaseException:
             if self._queue and self._queue[-1] is req:
                 self._queue.pop()
@@ -1400,6 +2000,7 @@ class ServingEngine:
                 self._host_tier.unpin(k)
             req.host_pins = []
             self._update_block_gauges()
+            self._m.queue_depth.set(len(self._queue))
             raise
         return req
 
@@ -1428,15 +2029,24 @@ class ServingEngine:
         for req in self._queue:
             if req.request_id == request_id:
                 self._drop_queued(req, now, "cancelled")
-                self._n["cancelled"] += 1
+                self._m.requests_cancelled.inc(phase="queued")
+                _span_instant("serving.request.cancel",
+                              request=req.request_id, phase="queued")
+                self._fr.emit("cancel", req.request_id, self._step_idx,
+                              phase="queued")
                 return True
         for req in self._swapped:
             if req.request_id == request_id:
                 self._swapped.remove(req)
                 self._host_tier.drop(req.swap.host_key)
+                self._update_host_gauge()
                 req.swap = None
                 self._terminate(req, now, "cancelled")
-                self._n["cancelled"] += 1
+                self._m.requests_cancelled.inc(phase="swapped")
+                _span_instant("serving.request.cancel",
+                              request=req.request_id, phase="swapped")
+                self._fr.emit("cancel", req.request_id, self._step_idx,
+                              phase="swapped")
                 return True
         for i, req in enumerate(self._slots):
             if req is not None and req.request_id == request_id:
@@ -1450,6 +2060,7 @@ class ServingEngine:
                     # FINISHED, and the already-terminal contract holds
                     # (the finish reaches the next step()'s return)
                     return False
+                phase = req.state
                 if req in self._prefilling:
                     self._prefilling.remove(req)
                 self._release_blocks(req)   # also trashes the table row
@@ -1457,16 +2068,44 @@ class ServingEngine:
                 self._done[i] = True
                 req.slot = None
                 self._terminate(req, now, "cancelled")
-                self._n["cancelled"] += 1
+                self._m.requests_cancelled.inc(phase=phase)
+                self._set_occupancy()
+                _span_instant("serving.request.cancel",
+                              request=req.request_id, phase=phase)
+                self._fr.emit("cancel", req.request_id, self._step_idx,
+                              phase=phase)
                 return True
         return False
 
     # -- scheduler --
-    def _finish(self, req: Request, t: float, out: List[Request]):
+    def _finish(self, req: Request, t: float, out: List[Request],
+                lag: int = 0):
         req.finish_time = t
         req.state = "finished"
+        if req.slot is not None:
+            self._m.evictions.inc()
         req.slot = None
-        self._n["finished"] += 1
+        self._m.requests_finished.inc()
+        if req.latency is not None:
+            self._m.latency.observe(req.latency)
+        # per-output-token latency (TPOT), one observation per request
+        # with >= 2 tokens
+        n_out = len(req.tokens)
+        req.n_emitted = n_out
+        if req.first_token_time is not None and n_out >= 2:
+            self._m.tpot.observe(
+                (t - req.first_token_time) / (n_out - 1))
+        self._slo_account(req)
+        _span_instant("serving.request.finish", request=req.request_id,
+                      tokens=len(req.tokens))
+        # a deferred harvest observed this finish ``lag`` steps after the
+        # device produced it: the event is stamped with the DISPATCH
+        # step and the lag attr is a deterministic step delta
+        fattrs = {"tokens": n_out}
+        if lag:
+            fattrs["lag"] = lag
+        self._fr.emit("finish", req.request_id,
+                      self._step_idx - lag, **fattrs)
         # pad the stream out to max_new_tokens (the static generate()
         # convention: pad after EOS) so output shapes are uniform
         req.tokens.extend(
@@ -1506,6 +2145,9 @@ class ServingEngine:
         req.finish_time = now
         req.tokens.extend([self.cfg.pad_token_id]
                           * (req.max_new_tokens - len(req.tokens)))
+        # shed/timeout are SLO outcomes (missed); cancel is skipped
+        # inside _slo_account by state
+        self._slo_account(req)
 
     def _drop_queued(self, req: Request, now: float, state: str):
         """The one teardown of a queued request leaving without running
@@ -1520,12 +2162,15 @@ class ServingEngine:
             self._host_tier.unpin(k)
         req.host_pins = []
         self._terminate(req, now, state)
+        self._m.queue_depth.set(len(self._queue))
         self._update_block_gauges()
 
     def _shed(self, req: Request, now: float):
         """Displace a queued request from a full bounded queue."""
         self._drop_queued(req, now, "shed")
-        self._n["shed"] += 1
+        self._m.shed.inc(reason="evicted")
+        _span_instant("serving.request.shed", request=req.request_id)
+        self._fr.emit("shed", req.request_id, self._step_idx)
 
     def _sweep_timeouts(self, now: float, out: List[Request]):
         """Finish queued requests whose wait exceeded their
@@ -1536,11 +2181,18 @@ class ServingEngine:
                   if r.max_queue_delay_s is not None
                   and now - r.arrival_time > r.max_queue_delay_s]:
             self._drop_queued(r, now, "timeout")
-            self._n["timeouts"] += 1
+            self._m.timeouts.inc()
+            _span_instant("serving.request.timeout",
+                          request=r.request_id,
+                          waited_ms=round((now - r.arrival_time) * 1e3, 3))
+            # no waited_ms attr here: flight-recorder attrs stay
+            # wall-free so replayed traces compare event-identical
+            self._fr.emit("timeout", r.request_id, self._step_idx)
             out.append(r)
 
     # -- preemption + host-RAM swap --
-    def _preempt(self, req: Request, out=None) -> bool:
+    def _preempt(self, req: Request, reason: str = "pressure",
+                 out=None) -> bool:
         """Swap an in-flight request out to the host-RAM tier: gather
         its blocks' exact at-rest bytes, save the slot's ``tok``/``lens``
         carries, release its blocks and park it on the swap list.  Its
@@ -1562,7 +2214,8 @@ class ServingEngine:
                 f"prefill/decode requests can be preempted")
         ids = self._tables[slot].copy()     # before release trashes it
         n = len(req.blocks)
-        rows, dtypes = self._gather_rows(ids, n)
+        with _span("serving.swap_out", request=req.request_id, blocks=n):
+            rows, dtypes = self._gather_rows(ids, n)
         key = self._host_tier.put(rows, n, "preempt", dtypes)
         req.swap = _SwapRecord(host_key=key, n_blocks=n,
                                tok=int(self._tok[slot]),
@@ -1577,9 +2230,18 @@ class ServingEngine:
         req.state = "swapped"
         req.preempt_count += 1
         self._swapped.append(req)
-        self._n["preemptions"] += 1
-        self._n["swap_blocks_out"] += n
-        self._n["swap_bytes_out"] += n * self.block_len * self._kv_row_bytes
+        nbytes = n * self.block_len * self._kv_row_bytes
+        self._m.preempts.inc()
+        self._m.swap_out_blocks.inc(n, reason="preempt")
+        self._m.swap_out_bytes.inc(nbytes, reason="preempt")
+        self._update_host_gauge()
+        self._set_occupancy()
+        _span_instant("serving.request.preempt", request=req.request_id,
+                      blocks=n, reason=reason)
+        self._fr.emit("preempt", req.request_id, self._step_idx,
+                      blocks=n, reason=reason, phase=req.swap.state)
+        self._fr.emit("swap_out", req.request_id, self._step_idx,
+                      blocks=n, reason="preempt")
         return True
 
     def _preempt_for(self, cand: Request, needed: int, out=None) -> bool:
@@ -1599,7 +2261,7 @@ class ServingEngine:
                 return False
             victim = min(eligible, key=lambda v: (
                 self._shed_key(v) + (-self._remaining_work(v),)))
-            self._preempt(victim, out)
+            self._preempt(victim, out=out)
         return True
 
     def _try_resume(self, req: Request, slot: int, out=None) -> bool:
@@ -1609,14 +2271,14 @@ class ServingEngine:
         block order, so the resumed stream is bit-identical to one never
         preempted."""
         rec = req.swap
-        fresh = self._pool.alloc(rec.n_blocks)
+        fresh = self._alloc(rec.n_blocks)
         if fresh is None and \
                 not any(r is not None for r in self._slots):
             self._release_queue_pins()
-            fresh = self._pool.alloc(rec.n_blocks)
+            fresh = self._alloc(rec.n_blocks)
         if fresh is None and self.enable_preemption and \
                 self._preempt_for(req, rec.n_blocks, out):
-            fresh = self._pool.alloc(rec.n_blocks)
+            fresh = self._alloc(rec.n_blocks)
         if fresh is None:
             return False
         # the resume REWRITES the slot's host carries, so the next decode
@@ -1631,7 +2293,9 @@ class ServingEngine:
         try:
             ent = self._host_tier.entry(rec.host_key)
             self._resolve_entries([ent])
-            self._scatter_rows(row, ent.rows, ent.dtypes)
+            with _span("serving.swap_in", request=req.request_id,
+                       blocks=rec.n_blocks):
+                self._scatter_rows(row, ent.rows, ent.dtypes)
         except BaseException:
             for b in fresh:
                 self._pool.unpin(b)
@@ -1655,11 +2319,17 @@ class ServingEngine:
             self._done[slot] = req.spec_k is not None
         req.swap = None
         self._host_tier.drop(rec.host_key)
-        self._n["preempt_resumes"] += 1
-        self._n["swap_blocks_in"] += rec.n_blocks
-        self._n["swap_bytes_in"] += \
-            rec.n_blocks * self.block_len * self._kv_row_bytes
+        self._m.preempt_resumes.inc()
+        self._m.swap_in_blocks.inc(rec.n_blocks, reason="preempt")
+        self._m.swap_in_bytes.inc(
+            rec.n_blocks * self.block_len * self._kv_row_bytes,
+            reason="preempt")
+        self._update_host_gauge()
         self._update_block_gauges()
+        _span_instant("serving.request.resume", request=req.request_id,
+                      slot=slot, blocks=rec.n_blocks)
+        self._fr.emit("swap_in", req.request_id, self._step_idx,
+                      blocks=rec.n_blocks, reason="preempt", slot=slot)
         return True
 
     def _release_queue_pins(self):
@@ -1701,7 +2371,12 @@ class ServingEngine:
     def _reprobe_radix(self, req: Request):
         """Admission-time revalidation of the submit-time probe: the
         tree may have grown, demoted spans to host or promoted them
-        back.  Old pins release first so pin accounting stays exact."""
+        back.  Old pins release first so pin accounting stays exact.
+        An armed swap-in fault degrades the span here, before the
+        allocation is sized: the host parcels drop (their bytes are what
+        "failed") and the span truncates to its directly mapped HBM
+        prefix, so the request recomputes the tail — a prefix miss,
+        never a wedge or a token drift."""
         for b in req.matched:
             self._pool.unpin(b)
         req.matched = []
@@ -1709,6 +2384,25 @@ class ServingEngine:
             self._host_tier.unpin(k)
         req.host_pins = []
         self._probe_radix(req)
+        if any(kind == "host" for kind, _ in req.rspan) and \
+                self._fault is not None and \
+                self._fault.take_swapin_failure():
+            keep = []
+            for kind, ref in req.rspan:
+                if kind != "hbm":
+                    break
+                keep.append((kind, ref))
+            for kind, ref in req.rspan[len(keep):]:
+                if kind == "hbm":
+                    self._pool.unpin(ref)
+                    req.matched.remove(ref)
+                else:
+                    self._host_tier.unpin(ref)
+                    req.host_pins.remove(ref)
+                    self._host_tier.drop(ref)
+                    self._radix.drop_host(ref)
+            req.rspan = keep
+            self._update_host_gauge()
         self._update_block_gauges()
 
     def _map_radix_span(self, req: Request, fresh: List[int]):
@@ -1730,9 +2424,13 @@ class ServingEngine:
                               np.int32)
             ids_row[:n_promote] = dest
             try:
-                self._scatter_rows(ids_row, [
-                    np.concatenate([e.rows[ai] for e in entries], axis=0)
-                    for ai in range(len(self._arenas))], entries[0].dtypes)
+                with _span("serving.cache_swap_in",
+                           request=req.request_id, blocks=n_promote):
+                    self._scatter_rows(ids_row, [
+                        np.concatenate([e.rows[ai] for e in entries],
+                                       axis=0)
+                        for ai in range(len(self._arenas))],
+                        entries[0].dtypes)
             except BaseException:
                 for b in fresh:
                     self._pool.unpin(b)
@@ -1750,11 +2448,14 @@ class ServingEngine:
                 self._host_tier.unpin(k)       # the probe pin
                 self._radix.promote(k, b)      # consumes the parcel
                 req.host_pins.remove(k)
-            self._n["swap_blocks_in"] += n_promote
-            self._n["swap_bytes_in"] += \
-                n_promote * self.block_len * self._kv_row_bytes
-            self._n["prefix_host_hits"] += 1
-            self._n["host_swapin_blocks"] += n_promote
+            nbytes = n_promote * self.block_len * self._kv_row_bytes
+            self._m.swap_in_blocks.inc(n_promote, reason="cache")
+            self._m.swap_in_bytes.inc(nbytes, reason="cache")
+            self._m.prefix_host_hits.inc()
+            self._m.prefix_host_swapin.inc(n_promote)
+            self._fr.emit("swap_in", req.request_id, self._step_idx,
+                          blocks=n_promote, reason="cache")
+            self._update_host_gauge()
         it = iter(fresh[:n_promote])
         mapped = [ref if kind == "hbm" else next(it)
                   for kind, ref in span]
@@ -1840,37 +2541,57 @@ class ServingEngine:
                 self._match_prefix(req)
             n_hbm = len(req.matched)
             total = self._blocks_needed(req.seq_len, req.max_new_tokens)
-            fresh = self._pool.alloc(total - n_hbm)
+            fresh = self._alloc(total - n_hbm)
             if fresh is None and \
                     not any(r is not None for r in self._slots):
                 # head-of-line valve: a cold, full-width admission
                 self._release_queue_pins()
                 n_hbm = 0
-                fresh = self._pool.alloc(total)
+                fresh = self._alloc(total)
             if fresh is None and self.enable_preemption and \
                     self._preempt_for(req, total - n_hbm, out):
-                fresh = self._pool.alloc(total - n_hbm)
+                fresh = self._alloc(total - n_hbm)
             if fresh is None:
                 break                     # pool drains as requests retire
             matchable = ((req.seq_len - 1) // self.block_len
                          if self.enable_prefix_cache else 0)
             if self._radix is not None:
-                mapped, fresh, _n_promoted = self._map_radix_span(req,
-                                                                  fresh)
+                mapped, fresh, n_promoted = self._map_radix_span(req,
+                                                                 fresh)
                 req.blocks = mapped + fresh
                 hit_tokens = len(mapped) * self.block_len
-                self._n["prefix_hit_tokens"] += hit_tokens
-                if req.rmatch_tokens > hit_tokens:
-                    self._n["prefix_partial_hits"] += 1
+                self._m.prefix_hit_tokens.inc(hit_tokens)
+                partial = req.rmatch_tokens > hit_tokens
+                if partial:
+                    self._m.prefix_partial_hits.inc()
+                # goodput: positions the tree matched token-level but
+                # could not map are recomputed by the prefill — charged
+                # wasted{recompute_cache} as they compute
+                req.gp_recompute_from = hit_tokens
+                req.gp_recompute_to = max(hit_tokens, req.rmatch_tokens)
+                if mapped or partial:
+                    # tier rides the ACTUAL promotion count, never the
+                    # pre-map span shape
+                    self._fr.emit(
+                        "prefix_hit", req.request_id, self._step_idx,
+                        tier=("host" if n_promoted else
+                              "hbm" if mapped else "partial"),
+                        blocks=len(mapped), tokens=hit_tokens,
+                        partial=int(partial))
                 req.matched = []
                 req.rspan = []
             else:
                 mapped = req.matched
                 req.blocks = req.matched + fresh
-                self._n["prefix_hit_tokens"] += len(mapped) * self.block_len
+                self._m.prefix_hit_tokens.inc(len(mapped) * self.block_len)
+                if mapped:
+                    self._fr.emit(
+                        "prefix_hit", req.request_id, self._step_idx,
+                        tier="hbm", blocks=len(mapped),
+                        tokens=len(mapped) * self.block_len, partial=0)
             self._queue.remove(req)
-            self._n["prefix_hits"] += len(mapped)
-            self._n["prefix_misses"] += matchable - len(mapped)
+            self._m.prefix_hits.inc(len(mapped))
+            self._m.prefix_misses.inc(matchable - len(mapped))
             row = np.full((self.max_blocks,), self._pool.trash, np.int32)
             row[:len(req.blocks)] = req.blocks
             self._tables[slot] = row
@@ -1881,7 +2602,13 @@ class ServingEngine:
             self._done[slot] = True       # not decoding yet
             self._lens[slot] = 0
             self._prefilling.append(req)
+            self._m.queue_depth.set(len(self._queue))
             self._update_block_gauges()
+            _span_instant("serving.request.admit", request=req.request_id,
+                          slot=slot, matched_blocks=len(mapped))
+            self._fr.emit("admit", req.request_id, self._step_idx,
+                          slot=slot, matched_blocks=len(mapped))
+        self._set_occupancy()
 
     def _prefill_chunk(self, out: List[Request]):
         """Run at most ONE prompt chunk (FIFO over admissions).  The
@@ -1899,19 +2626,36 @@ class ServingEngine:
             self._flush_async("chunk_final", out)
         flags, planes = self._build_samp([req])
         t0 = self._clock()
-        outp = chunk_prefill(
-            self._model, self._dev(req.chunk_ids[None, start:start + c]),
-            start, req.seq_len, self._dev(self._tables[req.slot][None, :]),
-            self._arenas, wq=self._wq_ctx,
-            samp=self._samp_tensors(planes), flags=flags)
-        # a non-final chunk's token means nothing: the dispatch-ahead
-        # engine leaves it on the device and the chunk runs under the
-        # next iterations' host work
-        tok0 = (int(self._fetch(outp[:1])[0][0])
-                if is_final or not self.async_dispatch else None)
-        self._disp_s += self._clock() - t0
-        self._n["prefill_chunks"] += 1
+        with _span("serving.prefill", request=req.request_id,
+                   slot=req.slot, start=start):
+            outp = chunk_prefill(
+                self._model,
+                self._dev(req.chunk_ids[None, start:start + c]),
+                start, req.seq_len,
+                self._dev(self._tables[req.slot][None, :]),
+                self._arenas, wq=self._wq_ctx,
+                samp=self._samp_tensors(planes), flags=flags)
+            # a non-final chunk's token means nothing: the dispatch-
+            # ahead engine leaves it on the device and the chunk runs
+            # under the next iterations' host work
+            tok0 = (int(self._fetch(outp[:1])[0][0])
+                    if is_final or not self.async_dispatch else None)
+        self._m.prefill_chunks.inc()
+        dt = self._clock() - t0
+        self._m.chunk_latency.observe(dt)
+        self._disp_s += dt
         self._count_kv_sweep([min(start + c, req.seq_len) - 1])
+        self._count_weight_sweep(1)
+        # goodput: the dispatch computed chunk_len positions for this
+        # row — valid prompt positions split first-time-useful vs
+        # cache-known recompute, the grid tail past seq_len is pad
+        valid = min(start + c, req.seq_len) - start
+        rc = max(0, (min(start + valid, req.gp_recompute_to)
+                     - max(start, req.gp_recompute_from)))
+        self._ledger(valid - rc, tenant=req.tenant,
+                     recompute_cache=rc, pad=c - valid)
+        self._fr.emit("prefill_chunk", req.request_id, self._step_idx,
+                      start=start, tokens=valid)
         req.pf_pos = start + c
         full = min(req.pf_pos, req.seq_len) // self.block_len
         if self._radix is not None:
@@ -1929,9 +2673,12 @@ class ServingEngine:
         if req.pf_pos < req.seq_len:
             return                        # more chunks to go
         self._prefilling.popleft()
-        self._n["prefills"] += 1
+        self._m.prefills.inc()
+        self._m.tokens_emitted.inc()
         t = self._clock()
         req.first_token_time = t
+        if req.ttft is not None:
+            self._m.ttft.observe(req.ttft)
         req.tokens.append(tok0)
         req.remaining = req.max_new_tokens - 1
         self._count_sample_route([(req, 1)])
@@ -2023,10 +2770,12 @@ class ServingEngine:
         ``reqs_tokens`` is (request, n_emitted) pairs."""
         for r, k in reqs_tokens:
             sp = r.sampling
-            self._n["greedy_tokens" if sp is None or sp.is_greedy
-                    else "sampled_tokens"] += k
+            if sp is None or sp.is_greedy:
+                self._m.sample_greedy_tokens.inc(k)
+            else:
+                self._m.sample_sampled_tokens.inc(k)
             if sp is not None and sp.mask_processor is not None:
-                self._n["masked_tokens"] += k
+                self._m.sample_masked_tokens.inc(k)
 
     def _mask_dead_end(self, req: Request) -> bool:
         """Advance the request's token-mask state machine past its last
@@ -2101,9 +2850,11 @@ class ServingEngine:
             if k_eff > 0:
                 # hit/miss score the drafter; budget-clamped tails
                 # (k_eff == 0) never consulted it and count as neither
-                self._n["spec_draft_hits" if d.size
-                        else "spec_draft_misses"] += 1
-                self._n["spec_draft_tokens"] += int(d.size)
+                if d.size:
+                    self._m.spec_draft_hits.inc()
+                else:
+                    self._m.spec_draft_misses.inc()
+                self._m.spec_draft_tokens.inc(int(d.size))
             drafts[i] = d
         if not any(drafts[i].size for i in spec):
             self._spec_fallback = set(spec)
@@ -2124,27 +2875,33 @@ class ServingEngine:
         flags, planes = self._build_samp(
             [r if i in spec_set else None for i, r in enumerate(self._slots)])
         t0 = self._clock()
-        outp = self._verify_fn(width, flags)(
-            self._dev(toks), self._dev(self._lens), self._dev(n_valid),
-            self._dev(tbl), self._samp_tensors(planes), *self._arenas)
-        if flags[0]:
-            # a sampled mix: the position-keyed draws too ([B, width] each)
-            greedy, u, accept_p, resample, sample = self._fetch(outp[:5])
-        else:
-            greedy = self._fetch(outp[:1])[0]           # [B, width]
-        self._verify_seconds += self._clock() - t0
-        self._disp_s += self._clock() - t0
-        self._n["spec_verify_steps"] += 1
+        with _span("serving.spec_verify", width=width, active=len(spec)):
+            outp = self._verify_fn(width, flags)(
+                self._dev(toks), self._dev(self._lens), self._dev(n_valid),
+                self._dev(tbl), self._samp_tensors(planes), *self._arenas)
+            if flags[0]:
+                # a sampled mix: the position-keyed draws too ([B,
+                # width] each)
+                greedy, u, accept_p, resample, sample = self._fetch(
+                    outp[:5])
+            else:
+                greedy = self._fetch(outp[:1])[0]       # [B, width]
+        dt = self._clock() - t0
+        self._verify_seconds += dt
+        self._disp_s += dt
+        self._m.spec_verifies.inc()
         # the K-wide kernel walks the STATIC width's frontier
         # (lens + width - 1) of every spec row, however few columns
         # n_valid marks valid
         self._count_kv_sweep([int(self._lens[i]) + width - 1 for i in spec])
+        self._count_weight_sweep(1)
         if greedy.size and (int(greedy.min()) < 0
                             or int(greedy.max()) >= self._vocab):
-            raise RuntimeError(
+            raise PoisonedDispatchError(
                 f"verify forward at step {self._step_idx} produced token "
                 f"ids outside [0, {self._vocab})")
         t = self._clock()
+        gp: dict = {}          # tenant -> [useful, spec_reject, pad]
         for i in spec:
             req = self._slots[i]
             sp = req.sampling
@@ -2152,16 +2909,32 @@ class ServingEngine:
                 emitted, accepted, resamples = accept_drafts_sampled(
                     drafts[i], u[i], accept_p[i], resample[i], sample[i],
                     self.cfg.eos_token_id)
-                self._n["sample_resamples"] += resamples
+                self._m.sample_resamples.inc(resamples)
             else:
                 emitted, accepted = accept_drafts(greedy[i], drafts[i],
                                                   self.cfg.eos_token_id)
-            self._n["spec_accepted_tokens"] += accepted
+            self._m.spec_accepted_len.observe(float(accepted))
+            self._m.spec_accepted_tokens.inc(accepted)
+            self._m.tokens_emitted.inc(len(emitted))
             self._count_sample_route([(req, len(emitted))])
+            # goodput: this row dispatched ``width`` positions — emitted
+            # tokens are useful, rejected/EOS-cut draft positions are
+            # spec_reject, the masked tail past n_valid is pad
+            n_val = int(n_valid[i])
+            cell = gp.setdefault(req.tenant, [0, 0, 0])
+            cell[0] += len(emitted)
+            cell[1] += n_val - len(emitted)
+            cell[2] += width - n_val
             req.tokens.extend(emitted)
             req.remaining -= len(emitted)
             self._lens[i] += len(emitted)
             self._tok[i] = emitted[-1]
+            _span_instant("serving.spec.accept", request=req.request_id,
+                          drafted=int(drafts[i].size), accepted=accepted)
+            self._fr.emit("spec_verify", req.request_id, self._step_idx,
+                          drafted=int(drafts[i].size), accepted=accepted,
+                          rejected=n_val - len(emitted),
+                          emitted=len(emitted))
             hit_eos = (self.cfg.eos_token_id is not None
                        and emitted[-1] == self.cfg.eos_token_id)
             if hit_eos or req.remaining == 0:
@@ -2169,11 +2942,15 @@ class ServingEngine:
                 self._done[i] = True
                 self._release_blocks(req)
                 self._finish(req, t, out)
+        for tenant, (u_, rej, pad) in gp.items():
+            self._ledger(u_, tenant=tenant, spec_reject=rej, pad=pad)
 
     # -- dispatch-ahead pipeline (plan / harvest) --
     def _charge_overlap(self, dt: float):
         """Account time spent waiting on a PREVIOUS iteration's device
-        outputs: carved out of this step's host seconds."""
+        outputs: observed into serving.step.overlap_seconds and carved
+        out of this step's host seconds."""
+        self._m.step_overlap.observe(dt)
         self._time["overlap"] += dt
         if self._in_step:
             self._overlap_s += dt
@@ -2223,6 +3000,7 @@ class ServingEngine:
         if not self._pend_q:
             return
         p = self._pend_q.popleft()
+        self._m.async_depth.set(len(self._pend_q))
         t0 = self._clock()
         toks, tok, lens, done = self._block_host(p)
         self._charge_overlap(self._clock() - t0)
@@ -2251,7 +3029,7 @@ class ServingEngine:
             raise ValueError(
                 f"unknown forced-sync reason {reason!r} — known: "
                 f"{ASYNC_SYNC_REASONS}")
-        self._syncs[reason] += 1
+        self._m.async_syncs.inc(reason=reason)
         sink = out if out is not None else self._flush_finishes
         while self._pend_q:
             self._harvest_next(sink)
@@ -2259,13 +3037,22 @@ class ServingEngine:
     def _checked_harvest(self, toks: np.ndarray) -> np.ndarray:
         """Validate one decode harvest before it becomes host truth:
         every token id must lie in the vocabulary (vacant and frozen
-        rows emit the pad id, which does)."""
+        rows emit the pad id, which does); otherwise the dispatch is
+        poisoned and :class:`PoisonedDispatchError` leaves every token
+        stream untouched.  The fault injector's ``poison_at_step``
+        corrupts the harvest's host copy right here (``toks`` is the
+        host's own copy of the pinned outputs, never a device buffer
+        or a graph's static output), upstream of the same validation a
+        real device fault would hit."""
+        if self._fault is not None and \
+                self._fault.take_poison(self._step_idx):
+            toks = np.full_like(toks, -1)
         if toks.size and (int(toks.min()) < 0
                           or int(toks.max()) >= self._vocab):
-            raise RuntimeError(
+            raise PoisonedDispatchError(
                 f"decode harvest at step {self._step_idx} produced token "
-                f"ids outside [0, {self._vocab}) — the harvest was not "
-                f"adopted as host truth")
+                f"ids outside [0, {self._vocab}) — poisoned dispatch; "
+                f"the harvest was NOT adopted as host truth")
         return toks
 
     def step(self, now: Optional[float] = None) -> List[Request]:
@@ -2287,6 +3074,7 @@ class ServingEngine:
         self._step_idx += 1
         self._disp_s = 0.0
         self._overlap_s = 0.0
+        self._stall_s = 0.0
         self._in_step = True
         t0 = self._clock()
         try:
@@ -2296,11 +3084,55 @@ class ServingEngine:
             self._reconcile_host_tier()
         finally:
             self._in_step = False
-        if self._disp_s > 0.0:
-            self._time["dispatch"] += self._disp_s
-            self._time["host"] += max(
-                (self._clock() - t0) - self._disp_s - self._overlap_s, 0.0)
+        disp = self._disp_s
+        if disp > 0.0:
+            host = max((self._clock() - t0) - disp - self._overlap_s
+                       - self._stall_s, 0.0)
+            self._m.step_dispatch.observe(disp)
+            self._m.step_host.observe(host)
+            self._time["dispatch"] += disp
+            self._time["host"] += host
         return out
+
+    def _inject_faults(self, finished: List[Request]):
+        """The fault injector's step-top hook, before any scheduling
+        work: replica-fatal faults raise first (a killed or wedged
+        replica did not run this step), then an injected stall sleeps
+        (charged to serving.fault.stall_seconds and carved out of the
+        step's host seconds), forced swaps preempt their requests and
+        forced tier evictions drop cache parcels."""
+        if self._fault.take_kill(self._step_idx):
+            raise ReplicaKilledError(
+                f"injected replica kill at step {self._step_idx} "
+                f"(latched until the injector's replica restart)")
+        if self._fault.take_permanent_stall():
+            raise EngineStalledError(
+                f"injected permanent stall at step {self._step_idx}: the "
+                f"dispatch will never return (latched until the "
+                f"injector's replica restart)")
+        stall = self._fault.take_stall()
+        if stall:
+            with _span("serving.fault.stall", seconds=stall):
+                t0 = self._clock()
+                time.sleep(stall)
+                dt = self._clock() - t0
+            self._stall_s += dt
+            self._m.stall_seconds.observe(dt)
+        for rid in self._fault.take_forced_swaps():
+            for r in self._slots:
+                if r is not None and r.request_id == rid \
+                        and r.state in ("prefill", "decode"):
+                    self._preempt(r, reason="forced", out=finished)
+                    break
+        n_evict = self._fault.take_tier_evicts()
+        if n_evict:
+            applied = 0
+            for _ in range(n_evict):
+                if not self._host_tier.evict_one():
+                    break
+                applied += 1
+            self._fault.record_tier_evicts(applied)
+            self._update_host_gauge()
 
     def _step_inner(self, now: Optional[float] = None) -> List[Request]:
         # finishes a between-steps flush discovered (cancel()) hand over
@@ -2318,6 +3150,8 @@ class ServingEngine:
         else:
             self._step_dt = 0.0
             self._last_now = None
+        if self._fault is not None:
+            self._inject_faults(finished)
         self._admit(t_now, finished)
         self._prefill_chunk(finished)
         self._spec_fallback = set()
@@ -2340,6 +3174,7 @@ class ServingEngine:
                 # inside an in-flight dispatch (EOS seen on the device):
                 # flush the ghost tail so the finishes retire
                 self._flush_async("eos", finished)
+            self._set_occupancy()
             return finished
         pend = self._pend_q[-1] if self._pend_q else None
         if pend is not None:
@@ -2411,18 +3246,22 @@ class ServingEngine:
             carries = (self._dev(self._tok), self._dev(self._lens),
                        self._dev(self._done), self._dev(budget))
         t_blk = self._clock()
-        prog = self._block_program(n_total, flags)
-        samp = self._samp_tensors(planes, getattr(prog, "samp", None))
-        out = prog(*carries, tables, samp)
-        host, event, slot = self._stage_block(out)
+        with _span("serving.decode_block", steps=n_total,
+                   active=len(active)):
+            prog = self._block_program(n_total, flags)
+            samp = self._samp_tensors(planes, getattr(prog, "samp", None))
+            out = prog(*carries, tables, samp)
+            host, event, slot = self._stage_block(out)
         dt = self._clock() - t_blk
         self._disp_s += dt
         self._decode_seconds += dt
         # plan-known accounting lands at DISPATCH (the lockstep step);
-        # token streams and the KV sweep land at harvest
-        self._n["decode_steps"] += n_total
-        self._n["busy_slot_steps"] += n_total * len(active)
-        self._n["block_dispatches"] += 1
+        # token streams, the KV sweep, the ledger and the flight
+        # recorder's events land at harvest
+        self._m.decode_steps.inc(n_total)
+        self._m.busy_slot_steps.inc(n_total * len(active))
+        self._m.block_dispatches.inc()
+        self._m.tokens_emitted.inc(n_total * len(active))
         self._count_sample_route(
             [(self._slots[i], n_total) for i in active])
         new_pend = _PendingBlock(
@@ -2435,17 +3274,22 @@ class ServingEngine:
         # after this iteration's dispatch was enqueued
         while len(self._pend_q) > self.async_depth:
             self._harvest_next(finished)
-            self._harvests += 1
+            self._m.async_harvests.inc()
         reason = self._block_sync_reason(
             n_total, active, lag=sum(p.n for p in self._pend_q) - n_total)
-        if reason is not None:
+        if reason is None:
+            # steady-state pipeline depth (a sync iteration never counts
+            # as depth)
+            self._m.async_depth.set(len(self._pend_q))
+        else:
             if self.async_dispatch:
-                self._syncs[reason] += 1
+                self._m.async_syncs.inc(reason=reason)
             # older dispatches flush first, FIFO (their waits charge to
             # overlap: they ran under later host work) ...
             while len(self._pend_q) > 1:
                 self._harvest_next(finished)
             self._pend_q.pop()
+            self._m.async_depth.set(0)
             t_mat = self._clock()
             toks, tok, lens, done = self._block_host(new_pend)
             # ... and the new dispatch's own wait is part of the
@@ -2474,8 +3318,10 @@ class ServingEngine:
         self._lens = lens
         eos = self.cfg.eos_token_id
         t = self._clock()
+        lag = self._step_idx - p.step_idx
         sweep: List[int] = []
         for j in range(p.iters):
+            gp: dict = {}      # tenant -> [useful, pad] this iteration
             for idx, i in enumerate(active):
                 req = p.reqs[idx]
                 if req.state != "decode":
@@ -2484,9 +3330,24 @@ class ServingEngine:
                 base = int(p.pre_lens[i]) + j * per
                 sweep.extend(min(base + s, int(lens[i]))
                              for s in range(per))
+                # tokens up to (and including) an EOS are useful, the
+                # frozen tail behind it is pad (empty at per == 1)
+                hit_eos = eos is not None and eos in row
+                useful_i = (int(np.flatnonzero(row == eos)[0]) + 1
+                            if hit_eos else per)
+                cell = gp.setdefault(req.tenant, [0, 0])
+                cell[0] += useful_i
+                cell[1] += per - useful_i
+                attrs = {"steps": per}
+                if lag:
+                    # a step delta, never wall: parity comparisons
+                    # against a sync engine strip it
+                    attrs["lag"] = lag
+                self._fr.emit("decode_block", req.request_id, p.step_idx,
+                              **attrs)
                 req.tokens.extend(int(x) for x in row)
                 req.remaining -= per
-                if (eos is not None and eos in row) or req.remaining == 0 \
+                if hit_eos or req.remaining == 0 \
                         or (req.sampling is not None
                             and req.sampling.mask_processor is not None
                             and self._mask_dead_end(req)):
@@ -2496,28 +3357,76 @@ class ServingEngine:
                     self._slots[i] = None
                     done[i] = True     # freeze the row until re-use
                     self._release_blocks(req)
-                    self._finish(req, t, out)
+                    self._finish(req, t, out, lag=lag)
+            for tenant, (u, pad) in gp.items():
+                self._ledger(u, tenant=tenant, pad=pad)
         self._count_kv_sweep(sweep)
+        # every scanned decode step streamed the whole weight set once
+        self._count_weight_sweep(per * p.iters)
         self._done = done
+        self._set_occupancy()
 
-    def run(self, max_iters: Optional[int] = None) -> List[Request]:
+    def _stall_diagnosis(self, wall_timeout_s: float) -> str:
+        """The state dump an ``EngineStalledError`` carries: enough to
+        tell an exhausted pool from an injected fault from a trace whose
+        arrivals lie beyond the wall budget."""
+        active = {r.request_id: r.state for r in self._slots
+                  if r is not None}
+        now = self._clock()
+        return (
+            f"serving loop exceeded wall_timeout_s={wall_timeout_s} "
+            f"without draining: queued={len(self._queue)} "
+            f"(arrived={sum(r.arrival_time <= now for r in self._queue)}), "
+            f"swapped={len(self._swapped)}, active slots={active}, "
+            f"prefilling={len(self._prefilling)}, blocks free="
+            f"{self._pool.available()} in_use={self._pool.in_use()} "
+            f"cached={self._pool.cached()} of {self.num_blocks}, "
+            f"fault_injector="
+            f"{'armed' if self._fault is not None else 'none'}")
+
+    def run(self, max_iters: Optional[int] = None,
+            wall_timeout_s: Optional[float] = None) -> List[Request]:
         """Drain the queue and the swap list: admit/resume/prefill/
         decode until every submitted request is terminal.  Sleeps only
-        when idle ahead of a future arrival.  Returns this call's
-        terminal requests (finished and timed out) in submission order,
-        with the pipeline flushed."""
+        when idle ahead of a future arrival, or (1 ms) after a step that
+        ran and retired nothing with no slot occupied (a wedged pool or
+        an injected fault).  ``wall_timeout_s`` bounds the whole drain
+        in wall time: a wedged engine raises a diagnosable
+        ``EngineStalledError`` (queue, slot and pool state in the
+        message) after flushing the pipeline, and a later ``run()``
+        continues where it stopped; ``max_iters`` bounds the steps
+        (``RuntimeError``).  Returns this call's terminal requests
+        (finished and timed out) in submission order, with the pipeline
+        flushed."""
         finished: List[Request] = []
         iters = 0
+        start = self._clock()
         while self._queue or self._swapped \
                 or any(r is not None for r in self._slots):
             now = self._clock()
+            if wall_timeout_s is not None and \
+                    now - start > wall_timeout_s:
+                # flush before raising: every token the device produced
+                # reaches its request and the deferred ledger and
+                # flight-recorder events land
+                self._flush_async("drain")
+                self._reconcile_host_tier()
+                raise EngineStalledError(
+                    self._stall_diagnosis(wall_timeout_s))
             if (not any(r is not None for r in self._slots)
                     and not self._swapped and self._queue):
                 next_arrival = min(r.arrival_time for r in self._queue)
                 if next_arrival > now:
                     time.sleep(min(0.005, next_arrival - now))
                     continue
+            n_before = len(finished)
             finished.extend(self.step(now))
+            if len(finished) == n_before and \
+                    not any(r is not None for r in self._slots):
+                # the step ran nothing and retired nothing: nap instead
+                # of hot-spinning until wall_timeout_s or the fault
+                # clears (any real progress occupies a slot)
+                time.sleep(0.001)
             iters += 1
             if max_iters is not None and iters > max_iters:
                 # flush before raising: every token the device produced
@@ -2579,34 +3488,59 @@ class ServingEngine:
         captures took (none on the CPU).  While a harvest is deferred
         the output-dependent counters (``kv_bytes_swept``, tokens) lag
         by at most the pipeline's depth; ``run()`` returns flushed.
+
+        The counters are read back out of the metrics registry as
+        per-engine deltas (``_ServingInstruments``: exact for engines
+        used one after another on a shared registry; a disabled
+        registry freezes them).  The goodput-ledger keys:
+        ``useful_tokens`` + ``wasted_tokens`` == ``dispatched_tokens``
+        exactly, ``goodput`` is the useful fraction and
+        ``wasted_by_reason`` the breakdown over ``GOODPUT_REASONS``;
+        ``handoffs``/``handoff_blocks``/``handoff_bytes`` are 0 (the
+        engine's role is ``"both"``); ``mean_tpot_s`` is the mean
+        per-output-token decode latency over finished requests with
+        >= 2 tokens (None while there is none); ``slo_attained``/
+        ``slo_missed`` the SLO outcomes of requests that carried a
+        deadline or a queue-delay bound.  The step split
+        (``dispatch/overlap/host_seconds``) and ``decode_seconds``/
+        ``verify_seconds`` are engine totals kept beside the
+        histograms, so they advance with the registry disabled too.
         """
-        n = self._n
+        m = self._m
+        since = m.since_init
         graphs = [p for progs in self._blocks.values()
                   for p in progs.values() if isinstance(p, DecodeBlockGraph)]
-        steps = n["decode_steps"]
-        verifies = n["spec_verify_steps"]
-        drafted = n["spec_draft_tokens"]
-        accepted = n["spec_accepted_tokens"]
-        hits, misses = n["prefix_hits"], n["prefix_misses"]
+        steps = int(since(m.decode_steps))
+        busy = int(since(m.busy_slot_steps))
+        verifies = int(since(m.spec_verifies))
+        drafted = int(since(m.spec_draft_tokens))
+        accepted = int(since(m.spec_accepted_tokens))
+        hits, misses = int(since(m.prefix_hits)), int(since(m.prefix_misses))
         ttfts = [r.ttft for r in self._finished if r.ttft is not None]
         lats = [r.latency for r in self._finished if r.latency is not None]
+        tpots = [(r.finish_time - r.first_token_time) / (r.n_emitted - 1)
+                 for r in self._finished
+                 if r.state == "finished" and r.first_token_time is not None
+                 and r.finish_time is not None and r.n_emitted > 1]
+        useful = int(since(m.goodput_useful))
+        wasted = int(since(m.goodput_wasted))
+        dispatched = int(since(m.goodput_dispatched))
+        syncs = {reason: int(m.syncs_since(reason))
+                 for reason in ASYNC_SYNC_REASONS}
         return {
             "num_slots": self.num_slots,
             "kv_cache_dtype": self.kv_cache_dtype,
             "weight_dtype": self.weight_dtype,
-            "kv_bytes_swept": int(n["kv_bytes_swept"]),
-            "weight_bytes_swept": int(
-                (n["prefill_chunks"] + steps + verifies)
-                * self._weight_sweep_bytes),
-            "finished": n["finished"],
-            "cancelled": n["cancelled"],
-            "prefills": n["prefills"],
-            "prefill_chunks": n["prefill_chunks"],
+            "kv_bytes_swept": int(since(m.kv_bytes_swept)),
+            "weight_bytes_swept": int(since(m.weights_bytes_swept)),
+            "finished": int(since(m.requests_finished)),
+            "cancelled": int(since(m.requests_cancelled)),
+            "prefills": int(since(m.prefills)),
+            "prefill_chunks": int(since(m.prefill_chunks)),
             "decode_steps": steps,
-            "busy_slot_steps": n["busy_slot_steps"],
-            "block_dispatches": n["block_dispatches"],
-            "mean_slot_occupancy": (n["busy_slot_steps"]
-                                    / (steps * self.num_slots)
+            "busy_slot_steps": busy,
+            "block_dispatches": int(since(m.block_dispatches)),
+            "mean_slot_occupancy": (busy / (steps * self.num_slots)
                                     if steps else 0.0),
             "peak_queue": self._peak_queue,
             "block_len": self.block_len,
@@ -2618,43 +3552,55 @@ class ServingEngine:
             "prefix_misses": misses,
             "prefix_hit_rate": (hits / (hits + misses)
                                 if hits + misses else 0.0),
-            "prefix_hit_tokens": n["prefix_hit_tokens"],
-            "prefix_partial_hits": n["prefix_partial_hits"],
-            "prefix_host_hits": n["prefix_host_hits"],
-            "host_swapin_blocks": n["host_swapin_blocks"],
+            "prefix_hit_tokens": int(since(m.prefix_hit_tokens)),
+            "prefix_partial_hits": int(since(m.prefix_partial_hits)),
+            "prefix_host_hits": int(since(m.prefix_host_hits)),
+            "host_swapin_blocks": int(since(m.prefix_host_swapin)),
             "mean_latency_s": (sum(lats) / len(lats)) if lats else None,
             "mean_ttft_s": (sum(ttfts) / len(ttfts)) if ttfts else None,
             "decode_seconds": self._decode_seconds,
             "verify_seconds": self._verify_seconds,
-            "spec_verify_steps": int(verifies),
-            "spec_draft_hits": int(n["spec_draft_hits"]),
-            "spec_draft_misses": int(n["spec_draft_misses"]),
-            "spec_draft_tokens": int(drafted),
-            "spec_accepted_tokens": int(accepted),
+            "spec_verify_steps": verifies,
+            "spec_draft_hits": int(since(m.spec_draft_hits)),
+            "spec_draft_misses": int(since(m.spec_draft_misses)),
+            "spec_draft_tokens": drafted,
+            "spec_accepted_tokens": accepted,
             "spec_acceptance_rate": (accepted / drafted
                                      if drafted else 0.0),
             "spec_mean_accepted_len": (accepted / verifies
                                        if verifies else 0.0),
-            "sampled_tokens": n["sampled_tokens"],
-            "greedy_tokens": n["greedy_tokens"],
-            "masked_tokens": n["masked_tokens"],
-            "sample_resamples": n["sample_resamples"],
-            "preemptions": n["preemptions"],
-            "preempt_resumes": n["preempt_resumes"],
-            "swap_blocks_out": n["swap_blocks_out"],
-            "swap_blocks_in": n["swap_blocks_in"],
-            "swap_bytes_out": n["swap_bytes_out"],
-            "swap_bytes_in": n["swap_bytes_in"],
+            "sampled_tokens": int(since(m.sample_sampled_tokens)),
+            "greedy_tokens": int(since(m.sample_greedy_tokens)),
+            "masked_tokens": int(since(m.sample_masked_tokens)),
+            "sample_resamples": int(since(m.sample_resamples)),
+            "preemptions": int(since(m.preempts)),
+            "preempt_resumes": int(since(m.preempt_resumes)),
+            "swap_blocks_out": int(since(m.swap_out_blocks)),
+            "swap_blocks_in": int(since(m.swap_in_blocks)),
+            "swap_bytes_out": int(since(m.swap_out_bytes)),
+            "swap_bytes_in": int(since(m.swap_in_bytes)),
             "swap_host_blocks": self._host_tier.blocks("preempt"),
             "host_cache_blocks": self._host_tier.blocks("cache"),
             "swapped_waiting": len(self._swapped),
-            "shed": n["shed"],
-            "timeouts": n["timeouts"],
+            "shed": int(since(m.shed)),
+            "timeouts": int(since(m.timeouts)),
+            "useful_tokens": useful,
+            "wasted_tokens": wasted,
+            "dispatched_tokens": dispatched,
+            "goodput": (useful / dispatched if dispatched else 0.0),
+            "wasted_by_reason": dict(self._wasted_reason),
+            "handoffs": int(since(m.handoff_requests)),
+            "handoff_blocks": int(since(m.handoff_blocks)),
+            "handoff_bytes": int(since(m.handoff_bytes)),
+            "role": self.role,
+            "mean_tpot_s": (sum(tpots) / len(tpots)) if tpots else None,
+            "slo_attained": int(since(m.slo_attained)),
+            "slo_missed": int(since(m.slo_missed)),
             "async_dispatch": self.async_dispatch,
             "async_depth": self.async_depth,
-            "async_syncs": sum(self._syncs.values()),
-            "async_harvests": self._harvests,
-            "async_syncs_by_reason": dict(self._syncs),
+            "async_syncs": int(since(m.async_syncs)),
+            "async_harvests": int(since(m.async_harvests)),
+            "async_syncs_by_reason": syncs,
             "dispatch_seconds": self._time["dispatch"],
             "overlap_seconds": self._time["overlap"],
             "host_seconds": self._time["host"],
@@ -2663,6 +3609,25 @@ class ServingEngine:
                 "replays": sum(g.replays for g in graphs),
                 "capture_seconds": self._graph_capture_s},
         }
+
+    @property
+    def metrics_registry(self):
+        """The MetricsRegistry this engine records into (the process
+        default unless one was passed at construction)."""
+        return self._m.registry
+
+    @property
+    def flight_recorder(self) -> FlightRecorder:
+        """The per-request flight recorder (a disabled default unless
+        one was passed at construction — ``.enable()`` flips it
+        live)."""
+        return self._fr
+
+    def explain(self, request_id: int) -> str:
+        """Human-readable lifecycle of one request, from the flight
+        recorder ("waited 3 steps behind req 7, preempted at step 12,
+        resumed via 6 host blocks ...")."""
+        return self._fr.explain(request_id)
 
     def engine_spec(self) -> dict:
         """The engine's immutable identity as one JSON-safe dict, key

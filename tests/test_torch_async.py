@@ -45,6 +45,8 @@ import paddle_tpu as paddle
 from paddle_tpu import models as jmodels
 from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.observability.metrics import MetricsRegistry
+from paddle_tpu_torch.observability import (
+    MetricsRegistry as TorchRegistry)
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.inference.serving import (ASYNC_SYNC_REASONS,
                                                 TERMINAL_STATES)
@@ -217,8 +219,10 @@ def _build(cls, net, kw, depth, **extra):
     if kw.pop("drafter", None) == "always":
         kw["drafter"] = AlwaysDraft()
     clock = StepClock()
-    if cls is JaxEngine:
-        extra["registry"] = MetricsRegistry()
+    # a private registry each: stats() are deltas of the engine's
+    # registry, and engines must not read each other's counts
+    extra["registry"] = (MetricsRegistry() if cls is JaxEngine
+                         else TorchRegistry())
     arm = dict(async_dispatch=False) if depth == 0 else dict(
         async_dispatch=True, async_depth=depth)
     return cls(net, clock=clock, **arm, **kw, **extra), clock

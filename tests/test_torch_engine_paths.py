@@ -52,6 +52,8 @@ from paddle_tpu import models as jmodels
 from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.inference.speculative import ModelDrafter as JaxModelDrafter
 from paddle_tpu.observability.metrics import MetricsRegistry
+from paddle_tpu_torch.observability import (
+    MetricsRegistry as TorchRegistry)
 from paddle_tpu_torch.inference import ModelDrafter, ServingEngine
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_state_from_jax,
                                      tiny_llama_config)
@@ -174,7 +176,8 @@ def _engines(jnet, tnet, opts, eos_id=None, engine_kw=None, drafters=None):
     jdr, tdr = drafters if drafters is not None else (None, None)
     tclock, jclock = StepClock(), StepClock()
     teng = ServingEngine(tnet, device="cpu", async_dispatch=False,
-                         clock=tclock, drafter=tdr, **kw)
+                         registry=TorchRegistry(), clock=tclock,
+                         drafter=tdr, **kw)
     jeng = JaxEngine(jnet, async_dispatch=False,
                      registry=MetricsRegistry(), clock=jclock, drafter=jdr,
                      **kw)

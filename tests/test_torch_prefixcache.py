@@ -43,6 +43,8 @@ from paddle_tpu.inference.prefixcache import \
 from paddle_tpu.inference.serving import BlockPool as JaxBlockPool
 from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.observability.metrics import MetricsRegistry
+from paddle_tpu_torch.observability import (
+    MetricsRegistry as TorchRegistry)
 from paddle_tpu_torch.inference import (BlockPool, HostTier,
                                         RadixPrefixCache, ServingEngine)
 from paddle_tpu_torch.inference.prefixcache import device_rows, host_rows
@@ -295,7 +297,7 @@ def _multiturn(jnet, tnet, compute, kv, turns):
     sys_ids = rng.integers(0, vocab, (4,)).astype(np.int32)
     tclock, jclock = StepClock(), StepClock()
     teng = ServingEngine(tnet, device="cpu", async_dispatch=False,
-                         clock=tclock,
+                         registry=TorchRegistry(), clock=tclock,
                          **_kw(compute, kv))
     jeng = JaxEngine(jnet, async_dispatch=False, registry=MetricsRegistry(),
                      clock=jclock, **_kw(compute, kv))

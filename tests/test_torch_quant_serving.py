@@ -33,6 +33,8 @@ from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.models.generation import init_paged_kv_arena as j_arena
 from paddle_tpu.models.wquant import wquant_context as j_wquant
 from paddle_tpu.observability.metrics import MetricsRegistry
+from paddle_tpu_torch.observability import (
+    MetricsRegistry as TorchRegistry)
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.inference.llm import (build_weight_quant_plan,
                                             normalize_weight_dtype)
@@ -131,7 +133,8 @@ def served(bridged):
         teng = ServingEngine(tnet, num_slots=2, device="cpu",
                              async_dispatch=False,
                              prefix_cache_mode="digest",
-                             enable_preemption=False, **_engine_kw(wd))
+                             enable_preemption=False,
+                             registry=TorchRegistry(), **_engine_kw(wd))
         treqs = _serve(teng, trace)
         alone = [_serve(ServingEngine(tnet, num_slots=1, device="cpu",
                                       **_engine_kw(wd)), [(ids, m)])[0].output

@@ -39,6 +39,8 @@ from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.inference.speculative import ModelDrafter as JaxModelDrafter
 from paddle_tpu.models.generation import filter_top_k_top_p as j_filter
 from paddle_tpu.observability.metrics import MetricsRegistry
+from paddle_tpu_torch.observability import (
+    MetricsRegistry as TorchRegistry)
 from paddle_tpu_torch.inference import (DfaTokenMask, ModelDrafter,
                                         SamplingParams, ServingEngine)
 from paddle_tpu_torch.inference.serving import (ASYNC_SYNC_REASONS,
@@ -144,7 +146,7 @@ def _build(cls, net, arm, **extra):
     if cls is JaxEngine:
         extra["registry"] = MetricsRegistry()
     else:
-        extra["device"] = "cpu"
+        extra.update(device="cpu", registry=TorchRegistry())
     mode = dict(async_dispatch=False) if arm == 0 else dict(
         async_dispatch=True, async_depth=arm)
     return cls(net, clock=clock, **mode, **KW, **extra), clock
@@ -410,7 +412,8 @@ def test_sampled_spec_engine_equals_jax(bridged, drafter):
               if drafter == "target" else
               (JaxModelDrafter(jother, **dkw), ModelDrafter(tother, **dkw)))
     jeng = JaxEngine(jnet, drafter=jd, registry=MetricsRegistry(), **SPEC_KW)
-    teng = ServingEngine(tnet, drafter=td, device="cpu", **SPEC_KW)
+    teng = ServingEngine(tnet, drafter=td, device="cpu",
+                         registry=TorchRegistry(), **SPEC_KW)
     jreqs = [jeng.submit(ids, max_new_tokens=m, spec_decode=k, sampling=s)
              for ids, m, k, s in _spec_trace(J.SamplingParams)]
     treqs = [teng.submit(ids, max_new_tokens=m, spec_decode=k, sampling=s)
@@ -445,9 +448,7 @@ def test_sampled_spec_engine_equals_jax(bridged, drafter):
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "#10"), (dict(role="prefill"), "#9"),
     (dict(adapter_store=object()), "#7"), (dict(tenant_weights={"a": 1.0}),
-                                           "#7"),
-    (dict(fault_injector=object()), "#9"), (dict(registry=object()), "#1"),
-    (dict(flight_recorder=object()), "#1")],
+                                           "#7")],
     ids=lambda x: next(iter(x)) if isinstance(x, dict) else x)
 def test_sampling_constructs_other_keywords_still_raise(bridged, kw, item):
     (_jnet, tnet), _ = bridged
@@ -477,3 +478,54 @@ def test_sampling_constructs_other_keywords_still_raise(bridged, kw, item):
         eng.submit(ids, max_new_tokens=3, sampling=SamplingParams(
             mask_processor=DfaTokenMask(np.zeros((1, 7), np.int32))))
     assert eng._pool.in_use() == 0 and not eng._queue
+
+
+@pytest.mark.parametrize("which", ["fault_injector", "registry",
+                                   "flight_recorder"])
+def test_sampled_engine_serves_with_observability_keyword(bridged, which):
+    """``fault_injector=``, ``registry=`` and ``flight_recorder=`` are
+    ported: each constructs a sampling engine that serves a seeded
+    sampled request and a default-sampled one, and the keyword's object
+    sees the run (the injector's forced swap fires and the request
+    resumes to the same tokens, the private registry counts the sampled
+    tokens, the recorder holds both lifecycles)."""
+    from paddle_tpu_torch.inference import FaultInjector
+    from paddle_tpu_torch.observability import FlightRecorder
+    (_jnet, tnet), _ = bridged
+    base = dict(num_slots=2, prompt_len=4, max_cache_len=12,
+                compute_dtype="float32", device="cpu", do_sample=True,
+                temperature=0.7, top_p=0.9)
+
+    def serve(**kw):
+        eng = ServingEngine(tnet, **base, **kw)
+        r = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=6,
+                       sampling=SamplingParams(temperature=0.5, seed=1))
+        d = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=6)
+        for _ in range(2):
+            eng.step()
+        return eng, r, d
+
+    ref, r0, d0 = serve(registry=TorchRegistry())
+    ref.run()
+    obj = {"fault_injector": FaultInjector(), "registry": TorchRegistry(),
+           "flight_recorder": FlightRecorder()}[which]
+    eng, r, d = serve(**{which: obj})
+    if which == "fault_injector":
+        obj.force_swap(r.request_id)
+    eng.run(wall_timeout_s=60)
+    assert r.state == d.state == "finished"
+    np.testing.assert_array_equal(r.output, r0.output)
+    np.testing.assert_array_equal(d.output, d0.output)
+    assert eng._pool.check()
+    if which == "fault_injector":
+        assert ("forced_swap", r.request_id) in obj.events
+        assert eng.stats()["preemptions"] == 1
+    elif which == "registry":
+        assert eng.metrics_registry is obj
+        assert obj.get("serving.sample.sampled_tokens").value() == 12
+    else:
+        for q in (r, d):
+            kinds = [e.kind for e in obj.timeline(q.request_id)]
+            assert kinds[:3] == ["submit", "admit", "prefill_chunk"]
+            assert kinds[-1] == "finish"
+        assert "finished at step" in eng.explain(r.request_id)

@@ -28,6 +28,7 @@ import paddle_tpu as paddle
 from paddle_tpu import models as jmodels
 from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.observability import MetricsRegistry as TorchRegistry
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_state_from_jax,
                                      tiny_llama_config)
 
@@ -96,7 +97,7 @@ def served():
     teng = ServingEngine(tnet, num_slots=2, device="cpu",
                          async_dispatch=False,
                          prefix_cache_mode="digest", enable_preemption=False,
-                         **_engine_kw())
+                         registry=TorchRegistry(), **_engine_kw())
     treqs = _serve(teng, trace)
     alone = []
     for ids, m in trace:
@@ -153,15 +154,45 @@ def test_scheduling_identical_to_jax_engine(served):
     {"kv_cache_dtype": "bfloat16"}, {"weight_dtype": "int8",
                                      "mesh": object()},
     {"mesh": object()}, {"role": "prefill"}, {"adapter_store": object()},
-    {"fault_injector": object()},
-    {"tenant_weights": {"a": 1.0}}, {"registry": object()},
-    {"cache_dtype": "bfloat16"},
+    {"tenant_weights": {"a": 1.0}}, {"cache_dtype": "bfloat16"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_features_raise(kw):
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
                       compute_dtype="float32", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("which", ["fault_injector", "registry"])
+def test_observability_engine_keywords_serve(which):
+    """``fault_injector=`` and ``registry=`` are ported: each constructs
+    an engine that serves, the injector's armed alloc failure fires
+    (and only delays admission), and a private registry holds exactly
+    this engine's counts."""
+    from paddle_tpu_torch.inference import FaultInjector
+    net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    fi, reg = FaultInjector(), TorchRegistry()
+    kw = {"fault_injector": fi} if which == "fault_injector" \
+        else {"registry": reg}
+    if which == "fault_injector":
+        fi.fail_allocs(2)
+    eng = ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                        compute_dtype="float32", device="cpu", **kw)
+    req = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=3)
+    eng.run(wall_timeout_s=60)
+    assert req.state == "finished" and req.output.shape == (3,)
+    assert eng._pool.check()
+    st = eng.stats()
+    assert st["finished"] == 1
+    assert st["useful_tokens"] + st["wasted_tokens"] \
+        == st["dispatched_tokens"] > 0
+    if which == "fault_injector":
+        assert fi.events.count(("alloc_fail", None)) == 2
+    else:
+        assert eng.metrics_registry is reg
+        assert reg.get("serving.requests_finished").value() == 1
+        assert reg.get("serving.decode_steps").value() \
+            == st["decode_steps"] > 0
 
 
 @pytest.mark.parametrize("kw", [

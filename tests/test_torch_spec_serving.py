@@ -39,6 +39,8 @@ from paddle_tpu.inference.speculative import ModelDrafter as JaxModelDrafter
 from paddle_tpu.models.generation import init_paged_kv_arena as j_arena
 from paddle_tpu.models.wquant import wquant_context as j_wquant
 from paddle_tpu.observability.metrics import MetricsRegistry
+from paddle_tpu_torch.observability import (
+    MetricsRegistry as TorchRegistry)
 from paddle_tpu_torch.inference import (DfaTokenMask, ModelDrafter,
                                         NGramDrafter, SamplingParams,
                                         ServingEngine, build_spec_verify)
@@ -137,7 +139,8 @@ def served(bridged):
         teng = ServingEngine(tnet, num_slots=2, device="cpu", drafter=tdr,
                              async_dispatch=False,
                              prefix_cache_mode="digest",
-                             enable_preemption=False, **_engine_kw())
+                             enable_preemption=False,
+                             registry=TorchRegistry(), **_engine_kw())
         treqs = _serve(teng, trace)
         jeng = JaxEngine(jnet, num_slots=2, drafter=jdr,
                          async_dispatch=False, prefix_cache_mode="digest",
@@ -148,7 +151,7 @@ def served(bridged):
     plain = ServingEngine(tnet, num_slots=2, device="cpu",
                           async_dispatch=False,
                           prefix_cache_mode="digest", enable_preemption=False,
-                          **_engine_kw())
+                          registry=TorchRegistry(), **_engine_kw())
     preqs = _serve(plain, trace, spec=False)
     jplain = JaxEngine(jnet, num_slots=2, async_dispatch=False,
                        prefix_cache_mode="digest", enable_preemption=False,
