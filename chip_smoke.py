@@ -194,12 +194,34 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    per parameter tensor on a firing call, never on a holding one),
    losses finite and falling, parameters finite, call times, tokens/s,
    MFU, peak memory and one profiled firing call;
+5c. remat policies and the fused loss: the model of phase 5 under
+   ``full``, ``save_attn``, ``save_attn_mlp`` on every second layer
+   (``save_attn`` on the rest), ``dots``, the fused linear loss, and
+   ``full`` again, each from the same state dict, 1 warm-up and 3 timed
+   steps with exact launch counts (the flash forward once a layer under
+   a policy that keeps its outputs, twice otherwise); the policy arms'
+   first loss bit-equal to full's, later losses within one bf16 ulp,
+   the fused loss's within 1e-2; step time, tokens/s, MFU and peak
+   memory per arm;
+5d. the twin of ``examples/llama_pretrain.py`` at its defaults with
+   ``--steps 2``, then eager loops (``loss.backward(); opt.step();
+   opt.clear_grad()``) at the same width: bf16 with
+   AdamW(multi_precision=True), fp32 under ``auto_cast("O1")`` with a
+   ``GradScaler`` plus one injected inf step that must skip the update
+   and halve the scale, and O2 through ``decorate``; 3 steps each with
+   exact launch counts, losses finite and falling;
 6. training exactness: a 2-layer float32 model at the same width takes 2
    train steps on the card and, from the same state dict, on the CPU
    (plain versions); losses and parameters agree within stated bounds;
 6b. the same under the routes of 5b, with Adam (the unfused update) and
    then AdamW under a schedule (the fused kernel on the card, its plain
-   version on the CPU).
+   version on the CPU);
+6c. phase 6's model under each remat policy of 5c on the card against
+   phase 6's CPU run (a policy changes no value on the CPU), the fused
+   loss against its own CPU run; every eager optimizer over a layer's
+   parameter shapes, AMP O1's loss and gradients, and dropout masks
+   (``F.dropout``, the SDPA probabilities' mask: bit-equal), card
+   against CPU.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -4197,12 +4219,15 @@ def phase_quant_exactness(torch, seed):
 
 
 def _train_setup(torch, layers, dtype, seed, device=None, make_opt=None,
-                 **step_kw):
+                 cfg_kw=None, init=None, **step_kw):
     """``examples/llama_pretrain.py``'s model, criterion, optimizer and
     TrainStep at the full 1.1B width (``layers`` deep), parameters
-    random from ``seed`` on the card (or built on ``device``).  The
-    optimizer is the example's AdamW (fp32 moments, global-norm clip
-    1.0) unless ``make_opt(parameters)`` makes another."""
+    random from ``seed`` on the card (or built on ``device``, or left
+    for a ``load_state_dict`` with ``init=False``).  ``cfg_kw`` adds
+    config fields (a remat policy, the fused loss; the loss is then the
+    model's own ``net(t, labels=l)[0]``).  The optimizer is the
+    example's AdamW (fp32 moments, global-norm clip 1.0) unless
+    ``make_opt(parameters)`` makes another."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          LlamaPretrainingCriterion)
@@ -4213,9 +4238,10 @@ def _train_setup(torch, layers, dtype, seed, device=None, make_opt=None,
                       num_hidden_layers=layers,
                       num_attention_heads=TRAIN["heads"],
                       num_key_value_heads=TRAIN["kv_heads"],
-                      max_position_embeddings=TRAIN["seq"], recompute=True)
+                      max_position_embeddings=TRAIN["seq"], recompute=True,
+                      **(cfg_kw or {}))
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=seed,
-                             init=device is None)
+                             init=(device is None) if init is None else init)
     model.train()
     crit = LlamaPretrainingCriterion(cfg)
     if make_opt is None:
@@ -4223,8 +4249,11 @@ def _train_setup(torch, layers, dtype, seed, device=None, make_opt=None,
                     grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
     else:
         opt = make_opt(model.parameters())
-    step = TrainStep(model, lambda net, t, l: crit(net(t), l), opt,
-                     **step_kw)
+    if cfg_kw:
+        loss_fn = lambda net, t, l: net(t, labels=l)[0]  # noqa: E731
+    else:
+        loss_fn = lambda net, t, l: crit(net(t), l)  # noqa: E731
+    step = TrainStep(model, loss_fn, opt, **step_kw)
     return cfg, model, opt, step
 
 
@@ -4257,12 +4286,7 @@ def phase_training(torch, seed, smi):
     _log(f"training model: {nl} layers at 1.1B width, bfloat16, "
          f"{n_params / 1e9:.3f} B params, built in "
          f"{time.perf_counter() - t0:.2f} s")
-    # launches per train step with full recompute, one launch per tensor
-    per_step = {name: 0 for name in KERNELS}
-    per_step.update({"flash_attention_fwd": 2 * nl,   # forward + recompute
-                     "flash_attention_bwd": nl,
-                     "rope": 6 * nl,        # q, k x (fwd, recompute, bwd)
-                     "rms_norm": 4 * nl + 1})  # 2/layer x 2, + final norm
+    per_step = _train_per_step(nl)
     for k in KERNELS.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -4464,7 +4488,8 @@ def phase_train_exactness(torch, seed, label="train exactness",
                           not_launched=("flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv",
                                         "fused_adamw"),
-                          accumulate_steps=1):
+                          accumulate_steps=1, cfg_kw=None, cpu_ref=None,
+                          fwd_per_layer=2):
     """Phase 6: 2 float32 train steps of a 2-layer model at 1.1B width,
     batch 1 x 256, on the card (kernels) and on the CPU (plain versions)
     from the same state dict and batch (2 updates: with
@@ -4477,7 +4502,14 @@ def phase_train_exactness(torch, seed, label="train exactness",
     (once per side) returns (optimizer, scheduler or None); the
     scheduler steps after each step.  ``flags`` are set for the phase
     and restored after.  The kernels in ``launched`` must have run on
-    the card, those in ``not_launched`` must not."""
+    the card, those in ``not_launched`` must not; the flash forward ran
+    ``fwd_per_layer`` times a layer a call.  ``cfg_kw`` adds config
+    fields (phase 6c: a remat policy, the fused loss).  ``cpu_ref``, the
+    (losses, parameters) this function returned for another arm, stands
+    in for the CPU run where the CPU's values are known to be the same
+    (a remat policy changes no value on the CPU, bit for bit:
+    ``tests/test_torch_remat.py``).  Returns the CPU's (losses,
+    parameters)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4497,14 +4529,16 @@ def phase_train_exactness(torch, seed, label="train exactness",
         if accumulate_steps > 1:
             kw["accumulate_steps"] = accumulate_steps
         cfg, gpu, _, gstep = _train_setup(torch, 2, "float32", seed + 2,
-                                          **kw)
-        _, cpu, _, cstep = _train_setup(torch, 2, "float32", seed + 2,
-                                        "cpu", **kw)
-        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+                                          cfg_kw=cfg_kw, **kw)
+        if cpu_ref is None:
+            _, cpu, _, cstep = _train_setup(torch, 2, "float32", seed + 2,
+                                            "cpu", cfg_kw=cfg_kw, **kw)
+            cpu.load_state_dict({k: v.cpu()
+                                 for k, v in gpu.state_dict().items()})
         tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 2, "cpu")
         for k in KERNELS.values():
             k.launches = 0
-        gl, cl = [], []
+        gl = []
         t0 = time.perf_counter()
         for _ in range(n_steps):
             gl.append(float(gstep(tokens, labels)))
@@ -4513,10 +4547,16 @@ def phase_train_exactness(torch, seed, label="train exactness",
         launches = {name: k.launches for name, k in KERNELS.items()}
         t_gpu = time.perf_counter() - t0
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            cl.append(float(cstep(tokens, labels)))
-            if scheds and scheds[1] is not None:
-                scheds[1].step()
+        if cpu_ref is None:
+            cl = []
+            for _ in range(n_steps):
+                cl.append(float(cstep(tokens, labels)))
+                if scheds and scheds[1] is not None:
+                    scheds[1].step()
+            cparams = {n: p.detach() for n, p in cpu.named_parameters()}
+            del cpu, cstep
+        else:
+            cl, cparams = cpu_ref
         t_cpu = time.perf_counter() - t0
     finally:
         ptt.set_flags(old_flags)
@@ -4527,14 +4567,17 @@ def phase_train_exactness(torch, seed, label="train exactness",
         if launches[name] != 0:
             raise AssertionError(f"{label}: {name} launched "
                                  f"{launches[name]} times")
+    if launches["flash_attention_fwd"] != fwd_per_layer * 2 * n_steps:
+        raise AssertionError(f"{label}: flash forward launched "
+                             f"{launches['flash_attention_fwd']} times, "
+                             f"expected {fwd_per_layer} a layer a call")
     rel = max(abs(g - c) / abs(c) for g, c in zip(gl, cl))
     if rel > 1e-6:
         raise AssertionError(f"{label}: card losses {gl} vs CPU "
                              f"{cl} (rel {rel:.3g})")
-    cparams = dict(cpu.named_parameters())
     worst, n_bad, n_all = 0.0, 0, 0
     for name, p in gpu.named_parameters():
-        diff = (p.detach().cpu() - cparams[name].detach()).abs()
+        diff = (p.detach().cpu() - cparams[name]).abs()
         worst = max(worst, diff.max().item())
         n_bad += int((diff > 1e-4).sum())
         n_all += diff.numel()
@@ -4542,13 +4585,16 @@ def phase_train_exactness(torch, seed, label="train exactness",
         raise AssertionError(
             f"{label}: parameters differ by up to {worst:.3g} "
             f"(bound {lr:.3g}), {n_bad} of {n_all} elements past 1e-4")
+    src = " (the full arm's CPU run)" if cpu_ref else ""
     _log(f"{label}: 2 layers at 1.1B width, float32, batch 1x256, "
          f"{n_steps} calls, accumulate_steps={accumulate_steps}: losses card {gl} CPU {cl} (max rel diff "
          f"{rel:.3g}); parameters max |diff| {worst:.3g}, {n_bad} of "
          f"{n_all} elements past 1e-4; card {t_gpu:.2f} s, CPU "
-         f"{t_cpu:.2f} s; launches {launches}")
-    del gpu, cpu, gstep, cstep
+         f"{t_cpu:.2f} s{src}; "
+         f"launches {launches}")
+    del gpu, gstep
     torch.cuda.empty_cache()
+    return cl, cparams
 
 
 def phase_train_exactness_routes(torch, seed):
@@ -4595,6 +4641,450 @@ def phase_train_exactness_routes(torch, seed):
                           "schedule + merge", adamw, ROUTE_FLAGS,
                           twopass + ("fused_adamw",),
                           ("flash_attention_bwd",), accumulate_steps=2)
+
+
+def _train_per_step(nl, fwd_per_layer=2):
+    """Kernel launches of one full-width train step (forward, backward
+    and the recompute of every decoder layer): the flash forward
+    ``fwd_per_layer`` times a layer (2: it runs again in the recompute;
+    1 under a policy that keeps O and LSE), RoPE on q and k in the
+    forward, the recompute and the backward, both RMSNorms of a layer in
+    the forward and the recompute, and the final norm."""
+    from paddle_tpu_torch.ops import KERNELS
+    per = {name: 0 for name in KERNELS}
+    per.update({"flash_attention_fwd": fwd_per_layer * nl,
+                "flash_attention_bwd": nl, "rope": 6 * nl,
+                "rms_norm": 4 * nl + 1})
+    return per
+
+
+def _flops_per_token(cfg, model, s):
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.llama.embed_tokens.weight.numel()
+    return 6.0 * (n_params - n_embed) + 6.0 * cfg.num_hidden_layers * s \
+        * cfg.hidden_size
+
+
+def _finite(losses):
+    return all(x == x and abs(x) != float("inf") for x in losses)
+
+
+# phase 5c's arms: (name, LlamaConfig fields, flash forwards a layer)
+POLICY_ARMS = (
+    ("full", {}, 2),
+    ("save_attn", dict(recompute_policy="save_attn"), 1),
+    ("save_attn_mlp/2 alt save_attn", dict(
+        recompute_policy="save_attn_mlp", recompute_policy_stride=2,
+        recompute_policy_alt="save_attn"), 1),
+    ("dots", dict(recompute_policy="dots"), 2),
+    ("full + fused loss", dict(fused_linear_loss=True), 2))
+# later losses of a policy arm against full's: one bf16 ulp relative
+# (2^-8; the one-pass backward's dQ atomics make the updates differ in
+# their last bits); the fused loss against full's: 1e-2 relative (full's
+# loss is bf16 log-softmax values summed and rounded to bf16, 2^-8
+# relative each; the fused loss keeps fp32 logits and an fp32 LSE)
+POLICY_LOSS_RTOL = 2.0 ** -8
+FUSED_LOSS_RTOL = 1e-2
+
+
+def phase_training_policies(torch, seed, smi):
+    """Phase 5c: the 1.1B model of phase 5 (bf16, batch 8 x 2048,
+    ``TrainStep`` with AdamW) under each remat policy of
+    ``POLICY_ARMS`` and with the fused loss, then full again, every arm
+    from the same state dict: 1 warm-up and 3 timed steps each with exact launch
+    counts; the policy arms' first loss bit-equal to full's (the same
+    forward), later losses within ``POLICY_LOSS_RTOL``, the fused arm's
+    within ``FUSED_LOSS_RTOL``; losses finite and falling; step time,
+    tokens/s, MFU and peak memory per arm.  Returns the launches of all
+    arms."""
+    from paddle_tpu_torch.ops import KERNELS
+    b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
+    t0 = time.perf_counter()
+    cfg, model, _, _ = _train_setup(torch, nl, "bfloat16", seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    tokens, labels = _train_batch(torch, cfg, b, s, seed, "cuda")
+    total = {name: 0 for name in KERNELS}
+    ref = None
+    # full again last: the first arm's step time against the last's is
+    # the phase's own spread
+    for name, cfg_kw, fwd in POLICY_ARMS + (("full, again", {}, 2),):
+        cfg, model, _, step = _train_setup(
+            torch, nl, "bfloat16", seed, cfg_kw=dict(cfg_kw) or
+            dict(recompute_policy=None), init=False)
+        model.load_state_dict(state)
+        per_step = _train_per_step(nl, fwd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in KERNELS.values():
+            k.launches = 0
+        losses = [float(step(tokens, labels))]
+        got = {n: k.launches for n, k in KERNELS.items()}
+        if got != per_step:
+            raise AssertionError(f"policies {name}: launches in one step "
+                                 f"{got} != expected {per_step}")
+        t1 = time.perf_counter()
+        for _ in range(3):
+            losses.append(step(tokens, labels))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / 3
+        losses = [float(x) for x in losses]
+        got = {n: k.launches for n, k in KERNELS.items()}
+        if got != {n: 4 * c for n, c in per_step.items()}:
+            raise AssertionError(f"policies {name}: launches in 4 steps "
+                                 f"{got} != 4 x {per_step}")
+        for n, c in got.items():
+            total[n] += c
+        if not _finite(losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"policies {name}: losses not finite and "
+                                 f"falling: {losses}")
+        if ref is None:
+            ref = losses
+        elif cfg_kw.get("fused_linear_loss"):
+            bad = [(a, r) for a, r in zip(losses, ref)
+                   if abs(a - r) > FUSED_LOSS_RTOL * abs(r)]
+            if bad:
+                raise AssertionError(f"policies {name}: losses {losses} "
+                                     f"off full's {ref}: {bad}")
+        else:
+            if losses[0] != ref[0]:
+                raise AssertionError(f"policies {name}: first loss "
+                                     f"{losses[0]!r} != full's {ref[0]!r}")
+            bad = [(a, r) for a, r in zip(losses, ref)
+                   if abs(a - r) > POLICY_LOSS_RTOL * abs(r)]
+            if bad:
+                raise AssertionError(f"policies {name}: losses {losses} "
+                                     f"off full's {ref}: {bad}")
+        _finite_params(torch, model)
+        peak = torch.cuda.max_memory_allocated()
+        tok_s = b * s / step_s
+        mfu = _flops_per_token(cfg, model, s) * tok_s / PEAK_OPS["bfloat16"]
+        _log(f"policies {name}: losses {['%.6f' % x for x in losses]}; "
+             f"step {step_s * 1e3:.1f} ms over 3 steps = {tok_s:.1f} "
+             f"tokens/s, MFU {100 * mfu:.2f}%; peak memory "
+             f"{peak / 2 ** 30:.2f} GiB; launches a step {per_step} "
+             f"on {smi}")
+        del step, model
+        torch.cuda.empty_cache()
+    del state
+    torch.cuda.empty_cache()
+    _log(f"policies: {len(POLICY_ARMS) + 1} arms in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _eager_arm(torch, seed, smi, name, dtype, level, total,
+               inf_step=False):
+    """One eager loop of phase 5d: ``loss.backward(); opt.step();
+    opt.clear_grad()`` for 3 steps (AMP ``level`` and a ``GradScaler``
+    when given; O2 through ``decorate``), exact launches a step, losses
+    finite and falling; with ``inf_step`` a fourth step whose gradient
+    holds an inf must leave the parameters as they were and halve the
+    scale."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.optimizer import AdamW
+    b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
+    cfg = LlamaConfig(vocab_size=TRAIN["vocab"], hidden_size=TRAIN["hidden"],
+                      intermediate_size=TRAIN["inter"], num_hidden_layers=nl,
+                      num_attention_heads=TRAIN["heads"],
+                      num_key_value_heads=TRAIN["kv_heads"],
+                      max_position_embeddings=s, recompute=True)
+    model = LlamaForCausalLM(cfg, dtype=dtype, seed=seed)
+    model.train()
+    tokens, labels = _train_batch(torch, cfg, b, s, seed, "cuda")
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                multi_precision=dtype == "bfloat16")
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15) if level else None
+
+    def one_step():
+        with amp.auto_cast(enable=level is not None, level=level or "O1"):
+            loss = model(tokens, labels=labels)[0]
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    per_step = _train_per_step(nl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k.launches = 0
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(float(one_step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = {n: k.launches for n, k in KERNELS.items()}
+    if got != {n: 3 * c for n, c in per_step.items()}:
+        raise AssertionError(f"eager {name}: launches in 3 steps {got} != "
+                             f"3 x {per_step}")
+    for n, c in got.items():
+        total[n] += c
+    if not _finite(losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"eager {name}: losses not finite and falling: "
+                             f"{losses}")
+    _finite_params(torch, model)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times[1:]) / 2
+    dtypes = sorted({str(p.dtype).replace("torch.", "")
+                     for p in model.parameters()})
+    _log(f"eager {name}: parameters {dtypes}, losses "
+         f"{['%.4f' % x for x in losses]}; step times ms "
+         f"{['%.1f' % (t * 1e3) for t in times]} (steps 2-3 "
+         f"{step_s * 1e3:.1f} ms = {b * s / step_s:.1f} tokens/s); peak "
+         f"memory {peak / 2 ** 30:.2f} GiB; launches a step {per_step} "
+         f"on {smi}")
+    if inf_step:
+        with amp.auto_cast(level=level):
+            loss = model(tokens, labels=labels)[0]
+        scaler.scale(loss).backward()
+        probe = model.llama.layers[0].mlp.down_proj.weight
+        probe.grad[0, 0] = float("inf")
+        before = [p.detach().clone() for p in model.parameters()]
+        scale = float(scaler.get_loss_scaling())
+        scaler.step(opt)
+        skipped = scaler._found_inf
+        scaler.update()
+        opt.clear_grad()
+        same = all(torch.equal(a, p.detach())
+                   for a, p in zip(before, model.parameters()))
+        new_scale = float(scaler.get_loss_scaling())
+        if not (skipped and same and new_scale == scale / 2):
+            raise AssertionError(
+                f"eager {name}: the inf step did not skip (found_inf "
+                f"{skipped}, parameters unchanged {same}, scale {scale} -> "
+                f"{new_scale})")
+        _log(f"eager {name}: an inf gradient skipped the update "
+             f"(parameters unchanged) and the scale fell {scale:g} -> "
+             f"{new_scale:g}")
+    del opt, model, scaler
+    torch.cuda.empty_cache()
+
+
+def phase_eager_amp(torch, seed, smi):
+    """Phase 5d: the twin of ``examples/llama_pretrain.py`` at its
+    defaults with ``--steps 2`` (3 TrainStep calls, exact launches),
+    then eager loops at the same width: bf16 parameters with
+    AdamW(multi_precision=True); fp32 parameters under
+    ``auto_cast("O1")`` with a ``GradScaler`` and one injected inf step;
+    O2 through ``decorate``.  Returns the launches of all of it."""
+    from paddle_tpu_torch.examples import llama_pretrain
+    from paddle_tpu_torch.ops import KERNELS
+    b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
+    total = {name: 0 for name in KERNELS}
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    losses = llama_pretrain.main(["--steps", "2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in KERNELS.items()}
+    want = {n: 3 * c for n, c in _train_per_step(nl).items()}
+    if got != want:
+        raise AssertionError(f"pretrain example: launches {got} != {want}")
+    if not _finite(losses):
+        raise AssertionError(f"pretrain example: losses {losses}")
+    for n, c in got.items():
+        total[n] += c
+    _log(f"pretrain example (python -m paddle_tpu_torch.examples."
+         f"llama_pretrain --steps 2): losses {['%.4f' % x for x in losses]}; "
+         f"{wall:.1f} s with the model's build")
+    _eager_arm(torch, seed, smi, "bf16 + AdamW(multi_precision)",
+               "bfloat16", None, total)
+    _eager_arm(torch, seed, smi, "fp32 + O1 + GradScaler", "float32", "O1",
+               total, inf_step=True)
+    _eager_arm(torch, seed, smi, "O2 through decorate + GradScaler",
+               "float32", "O2", total)
+    return total
+
+
+def _optimizer_cases(torch):
+    """Phase 6c (b): every eager optimizer, built over the given
+    parameters."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.regularizer import L1Decay
+    return {
+        "SGD": lambda ps: O.SGD(0.1, parameters=ps, weight_decay=0.01),
+        "Momentum": lambda ps: O.Momentum(0.05, parameters=ps,
+                                          use_nesterov=True),
+        "Adam": lambda ps: O.Adam(1e-3, parameters=ps, weight_decay=0.01),
+        "AdamW": lambda ps: O.AdamW(
+            1e-3, parameters=ps, grad_clip=ClipGradByGlobalNorm(1.0)),
+        "Adamax": lambda ps: O.Adamax(1e-3, parameters=ps),
+        "Lamb": lambda ps: O.Lamb(1e-3, parameters=ps),
+        "RMSProp": lambda ps: O.RMSProp(1e-3, parameters=ps, momentum=0.5,
+                                        centered=True),
+        "Adagrad": lambda ps: O.Adagrad(0.01, parameters=ps),
+        "Adadelta": lambda ps: O.Adadelta(1.0, parameters=ps,
+                                          weight_decay=L1Decay(1e-4)),
+        "LBFGS": lambda ps: O.LBFGS(0.1, parameters=ps, history_size=4),
+    }
+
+
+# phase 6c (b): eager updates card against CPU.  The same float32
+# elementwise operations (sqrt and division correctly rounded on both);
+# Lamb's norms and LBFGS's dots sum in other orders: 1e-5 of the larger
+# of 1 and the value
+OPT_TOL = 1e-5
+
+
+def _optimizer_exactness(torch, seed):
+    gen = torch.Generator().manual_seed(seed + 61)
+    h, f, kv = TRAIN["hidden"], TRAIN["inter"], \
+        TRAIN["kv_heads"] * TRAIN["head_dim"]
+    shapes = [(h, h), (kv, h), (f, h), (h, f), (h,)]
+    init = [torch.randn(sh, generator=gen) * 0.02 for sh in shapes]
+    grads = [[torch.randn(sh, generator=gen) * 0.01 for sh in shapes]
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    worst_all = 0.0
+    for name, make in _optimizer_cases(torch).items():
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            ps = [torch.nn.Parameter(x.to(dev, copy=True)) for x in init]
+            opt = make(ps)
+            for gs in grads:
+                if name == "LBFGS":
+                    def closure(ps=ps, gs=gs, dev=dev):
+                        for p, g in zip(ps, gs):
+                            p.grad = g.to(dev)
+                        return torch.zeros(())
+                    opt.step(closure)
+                else:
+                    for p, g in zip(ps, gs):
+                        p.grad = g.to(dev)
+                    opt.step()
+            sides[dev] = [p.detach().cpu() for p in ps]
+        worst = max(((a - b_).abs() / torch.clamp_min(b_.abs(), 1.0))
+                    .max().item() for a, b_ in zip(sides["cuda"],
+                                                   sides["cpu"]))
+        if worst > OPT_TOL:
+            raise AssertionError(f"optimizer exactness {name}: card and CPU "
+                                 f"differ by {worst:.3g} (bound {OPT_TOL})")
+        worst_all = max(worst_all, worst)
+    _log(f"optimizer exactness: {len(_optimizer_cases(torch))} eager "
+         f"optimizers, 2 steps over a layer's {len(shapes)} parameter "
+         f"shapes at 1.1B width, card against CPU within {worst_all:.3g} "
+         f"(bound {OPT_TOL}); {time.perf_counter() - t0:.1f} s")
+
+
+# phase 6c (c): AMP O1 card against CPU.  bf16 GEMMs round their fp32
+# sums to bf16 on both devices after other summation orders, and O1's
+# cross entropy runs in bf16: the loss within 2 bf16 ulps (2^-6
+# relative), each gradient within 5% of its norm
+AMP_LOSS_RTOL = 2.0 ** -6
+AMP_GRAD_RTOL = 0.05
+
+
+def _amp_exactness(torch, seed):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import KERNELS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu, _, _ = _train_setup(torch, 2, "float32", seed + 3)
+    _, cpu, _, _ = _train_setup(torch, 2, "float32", seed + 3, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 3, "cpu")
+    out = {}
+    for k in KERNELS.values():
+        k.launches = 0
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        with amp.auto_cast(level="O1"):
+            loss = model(tokens.to(dev), labels=labels.to(dev))[0]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (float(loss.detach()), [g.float().cpu() for g in grads])
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    if abs(lg - lc) > AMP_LOSS_RTOL * abs(lc):
+        raise AssertionError(f"amp exactness: O1 loss card {lg} CPU {lc}")
+    worst = max(((a - b_).norm() / b_.norm().clamp_min(1e-30)).item()
+                for a, b_ in zip(gg, gc))
+    if worst > AMP_GRAD_RTOL:
+        raise AssertionError(f"amp exactness: O1 gradients differ by "
+                             f"{worst:.3g} of their norm")
+    launched = {n: k.launches for n, k in KERNELS.items() if k.launches}
+    for n in ("flash_attention_fwd", "flash_attention_bwd", "rope",
+              "rms_norm"):
+        if n not in launched:
+            raise AssertionError(f"amp exactness: {n} never launched")
+    _log(f"amp exactness: O1, 2 layers at 1.1B width, fp32 parameters, "
+         f"batch 1x256: loss card {lg} CPU {lc}; gradients within "
+         f"{worst:.3g} of their norm (bound {AMP_GRAD_RTOL}); launches "
+         f"{launched}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def _dropout_exactness(torch, seed):
+    """Phase 6c (d): dropout masks from the threefry bits of one draw are
+    integers: bit-equal card against CPU, for ``F.dropout`` and for the
+    SDPA probabilities' mask; SDPA with dropout within float32's 1e-5."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import generator as gen
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.randn(8, 512, 1024, generator=torch.Generator().manual_seed(
+        seed + 71))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ptt.seed(seed + 7)
+        outs[dev] = F.dropout(x.to(dev), p=0.1).cpu()
+    if not torch.equal(outs["cuda"], outs["cpu"]):
+        raise AssertionError("dropout exactness: F.dropout differs between "
+                             "card and CPU")
+    b, sq, hq, hk, d = 2, 256, 8, 2, 64
+    g = torch.Generator().manual_seed(seed + 72)
+    q, k, v = (torch.randn(b, sq, hh, d, generator=g)
+               for hh in (hq, hk, hk))
+    key = gen.Generator(seed + 8).draw()
+    masks = {dev: F._keep_mask(key, 0.8, (b, hq, sq, sq), dev).cpu()
+             for dev in ("cuda", "cpu")}
+    if not torch.equal(masks["cuda"], masks["cpu"]):
+        raise AssertionError("dropout exactness: the SDPA mask differs "
+                             "between card and CPU")
+    att = {}
+    for dev in ("cuda", "cpu"):
+        ptt.seed(seed + 9)
+        att[dev] = F.scaled_dot_product_attention(
+            q.to(dev), k.to(dev), v.to(dev), dropout_p=0.2,
+            is_causal=True).cpu()
+    err = (att["cuda"] - att["cpu"]).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"dropout exactness: SDPA with dropout differs "
+                             f"by {err:.3g}")
+    _log(f"dropout exactness: F.dropout of {list(x.shape)} and the SDPA "
+         f"mask of {[b, hq, sq, sq]} bit-equal card and CPU "
+         f"({float(masks['cpu'].float().mean()):.4f} kept at 0.8); SDPA "
+         f"with dropout within {err:.3g}")
+
+
+def phase_train_exactness_policies(torch, seed, cpu_full):
+    """Phase 6c: phase 6's 2-layer float32 model under each remat policy
+    of phase 5c on the card against the CPU's full run (``cpu_full``,
+    phase 6's: the CPU's values are the same under every policy), the
+    fused loss against its own CPU run, then (b) every eager optimizer,
+    (c) AMP O1 and (d) dropout masks, card against CPU."""
+    t0 = time.perf_counter()
+    for name, cfg_kw, fwd in POLICY_ARMS[1:]:
+        fused = bool(cfg_kw.get("fused_linear_loss"))
+        phase_train_exactness(
+            torch, seed, f"train exactness {name}", cfg_kw=dict(cfg_kw),
+            cpu_ref=None if fused else cpu_full, fwd_per_layer=fwd)
+    _optimizer_exactness(torch, seed)
+    _amp_exactness(torch, seed)
+    _dropout_exactness(torch, seed)
+    _log(f"train exactness policies, optimizers, AMP, dropout: "
+         f"{time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -4666,10 +5156,14 @@ def main(argv=None) -> int:
     phase_observability_exactness(torch, args.seed)
     phase_sampled_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
-    phase_train_exactness(torch, args.seed)
+    cpu_full = phase_train_exactness(torch, args.seed)
     by_path["training_routes"] = phase_training_routes(torch, args.seed,
                                                        smi)
     phase_train_exactness_routes(torch, args.seed)
+    by_path["training_policies"] = phase_training_policies(torch, args.seed,
+                                                           smi)
+    by_path["eager_amp"] = phase_eager_amp(torch, args.seed, smi)
+    phase_train_exactness_policies(torch, args.seed, cpu_full)
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)

@@ -23,6 +23,14 @@ beside it slice by slice and imports nothing of it (nor JAX).
   by stochastic rounding, gradient merge and ``run_steps``, with the
   fused AdamW update and the two-pass flash-attention backward as CUDA
   kernels.
+- Slice 15, the rest of the pretraining surface: the named remat
+  policies (``distributed.recompute``), ``incubate``'s fused linear
+  cross entropy, AMP with ``GradScaler`` (``amp``), the eager
+  optimizers and regularizers (``optimizer``, ``regularizer``,
+  ``nn.clip``), threefry dropout, the rest of ``cross_entropy`` and the
+  train step's instruments, with the twin of the pretrain example
+  (``examples.llama_pretrain``); no kernel is added, the flash forward
+  becomes a dispatcher op a save policy can keep.
 - Slice 14, observability: the metrics registry, the flight recorder,
   spans and the goodput ledger (``observability``, ``runtime``) around
   the serving engine, and the engine's fault injector
@@ -31,8 +39,8 @@ beside it slice by slice and imports nothing of it (nor JAX).
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 
-from . import (core, device, distributed, inference,  # noqa: F401
-               jit, models, nn, observability, ops, optimizer,
-               quantization, runtime)
+from . import (amp, core, device, distributed, incubate,  # noqa: F401
+               inference, jit, models, nn, observability, ops, optimizer,
+               quantization, regularizer, runtime)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.generator import seed  # noqa: F401

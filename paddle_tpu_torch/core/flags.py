@@ -10,7 +10,8 @@ The port reads three of them, which pick routes of the training step:
 ``adamw_rsqrt_update`` (the epsilon-hat Adam form), ``flash_onepass_bwd``
 (the one-pass or the two-pass flash-attention backward) and
 ``use_fused_adamw_kernel`` (the fused AdamW kernel).  Those take any
-value.  Every other flag selects a route the port does not have yet, so
+value, and so does ``low_precision_op_list``, which the JAX package
+defines and reads nowhere.  Every other flag selects a route the port does not have yet, so
 setting it to anything but its default (by ``set_flags`` or by the
 environment) raises ``NotImplementedError`` naming the ROADMAP item that
 brings the route.
@@ -37,7 +38,6 @@ _UNPORTED = {
                               "int8 matmul kernel)",
     "eager_log_level": "item 13 (framework surface: eager dispatch "
                        "logging)",
-    "low_precision_op_list": "item 2 (AMP)",
     "default_dtype": "item 13 (framework surface: the default dtype)",
     "prefer_pallas_kernels": "item 13 (framework surface: the plain "
                              "routes in place of the kernels)",

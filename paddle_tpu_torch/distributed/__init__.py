@@ -1,3 +1,4 @@
-"""Distributed utilities of the port (so far only ``recompute``)."""
+"""Distributed utilities of the port (so far ``recompute`` and
+``recompute_sequential``)."""
 
-from .utils import recompute  # noqa: F401
+from .utils import recompute, recompute_sequential  # noqa: F401

@@ -9,7 +9,10 @@ Port of ``paddle_tpu/jit/train_step.py``: the functional updates
 route ``_fused_adam_ok``/``_fused_adam_eligible``/``_fused_adam_update``
 (:183-234), ``TrainStep.__init__``, ``_select_update`` and
 ``_init_state`` (:237-379), the step body with gradient merge
-(:433-533), ``run_steps`` (:583-635) and ``__call__`` (:637-669).  The
+(:433-533), ``run_steps`` (:583-635) and ``__call__`` (:637-669), with
+the ``_TrainStepInstruments`` of the metrics registry (:35-81) and the
+spans ``train_step.build``, ``train_step.call`` and
+``train_step.run_steps``.  The
 JAX package traces the step into one XLA program with donated buffers;
 here it runs eagerly, and the update writes the parameters and the
 optimizer state in place under ``torch.no_grad()`` (the counterpart of
@@ -31,12 +34,19 @@ The update is the JAX package's, trap for trap:
 - the step count ``t`` is an fp32 scalar; bias correction ``1 - beta**t``
   (the fused kernel's ``1 - exp(t log beta)`` differs in the last bits,
   as in the reference);
-- global-norm clipping sums fp32 squares, ``scale = cn / max(|g|, cn)``,
-  applied as ``g * scale.to(g.dtype)``.
+- a clip with a ``clip_norm`` (``ClipGradByGlobalNorm`` or
+  ``ClipGradByNorm``) is applied as one global norm: fp32 squares
+  summed, ``scale = cn / max(|g|, cn)``, applied as ``g *
+  scale.to(g.dtype)``; a clip without one (``ClipGradByValue``) is not
+  applied, as in the reference.
 
-Random keys are the port's 64-bit integer keys (``core.generator``):
-one per call from the default generator, folded per parameter with
-``1 << 20 | i`` and split into the m and v streams.  The unfused bf16
+Keys (``core.generator``): one draw per call from the default generator
+(``run_steps`` folds the iteration into it, cumulatively, as the
+reference's scan carries it).  The draw's threefry part is pushed around
+the loss (``push_trace_key``), so dropout inside the step derives from
+it exactly as in the JAX package.  Its splitmix part drives the bf16
+moments' stochastic rounding: folded per parameter with ``1 << 20 |
+i`` and split into the m and v streams.  The unfused bf16
 store draws one trailing-row noise tile per moment from the counter hash
 of ``ops.fused_optimizer`` and broadcasts it across the leading dims, so
 same-step rounding errors are column-correlated as in the reference; the
@@ -46,6 +56,7 @@ call (the reference reads them when it traces the step).
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
@@ -53,11 +64,60 @@ import torch
 
 from ..core import generator as _generator
 from ..core.flags import flag
+from ..observability import metrics as _obs
+from ..observability.spans import span as _span
 from ..ops.fused_optimizer import (adamw_scalars, fused_adamw_update,
                                    noise_bits, seed_of, stochastic_round_bf16)
 from ..optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-_TRAINING = "(ROADMAP.md, Queue 1: training)"
+_TRAINING = "(ROADMAP.md, known differences of the port's trainer)"
+
+
+class _TrainStepInstruments:
+    """Registry handles for the train step (shared by every TrainStep;
+    created on first use).  A "compile" is the first dispatch of a
+    (TrainStep, block size) pair, as the reference counts it: there jax
+    traces and XLA compiles inside that call; here the kernels build and
+    the optimizer state is made inside it."""
+
+    _inst = None
+
+    def __init__(self):
+        r = _obs.get_registry()
+        self.compiles = r.counter(
+            "train_step.compiles", "XLA (re)compilations of the fused "
+            "train step (first dispatch per executable)")
+        self.compile_seconds = r.histogram(
+            "train_step.compile_seconds",
+            "trace + compile + first-step wall time",
+            buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                     120.0, 300.0))
+        self.cache_hits = r.counter(
+            "train_step.cache_hits", "dispatches served by an existing "
+            "compiled executable")
+        self.cache_misses = r.counter(
+            "train_step.cache_misses", "dispatches that had to build an "
+            "executable")
+        self.step_seconds = r.histogram(
+            "train_step.step_seconds", "per-call wall time of the "
+            "compiled step (async dispatch; excludes compile calls)")
+
+    @classmethod
+    def get(cls):
+        if cls._inst is None:
+            cls._inst = cls()
+        return cls._inst
+
+    def record_dispatch(self, was_compile: bool, dt: float):
+        """Compile calls land in the compile histogram, steady-state
+        calls in the step histogram."""
+        if was_compile:
+            self.compiles.inc()
+            self.cache_misses.inc()
+            self.compile_seconds.observe(dt)
+        else:
+            self.cache_hits.inc()
+            self.step_seconds.observe(dt)
 
 
 def _lr_times(lr, x):
@@ -213,11 +273,7 @@ class TrainStep:
                              "parameters")
         self._device = self._params[0].device
         self._update_fn, self._hypers = self._select_update(optimizer)
-        clip = optimizer._grad_clip
-        if clip is not None and not hasattr(clip, "clip_norm"):
-            raise NotImplementedError(
-                f"TrainStep: only global-norm clipping is ported, got "
-                f"{type(clip).__name__} {_TRAINING}")
+        self._dispatched = set()    # (entry, block size) dispatched once
         self._accum_steps = accumulate_steps
         self._accum_avg = accumulate_avg
         self._state = None
@@ -236,8 +292,10 @@ class TrainStep:
         if isinstance(opt, SGD):
             return _functional_sgd, {}
         raise NotImplementedError(
-            f"TrainStep with {type(opt).__name__}: SGD, Momentum, Adam and "
-            f"AdamW are ported {_TRAINING}")
+            f"TrainStep with {type(opt).__name__}: the compiled step takes "
+            f"SGD, Momentum, Adam and AdamW, as the reference's "
+            f"_select_update does; train it with the eager opt.step() "
+            f"{_TRAINING}")
 
     def _init_state(self):
         def zeros(p, dtype=None):
@@ -268,7 +326,7 @@ class TrainStep:
 
     def _apply_update(self, grads, lr, key):
         clip = self.optimizer._grad_clip
-        if clip is not None:
+        if clip is not None and hasattr(clip, "clip_norm"):
             gsq = sum(g.float().square().sum() for g in grads)
             gnorm = torch.sqrt(gsq)
             cn = clip.clip_norm
@@ -294,9 +352,13 @@ class TrainStep:
 
     def _step(self, inputs, key, lr):
         """One forward, backward and (on a firing call) update; returns
-        (loss, aux)."""
-        out = self.loss_fn(self.model,
-                           *[_as_input(x, self._device) for x in inputs])
+        (loss, aux).  ``key`` is pushed around the loss."""
+        _generator.push_trace_key(key)
+        try:
+            out = self.loss_fn(self.model, *[_as_input(x, self._device)
+                                             for x in inputs])
+        finally:
+            _generator.pop_trace_key()
         loss = out[0] if isinstance(out, tuple) else out
         aux = out[1:] if isinstance(out, tuple) else ()
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
@@ -305,7 +367,7 @@ class TrainStep:
                      for p, g in zip(self._params, grads)]
             gm = self._gm_state
             if gm is None:
-                self._apply_update(grads, lr, key)
+                self._apply_update(grads, lr, key.mix)
             else:
                 # gradient merge: the host decides fire or hold, where
                 # the reference branches with lax.cond
@@ -317,35 +379,52 @@ class TrainStep:
                         else 1.0
                     self._apply_update(
                         [(a * gscale).to(p.dtype)
-                         for a, p in zip(gm["acc"], self._params)], lr, key)
+                         for a, p in zip(gm["acc"], self._params)], lr,
+                        key.mix)
                     for a in gm["acc"]:
                         a.zero_()
         return loss.detach(), aux
 
     def _prepare(self):
         if self._state is None:
-            self._state = self._init_state()
-            self._gm_state = self._init_gm_state()
+            with _span("train_step.build"):
+                self._state = self._init_state()
+                self._gm_state = self._init_gm_state()
         return torch.tensor(self.optimizer.get_lr(), dtype=torch.float32,
                             device=self._device)
+
+    def _first_dispatch(self, block) -> bool:
+        first = block not in self._dispatched
+        self._dispatched.add(block)
+        return first
 
     def run_steps(self, *inputs, steps: int):
         """``steps`` consecutive train steps on the SAME batch, the lr
         read once and a key folded per iteration (the reference's
         ``lax.scan`` body, run eagerly).  Returns the last step's
         loss."""
+        m = _TrainStepInstruments.get()
         lr = self._prepare()
-        key = _generator.default_generator().next_key()
+        key = _generator.default_generator().draw()
         loss = None
-        for i in range(steps):
-            key = _generator.fold_in(key, i)
-            loss, _ = self._step(inputs, key, lr)
+        t0 = time.perf_counter()
+        with _span("train_step.run_steps", steps=steps):
+            for i in range(steps):
+                key = key.fold_in(i)
+                loss, _ = self._step(inputs, key, lr)
+        m.record_dispatch(self._first_dispatch(("run_steps", steps)),
+                          time.perf_counter() - t0)
         return loss
 
     def __call__(self, *inputs):
+        m = _TrainStepInstruments.get()
         lr = self._prepare()
-        key = _generator.default_generator().next_key()
-        loss, aux = self._step(inputs, key, lr)
+        key = _generator.default_generator().draw()
+        t0 = time.perf_counter()
+        with _span("train_step.call"):
+            loss, aux = self._step(inputs, key, lr)
+        m.record_dispatch(self._first_dispatch(("call", 1)),
+                          time.perf_counter() - t0)
         if aux:
             return (loss,) + tuple(a.detach() if isinstance(a, torch.Tensor)
                                    else a for a in aux)

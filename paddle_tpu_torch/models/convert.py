@@ -7,6 +7,12 @@ names are identical; the one difference is the Linear layout: a JAX
 ``nn.Linear`` stores its weight as ``[in, out]``
 (``create_parameter((in_features, out_features))``), torch's as
 ``[out, in]``, so every projection and ``lm_head`` is transposed.
+
+``optimizer_state_from_jax``/``optimizer_state_to_jax`` carry an
+optimizer's ``state_dict()`` across the same way: the reference's keys
+(``{accumulator}_{index}``, ``master_{index}``, ``LR_Scheduler``), the
+index mapped through the parameter names, the entries of Linear weights
+transposed.
 """
 
 from __future__ import annotations
@@ -42,3 +48,53 @@ def llama_state_from_jax(named_arrays: Mapping[str, np.ndarray]
         out[name] = torch.from_numpy(np.array(a, order="C"))  # owned copy
     return out
 
+
+
+def _entry_index(key: str):
+    """(accumulator name, parameter index) of a state-dict key, or None
+    for ``LR_Scheduler`` and anything without a numeric suffix."""
+    name, _, idx = key.rpartition("_")
+    return (name, int(idx)) if name and idx.isdigit() else None
+
+
+def _bridge_state(state, src_names, dst_names, to_torch: bool):
+    dst_index = {n: i for i, n in enumerate(dst_names)}
+    out = {}
+    for key, value in state.items():
+        entry = _entry_index(key)
+        if entry is None:
+            out[key] = value
+            continue
+        acc, i = entry
+        name = src_names[i]
+        a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) \
+            else np.asarray(value)
+        if _is_linear_weight(name) and a.ndim == 2:
+            a = a.T
+        a = np.array(a, order="C")      # an owned copy
+        out[f"{acc}_{dst_index[name]}"] = torch.from_numpy(a) if to_torch \
+            else a
+    return out
+
+
+def optimizer_state_from_jax(state: Mapping, jax_names, torch_names=None
+                             ) -> Dict:
+    """A JAX ``Optimizer.state_dict()`` handed over as numpy (``LR_Scheduler``
+    as its dict) -> a state dict for the port optimizer's
+    ``set_state_dict``.  ``jax_names``: the JAX optimizer's parameter
+    names in its parameter order; ``torch_names``: the port optimizer's
+    (default the same order).  Keys keep their accumulator names
+    (``moment1_0``, ``beta1_pow_0``, ``master_0``, ...) with the index
+    mapped by name; Linear weights' entries are transposed to
+    ``[out, in]``."""
+    return _bridge_state(state, list(jax_names),
+                         list(torch_names or jax_names), to_torch=True)
+
+
+def optimizer_state_to_jax(state: Mapping, torch_names, jax_names=None
+                           ) -> Dict:
+    """The inverse of ``optimizer_state_from_jax``: the port optimizer's
+    ``state_dict()`` -> numpy arrays under the JAX optimizer's keys,
+    Linear weights' entries transposed back to ``[in, out]``."""
+    return _bridge_state(state, list(torch_names),
+                         list(jax_names or torch_names), to_torch=False)

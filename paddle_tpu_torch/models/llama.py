@@ -20,9 +20,15 @@ What is here: ``LlamaConfig`` (the fields serving and training read),
   over the dense ``(k, v)`` cache: ``prefill`` (:489, :178, :376) and the
   dense branch of ``decode_step`` (:222-229).
 - Training: the ``forward`` of every layer (:159-176, :332-345, :363-374,
-  :416-420, :438-457) without a kv cache, with full recompute of each
-  decoder layer when ``config.recompute`` and the model is in
-  ``.train()``, and the unshifted criterion (:570-589).
+  :416-420, :438-457) without a kv cache, with each decoder layer
+  recomputed under its policy when ``config.recompute`` and the model is
+  in ``.train()`` (``recompute_policy`` on layers ``i % stride == 0``,
+  ``recompute_policy_alt`` on the rest, :355-373; the MLP's gate and up
+  products named ``"mlp_gate_up"``, :332-345), ``fused_linear_loss``
+  (the chunked ``fused_linear_cross_entropy``, ``chunk=1024``, returning
+  ``(loss, None)``, :438-452) and the unshifted criterion (:570-589).
+  The ops of the training forward pass their inputs through the AMP
+  rule under the JAX package's op names (``amp.auto_cast``).
 
 Module and parameter names match the JAX model's ``named_parameters()``
 so the weight bridge (``models/convert.py``) is a rename-free mapping.
@@ -43,9 +49,11 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device, to_dtype
-from ..distributed.utils import recompute
-from ..nn.functional import (cross_entropy, llama_rope,
-                             scaled_dot_product_attention, swiglu)
+from ..distributed.utils import checkpoint_name, recompute
+from ..incubate.nn.functional import fused_linear_cross_entropy
+from ..nn.functional import (add, cross_entropy, embedding, linear,
+                             llama_rope, scaled_dot_product_attention,
+                             swiglu)
 from ..nn.norm import RMSNorm
 from ..ops.decode_attention import (decode_attention_paged,
                                     decode_attention_paged_multi,
@@ -77,16 +85,18 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     tensor_parallel: bool = False
     recompute: bool = False
-    # None = full recompute of each decoder layer; the JAX package's
-    # named save policies are not ported
+    # a distributed.recompute policy name (None = full recompute)
     recompute_policy: Optional[str] = None
+    # recompute_policy on every stride-th layer, recompute_policy_alt on
+    # the rest
+    recompute_policy_stride: int = 1
+    recompute_policy_alt: Optional[str] = None
+    # lm_head + cross entropy chunked over tokens (labels only)
     fused_linear_loss: bool = False
 
     def __post_init__(self):
         unported = {"tie_word_embeddings": self.tie_word_embeddings,
-                    "tensor_parallel": self.tensor_parallel,
-                    "recompute_policy": self.recompute_policy is not None,
-                    "fused_linear_loss": self.fused_linear_loss}
+                    "tensor_parallel": self.tensor_parallel}
         for name, on in unported.items():
             if on:
                 item = ("distributed" if name == "tensor_parallel"
@@ -263,8 +273,11 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         li = self.layer_idx
-        g = wq_linear(self.gate_proj, x, "gate_proj", li)
-        u = wq_linear(self.up_proj, x, "up_proj", li)
+        # named for the "save_attn_mlp" policy: its backward keeps the
+        # gate and up outputs instead of computing them again
+        with checkpoint_name("mlp_gate_up"):
+            g = wq_linear(self.gate_proj, x, "gate_proj", li)
+            u = wq_linear(self.up_proj, x, "up_proj", li)
         return wq_linear(self.down_proj, swiglu(g, u), "down_proj", li)
 
 
@@ -279,16 +292,20 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps,
                                                 **factory)
         self._recompute = config.recompute
+        stride = max(1, config.recompute_policy_stride)
+        self._recompute_policy = (config.recompute_policy
+                                  if layer_idx % stride == 0
+                                  else config.recompute_policy_alt)
 
     def _forward_impl(self, x, position_ids=None, attention_mask=None):
-        h = x + self.self_attn(self.input_layernorm(x), position_ids,
-                               attention_mask)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        h = add(x, self.self_attn(self.input_layernorm(x), position_ids,
+                                  attention_mask))
+        return add(h, self.mlp(self.post_attention_layernorm(h)))
 
     def forward(self, x, position_ids=None, attention_mask=None):
         if self._recompute and self.training:
             return recompute(self._forward_impl, x, position_ids,
-                             attention_mask)
+                             attention_mask, policy=self._recompute_policy)
         return self._forward_impl(x, position_ids, attention_mask)
 
     def prefill(self, x, position_ids=None):
@@ -328,7 +345,7 @@ class LlamaModel(nn.Module):
                             **factory)
 
     def forward(self, input_ids, position_ids=None, attention_mask=None):
-        x = self.embed_tokens(input_ids.long())
+        x = embedding(input_ids.long(), self.embed_tokens.weight)
         for layer in self.layers:
             x = layer(x, position_ids, attention_mask)
         return self.norm(x)
@@ -381,9 +398,15 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 labels=None):
         """input_ids: [B, S] int.  Returns logits [B, S, vocab], or
         ``(loss, logits)`` with ``labels`` (``LlamaPretrainingCriterion``,
-        unshifted)."""
-        logits = self.lm_head(self.llama(input_ids, position_ids,
-                                         attention_mask))
+        unshifted), or ``(loss, None)`` with labels under
+        ``config.fused_linear_loss`` (the logits are never formed)."""
+        hidden = self.llama(input_ids, position_ids, attention_mask)
+        if labels is not None and self.config.fused_linear_loss:
+            loss = fused_linear_cross_entropy(
+                hidden.reshape(-1, hidden.shape[-1]), self.lm_head.weight.t(),
+                labels.reshape(-1), chunk=1024)
+            return loss, None
+        logits = linear(hidden, self.lm_head.weight)
         if labels is not None:
             return LlamaPretrainingCriterion(self.config)(logits,
                                                           labels), logits

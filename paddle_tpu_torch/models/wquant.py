@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..nn.functional import linear
 from ..ops.quantized_matmul import routed_quantized_matmul
 
 # the projection set the serving quantizer targets; the model's
@@ -67,14 +68,14 @@ def wq_linear(lin: torch.nn.Linear, x: torch.Tensor, target: str,
               layer_idx: int) -> torch.Tensor:
     """Projection-site hook: ``lin``'s matmul through the quantized
     codes+scales when the active context registers ``(layer_idx,
-    target)``, the plain ``lin(x)`` otherwise.  The bias (always float)
-    joins the kernel's f32 epilogue."""
+    target)``, the float ``linear`` (cast by the AMP rule) otherwise.
+    The bias (always float) joins the kernel's f32 epilogue."""
     ctx = _ACTIVE
     if ctx is None:
-        return lin(x)
+        return linear(x, lin.weight, lin.bias)
     entry = ctx.planes.get((layer_idx, target))
     if entry is None:
-        return lin(x)
+        return linear(x, lin.weight, lin.bias)
     codes, scales = entry
     return routed_quantized_matmul(x, codes, scales, bits=ctx.bits,
                                    bias=lin.bias)

@@ -1,13 +1,15 @@
 """``RMSNorm`` layer (port of ``paddle_tpu/nn/layer/norm.py:113`` over
 ``nn/functional/norm.py:50``): the weight is a ``[hidden]`` parameter
 initialised to ones, and the forward is ``ops.rms_norm.rms_norm`` (the
-CUDA kernel on the card, the plain version on the CPU)."""
+CUDA kernel on the card, the plain version on the CPU), its inputs
+cast by the AMP rule under the op name ``rms_norm``."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..amp.auto_cast import cast as _amp_cast
 from ..ops.rms_norm import rms_norm
 
 
@@ -20,4 +22,5 @@ class RMSNorm(nn.Module):
                                               dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.epsilon)
+        x, w = _amp_cast("rms_norm", x, self.weight)
+        return rms_norm(x, w, self.epsilon)

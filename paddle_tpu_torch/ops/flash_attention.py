@@ -38,6 +38,12 @@ on CUDA cores in the order of the plain version's float32 matmul, so P
 and dS round as there.  In float32 every flash kernel runs on CUDA
 cores, since TF32 would break the float32 tolerance.
 
+``flash_attention`` runs the forward as the dispatcher op
+``paddle_tpu_torch::flash_attention_fwd`` (``flash_attention_op``) with
+its backward registered beside it, so that a selective checkpoint policy
+(``distributed.recompute(policy="save_attn")``) can keep O and LSE and
+the backward then does not run the forward kernel again.
+
 ``flash_attention_fwd``, ``_bwd_core_onepass``, ``_dq`` and ``_dkv``
 launch the kernels for CUDA tensors (or raise on what they cannot take)
 and run the plain versions for CPU tensors; nothing sends a CUDA tensor
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -383,19 +390,38 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal):
     return _bwd_wiring(core, q, k, v, o, lse, do, causal)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as a dispatcher op, so that a selective
+    checkpoint policy sees it and can keep its outputs (the reference tags
+    ``o`` and ``lse`` ``"attn_out"``, :437-439)."""
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    return o, lse
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
-        return dq, dk, dv, None
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return (torch.empty_like(q),
+            q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                        dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal = causal
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q, k, v, causal=False, block_q=None, block_k=None):
@@ -414,4 +440,4 @@ def flash_attention(q, k, v, causal=False, block_q=None, block_k=None):
             f"flash_attention: seq lengths (q={sq}, k={sk}) must be "
             f"divisible by block sizes (block_q={block_q}, "
             f"block_k={block_k})")
-    return _FlashAttention.apply(q, k, v, bool(causal))
+    return flash_attention_op(q, k, v, bool(causal))[0]

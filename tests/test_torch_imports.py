@@ -36,6 +36,11 @@ def test_import_loads_no_jax():
         "import paddle_tpu_torch.core.flags, paddle_tpu_torch.core.generator, "
         "paddle_tpu_torch.optimizer.lr, "
         "paddle_tpu_torch.ops.fused_optimizer\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.amp.grad_scaler, "
+        "paddle_tpu_torch.amp.debugging, paddle_tpu_torch.regularizer, "
+        "paddle_tpu_torch.incubate.nn.functional, "
+        "paddle_tpu_torch.optimizer.optimizer, "
+        "paddle_tpu_torch.examples.llama_pretrain\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"

@@ -171,31 +171,57 @@ def _step_for(opt_cls=AdamW, **kw):
 
 
 @pytest.mark.parametrize("case", [
-    "mesh", "base_optimizer", "lr_ratio", "lr_scheduler", "eager_step",
-    "fused_linear_loss", "recompute_policy", "tensor_parallel",
-    "tie_word_embeddings", "attention_cache", "recompute_named_policy"])
+    "mesh", "base_optimizer", "lr_scheduler", "tensor_parallel",
+    "tie_word_embeddings", "attention_cache"])
 def test_unported_keywords_raise(case):
-    from paddle_tpu_torch.distributed import recompute
     with pytest.raises(NotImplementedError):
         if case == "mesh":
             _step_for(mesh=object())
         elif case == "base_optimizer":
             _step_for(Optimizer)
-        elif case == "lr_ratio":
-            AdamW(lr_ratio=lambda p: 1.0)
         elif case == "lr_scheduler":
             AdamW(learning_rate=object())
-        elif case == "eager_step":
-            AdamW().step()
         elif case == "attention_cache":
             tnet = LlamaForCausalLM(tiny_llama_config(), device="cpu")
             tnet.llama.layers[0].self_attn(torch.zeros(1, 2, 64),
                                            cache=(None, None))
-        elif case == "recompute_named_policy":
-            recompute(lambda x: x, torch.zeros(1), policy="save_attn")
         else:
-            value = {"recompute_policy": "dots"}.get(case, True)
-            LlamaConfig(**{case: value})
+            LlamaConfig(**{case: True})
+
+
+@pytest.mark.parametrize("case", [
+    "lr_ratio", "eager_step", "fused_linear_loss", "recompute_policy",
+    "recompute_named_policy"])
+def test_ported_training_keywords_run(case):
+    """The keywords the slice-2 port refused now run."""
+    from paddle_tpu_torch.distributed import recompute
+    torch.manual_seed(3)
+    if case == "lr_ratio":
+        p = torch.nn.Parameter(torch.ones(3))
+        p.grad = torch.ones(3)
+        AdamW(learning_rate=0.1, parameters=[p], weight_decay=0.0,
+              lr_ratio=lambda q: 0.5).step()
+        assert torch.allclose(p.detach(), torch.full((3,), 0.9))
+    elif case == "eager_step":
+        p = torch.nn.Parameter(torch.ones(3))
+        p.grad = torch.full((3,), 2.0)
+        AdamW(learning_rate=0.1, parameters=[p], weight_decay=0.0).step()
+        assert torch.allclose(p.detach(), torch.full((3,), 0.9))
+    elif case == "recompute_named_policy":
+        x = torch.randn(4, requires_grad=True)
+        y = recompute(lambda t: (t * t).sum(), x, policy="save_attn")
+        y.backward()
+        assert torch.allclose(x.grad, 2 * x.detach())
+    else:
+        value = {"recompute_policy": "dots"}.get(case, True)
+        cfg = tiny_llama_config(recompute=True, **{case: value})
+        tnet = LlamaForCausalLM(cfg, device="cpu")
+        tnet.train()
+        ids = torch.randint(0, cfg.vocab_size, (2, 8))
+        loss, logits = tnet(ids, labels=ids)
+        assert (logits is None) == (case == "fused_linear_loss")
+        loss.backward()
+        assert all(p.grad is not None for p in tnet.parameters())
 
 
 def test_bf16_moments_ok_with_multi_precision_and_unknown_policy_errors():

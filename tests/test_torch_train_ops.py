@@ -325,7 +325,7 @@ def test_sdpa_with_mask_matches_xla_attention():
                                rtol=0)
 
 
-def test_sdpa_without_mask_is_flash_and_dropout_raises():
+def test_sdpa_without_mask_is_flash_and_dropout_draws():
     q, k, v = _qkv(12, 1, 16, 4, 2, 8)
     got = tF.scaled_dot_product_attention(_t(q), _t(k), _t(v),
                                           is_causal=True)
@@ -333,8 +333,17 @@ def test_sdpa_without_mask_is_flash_and_dropout_raises():
                           causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tF.scaled_dot_product_attention(_t(q), _t(k), _t(v), dropout_p=0.1)
+    # dropout takes the _xla_attention math with the JAX package's mask:
+    # the same seed, the same threefry bits
+    paddle_tpu_torch.seed(5)
+    paddle.seed(5)
+    got = tF.scaled_dot_product_attention(_t(q), _t(k), _t(v),
+                                          dropout_p=0.1, is_causal=True)
+    want = paddle.nn.functional.scaled_dot_product_attention(
+        paddle.to_tensor(q), paddle.to_tensor(k), paddle.to_tensor(v),
+        dropout_p=0.1, is_causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               atol=1e-5, rtol=0)
     # dropout is off outside training, as in the JAX package
     tF.scaled_dot_product_attention(_t(q), _t(k), _t(v), dropout_p=0.1,
                                     training=False)
@@ -363,15 +372,34 @@ def test_cross_entropy_all_ignored_is_zero():
     assert float(tF.cross_entropy(logits, labels)) == 0.0
 
 
-@pytest.mark.parametrize("kw", [dict(weight=torch.ones(5)),
+@pytest.mark.parametrize("kw", [dict(weight=True),
                                 dict(reduction="sum"),
                                 dict(soft_label=True),
                                 dict(label_smoothing=0.1),
-                                dict(use_softmax=False)])
-def test_cross_entropy_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tF.cross_entropy(torch.zeros(3, 5), torch.zeros(3, dtype=torch.long),
-                         **kw)
+                                dict(use_softmax=False)],
+                         ids=["weight", "sum", "soft_label",
+                              "label_smoothing", "use_softmax"])
+def test_cross_entropy_options_match_jax(kw):
+    rng = np.random.default_rng(14)
+    logits = rng.standard_normal((3, 5)).astype(np.float32)
+    labels = rng.integers(0, 5, (3,)).astype(np.int64)
+    kw = dict(kw)
+    if kw.get("weight"):
+        kw["weight"] = rng.random(5).astype(np.float32) + 0.5
+    if kw.get("soft_label"):
+        labels = rng.random((3, 5)).astype(np.float32)
+        labels /= labels.sum(-1, keepdims=True)
+    if kw.get("use_softmax") is False:
+        logits = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    jkw = {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    tkw = {k: _t(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    want = paddle.nn.functional.cross_entropy(
+        paddle.to_tensor(logits), paddle.to_tensor(labels), **jkw)
+    got = tF.cross_entropy(_t(logits), _t(labels), **tkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("flag,value", [
