@@ -98,7 +98,8 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    once per draft layer per drafter decode step, the flash forward once
    per draft layer per drafter prefill), acceptance above 0 in (a) and
    (b) and below 1 in (c), tokens/s, TTFT, verify step, peak memory and
-   one profiled speculative step;
+   one profiled speculative step (the drafter's ``generate()`` replays
+   one captured CUDA graph per draft model);
 3d. preemption at the same width: a 4-slot engine over a 160-block pool
    serves three priority-0 requests (512-token prompts, 200 new tokens,
    45 blocks each); once all three decode, a priority-1 arrival (36
@@ -147,6 +148,22 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    the survivors finished, the pool audit clean; after phase 4d, (f)
    phase 4d's trace (a) on the card and on the CPU gives equal flight
    records modulo wall, ledgers and counters;
+3h. the dense generation programs at the same width: (a) ``generate()``
+   as one captured CUDA graph against the eager ``generate_program`` on
+   the same inputs, greedy at B=1 and at B=4 with ragged lengths (prompt
+   512, 64 new tokens), sampled (T=0.8, top_k=50, top_p=0.9, a seed) and
+   beam search (K=4, B=2, length penalty 1.0, an EOS): tokens bit-equal
+   and each replay counting exactly the eager call's launches, with the
+   capture ms, the replay wall against device busy and tokens/s; (b)
+   ``LLMPredictor`` sessions of 8 rows (prompt 512, max_cache_len 1024,
+   16 steps a block), greedy, sampled and with int8 weights: the
+   prefill and block graphs against the eager session programs bit for
+   bit with the eager block's launches per replay, the greedy and
+   sampled sessions equal to ``generate()``, ``decode(5) + decode(11) ==
+   decode(16)``, block wall against busy, tokens/s and peak memory; then
+   a beam session (K=4, B=2) equal to ``generate()``; (c) the artifact
+   round trip on the card (``save()``, then ``load()`` without the model
+   object, a 1-layer model at the same width), equal on two calls;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same trace through the lockstep arm and against the same
@@ -178,6 +195,13 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    tokens equal up to each request's first position whose CPU top-two
    decisive margin is <= 0.01; then ``generate(do_sample=True)`` on the
    card against the CPU under the same rule;
+4h. dense exactness: phase 4's 4-layer float32 model on the card and,
+   from the same state dict, on the CPU: greedy ``generate()`` and an
+   ``LLMPredictor`` session equal up to each row's first position whose
+   CPU teacher-forced top-two margin is <= 0.01; beam ``generate()`` (K=4,
+   B=8) equal on every row whose CPU run keeps each K-th / (K+1)-th
+   candidate gap and its pick's best-vs-second gap above
+   ``BEAM_MARGIN`` (1e-3), at least one row such;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -2099,7 +2123,8 @@ def phase_spec_serving(torch, seed, cfg, model):
              f"(hits {st['spec_draft_hits']}, misses "
              f"{st['spec_draft_misses']}); decode steps "
              f"{st['decode_steps']}; prefill chunks {st['prefill_chunks']}; "
-             f"peak memory {peak / 2 ** 30:.2f} GiB; launches {launches}")
+             f"peak memory {peak / 2 ** 30:.2f} GiB; drafter graph captures "
+             f"{_capture_ms(draft_model)}; launches {launches}")
         _profile_verify(torch, eng, rng, cfg.vocab_size)
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
@@ -2107,6 +2132,13 @@ def phase_spec_serving(torch, seed, cfg, model):
     del other
     torch.cuda.empty_cache()
     return total
+
+
+def _capture_ms(model):
+    """The capture ms of each ``generate()`` graph ``model`` holds (its
+    first call of a key captures; later calls replay)."""
+    graphs = getattr(model, "_generate_graphs", {}).values()
+    return [round(g.prog.capture_s * 1e3, 1) for g in graphs]
 
 
 def _launched(tag, names):
@@ -5087,6 +5119,448 @@ def phase_train_exactness_policies(torch, seed, cpu_full):
          f"{time.perf_counter() - t0:.1f} s")
 
 
+# phase 3h: the dense generation programs at full 8B width: (a)
+# generate() as a graph against the eager program, (b) LLMPredictor
+# sessions, (c) the artifact round trip (depth cut to 1 layer: the file
+# holds every weight)
+DENSE = dict(prompt=512, new=64, lens=(512, 300, 77, 450))
+DENSE_SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9)
+SESSION = dict(batch=8, prompt_len=512, max_cache_len=1024,
+               steps_per_call=16)
+SESSION_NEW = 33                     # the first token and two blocks
+
+
+def _dense_cfg(kw):
+    """The ``GenerationConfig`` ``generate(**kw)`` builds."""
+    from paddle_tpu_torch.models import GenerationConfig
+    keys = ("do_sample", "temperature", "top_k", "top_p", "num_beams",
+            "length_penalty", "eos_token_id", "pad_token_id",
+            "compute_dtype")
+    return GenerationConfig(max_new_tokens=kw["max_new_tokens"],
+                            **{k: kw[k] for k in keys if k in kw})
+
+
+def _busy_ms(torch, fn):
+    """Device busy ms of one call of ``fn`` (kernel durations in a
+    profile), or None when the profiler recorded no CUDA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel, _ = _profile_kernels(torch, prof)
+    return sum(per_kernel.values()) / 1e3 if per_kernel else None
+
+
+def _wall_ms(torch, fn, n=3):
+    """The least of ``n`` synced host walls of ``fn``, in ms."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return min(walls)
+
+
+def _launch_counts():
+    from paddle_tpu_torch.ops import KERNELS
+    return {k: v.launches for k, v in KERNELS.items() if v.launches}
+
+
+def _fmt_busy(busy, wall):
+    if busy is None:
+        return "device busy not measured (no CUDA kernel in the profile)"
+    return f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall)"
+
+
+def _dense_generate(torch, seed, cfg, model, total):
+    """3h (a): each case's graph against the eager program on the same
+    inputs; returns the greedy B=4 tokens (the beam case takes its EOS
+    from them)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import threefry
+    from paddle_tpu_torch.models.generation import generate_program
+    rng = np.random.default_rng(seed + 16)
+    s, m = DENSE["prompt"], DENSE["new"]
+    dev = next(model.parameters()).device
+    ids4 = rng.integers(0, cfg.vocab_size, (4, s)).astype(np.int32)
+    lens4 = np.array(DENSE["lens"], np.int32)
+    base = dict(max_new_tokens=m, compute_dtype="bfloat16")
+    cases = [("greedy B=1", ids4[:1], None, dict(base)),
+             ("greedy B=4 ragged", ids4, lens4, dict(base)),
+             ("sampled B=4 ragged", ids4, lens4,
+              dict(base, seed=seed + 3, **DENSE_SAMPLED))]
+    greedy4 = None
+    for i in range(len(cases) + 1):
+        if i == len(cases):
+            eos = int(greedy4[0, 8])
+            tag, ids, lens, kw = ("beam K=4 B=2, length_penalty 1.0, EOS "
+                                  f"{eos}", ids4[:2], lens4[:2],
+                                  dict(base, num_beams=4,
+                                       length_penalty=1.0,
+                                       eos_token_id=eos))
+        else:
+            tag, ids, lens, kw = cases[i]
+        b = ids.shape[0]
+        gkw = dict(kw, seq_lens=lens, max_cache_len=s + m)
+        gcfg = _dense_cfg(kw)
+        ids_t = torch.from_numpy(ids).to(dev)
+        lens_t = torch.from_numpy(lens if lens is not None else
+                                  np.full(b, s, np.int32)).to(dev)
+        key = threefry.as_key(threefry.prng_key(kw.get("seed", 0)), dev)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = generate_program(model, gcfg, ids_t, lens_t, key, s + m)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager = _launch_counts()
+        before = set(getattr(model, "_generate_graphs", {}))
+        first = model.generate(ids, **gkw)
+        new = [g for k, g in model._generate_graphs.items()
+               if k not in before]
+        if len(new) != 1:
+            raise AssertionError(f"dense {tag}: {len(new)} graphs captured "
+                                 f"by one call, want 1")
+        cap_ms = new[0].prog.capture_s * 1e3
+        _zero_launches()
+        got = model.generate(ids, **gkw)
+        torch.cuda.synchronize()
+        replay = _launch_counts()
+        _add_launches(total, replay)
+        for name, out in (("capture call", first), ("replay", got)):
+            if not torch.equal(out, want):
+                raise AssertionError(f"dense {tag}: the graph's {name} "
+                                     f"tokens differ from the eager "
+                                     f"program's")
+        if replay != eager or not eager:
+            raise AssertionError(f"dense {tag}: launches per replay {replay} "
+                                 f"!= the eager program's {eager}")
+        wall = _wall_ms(torch, lambda: model.generate(ids, **gkw))
+        busy = _busy_ms(torch, lambda: model.generate(ids, **gkw))
+        _log(f"dense generate() {tag}, prompt {s}, {m} new: graph == eager "
+             f"bit for bit; capture {cap_ms:.1f} ms; replay wall "
+             f"{wall:.2f} ms ({b * m / wall * 1e3:.1f} tokens/s), "
+             f"{_fmt_busy(busy, wall)}; eager program {eager_ms:.1f} ms; "
+             f"launches per replay {replay}")
+        if tag.startswith("greedy B=4"):
+            greedy4 = got.cpu().numpy()
+        if tag.startswith("beam") and not (got == kw["eos_token_id"]).any():
+            _log(f"  (EOS {kw['eos_token_id']} not emitted by the best "
+                 f"beams)")
+    return ids4, lens4, greedy4
+
+
+def _session_eager(torch, model, pred, ids, lens, n_blocks, seed):
+    """The session's programs run eagerly on the card over a state of
+    their own: the prefill's first token, then ``n_blocks`` blocks.
+    Returns (tokens, the launches of the last block)."""
+    import numpy as np
+    from paddle_tpu_torch.inference.llm import (SessionState,
+                                                session_block,
+                                                session_prefill)
+    from paddle_tpu_torch.inference import threefry
+    st = SessionState(model, pred.cfg, pred.batch, pred.prompt_len,
+                      pred.max_cache_len)
+    st.ids.copy_(torch.from_numpy(ids))
+    st.lens_in.copy_(torch.from_numpy(lens))
+    st.key_in.copy_(threefry.as_key(threefry.prng_key(seed)))
+    wq = pred._wq.context() if pred._wq is not None else None
+    first = session_prefill(model, pred.cfg, st, wq)[0]
+    blocks = []
+    for _ in range(n_blocks):
+        _zero_launches()
+        blocks.append(session_block(model, pred.cfg, pred.steps_per_call,
+                                    st, wq)[0])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    out = torch.cat([first[:, None]] + blocks, dim=1).cpu().numpy()
+    del st
+    return out.astype(np.int32), launches
+
+
+def _dense_sessions(torch, seed, cfg, model, ids4, lens4, total):
+    """3h (b): three 8-row session arms, then beam."""
+    import numpy as np
+    from paddle_tpu_torch.inference.llm import LLMPredictor
+    rng = np.random.default_rng(seed + 17)
+    b, p = SESSION["batch"], SESSION["prompt_len"]
+    ids = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    lens = rng.integers(64, p + 1, b).astype(np.int32)
+    lens[0] = p
+    arms = [("greedy", {}, 0), ("sampled", DENSE_SAMPLED, seed + 5),
+            ("int8 weights", dict(weight_dtype="int8"), 0)]
+    for tag, extra, sseed in arms:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred = LLMPredictor(model, compute_dtype="bfloat16", **SESSION,
+                            **extra)
+        torch.cuda.synchronize()
+        cap_ms = (time.perf_counter() - t0) * 1e3
+        _zero_launches()
+        got = pred.generate(ids, seq_lens=lens, max_new_tokens=SESSION_NEW,
+                            seed=sseed)
+        torch.cuda.synchronize()
+        _add_launches(total, _launch_counts())
+        n_blocks = (SESSION_NEW - 1) // SESSION["steps_per_call"]
+        _zero_launches()
+        pred.start(ids, seq_lens=lens, seed=sseed)
+        pred.decode(SESSION["steps_per_call"])
+        torch.cuda.synchronize()
+        _zero_launches()
+        pred.decode(SESSION["steps_per_call"])
+        torch.cuda.synchronize()
+        replay = _launch_counts()
+        want, eager = _session_eager(torch, model, pred, ids, lens, n_blocks,
+                                     sseed)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"session {tag}: the graphs' tokens differ "
+                                 f"from the eager programs'")
+        if replay != eager or not eager:
+            raise AssertionError(f"session {tag}: launches per block replay "
+                                 f"{replay} != the eager block's {eager}")
+        if "weight_dtype" not in extra:
+            gen = model.generate(ids, seq_lens=lens,
+                                 max_new_tokens=SESSION_NEW,
+                                 max_cache_len=SESSION["max_cache_len"],
+                                 compute_dtype="bfloat16",
+                                 seed=sseed, **extra).cpu().numpy()
+            if not np.array_equal(got, gen):
+                raise AssertionError(f"session {tag}: tokens differ from "
+                                     f"generate()'s")
+        pred.start(ids, seq_lens=lens, seed=sseed)
+        split = np.concatenate([pred.decode(5), pred.decode(11)], axis=1)
+        pred.start(ids, seq_lens=lens, seed=sseed)
+        whole = pred.decode(16)
+        if not np.array_equal(split, whole):
+            raise AssertionError(f"session {tag}: decode(5) + decode(11) != "
+                                 f"decode(16)")
+
+        def block():
+            pred.start(ids, seq_lens=lens, seed=sseed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.decode(SESSION["steps_per_call"])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        wall = min(block() for _ in range(3))
+        pred.start(ids, seq_lens=lens, seed=sseed)
+        busy = _busy_ms(torch, lambda: pred.decode(SESSION["steps_per_call"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = SESSION["steps_per_call"]
+        _log(f"session {tag}: B={b}, prompt {p}, max_cache_len "
+             f"{SESSION['max_cache_len']}, {steps} steps a block: graphs == "
+             f"eager programs bit for bit"
+             f"{'' if 'weight_dtype' in extra else ' and == generate()'}; "
+             f"decode(5) + decode(11) == decode(16); construction (both "
+             f"captures) {cap_ms:.1f} ms; block wall {wall:.2f} ms "
+             f"({b * steps / wall * 1e3:.1f} tokens/s), "
+             f"{_fmt_busy(busy, wall)}; peak memory {peak:.2f} GiB; "
+             f"launches per block {replay}")
+        del pred
+    torch.cuda.empty_cache()
+    # beam through the session: equal to generate()'s beam
+    kw = dict(num_beams=4, length_penalty=1.0)
+    pred = LLMPredictor(model, compute_dtype="bfloat16", batch=2,
+                        prompt_len=DENSE["prompt"],
+                        max_cache_len=SESSION["max_cache_len"],
+                        steps_per_call=SESSION["steps_per_call"], **kw)
+    _zero_launches()
+    got = pred.generate(ids4[:2], seq_lens=lens4[:2],
+                        max_new_tokens=DENSE["new"])
+    torch.cuda.synchronize()
+    _add_launches(total, _launch_counts())
+    want = model.generate(ids4[:2], seq_lens=lens4[:2],
+                          max_new_tokens=DENSE["new"],
+                          max_cache_len=SESSION["max_cache_len"],
+                          compute_dtype="bfloat16", **kw).cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError("session beam: tokens differ from generate()'s")
+    _log(f"session beam K=4 B=2, {DENSE['new']} new tokens "
+         f"({-(-(DENSE['new'] - 1) // SESSION['steps_per_call'])} blocks, "
+         f"the last truncated on the host): == generate() bit for bit")
+    del pred
+    torch.cuda.empty_cache()
+
+
+def _dense_artifact(torch, seed):
+    """3h (c): save() / load() on the card, a 1-layer model at 8B width
+    (bf16; the artifact holds every weight, about 2.5 GB)."""
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.inference.llm import ARTIFACT_SUFFIX, LLMPredictor
+    cfg, small = _build_8b(torch, 1, "bfloat16", seed + 19)
+    rng = np.random.default_rng(seed + 19)
+    ids = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    pred = LLMPredictor(small, batch=2, prompt_len=64, max_cache_len=128,
+                        steps_per_call=8, compute_dtype="bfloat16")
+    want = pred.generate(ids, max_new_tokens=17)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        pred.save(os.path.join(td, "serve"))
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(td, "serve") + ARTIFACT_SUFFIX)
+        del pred, small
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = LLMPredictor.load(os.path.join(td, "serve"))
+        t_load = time.perf_counter() - t0
+    got = [loaded.generate(ids, max_new_tokens=17) for _ in range(2)]
+    for i, g in enumerate(got):
+        if not np.array_equal(g, want):
+            raise AssertionError(f"artifact: the loaded session's call {i} "
+                                 f"differs from the saved one's tokens")
+    _log(f"artifact (1 layer at 8B width, bf16): {size / 2 ** 30:.2f} GiB, "
+         f"save {t_save:.2f} s, load {t_load:.2f} s (model and both "
+         f"captures); two calls of the loaded session == the saved "
+         f"session's tokens")
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def phase_dense_programs(torch, seed, cfg, model):
+    """Phase 3h: the dense generation programs at full Llama-3-8B width
+    (phase 3's model).  (a) ``generate()`` as one captured graph against
+    the eager ``generate_program`` on the same inputs: greedy B=1 and B=4
+    at ragged lengths (prompt 512, 64 new tokens), sampled (T=0.8,
+    top_k=50, top_p=0.9, a seed) and beam (K=4, B=2, length penalty 1.0,
+    an EOS from the greedy run): tokens bit-equal, each replay counting
+    exactly the eager call's launches; capture ms, replay wall against
+    device busy, tokens/s.  (b) ``LLMPredictor`` sessions of 8 rows
+    (prompt 512, max_cache_len 1024, 16 steps a block): greedy, sampled
+    and int8 weights, each's graphs against the eager session programs
+    bit for bit with the eager block's launches per block replay, the
+    greedy and sampled sessions equal to ``generate()``, ``decode(5) +
+    decode(11) == decode(16)``; block wall against busy, tokens/s, peak
+    memory; then beam (K=4, B=2) equal to ``generate()``.  (c) the
+    artifact round trip on the card.  Returns the launch counts of the
+    graph runs."""
+    total = {}
+    ids4, lens4, _greedy = _dense_generate(torch, seed, cfg, model, total)
+    _dense_sessions(torch, seed, cfg, model, ids4, lens4, total)
+    _dense_artifact(torch, seed)
+    return total
+
+
+# phase 4h: a K-th / (K+1)-th candidate score gap (log-probability) at
+# or below this, at any step of a row's CPU beam run (or a best-vs-second
+# gap at the pick), leaves that row undecided between card and CPU
+BEAM_MARGIN = 1e-3
+
+
+def _beam_gaps(torch, run):
+    """Run ``run()`` (a CPU beam ``generate()``) recording, per batch row,
+    the smallest gap between the K-th and (K+1)-th candidate scores of
+    every top-K (the prefill's expansion and each step) and between the
+    best and second beam at the pick.  Returns (tokens, gaps [B])."""
+    from paddle_tpu_torch.models import generation as gen
+    top_k, pick = gen.top_k_desc, gen.beam_pick
+    gaps = []
+
+    def top_rec(x, k):
+        vals = torch.sort(x, dim=-1, descending=True, stable=True).values
+        gaps.append((vals[..., k - 1] - vals[..., k]).float())
+        return top_k(x, k)
+
+    def pick_rec(seqs, lp, blen, penalty):
+        score = lp / (blen.float() ** float(penalty)) if penalty else lp
+        top2 = torch.sort(score, dim=-1, descending=True).values
+        gaps.append(top2[..., 0] - top2[..., 1])
+        return pick(seqs, lp, blen, penalty)
+
+    gen.top_k_desc, gen.beam_pick = top_rec, pick_rec
+    try:
+        out = run()
+    finally:
+        gen.top_k_desc, gen.beam_pick = top_k, pick
+    return out, torch.stack(gaps).min(dim=0).values.numpy()
+
+
+def phase_dense_exactness(torch, seed):
+    """Phase 4h: the 4-layer float32 model of phase 4 (8B width) on the
+    card and, from the same state dict, on the CPU.  Greedy
+    ``generate()`` (B=2, ragged) and an ``LLMPredictor`` session (B=2, 4
+    steps a block): each row's tokens equal up to its first position
+    whose CPU teacher-forced top-two margin is <= 0.01 (the PR-16 rule).
+    Beam ``generate()`` (K=4, B=8, length penalty 1.0): every row whose
+    CPU run keeps each K-th / (K+1)-th candidate gap and its pick's
+    best-vs-second gap above ``BEAM_MARGIN`` equal token for token, and
+    at least one row such."""
+    import numpy as np
+    from paddle_tpu_torch.inference.llm import LLMPredictor
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu = _build_8b(torch, 4, "float32", seed + 1)
+    cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed + 21)
+    s, m = 40, 10
+    ids = rng.integers(0, cfg.vocab_size, (8, s)).astype(np.int32)
+    lens = rng.integers(8, s + 1, 8).astype(np.int32)
+    lens[0] = s
+    kw = dict(max_cache_len=64, compute_dtype="float32")
+
+    def held(tag, g_out, c_out):
+        compared = 0
+        for r in range(g_out.shape[0]):
+            lg = _teacher_forced(torch, cpu, None, ids[r, :lens[r]],
+                                 c_out[r, :-1], "cpu",
+                                 kv_dtype=torch.float32)
+            top2 = lg.topk(2, dim=-1).values
+            upto = _upto((top2[:, 0] - top2[:, 1]).numpy())
+            if not np.array_equal(g_out[r, :upto], c_out[r, :upto]):
+                raise AssertionError(f"dense exactness, {tag}, row {r}: card "
+                                     f"{g_out[r]} != CPU {c_out[r]} before "
+                                     f"position {upto}")
+            compared += upto
+        _log(f"dense exactness, {tag}: card tokens equal the CPU's at "
+             f"{compared} of {g_out.size} positions (each row up to its "
+             f"first CPU margin <= 0.01); whole rows equal "
+             f"{[bool(np.array_equal(a, b)) for a, b in zip(g_out, c_out)]}")
+
+    _zero_launches()
+    g = gpu.generate(ids[:2], seq_lens=lens[:2], max_new_tokens=m,
+                     **kw).cpu().numpy()
+    launched = _launched("dense exactness", ("flash_attention_fwd", "rope",
+                                             "rms_norm", "decode_attention"))
+    c = cpu.generate(ids[:2], seq_lens=lens[:2], max_new_tokens=m,
+                     **kw).numpy()
+    held(f"greedy generate() B=2, {m} new tokens (launches {launched})",
+         g, c)
+    preds = [LLMPredictor(net, batch=2, prompt_len=s, max_cache_len=64,
+                          steps_per_call=4, compute_dtype="float32")
+             for net in (gpu, cpu)]
+    g, c = (p.generate(ids[:2], seq_lens=lens[:2], max_new_tokens=m)
+            for p in preds)
+    held(f"LLMPredictor session B=2, {m} new tokens, 4 steps a block", g, c)
+    del preds
+    bkw = dict(kw, max_new_tokens=6, num_beams=4, length_penalty=1.0)
+    g = gpu.generate(ids, seq_lens=lens, **bkw).cpu().numpy()
+    c, gaps = _beam_gaps(torch, lambda: cpu.generate(
+        ids, seq_lens=lens, **bkw).numpy())
+    decisive = np.flatnonzero(gaps > BEAM_MARGIN)
+    if decisive.size == 0:
+        raise AssertionError(f"dense exactness, beam: no row decisive (gaps "
+                             f"{gaps})")
+    for r in decisive:
+        if not np.array_equal(g[r], c[r]):
+            raise AssertionError(f"dense exactness, beam row {r} (smallest "
+                                 f"gap {gaps[r]:.3g}): card {g[r]} != CPU "
+                                 f"{c[r]}")
+    _log(f"dense exactness, beam K=4 B=8, 6 new tokens, length penalty 1.0: "
+         f"{decisive.size} of 8 rows decisive (every gap > {BEAM_MARGIN:g}; "
+         f"smallest gaps {np.round(gaps, 5).tolist()}), each equal card vs "
+         f"CPU; whole rows equal "
+         f"{[bool(np.array_equal(a, b)) for a, b in zip(g, c)]}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5147,6 +5621,8 @@ def main(argv=None) -> int:
                                                 greedy_prof)
     by_path["observability"] = phase_observability(torch, args.seed, cfg,
                                                    model, serve_tokens)
+    by_path["dense_programs"] = phase_dense_programs(torch, args.seed, cfg,
+                                                     model)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
@@ -5155,6 +5631,7 @@ def main(argv=None) -> int:
     phase_preempt_exactness(torch, args.seed)
     phase_observability_exactness(torch, args.seed)
     phase_sampled_exactness(torch, args.seed)
+    phase_dense_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     cpu_full = phase_train_exactness(torch, args.seed)
     by_path["training_routes"] = phase_training_routes(torch, args.seed,
@@ -5215,7 +5692,8 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         c = rows[name][main_case[name]]
-        per_path = {path: counts[name] for path, counts in by_path.items()}
+        per_path = {path: counts.get(name, 0)
+                    for path, counts in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(per_path.values()),

@@ -35,6 +35,12 @@ beside it slice by slice and imports nothing of it (nor JAX).
   spans and the goodput ledger (``observability``, ``runtime``) around
   the serving engine, and the engine's fault injector
   (``inference.faultinject``); no kernel is added.
+- Slice 16, the dense generation programs: ``generate()`` (greedy,
+  sampled and beam search) replays one captured CUDA graph per program
+  key, the ``inference.LLMPredictor`` session runs its prefill and decode
+  block as two graphs and saves and loads its own artifact, the
+  attention takes the ``cache=`` form, and ``examples.llama_serve`` is
+  the twin of the serving example; no kernel is added.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """

@@ -1,11 +1,13 @@
-"""The serving engine's device programs as plain torch functions: port of
-``build_chunk_prefill`` (:516) and ``_build_paged_decode_block`` (:350)
-of ``paddle_tpu/inference/llm.py`` with ``_pack_paged_kvs`` /
-``_flatten_paged_kvs`` (:331-347), float or int8 KV cache, greedy or
-sampled, and ``spec_verify``, the body of the speculative verifier
-(``inference/speculative.py:296-310``), plus the weight-quantization
-plan: ``normalize_weight_dtype``
-(:56), ``WeightQuantPlan`` (:83) and ``build_weight_quant_plan`` (:133).
+"""The device programs of serving as plain torch functions, and the dense
+serving session.
+
+The engine's programs: port of ``build_chunk_prefill`` (:516) and
+``_build_paged_decode_block`` (:350) of ``paddle_tpu/inference/llm.py``
+with ``_pack_paged_kvs`` / ``_flatten_paged_kvs`` (:331-347), float or
+int8 KV cache, greedy or sampled, and ``spec_verify``, the body of the
+speculative verifier (``inference/speculative.py:296-310``), plus the
+weight-quantization plan: ``normalize_weight_dtype`` (:56),
+``WeightQuantPlan`` (:83) and ``build_weight_quant_plan`` (:133).
 
 They take and return what the JAX programs take and return, minus the
 parameter list (the model holds its weights).  The sampling planes
@@ -19,21 +21,40 @@ The host-RAM tier's swap programs ``build_swap_out_gather`` (:471) and
 and an in-place ``index_put_``, no kernel.
 A weight-quant plan takes the place of ``_param_swapper``'s (:173)
 trailing code/scale values: the programs run the model inside
-``wquant_context(plan.context())``.  The decode block is a Python loop of
-``steps`` decode steps; on the card the engine runs it as a captured CUDA
-graph (``DecodeBlockGraph``, one per total step count and flag bucket,
-the counterpart of the JAX engine's compiled block program), on the CPU
+``wquant_context(plan.context())``.
+
+Graphs: ``CapturedGraph`` is the one capture discipline of the port
+(warm-up and capture on a side stream, launches counted per replay).  On
+the card the engine's decode block is a ``DecodeBlockGraph`` (one per
+total step count and flag bucket, the counterpart of the JAX engine's
+compiled block program), ``generate()`` a ``GenerateGraph`` (one per
+program key, ``_generate_compiled`` :535 of ``models/generation.py``),
+and an ``LLMPredictor`` session two graphs; on the CPU all of them run
 eagerly.
+
+The dense serving session: ``LLMPredictor`` (:671) with its programs
+``session_prefill`` and ``session_block`` over a ``SessionState``
+(``_build_serving_fns`` :590 and ``_build_decode_block`` :213; greedy,
+sampled or beam) and its artifact ``save``/``load`` (:886-1002).  The
+reference serialises StableHLO programs; the port's artifact
+(``.ptpu_torch_llm``) holds the meta, the Llama config and the weights,
+and ``load`` rebuilds the model and the programs from them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import pickle
+import time
+import weakref
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import to_dtype
-from ..models.generation import GenerationConfig
+from ..models.generation import GenerationConfig, generate_program
 from ..models.wquant import WeightQuantContext, wquant_context
 from .sampling import (NO_FLAGS, decode_scan_step, sample_rows,
                        spec_greedy_rows, spec_sampling_draws)
@@ -245,25 +266,92 @@ def plane_buffers(flags, num_slots: int, vocab: int, device):
 # capture: cuBLAS keeps a workspace for every stream it has run on, so a
 # new stream per capture would grow device memory with every graph
 _CAPTURE_STREAMS = {}
+# the latest dense program graph of each device (``GenerateGraph``, the
+# ``LLMPredictor`` sessions' graphs), held weakly: a new one shares its
+# memory pool.  Their replays never overlap and each copies its outputs
+# out (or writes them into buffers it owns) before another replays, so
+# they can share memory.  A pool is only ever shared through a live
+# graph's ``pool()``: once every graph of a pool is gone, torch's
+# allocator refuses a capture into it
+_DENSE_GRAPHS = {}
+
+
+def graphs_on(device) -> bool:
+    """Whether the dense programs on ``device`` replay captured CUDA
+    graphs (the card) or run eagerly (the CPU)."""
+    return torch.device(device).type == "cuda"
+
+
+def _dense_capture(fn, dev, warmup=None) -> "CapturedGraph":
+    """``CapturedGraph`` in the device's shared pool of dense programs
+    (a new pool when no graph of the last one is alive)."""
+    ref = _DENSE_GRAPHS.get(dev)
+    live = ref() if ref is not None else None
+    prog = CapturedGraph(fn, dev, warmup=warmup,
+                         pool=live.pool() if live is not None else None)
+    _DENSE_GRAPHS[dev] = weakref.ref(prog.graph)
+    return prog
+
+
+class CapturedGraph:
+    """One program captured as ONE CUDA graph, the capture discipline
+    every graph of the port shares: ``warmup`` (default ``fn``) runs once
+    on the device's side stream (first-use work such as a kernel's
+    library load or cuBLAS's workspace for that stream must not happen
+    under capture), then ``fn`` is captured on the same stream, ordered
+    after the current stream's work by stream waits (no device-wide
+    synchronize, garbage collection or cache release, which
+    ``torch.cuda.graph`` adds).  Neither runs a launch that the kernel
+    counts keep (``_build.launches_taken_out``): ``launches`` holds what
+    the capture recorded, and ``replay`` charges it.  ``out`` is what
+    ``fn`` returned, the static outputs every replay overwrites.  A
+    capture that fails raises; nothing falls back to an eager run.
+    ``pool`` shares another graph's memory pool (``graph_pool_handle``)."""
+
+    def __init__(self, fn, device, warmup=None, pool=None):
+        from ..ops import _build
+        side = _CAPTURE_STREAMS.get(device)
+        if side is None:
+            side = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        self.launches = {}
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            with _build.launches_taken_out({}):
+                (warmup or fn)()
+            with _build.launches_taken_out(self.launches):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    self.out = fn()
+                finally:
+                    self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.capture_s = time.perf_counter() - t0
+        self.replays = 0
+
+    def replay(self):
+        """Replay on the current stream and count the captured launches;
+        returns the static outputs."""
+        from ..ops import _build
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        self.replays += 1
+        return self.out
 
 
 class DecodeBlockGraph:
     """``paged_decode_block`` of ``steps`` steps under one sampling flag
-    bucket, captured as ONE CUDA graph over static ``tok``/``lens``/
-    ``done``/``budget``/``tables`` buffers, the bucket's static sampling
-    planes (``samp``, ``plane_buffers``) and the engine's own arenas: the
-    counterpart of the JAX engine's compiled block program
-    (``_block_fn``), one per total step count and flag bucket, so a fused
-    depth-S window of S x n steps replays the same graph as a plain block
-    of S x n.
+    bucket, captured as ONE CUDA graph (``CapturedGraph``) over static
+    ``tok``/``lens``/``done``/``budget``/``tables`` buffers, the bucket's
+    static sampling planes (``samp``, ``plane_buffers``) and the engine's
+    own arenas: the counterpart of the JAX engine's compiled block
+    program (``_block_fn``), one per total step count and flag bucket, so
+    a fused depth-S window of S x n steps replays the same graph as a
+    plain block of S x n.
 
-    The capture runs the block once on a side stream first (warm-up),
-    on inputs that route every write to the trash row (all rows done,
-    all-trash tables, neutral planes), then captures it on the same
-    stream, ordered after the current stream's work by stream waits (no
-    device-wide synchronize, garbage collection or cache release, which
-    ``torch.cuda.graph`` adds); neither runs a launch that the kernel
-    counts keep (``_build.launches_taken_out``).  A call copies its
+    The warm-up runs on inputs that route every write to the trash row
+    (all rows done, all-trash tables, neutral planes).  A call copies its
     inputs (and the given planes) into the static buffers on the current
     stream (device carries device to device; a caller may also write a
     plane straight into ``samp``), replays, adds the captured launches to
@@ -280,7 +368,6 @@ class DecodeBlockGraph:
                  num_slots: int, tables_width: int,
                  flat_arenas: Sequence[torch.Tensor],
                  wq: Optional[WeightQuantContext] = None, flags=NO_FLAGS):
-        from ..ops import _build
         dev = flat_arenas[0].device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA arenas, got {dev}")
@@ -305,30 +392,18 @@ class DecodeBlockGraph:
                 self.budget, self.tables, arenas, wq=wq, samp=self.samp,
                 flags=self.flags)
 
-        side = _CAPTURE_STREAMS.get(dev)
-        if side is None:
-            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        self.launches = {}
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            with _build.launches_taken_out({}):
-                block()
-            with _build.launches_taken_out(self.launches):
-                self.graph.capture_begin()
-                try:
-                    out = block()
-                finally:
-                    self.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        self.prog = CapturedGraph(block, dev)
+        out = self.prog.out
         self.out = tuple(out[:5])
         self.pos, self.presence = out[5], out[6]
-        self.replays = 0
+
+    @property
+    def replays(self) -> int:
+        return self.prog.replays
 
     def __call__(self, tok, lens, done, budget, tables, samp=None):
         """Copy the inputs in, replay, count; returns the static
         outputs."""
-        from ..ops import _build
         if len(self.arenas) != len(self.arena_ptrs) or any(
                 a.data_ptr() != p
                 for a, p in zip(self.arenas, self.arena_ptrs)):
@@ -346,10 +421,52 @@ class DecodeBlockGraph:
         for dst, src in pairs:
             if src is not dst:
                 dst.copy_(src, non_blocking=True)
-        self.graph.replay()
-        _build.add_launches(self.launches)
-        self.replays += 1
+        self.prog.replay()
         return self.out
+
+
+class GenerateGraph:
+    """``generate_program`` (``models/generation.py``) of one key — (B,
+    prompt length S, ``max_cache_len``, ``GenerationConfig``, parameter
+    structure) — captured as ONE CUDA graph (``CapturedGraph``): the
+    parameter casts where a dtype differs from ``compute_dtype`` (so each
+    replay re-reads the live parameters), the caches' zero fill, the
+    prefill (flash forward, RoPE, RMSNorm kernels), the first draw and
+    ``max_new_tokens - 1`` dense decode steps, and for beams the
+    expansion, the per-step cache reorder, the backtrace and the pick.
+    The counterpart of the reference's compiled program
+    (``_generate_compiled``).  Its inputs are static ``ids [B, S]``,
+    ``lens [B]`` and ``key [2]`` buffers; the warm-up runs the same
+    program cut to at most two tokens.  A call copies the inputs in,
+    replays, counts the captured launches and returns a copy of the
+    tokens (the next replay of any dense program may overwrite them: they
+    share a memory pool, ``_dense_capture``)."""
+
+    def __init__(self, model, cfg: GenerationConfig, batch: int,
+                 prompt_len: int, max_cache_len: int):
+        dev = next(model.parameters()).device
+        if not graphs_on(dev):
+            raise ValueError(f"a CUDA graph needs a CUDA model, got {dev}")
+        self.ids = torch.zeros((batch, prompt_len), dtype=torch.int32,
+                               device=dev)
+        self.lens = torch.full((batch,), prompt_len, dtype=torch.int32,
+                               device=dev)
+        self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+        short = dataclasses.replace(
+            cfg, max_new_tokens=min(int(cfg.max_new_tokens), 2))
+
+        def program(c):
+            return generate_program(model, c, self.ids, self.lens, self.key,
+                                    max_cache_len)
+
+        self.prog = _dense_capture(lambda: program(cfg), dev,
+                                   warmup=lambda: program(short))
+
+    def __call__(self, ids, lens, key):
+        self.ids.copy_(ids)
+        self.lens.copy_(lens)
+        self.key.copy_(key)
+        return self.prog.replay().clone()
 
 
 @torch.no_grad()
@@ -406,3 +523,466 @@ def build_swap_in_scatter(n_arenas: int):
             a.index_put_((ids,), r)
         return tuple(arenas)
     return scatter
+
+
+# ---- the dense serving session: LLMPredictor ----
+
+ARTIFACT_SUFFIX = ".ptpu_torch_llm"
+ARTIFACT_VERSION = 1
+
+
+class SessionState:
+    """The device state an ``LLMPredictor`` owns, the inputs and outputs
+    of both session programs: the prompt inputs (``ids [B, P]``, ``lens_in
+    [B]``, ``key_in [2]``), the dense caches of ``B * K`` rows and the
+    carries (``tok``/``lens`` ``[B * K]``; greedy/sampled ``done [B]`` and
+    the threaded ``key [2]``; beam ``done``/``log_probs``/``beam_len``
+    ``[B, K]``).  K is ``num_beams``."""
+
+    def __init__(self, model, cfg: GenerationConfig, batch: int,
+                 prompt_len: int, max_cache_len: int):
+        from ..models.generation import init_kv_cache
+        dev = next(model.parameters()).device
+        k = int(cfg.num_beams)
+        rows = batch * k
+        n_layers, hkv, d = model.kv_cache_spec()
+        kdt = to_dtype(cfg.cache_dtype or cfg.compute_dtype)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.ids = torch.zeros((batch, prompt_len), **i32)
+        self.lens_in = torch.full((batch,), prompt_len, **i32)
+        self.key_in = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.kvs = init_kv_cache(n_layers, rows, max_cache_len, hkv, d, kdt,
+                                 dev)
+        self.tok = torch.zeros(rows, **i32)
+        self.lens = torch.zeros(rows, **i32)
+        if k > 1:
+            self.done = torch.ones((batch, k), dtype=torch.bool, device=dev)
+            self.log_probs = torch.zeros((batch, k), dtype=torch.float32,
+                                         device=dev)
+            self.beam_len = torch.ones((batch, k), **i32)
+        else:
+            self.done = torch.ones(batch, dtype=torch.bool, device=dev)
+            self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+
+
+@torch.no_grad()
+def session_prefill(model, cfg: GenerationConfig, st: SessionState,
+                    wq: Optional[WeightQuantContext] = None):
+    """The session's prefill program (``_build_serving_fns``' prefill):
+    casts where a dtype differs, prefills ``st.ids``/``st.lens_in`` into
+    zero-filled caches and sets the carries.  Greedy/sampled: the first
+    draw (``st.key_in`` split first when sampled, the second half carried
+    in ``st.key``); returns ``(tok0 [B] int32,)``.  Beam: the top-K
+    expansion, every cache row repeated to ``[B*K]`` rows; returns
+    ``(tok0 [B, K] int32, log_probs [B, K], beam_len [B, K])``."""
+    from ..models.generation import (_params_as, beam_expand,
+                                     init_kv_cache, sample_token)
+    from . import threefry
+    b = st.ids.shape[0]
+    k = int(cfg.num_beams)
+    with _params_as(model, to_dtype(cfg.compute_dtype)), \
+            wquant_context(wq):
+        if k > 1:
+            n_layers, hkv, d = model.kv_cache_spec()
+            kvs = init_kv_cache(n_layers, b, st.kvs[0][0].shape[1], hkv, d,
+                                st.kvs[0][0].dtype, st.ids.device)
+            logits, kvs = model.prefill(st.ids, st.lens_in, kvs)
+            tok0, lens_bk, lp, blen, done = beam_expand(logits, st.lens_in,
+                                                        cfg)
+            for dst, src in zip(st.kvs, kvs):
+                for dc, sc in zip(dst, src):
+                    dc.view((b, k) + tuple(dc.shape[1:])).copy_(
+                        sc[:, None].expand((b, k) + tuple(sc.shape[1:])))
+            st.tok.copy_(tok0.reshape(-1))
+            st.lens.copy_(lens_bk)
+            st.done.copy_(done)
+            st.log_probs.copy_(lp)
+            st.beam_len.copy_(blen)
+            return tok0, lp, blen
+        for kc, vc in st.kvs:
+            kc.zero_()
+            vc.zero_()
+        logits, _ = model.prefill(st.ids, st.lens_in, st.kvs)
+        key0, keyr = (threefry.split(st.key_in) if cfg.do_sample
+                      else (st.key_in, st.key_in))
+        tok0 = sample_token(logits, key0, cfg)
+        done0 = (torch.zeros((b,), dtype=torch.bool, device=st.ids.device)
+                 if cfg.eos_token_id is None else tok0 == cfg.eos_token_id)
+        st.tok.copy_(tok0)
+        st.lens.copy_(st.lens_in)
+        st.done.copy_(done0)
+        st.key.copy_(keyr)
+        return (tok0,)
+
+
+@torch.no_grad()
+def session_block(model, cfg: GenerationConfig, steps: int,
+                  st: SessionState,
+                  wq: Optional[WeightQuantContext] = None):
+    """The session's decode-block program (``_build_decode_block`` and the
+    beam block of ``_build_serving_fns``): ``steps`` decode steps from the
+    carries of ``st``, the caches written in place and the final carries
+    written back into ``st``.  Greedy/sampled returns ``(toks [B, steps]
+    int32,)``; beam returns ``(tokens, parents, log_probs, beam_len)``,
+    each ``[steps, B, K]``, the per-step tree the host backtraces."""
+    from ..models.generation import (_params_as, beam_scan_body,
+                                     decode_scan_body)
+    k = int(cfg.num_beams)
+    with _params_as(model, to_dtype(cfg.compute_dtype)), \
+            wquant_context(wq):
+        if k > 1:
+            carry = (st.tok, st.lens, st.kvs, st.log_probs, st.beam_len,
+                     st.done)
+            body = beam_scan_body(model, cfg, st.done.shape[0], k)
+            outs = []
+            for _ in range(int(steps)):
+                carry, emitted = body(carry)
+                outs.append(emitted)
+            tok, lens, _kvs, lp, blen, done = carry
+            st.log_probs.copy_(lp)
+            st.beam_len.copy_(blen)
+        else:
+            carry = (st.tok, st.lens, st.kvs, st.key, st.done)
+            body = decode_scan_body(model, cfg)
+            outs = []
+            for _ in range(int(steps)):
+                carry, nxt = body(carry)
+                outs.append(nxt)
+            tok, lens, _kvs, key, done = carry
+            st.key.copy_(key)
+        st.tok.copy_(tok)
+        st.lens.copy_(lens)
+        st.done.copy_(done)
+    if k > 1:
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return (torch.stack(outs, dim=1),)
+
+
+def _host(tensors):
+    """Numpy copies of a program's outputs: a graph's outputs are static
+    buffers that its next replay overwrites."""
+    return [t.cpu().numpy().copy() for t in tensors]
+
+
+class LLMPredictor:
+    """Cached-KV generative serving session: port of
+    ``paddle_tpu/inference/llm.py:671`` ``LLMPredictor``.
+
+    Shapes are static per predictor: ``batch`` sequences, right-padded
+    prompts of ``prompt_len``, cache capacity ``max_cache_len``.
+    ``start()`` prefills and returns the first generated token (or the
+    initial beams); ``decode(n)`` continues n more tokens (blocks of
+    ``steps_per_call``, the surplus buffered for the next call);
+    ``generate()`` is both (beam: the whole tree, backtraced on the host
+    and scored at exactly ``max_new_tokens``).  ``weight_dtype="int8"|
+    "int4"`` serves the projections through quantized code+scale planes
+    (``build_weight_quant_plan``).
+
+    The predictor owns one ``SessionState``: the caches and carries of
+    both programs.  On the card the prefill and the block are two CUDA
+    graphs (``CapturedGraph``, captured at construction) over that state;
+    each block replay writes its final carries back into the buffers it
+    reads.  On the CPU both run eagerly.  The session reads the model's
+    live parameters (a cast copy inside each program only where a dtype
+    differs from ``compute_dtype``): an in-place update of the model is
+    seen by the session, where the reference snapshots the parameter
+    arrays at construction; a rebinding of a parameter makes a graph
+    replay raise."""
+
+    def __init__(self, model=None, *, batch, prompt_len,
+                 max_cache_len=None, steps_per_call=16,
+                 eos_token_id=None, pad_token_id=0,
+                 do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                 num_beams=1, length_penalty=0.0,
+                 compute_dtype="bfloat16", cache_dtype=None,
+                 weight_dtype=None, _loaded=False):
+        from ..models.generation import parameter_structure
+        self.batch = int(batch)
+        self.prompt_len = int(prompt_len)
+        self.max_cache_len = int(max_cache_len or (prompt_len + 256))
+        self.steps_per_call = int(steps_per_call)
+        if self.max_cache_len < self.prompt_len + 1:
+            raise ValueError(
+                f"max_cache_len ({self.max_cache_len}) must be >= "
+                f"prompt_len + 1 ({self.prompt_len + 1}) — the cache "
+                "holds the prompt plus at least the first generated "
+                "token's K/V")
+        if num_beams > 1 and do_sample:
+            raise ValueError("num_beams > 1 with do_sample=True is not "
+                             "supported (beam search scores greedily)")
+        self.cfg = GenerationConfig(
+            do_sample=bool(do_sample), temperature=float(temperature),
+            top_k=int(top_k), top_p=float(top_p),
+            num_beams=int(num_beams),
+            length_penalty=float(length_penalty),
+            eos_token_id=eos_token_id, pad_token_id=int(pad_token_id),
+            compute_dtype=str(compute_dtype),
+            cache_dtype=None if cache_dtype is None else str(cache_dtype))
+        self._written = 0        # python-side high-water mark
+        # a block emits steps_per_call tokens; tokens beyond what the
+        # caller asked for are buffered here and drained first on the
+        # next decode() (the device carry is always block-aligned)
+        self._pending: Optional[np.ndarray] = None
+        self._started = False
+        self.weight_dtype = normalize_weight_dtype(weight_dtype)
+        if _loaded and self.weight_dtype is not None:
+            raise ValueError(
+                "weight_dtype is a load-time quantization of the "
+                "in-process model; a deserialized artifact carries "
+                "its weights as saved")
+        if model is None:
+            raise ValueError("LLMPredictor needs a model (or .load(path))")
+        cdt = to_dtype(self.cfg.compute_dtype)
+        if to_dtype(self.cfg.cache_dtype or self.cfg.compute_dtype) != cdt:
+            # the dense decode kernel takes one dtype (generate() refuses
+            # the same pair)
+            raise NotImplementedError(
+                f"LLMPredictor(cache_dtype={cache_dtype!r}) other than "
+                f"compute_dtype ({compute_dtype!r}) is not ported yet "
+                f"(ROADMAP.md, Queue 1: LLMPredictor and the dense "
+                f"generate programs)")
+        self._model = model
+        model.eval()
+        self.device = next(model.parameters()).device
+        self._wq = (build_weight_quant_plan(model, self.weight_dtype).to(
+            self.device) if self.weight_dtype is not None else None)
+        wq = self._wq.context() if self._wq is not None else None
+        cfg, steps = self.cfg, self.steps_per_call
+        st = self._st = SessionState(model, cfg, self.batch,
+                                     self.prompt_len, self.max_cache_len)
+
+        def prefill():
+            return session_prefill(model, cfg, st, wq)
+
+        def block():
+            return session_block(model, cfg, steps, st, wq)
+
+        if not graphs_on(self.device):
+            self._prefill, self._block = prefill, block
+            return
+        self._prefill_graph = _dense_capture(prefill, self.device)
+        # the block's warm-up must write in range whatever the prompt
+        # length: every row frozen at slot 0 (start() prefills again)
+        st.lens.zero_()
+        st.done.fill_(True)
+        self._block_graph = _dense_capture(block, self.device)
+        self._struct = parameter_structure(model)
+        self._prefill = lambda: self._replay(self._prefill_graph)
+        self._block = lambda: self._replay(self._block_graph)
+
+    def _replay(self, graph: CapturedGraph):
+        from ..models.generation import parameter_structure
+        if parameter_structure(self._model) != self._struct:
+            raise RuntimeError(
+                "LLMPredictor: the model's parameters were rebound (or "
+                "moved or cast) after its graphs were captured; build a "
+                "new predictor")
+        return graph.replay()
+
+    # -- session --
+    def _check_prompt(self, input_ids, seq_lens):
+        ids = np.asarray(input_ids.cpu() if isinstance(
+            input_ids, torch.Tensor) else input_ids)
+        if ids.shape != (self.batch, self.prompt_len):
+            raise ValueError(
+                f"prompt must be [{self.batch}, {self.prompt_len}], got "
+                f"{list(ids.shape)}")
+        lens = (np.full((self.batch,), self.prompt_len, np.int32)
+                if seq_lens is None
+                else np.asarray(seq_lens.cpu() if isinstance(
+                    seq_lens, torch.Tensor) else seq_lens))
+        if lens.shape != (self.batch,) or (lens < 1).any() or \
+                (lens > self.prompt_len).any():
+            # an out-of-range length would read another row's or no
+            # position at all: fail loudly here
+            raise ValueError(
+                f"seq_lens must be [{self.batch}] ints in "
+                f"[1, {self.prompt_len}], got {lens.tolist()}")
+        return ids, lens
+
+    def start(self, input_ids, seq_lens=None, seed: int = 0) -> np.ndarray:
+        """Prefill the prompt; returns the first generated token [B]
+        (greedy/sampled) or the initial beams [B, K] (beam mode)."""
+        from . import threefry
+        ids, lens = self._check_prompt(input_ids, seq_lens)
+        st = self._st
+        st.ids.copy_(torch.from_numpy(ids.astype(np.int32)))
+        st.lens_in.copy_(torch.from_numpy(lens.astype(np.int32)))
+        if self.cfg.num_beams == 1:
+            st.key_in.copy_(threefry.as_key(threefry.prng_key(seed)))
+        out = _host(self._prefill())
+        if self.cfg.num_beams > 1:
+            # host-side beam tree: ids/parents/scores [T, B, K]
+            k = self.cfg.num_beams
+            self._tree_ids = [out[0][None]]
+            self._tree_parents = [np.tile(
+                np.arange(k, dtype=np.int32)[None, None],
+                (1, self.batch, 1))]
+            self._tree_lp = [out[1][None]]
+            self._tree_blen = [out[2][None]]
+        self._started = True
+        self._written = int(lens.max()) + 1
+        self._pending = None
+        return out[0]
+
+    def _run_block(self):
+        out = _host(self._block())
+        if self.cfg.num_beams > 1:
+            self._tree_ids.append(out[0])
+            self._tree_parents.append(out[1])
+            self._tree_lp.append(out[2])
+            self._tree_blen.append(out[3])
+            return None  # beam tokens are final only after backtrace
+        return out[0]
+
+    def decode(self, n: int) -> np.ndarray:
+        """Decode ``n`` more tokens; returns [B, n] int32.  Beam mode
+        has no incremental token stream (beams reorder retroactively):
+        use ``generate()``."""
+        if self.cfg.num_beams > 1:
+            raise RuntimeError(
+                "decode() is not available with num_beams > 1 — beam "
+                "tokens are only final after the last step's backtrace; "
+                "use generate(), which returns the best sequences")
+        if not self._started:
+            raise RuntimeError("call start() before decode()")
+        if n <= 0:
+            return np.zeros((self.batch, 0), np.int32)
+        buffered = 0 if self._pending is None else self._pending.shape[1]
+        need_blocks = max(0, -(-(n - buffered) // self.steps_per_call))
+        if self._written + need_blocks * self.steps_per_call \
+                > self.max_cache_len + 1:
+            raise ValueError(
+                f"decoding {n} more tokens exceeds max_cache_len "
+                f"({self.max_cache_len}); session has written "
+                f"{self._written}")
+        chunks: List[np.ndarray] = ([] if self._pending is None
+                                    else [self._pending])
+        for _ in range(need_blocks):
+            chunks.append(self._run_block())
+            self._written += self.steps_per_call
+        all_toks = np.concatenate(chunks, axis=1)
+        self._pending = all_toks[:, n:] if all_toks.shape[1] > n else None
+        return all_toks[:, :n]
+
+    def generate(self, input_ids, seq_lens=None,
+                 max_new_tokens: int = 32, seed: int = 0) -> np.ndarray:
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        first = self.start(input_ids, seq_lens, seed=seed)
+        if self.cfg.num_beams > 1:
+            n_blocks = -(-(max_new_tokens - 1) // self.steps_per_call)
+            if self._written + n_blocks * self.steps_per_call \
+                    > self.max_cache_len + 1:
+                raise ValueError(
+                    f"decoding {max_new_tokens} tokens exceeds "
+                    f"max_cache_len ({self.max_cache_len})")
+            for _ in range(n_blocks):
+                self._run_block()
+                self._written += self.steps_per_call
+            return self._finalize_beams(max_new_tokens)
+        if max_new_tokens == 1:
+            return first[:, None]
+        rest = self.decode(max_new_tokens - 1)
+        return np.concatenate([first[:, None], rest], axis=1)
+
+    def _finalize_beams(self, max_new_tokens: int) -> np.ndarray:
+        """Backtrace the accumulated (token, parent) tree and return the
+        best beam per batch row under the length penalty, scored at
+        exactly ``max_new_tokens`` (not at the block boundary the last
+        block ran to)."""
+        from ..models.generation import beam_pick
+        from ..nn.functional import gather_tree
+        ids = np.concatenate(self._tree_ids, axis=0)[:max_new_tokens]
+        parents = np.concatenate(self._tree_parents,
+                                 axis=0)[:max_new_tokens]
+        seqs = gather_tree(ids, parents)                       # [T, B, K]
+        lp = np.concatenate(self._tree_lp, axis=0)[max_new_tokens - 1]
+        blen = np.concatenate(self._tree_blen, axis=0)[max_new_tokens - 1]
+        return beam_pick(seqs, torch.from_numpy(lp), torch.from_numpy(blen),
+                         self.cfg.length_penalty).numpy()
+
+    # -- artifact --
+    def _meta(self):
+        c = self.cfg
+        return {"batch": self.batch, "prompt_len": self.prompt_len,
+                "max_cache_len": self.max_cache_len,
+                "steps_per_call": self.steps_per_call,
+                "eos_token_id": c.eos_token_id,
+                "pad_token_id": c.pad_token_id, "do_sample": c.do_sample,
+                "temperature": c.temperature, "top_k": c.top_k,
+                "top_p": c.top_p, "num_beams": c.num_beams,
+                "length_penalty": c.length_penalty,
+                "compute_dtype": c.compute_dtype,
+                "cache_dtype": c.cache_dtype}
+
+    def save(self, path: str):
+        """Write the serving artifact ``path + ".ptpu_torch_llm"``: a
+        pickle of the format ``version``, the reference's ``meta`` dict
+        (the full decode configuration: greedy, sampled or beam), the
+        model family and its ``LlamaConfig`` fields, and every weight as
+        numpy at its exact bits (bf16 as the ``uint16`` view plus the
+        dtype name, the host parcels' rule).  ``load()`` rebuilds the
+        model and the programs from it alone.  The reference's
+        ``.ptpu_llm`` holds StableHLO programs: neither package loads the
+        other's artifact."""
+        from ..models.llama import LlamaForCausalLM
+        from .prefixcache import host_rows
+        if self._wq is not None:
+            raise NotImplementedError(
+                "save() with weight_dtype='int8'/'int4' is not wired — "
+                "the artifact would carry the code/scale planes without "
+                "the loader knowing the plan layout; quantized-weight "
+                "predictors serve in-process")
+        if not isinstance(self._model, LlamaForCausalLM):
+            raise NotImplementedError(
+                f"save() serialises a LlamaForCausalLM, got "
+                f"{type(self._model).__name__} (ROADMAP.md, Queue 1: #12 "
+                f"Model zoo)")
+        blob = {"version": ARTIFACT_VERSION, "family": "llama",
+                "config": dataclasses.asdict(self._model.config),
+                "meta": self._meta(),
+                "weights": {name: host_rows(t) for name, t in
+                            self._model.state_dict().items()}}
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path + ARTIFACT_SUFFIX, "wb") as f:
+            pickle.dump(blob, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "LLMPredictor":
+        """Rebuild a serving session from a ``.ptpu_torch_llm`` artifact
+        written by ``save()``: the model (``LlamaForCausalLM`` of the
+        saved config, every weight at its saved bits and dtype) on
+        ``device`` (the CUDA card unless ``"cpu"`` is asked for; raises
+        without CUDA) and the programs of the saved configuration."""
+        from ..device import resolve_device
+        from ..models.llama import LlamaConfig, LlamaForCausalLM
+        from .prefixcache import parcel_tensor
+        dev = resolve_device(device)
+        with open(path + ARTIFACT_SUFFIX, "rb") as f:
+            blob = pickle.load(f)
+        if blob.get("version") != ARTIFACT_VERSION or \
+                blob.get("family") != "llama":
+            raise ValueError(
+                f"{path}{ARTIFACT_SUFFIX}: artifact version "
+                f"{blob.get('version')!r} of family {blob.get('family')!r}; "
+                f"this loader reads version {ARTIFACT_VERSION} of 'llama'")
+        weights = blob["weights"]
+        model = LlamaForCausalLM(LlamaConfig(**blob["config"]), device=dev,
+                                 dtype=next(iter(weights.values()))[1],
+                                 init=False)
+        names = dict(model.named_parameters())
+        if set(names) != set(weights):
+            raise ValueError(
+                f"{path}{ARTIFACT_SUFFIX}: weights "
+                f"{sorted(set(weights) ^ set(names))} do not match the "
+                f"model of its config")
+        with torch.no_grad():
+            for name, p in names.items():
+                bits, dt = weights[name]
+                if dt != str(p.dtype).replace("torch.", ""):
+                    p.data = torch.empty(p.shape, dtype=to_dtype(dt),
+                                         device=dev)
+                p.copy_(parcel_tensor(bits, dt, p))
+        return cls(model, **blob["meta"], _loaded=True)

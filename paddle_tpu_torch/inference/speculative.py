@@ -15,7 +15,8 @@ is the sequential sampled engine's.
 - ``Drafter`` and ``NGramDrafter`` (:55, :70) are pure numpy, copied.
 - ``ModelDrafter`` (:117) runs a draft model's greedy ``generate()``
   (``models/generation.py``: dense prefill, then decode steps through the
-  dense decode kernel) on a fixed ``max_context`` grid.
+  dense decode kernel) on a fixed ``max_context`` grid: one shape, so on
+  the card every proposal replays one captured graph.
 - ``accept_drafts`` (:196) and ``accept_drafts_sampled`` (:160) are the
   greedy and the stochastic rules, copied.
 - ``build_spec_verify`` (:227) is the eager counterpart of the compiled
@@ -104,7 +105,8 @@ class ModelDrafter(Drafter):
     shape: a prefill of ``max_context`` positions over a dense cache of
     ``max_context + max_draft`` slots.  The draft model must share the
     target's vocabulary and lie on the target's device; it needs no other
-    relation to the target."""
+    relation to the target.  On the card each proposal replays the one
+    captured graph of that shape (``generate()``)."""
 
     def __init__(self, model, *, max_context: int, max_draft: int = 8,
                  compute_dtype: str = "float32", pad_token_id: int = 0):

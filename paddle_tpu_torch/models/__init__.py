@@ -1,5 +1,5 @@
-"""Models of the port: Llama for paged serving, greedy generate() and
-pretraining."""
+"""Models of the port: Llama for paged serving, generate() (greedy,
+sampled, beam) and pretraining."""
 
 from .convert import (llama_state_from_jax,  # noqa: F401
                       optimizer_state_from_jax, optimizer_state_to_jax)

@@ -1,17 +1,26 @@
-"""Generation pieces of the serving path and of greedy ``generate()``:
-port of ``paddle_tpu/models/generation.py`` — ``GenerationConfig`` (:56,
-the fields the engine reads), the dense cache of ``generate()``
+"""Generation pieces of the serving path and of ``generate()``: port of
+``paddle_tpu/models/generation.py`` — ``GenerationConfig`` (:56, every
+field of the reference's program key), the dense cache of ``generate()``
 (``init_kv_cache`` :76, ``cache_scatter`` :96, ``cache_prefill_write``
 :314, ``cached_decode_attention`` :325), ``init_paged_kv_arena`` (:113,
 float and int8 caches), ``quantize_kv_heads`` (:152), the decode / chunk
 / verify scatters with their trash routing and their quantize-on-append
 ``_q`` twins (:174-311), ``filter_top_k_top_p`` (:342), ``sample_token``
-(:368), ``decode_scan_body`` (:437) and ``GenerationMixin.generate``
-(:638), greedy or sampled.  The sampled draws are JAX's threefry bits
-(``inference/threefry.py``): ``generate(do_sample=True, seed=s)`` splits
-``PRNGKey(s)`` into the first token's key and the loop's, splits the
-loop's key once a step, and draws one categorical over the whole ``[B,
-V]`` batch from each key, as the JAX ``generate()`` does.
+(:368), ``decode_scan_body`` (:437), ``beam_scan_body`` (:460) and
+``GenerationMixin.generate`` (:638) with its program (``_generate_compiled``
+:535): greedy, sampled or beam search.  The sampled draws are JAX's
+threefry bits (``inference/threefry.py``): ``generate(do_sample=True,
+seed=s)`` splits ``PRNGKey(s)`` into the first token's key and the
+loop's, splits the loop's key once a step, and draws one categorical over
+the whole ``[B, V]`` batch from each key, as the JAX ``generate()`` does.
+
+``generate_program`` is the whole generation (cast, zero-filled caches,
+prefill, first draw, ``max_new_tokens - 1`` decode steps, and for beams
+the backtrace and the length-penalty pick).  On the card ``generate()``
+replays it as one captured CUDA graph per (B, prompt length,
+max_cache_len, config, parameter structure), the key of the reference's
+compiled program (``inference/llm.py:GenerateGraph``); on the CPU it runs
+eagerly.
 
 The JAX scatters return new arrays (the engine donates the old ones);
 here they write the cache IN PLACE with ``index_put_`` and return it, so
@@ -34,13 +43,17 @@ from ..ops.decode_attention import (cache_shape, decode_attention,
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """The generation options ``generate()`` and the serving path read
-    (the serving engine's per-request planes override the sampling
-    fields there)."""
+    """The static generation options: the fields of the reference's
+    program key (``generate()`` and ``LLMPredictor`` read all of them; the
+    serving engine's per-request planes override the sampling fields
+    there).  Frozen, so hashable."""
+    max_new_tokens: int = 32
     do_sample: bool = False
     temperature: float = 1.0
-    top_k: int = 0
-    top_p: float = 1.0
+    top_k: int = 0                   # 0 = full softmax
+    top_p: float = 1.0               # nucleus sampling; 1.0 = off
+    num_beams: int = 1               # > 1 = beam search (greedy scoring)
+    length_penalty: float = 0.0      # beam score /= len ** alpha
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
     compute_dtype: str = "bfloat16"
@@ -343,13 +356,115 @@ def decode_scan_body(model, cfg: GenerationConfig):
     return body
 
 
+def top_k_desc(x, k: int):
+    """``jax.lax.top_k`` along the last axis: the ``k`` largest values in
+    descending order and their indices, ties broken by the lower index.
+    ``torch.topk`` promises no order among equal values, so this is a
+    stable descending sort cut to ``k``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _repeat_rows(t, k: int):
+    """``jnp.repeat(t, k, axis=0)``: each row ``k`` times in a row, as a
+    new contiguous tensor (the caches are then written in place)."""
+    rest = tuple(t.shape[1:])
+    return t[:, None].expand((t.shape[0], k) + rest).contiguous().reshape(
+        (t.shape[0] * k,) + rest)
+
+
+def beam_scan_body(model, cfg: GenerationConfig, b: int, k: int):
+    """The per-token beam-search body over a ``[B*K]``-row dense cache:
+    decode_step -> log-softmax -> (finished beams offer only EOS at zero
+    cost) -> the K best of the ``K * V`` candidates of each batch row ->
+    every cache row gathered from its parent row and written back in
+    place (the reference's ``kc[rows]``) -> EOS and length bookkeeping.
+    carry = (tok [B*K], lens [B*K], kvs, log_probs [B, K], beam_len [B,
+    K], done [B, K]); returns (carry', (token [B, K], parent [B, K] int32,
+    log_probs [B, K], beam_len [B, K])): the per-step scores let a
+    block-serving host truncate the tree mid-block and still score at
+    exactly ``max_new_tokens`` (``LLMPredictor``)."""
+    def body(carry):
+        tok, lens, kvs, lp, blen, done = carry
+        logits, kvs = model.decode_step(tok, lens, kvs)        # [B*K, V]
+        vocab = logits.shape[-1]
+        step_lp = torch.log_softmax(logits.float(), dim=-1).reshape(
+            b, k, vocab)
+        if cfg.eos_token_id is not None:
+            # built from an index compare: a scalar write would copy a
+            # host tensor, which a CUDA graph capture refuses
+            ids = torch.arange(vocab, device=logits.device)
+            only_eos = torch.full((vocab,), -1e9, dtype=torch.float32,
+                                  device=logits.device).masked_fill(
+                                      ids == cfg.eos_token_id, 0.0)
+            step_lp = torch.where(done[:, :, None], only_eos, step_lp)
+        flat = (lp[:, :, None] + step_lp).reshape(b, k * vocab)
+        top_lp, top_idx = top_k_desc(flat, k)                    # [B, K]
+        parent = torch.div(top_idx, vocab, rounding_mode="floor")
+        tok_idx = (top_idx % vocab).to(torch.int32)
+        rows = (torch.arange(b, device=parent.device)[:, None] * k
+                + parent).reshape(-1)
+        for kc, vc in kvs:
+            kc.copy_(kc.index_select(0, rows))
+            vc.copy_(vc.index_select(0, rows))
+        lens_g = lens.index_select(0, rows)
+        done_g = torch.gather(done, 1, parent)
+        blen_g = torch.gather(blen, 1, parent)
+        if cfg.eos_token_id is not None:
+            emit = torch.where(done_g, torch.full_like(tok_idx,
+                                                       cfg.pad_token_id),
+                               tok_idx)
+            done_n = done_g | (tok_idx == cfg.eos_token_id)
+        else:
+            emit = tok_idx
+            done_n = done_g
+        lens_n = torch.where(done_g.reshape(-1), lens_g, lens_g + 1)
+        blen_n = blen_g + (~done_g).to(torch.int32)
+        return ((emit.reshape(-1), lens_n, kvs, top_lp, blen_n, done_n),
+                (emit, parent.to(torch.int32), top_lp, blen_n))
+    return body
+
+
+def beam_expand(logits, lens, cfg: GenerationConfig):
+    """The beam prefill's tail: the K best first tokens of each batch row
+    (log-softmax, ``top_k_desc``) and the lengths repeated to ``[B*K]``
+    rows (the caller repeats the caches the same way).  Returns (tok0 [B,
+    K] int32, lens [B*K], log probs [B, K], beam lengths [B, K] (ones),
+    done [B, K])."""
+    b, k = logits.shape[0], cfg.num_beams
+    lp0 = torch.log_softmax(logits.float(), dim=-1)
+    top_lp, tok0 = top_k_desc(lp0, k)
+    tok0 = tok0.to(torch.int32)
+    done0 = (torch.zeros((b, k), dtype=torch.bool, device=logits.device)
+             if cfg.eos_token_id is None else tok0 == cfg.eos_token_id)
+    blen0 = torch.ones((b, k), dtype=torch.int32, device=logits.device)
+    return tok0, _repeat_rows(lens, k), top_lp, blen0, done0
+
+
+def beam_pick(seqs, lp, blen, length_penalty: float):
+    """The best beam of each batch row under the length penalty
+    (``score = lp / len ** alpha``, first index on ties) from the
+    backtraced ``seqs`` [T, B, K]: returns [B, T] int32."""
+    if length_penalty:
+        score = lp / (blen.float() ** float(length_penalty))
+    else:
+        score = lp
+    best = torch.argmax(score, dim=-1)                           # [B]
+    out = seqs.permute(1, 0, 2)                                  # [B, T, K]
+    idx = best[:, None, None].expand(out.shape[0], out.shape[1], 1)
+    return torch.gather(out, 2, idx)[..., 0].to(torch.int32)
+
+
 @contextmanager
 def _params_as(model, dtype: torch.dtype):
     """Run with the model's float parameters in ``dtype``: the JAX
     package's once-per-call cast (``swap_call``).  Parameters already in
     ``dtype`` are used as they are, so a model stored in the compute dtype
     is never copied (at 8B a float32 copy would take 32 GB); the others
-    get a cast copy for the call and are restored after it."""
+    get a cast copy for the call and are restored after it.  Inside a
+    CUDA graph capture the cast is captured too, so every replay casts
+    the live parameters again, as the reference casts inside its
+    program."""
     saved = []
     try:
         for p in model.parameters():
@@ -362,14 +477,93 @@ def _params_as(model, dtype: torch.dtype):
             p.data = data
 
 
+def generate_program(model, cfg: GenerationConfig, ids, lens, key,
+                     max_cache_len: int):
+    """The whole of ``generate()`` as one program: the parameters cast to
+    ``cfg.compute_dtype`` where they differ, zero-filled dense caches of
+    ``max_cache_len`` slots, the prefill, the first draw and
+    ``cfg.max_new_tokens - 1`` decode steps; for ``cfg.num_beams > 1``
+    the top-k expansion to ``[B*K]`` rows, the beam steps, the backtrace
+    (``gather_tree``) and the best beam under the length penalty.  ids
+    [B, S] int32, lens [B] int32, key [2] int64 threefry words.  No host
+    read, so it can be captured.  Returns [B, max_new_tokens] int32."""
+    from ..inference import threefry
+    from ..nn.functional import gather_tree
+    n_layers, hkv, d = model.kv_cache_spec()
+    cdt = to_dtype(cfg.compute_dtype)
+    kdt = to_dtype(cfg.cache_dtype) if cfg.cache_dtype is not None else cdt
+    b = ids.shape[0]
+    steps = int(cfg.max_new_tokens) - 1
+    with _params_as(model, cdt):
+        kvs = init_kv_cache(n_layers, b, int(max_cache_len), hkv, d, kdt,
+                            ids.device)
+        logits, kvs = model.prefill(ids, lens, kvs)
+        if cfg.num_beams > 1:
+            k = cfg.num_beams
+            tok0, lens_bk, lp, blen, done = beam_expand(logits, lens, cfg)
+            kvs = [(_repeat_rows(kc, k), _repeat_rows(vc, k))
+                   for kc, vc in kvs]
+            toks = [tok0]
+            parents = [torch.arange(k, dtype=torch.int32,
+                                    device=ids.device).expand(b, k)]
+            carry = (tok0.reshape(-1), lens_bk, kvs, lp, blen, done)
+            body = beam_scan_body(model, cfg, b, k)
+            for _ in range(steps):
+                carry, (emit, parent, _lp, _blen) = body(carry)
+                toks.append(emit)
+                parents.append(parent)
+            seqs = gather_tree(torch.stack(toks), torch.stack(parents))
+            return beam_pick(seqs, carry[3], carry[4], cfg.length_penalty)
+        key0, keyr = (threefry.split(key) if cfg.do_sample else (key, key))
+        tok = sample_token(logits, key0, cfg)
+        done = (torch.zeros((b,), dtype=torch.bool, device=ids.device)
+                if cfg.eos_token_id is None else tok == cfg.eos_token_id)
+        toks = [tok]
+        carry = (tok, lens, kvs, keyr, done)
+        body = decode_scan_body(model, cfg)
+        for _ in range(steps):
+            carry, nxt = body(carry)
+            toks.append(nxt)
+    return torch.stack(toks, dim=1)
+
+
+def parameter_structure(model):
+    """The identity, address and dtype of every parameter and buffer: the
+    last part of a ``generate()`` program's key.  A rebinding (``p.data =
+    ...``, a ``.to()`` that casts or moves) changes it, so a captured
+    graph never reads freed or stale weights; an in-place update
+    (``load_state_dict``, an optimizer step) keeps it."""
+    return tuple((id(t), t.data_ptr(), t.dtype)
+                 for t in list(model.parameters()) + list(model.buffers()))
+
+
 class GenerationMixin:
     """Adds ``generate`` to a causal LM that implements
     ``prefill(ids, lens, kvs) -> (last logits [B, V], kvs)`` over dense
     caches, ``decode_step(tokens [B], lens, kvs)`` (the dense ``(k, v)``
-    form among others) and ``kv_cache_spec()``.  The JAX package compiles
-    the program once per shape; here it runs eagerly: cast the
-    parameters (only where the dtype differs), prefill, then
-    ``max_new_tokens - 1`` decode steps."""
+    form among others) and ``kv_cache_spec()``.  On the card each call
+    replays one captured CUDA graph of ``generate_program`` per (B, S,
+    max_cache_len, ``GenerationConfig``, ``parameter_structure``), as the
+    reference compiles one program per key; on the CPU the program runs
+    eagerly."""
+
+    def _generate_graph(self, b: int, s: int, max_cache_len: int,
+                        cfg: GenerationConfig):
+        """The captured program of this key, captured on first use.
+        Entries of another parameter structure can never hit again and
+        pin their graphs' memory: they are evicted, as the reference
+        evicts its stale executables."""
+        from ..inference.llm import GenerateGraph
+        cache = self.__dict__.setdefault("_generate_graphs", {})
+        struct = parameter_structure(self)
+        keyt = (b, s, max_cache_len, cfg, struct)
+        hit = cache.get(keyt)
+        if hit is not None:
+            return hit
+        for stale in [k for k in cache if k[4] != struct]:
+            del cache[stale]
+        graph = cache[keyt] = GenerateGraph(self, cfg, b, s, max_cache_len)
+        return graph
 
     @torch.no_grad()
     def generate(self, input_ids, seq_lens=None, max_new_tokens=32,
@@ -379,11 +573,12 @@ class GenerationMixin:
                  compute_dtype="bfloat16", cache_dtype=None, seed=0):
         """Generate ``max_new_tokens`` tokens after the (right-padded)
         prompt ``input_ids`` [B, S]; ``seq_lens`` [B] are the true prompt
-        lengths (default: S).  Greedy, or with ``do_sample=True`` a
+        lengths (default: S).  Greedy; with ``do_sample=True`` a
         temperature/top-k/top-p draw from the threefry stream of
-        ``seed``.  Returns an int32 tensor [B, max_new_tokens] on the
-        model's device (``pad_token_id`` after EOS).  Beam search is not
-        ported."""
+        ``seed``; with ``num_beams > 1`` beam search (greedy scoring,
+        ``length_penalty`` at the pick).  Returns an int32 tensor [B,
+        max_new_tokens] on the model's device (``pad_token_id`` after
+        EOS)."""
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -393,11 +588,6 @@ class GenerationMixin:
             raise ValueError(
                 "num_beams > 1 is greedy beam search; do_sample=True is "
                 "not supported together with beams")
-        if num_beams > 1:
-            raise NotImplementedError(
-                f"generate(num_beams={num_beams}) (beam search) is not "
-                f"ported to paddle_tpu_torch yet (ROADMAP.md, Queue 1: "
-                f"LLMPredictor and the dense generate programs)")
         dev = next(self.parameters()).device
         ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
             input_ids, torch.Tensor) else input_ids).to(dev, torch.int32)
@@ -430,33 +620,24 @@ class GenerationMixin:
                 f"compute_dtype ({compute_dtype!r}) is not ported yet "
                 f"(ROADMAP.md, Queue 1: LLMPredictor and the dense "
                 f"generate programs)")
-        cfg = GenerationConfig(do_sample=bool(do_sample),
-                               temperature=float(temperature),
-                               top_k=int(top_k), top_p=float(top_p),
-                               eos_token_id=eos_token_id,
-                               pad_token_id=int(pad_token_id),
-                               compute_dtype=str(compute_dtype))
-        n_layers, hkv, d = self.kv_cache_spec()
+        cfg = GenerationConfig(
+            max_new_tokens=int(max_new_tokens), do_sample=bool(do_sample),
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p), num_beams=int(num_beams),
+            length_penalty=float(length_penalty),
+            eos_token_id=eos_token_id, pad_token_id=int(pad_token_id),
+            compute_dtype=str(compute_dtype),
+            cache_dtype=None if cache_dtype is None else str(cache_dtype))
+        from ..inference.llm import graphs_on
+        key = threefry.as_key(threefry.prng_key(seed), dev)
         modes = [(m, m.training) for m in self.modules()]
         try:
             self.eval()
-            with _params_as(self, cdt):
-                kvs = init_kv_cache(n_layers, b, int(max_cache_len), hkv, d,
-                                    kdt, dev)
-                logits, kvs = self.prefill(ids, lens, kvs)
-                key = threefry.as_key(threefry.prng_key(seed), dev)
-                key0, keyr = (threefry.split(key) if cfg.do_sample
-                              else (key, key))
-                tok = sample_token(logits, key0, cfg)
-                done = (torch.zeros((b,), dtype=torch.bool, device=dev)
-                        if eos_token_id is None else tok == eos_token_id)
-                toks = [tok]
-                carry = (tok, lens, kvs, keyr, done)
-                body = decode_scan_body(self, cfg)
-                for _ in range(int(max_new_tokens) - 1):
-                    carry, nxt = body(carry)
-                    toks.append(nxt)
+            if graphs_on(dev):
+                graph = self._generate_graph(b, s, int(max_cache_len), cfg)
+                return graph(ids, lens, key)
+            return generate_program(self, cfg, ids, lens, key,
+                                    int(max_cache_len))
         finally:
             for m, mode in modes:
                 m.training = mode
-        return torch.stack(toks, dim=1)

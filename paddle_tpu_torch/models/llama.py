@@ -16,11 +16,12 @@ What is here: ``LlamaConfig`` (the fields serving and training read),
   caller's arena tensors are the updated arenas.  ``quant_projections``
   (:469) and the ``wq_linear`` projection sites (:133, :144-148,
   :339-345) carry quantized weights (``models/wquant.py``).
-- Greedy ``generate()`` (``models/generation.py`` ``GenerationMixin``)
-  over the dense ``(k, v)`` cache: ``prefill`` (:489, :178, :376) and the
-  dense branch of ``decode_step`` (:222-229).
+- ``generate()`` (``models/generation.py`` ``GenerationMixin``: greedy,
+  sampled, beam) over the dense ``(k, v)`` cache: ``prefill`` (:489,
+  :178, :376) and the dense branch of ``decode_step`` (:222-229).
 - Training: the ``forward`` of every layer (:159-176, :332-345, :363-374,
-  :416-420, :438-457) without a kv cache, with each decoder layer
+  :416-420, :438-457), the attention's also with the ``cache=`` form
+  (past K/V concatenated in front, :164-168), with each decoder layer
   recomputed under its policy when ``config.recompute`` and the model is
   in ``.train()`` (``recompute_policy`` on layers ``i % stride == 0``,
   ``recompute_policy_alt`` on the rest, :355-373; the MLP's gate and up
@@ -95,15 +96,17 @@ class LlamaConfig:
     fused_linear_loss: bool = False
 
     def __post_init__(self):
-        unported = {"tie_word_embeddings": self.tie_word_embeddings,
-                    "tensor_parallel": self.tensor_parallel}
-        for name, on in unported.items():
-            if on:
-                item = ("distributed" if name == "tensor_parallel"
-                        else "training")
-                raise NotImplementedError(
-                    f"LlamaConfig({name}={getattr(self, name)!r}) is not "
-                    f"ported (ROADMAP.md, Queue 1: {item})")
+        if self.tensor_parallel:
+            raise NotImplementedError(
+                "LlamaConfig(tensor_parallel=True) is not ported (ROADMAP.md, "
+                "Queue 1: distributed)")
+        if self.tie_word_embeddings:
+            # the reference assigns the [vocab, hidden] embedding to its
+            # [in, out] lm_head, and its own forward then fails
+            raise NotImplementedError(
+                "LlamaConfig(tie_word_embeddings=True) is not ported: the "
+                "reference's own forward fails on it (ROADMAP.md, Known "
+                "differences of the port's trainer)")
 
     @property
     def head_dim(self):
@@ -161,21 +164,25 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, position_ids=None, attention_mask=None,
                 cache=None):
-        """Training/full-sequence attention: causal flash attention
-        without a mask (the kernels on the card), the masked math with
-        one.  The reference's ``cache=`` form (past K/V concatenated in
-        front of the new ones) is not ported; ``generate()`` runs on
-        ``prefill`` and the dense branch of ``decode_step``."""
-        if cache is not None:
-            raise NotImplementedError(
-                "LlamaAttention.forward(cache=...) (past K/V concatenated "
-                "before the new tokens) is not ported (ROADMAP.md, Queue 1: "
-                "LLMPredictor and the dense generate programs)")
+        """Full-sequence attention: causal flash attention without a mask
+        (the kernels on the card), the masked math with one.  With
+        ``cache=(past_k, past_v)`` ([B, S_past, H_kv, D], post-RoPE) the
+        past K/V are concatenated in front of the new ones and the result
+        is ``(out, (k, v))``; the causal mask of ``S_q`` queries over
+        ``S_k = S_past + S_q`` keys is then bottom-right aligned
+        (``tril(k=S_k - S_q)``, the masked math path), as in the
+        reference (``models/llama.py:159-176``).  Give the new tokens'
+        ``position_ids`` (from ``S_past``) for their rotation."""
         b, s, _ = x.shape
         q, k, v = self._qkv_rope(x, position_ids)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            cache = (k, v)
         out = scaled_dot_product_attention(q, k, v, attn_mask=attention_mask,
                                            is_causal=attention_mask is None)
-        return self._o(out.reshape(b, s, -1))
+        out = self._o(out.reshape(b, s, -1))
+        return (out, cache) if cache is not None else out
 
     def prefill(self, x, position_ids=None):
         """Causal forward over a whole (right-padded) prompt that also
@@ -352,7 +359,7 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module, GenerationMixin):
-    """Llama with the paged serving surface, greedy ``generate()`` and
+    """Llama with the paged serving surface, ``generate()`` and
     the training forward.
 
     ``device`` defaults to the CUDA card (``device="cpu"`` for tests);
@@ -439,9 +446,11 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         hidden, new_kvs = self._prefill_hidden(ids)
         out_kvs = [(cache_prefill_write(kc, k), cache_prefill_write(vc, v))
                    for (kc, vc), (k, v) in zip(kvs, new_kvs)]
-        last = hidden[torch.arange(b, device=hidden.device),
-                      lens.long() - 1]                         # [B, hidden]
-        return self.lm_head(last[:, None, :])[:, 0], out_kvs
+        # a gather, not advanced indexing: no host read, so a CUDA graph
+        # can capture it
+        idx = (lens.long() - 1)[:, None, None].expand(b, 1, hidden.shape[-1])
+        last = torch.gather(hidden, 1, idx)                    # [B, 1, hidden]
+        return self.lm_head(last)[:, 0], out_kvs
 
     def _prefill_hidden(self, ids):
         x = self.llama.embed_tokens(ids.long())

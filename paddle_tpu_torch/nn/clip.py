@@ -9,7 +9,9 @@ pairs; the eager ``Optimizer.step`` calls them.  A parameter with
 - ``ClipGradByGlobalNorm``: every gradient scaled by ``clip_norm /
   max(norm, clip_norm)``, the norm over the fp32 squares of all of them.
 Scales are fp32 and a low-precision gradient is scaled in fp32 and
-rounded back, as JAX promotes it.
+rounded back, as JAX promotes it; ``clip_grad_norm_(norm_type=inf)``
+takes its max and scale in the gradients' result dtype (bf16 over bf16
+gradients), as JAX does.
 
 ``jit.TrainStep`` keeps the JAX package's compiled rule
 (``paddle_tpu/jit/train_step.py:474-481``): a clip with a ``clip_norm``
@@ -20,6 +22,8 @@ scale.to(g.dtype)``; a value clip is not applied there.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -101,14 +105,19 @@ class ClipGradByGlobalNorm(ClipGradBase):
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
                     error_if_nonfinite=False):
     """Scale every ``p.grad`` by ``min(max_norm / max(total, 1e-6), 1)``,
-    ``total`` the ``norm_type`` norm over all of them; returns it."""
+    ``total`` the ``norm_type`` norm over all of them; returns it.  The
+    p-norms sum fp32 powers; the inf-norm and its scale keep the
+    gradients' result dtype."""
     params = [parameters] if isinstance(parameters, torch.Tensor) \
         else list(parameters)
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
     if norm_type == float("inf"):
-        total = torch.max(torch.stack([g.abs().max().float()
+        # the max and the scale in the gradients' result dtype (bf16 for
+        # bf16 gradients), as JAX promotes them
+        dt = functools.reduce(torch.promote_types, [g.dtype for g in grads])
+        total = torch.max(torch.stack([g.abs().max().to(dt)
                                        for g in grads]))
     else:
         total = torch.sum(torch.stack(

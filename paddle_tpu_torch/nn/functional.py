@@ -18,6 +18,8 @@
   kernels' self-attention layout), else the ``_xla_attention`` math in
   plain torch on every device, with its dropout of the probabilities;
   the JAX package's gate also keeps dropout off its kernel.
+- ``gather_tree`` (``nn/functional/decoding.py:21-51``): the beam
+  backtrace, a reverse loop of gathers on the tensors' device.
 - ``cross_entropy``, ``softmax_with_cross_entropy`` and ``nll_loss``
   (``nn/functional/loss.py:30-110``): hard and soft labels, class
   weights, label smoothing, every reduction, any axis and
@@ -237,6 +239,32 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
         dkey = _generator.draw() if p > 0.0 else None
         out = _attention_math(query, key, value, None, causal, p, dkey)
     return (out, None) if return_softmax else out
+
+
+# ---- decoding ----
+
+def gather_tree(ids, parents):
+    """Backtrace beam-search output ``ids [T, B, K]`` along ``parents [T,
+    B, K]`` into beam-consistent sequences ``[T, B, K]``: the k-th output
+    sequence is the token path that ends at beam k of the last step.  A
+    reverse loop over time carrying each (batch, beam)'s current parent,
+    one gather of the step's tokens and one of its parents a step (the
+    reference's reverse ``lax.scan``); no host read, so a CUDA graph can
+    capture it.  Array inputs become tensors; returns ``ids``' dtype."""
+    ids = torch.as_tensor(ids)
+    parents = torch.as_tensor(parents, device=ids.device)
+    if ids.dim() != 3 or ids.shape != parents.shape:
+        raise ValueError(
+            f"gather_tree expects ids and parents of equal shape [T, B, K], "
+            f"got {tuple(ids.shape)} vs {tuple(parents.shape)}")
+    t, b, k = ids.shape
+    parent = torch.arange(k, dtype=torch.int64,
+                          device=ids.device).expand(b, k)
+    out = [None] * t
+    for i in range(t - 1, -1, -1):
+        out[i] = torch.gather(ids[i], 1, parent)
+        parent = torch.gather(parents[i], 1, parent).long()
+    return torch.stack(out)
 
 
 # ---- losses ----

@@ -40,7 +40,8 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.amp.debugging, paddle_tpu_torch.regularizer, "
         "paddle_tpu_torch.incubate.nn.functional, "
         "paddle_tpu_torch.optimizer.optimizer, "
-        "paddle_tpu_torch.examples.llama_pretrain\n"
+        "paddle_tpu_torch.examples.llama_pretrain, "
+        "paddle_tpu_torch.examples.llama_serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"

@@ -18,9 +18,8 @@ the CPU, on the JAX models' weights carried by the weight bridge.
 - The port against itself: spec tokens (n-gram, target and other-model
   drafters; float and int8 cache) equal the non-spec engine's, greedy
   ``generate()``'s, and a fresh 1-slot spec engine's.
-- What stays unported (LoRA, a mesh, beam ``generate()``) raises
-  ``NotImplementedError``; a spec request with a token mask raises the
-  reference's ``ValueError``.
+- What stays unported (LoRA, a mesh) raises ``NotImplementedError``; a
+  spec request with a token mask raises the reference's ``ValueError``.
 """
 
 import dataclasses
@@ -427,8 +426,12 @@ def test_build_spec_verify_guards_and_generate_raises(bridged):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_spec_verify(tnet, cfg, 4, **kw)
     ids = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="beam"):
-        tnet.generate(ids, num_beams=2, compute_dtype="float32")
+    # beam generate() is ported (tests/test_torch_beam.py); with sampling
+    # it raises the reference's ValueError
+    assert tnet.generate(ids, num_beams=2, max_new_tokens=3,
+                         compute_dtype="float32").shape == (1, 3)
+    with pytest.raises(ValueError, match="beam"):
+        tnet.generate(ids, num_beams=2, do_sample=True)
     with pytest.raises(ValueError, match="max_new_tokens"):
         tnet.generate(ids, max_new_tokens=0)
     with pytest.raises(ValueError, match="seq_lens"):

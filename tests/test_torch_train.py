@@ -172,19 +172,18 @@ def _step_for(opt_cls=AdamW, **kw):
 
 @pytest.mark.parametrize("case", [
     "mesh", "base_optimizer", "lr_scheduler", "tensor_parallel",
-    "tie_word_embeddings", "attention_cache"])
+    "tie_word_embeddings"])
 def test_unported_keywords_raise(case):
-    with pytest.raises(NotImplementedError):
+    # the attention's cache= form is ported (tests/test_torch_attention_cache.py)
+    match = {"tie_word_embeddings":
+             "Known differences of the port's trainer"}.get(case, "")
+    with pytest.raises(NotImplementedError, match=match):
         if case == "mesh":
             _step_for(mesh=object())
         elif case == "base_optimizer":
             _step_for(Optimizer)
         elif case == "lr_scheduler":
             AdamW(learning_rate=object())
-        elif case == "attention_cache":
-            tnet = LlamaForCausalLM(tiny_llama_config(), device="cpu")
-            tnet.llama.layers[0].self_attn(torch.zeros(1, 2, 64),
-                                           cache=(None, None))
         else:
             LlamaConfig(**{case: True})
 
