@@ -164,6 +164,23 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    a beam session (K=4, B=2) equal to ``generate()``; (c) the artifact
    round trip on the card (``save()``, then ``load()`` without the model
    object, a 1-layer model at the same width), equal on two calls;
+3i. the fleet layer at the same width, on phase 3's model: (a) phase
+   3's trace with every request streamed (``submit(stream=True)``):
+   each stream's flushes concatenate to the unstreamed outputs, land
+   only on steps with a harvest point, and add no forced sync; (b) a
+   ``Router`` over two engines sharing the model, shared-prefix traffic:
+   prefix-affinity routing, every request's tokens equal to it alone on
+   a fresh 1-slot engine, a 1-replica router's flight record equal to
+   the bare engine's; (c) the same trace with one replica killed by the
+   fault injector while it holds a swapped and an in-flight request:
+   tokens equal, the migrated bytes the parcel's; (d) a prefill-role
+   and a decode-role engine, bf16 and int8 KV: every handoff parcel's
+   prompt rows byte-equal to the monolithic engine's arena rows, tokens
+   equal; (e) an ``EngineProcess`` child on the card (2 layers at the
+   same width) behind ``SocketTransport``, force-swapped and killed by
+   its own fault schedule: tokens equal an unfaulted in-process run's
+   and two runs move identical frames; every arm with the fleet launch
+   formula, tokens/s and TTFT;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same trace through the lockstep arm and against the same
@@ -1576,7 +1593,7 @@ def _build_8b(torch, n_layers, dtype, seed):
     return cfg, model
 
 
-def _serve_trace(torch, eng, cfg, seed, check_hits=True):
+def _serve_trace(torch, eng, cfg, seed, check_hits=True, streams=None):
     """The serving trace of phases 3, 3b and 3g, from ``seed``: 7 requests
     of 64-512 prompt tokens, then (once the first has finished its
     prefill) an 8th sharing its 256-token prefix (16 full blocks).  The
@@ -1584,7 +1601,13 @@ def _serve_trace(torch, eng, cfg, seed, check_hits=True):
     request must finish with in-vocabulary tokens and (``check_hits``,
     which needs an enabled registry) the prefix must hit.  Returns
     (launches, stats, wall seconds, requests, tokens, rng, the Request
-    objects)."""
+    objects).
+
+    With a ``streams`` list (phase 3i (a)) every request is submitted
+    with ``stream=True`` and the engine is stepped by hand: after each
+    step every stream is read, and ``streams`` receives, per step, the
+    tokens each stream flushed and the harvest points the step had
+    (first tokens, deferred harvests and forced syncs)."""
     import numpy as np
     from paddle_tpu_torch.ops import KERNELS
     rng = np.random.default_rng(seed)
@@ -1600,15 +1623,45 @@ def _serve_trace(torch, eng, cfg, seed, check_hits=True):
              (prompt(200), 48), (prompt(130), 24), (prompt(450), 40),
              (prompt(96), 56)]
     second = (prompt(320, shared), 20)       # shares 16 full blocks
+    stream = streams is not None
+    handles = []
+
+    def harvests():
+        m = eng._m
+        return int(m.prefills.total() + m.async_harvests.total()
+                   + m.async_syncs.total())
+
+    def step():
+        h0 = harvests()
+        eng.step()
+        streams.append(([s.read().tolist() for s in handles],
+                        harvests() - h0))
+
+    def submit(ids, m):
+        r = eng.submit(ids, max_new_tokens=m, stream=stream)
+        if stream:
+            handles.append(r)
+            return r.request
+        return r
+
     for k in KERNELS.values():
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = [eng.submit(ids, max_new_tokens=m) for ids, m in first]
+    reqs = [submit(ids, m) for ids, m in first]
     while reqs[0].state in ("queued", "prefill"):
-        eng.step()
-    reqs.append(eng.submit(second[0], max_new_tokens=second[1]))
-    eng.run()
+        step() if stream else eng.step()
+    reqs.append(submit(second[0], second[1]))
+    if stream:
+        while any(not s.finished for s in handles):
+            step()
+        # every token, the terminal pad included, was read after the step
+        # that made it host truth: a tail read is empty
+        tail = [s.read().tolist() for s in handles]
+        if any(tail):
+            streams.append((tail, 0))
+    else:
+        eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in KERNELS.items()}
@@ -5447,6 +5500,671 @@ def phase_dense_programs(torch, seed, cfg, model):
     return total
 
 
+# phase 3i: the engines of the router arms (phase 3's geometry), the
+# shared-prefix traffic of (b) and (c) (prefixes of one chunk, 256
+# tokens, so a prefix hit leaves the chunk grid where a miss has it),
+# the disaggregation trace of (d) and the process replica of (e)
+FLEET = dict(num_slots=8, prompt_len=512, chunk_len=256, max_cache_len=1024,
+             block_len=16, compute_dtype="bfloat16")
+FLEET_WAVES = ((0, 64, 24), (1, 96, 24), (0, 32, 20), (1, 128, 20),
+               (0, 160, 16), (1, 48, 16), (0, 100, 12), (1, 200, 12))
+FLEET_DISAGG = [(300, 24), (130, 32), (470, 16), (77, 28), (256, 20),
+                (390, 12)]
+FLEET_CHILD = dict(num_slots=4, prompt_len=256, chunk_len=128,
+                   max_cache_len=512, block_len=16)
+FLEET_CHILD_LAYERS = 2
+FLEET_SOCKET_TRACE = [(230, 24), (150, 24), (200, 20), (256, 16)]
+# the child's fault schedule: its engine request 0 is force-swapped to
+# the host tier (the parcel ships to the proxy in that step's reply) with
+# every later allocation failing, then the process exits
+FLEET_FAULT = {"force_swap_rid": 0, "force_swap_step": 5,
+               "park_allocs": True, "exit_at_step": 7}
+FLEET_FACTORY = "chip_smoke:fleet_child_engine"
+
+
+def _zero_clock():
+    return 0.0
+
+
+def fleet_child_engine(*, seed=0, layers=FLEET_CHILD_LAYERS,
+                       with_fault_injector=False, device="cuda"):
+    """The engine factory of phase 3i (e)'s process replica
+    (``EngineProcess`` children import it as
+    ``chip_smoke:fleet_child_engine``): ``layers`` layers at Llama-3-8B
+    width in bf16 with weights from ``seed`` (the same bits in every
+    process on the same card), the engine on a constant clock so the
+    replies it sends (first-token and finish times) are the same bytes in
+    every run."""
+    import dataclasses
+
+    from paddle_tpu_torch.inference import FaultInjector, ServingEngine
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_3_8b_config
+    from paddle_tpu_torch.observability import MetricsRegistry
+    cfg = dataclasses.replace(llama_3_8b_config(),
+                              num_hidden_layers=int(layers))
+    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=int(seed),
+                             device=device)
+    return ServingEngine(model, compute_dtype="bfloat16", clock=_zero_clock,
+                         registry=MetricsRegistry(), device=device,
+                         fault_injector=(FaultInjector()
+                                         if with_fault_injector else None),
+                         **FLEET_CHILD)
+
+
+def _fleet_launches(nl, stats, int8=False):
+    """Phase 3i's launch formula over a fleet: phase 3's (RMSNorm 2L+1 per
+    forward, the paged decode L per decode step) over the prefill chunks
+    and decode steps of every engine in ``stats``; a handoff, a
+    migration and a stream launch none."""
+    return _serving_launches(nl, {
+        "prefill_chunks": sum(s["prefill_chunks"] for s in stats),
+        "decode_steps": sum(s["decode_steps"] for s in stats)}, int8)
+
+
+def _fleet_take(torch, tag, total, nl, stats, int8=False):
+    """Check the launches since the last ``_zero_launches`` against the
+    fleet formula and add them to ``total``."""
+    from paddle_tpu_torch.ops import KERNELS
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    want = _fleet_launches(nl, stats, int8)
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches} != "
+                             f"expected {want}")
+    _add_launches(total, launches)
+    return launches
+
+
+def _drive(torch, rt, handles, max_steps=2000, now=None):
+    """Step a router until every handle is terminal; returns (wall s,
+    mean TTFT s measured at the router: first step after which a handle
+    held a token)."""
+    from paddle_tpu_torch.inference import TERMINAL_STATES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = {}
+    steps = 0
+    while any(h.state not in TERMINAL_STATES for h in handles):
+        rt.step(now=now)
+        t = time.perf_counter() - t0
+        for h in handles:
+            if h.router_id not in first and len(h.tokens):
+                first[h.router_id] = t
+        steps += 1
+        if steps > max_steps:
+            raise AssertionError(f"router did not drain in {max_steps} "
+                                 f"steps: {[h.state for h in handles]}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, sum(first.values()) / max(len(first), 1)
+
+
+def _fleet_prompts(np, cfg, seed):
+    """(b) and (c)'s traffic: two 256-token system prompts, each request
+    one of them plus its own tail; wave 1 is one request per prompt, wave
+    2 the rest (it finds each prompt cached on one replica)."""
+    rng = np.random.default_rng(seed + 17)
+    systems = [rng.integers(0, cfg.vocab_size, 256) for _ in range(2)]
+    out = []
+    for k, tail, m in FLEET_WAVES:
+        ids = np.concatenate([systems[k], rng.integers(0, cfg.vocab_size,
+                                                       tail)])
+        out.append((ids.astype(np.int32), m))
+    return out
+
+
+def _fleet_router_run(torch, cfg, model, prompts, inject=None):
+    """(b)/(c): ``Router([e0, e1], affinity=True)`` over two engines that
+    share ``model``, wave 1 drained before wave 2 arrives.  ``inject``
+    (c): e1 carries a ``FaultInjector``; once it holds two decoding
+    requests one is force-swapped (allocations failing, so it stays
+    parked) and e1 is killed on its next step.  Returns the router, the
+    engines, the handles, wall and TTFT, and the fault's record."""
+    import numpy as np
+    from paddle_tpu_torch.inference import (TERMINAL_STATES, FaultInjector,
+                                            Router, ServingEngine)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    inj = FaultInjector() if inject else None
+    engs = [ServingEngine(model, registry=MetricsRegistry(), **FLEET),
+            ServingEngine(model, registry=MetricsRegistry(),
+                          fault_injector=inj, **FLEET)]
+    rt = Router(engs, affinity=True, registry=MetricsRegistry())
+    fault = {}
+    if inject:
+        seen = fault.setdefault("migrated_in", [])
+        orig = engs[0].migrate_in
+
+        def migrate_in(*a, **kw):
+            # the bytes the failover hands e0's tier
+            if kw.get("parcel") is not None:
+                ent = engs[0]._host_tier.entry(kw["parcel"]["key"])
+                seen.append([np.array(r, copy=True) for r in ent.rows])
+            return orig(*a, **kw)
+        engs[0].migrate_in = migrate_in
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w1 = [rt.submit(ids, max_new_tokens=m) for ids, m in prompts[:2]]
+    wall1, ttft1 = _drive(torch, rt, w1)
+    w2 = [rt.submit(ids, max_new_tokens=m) for ids, m in prompts[2:]]
+    handles = w1 + w2
+    if inject:
+        for _ in range(400):
+            rt.step()
+            on1 = [h for h in w2 if h.engine == 1 and h.state == "decode"]
+            if len(on1) >= 2:
+                break
+        else:
+            raise AssertionError("failover: e1 never held two decoding "
+                                 "requests")
+        victim = on1[0]
+        inj.force_swap(victim.request_id)
+        inj.fail_allocs(None)
+        rt.step()
+        if victim.state != "swapped":
+            raise AssertionError(f"failover: the victim is {victim.state}")
+        ent = engs[1]._host_tier.entry(victim._req.swap.host_key)
+        fault["parcel"] = [np.array(r, copy=True) for r in ent.rows]
+        fault["blocks"] = victim._req.swap.n_blocks
+        fault["in_flight"] = sum(
+            1 for h in handles if h.engine == 1
+            and h.state in ("prefill", "decode"))
+        inj.kill_at_step(engs[1]._step_idx + 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rt.step()
+        torch.cuda.synchronize()
+        fault["recovery_s"] = time.perf_counter() - t1
+        if rt.health[1] != "unhealthy":
+            raise AssertionError("failover: e1 is still in the routing set")
+        if any(h.state in TERMINAL_STATES and h.state != "finished"
+               for h in handles):
+            raise AssertionError("failover: a request ended unfinished")
+    wall2, ttft2 = _drive(torch, rt, handles)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rt, engs, handles, wall, (ttft1 + ttft2) / 2, fault
+
+
+def _alone_tokens(torch, model, prompts):
+    """Each request of ``prompts`` served alone, one after another, on one
+    fresh 1-slot engine (phase 3i's geometry otherwise)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability import MetricsRegistry
+    eng = ServingEngine(model, registry=MetricsRegistry(),
+                        **dict(FLEET, num_slots=1))
+    outs = []
+    for ids, m in prompts:
+        r = eng.submit(ids, max_new_tokens=m)
+        eng.run()
+        outs.append(r.output.tolist())
+    return outs, eng.stats()
+
+
+def _fleet_streaming(torch, seed, cfg, model, total, serve_tokens):
+    """(a): a depth-1 engine at phase 3's geometry serves phase 3's trace
+    with every request streamed, beside the same trace not streamed."""
+    from paddle_tpu_torch.inference import ServingEngine
+    nl = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, **FLEET)
+    launches, plain, wall, n_req, n_tok, _rng, reqs = _serve_trace(
+        torch, eng, cfg, seed)
+    twin = [r.output.tolist() for r in reqs]
+    del eng
+    eng = ServingEngine(model, **FLEET)
+    log = []
+    launches, st, wall, n_req, n_tok, _rng, reqs = _serve_trace(
+        torch, eng, cfg, seed, streams=log)
+    _check_launches(launches, _serving_launches(nl, st, False), st)
+    _add_launches(total, launches)
+    cat = [[] for _ in reqs]
+    flushes = [0] * len(reqs)
+    points = 0
+    for chunks, h in log:
+        points += h
+        for i, c in enumerate(chunks):
+            if c:
+                if h == 0:
+                    raise AssertionError(
+                        f"streaming: request {i} flushed {c} at a step "
+                        f"with no harvest point")
+                cat[i] += c
+                flushes[i] += 1
+    outs = [r.output.tolist() for r in reqs]
+    if cat != outs or outs != twin or (serve_tokens is not None
+                                       and outs != serve_tokens):
+        raise AssertionError("streaming: a stream's concatenation differs "
+                             "from the non-streamed outputs")
+    if max(flushes) > points or min(flushes) < 2:
+        raise AssertionError(f"streaming: flushes {flushes} for {points} "
+                             f"harvest points")
+    if st["async_syncs_by_reason"] != plain["async_syncs_by_reason"] or \
+            st["async_harvests"] != plain["async_harvests"]:
+        raise AssertionError(
+            f"streaming: syncs {st['async_syncs_by_reason']} / harvests "
+            f"{st['async_harvests']} != the unstreamed run's "
+            f"{plain['async_syncs_by_reason']} / {plain['async_harvests']}")
+    syncs = {k: v for k, v in st["async_syncs_by_reason"].items() if v}
+    _log(f"fleet (a) streaming: {n_req} streamed requests, {n_tok} tokens "
+         f"in {wall:.3f} s = {n_tok / wall:.2f} tokens/s; mean TTFT "
+         f"{st['mean_ttft_s'] * 1e3:.2f} ms; flushes per stream {flushes} "
+         f"over {points} harvest points in {len(log)} steps; every stream "
+         f"equal to the unstreamed trace{' and phase 3' if serve_tokens else ''}; "
+         f"syncs {syncs or 'none'} (the unstreamed run's); launches "
+         f"{launches}")
+    del eng
+
+
+def _fleet_router(torch, seed, cfg, model, total):
+    """(b) and (c)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Router, ServingEngine
+    from paddle_tpu_torch.observability import FlightRecorder, MetricsRegistry
+    nl = cfg.num_hidden_layers
+    prompts = _fleet_prompts(np, cfg, seed)
+    n_tok = sum(m for _, m in prompts)
+    torch.cuda.empty_cache()
+    _zero_launches()
+    rt, engs, hs, wall, ttft, _f = _fleet_router_run(torch, cfg, model,
+                                                     prompts)
+    st = rt.stats()
+    launches = _fleet_take(torch, "router", total, nl,
+                           [e.stats() for e in engs])
+    outs = [h.output.tolist() for h in hs]
+    _finished_in_vocab(hs, [m for _, m in prompts], cfg.vocab_size,
+                       "router")
+    if st["routed_by_reason"]["prefix"] < 1 or \
+            st["prefix_affinity_tokens"] < 256:
+        raise AssertionError(f"router: no prefix affinity: {st}")
+    _log(f"fleet (b) router: 2 replicas sharing the model, {len(hs)} "
+         f"requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} "
+         f"tokens/s; mean TTFT at the router {ttft * 1e3:.2f} ms; routed "
+         f"{st['routed_by_reason']}, prefix affinity tokens "
+         f"{st['prefix_affinity_tokens']}, per replica "
+         f"{[e.stats()['prefills'] for e in engs]} prefills, prefix hit "
+         f"tokens {[e.stats()['prefix_hit_tokens'] for e in engs]}; "
+         f"assignment {[h.engine for h in hs]}; launches {launches}")
+    del rt, engs
+    # each request alone on a fresh 1-slot engine
+    torch.cuda.empty_cache()
+    _zero_launches()
+    alone, ast = _alone_tokens(torch, model, prompts)
+    _fleet_take(torch, "router alone", total, nl, [ast])
+    if alone != outs:
+        raise AssertionError("router: tokens differ from the requests "
+                             "served alone on a 1-slot engine")
+    _log(f"fleet (b) router: every request's tokens equal it alone on a "
+         f"fresh 1-slot engine")
+    # a 1-replica router's flight record is the bare engine's
+    recs = []
+    for routed in (False, True):
+        rec = FlightRecorder()
+        eng = ServingEngine(model, registry=MetricsRegistry(),
+                            flight_recorder=rec, **FLEET)
+        _zero_launches()
+        if routed:
+            r1 = Router([eng], affinity=False, registry=MetricsRegistry())
+            hs1 = [r1.submit(ids, max_new_tokens=m)
+                   for ids, m in prompts[:3]]
+            _drive(torch, r1, hs1)
+        else:
+            for ids, m in prompts[:3]:
+                eng.submit(ids, max_new_tokens=m)
+            eng.run()
+        _fleet_take(torch, "router single", total, nl, [eng.stats()])
+        recs.append(_strip_events(rec.events()))
+        del eng
+    if recs[0] != recs[1] or not recs[0]:
+        raise AssertionError("router: a 1-replica router's flight record "
+                             "differs from the bare engine's")
+    _log(f"fleet (b) router: a 1-replica router's flight record equals the "
+         f"bare engine's, {len(recs[0])} events")
+    # (c) the same trace with e1 killed
+    torch.cuda.empty_cache()
+    _zero_launches()
+    rt, engs, hs, wall, ttft, fault = _fleet_router_run(
+        torch, cfg, model, prompts, inject=True)
+    st = rt.stats()
+    launches = _fleet_take(torch, "failover", total, nl,
+                           [e.stats() for e in engs])
+    fouts = [h.output.tolist() for h in hs]
+    if fouts != outs:
+        raise AssertionError("failover: tokens differ from the unfaulted "
+                             "run's")
+    row = engs[0].block_len * engs[0]._kv_row_bytes
+    moved = fault["migrated_in"]
+    if not (st["replica_faults"] == 1 and st["failed"] == 0
+            and st["migrated_blocks"] == fault["blocks"] > 0
+            and st["migrated_bytes"] == fault["blocks"] * row
+            and len(moved) == 1 and fault["in_flight"] >= 1):
+        raise AssertionError(f"failover: {st} {fault['blocks']} "
+                             f"{len(moved)} {fault['in_flight']}")
+    nbytes = 0
+    for a, b in zip(fault["parcel"], moved[0]):
+        if not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+            raise AssertionError("failover: the migrated parcel's bytes "
+                                 "differ from the victim's parcel")
+        nbytes += a.nbytes
+    if nbytes != st["migrated_bytes"]:
+        raise AssertionError(f"failover: {nbytes} parcel bytes, "
+                             f"{st['migrated_bytes']} migrated")
+    paths = {k: int(v) for k, v in
+             rt._m.failover_requests._snap()["values"].items()}
+    _log(f"fleet (c) failover: e1 killed holding 1 swapped and "
+         f"{fault['in_flight']} in-flight requests; recovery step "
+         f"{fault['recovery_s'] * 1e3:.1f} ms; migrated "
+         f"{st['migrated_blocks']} blocks = {st['migrated_bytes']} bytes, "
+         f"the parcel's bytes exactly; recovered by path {paths}; "
+         f"{len(hs)} requests, {n_tok} tokens in {wall:.3f} s = "
+         f"{n_tok / wall:.2f} tokens/s; mean TTFT at the router "
+         f"{ttft * 1e3:.2f} ms; tokens equal the unfaulted run's; launches "
+         f"{launches}")
+    del rt, engs
+
+
+def _timed(torch, fn, log, kind):
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        log.append((kind, time.perf_counter() - t0))
+        return out
+    return run
+
+
+def _fleet_disagg(torch, seed, cfg, model, total):
+    """(d): a prefill-role and a decode-role engine against the
+    monolithic engine, over a bf16 and then an int8 KV cache."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Router, ServingEngine
+    from paddle_tpu_torch.observability import MetricsRegistry
+    nl = cfg.num_hidden_layers
+    rng = np.random.default_rng(seed + 23)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+               for n, m in FLEET_DISAGG]
+    n_tok = sum(m for _, m in prompts)
+    for kv in (None, "int8"):
+        tag = f"fleet (d) disaggregation ({kv or 'bf16'} KV)"
+        torch.cuda.empty_cache()
+        # the monolithic engine: each request's prompt rows as it enters
+        # decode
+        mono = ServingEngine(model, registry=MetricsRegistry(),
+                             kv_cache_dtype=kv, **FLEET)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [mono.submit(ids, max_new_tokens=m) for ids, m in prompts]
+        rows, copy_s = {}, 0.0
+        while any(r.state != "finished" for r in reqs):
+            mono.step()
+            for r in reqs:
+                if r.state == "decode" and r.request_id not in rows:
+                    t1 = time.perf_counter()
+                    ids = torch.tensor(r.blocks, dtype=torch.long,
+                                       device=mono.device)
+                    rows[r.request_id] = [
+                        a.index_select(0, ids).cpu() for a in mono._arenas]
+                    copy_s += time.perf_counter() - t1
+        mono.run()
+        torch.cuda.synchronize()
+        # the monolithic wall without the copies of the rows
+        mono_wall = time.perf_counter() - t0 - copy_s
+        _fleet_take(torch, tag + " monolithic", total, nl, [mono.stats()],
+                    kv == "int8")
+        want = [r.output.tolist() for r in reqs]
+        del mono
+        torch.cuda.empty_cache()
+        pre = ServingEngine(model, registry=MetricsRegistry(), role="prefill",
+                            kv_cache_dtype=kv, **FLEET)
+        dec = ServingEngine(model, registry=MetricsRegistry(), role="decode",
+                            kv_cache_dtype=kv, **FLEET)
+        rt = Router([pre, dec], registry=MetricsRegistry())
+        picked, times = [], []
+        take = pre.take_handoffs
+
+        def take_handoffs(_take=take):
+            out = _take()
+            for r in out:
+                ent = pre._host_tier.entry(r.swap.host_key)
+                picked.append((r.request_id, r.swap.n_blocks, r.seq_len,
+                               ent))
+            return out
+        pre.take_handoffs = take_handoffs
+        pre._handoff_out = _timed(torch, pre._handoff_out, times, "gather")
+        pre._host_tier.transfer = _timed(torch, pre._host_tier.transfer,
+                                         times, "transfer")
+        rt._stage.transfer = _timed(torch, rt._stage.transfer, times,
+                                    "transfer")
+        dec._scatter_rows = _timed(torch, dec._scatter_rows, times,
+                                   "scatter")
+        _zero_launches()
+        hs = [rt.submit(ids, max_new_tokens=m) for ids, m in prompts]
+        wall, ttft = _drive(torch, rt, hs)
+        sp, sd = pre.stats(), dec.stats()
+        launches = _fleet_take(torch, tag, total, nl, [sp, sd], kv == "int8")
+        got = [h.output.tolist() for h in hs]
+        if got != want:
+            raise AssertionError(f"{tag}: tokens differ from the monolithic "
+                                 f"run's")
+        if not (sp["handoffs"] == len(prompts) == len(picked)
+                and sd["prefills"] == 0 and sd["handoffs"] == 0):
+            raise AssertionError(f"{tag}: {sp} {sd}")
+        for rid, nb, seq_len, ent in picked:
+            for x, a in zip(ent.rows, rows[rid]):
+                flat = torch.from_numpy(np.ascontiguousarray(x)).view(
+                    a.dtype).reshape((nb * FLEET["block_len"],)
+                                     + tuple(a.shape[2:]))
+                mine = a.reshape((-1,) + tuple(a.shape[2:]))
+                if not torch.equal(flat[:seq_len].view(torch.uint8),
+                                   mine[:seq_len].view(torch.uint8)):
+                    raise AssertionError(
+                        f"{tag}: request {rid}'s parcel rows differ from "
+                        f"the monolithic engine's arena rows")
+        secs = {k: sum(t for kk, t in times if kk == k)
+                for k in ("gather", "transfer", "scatter")}
+        _log(f"{tag}: {len(hs)} requests, {n_tok} tokens in {wall:.3f} s = "
+             f"{n_tok / wall:.2f} tokens/s (the monolithic engine "
+             f"{n_tok / mono_wall:.2f}); mean TTFT at the router "
+             f"{ttft * 1e3:.2f} ms; {sp['handoffs']} handoffs, "
+             f"{sp['handoff_blocks']} blocks = "
+             f"{sp['handoff_bytes'] / 2 ** 20:.1f} MiB, gather "
+             f"{secs['gather'] * 1e3:.1f} ms + transfer "
+             f"{secs['transfer'] * 1e3:.1f} ms + scatter "
+             f"{secs['scatter'] * 1e3:.1f} ms (each between device syncs); "
+             f"every parcel's prompt rows byte-equal to the monolithic "
+             f"engine's arena rows; tokens equal the monolithic run's; "
+             f"zero prefills on the decode replica; launches {launches}")
+        del rt, pre, dec
+
+
+class _FrameLog:
+    """A ``SocketTransport._exchange`` wrapper keeping every frame."""
+
+    def __init__(self, transport):
+        self.frames = []
+        self._ex = transport._exchange
+        transport._exchange = self
+
+    def __call__(self, buf):
+        out = self._ex(buf)
+        self.frames.append((buf, out))
+        return out
+
+
+def _frame_keys(frames):
+    """Each frame decoded, the welcome's process-local registry key
+    dropped: (kind, seq, canonical payload, plane bytes)."""
+    from paddle_tpu_torch.inference.transport import decode_frame
+    out = []
+    for pair in frames:
+        for buf in pair:
+            kind, seq, obj, planes, _n = decode_frame(buf)
+            if kind == "welcome":
+                obj = {k: v for k, v in obj.items() if k != "registry_key"}
+            out.append((kind, seq, json.dumps(obj, sort_keys=True),
+                        [p.tobytes() for p in planes]))
+    return out
+
+
+def _fleet_socket_run(torch, proc, local, trace, total, nl):
+    """One socket run of (e): ``Router([child, local])`` round-robin, the
+    child's fault schedule armed; returns outputs, stats, frames, wall,
+    TTFT."""
+    from paddle_tpu_torch.inference import Router
+    from paddle_tpu_torch.inference.transport import (RemoteReplica,
+                                                      SocketTransport)
+    from paddle_tpu_torch.observability import MetricsRegistry
+    transport = SocketTransport(proc, registry=MetricsRegistry(),
+                                connect_timeout_s=300.0, rpc_timeout_s=300.0)
+    frames = _FrameLog(transport)
+    rep = RemoteReplica(transport)
+    # the dead child stays out of the routing set (no probe), so the run
+    # never waits on the respawned generation
+    rt = Router([rep, local], affinity=False, probe_interval=10 ** 6,
+                registry=MetricsRegistry())
+    try:
+        _zero_launches()
+        hs = [rt.submit(ids, max_new_tokens=m, arrival_time=0.0)
+              for ids, m in trace]
+        wall, ttft = _drive(torch, rt, hs, now=0.0)
+        _fleet_take(torch, "fleet (e) socket", total, nl, [local.stats()])
+        st = rt.stats()
+        return ([h.output.tolist() for h in hs], st,
+                _frame_keys(frames.frames), wall, ttft, rep)
+    finally:
+        transport.close()
+
+
+def _fleet_socket(torch, seed, procs, total):
+    """(e): one ``EngineProcess`` child on the card per run behind a
+    ``SocketTransport``; its requests fail over onto an in-process
+    replica of the same depth."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Router
+    from paddle_tpu_torch.observability import MetricsRegistry
+    nl = FLEET_CHILD_LAYERS
+    # the unfaulted reference: two in-process replicas from the factory
+    ref_a = fleet_child_engine(seed=seed)
+    vocab = ref_a._model.config.vocab_size
+    rng = np.random.default_rng(seed + 29)
+    trace = [(rng.integers(0, vocab, n).astype(np.int32), m)
+             for n, m in FLEET_SOCKET_TRACE]
+    n_tok = sum(m for _, m in trace)
+    ref_b = type(ref_a)(ref_a._model, compute_dtype="bfloat16",
+                        clock=_zero_clock, registry=MetricsRegistry(),
+                        **FLEET_CHILD)
+    rt = Router([ref_a, ref_b], affinity=False, registry=MetricsRegistry())
+    _zero_launches()
+    hs = [rt.submit(ids, max_new_tokens=m, arrival_time=0.0)
+          for ids, m in trace]
+    _drive(torch, rt, hs, now=0.0)
+    _fleet_take(torch, "fleet (e) reference", total, nl,
+                [ref_a.stats(), ref_b.stats()])
+    want = [h.output.tolist() for h in hs]
+    del rt, ref_b
+    runs = []
+    for proc in procs:
+        local = type(ref_a)(ref_a._model, compute_dtype="bfloat16",
+                            clock=_zero_clock, registry=MetricsRegistry(),
+                            **FLEET_CHILD)
+        try:
+            runs.append(_fleet_socket_run(torch, proc, local, trace, total,
+                                          nl))
+        finally:
+            proc.kill()
+        del local
+    for outs, st, frames, wall, ttft, rep in runs:
+        if outs != want:
+            raise AssertionError("socket replica: tokens differ from the "
+                                 "unfaulted run's")
+        if not (st["replica_faults"] == 1 and st["migrated_blocks"] > 0
+                and st["failed"] == 0 and st["health"][0] == "unhealthy"):
+            raise AssertionError(f"socket replica: {st}")
+    if runs[0][2] != runs[1][2]:
+        diff = [i for i, (x, y) in enumerate(zip(runs[0][2], runs[1][2]))
+                if x != y]
+        raise AssertionError(f"socket replica: the two runs' frame "
+                             f"sequences differ ({len(runs[0][2])} and "
+                             f"{len(runs[1][2])} frames, first differing "
+                             f"{diff[:3]})")
+    outs, st, frames, wall, ttft, rep = runs[0]
+    kinds = {}
+    for kind, *_ in frames:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    tstats = {k: v for k, v in rep.transport_stats().items()
+              if k != "frames"}
+    _log(f"fleet (e) socket replica: an EngineProcess child "
+         f"({FLEET_CHILD_LAYERS} layers at Llama-3-8B width, bf16) behind "
+         f"SocketTransport beside an in-process replica of the same depth; "
+         f"the child swapped its request 0 to the proxy at step "
+         f"{FLEET_FAULT['force_swap_step']} and exited at step "
+         f"{FLEET_FAULT['exit_at_step']}; migrated {st['migrated_blocks']} "
+         f"staged blocks, recovered {st['failover_requests']} requests; "
+         f"{len(trace)} requests, {n_tok} tokens in {wall:.3f} s = "
+         f"{n_tok / wall:.2f} tokens/s; mean TTFT at the router "
+         f"{ttft * 1e3:.2f} ms; tokens equal the unfaulted in-process "
+         f"run's; two runs moved identical frame sequences "
+         f"({len(frames)} frames, by kind {kinds}); proxy transport "
+         f"{tstats}")
+    del ref_a
+
+
+def phase_fleet(torch, seed, cfg, model, serve_tokens=None):
+    """Phase 3i: the fleet layer at full Llama-3-8B width (phase 3's
+    model).  (a) streaming: phase 3's trace with every request submitted
+    ``stream=True`` through a depth-1 engine; every stream's flushes
+    concatenate to the unstreamed run's outputs (and phase 3's), each
+    flush lands on a step with a harvest point, no stream flushes more
+    often than there are harvest points, and the forced syncs are the
+    unstreamed run's.  (b) ``Router([e0, e1], affinity=True)`` over two
+    engines sharing ``model``, shared-prefix traffic in two waves: a
+    prefix-affinity routing, each request's tokens equal to it served
+    alone on a fresh 1-slot engine, and a 1-replica router's flight
+    record equal to the bare engine's.  (c) the same trace with e1
+    killed by the ``FaultInjector`` while it holds one swapped and at
+    least one in-flight request: tokens equal (b)'s, the migrated bytes
+    the parcel's bytes.  (d) a prefill-role and a decode-role engine, bf16
+    then int8 KV: every handoff parcel's prompt rows byte-equal to the
+    monolithic engine's arena rows, tokens equal the monolithic run's.
+    (e) an ``EngineProcess`` child on the card (``fleet_child_engine``)
+    behind ``SocketTransport``, killed by its ``exit_at_step`` schedule
+    after a force-swap: tokens equal an unfaulted in-process run's, and
+    two runs move identical frames; the children are killed in a
+    ``finally``.  Every arm holds the fleet launch formula and logs
+    tokens/s and TTFT.  Returns the launch counts of all arms."""
+    from paddle_tpu_torch.inference.procserve import (EngineProcess,
+                                                      TCPStoreLite)
+    total = {}
+    stores, procs = [], []
+    t0 = time.perf_counter()
+    try:
+        # the children start now and build their models while (a)-(d)
+        # run; each run of (e) takes one, under the same label (each
+        # with its own rendezvous store), so their frames can be equal
+        kw = {"seed": seed, "fault_spec": FLEET_FAULT}
+        for _ in range(2):
+            stores.append(TCPStoreLite.serve())
+            procs.append(EngineProcess("fleet", FLEET_FACTORY, kw,
+                                       stores[-1][0]))
+        _fleet_streaming(torch, seed, cfg, model, total, serve_tokens)
+        _fleet_router(torch, seed, cfg, model, total)
+        _fleet_disagg(torch, seed, cfg, model, total)
+        _fleet_socket(torch, seed, procs, total)
+    finally:
+        for p in procs:
+            p.kill()
+        for _addr, close in stores:
+            close()
+        torch.cuda.empty_cache()
+    for name in ("paged_decode_attention", "paged_decode_attention_int8",
+                 "rms_norm"):
+        if not total.get(name):
+            raise AssertionError(f"fleet: {name} never launched: {total}")
+    _log(f"fleet: phase 3i took {time.perf_counter() - t0:.1f} s; launches "
+         f"{total}")
+    return total
+
+
 # phase 4h: a K-th / (K+1)-th candidate score gap (log-probability) at
 # or below this, at any step of a row's CPU beam run (or a best-vs-second
 # gap at the pick), leaves that row undecided between card and CPU
@@ -5623,6 +6341,8 @@ def main(argv=None) -> int:
                                                    model, serve_tokens)
     by_path["dense_programs"] = phase_dense_programs(torch, args.seed, cfg,
                                                      model)
+    by_path["fleet"] = phase_fleet(torch, args.seed, cfg, model,
+                                   serve_tokens)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)

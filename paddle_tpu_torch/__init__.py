@@ -41,6 +41,11 @@ beside it slice by slice and imports nothing of it (nor JAX).
   block as two graphs and saves and loads its own artifact, the
   attention takes the ``cache=`` form, and ``examples.llama_serve`` is
   the twin of the serving example; no kernel is added.
+- Slice 17, the fleet layer: token streaming out of the engine, the
+  ``inference.Router`` over N replicas with affinity, failover and
+  prefill/decode disaggregation, the framed wire transport and process
+  replicas, and the fleet observability plane
+  (``observability.fleet``); no kernel is added.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """

@@ -7,7 +7,12 @@ weights (``weight_dtype=``), per-request sampling and constrained decoding
 top-k, top-p, repetition penalty, token masks), speculative decoding
 (``submit(spec_decode=K)`` with an ``NGramDrafter`` or ``ModelDrafter``,
 greedy or sampled), preemption to a host-RAM tier, a bounded queue,
-cancellation and the tiered radix prefix cache, in any combination.
+cancellation and the tiered radix prefix cache, in any combination; and
+the engine half of the fleet layer: token streaming (``submit(
+stream=True)`` returns a ``TokenStream``), ``load_report()``,
+``crash_reset()``, ``migrate_in()`` and the disaggregation role
+(``role="prefill"|"decode"``, the chunk-final handoff and
+``take_handoffs()``) that ``inference/router.py`` drives.
 
 Ported: ``AdmissionError`` (:254), ``TERMINAL_STATES`` (:343),
 ``_block_digests`` (:829), ``BlockPool`` (:859, the digest and the tree
@@ -27,9 +32,14 @@ radix insert), ``_count_kv_sweep`` (:1813), ``_block_rides`` and
 ``_decode_tables`` (:4106-4131), ``_spec_verify`` (:4146, with the
 sampled accept path :4218-4260), ``_step_inner``, ``_absorb_block``,
 ``_finish``, ``_release_blocks``, ``run``, ``engine_spec``,
-``prefix_match`` and ``stats``.  The dispatch-ahead pipeline
-(``async_dispatch=True``, ``async_depth=S``): ``ASYNC_SYNC_REASONS``
-(:324), ``_PendingBlock`` (:1093), ``_LazyStacks`` (:1129),
+``prefix_match`` and ``stats``.  The fleet half: ``HANDOFF_REASONS`` and
+``ENGINE_ROLES`` (:366-374), ``TokenStream`` (:1260), the decode-role
+door of ``submit`` (:2395), ``migrate_in`` (:2635), ``crash_reset``
+(:2856), the chunk-final branch (:3984), ``_handoff_out`` (:4002),
+``take_handoffs`` (:4041) and ``load_report`` (:4890).  The
+dispatch-ahead pipeline (``async_dispatch=True``, ``async_depth=S``):
+``ASYNC_SYNC_REASONS`` (:324), ``_PendingBlock`` (:1093), ``_LazyStacks``
+(:1129),
 ``_charge_overlap`` (:1948), ``_block_sync_reason`` (:1956),
 ``_harvest_next`` (:2004), ``_flush_async`` (:2037),
 ``_reconcile_host_tier`` (:2058), ``_resolve_entries`` (:2080),
@@ -161,6 +171,19 @@ class PoisonedDispatchError(RuntimeError):
     non-finite logits.  Raised BEFORE the corrupt outputs are adopted
     as host truth, so no request's token stream ever carries a
     poisoned value."""
+
+
+# why a request left a prefill-role replica with its KV parcel instead
+# of decoding in place (serving.handoff.requests{reason=}): the only
+# trigger is the disaggregation point itself, the prompt's final chunk
+HANDOFF_REASONS = ("chunk_final",)
+
+# the role axis of disaggregated serving: "both" is the monolithic
+# default (byte-identical to every pre-role trace), "prefill" replicas
+# run prompt chunks and hand each request off at its final chunk,
+# "decode" replicas only resume migrated parcels (they reject fresh
+# submits and never dispatch a prefill chunk)
+ENGINE_ROLES = ("prefill", "decode", "both")
 
 
 # the goodput ledger's closed waste vocabulary: every dispatched
@@ -1049,6 +1072,82 @@ class Request:
         return self.first_token_time - self.arrival_time
 
 
+class TokenStream:
+    """Incremental token stream of one streaming request
+    (``submit(stream=True)`` returns one; so does the router's).
+
+    A stream handle never drives the device: ``read()`` drains the
+    tokens that are already host truth, everything the engine has
+    harvested so far, and advances a cursor.  On a dispatch-ahead engine
+    the tokens of a deferred dispatch become host truth at the harvest
+    point, so the stream's flush boundaries ARE the pipeline's harvest
+    points: streaming adds no host wait and no entry in
+    ``ASYNC_SYNC_REASONS``, and the concatenation of every flush is
+    token for token the non-streamed ``Request.output`` (terminal pad
+    tail included).
+
+    ``owner`` is whatever schedules the request (a ``ServingEngine`` or
+    a ``Router``): iterating the stream calls ``owner.step()`` between
+    flushes, so ``for chunk in stream: ...`` is a working chat loop.
+    ``read()``/``finished`` are the primitives for callers that drive
+    the scheduler themselves."""
+
+    def __init__(self, owner, target):
+        self._owner = owner
+        self._target = target
+        self._pos = 0
+        # a safety cap for __iter__: a healthy drain finishes a request
+        # in far fewer steps; a wedged pool raises instead of spinning
+        self._max_iter_steps = 100_000
+
+    @property
+    def request(self):
+        """The underlying request handle (engine ``Request``, or the
+        router's ``RoutedRequest``)."""
+        return self._target
+
+    @property
+    def finished(self) -> bool:
+        return self._target.state in TERMINAL_STATES
+
+    @property
+    def n_read(self) -> int:
+        """Tokens delivered through this handle so far."""
+        return self._pos
+
+    def read(self) -> np.ndarray:
+        """Every token that became host truth since the last read
+        (possibly empty); never blocks, never forces a pending harvest.
+        The cursor never moves backward: during a failover recompute the
+        underlying token list restarts from the prompt, the replayed
+        prefix is bit-identical to what was already flushed (the
+        position-keyed PRNG), and the stream splices at the last flushed
+        token, so nothing is emitted twice."""
+        toks = self._target.tokens
+        new = toks[self._pos:]
+        self._pos = max(self._pos, len(toks))
+        return np.asarray(new, np.int32)
+
+    def __iter__(self):
+        steps = 0
+        while True:
+            chunk = self.read()
+            if chunk.size:
+                yield chunk
+            if self.finished:
+                tail = self.read()   # the terminal pad landed after the
+                if tail.size:        # last scheduler flush
+                    yield tail
+                return
+            self._owner.step()
+            steps += 1
+            if steps > self._max_iter_steps:
+                raise RuntimeError(
+                    f"TokenStream iteration exceeded "
+                    f"{self._max_iter_steps} scheduler steps without "
+                    f"the request reaching a terminal state")
+
+
 class ServingEngine:
     """Continuous-batching serving session over a paged KV block pool.
 
@@ -1125,14 +1224,22 @@ class ServingEngine:
         for value, off, what, item in (
                 (mesh, None, "mesh= (tensor-parallel serving)",
                  "#10 Sharded serving"),
-                (str(role), "both", f"role={role!r} (disaggregation)",
-                 "#9 Fleet layer"),
                 (adapter_store, None, "adapter_store= (LoRA serving)",
                  "#7 LoRA and fair share"),
                 (tenant_weights, None, "tenant_weights= (fair share)",
                  "#7 LoRA and fair share")):
             if value != off:
                 _not_ported(what, item)
+        # disaggregation role: pure policy over the migration mechanism;
+        # "both" keeps every trace byte-identical to a role-less engine
+        self.role = str(role)
+        if self.role not in ENGINE_ROLES:
+            raise ValueError(
+                f"role must be one of {ENGINE_ROLES}, got {role!r}")
+        # the router reads these: no adapter store (LoRA is not ported)
+        # and no shard group (a single-device engine)
+        self._adapters = None
+        self.shard_group = None
         self._fault = fault_injector
         # async_dispatch=False is the lockstep arm; async_depth=1 keeps
         # its scheduling bit for bit, S >= 2 opts into the finish bitmap
@@ -1172,7 +1279,6 @@ class ServingEngine:
         self.steps_per_call = int(steps_per_call)
         self.block_len = int(block_len)
         self.static_batching = bool(static_batching)
-        self.role = "both"
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if self.steps_per_call < 1:
@@ -1253,39 +1359,20 @@ class ServingEngine:
         if kv_dt == torch.int8:
             row_bytes += 2 * hkv * 4
         self._kv_row_bytes = row_bytes * n_layers
-        self._pool = BlockPool(self.num_blocks, self.block_len)
         self._digest_salt = ("ptpu-paged-kv/"
                              + self.kv_cache_dtype).encode()
-        # ONE host-RAM block store for both uses: preemption swap-outs
-        # (reason "preempt", kept until resume) and radix-cache
-        # demotions (reason "cache", LRU-evicted beyond cache_cap)
-        self._host_tier = HostTier(cache_capacity_blocks=cache_cap)
-        self._radix: Optional[RadixPrefixCache] = None
-        # the pool and the tier call back into the engine and the tree
-        # through weak references: a dropped engine frees its device
-        # arenas at once, not at the next cyclic garbage collection
-        me = weakref.ref(self)
-        if mode == "radix":
-            self._radix = RadixPrefixCache(self.block_len, self._pool,
-                                           self._host_tier)
-            self._pool.reclaim_cb = lambda blocks: me()._demote_blocks(blocks)
-            drop_host = weakref.WeakMethod(self._radix.drop_host)
-            self._host_tier.evict_cb = lambda key: drop_host()(key)
-            self._pool.audit_hooks.append(
-                lambda: me()._radix.audit(me()._pool))
-        self._pool.audit_hooks.append(lambda: me()._audit_host_tier())
+        self._host_cache_cap = cache_cap    # kept for crash_reset()
+        self._fresh_memory()
         self._swap_out = build_swap_out_gather()
         self._swap_in = build_swap_in_scatter(len(self._arenas))
-        self._tables = np.full((self.num_slots, self.max_blocks),
-                               self._pool.trash, np.int32)
         self._vocab = int(model.config.vocab_size)
-        self._tok = np.zeros((self.num_slots,), np.int32)
-        self._lens = np.zeros((self.num_slots,), np.int32)
-        self._done = np.ones((self.num_slots,), bool)
-        self._slots: List[Optional[Request]] = [None] * self.num_slots
         self._queue: deque = deque()
         self._prefilling: deque = deque()
         self._swapped: List[Request] = []   # preempted, host-RAM KV
+        # chunk-final handoff staging (prefill-role engines only):
+        # requests whose KV parcel waits in the host tier for the
+        # router's take_handoffs()
+        self._handoff_ready: List[Request] = []
         self._finished: List[Request] = []
         self._clock = clock
         self._next_id = 0
@@ -1367,6 +1454,36 @@ class ServingEngine:
         self._spec_fallback = set()    # this iteration's spec slots that
         #                                drafted nothing and ride the block
         self._verify_fns = {}          # (width, flags) -> verifier
+
+    def _fresh_memory(self):
+        """A new, empty memory system: block pool, host tier, radix tree,
+        slot tables and carries, wired together (construction and
+        ``crash_reset``).  The arenas are not touched.  ONE host-RAM
+        block store serves both uses: preemption swap-outs (reason
+        "preempt", kept until resume) and radix-cache demotions (reason
+        "cache", LRU-evicted beyond ``host_cache_blocks``)."""
+        self._pool = BlockPool(self.num_blocks, self.block_len)
+        self._host_tier = HostTier(cache_capacity_blocks=self._host_cache_cap)
+        self._radix: Optional[RadixPrefixCache] = None
+        # the pool and the tier call back into the engine and the tree
+        # through weak references: a dropped engine frees its device
+        # arenas at once, not at the next cyclic garbage collection
+        me = weakref.ref(self)
+        if self.prefix_cache_mode == "radix":
+            self._radix = RadixPrefixCache(self.block_len, self._pool,
+                                           self._host_tier)
+            self._pool.reclaim_cb = lambda blocks: me()._demote_blocks(blocks)
+            drop_host = weakref.WeakMethod(self._radix.drop_host)
+            self._host_tier.evict_cb = lambda key: drop_host()(key)
+            self._pool.audit_hooks.append(
+                lambda: me()._radix.audit(me()._pool))
+        self._pool.audit_hooks.append(lambda: me()._audit_host_tier())
+        self._tables = np.full((self.num_slots, self.max_blocks),
+                               self._pool.trash, np.int32)
+        self._tok = np.zeros((self.num_slots,), np.int32)
+        self._lens = np.zeros((self.num_slots,), np.int32)
+        self._done = np.ones((self.num_slots,), bool)
+        self._slots: List[Optional[Request]] = [None] * self.num_slots
 
     @staticmethod
     def _kv_dtype(kvdt) -> torch.dtype:
@@ -1798,7 +1915,7 @@ class ServingEngine:
                priority: int = 0, deadline_s: Optional[float] = None,
                max_queue_delay_s: Optional[float] = None,
                adapter: Optional[str] = None, tenant: Optional[str] = None,
-               stream: bool = False) -> Request:
+               stream: bool = False):
         """Enqueue one request.  ``prompt_ids`` is a 1-D id array of at
         most ``prompt_len`` tokens (right-padded internally);
         ``arrival_time`` (in ``clock()`` units) lets a trace replay
@@ -1819,13 +1936,24 @@ class ServingEngine:
         penalty, seed, token-mask processor); the default is the engine's
         (``do_sample=True`` knobs, or greedy).  A sampled spec request
         runs speculative sampling; ``spec_decode`` with a mask processor
-        raises."""
+        raises.
+
+        ``stream=True`` returns a :class:`TokenStream` over the request
+        instead of the request itself (``handle.request`` recovers it):
+        its flushes land at the engine's harvest points, token for token
+        the non-streamed output.  A decode-role engine refuses every
+        fresh submit with ``AdmissionError`` (only ``migrate_in``
+        parcels land there)."""
+        if self.role == "decode":
+            raise AdmissionError(
+                "decode-role engine does not accept fresh submits "
+                "(prompts route to prefill-capable replicas; this "
+                "replica only resumes migrated KV parcels)")
         for value, off, what, item in (
                 (adapter, None, "submit(adapter=)",
                  "#7 LoRA and fair share"),
-                (tenant, None, "submit(tenant=)", "#7 LoRA and fair share"),
-                (bool(stream), False, "submit(stream=True)",
-                 "#9 Fleet layer")):
+                (tenant, None, "submit(tenant=)",
+                 "#7 LoRA and fair share")):
             if value != off:
                 _not_ported(what, item)
         ids = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
@@ -2002,7 +2130,253 @@ class ServingEngine:
             self._update_block_gauges()
             self._m.queue_depth.set(len(self._queue))
             raise
+        if stream:
+            return TokenStream(self, req)
         return req
+
+    def migrate_in(self, prompt_ids, *, seq_len=None, max_new_tokens=32,
+                   arrival_time=None, spec_decode=None, sampling=None,
+                   priority: int = 0, deadline_s: Optional[float] = None,
+                   max_queue_delay_s: Optional[float] = None,
+                   adapter: Optional[str] = None,
+                   tenant: Optional[str] = None,
+                   samp_base: Optional[np.ndarray] = None,
+                   tokens=(), first_token_time: Optional[float] = None,
+                   parcel: Optional[dict] = None) -> Request:
+        """Adopt a request recovered from a failed replica, or handed off
+        by a prefill-role one: the entry point of the router's failover
+        and disaggregation.  Two paths:
+
+        - ``parcel=None``: deterministic recompute from the prompt.  The
+          request re-enters this engine's queue cold and re-runs prefill
+          and decode from position 0.  Greedy rows are deterministic by
+          construction; sampled rows replay bit-identically because
+          ``samp_base`` carries the victim's PRNG base key (the
+          position-keyed PRNG makes the restart free).
+        - ``parcel={key, n_blocks, tok, lens, phase, pf_pos}``: exact-bytes
+          KV migration.  The victim's swap parcel was already moved into
+          THIS engine's host tier (``HostTier.transfer``, reason
+          ``"preempt"``) and the request parks on the swap list as if
+          this engine had preempted it: ``_try_resume`` allocates fresh
+          blocks and re-scatters the saved bytes through the swap-in
+          scatter, so the resumed stream is bit-identical to one that
+          never moved.  ``tokens`` is the output emitted before the move
+          (decode phase), ``tok``/``lens`` the slot's carries at its last
+          consistent point.
+
+        ``max_queue_delay_s`` belongs only to requests that were still
+        queued on the victim (once admitted, a request runs to
+        completion).  A full bounded queue refuses the recompute path
+        with ``AdmissionError`` (the caller spills to another replica);
+        parcel re-admissions join the swap list, which is never
+        bounded."""
+        for value, off, what, item in (
+                (adapter, None, "migrate_in(adapter=)",
+                 "#7 LoRA and fair share"),
+                (tenant, None, "migrate_in(tenant=)",
+                 "#7 LoRA and fair share")):
+            if value != off:
+                _not_ported(what, item)
+        ids = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
+        if ids.size < 1 or ids.size > self.prompt_len:
+            raise ValueError(
+                f"prompt must be 1..{self.prompt_len} tokens, got "
+                f"{ids.size}")
+        n = int(seq_len) if seq_len is not None else int(ids.size)
+        if n < 1 or n > ids.size:
+            raise ValueError(
+                f"seq_len must be in [1, {ids.size}], got {n}")
+        m = int(max_new_tokens)
+        if m < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {m}")
+        if n + m - 1 > self.max_cache_len:
+            raise ValueError(
+                f"prompt ({n}) + max_new_tokens ({m}) - 1 = {n + m - 1} "
+                f"tokens exceeds max_cache_len ({self.max_cache_len}) "
+                f"— migration requires replica-homogeneous geometry")
+        if self._blocks_needed(n, m) > self.num_blocks:
+            raise ValueError(
+                f"request needs {self._blocks_needed(n, m)} blocks "
+                f"but the pool only has num_blocks={self.num_blocks}")
+        if sampling is not None:
+            if not isinstance(sampling, SamplingParams):
+                raise ValueError(
+                    f"sampling must be a SamplingParams, got "
+                    f"{type(sampling).__name__}")
+            sampling.validate()
+        sp = sampling if sampling is not None else self._default_sampling
+        spec_k = None if spec_decode is None else int(spec_decode)
+        if spec_k is not None:
+            if spec_k < 1:
+                raise ValueError(
+                    f"spec_decode must be >= 1 draft tokens, got "
+                    f"{spec_decode}")
+            if sp is not None and sp.mask_processor is not None:
+                raise ValueError(
+                    "spec_decode cannot compose with a token-mask "
+                    "processor: a draft position's mask depends on "
+                    "host-side state the drafter bypasses — recover "
+                    "the request without spec_decode")
+        if parcel is None and self.max_queue is not None and \
+                len(self._queue) >= self.max_queue:
+            raise AdmissionError(
+                f"queue full ({len(self._queue)} >= max_queue="
+                f"{self.max_queue}) — this engine refuses the "
+                f"recovered request (spill to another replica)",
+                queue_depth=len(self._queue), max_queue=self.max_queue)
+        now = self._clock()
+        arrival = now if arrival_time is None else float(arrival_time)
+        padded = np.full((self.prompt_len,), self.cfg.pad_token_id,
+                         np.int32)
+        padded[:ids.size] = ids
+        req = Request(self._next_id, padded, n, m, arrival,
+                      pad_token_id=self.cfg.pad_token_id)
+        req.submit_time = now
+        req.spec_k = spec_k
+        req.sampling = sp
+        req.priority = int(priority)
+        req.deadline = (None if deadline_s is None
+                        else arrival + float(deadline_s))
+        req.max_queue_delay_s = (None if max_queue_delay_s is None
+                                 else float(max_queue_delay_s))
+        if sp is not None and not sp.is_greedy:
+            # the victim's base key pins the stream (restart-exact);
+            # without one this engine derives its own, as a fresh submit
+            # does
+            req.samp_base = (
+                np.asarray(samp_base, np.uint32) if samp_base is not None
+                else base_key(sp.seed) if sp.seed is not None
+                else threefry.fold_in(threefry.as_key(
+                    threefry.prng_key(self._seed)),
+                    req.request_id).numpy().astype(np.uint32))
+        req.chunk_ids = np.full((self.prompt_len + self.chunk_len,),
+                                self.cfg.pad_token_id, np.int32)
+        req.chunk_ids[:self.prompt_len] = padded
+        if self.prefix_cache_mode == "digest":
+            req.digests = _block_digests(padded, n, self.block_len,
+                                         salt=self._digest_salt)
+        if spec_k is not None:
+            if self._drafter is None:
+                self._drafter = NGramDrafter()
+            self._spec_k_max = max(self._spec_k_max, spec_k)
+        if parcel is not None:
+            ent = self._host_tier.entry(int(parcel["key"]))
+            if ent is None or ent.reason != "preempt":
+                raise ValueError(
+                    f"parcel key {parcel['key']!r} is not a preempt "
+                    f"entry in this engine's host tier — transfer the "
+                    f"victim's parcel first (HostTier.transfer)")
+            if ent.n_blocks != int(parcel["n_blocks"]):
+                raise ValueError(
+                    f"parcel holds {ent.n_blocks} blocks but the swap "
+                    f"record says {parcel['n_blocks']}")
+            phase = str(parcel["phase"])
+            if phase not in ("prefill", "decode"):
+                raise ValueError(
+                    f"parcel phase must be 'prefill' or 'decode', got "
+                    f"{phase!r}")
+            req.tokens = [int(x) for x in tokens]
+            if phase == "decode":
+                req.remaining = m - len(req.tokens)
+                if req.remaining <= 0:
+                    raise ValueError(
+                        f"parcel carries {len(req.tokens)} emitted "
+                        f"tokens of a {m}-token budget — nothing left "
+                        f"to decode (the victim should have finished "
+                        f"it)")
+            req.pf_pos = int(parcel.get("pf_pos", 0))
+            req.first_token_time = first_token_time
+            req.swap = _SwapRecord(
+                host_key=int(parcel["key"]),
+                n_blocks=int(parcel["n_blocks"]),
+                tok=int(parcel["tok"]), lens=int(parcel["lens"]),
+                state=phase)
+            req.state = "swapped"
+            self._next_id += 1
+            self._swapped.append(req)
+            # the parcel entered this tier behind the engine's back
+            # (HostTier.transfer from the router): settle the gauge now
+            self._update_host_gauge()
+            self._fr.emit("submit", req.request_id, self._step_idx,
+                          seq_len=n, max_new=m, priority=req.priority,
+                          migrated_blocks=int(parcel["n_blocks"]))
+        else:
+            # the recompute path re-enters the queue cold; submit's
+            # unpin-on-error discipline applies to the prefix probe
+            try:
+                if self._radix is not None:
+                    self._probe_radix(req)
+                elif self.enable_prefix_cache:
+                    self._match_prefix(req)
+                if req.matched:
+                    self._update_block_gauges()
+                self._next_id += 1
+                self._queue.append(req)
+                self._fr.emit("submit", req.request_id, self._step_idx,
+                              seq_len=n, max_new=m,
+                              priority=req.priority,
+                              queue_depth=len(self._queue),
+                              recovered=1)
+            except BaseException:
+                if self._queue and self._queue[-1] is req:
+                    self._queue.pop()
+                for b in req.matched:
+                    self._pool.unpin(b)
+                req.matched = []
+                for k in req.host_pins:
+                    self._host_tier.unpin(k)
+                req.host_pins = []
+                self._update_block_gauges()
+                raise
+            self._m.queue_depth.set(len(self._queue))
+            self._peak_queue = max(self._peak_queue, len(self._queue))
+        self._m.requests_submitted.inc()
+        return req
+
+    def crash_reset(self) -> dict:
+        """Model a replica restart after a fatal fault (kill, poisoned
+        dispatch, permanent stall).  Every in-flight dispatch is dropped
+        un-harvested, every live request is STRIPPED (returned by phase,
+        with no terminal bookkeeping: the failover layer above owns its
+        recovery now) and the whole memory system (block pool, tables,
+        radix tree, host tier) comes back empty, as in a fresh engine
+        over the same model.  Arena contents survive as garbage: every
+        new occupant writes its KV before reading it.
+
+        Pending device work goes without a wait on its events: the
+        un-harvested ``_PendingBlock``s, the lazy demotion parcels and
+        the pinned ring's claims.  Their buffers are safe to reuse,
+        because the next dispatch and its host copies run on the same
+        stream, behind whatever the dropped work still has in flight.
+
+        Read any host-tier parcel to be migrated BEFORE calling this
+        (``HostTier.transfer``): the reset replaces the tier.  The
+        decode-block graphs, the verify programs and the request-id
+        counter survive.  Returns ``{"queued": [..], "active": [..],
+        "swapped": [..]}`` in scheduler order (handoff-ready requests
+        count as swapped: their parcel is staged like a preemption's)."""
+        stripped = {
+            "queued": list(self._queue),
+            "active": [r for r in self._slots if r is not None],
+            "swapped": list(self._swapped) + list(self._handoff_ready),
+        }
+        self._queue.clear()
+        self._prefilling.clear()
+        self._swapped = []
+        self._handoff_ready = []
+        self._pend_q.clear()
+        for slot in self._ring:
+            slot["busy"] = False
+        self._lazy_parcels = []
+        self._flush_finishes = []
+        self._spec_fallback = set()
+        self._fresh_memory()
+        self._m.queue_depth.set(0)
+        self._m.slot_occupancy.set(0)
+        self._m.async_depth.set(0)
+        self._update_block_gauges()
+        self._update_host_gauge()
+        return stripped
 
     def _match_prefix(self, req: Request):
         """Digest mode: extend ``req.matched`` with the published blocks
@@ -2695,6 +3069,13 @@ class ServingEngine:
             self._release_blocks(req)
             self._finish(req, t, out)
             return
+        if self.role == "prefill":
+            # the disaggregation point: a prefill-role replica never
+            # decodes in place; the request's KV parcel is staged for the
+            # router and a decode replica resumes it through migrate_in
+            # and _try_resume (tok0 travels in the parcel's tok carry)
+            self._handoff_out(req, tok0, slot)
+            return
         req.state = "decode"
         self._tok[slot] = tok0
         self._lens[slot] = req.seq_len
@@ -2702,6 +3083,57 @@ class ServingEngine:
         # stays done there (frozen lens, trash-routed writes) and all
         # progress happens in the verify forward, which reads host truth
         self._done[slot] = req.spec_k is not None
+
+    def _handoff_out(self, req: Request, tok0: int, slot: int):
+        """Chunk-final handoff swap-out (prefill-role engines only): the
+        ``_preempt`` gather at the moment the final chunk sampled
+        ``tok0``, into the host tier with the DECODE-phase carries
+        (``tok=tok0``, ``lens=seq_len``), blocks and slot released; the
+        request parks on the handoff-ready list for ``take_handoffs()``
+        instead of this engine's swap list.  The final chunk already
+        synced (reason ``chunk_final``), so no flush is needed.
+
+        Unlike a preemption's, the gather is left LAZY: it is enqueued on
+        the engine's stream (a copy out of the arenas, ahead of any later
+        write to the released blocks) with its copy into pinned host
+        memory, and the parcel's rows materialize where the bytes are
+        first read, the router's ``HostTier.transfer`` or the wire's
+        parcel shipment, not inside this step."""
+        ids = self._tables[slot].copy()     # before release trashes it
+        n = len(req.blocks)
+        with _span("serving.handoff_out", request=req.request_id,
+                   blocks=n):
+            lazy, dtypes = self._gather_rows(ids, n, materialize=False)
+        key = self._host_tier.put(lazy.resolve, n, "preempt", dtypes)
+        req.swap = _SwapRecord(host_key=key, n_blocks=n, tok=int(tok0),
+                               lens=int(req.seq_len), state="decode")
+        self._release_blocks(req)
+        self._slots[slot] = None
+        self._done[slot] = True
+        req.slot = None
+        req.state = "swapped"
+        self._handoff_ready.append(req)
+        nbytes = n * self.block_len * self._kv_row_bytes
+        self._m.handoff_requests.inc(reason="chunk_final")
+        self._m.handoff_blocks.inc(n)
+        self._m.handoff_bytes.inc(nbytes)
+        self._update_host_gauge()
+        self._set_occupancy()
+        _span_instant("serving.request.handoff", request=req.request_id,
+                      blocks=n)
+        self._fr.emit("handoff", req.request_id, self._step_idx,
+                      blocks=n, reason="chunk_final")
+
+    def take_handoffs(self) -> List[Request]:
+        """Drain the chunk-final handoff staging: requests whose KV
+        parcel awaits a decode replica (state ``"swapped"``, parcel in
+        this engine's host tier under ``req.swap.host_key``).  The caller
+        (the router's handoff orchestration) owns them after this call:
+        it transfers each parcel and places the request through the
+        destination's ``migrate_in``.  Empty on every step of a
+        ``"both"`` or ``"decode"`` engine."""
+        out, self._handoff_ready = self._handoff_ready, []
+        return out
 
     def _build_samp(self, reqs, pos_lag: int = 0):
         """The sampling planes of one dispatch as host arrays: ``reqs`` is
@@ -3496,8 +3928,9 @@ class ServingEngine:
         ``useful_tokens`` + ``wasted_tokens`` == ``dispatched_tokens``
         exactly, ``goodput`` is the useful fraction and
         ``wasted_by_reason`` the breakdown over ``GOODPUT_REASONS``;
-        ``handoffs``/``handoff_blocks``/``handoff_bytes`` are 0 (the
-        engine's role is ``"both"``); ``mean_tpot_s`` is the mean
+        ``handoffs``/``handoff_blocks``/``handoff_bytes`` count the
+        chunk-final handoffs of a prefill-role engine (0 for ``"both"``
+        and ``"decode"``); ``mean_tpot_s`` is the mean
         per-output-token decode latency over finished requests with
         >= 2 tokens (None while there is none); ``slo_attained``/
         ``slo_missed`` the SLO outcomes of requests that carried a
@@ -3629,6 +4062,39 @@ class ServingEngine:
         resumed via 6 host blocks ...")."""
         return self._fr.explain(request_id)
 
+    def load_report(self) -> dict:
+        """One host-side load and residency snapshot for schedulers above
+        the engine (the router's load signal and affinity probes), as
+        plain Python values (the wire's frames carry it).  Pure host
+        state: no dispatch, no harvest flush, so polling it every
+        routing decision is free.  ``queue_depth``/``active_slots``/
+        ``prefilling``/``swapped_waiting`` count outstanding work by
+        phase; ``slots_total``/``blocks_free`` (free plus reclaimable
+        cached, the pool's ``available()``)/``blocks_in_use``/
+        ``blocks_total``/``block_len`` the headroom; ``hbm_adapters`` is
+        ``[]`` (no adapter store); ``radix`` the prefix tree's root
+        stats (None off radix mode); ``kv_cache_dtype``/``weight_dtype``
+        the at-rest dtypes; ``shard_group`` None (one device); ``role``
+        the disaggregation role."""
+        return {
+            "queue_depth": len(self._queue),
+            "active_slots": sum(r is not None for r in self._slots),
+            "prefilling": len(self._prefilling),
+            "swapped_waiting": len(self._swapped),
+            "slots_total": self.num_slots,
+            "blocks_free": self._pool.available(),
+            "blocks_in_use": self._pool.in_use(),
+            "blocks_total": self.num_blocks,
+            "block_len": self.block_len,
+            "hbm_adapters": [],
+            "radix": (self._radix.root_stats()
+                      if self._radix is not None else None),
+            "kv_cache_dtype": self.kv_cache_dtype,
+            "weight_dtype": self.weight_dtype,
+            "shard_group": self.shard_group,
+            "role": self.role,
+        }
+
     def engine_spec(self) -> dict:
         """The engine's immutable identity as one JSON-safe dict, key
         for key the JAX engine's ``engine_spec()``."""
@@ -3644,6 +4110,6 @@ class ServingEngine:
             "pad_token_id": int(self.cfg.pad_token_id),
             "kv_row_bytes": int(self._kv_row_bytes),
             "adapters": None,
-            "shard_group": None,
+            "shard_group": self.shard_group,
             "role": self.role,
         }

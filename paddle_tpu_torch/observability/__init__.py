@@ -1,6 +1,5 @@
 """paddle_tpu_torch.observability — runtime metrics and structured
-tracing of the port, the JAX package's ``paddle_tpu.observability``
-without its fleet plane:
+tracing of the port, the JAX package's ``paddle_tpu.observability``:
 
 - :mod:`~paddle_tpu_torch.observability.metrics` — a process-wide
   ``MetricsRegistry`` of named Counter/Gauge/Histogram instruments with
@@ -14,6 +13,12 @@ without its fleet plane:
   ``FlightRecorder``: a bounded ring of structured lifecycle events the
   serving engine emits, with ``timeline()``/``explain()`` queries and a
   JSON export the JAX package's readers accept.
+- :mod:`~paddle_tpu_torch.observability.fleet` — the fleet plane over
+  the router: ``stitch_flight_records`` correlates per-replica
+  recorders into one cross-replica record, ``merge_registry_snapshots``
+  federates per-replica registries under a ``replica=`` label, and
+  ``SLOBurnRateMonitor`` turns the ``serving.slo.*`` counters into
+  windowed burn rates and ``ALERT_KINDS`` alerts.
 - :mod:`~paddle_tpu_torch.observability.timeseries` — the
   ``TimeSeriesRecorder``: bounded step-indexed instrument samples with
   windowed aggregates and JSON export.
@@ -30,6 +35,10 @@ from .flightrec import (  # noqa: F401
     EVENT_KINDS, FlightEvent, FlightRecord, FlightRecorder,
     explain_events, load_flight_record,
 )
+from .fleet import (  # noqa: F401
+    ALERT_KINDS, SLOBurnRateMonitor, StitchedEvent, StitchedRecord,
+    merge_registry_snapshots, stitch_flight_records,
+)
 from .timeseries import TimeSeriesRecorder  # noqa: F401
 
 __all__ = [
@@ -39,5 +48,7 @@ __all__ = [
     "merge_chrome_traces",
     "EVENT_KINDS", "FlightEvent", "FlightRecord", "FlightRecorder",
     "explain_events", "load_flight_record",
-    "TimeSeriesRecorder",
+    "ALERT_KINDS", "SLOBurnRateMonitor", "StitchedEvent",
+    "StitchedRecord", "merge_registry_snapshots",
+    "stitch_flight_records", "TimeSeriesRecorder",
 ]

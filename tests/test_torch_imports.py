@@ -42,6 +42,10 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.optimizer.optimizer, "
         "paddle_tpu_torch.examples.llama_pretrain, "
         "paddle_tpu_torch.examples.llama_serve\n"
+        "import paddle_tpu_torch.inference.router, "
+        "paddle_tpu_torch.inference.transport, "
+        "paddle_tpu_torch.inference.procserve, "
+        "paddle_tpu_torch.observability.fleet\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -105,3 +109,51 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     out = model.generate(np.arange(3, dtype=np.int32)[None],
                          max_new_tokens=2, compute_dtype="float32")
     assert out.device.type == "cpu" and out.shape == (1, 2)
+
+
+def test_engine_process_command_names_the_port():
+    """The port's process supervisor launches the port: its recorded
+    command imports ``paddle_tpu_torch`` (never the JAX package) and it
+    sets no JAX variable in the child's environment; the child's engine
+    factory defaults to the card, so without CUDA it raises instead of
+    serving on the CPU."""
+    import json
+
+    from paddle_tpu_torch.inference import procserve
+    ep = procserve.EngineProcess(
+        "r0", "paddle_tpu_torch.inference.procserve:tiny_llama_engine",
+        {"seed": 7, "device": "cpu"}, ("127.0.0.1", 1), dryrun=True)
+    cmd = ep.commands[0]
+    assert "paddle_tpu_torch.inference.procserve import main" in cmd[2]
+    assert "paddle_tpu.inference" not in " ".join(cmd)
+    assert json.loads(cmd[cmd.index("--kwargs") + 1]) == \
+        {"seed": 7, "device": "cpu"}
+    assert not any(k.startswith(("JAX_", "XLA_")) for k in ep._env)
+    ep.restart()
+    assert ep.gen == 1 and "paddle_tpu_torch" in ep.commands[1][2]
+    # the spawn path adds nothing but the caller's env to the parent's
+    seen = {}
+
+    class _Popen:
+        def __init__(self, cmd, env):
+            seen.update(env)
+
+        def poll(self):
+            return 0
+
+    orig = procserve.subprocess.Popen
+    procserve.subprocess.Popen = _Popen
+    try:
+        live = procserve.EngineProcess(
+            "r1", "paddle_tpu_torch.inference.procserve:tiny_llama_engine",
+            {}, ("127.0.0.1", 1), env={"FOO": "1"})
+    finally:
+        procserve.subprocess.Popen = orig
+    added = {k for k in seen if os.environ.get(k) != seen[k]}
+    assert added == {"FOO"}
+    live._proc = None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            procserve.tiny_llama_engine()
+    eng = procserve.tiny_llama_engine(device="cpu")
+    assert eng.device.type == "cpu" and eng.role == "both"

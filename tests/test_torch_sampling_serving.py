@@ -446,7 +446,7 @@ def test_sampled_spec_engine_equals_jax(bridged, drafter):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "#10"), (dict(role="prefill"), "#9"),
+    (dict(mesh=object()), "#10"),
     (dict(adapter_store=object()), "#7"), (dict(tenant_weights={"a": 1.0}),
                                            "#7")],
     ids=lambda x: next(iter(x)) if isinstance(x, dict) else x)
@@ -465,8 +465,7 @@ def test_sampling_constructs_other_keywords_still_raise(bridged, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(tnet, **base, **kw)
     ids = np.arange(3, dtype=np.int32)
-    for skw, sitem in ((dict(adapter="a"), "#7"), (dict(tenant="t"), "#7"),
-                       (dict(stream=True), "#9")):
+    for skw, sitem in ((dict(adapter="a"), "#7"), (dict(tenant="t"), "#7")):
         with pytest.raises(NotImplementedError, match=sitem):
             eng.submit(ids, max_new_tokens=3, **skw)
     with pytest.raises(ValueError, match="SamplingParams"):

@@ -153,7 +153,7 @@ def test_scheduling_identical_to_jax_engine(served):
     # on a tensor-parallel mesh
     {"kv_cache_dtype": "bfloat16"}, {"weight_dtype": "int8",
                                      "mesh": object()},
-    {"mesh": object()}, {"role": "prefill"}, {"adapter_store": object()},
+    {"mesh": object()}, {"adapter_store": object()},
     {"tenant_weights": {"a": 1.0}}, {"cache_dtype": "bfloat16"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_features_raise(kw):
@@ -272,8 +272,7 @@ def test_engine_defaults_are_the_reference_engines():
 
 
 @pytest.mark.parametrize("kw", [
-    {"adapter": "a"},
-    {"stream": True}, {"tenant": "t"},
+    {"adapter": "a"}, {"tenant": "t"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_submit_features_raise(kw):
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
