@@ -181,6 +181,23 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    its own fault schedule: tokens equal an unfaulted in-process run's
    and two runs move identical frames; every arm with the fleet launch
    formula, tokens/s and TTFT;
+3j. LoRA serving and fair share at the same width, on phase 3's model,
+   geometry and trace (``phase_lora``): an ``AdapterStore(slots=2,
+   max_rank=16)`` with three adapters of ranks 8, 16 and 16 over the
+   four attention projections, the 8 requests on the base model (the
+   two that share a prefix) and two on each adapter, in two tenants
+   weighted 2:1; the LoRA engine and phase 3's depth-1 engine in turns,
+   twice each: (a) base rows equal phase 3's tokens, (b) adapter rows
+   equal a fresh 1-slot engine over ``merged_adapter`` weights up to the
+   first non-decisive position, (c) phase 3's launch formula, (d)
+   ``serving.lora.gathers`` equals the dispatches that carried an adapter
+   row, (e) a clean store audit and byte-equal slot rows after a
+   demotion and swap-in, (f) the admission order of a CPU replay of the
+   trace; tokens/s, TTFT, the decode step against busy and the idle
+   share, the delta's device ms per step by group, the lora-on graph's
+   capture ms, each swap-in's ms and GB/s, peak memory; then one engine
+   with int8 KV, int8 weights, ``async_depth=2`` and a ``ModelDrafter``
+   holding a greedy spec adapter row and a sampled adapter row;
 4. exactness: a 4-layer float32 model at the same width serves a mixed
    trace through a 2-slot engine, and every request must be token-exact
    against the same trace through the lockstep arm and against the same
@@ -219,6 +236,13 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    B=8) equal on every row whose CPU run keeps each K-th / (K+1)-th
    candidate gap and its pick's best-vs-second gap above
    ``BEAM_MARGIN`` (1e-3), at least one row such;
+4j. LoRA exactness: phase 4's model on the card and, from the same
+   state dict, on the CPU serves the CPU test's LoRA trace (two
+   concurrent adapters, a base row in the same dispatches, a demotion and
+   swap-in, slot reuse with a changed adapter, a spec row): tokens equal
+   up to each row's first position whose CPU teacher-forced top-2
+   margin is <= 0.01, the ``stats()`` LoRA and tenant keys, the swap-ins
+   and every arena row equal;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -271,6 +295,7 @@ last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -1593,7 +1618,8 @@ def _build_8b(torch, n_layers, dtype, seed):
     return cfg, model
 
 
-def _serve_trace(torch, eng, cfg, seed, check_hits=True, streams=None):
+def _serve_trace(torch, eng, cfg, seed, check_hits=True, streams=None,
+                 assign=None):
     """The serving trace of phases 3, 3b and 3g, from ``seed``: 7 requests
     of 64-512 prompt tokens, then (once the first has finished its
     prefill) an 8th sharing its 256-token prefix (16 full blocks).  The
@@ -1607,7 +1633,10 @@ def _serve_trace(torch, eng, cfg, seed, check_hits=True, streams=None):
     with ``stream=True`` and the engine is stepped by hand: after each
     step every stream is read, and ``streams`` receives, per step, the
     tokens each stream flushed and the harvest points the step had
-    (first tokens, deferred harvests and forced syncs)."""
+    (first tokens, deferred harvests and forced syncs).
+
+    ``assign`` (phase 3j) gives each request, in submission order, extra
+    ``submit`` keywords (its ``adapter`` and ``tenant``)."""
     import numpy as np
     from paddle_tpu_torch.ops import KERNELS
     rng = np.random.default_rng(seed)
@@ -1637,8 +1666,12 @@ def _serve_trace(torch, eng, cfg, seed, check_hits=True, streams=None):
         streams.append(([s.read().tolist() for s in handles],
                         harvests() - h0))
 
+    made = [0]
+
     def submit(ids, m):
-        r = eng.submit(ids, max_new_tokens=m, stream=stream)
+        extra = assign[made[0]] if assign else {}
+        made[0] += 1
+        r = eng.submit(ids, max_new_tokens=m, stream=stream, **extra)
         if stream:
             handles.append(r)
             return r.request
@@ -3511,7 +3544,8 @@ def _sampler_ms(per_kernel, steps):
             for tag, keys in SAMPLER_KERNELS.items()}
 
 
-def _profile_decode(torch, eng, rng, vocab, steps=8, sampling=None):
+def _profile_decode(torch, eng, rng, vocab, steps=8, sampling=None,
+                    adapters=None):
     """Where a decode step's time goes: 8 fresh 64-token requests fill
     the slots (``sampling``, if given, returns their per-request
     configurations); once all are prefilled, ``steps`` decode steps run
@@ -3521,16 +3555,20 @@ def _profile_decode(torch, eng, rng, vocab, steps=8, sampling=None):
     take most of it).  Budgets keep every slot decoding through both
     windows.  A step is one scanned decode step: at ``async_depth`` >= 2
     one ``step()`` may dispatch a fused window of several, so the windows
-    are divided by the decode steps they ran.  Returns ``{"wall_ms",
-    "busy_ms", "union_ms", "idle", "groups"}`` per decode step (``groups``:
-    ``_sampler_ms``), or None when the profiler saw no kernel."""
+    are divided by the decode steps they ran.  ``adapters`` (phase 3j)
+    names each slot's LoRA adapter (None: the base model).  Returns
+    ``{"wall_ms", "busy_ms", "union_ms", "idle", "groups", "per_kernel",
+    "steps"}`` per decode step (``groups``: ``_sampler_ms``;
+    ``per_kernel``: the window's us by kernel name over ``steps``), or
+    None when the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
     depth = getattr(eng, "async_depth", 1)
     mix = sampling() if sampling is not None else [None] * eng.num_slots
+    names = adapters or [None] * eng.num_slots
     reqs = [eng.submit(rng.integers(0, vocab, 64).astype("int32"),
                        max_new_tokens=eng.num_slots + 2 * steps * depth + 4,
-                       sampling=sp)
-            for sp in mix]
+                       sampling=sp, adapter=a)
+            for sp, a in zip(mix, names)]
     while any(r.state in ("queued", "prefill") for r in reqs):
         eng.step()
     torch.cuda.synchronize()
@@ -3586,7 +3624,8 @@ def _profile_decode(torch, eng, rng, vocab, steps=8, sampling=None):
     _log_decode_kernels(per_kernel, steps)
     return {"wall_ms": wall * 1e3, "busy_ms": busy, "union_ms": union,
             "idle": 1 - union / (wall_prof * 1e3),
-            "groups": _sampler_ms(per_kernel, steps)}
+            "groups": _sampler_ms(per_kernel, steps),
+            "per_kernel": per_kernel, "steps": steps}
 
 
 def _profile_prefill_chunk(torch, eng, rng, vocab):
@@ -4197,25 +4236,41 @@ QUANT_LOGIT_ATOL = 2e-3
 
 
 def _teacher_forced(torch, model, wq, prompt, forced, device, block_len=16,
-                    kv_dtype=None):
+                    kv_dtype=None, lora=None, verify_width=None):
     """Logits of ``model`` over paged arenas (int8 unless ``kv_dtype``
-    says otherwise) under the weight context ``wq``: the prompt as one
-    chunk, then one decode step per token of ``forced``.  Returns
-    [1 + len(forced), vocab] float32 on the CPU."""
+    says otherwise) under the weight context ``wq`` (and, with ``lora``
+    planes of one row, its adapter's gathered delta): the prompt as one
+    chunk, then one decode step per token of ``forced`` (or, with
+    ``verify_width`` w, one verify forward per w tokens of ``forced``, the
+    speculative path).  Returns [1 + len(forced), vocab] float32 on the
+    CPU."""
     from paddle_tpu_torch.models.generation import init_paged_kv_arena
+    from paddle_tpu_torch.models.lora import gather_lora, lora_context
     from paddle_tpu_torch.models.wquant import wquant_context
     nl, hkv, d = model.kv_cache_spec()
     n = len(prompt)
-    mb = -(-(n + len(forced)) // block_len)
+    mb = -(-(n + len(forced) + (verify_width or 0)) // block_len)
     tables = torch.arange(mb, dtype=torch.int32, device=device)[None, :]
     kvs = [tuple(e) + (tables,) for e in init_paged_kv_arena(
         nl, mb, block_len, hkv, d, kv_dtype or torch.int8, device)]
     rows = []
-    with torch.no_grad(), wquant_context(wq):
+    with torch.no_grad(), wquant_context(wq), lora_context(
+            None if lora is None else gather_lora(lora)):
         lg, kvs = model.prefill_chunk(
             torch.from_numpy(prompt[None, :]).to(device), 0, n, kvs)
         rows.append(lg[0].float().cpu())
-        for t, tok in enumerate(forced):
+        w = verify_width or 0
+        for i in range(0, len(forced) if w else 0, max(w, 1)):
+            chunk = [int(t) for t in forced[i:i + w]]
+            toks = torch.zeros((1, w), dtype=torch.int32, device=device)
+            toks[0, :len(chunk)] = torch.tensor(chunk, dtype=torch.int32)
+            lg, kvs = model.verify_step(
+                toks, torch.tensor([n + i], dtype=torch.int32,
+                                   device=device),
+                torch.tensor([len(chunk)], dtype=torch.int32,
+                             device=device), kvs)
+            rows += [r.float().cpu() for r in lg[0, :len(chunk)]]
+        for t, tok in enumerate(forced if not w else ()):
             lg, kvs = model.decode_step(
                 torch.tensor([int(tok)], dtype=torch.int32, device=device),
                 torch.tensor([n + t], dtype=torch.int32, device=device), kvs)
@@ -6171,6 +6226,557 @@ def phase_fleet(torch, seed, cfg, model, serve_tokens=None):
 BEAM_MARGIN = 1e-3
 
 
+# ---- phase 3j: LoRA serving and fair share at 8B width ----
+
+# three adapters over two arena slots (at least one demotion and swap-in)
+LORA_ADAPTERS = (("chat_a", 8), ("chat_b", 16), ("batch_c", 16))
+# N(0, LORA_SCALE) A and B: at 8B width a rank-r delta moves a projection's
+# output by about 64 sqrt(r) LORA_SCALE^2 of the base output's scale
+# (0.29 at r = 8, 0.41 at r = 16): tokens change, logits stay finite
+LORA_SCALE = 0.04
+# phase 3's 8 requests in submission order, (adapter, tenant): the 8th
+# shares the first's 256-token prefix, so both stay on the base model
+# (the prefix cache keys blocks by tokens alone, in the JAX package too)
+LORA_ASSIGN = ((None, "chat"), ("chat_a", "chat"), ("chat_a", "chat"),
+               ("chat_b", "chat"), ("chat_b", "chat"),
+               ("batch_c", "batch"), ("batch_c", "batch"), (None, "chat"))
+LORA_WEIGHTS = {"chat": 2.0, "batch": 1.0}
+# the decode profile's 8 slots: two adapters and base rows
+LORA_PROFILE = ("chat_a", "chat_b", None, "chat_a", "chat_b", None,
+                "chat_a", "chat_b")
+# the composed engine's spec row rides a weak fourth adapter (name, rank,
+# scale: a delta about 0.02 of the base output's scale), so the base
+# model's drafts are often accepted
+LORA_SPEC_ADAPTER = ("spec_d", 8, 0.01)
+# a bf16 position is decisive when its top-2 margin is above 0.01 and
+# above twice the measured logit gap between the two paths compared, or,
+# where no gap is measured, above BF16_ULPS ulps of the top logit
+BF16_ULPS = 4
+
+
+def _lora_store(torch, model, seed, registry=None, device=None):
+    """Phase 3j's ``AdapterStore(slots=2, max_rank=16)`` at the model's
+    dtype with the three adapters of ``LORA_ADAPTERS`` registered."""
+    from paddle_tpu_torch.device import dtype_name
+    from paddle_tpu_torch.inference import AdapterStore, LoraAdapter
+    dt = dtype_name(next(model.parameters()).dtype)
+    store = AdapterStore(model, slots=2, max_rank=16, dtype=dt,
+                         registry=registry, device=device)
+    ads = {}
+    for i, (name, rank) in enumerate(LORA_ADAPTERS):
+        ads[name] = LoraAdapter.random(model.config, name, rank=rank,
+                                       seed=seed + 100 + i, scale=LORA_SCALE)
+        store.register(ads[name])
+    return store, ads
+
+
+def _adapter_swap_watch(torch, store, log):
+    """Time every adapter swap-in of ``store`` (its in-place uploads from
+    pinned memory) between two device syncs into ``log`` as (name, bytes,
+    s).  The wrapper holds the store weakly."""
+    import weakref
+    me, cls = weakref.ref(store), type(store)
+
+    def timed_upload(a, slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cls._upload(me(), a, slot)
+        torch.cuda.synchronize()
+        log.append((a.name, a.nbytes, time.perf_counter() - t0))
+    store._upload = timed_upload
+
+
+def _lora_dispatch_watch(eng, log):
+    """Record, for every dispatch of ``eng``, whether a riding row carried
+    an adapter (read from the rows ``_build_lora`` is given)."""
+    import weakref
+    me, cls = weakref.ref(eng), type(eng)
+
+    def watched(reqs):
+        log.append(any(r is not None and r.adapter is not None
+                       for r in reqs))
+        return cls._build_lora(me(), reqs)
+    eng._build_lora = watched
+
+
+def _decisive(torch, lg, gap=None, tol=0.01):
+    """Per position of teacher-forced logits ``lg`` [T, V]: the top-2
+    margin is above ``tol`` and above twice ``gap`` [T], the largest
+    logit difference measured there between the two paths compared (no
+    perturbation that small can move the argmax); without a measured
+    gap, above ``BF16_ULPS`` bf16 ulps of the top logit."""
+    import numpy as np
+    top2 = lg.topk(2, dim=-1).values.numpy()
+    margin = top2[:, 0] - top2[:, 1]
+    if gap is not None:
+        return margin > np.maximum(tol, 2 * gap)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(top2[:, 0]), 1e-30)))
+                  - 7)
+    return margin > np.maximum(tol, BF16_ULPS * ulp)
+
+
+def _hold_upto(tag, got, want, decisive):
+    """``got`` equals ``want`` up to the first non-decisive position;
+    returns how many positions were compared."""
+    import numpy as np
+    bad = np.flatnonzero(~decisive)
+    upto = int(bad[0]) if bad.size else len(want)
+    if not np.array_equal(np.asarray(got)[:upto], np.asarray(want)[:upto]):
+        raise AssertionError(f"{tag}: tokens {list(got)} != {list(want)} "
+                             f"before the first non-decisive position "
+                             f"{upto}")
+    return upto
+
+
+def _row_planes(torch, store, name):
+    """One row's adapter planes: ``name`` acquired (pinned) in ``store``;
+    release it after use."""
+    slot = store.acquire(name)
+    return dict(store.arena_planes(), ids=torch.tensor(
+        [slot], dtype=torch.int32, device=store.device))
+
+
+def _lora_delta_groups(lora, base):
+    """The LoRA decode step's device time beyond the base step's, ms per
+    step by kernel group (gathers: the index_select kernels; elementwise:
+    the adds; the rest: the batched products): each kernel name's us per
+    step in the LoRA window less the base window's, where positive."""
+    out = {"gather": 0.0, "gemm": 0.0, "elementwise": 0.0}
+    for name, us in lora["per_kernel"].items():
+        d = us / lora["steps"] - base["per_kernel"].get(name, 0.0) \
+            / base["steps"]
+        if d <= 0:
+            continue
+        low = name.lower()
+        g = ("gather" if "index" in low else
+             "elementwise" if "elementwise" in low else "gemm")
+        out[g] += d / 1e3
+    return out
+
+
+def _lora_cpu_admissions(torch, seed, cfg):
+    """Phase 3j's trace, tenants and adapters on the CPU through a 1-layer
+    float32 model of the same vocabulary and the card engine's geometry
+    (scheduling does not read the tokens: no EOS): the admission order
+    the deficit-weighted round-robin gives."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import FlightRecorder, MetricsRegistry
+    tiny = LlamaConfig(vocab_size=cfg.vocab_size, hidden_size=64,
+                       intermediate_size=128, num_hidden_layers=1,
+                       num_attention_heads=4, num_key_value_heads=2)
+    model = LlamaForCausalLM(tiny, device="cpu", seed=seed)
+    reg, fr = MetricsRegistry(), FlightRecorder()
+    store, _ads = _lora_store(torch, model, seed, reg, device="cpu")
+    eng = ServingEngine(model, adapter_store=store,
+                        tenant_weights=LORA_WEIGHTS, registry=reg,
+                        flight_recorder=fr, device="cpu",
+                        **dict(FLEET, compute_dtype="float32"))
+    _l, st, _w, _n, _t, _r, _reqs = _serve_trace(
+        torch, eng, tiny, seed,
+        assign=[dict(adapter=a, tenant=t) for a, t in LORA_ASSIGN])
+    return ([e.request for e in fr.events() if e.kind == "admit"],
+            st["fair_reorders"], st["tenant_served_tokens"])
+
+
+def _forward_logits(torch, model, prompt, out, lora=None):
+    """Teacher-forced logits of one causal forward of ``model`` over
+    ``prompt`` then ``out[:-1]`` (with ``lora`` planes of one row, its
+    adapter's gathered delta): the [len(out), vocab] float32 rows that
+    predict ``out``, on the CPU."""
+    import numpy as np
+    from paddle_tpu_torch.models.lora import gather_lora, lora_context
+    dev = next(model.parameters()).device
+    ids = np.concatenate([prompt, np.asarray(out[:-1], np.int32)])
+    with torch.no_grad(), lora_context(
+            None if lora is None else gather_lora(lora)):
+        lg = model(torch.from_numpy(ids[None]).to(dev))[0]
+    return lg[len(prompt) - 1:].float().cpu()
+
+
+def _lora_oracles(torch, model, ads, reqs, store):
+    """Check (b): each adapter row of ``reqs`` against a fresh 1-slot
+    engine without a store that runs the request alone over
+    ``merged_adapter`` weights, up to the first non-decisive position
+    (``_decisive`` of the merged model's teacher-forced logits along the
+    oracle's tokens, one causal forward each, the gap being the logit gap
+    to the gathered path through ``store`` there).  Returns (compared,
+    total, largest gap)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.lora import merged_adapter
+    from paddle_tpu_torch.observability import MetricsRegistry
+    compared = total = 0
+    worst = 0.0
+    for name, ad in ads.items():
+        rows = [r for r, (a, _t) in zip(reqs, LORA_ASSIGN) if a == name]
+        with merged_adapter(model, ad):
+            one = ServingEngine(model, registry=MetricsRegistry(),
+                                **dict(FLEET, num_slots=1))
+            alone = []
+            for r in rows:
+                o = one.submit(r.prompt[:r.seq_len],
+                               max_new_tokens=r.max_new_tokens)
+                one.run()
+                alone.append(o.output)
+            del one
+            merged = [_forward_logits(torch, model, r.prompt[:r.seq_len], o)
+                      for r, o in zip(rows, alone)]
+        planes = _row_planes(torch, store, name)
+        try:
+            for r, o, lg in zip(rows, alone, merged):
+                lg_g = _forward_logits(torch, model, r.prompt[:r.seq_len],
+                                       o, lora=planes)
+                gap = (lg - lg_g).abs().amax(dim=-1).numpy()
+                worst = max(worst, float(gap.max()))
+                compared += _hold_upto(
+                    f"lora (b) request {r.request_id} ({name})", r.output, o,
+                    _decisive(torch, lg, gap))
+                total += len(o)
+        finally:
+            store.release(name)
+    return compared, total, worst
+
+
+def _lora_composed(torch, seed, cfg, model, ads_seed):
+    """The composed engine of phase 3j: int8 KV, int8 weights,
+    ``async_depth=2``, a ``ModelDrafter`` over the (base) target; a greedy
+    spec row on ``LORA_SPEC_ADAPTER`` (a weak adapter, so the base
+    drafter's drafts are often accepted) and a sampled row on
+    ``batch_c``.  Every request finishes with the spec launch formula and
+    acceptance above 0; the greedy spec row equals the same engine's
+    non-spec run of it up to the first non-decisive position, the gap
+    measured between the engine's decode and verify paths teacher-forced
+    along the non-spec tokens (int8 planes, the row's adapter).  Returns
+    the launches."""
+    import numpy as np
+    from paddle_tpu_torch.inference import (LoraAdapter, ModelDrafter,
+                                            ServingEngine)
+    from paddle_tpu_torch.inference.sampling import SamplingParams
+    from paddle_tpu_torch.ops import KERNELS
+    nl = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    store, _ads = _lora_store(torch, model, ads_seed)
+    spec_name, rank, scale = LORA_SPEC_ADAPTER
+    store.register(LoraAdapter.random(cfg, spec_name, rank=rank,
+                                      seed=ads_seed + 110, scale=scale))
+    eng = ServingEngine(model, adapter_store=store, kv_cache_dtype="int8",
+                        weight_dtype="int8", async_depth=2,
+                        tenant_weights=LORA_WEIGHTS,
+                        drafter=ModelDrafter(model, max_context=SPEC[
+                            "max_context"], max_draft=SPEC["k"],
+                            compute_dtype="bfloat16"), **FLEET)
+    rng = np.random.default_rng(seed + 31)
+    p_spec = rng.integers(0, cfg.vocab_size, 200).astype(np.int32)
+    p_samp = rng.integers(0, cfg.vocab_size, 150).astype(np.int32)
+    _zero_launches()
+    t0 = time.perf_counter()
+    r_spec = eng.submit(p_spec, max_new_tokens=24, spec_decode=SPEC["k"],
+                        adapter=spec_name, tenant="chat")
+    r_samp = eng.submit(p_samp, max_new_tokens=24, adapter="batch_c",
+                        tenant="batch", sampling=SamplingParams(
+                            temperature=0.8, top_k=50, top_p=0.9,
+                            seed=seed + 7))
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    _check_launches(launches, _spec_launches(nl, st, nl, quant=True), st)
+    _finished_in_vocab([r_spec, r_samp], [24, 24], cfg.vocab_size,
+                       "lora composed")
+    if not (st["spec_accepted_tokens"] > 0 and st["lora_dispatches"]):
+        raise AssertionError(f"lora composed: no accepted draft or no "
+                             f"adapter dispatch: {st}")
+    r_plain = eng.submit(p_spec, max_new_tokens=24, adapter=spec_name,
+                         tenant="chat")
+    eng.run()
+    planes = _row_planes(torch, store, spec_name)
+    try:
+        lg = _teacher_forced(torch, model, eng._wq_ctx, p_spec,
+                             r_plain.output[:-1], store.device,
+                             kv_dtype=torch.int8, lora=planes)
+        lg_v = _teacher_forced(torch, model, eng._wq_ctx, p_spec,
+                               r_plain.output[:-1], store.device,
+                               kv_dtype=torch.int8, lora=planes,
+                               verify_width=SPEC["k"] + 1)
+    finally:
+        store.release(spec_name)
+    gap = (lg - lg_v).abs().amax(dim=-1).numpy()
+    upto = _hold_upto("lora composed: spec row vs its non-spec run",
+                      r_spec.output, r_plain.output,
+                      _decisive(torch, lg, gap))
+    store.check()
+    _log(f"lora composed (int8 KV + int8 weights, async_depth=2, spec "
+         f"{SPEC['k']} with a ModelDrafter over the target): 2 adapter rows "
+         f"(greedy spec on {spec_name}, sampled) finished in {wall:.3f} s; "
+         f"acceptance "
+         f"{st['spec_acceptance_rate']:.3f} over "
+         f"{st['spec_verify_steps']} verifies; lora dispatches "
+         f"{st['lora_dispatches']}; the spec row equals its non-spec run "
+         f"over {upto} of {len(r_plain.output)} positions (decisive; "
+         f"largest decode-vs-verify logit gap {gap.max():.4f}); "
+         f"launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lora(torch, seed, cfg, model, serve_tokens):
+    """Phase 3j: multi-tenant LoRA serving and fair share at full
+    Llama-3-8B width, on phase 3's model, geometry and trace.  An
+    ``AdapterStore(slots=2, max_rank=16)`` holds three adapters
+    (``LORA_ADAPTERS``, ranks 8, 16, 16 over the four attention
+    projections, ``LORA_SCALE``); phase 3's 8 requests ride them as
+    ``LORA_ASSIGN`` says, in two tenants weighted ``LORA_WEIGHTS``.  The
+    LoRA engine and phase 3's depth-1 engine run in turns (LoRA, base,
+    base, LoRA).  Checks: (a) base rows equal phase 3's tokens (and the
+    base arm all of them); (b) each adapter row equals a fresh 1-slot
+    engine over merged weights up to the first non-decisive position;
+    (c) phase 3's launch formula (the delta launches no port kernel);
+    (d) ``serving.lora.gathers`` equals the dispatches that carried an
+    adapter row; (e) after the drain the store audit is clean and every
+    resident slot's rows are byte-equal to its registration parcel, after
+    at least one demotion and swap-in; (f) the admission order equals the
+    CPU replay's (``_lora_cpu_admissions``).  Each run logs tokens/s,
+    TTFT, peak memory and each swap-in's ms and GB/s; each arm's first
+    run a decode window (wall against busy, idle share) and the LoRA run
+    the delta's device ms per step by group and the lora-on graph's
+    capture ms.  Then the composed engine (``_lora_composed``).  Returns
+    the launch counts of the LoRA runs and the composed engine."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.lora import LORA_TARGETS
+    from paddle_tpu_torch.observability import FlightRecorder, MetricsRegistry
+    nl = cfg.num_hidden_layers
+    assign = [dict(adapter=a, tenant=t) for a, t in LORA_ASSIGN]
+    t_phase = time.perf_counter()
+    cpu_order, cpu_reorders, cpu_served = _lora_cpu_admissions(torch, seed,
+                                                               cfg)
+    _log(f"lora (f): the CPU replay admits {cpu_order} in "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    total, profs, checked = {}, {}, False
+    for turn, arm in enumerate(("lora", "base", "base", "lora")):
+        # earlier phases' engines may still wait for the cyclic collector:
+        # the peak of each run is its own
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        swaps, rides = [], []
+        if arm == "lora":
+            reg, fr = MetricsRegistry(), FlightRecorder()
+            store, ads = _lora_store(torch, model, seed, reg)
+            _adapter_swap_watch(torch, store, swaps)
+            eng = ServingEngine(model, adapter_store=store,
+                                tenant_weights=LORA_WEIGHTS, registry=reg,
+                                flight_recorder=fr, **FLEET)
+            _lora_dispatch_watch(eng, rides)
+        else:
+            eng = ServingEngine(model, **FLEET)
+        launches, st, wall, n_req, n_tok, rng, reqs = _serve_trace(
+            torch, eng, cfg, seed, assign=assign if arm == "lora" else None)
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches(launches, _serving_launches(nl, st, False), st)
+        outs = [r.output.tolist() for r in reqs]
+        extra = ""
+        if arm == "base":
+            if outs != serve_tokens:
+                raise AssertionError("lora: the base arm's tokens differ "
+                                     "from phase 3's")
+        else:
+            _add_launches(total, launches)
+            # (a) base rows
+            base_rows = [i for i, (a, _t) in enumerate(LORA_ASSIGN)
+                         if a is None]
+            for i in base_rows:
+                if outs[i] != serve_tokens[i]:
+                    r = reqs[i]
+                    lg = _teacher_forced(
+                        torch, model, None, r.prompt[:r.seq_len],
+                        np.asarray(serve_tokens[i][:-1]), store.device,
+                        kv_dtype=torch.bfloat16)
+                    n = _hold_upto(f"lora (a) request {i}", outs[i],
+                                   serve_tokens[i], _decisive(torch, lg))
+                    _log(f"lora (a): base request {i} equals phase 3 over "
+                         f"{n} of {len(outs[i])} positions (decisive)")
+            changed = sum(outs[i] != serve_tokens[i]
+                          for i in range(len(outs)) if i not in base_rows)
+            if not changed:
+                raise AssertionError("lora: no adapter changed a token")
+            # (d) gathers against the dispatches that carried an adapter
+            gathers = reg.get("serving.lora.gathers").value()
+            if not gathers == sum(rides) == st["lora_dispatches"] > 0:
+                raise AssertionError(
+                    f"lora (d): gathers {gathers} != adapter dispatches "
+                    f"{sum(rides)} of {len(rides)} (stats "
+                    f"{st['lora_dispatches']})")
+            # (e) the store after the drain
+            store.check()
+            if len(swaps) < len(LORA_ADAPTERS):
+                raise AssertionError(f"lora (e): {len(swaps)} swap-ins, "
+                                     f"no demotion")
+            for name in store.hbm_resident():
+                a = store.state(name)
+                for t in LORA_TARGETS:
+                    got = store.arena_row(t, a.slot)
+                    if any(g.tobytes() != w.tobytes()
+                           for g, w in zip(got, a.rows[t])):
+                        raise AssertionError(
+                            f"lora (e): adapter {name}'s slot {a.slot} "
+                            f"rows of {t} differ from its parcel")
+            # (f) admission order
+            order = [e.request for e in fr.events() if e.kind == "admit"]
+            if (order, st["fair_reorders"], st["tenant_served_tokens"]) != \
+                    (cpu_order, cpu_reorders, cpu_served):
+                raise AssertionError(
+                    f"lora (f): admissions {order} (reorders "
+                    f"{st['fair_reorders']}) != the CPU's {cpu_order} "
+                    f"({cpu_reorders})")
+            cap = [round(p.prog.capture_s * 1e3, 1)
+                   for k, p in eng._blocks.items() if k[2]
+                   and hasattr(p, "prog")]
+            swap_txt = "; ".join(
+                f"{n} {b / 2 ** 20:.1f} MiB {s_ * 1e3:.3f} ms = "
+                f"{b / s_ / 1e9:.2f} GB/s" for n, b, s_ in swaps)
+            extra = (f"lora dispatches {st['lora_dispatches']} of "
+                     f"{len(rides)}; admissions {order} (reorders "
+                     f"{st['fair_reorders']}, served "
+                     f"{st['tenant_served_tokens']}); lora-on graph "
+                     f"capture {cap} ms; swap-ins {swap_txt}; ")
+            if not checked:
+                t_b = time.perf_counter()
+                comp, tot, worst = _lora_oracles(torch, model, ads, reqs,
+                                                 store)
+                _log(f"lora (b): adapter rows equal their merged-weights "
+                     f"1-slot runs over {comp} of {tot} positions "
+                     f"(decisive; largest merged-vs-gathered logit gap "
+                     f"{worst:.4f}) in {time.perf_counter() - t_b:.1f} s")
+                checked = True
+        _log_serving(f"lora [{arm}, turn {turn + 1}]", n_req, n_tok, wall,
+                     st, launches, extra + f"peak memory "
+                     f"{peak / 2 ** 30:.2f} GiB; ")
+        if arm not in profs:
+            profs[arm] = _profile_decode(
+                torch, eng, rng, cfg.vocab_size,
+                adapters=list(LORA_PROFILE) if arm == "lora" else None)
+        del eng
+    if profs["lora"] is not None and profs["base"] is not None:
+        groups = _lora_delta_groups(profs["lora"], profs["base"])
+        _log(f"lora: decode step {profs['lora']['wall_ms']:.3f} ms (busy "
+             f"{profs['lora']['busy_ms']:.3f}, idle "
+             f"{100 * profs['lora']['idle']:.1f}%) against the base "
+             f"{profs['base']['wall_ms']:.3f} ms (busy "
+             f"{profs['base']['busy_ms']:.3f}, idle "
+             f"{100 * profs['base']['idle']:.1f}%); the delta's device ms "
+             f"per step by group: " + ", ".join(
+                 f"{k} {v:.3f}" for k, v in groups.items())
+             + f" = {sum(groups.values()):.3f}")
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    _add_launches(total, _lora_composed(torch, seed, cfg, model, seed))
+    _log(f"lora: the composed engine took {time.perf_counter() - t_c:.1f} s, "
+         f"phase 3j {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---- phase 4j: LoRA exactness, card against CPU ----
+
+# the CPU test's LoRA fixture (tests/test_torch_lora.py): (prompt seed,
+# length, new tokens, adapter, spec_decode)
+LORA_EXACT = ((10, 4, 6, "a", None), (11, 5, 6, "b", None),
+              (12, 4, 6, None, None), (13, 3, 5, "c", None),
+              (14, 4, 5, "a", None), (15, 6, 6, "b", 2))
+# the fixture's 0.2 at width 64, scaled to width 4096 (0.2 / 8)
+LORA_EXACT_SCALE = 0.025
+
+
+def _lora_exact_run(torch, cfg, model, device):
+    import numpy as np
+    from paddle_tpu_torch.inference import (AdapterStore, LoraAdapter,
+                                            ServingEngine)
+    from paddle_tpu_torch.models.lora import LORA_TARGETS
+    from paddle_tpu_torch.observability import MetricsRegistry
+    reg = MetricsRegistry()
+    store = AdapterStore(model, slots=2, max_rank=4, dtype="float32",
+                         registry=reg, device=device)
+    ads = {n: LoraAdapter.random(cfg, n, rank=3, seed=s,
+                                 scale=LORA_EXACT_SCALE)
+           for n, s in (("a", 7), ("b", 8), ("c", 9))}
+    for ad in ads.values():
+        store.register(ad)
+    eng = ServingEngine(model, num_slots=2, prompt_len=6, max_cache_len=32,
+                        steps_per_call=3, compute_dtype="float32",
+                        adapter_store=store, registry=reg, device=device)
+    reqs = []
+    for ps, n, m, a, k in LORA_EXACT:
+        ids = np.random.default_rng(ps).integers(
+            0, cfg.vocab_size, n).astype(np.int32)
+        reqs.append((ids, eng.submit(ids, max_new_tokens=m, adapter=a,
+                                     spec_decode=k,
+                                     tenant=None if a is None
+                                     else f"tenant_{a}")))
+    eng.run()
+    store.check()
+    st = eng.stats()
+    keys = ("tenant_served_tokens", "fair_reorders", "lora_dispatches",
+            "adapters_resident", "finished", "spec_verify_steps")
+    rows = {(t, s): tuple(x.tobytes() for x in store.arena_row(t, s))
+            for t in LORA_TARGETS for s in range(store.slots + 1)}
+    return ([(ids, r.output) for ids, r in reqs], {k: st[k] for k in keys},
+            rows, reg.get("serving.lora.swap_ins").value(), ads)
+
+
+def phase_lora_exactness(torch, seed):
+    """Phase 4j: phase 4's 4-layer float32 model at 8B width, TF32 off,
+    serves the CPU test's LoRA fixture (``LORA_EXACT``: two concurrent
+    adapters, a base row in the same dispatches, a demotion and swap-in,
+    slot reuse with a changed adapter, a spec row) on the card and, from
+    the same state dict, on the CPU: tokens equal up to each row's first
+    position whose CPU teacher-forced top-2 margin (its adapter merged)
+    is <= 0.01, and the ``stats()`` LoRA and tenant keys, the swap-ins and
+    every arena row equal.  Returns the card run's launches."""
+    from contextlib import nullcontext
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.lora import merged_adapter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, gpu = _build_8b(torch, 4, "float32", seed + 1)
+    cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    _zero_launches()
+    t0 = time.perf_counter()
+    card = _lora_exact_run(torch, cfg, gpu, None)
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    _launched("lora exactness", ("rms_norm", "paged_decode_attention"))
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    host = _lora_exact_run(torch, cfg, cpu, "cpu")
+    cwall = time.perf_counter() - t0
+    compared = total = 0
+    for (ids, got), (_ids, want), (_ps, _n, _m, a, _k) in zip(
+            card[0], host[0], LORA_EXACT):
+        with merged_adapter(cpu, host[4][a]) if a else nullcontext():
+            lg = _teacher_forced(torch, cpu, None, ids, want[:-1], "cpu",
+                                 kv_dtype=torch.float32)
+        top2 = lg.topk(2, dim=-1).values.numpy()
+        compared += _hold_upto(f"lora exactness ({a})", got, want,
+                               top2[:, 0] - top2[:, 1] > 0.01)
+        total += len(want)
+    if card[1:4] != host[1:4]:
+        raise AssertionError(f"lora exactness: card {card[1]} (swap-ins "
+                             f"{card[3]}) != CPU {host[1]} ({host[3]}), or "
+                             f"the arena rows differ")
+    _log(f"lora exactness: the CPU test's LoRA trace on the card "
+         f"({gwall:.2f} s) and the CPU ({cwall:.2f} s), 4 layers float32 "
+         f"at 8B width: tokens equal over {compared} of {total} positions "
+         f"(decisive), stats {card[1]}, {card[3]:.0f} swap-ins and every "
+         f"arena row equal; launches {launches}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _beam_gaps(torch, run):
     """Run ``run()`` (a CPU beam ``generate()``) recording, per batch row,
     the smallest gap between the K-th and (K+1)-th candidate scores of
@@ -6343,6 +6949,7 @@ def main(argv=None) -> int:
                                                      model)
     by_path["fleet"] = phase_fleet(torch, args.seed, cfg, model,
                                    serve_tokens)
+    by_path["lora"] = phase_lora(torch, args.seed, cfg, model, serve_tokens)
     del model
     torch.cuda.empty_cache()
     phase_exactness(torch, args.seed)
@@ -6352,6 +6959,7 @@ def main(argv=None) -> int:
     phase_observability_exactness(torch, args.seed)
     phase_sampled_exactness(torch, args.seed)
     phase_dense_exactness(torch, args.seed)
+    by_path["lora_exactness"] = phase_lora_exactness(torch, args.seed)
     by_path["training"] = phase_training(torch, args.seed, smi)
     cpu_full = phase_train_exactness(torch, args.seed)
     by_path["training_routes"] = phase_training_routes(torch, args.seed,

@@ -11,10 +11,13 @@ and the fleet layer above the engine: token streaming (``TokenStream``),
 the ``Router`` over N replicas with affinity, failover and prefill/decode
 disaggregation, the framed wire transport (``LoopbackTransport``,
 ``SocketTransport``, ``RemoteReplica``) and process replicas
-(``EngineHost``, ``EngineProcess``, ``TCPStoreLite``)."""
+(``EngineHost``, ``EngineProcess``, ``TCPStoreLite``); and multi-tenant
+batched LoRA serving (``AdapterStore``, ``LoraAdapter``) with fair-share
+admission over tenants."""
 
 from .faultinject import FaultInjector  # noqa: F401
 from .llm import LLMPredictor  # noqa: F401
+from .lora import AdapterStore, LoraAdapter  # noqa: F401
 from .prefixcache import HostTier, RadixPrefixCache  # noqa: F401
 from .sampling import (DfaTokenMask, SamplingParams,  # noqa: F401
                        TokenMaskProcessor)

@@ -21,16 +21,21 @@ The host-RAM tier's swap programs ``build_swap_out_gather`` (:471) and
 and an in-place ``index_put_``, no kernel.
 A weight-quant plan takes the place of ``_param_swapper``'s (:173)
 trailing code/scale values: the programs run the model inside
-``wquant_context(plan.context())``.
+``wquant_context(plan.context())``.  The ``lora=True`` variants of the
+chunk, decode-block and verify builders (:353, :518,
+``speculative.py:229``) are the same programs given a ``lora`` plane dict
+(``{"ids": [B] int32, "a"/"b": {target: arena}}``, ``models/lora.py``):
+they gather the per-row adapter stacks and run the model inside
+``lora_context``.
 
 Graphs: ``CapturedGraph`` is the one capture discipline of the port
 (warm-up and capture on a side stream, launches counted per replay).  On
 the card the engine's decode block is a ``DecodeBlockGraph`` (one per
-total step count and flag bucket, the counterpart of the JAX engine's
-compiled block program), ``generate()`` a ``GenerateGraph`` (one per
-program key, ``_generate_compiled`` :535 of ``models/generation.py``),
-and an ``LLMPredictor`` session two graphs; on the CPU all of them run
-eagerly.
+total step count, flag bucket and adapter variant, the counterpart of the
+JAX engine's compiled block program), ``generate()`` a ``GenerateGraph``
+(one per program key, ``_generate_compiled`` :535 of
+``models/generation.py``), and an ``LLMPredictor`` session two graphs; on
+the CPU all of them run eagerly.
 
 The dense serving session: ``LLMPredictor`` (:671) with its programs
 ``session_prefill`` and ``session_block`` over a ``SessionState``
@@ -55,6 +60,7 @@ import torch
 
 from ..device import to_dtype
 from ..models.generation import GenerationConfig, generate_program
+from ..models.lora import gather_lora, lora_context
 from ..models.wquant import WeightQuantContext, wquant_context
 from .sampling import (NO_FLAGS, decode_scan_step, sample_rows,
                        spec_greedy_rows, spec_sampling_draws)
@@ -180,15 +186,16 @@ def _flatten_paged_kvs(kvs) -> List[torch.Tensor]:
 def chunk_prefill(model, ids, start: int, n_valid: int, tables,
                   flat_arenas: Sequence[torch.Tensor],
                   wq: Optional[WeightQuantContext] = None, samp=None,
-                  flags=NO_FLAGS):
+                  flags=NO_FLAGS, lora=None):
     """ONE prompt chunk of ONE sequence: ids [1, C] at global positions
     ``start .. start+C-1``, K/V written through ``tables`` ([1,
     max_blocks]); ``n_valid`` is the prompt's true length; ``wq`` the
     weight-quant context or None; ``samp``/``flags`` the batch-1 sampling
-    planes of the request (at PRNG position 0).  Returns ``(tok [1]
-    int32, *flat_arenas)``: the token sampled at prompt position
-    ``n_valid - 1``, meaningful only on the chunk that covers it."""
-    with wquant_context(wq):
+    planes of the request (at PRNG position 0); ``lora`` the batch-1
+    adapter planes or None.  Returns ``(tok [1] int32, *flat_arenas)``:
+    the token sampled at prompt position ``n_valid - 1``, meaningful only
+    on the chunk that covers it."""
+    with wquant_context(wq), _lora_scope(lora):
         logits, kvs = model.prefill_chunk(
             ids, start, n_valid, _pack_paged_kvs(flat_arenas, tables))
     tok = sample_rows(logits, samp, flags,
@@ -201,17 +208,19 @@ def decode_block_carries(model, cfg: GenerationConfig, steps: int, tok, lens,
                          done, budget, tables,
                          flat_arenas: Sequence[torch.Tensor],
                          wq: Optional[WeightQuantContext] = None, samp=None,
-                         flags=NO_FLAGS):
+                         flags=NO_FLAGS, lora=None):
     """``paged_decode_block``'s loop with its whole final carry: returns
     ``(toks [B, steps], tok', lens', done', budget', pos', presence')``
     (``pos'`` None without the sampled flag, ``presence'`` None without
-    the penalty flag); the arenas are written in place."""
+    the penalty flag); the arenas are written in place.  The adapter
+    stacks are gathered once, before the loop (the ids are
+    loop-invariant)."""
     pos = samp["pos"] if flags[0] else None
     presence = samp["presence"] if flags[2] else None
     carry = (tok, lens, _pack_paged_kvs(flat_arenas, tables), pos, presence,
              done, budget)
     toks = []
-    with wquant_context(wq):
+    with wquant_context(wq), _lora_scope(lora):
         for _ in range(int(steps)):
             carry, nxt = decode_scan_step(model, cfg, carry, samp, flags)
             toks.append(nxt)
@@ -224,16 +233,25 @@ def paged_decode_block(model, cfg: GenerationConfig, steps: int, tok, lens,
                        done, budget, tables,
                        flat_arenas: Sequence[torch.Tensor],
                        wq: Optional[WeightQuantContext] = None, samp=None,
-                       flags=NO_FLAGS):
+                       flags=NO_FLAGS, lora=None):
     """``steps`` decode steps over every slot row.  tok/lens/budget [B]
     int32, done [B] bool, tables [B, max_blocks] int32; ``wq`` the
     weight-quant context or None; ``samp``/``flags`` the sampling planes
-    and their flag bucket (all False: greedy, ``samp`` unused).  Returns
-    ``(toks [B, steps], tok', lens', done', budget', *flat_arenas)``."""
+    and their flag bucket (all False: greedy, ``samp`` unused); ``lora``
+    the adapter planes (``{"ids": [B] int32, "a", "b"}``; a row without an
+    adapter names the arenas' null row) or None.  Returns ``(toks [B,
+    steps], tok', lens', done', budget', *flat_arenas)``."""
     out = decode_block_carries(model, cfg, steps, tok, lens, done, budget,
                                tables, flat_arenas, wq=wq, samp=samp,
-                               flags=flags)
+                               flags=flags, lora=lora)
     return out[:5] + tuple(flat_arenas)
+
+
+def _lora_scope(planes):
+    """The adapter context of one program call: the per-row stacks
+    gathered from ``planes`` (inside the call, so a captured graph
+    records the gathers), or the no-op context without planes."""
+    return lora_context(None if planes is None else gather_lora(planes))
 
 
 def plane_buffers(flags, num_slots: int, vocab: int, device):
@@ -346,9 +364,9 @@ class DecodeBlockGraph:
     ``tok``/``lens``/``done``/``budget``/``tables`` buffers, the bucket's
     static sampling planes (``samp``, ``plane_buffers``) and the engine's
     own arenas: the counterpart of the JAX engine's compiled block
-    program (``_block_fn``), one per total step count and flag bucket, so
-    a fused depth-S window of S x n steps replays the same graph as a
-    plain block of S x n.
+    program (``_block_fn``), one per total step count, flag bucket and
+    adapter variant, so a fused depth-S window of S x n steps replays the
+    same graph as a plain block of S x n.
 
     The warm-up runs on inputs that route every write to the trash row
     (all rows done, all-trash tables, neutral planes).  A call copies its
@@ -362,12 +380,20 @@ class DecodeBlockGraph:
     graph again.  The arenas' addresses are baked in, so a call raises
     when an entry of ``flat_arenas`` (the engine's own list) no longer
     holds the captured tensor.  A capture or replay that fails raises;
-    nothing falls back to the eager block."""
+    nothing falls back to the eager block.
+
+    ``lora`` (an ``AdapterStore``'s ``arena_planes()``) captures the
+    adapter variant: a static ``ids [num_slots]`` int32 buffer (every row
+    at the null adapter for the warm-up) and the gathers of the store's
+    arenas inside the graph, so every replay re-gathers the rows the
+    arenas hold then (a swap-in writes its slot in place).  A call raises
+    when a store arena no longer holds the captured tensor either."""
 
     def __init__(self, model, cfg: GenerationConfig, steps: int,
                  num_slots: int, tables_width: int,
                  flat_arenas: Sequence[torch.Tensor],
-                 wq: Optional[WeightQuantContext] = None, flags=NO_FLAGS):
+                 wq: Optional[WeightQuantContext] = None, flags=NO_FLAGS,
+                 lora: Optional[dict] = None):
         dev = flat_arenas[0].device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA arenas, got {dev}")
@@ -385,12 +411,20 @@ class DecodeBlockGraph:
         self.samp = plane_buffers(self.flags, num_slots,
                                   int(model.config.vocab_size), dev)
         arenas = list(flat_arenas)
+        self.lora = lora
+        planes = None
+        if lora is not None:
+            null = next(iter(lora["a"].values())).shape[0] - 1
+            self.ids = torch.full((num_slots,), null, **i32)
+            self.lora_ptrs = self._lora_ptrs(lora)
+            planes = {"ids": self.ids, "a": dict(lora["a"]),
+                      "b": dict(lora["b"])}
 
         def block():
             return decode_block_carries(
                 model, cfg, self.steps, self.tok, self.lens, self.done,
                 self.budget, self.tables, arenas, wq=wq, samp=self.samp,
-                flags=self.flags)
+                flags=self.flags, lora=planes)
 
         self.prog = CapturedGraph(block, dev)
         out = self.prog.out
@@ -401,17 +435,36 @@ class DecodeBlockGraph:
     def replays(self) -> int:
         return self.prog.replays
 
-    def __call__(self, tok, lens, done, budget, tables, samp=None):
+    @staticmethod
+    def _lora_ptrs(lora: dict):
+        return [(half, t, arena.data_ptr())
+                for half in ("a", "b") for t, arena in sorted(
+                    lora[half].items())]
+
+    def __call__(self, tok, lens, done, budget, tables, samp=None,
+                 ids=None):
         """Copy the inputs in, replay, count; returns the static
-        outputs."""
+        outputs.  ``ids`` is the adapter variant's per-row slot ids."""
         if len(self.arenas) != len(self.arena_ptrs) or any(
                 a.data_ptr() != p
                 for a, p in zip(self.arenas, self.arena_ptrs)):
             raise RuntimeError(
                 f"decode block graph of {self.steps} steps: the arenas "
                 f"are not the ones it was captured over")
+        if (ids is None) != (self.lora is None):
+            raise ValueError(
+                f"decode block graph of {self.steps} steps was captured "
+                f"{'with' if self.lora is not None else 'without'} "
+                f"adapter planes")
         pairs = [(self.tok, tok), (self.lens, lens), (self.done, done),
                  (self.budget, budget), (self.tables, tables)]
+        if ids is not None:
+            if self._lora_ptrs(self.lora) != self.lora_ptrs:
+                raise RuntimeError(
+                    f"decode block graph of {self.steps} steps: the "
+                    f"adapter arenas are not the ones it was captured "
+                    f"over")
+            pairs.append((self.ids, ids))
         if samp is not None:
             if set(samp) != set(self.samp):
                 raise ValueError(
@@ -473,18 +526,19 @@ class GenerateGraph:
 def spec_verify(model, toks, lens, n_valid, tables,
                 flat_arenas: Sequence[torch.Tensor],
                 wq: Optional[WeightQuantContext] = None, samp=None,
-                flags=NO_FLAGS):
+                flags=NO_FLAGS, lora=None):
     """ONE speculative verify forward over every slot row: toks [B, C]
     int32 (each spec row's last emitted token, then its drafts, then
     pad), lens [B] int32 (global slot of column 0), n_valid [B] int32 (a
     row's real columns; 0 for rows not in spec mode, whose tables are
     all trash), tables [B, max_blocks] int32; ``wq`` the weight-quant
-    context or None; ``samp``/``flags`` the spec rows' sampling planes.
-    Returns ``(greedy [B, C] int32, *flat_arenas)`` (every position's
+    context or None; ``samp``/``flags`` the spec rows' sampling planes;
+    ``lora`` the adapter planes or None (each spec row's positions are
+    scored by its own adapter's distribution).  Returns ``(greedy [B, C] int32, *flat_arenas)`` (every position's
     argmax of the processed logits, the greedy acceptance path) or, with
     the sampled flag, ``(greedy, u, accept_p, resample, sample,
     *flat_arenas)`` (``sampling.spec_sampling_draws``)."""
-    with wquant_context(wq):
+    with wquant_context(wq), _lora_scope(lora):
         logits, kvs = model.verify_step(
             toks, lens, n_valid, _pack_paged_kvs(flat_arenas, tables))
     flat = tuple(_flatten_paged_kvs(kvs))

@@ -12,7 +12,10 @@ the engine half of the fleet layer: token streaming (``submit(
 stream=True)`` returns a ``TokenStream``), ``load_report()``,
 ``crash_reset()``, ``migrate_in()`` and the disaggregation role
 (``role="prefill"|"decode"``, the chunk-final handoff and
-``take_handoffs()``) that ``inference/router.py`` drives.
+``take_handoffs()``) that ``inference/router.py`` drives; and
+multi-tenant batched LoRA serving with fair-share admission
+(``adapter_store=``, ``tenant_weights=``, ``submit(adapter=,
+tenant=)``).
 
 Ported: ``AdmissionError`` (:254), ``TERMINAL_STATES`` (:343),
 ``_block_digests`` (:829), ``BlockPool`` (:859, the digest and the tree
@@ -53,8 +56,9 @@ dead-start check (:2332-2560), ``_build_samp`` (:3761, with ``pos_lag``
 for deferred dispatches), ``_count_sample_route`` (:3858),
 ``_mask_dead_end`` (:3873), the single-step clamp of mask rows and the
 ``mask``/``penalty`` forced syncs (:1990).  The observability half:
-``GOODPUT_REASONS`` (:308), ``_ServingInstruments`` (:386, without the
-fair-share instruments), ``_ledger`` (:1845), ``_slo_account`` (:1900),
+``GOODPUT_REASONS`` (:308), ``_ServingInstruments`` (:386, the
+fair-share instruments :745-790 included), ``_ledger`` (:1845),
+``_slo_account`` (:1900),
 every flight-recorder emit site and span, ``stats()`` as per-engine
 registry deltas (:4695), ``metrics_registry``, ``flight_recorder`` and
 ``explain()`` (:4984).  The fault half: ``EngineStalledError``,
@@ -62,7 +66,17 @@ registry deltas (:4695), ``metrics_registry``, ``flight_recorder`` and
 ``fault_injector=`` with ``_alloc`` (:1938), the poison hook of
 ``_checked_harvest`` (:2092), the swap-in failure of ``_reprobe_radix``
 (:3371), the step's fault block (:4353) and ``run(wall_timeout_s=)``
-with ``_stall_diagnosis`` (:4610).
+with ``_stall_diagnosis`` (:4610).  The LoRA and fair-share half: the
+store's checks (:1660-1690), ``submit(adapter=, tenant=)`` (:2379-2484)
+and ``migrate_in(adapter=, tenant=)`` (:2723-2746), the adapter pin at
+admission and resume (:3644-3738, :3255-3300) and its release at
+retirement, preemption and ``crash_reset`` (:1928-1933, :2888-2890),
+``_build_lora`` (:3830) and the ``lora`` program keys (:4052-4142),
+``_fair_norm``, ``_update_deficits`` and ``_charge_tenant``
+(:3494-3522), the reorder test of ``_admit`` (:3577-3616, :3731-3738),
+the ``stats()`` keys ``tenant_served_tokens``, ``fair_reorders``,
+``lora_dispatches`` and ``adapters_resident`` (:4866-4873),
+``load_report()["hbm_adapters"]`` and ``engine_spec()["adapters"]``.
 
 The defaults are the reference's: ``async_dispatch=True`` with
 ``async_depth=1``, ``prefix_cache_mode="radix"`` (with
@@ -76,7 +90,9 @@ its host-tier parcels hold the same bytes (a bf16 arena's as the
 ``uint16`` view of its bits, ``inference/prefixcache.py``).
 
 On the card the decode block runs as a captured CUDA graph, one per
-total step count and sampling flag bucket (``llm.DecodeBlockGraph``);
+total step count, sampling flag bucket and adapter variant
+(``llm.DecodeBlockGraph``; the adapter variant gathers from the store's
+arenas inside the graph, over a static ids buffer);
 host inputs reach the card from pinned memory (the ``[B, V]`` presence
 and bias planes through the engine's pinned staging, straight into the
 graph's static planes), and every device output the host reads (a decode
@@ -87,11 +103,9 @@ waits on.  On the CPU the block runs eagerly.
 
 Features not ported yet take only their off values and raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
-Known differences from the JAX engine: admission has no fair-share term
-(``tenant_weights`` is not ported, and on a single tenant the term is a
-constant), so the ``serving.fairshare.*`` instruments, ``submit(tenant=)``
-and the tenant keys of ``stats()`` are absent, and every ledger and SLO
-count carries ``tenant="default"``.
+Known differences from the JAX engine: an ``AdapterStore`` takes a
+``device`` and must live on the engine's (ROADMAP.md, "Known differences
+of LoRA and fair share").
 """
 
 from __future__ import annotations
@@ -222,8 +236,7 @@ class _ServingInstruments:
     private ``registry=`` for exact isolation; (2) disabling the
     registry freezes the counters, so ``stats()`` stops advancing too
     (the price of stats() being registry-derived).  The names, help
-    strings, labels and buckets are the JAX engine's; its fair-share
-    instruments are not registered here (no ``tenant_weights``)."""
+    strings, labels and buckets are the JAX engine's."""
 
     def __init__(self, registry):
         self.registry = registry
@@ -567,6 +580,28 @@ class _ServingInstruments:
             "class and submitting tenant; cancelled requests are a "
             "user action, not an SLO outcome, and count in neither",
             labels=("class", "tenant"))
+        self.fairshare_served = r.counter(
+            "serving.fairshare.served_tokens",
+            "tokens of service charged to each tenant at admission "
+            "(prompt + decode budget — the reservation the fair-share "
+            "layer accounts, charged when the request leaves the "
+            "queue) — the deficit-weighted round-robin's ledger",
+            labels=("tenant",))
+        self.fairshare_deficit = r.gauge(
+            "serving.fairshare.deficit",
+            "each tenant's fair-share deficit: the most-served "
+            "tenant's weight-normalized service minus this tenant's "
+            "(>= 0; the largest deficit admits next within a "
+            "scheduling class).  0 for every tenant on single-tenant "
+            "traces — the fair-share layer is then inert",
+            labels=("tenant",))
+        self.fairshare_reorders = r.counter(
+            "serving.fairshare.reorders",
+            "admissions where the deficit-weighted round-robin chose "
+            "a candidate that was NOT the FIFO head of the best "
+            "scheduling class — each one is a starvation the plain "
+            "priority/EDF/FIFO order would have inflicted on the "
+            "chosen tenant")
         self._base = {}
         for c in (self.prefills, self.prefill_chunks, self.decode_steps,
                   self.busy_slot_steps, self.block_dispatches,
@@ -589,7 +624,8 @@ class _ServingInstruments:
                   self.goodput_useful, self.goodput_wasted,
                   self.goodput_dispatched,
                   self.async_syncs, self.async_harvests,
-                  self.slo_attained, self.slo_missed):
+                  self.slo_attained, self.slo_missed,
+                  self.fairshare_served, self.fairshare_reorders):
             # total() sums label sets, so labeled counters (cancelled
             # by phase, shed by reason) baseline the same way the
             # unlabeled ones do
@@ -1033,7 +1069,9 @@ class Request:
     swap: Optional[_SwapRecord] = None
     preempt_count: int = 0
     spec_k: Optional[int] = None       # speculative mode: drafts/verify
-    tenant: str = "default"            # the ledger's and SLO's label
+    adapter: Optional[str] = None      # LoRA adapter name (None = base)
+    adapter_slot: Optional[int] = None  # pinned arena slot while admitted
+    tenant: str = "default"            # fair-share accounting bucket
     sampling: Optional[SamplingParams] = None  # None = plain greedy
     samp_base: Optional[np.ndarray] = None     # [2] u32 PRNG base key
     pf_pos: int = 0                    # next prompt position to compute
@@ -1221,24 +1259,16 @@ class ServingEngine:
                  async_dispatch=True, async_depth=1,
                  adapter_store=None, tenant_weights=None, mesh=None,
                  role="both", device: DeviceLike = None):
-        for value, off, what, item in (
-                (mesh, None, "mesh= (tensor-parallel serving)",
-                 "#10 Sharded serving"),
-                (adapter_store, None, "adapter_store= (LoRA serving)",
-                 "#7 LoRA and fair share"),
-                (tenant_weights, None, "tenant_weights= (fair share)",
-                 "#7 LoRA and fair share")):
-            if value != off:
-                _not_ported(what, item)
+        if mesh is not None:
+            _not_ported("mesh= (tensor-parallel serving)",
+                        "#10 Sharded serving")
         # disaggregation role: pure policy over the migration mechanism;
         # "both" keeps every trace byte-identical to a role-less engine
         self.role = str(role)
         if self.role not in ENGINE_ROLES:
             raise ValueError(
                 f"role must be one of {ENGINE_ROLES}, got {role!r}")
-        # the router reads these: no adapter store (LoRA is not ported)
-        # and no shard group (a single-device engine)
-        self._adapters = None
+        # the router reads this: no shard group (a single-device engine)
         self.shard_group = None
         self._fault = fault_injector
         # async_dispatch=False is the lockstep arm; async_depth=1 keeps
@@ -1328,6 +1358,43 @@ class ServingEngine:
                 f"compute_dtype ({dtype_name(cdt)}) is not ported yet: the "
                 f"paged decode kernel takes one dtype (ROADMAP.md, Queue 1: "
                 f"#11 LLMPredictor and the dense generate programs)")
+        # multi-tenant batched LoRA serving (inference/lora.py): the paged
+        # adapter store is engine-external (several engines may share
+        # one); submit(adapter=) names a registered variant, admission
+        # pins its arena slot, every dispatch with >= 1 adapter row runs
+        # the gathered-product variant.  The arenas must be at the
+        # compute dtype (the products contract against activations) and
+        # on the engine's device; checked before any weight is touched
+        if adapter_store is not None:
+            if adapter_store.dtype != cdt:
+                raise ValueError(
+                    f"adapter_store dtype {dtype_name(adapter_store.dtype)}"
+                    f" != engine compute_dtype {dtype_name(cdt)} — the "
+                    f"gathered LoRA einsums contract against activations "
+                    f"of the compute dtype")
+            if adapter_store.n_layers != n_layers:
+                raise ValueError(
+                    f"adapter_store holds {adapter_store.n_layers} "
+                    f"layers but the model has {n_layers}")
+            if adapter_store.device != self.device:
+                raise ValueError(
+                    f"adapter_store arenas live on "
+                    f"{adapter_store.device}, the engine on {self.device}")
+        self._adapters = adapter_store
+        # fair-share admission (deficit-weighted round-robin): per-tenant
+        # token-service accounting; a weight scales a tenant's share (2.0
+        # = entitled to twice a weight-1 tenant's service).  On a single
+        # tenant the fair term is a constant and scheduling is the plain
+        # priority/EDF/FIFO order
+        self._tenant_weights = {}
+        for t, w in dict(tenant_weights or {}).items():
+            w = float(w)
+            if w <= 0:
+                raise ValueError(
+                    f"tenant_weights[{t!r}] must be > 0, got {w}")
+            self._tenant_weights[str(t)] = w
+        self._tenant_served: dict = {}     # tenant -> tokens charged
+        self._lora_dispatches = 0          # gathered-product dispatches
         # the host tier's capacity is validated before any weight is
         # touched too
         cache_cap = (int(host_cache_blocks) if host_cache_blocks is not None
@@ -1437,10 +1504,10 @@ class ServingEngine:
         # from explicit step(now=) clocks
         self._last_now = None
         self._step_dt = 0.0
-        # decode-block programs keyed by total scanned steps, then by
-        # sampling flag bucket (the JAX engine's _block_fn cache keys
-        # (steps, flags, lora)): CUDA graphs on the card, the eager block
-        # on the CPU; and the pinned ring their outputs land in
+        # decode-block programs keyed (total scanned steps, sampling flag
+        # bucket, adapter variant), the JAX engine's _block_fn keys: CUDA
+        # graphs on the card, the eager block on the CPU; and the pinned
+        # ring their outputs land in
         self._blocks = {}
         self._graph_capture_s = 0.0
         self._ring: List[dict] = []
@@ -1453,7 +1520,7 @@ class ServingEngine:
         self._spec_k_max = 0           # engine-lifetime max spec_decode
         self._spec_fallback = set()    # this iteration's spec slots that
         #                                drafted nothing and ride the block
-        self._verify_fns = {}          # (width, flags) -> verifier
+        self._verify_fns = {}          # (width, flags, lora) -> verifier
 
     def _fresh_memory(self):
         """A new, empty memory system: block pool, host tier, radix tree,
@@ -1559,35 +1626,40 @@ class ServingEngine:
         the one sync an intended host read makes)."""
         return self._staging.to_host(tensors)
 
-    def _block_program(self, n: int, flags=NO_FLAGS):
+    def _block_program(self, n: int, flags=NO_FLAGS, lora_on: bool = False):
         """The decode-block program of ``n`` total scanned steps under the
-        sampling flag bucket ``flags``, built on first use:
-        ``program(tok, lens, done, budget, tables, samp=None) -> (toks,
-        tok', lens', done', budget')``.  On the card a
-        ``DecodeBlockGraph`` captured over this engine's arenas (the
-        capture's seconds go to ``decode_graphs``); on the CPU the eager
-        block."""
+        sampling flag bucket ``flags``, with the adapter planes when
+        ``lora_on``, built on first use and keyed ``(n, flags, lora_on)``
+        as the JAX engine keys ``_block_fn``: ``program(tok, lens, done,
+        budget, tables, samp=None, ids=None) -> (toks, tok', lens',
+        done', budget')``, ``ids`` the per-row adapter slots of the
+        adapter variant.  On the card a ``DecodeBlockGraph`` captured
+        over this engine's arenas (and the store's), the capture's seconds
+        going to ``decode_graphs``; on the CPU the eager block."""
         flags = tuple(bool(f) for f in flags)
-        progs = self._blocks.setdefault(n, {})
-        prog = progs.get(flags)
+        key = (n, flags, bool(lora_on))
+        prog = self._blocks.get(key)
         if prog is not None:
             return prog
         # the program holds what it runs, never the engine: a dropped
         # engine frees its arenas and graph pools at once
         model, cfg, arenas, wq = (self._model, self.cfg, self._arenas,
                                   self._wq_ctx)
+        lora = self._adapters.arena_planes() if lora_on else None
         if self.device.type == "cuda":
             t0 = time.perf_counter()
             prog = DecodeBlockGraph(model, cfg, n, self.num_slots,
                                     self.max_blocks, arenas, wq=wq,
-                                    flags=flags)
+                                    flags=flags, lora=lora)
             self._graph_capture_s += time.perf_counter() - t0
         else:
-            def prog(tok, lens, done, budget, tables, samp=None):
+            def prog(tok, lens, done, budget, tables, samp=None, ids=None):
+                planes = None if ids is None else dict(lora, ids=ids)
                 return paged_decode_block(model, cfg, n, tok, lens, done,
                                           budget, tables, arenas, wq=wq,
-                                          samp=samp, flags=flags)[:5]
-        progs[flags] = prog
+                                          samp=samp, flags=flags,
+                                          lora=planes)[:5]
+        self._blocks[key] = prog
         return prog
 
     def _samp_tensors(self, planes: dict, dst: Optional[dict] = None):
@@ -1750,12 +1822,18 @@ class ServingEngine:
                                       "tenant": req.tenant})
 
     def _release_blocks(self, req: Request):
-        """Unpin every block the request holds and trash its table row.
-        Idempotent: the block list is cleared before returning."""
+        """Unpin every block the request holds, drop its adapter pin and
+        trash its table row.  Idempotent: the block list and the adapter
+        slot are cleared before returning."""
         for b in req.blocks:
             self._pool.unpin(b)
         req.blocks = []
         req.matched = []
+        if req.adapter_slot is not None:
+            # the adapter pin has exactly the blocks' lifetime (admission
+            # to retirement or preemption)
+            self._adapters.release(req.adapter)
+            req.adapter_slot = None
         if req.slot is not None:
             self._tables[req.slot] = self._pool.trash
         self._update_block_gauges()
@@ -1949,13 +2027,6 @@ class ServingEngine:
                 "decode-role engine does not accept fresh submits "
                 "(prompts route to prefill-capable replicas; this "
                 "replica only resumes migrated KV parcels)")
-        for value, off, what, item in (
-                (adapter, None, "submit(adapter=)",
-                 "#7 LoRA and fair share"),
-                (tenant, None, "submit(tenant=)",
-                 "#7 LoRA and fair share")):
-            if value != off:
-                _not_ported(what, item)
         ids = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
         if ids.size < 1 or ids.size > self.prompt_len:
             raise ValueError(
@@ -2002,6 +2073,17 @@ class ServingEngine:
                 f"{self.block_len} ({n + m - 1} tokens) but the pool "
                 f"only has num_blocks={self.num_blocks} — it could "
                 f"never be admitted")
+        if adapter is not None:
+            adapter = str(adapter)
+            if self._adapters is None:
+                raise ValueError(
+                    f"submit(adapter={adapter!r}) needs an engine "
+                    f"constructed with adapter_store= (no AdapterStore "
+                    f"is attached)")
+            if self._adapters.state(adapter) is None:
+                raise ValueError(
+                    f"adapter {adapter!r} is not registered in the "
+                    f"adapter store — known: {self._adapters.names()}")
         prio = int(priority)
         if deadline_s is not None and float(deadline_s) <= 0:
             raise ValueError(
@@ -2025,6 +2107,11 @@ class ServingEngine:
         req.max_queue_delay_s = (None if max_queue_delay_s is None
                                  else float(max_queue_delay_s))
         req.spec_k = spec_k
+        req.adapter = adapter
+        req.tenant = "default" if tenant is None else str(tenant)
+        # a waiting tenant exists in the service ledger at 0, so the
+        # deficit gauges (and the round-robin's choice) see it at once
+        self._tenant_served.setdefault(req.tenant, 0)
         req.sampling = sp
         if sp is not None and not sp.is_greedy:
             # an explicit seed draws from the user's stream; a seedless
@@ -2170,13 +2257,6 @@ class ServingEngine:
         with ``AdmissionError`` (the caller spills to another replica);
         parcel re-admissions join the swap list, which is never
         bounded."""
-        for value, off, what, item in (
-                (adapter, None, "migrate_in(adapter=)",
-                 "#7 LoRA and fair share"),
-                (tenant, None, "migrate_in(tenant=)",
-                 "#7 LoRA and fair share")):
-            if value != off:
-                _not_ported(what, item)
         ids = np.asarray(prompt_ids).reshape(-1).astype(np.int32)
         if ids.size < 1 or ids.size > self.prompt_len:
             raise ValueError(
@@ -2217,6 +2297,14 @@ class ServingEngine:
                     "processor: a draft position's mask depends on "
                     "host-side state the drafter bypasses — recover "
                     "the request without spec_decode")
+        if adapter is not None:
+            adapter = str(adapter)
+            if self._adapters is None or \
+                    self._adapters.state(adapter) is None:
+                raise ValueError(
+                    f"adapter {adapter!r} is not registered on this "
+                    f"engine — migration requires replica-homogeneous "
+                    f"adapter registration")
         if parcel is None and self.max_queue is not None and \
                 len(self._queue) >= self.max_queue:
             raise AdmissionError(
@@ -2233,6 +2321,9 @@ class ServingEngine:
                       pad_token_id=self.cfg.pad_token_id)
         req.submit_time = now
         req.spec_k = spec_k
+        req.adapter = adapter
+        req.tenant = "default" if tenant is None else str(tenant)
+        self._tenant_served.setdefault(req.tenant, 0)
         req.sampling = sp
         req.priority = int(priority)
         req.deadline = (None if deadline_s is None
@@ -2360,6 +2451,12 @@ class ServingEngine:
             "active": [r for r in self._slots if r is not None],
             "swapped": list(self._swapped) + list(self._handoff_ready),
         }
+        for r in stripped["active"]:
+            # an admitted request's adapter pin goes with it (the store
+            # outlives the reset; its blocks go with the pool)
+            if r.adapter_slot is not None:
+                self._adapters.release(r.adapter)
+                r.adapter_slot = None
         self._queue.clear()
         self._prefilling.clear()
         self._swapped = []
@@ -2645,6 +2742,15 @@ class ServingEngine:
         block order, so the resumed stream is bit-identical to one never
         preempted."""
         rec = req.swap
+        # the adapter pin was released at preemption (a swapped request
+        # needs no arena residency): re-acquire it before any block work.
+        # No free slot leaves a valid swap-list member, as block
+        # exhaustion does
+        acquired = False
+        if req.adapter is not None:
+            if self._adapters.acquire(req.adapter) is None:
+                return False
+            acquired = True
         fresh = self._alloc(rec.n_blocks)
         if fresh is None and \
                 not any(r is not None for r in self._slots):
@@ -2654,6 +2760,8 @@ class ServingEngine:
                 self._preempt_for(req, rec.n_blocks, out):
             fresh = self._alloc(rec.n_blocks)
         if fresh is None:
+            if acquired:
+                self._adapters.release(req.adapter)
             return False
         # the resume REWRITES the slot's host carries, so the next decode
         # dispatch must come from host mirrors: harvest first.  Flushed
@@ -2673,9 +2781,13 @@ class ServingEngine:
         except BaseException:
             for b in fresh:
                 self._pool.unpin(b)
+            if acquired:
+                self._adapters.release(req.adapter)
             self._update_block_gauges()
             raise
         self._swapped.remove(req)
+        if acquired:
+            req.adapter_slot = self._adapters.slot_of(req.adapter)
         req.blocks = list(fresh)
         req.matched = []
         self._tables[slot] = row
@@ -2861,10 +2973,12 @@ class ServingEngine:
         plus the arrived queue, ordered priority-then-EDF; within a class
         swapped requests come first, then queued ones whose matched
         prefix is HBM-resident, then host-resident, then cold (radix
-        mode), FIFO inside each rank.  The JAX engine's fair-share term
-        sits between class and rank; it is left out here: without
-        ``tenant_weights`` (not ported) every request is one tenant's
-        and the term is a constant.  When the pool cannot serve the head
+        mode), FIFO inside each rank.  Between class and rank sits the
+        fair-share term: the least weight-normalized-served tenant admits
+        first (deficit-weighted round-robin, a constant on a single
+        tenant).  An adapter request pins its adapter's arena slot before
+        its blocks are sized; no free slot waits, as block exhaustion
+        does.  When the pool cannot serve the head
         candidate, the head-of-line valve (nothing running) and then
         preemption of strictly-worse victims are tried before giving up
         until blocks retire; a stuck head is never skipped for a worse
@@ -2889,21 +3003,39 @@ class ServingEngine:
                 ranks[r.request_id] = rank
             return rank
 
+        def _cand_key(r):
+            # the fair term is read anew each time: every admission
+            # charges its tenant, and the next pick must see the ledger
+            return (self._sched_key(r) + (self._fair_norm(r.tenant),)
+                    + (_state_rank(r),))
+
+        def _fifo_key(r):
+            # the order without the fair term: a different head is a
+            # counted reorder
+            return self._sched_key(r) + (_state_rank(r),)
+
         while True:
             slot = next((i for i, r in enumerate(self._slots)
                          if r is None), None)
             if slot is None:
                 break
             arrived = [r for r in self._queue if r.arrival_time <= now]
-            cands = sorted(self._swapped + arrived,
-                           key=lambda r: self._sched_key(r)
-                           + (_state_rank(r),))
+            cands = sorted(self._swapped + arrived, key=_cand_key)
             if not cands:
                 break
             req = cands[0]
+            # a "reorder": the fair term promoted another request over
+            # the plain head; possible only with more than one tenant
+            # (min() over submission order is the stable sort's head)
+            reorder = (len(self._tenant_served) > 1 and
+                       req is not min(self._swapped + arrived,
+                                      key=_fifo_key))
             if req.state == "swapped":
                 if not self._try_resume(req, slot, out):
                     break
+                if reorder:
+                    # a fairness-promoted resume is a reorder too
+                    self._m.fairshare_reorders.inc()
                 continue
             if self._radix is not None:
                 # the tree may have grown while this request queued:
@@ -2914,6 +3046,14 @@ class ServingEngine:
                 # the match
                 self._match_prefix(req)
             n_hbm = len(req.matched)
+            # adapter residency before block sizing: the gathered
+            # dispatch needs the arena slot pinned for the request's
+            # admitted life
+            acquired = False
+            if req.adapter is not None:
+                if self._adapters.acquire(req.adapter) is None:
+                    break
+                acquired = True
             total = self._blocks_needed(req.seq_len, req.max_new_tokens)
             fresh = self._alloc(total - n_hbm)
             if fresh is None and \
@@ -2926,12 +3066,22 @@ class ServingEngine:
                     self._preempt_for(req, total - n_hbm, out):
                 fresh = self._alloc(total - n_hbm)
             if fresh is None:
+                if acquired:
+                    self._adapters.release(req.adapter)
                 break                     # pool drains as requests retire
             matchable = ((req.seq_len - 1) // self.block_len
                          if self.enable_prefix_cache else 0)
             if self._radix is not None:
-                mapped, fresh, n_promoted = self._map_radix_span(req,
-                                                                 fresh)
+                # a raise leaves the request queued with its fresh blocks
+                # unpinned (_map_radix_span's rollback); the adapter pin
+                # rolls back with them
+                try:
+                    mapped, fresh, n_promoted = self._map_radix_span(
+                        req, fresh)
+                except BaseException:
+                    if acquired:
+                        self._adapters.release(req.adapter)
+                    raise
                 req.blocks = mapped + fresh
                 hit_tokens = len(mapped) * self.block_len
                 self._m.prefix_hit_tokens.inc(hit_tokens)
@@ -2964,6 +3114,23 @@ class ServingEngine:
                         tier="hbm", blocks=len(mapped),
                         tokens=len(mapped) * self.block_len, partial=0)
             self._queue.remove(req)
+            if acquired:
+                req.adapter_slot = self._adapters.slot_of(req.adapter)
+            # fair-share bookkeeping at the admission decision: the
+            # deficit is the tenant's shortfall against the most-served
+            # tenant BEFORE this admission's charge; default-tenant
+            # traces carry no extra attrs
+            extra = {}
+            if req.adapter is not None:
+                extra["adapter"] = req.adapter
+            if req.tenant != "default" or reorder:
+                top = max(self._fair_norm(t) for t in self._tenant_served)
+                extra["tenant"] = req.tenant
+                extra["deficit"] = round(
+                    top - self._fair_norm(req.tenant), 3)
+            if reorder:
+                self._m.fairshare_reorders.inc()
+            self._charge_tenant(req)
             self._m.prefix_hits.inc(len(mapped))
             self._m.prefix_misses.inc(matchable - len(mapped))
             row = np.full((self.max_blocks,), self._pool.trash, np.int32)
@@ -2981,8 +3148,36 @@ class ServingEngine:
             _span_instant("serving.request.admit", request=req.request_id,
                           slot=slot, matched_blocks=len(mapped))
             self._fr.emit("admit", req.request_id, self._step_idx,
-                          slot=slot, matched_blocks=len(mapped))
+                          slot=slot, matched_blocks=len(mapped), **extra)
         self._set_occupancy()
+
+    # -- fair share (deficit-weighted round-robin over tenants) --
+    def _fair_norm(self, tenant: str) -> float:
+        """A tenant's weight-normalized service: tokens charged at
+        admission over its weight.  The least-normalized-served tenant in
+        a scheduling class admits next; integer token counts over fixed
+        weights keep the order deterministic."""
+        return (self._tenant_served.get(tenant, 0)
+                / self._tenant_weights.get(tenant, 1.0))
+
+    def _update_deficits(self):
+        """Refresh the per-tenant deficit gauges: the most-served tenant's
+        normalized service minus each tenant's own (>= 0)."""
+        if not self._tenant_served:
+            return
+        top = max(self._fair_norm(t) for t in self._tenant_served)
+        for t in self._tenant_served:
+            self._m.fairshare_deficit.set(
+                round(top - self._fair_norm(t), 3), tenant=t)
+
+    def _charge_tenant(self, req: Request):
+        """Charge a request leaving the queue its reservation (prompt +
+        decode budget) to its tenant's ledger: the round-robin's step."""
+        cost = req.seq_len + req.max_new_tokens
+        self._tenant_served[req.tenant] = \
+            self._tenant_served.get(req.tenant, 0) + cost
+        self._m.fairshare_served.inc(cost, tenant=req.tenant)
+        self._update_deficits()
 
     def _prefill_chunk(self, out: List[Request]):
         """Run at most ONE prompt chunk (FIFO over admissions).  The
@@ -2999,6 +3194,7 @@ class ServingEngine:
             # step (EOS check, decode-mix entry, the slot's carries)
             self._flush_async("chunk_final", out)
         flags, planes = self._build_samp([req])
+        lora = self._build_lora([req])
         t0 = self._clock()
         with _span("serving.prefill", request=req.request_id,
                    slot=req.slot, start=start):
@@ -3008,7 +3204,7 @@ class ServingEngine:
                 start, req.seq_len,
                 self._dev(self._tables[req.slot][None, :]),
                 self._arenas, wq=self._wq_ctx,
-                samp=self._samp_tensors(planes), flags=flags)
+                samp=self._samp_tensors(planes), flags=flags, lora=lora)
             # a non-final chunk's token means nothing: the dispatch-
             # ahead engine leaves it on the device and the chunk runs
             # under the next iterations' host work
@@ -3197,6 +3393,27 @@ class ServingEngine:
             planes["bias"] = bias_p
         return flags, planes
 
+    def _build_lora(self, reqs) -> Optional[dict]:
+        """The ``lora`` planes of one dispatch (``models/lora.py``):
+        ``reqs`` is the dispatch's batch view, as ``_build_samp``'s.  None
+        when no riding row selected an adapter, so an adapter-free
+        dispatch runs today's program.  Rows without an adapter name the
+        arenas' all-zero null row: their delta is an exact ``+ 0.0``.  The
+        ids reach the device from pinned host staging (``_dev``); the
+        arenas are the store's own tensors."""
+        if self._adapters is None or not any(
+                r is not None and r.adapter is not None for r in reqs):
+            return None
+        ids = np.full((len(reqs),), self._adapters.null_slot, np.int32)
+        for i, r in enumerate(reqs):
+            if r is not None and r.adapter is not None:
+                ids[i] = self._adapters.slot_of(r.adapter)
+        planes = self._adapters.arena_planes()
+        planes["ids"] = self._dev(ids)
+        self._adapters.count_gather()
+        self._lora_dispatches += 1
+        return planes
+
     def _count_sample_route(self, reqs_tokens):
         """Classify emitted tokens into the sample route counters;
         ``reqs_tokens`` is (request, n_emitted) pairs."""
@@ -3239,14 +3456,15 @@ class ServingEngine:
                 tbl[i] = self._tables[i]
         return tbl
 
-    def _verify_fn(self, width: int, flags=NO_FLAGS):
-        fn = self._verify_fns.get((width, flags))
+    def _verify_fn(self, width: int, flags=NO_FLAGS, lora_on: bool = False):
+        key = (width, flags, bool(lora_on))
+        fn = self._verify_fns.get(key)
         if fn is None:
             fn = build_spec_verify(
                 self._model, self.cfg, width,
                 kv_int8=self.kv_cache_dtype == "int8", samp_flags=flags,
-                wq=self._wq_ctx)
-            self._verify_fns[(width, flags)] = fn
+                lora=lora_on, wq=self._wq_ctx)
+            self._verify_fns[key] = fn
         return fn
 
     def _spec_verify(self, out: List[Request]):
@@ -3304,13 +3522,17 @@ class ServingEngine:
             n_valid[i] = 1 + d.size
             tbl[i] = self._tables[i]
         spec_set = set(spec)
-        flags, planes = self._build_samp(
-            [r if i in spec_set else None for i, r in enumerate(self._slots)])
+        riding = [r if i in spec_set else None
+                  for i, r in enumerate(self._slots)]
+        flags, planes = self._build_samp(riding)
+        lora = self._build_lora(riding)
+        lora_args = () if lora is None else (lora,)
         t0 = self._clock()
         with _span("serving.spec_verify", width=width, active=len(spec)):
-            outp = self._verify_fn(width, flags)(
+            outp = self._verify_fn(width, flags, lora is not None)(
                 self._dev(toks), self._dev(self._lens), self._dev(n_valid),
-                self._dev(tbl), self._samp_tensors(planes), *self._arenas)
+                self._dev(tbl), self._samp_tensors(planes), *lora_args,
+                *self._arenas)
             if flags[0]:
                 # a sampled mix: the position-keyed draws too ([B,
                 # width] each)
@@ -3660,9 +3882,13 @@ class ServingEngine:
             iters = fuse_cap
         n_total = n * iters
         active_set = set(active)
-        flags, planes = self._build_samp(
-            [self._slots[i] if i in active_set else None
-             for i in range(self.num_slots)], pos_lag=lag)
+        riding = [self._slots[i] if i in active_set else None
+                  for i in range(self.num_slots)]
+        flags, planes = self._build_samp(riding, pos_lag=lag)
+        # adapter ids are host-plan state, pinned with the riding set
+        # (which cannot grow while a harvest is deferred): the
+        # dispatch-ahead pipeline carries them with no sync of its own
+        lora = self._build_lora(riding)
         pre_lens = np.array(self._lens)
         tables = self._dev(self._decode_tables())
         if pend is not None:
@@ -3680,9 +3906,10 @@ class ServingEngine:
         t_blk = self._clock()
         with _span("serving.decode_block", steps=n_total,
                    active=len(active)):
-            prog = self._block_program(n_total, flags)
+            prog = self._block_program(n_total, flags, lora is not None)
             samp = self._samp_tensors(planes, getattr(prog, "samp", None))
-            out = prog(*carries, tables, samp)
+            out = prog(*carries, tables, samp,
+                       ids=None if lora is None else lora["ids"])
             host, event, slot = self._stage_block(out)
         dt = self._clock() - t_blk
         self._disp_s += dt
@@ -3941,8 +4168,8 @@ class ServingEngine:
         """
         m = self._m
         since = m.since_init
-        graphs = [p for progs in self._blocks.values()
-                  for p in progs.values() if isinstance(p, DecodeBlockGraph)]
+        graphs = [p for p in self._blocks.values()
+                  if isinstance(p, DecodeBlockGraph)]
         steps = int(since(m.decode_steps))
         busy = int(since(m.busy_slot_steps))
         verifies = int(since(m.spec_verifies))
@@ -4029,6 +4256,17 @@ class ServingEngine:
             "mean_tpot_s": (sum(tpots) / len(tpots)) if tpots else None,
             "slo_attained": int(since(m.slo_attained)),
             "slo_missed": int(since(m.slo_missed)),
+            # fair share and batched LoRA: the per-tenant service ledger
+            # the round-robin orders by, the admissions where fairness
+            # overrode the plain order, and the gathered-product
+            # dispatch count (the LoRA-versus-base route split)
+            "tenant_served_tokens": dict(self._tenant_served),
+            "fair_reorders": int(since(m.fairshare_reorders)),
+            "lora_dispatches": self._lora_dispatches,
+            "adapters_resident": (
+                None if self._adapters is None else sum(
+                    1 for name in self._adapters.names()
+                    if self._adapters.resident(name))),
             "async_dispatch": self.async_dispatch,
             "async_depth": self.async_depth,
             "async_syncs": int(since(m.async_syncs)),
@@ -4071,8 +4309,9 @@ class ServingEngine:
         ``prefilling``/``swapped_waiting`` count outstanding work by
         phase; ``slots_total``/``blocks_free`` (free plus reclaimable
         cached, the pool's ``available()``)/``blocks_in_use``/
-        ``blocks_total``/``block_len`` the headroom; ``hbm_adapters`` is
-        ``[]`` (no adapter store); ``radix`` the prefix tree's root
+        ``blocks_total``/``block_len`` the headroom; ``hbm_adapters`` the
+        adapter names resident in the store's arenas (``[]`` without a
+        store), the adapter-affinity signal; ``radix`` the prefix tree's root
         stats (None off radix mode); ``kv_cache_dtype``/``weight_dtype``
         the at-rest dtypes; ``shard_group`` None (one device); ``role``
         the disaggregation role."""
@@ -4086,7 +4325,8 @@ class ServingEngine:
             "blocks_in_use": self._pool.in_use(),
             "blocks_total": self.num_blocks,
             "block_len": self.block_len,
-            "hbm_adapters": [],
+            "hbm_adapters": (self._adapters.hbm_resident()
+                             if self._adapters is not None else []),
             "radix": (self._radix.root_stats()
                       if self._radix is not None else None),
             "kv_cache_dtype": self.kv_cache_dtype,
@@ -4097,7 +4337,9 @@ class ServingEngine:
 
     def engine_spec(self) -> dict:
         """The engine's immutable identity as one JSON-safe dict, key
-        for key the JAX engine's ``engine_spec()``."""
+        for key the JAX engine's ``engine_spec()``; ``adapters`` lists the
+        registered adapter names (None without a store: "no store" and
+        "empty store" route differently)."""
         return {
             "prompt_len": self.prompt_len,
             "max_cache_len": self.max_cache_len,
@@ -4109,7 +4351,8 @@ class ServingEngine:
             "weight_dtype": self.weight_dtype,
             "pad_token_id": int(self.cfg.pad_token_id),
             "kv_row_bytes": int(self._kv_row_bytes),
-            "adapters": None,
+            "adapters": (None if self._adapters is None
+                         else list(self._adapters.names())),
             "shard_group": self.shard_group,
             "role": self.role,
         }

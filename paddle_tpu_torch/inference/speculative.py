@@ -21,8 +21,10 @@ is the sequential sampled engine's.
   greedy and the stochastic rules, copied.
 - ``build_spec_verify`` (:227) is the eager counterpart of the compiled
   verifier with its flag buckets (greedy, sampled, penalised), over a
-  float or int8 KV cache and float or quantized weights.  LoRA and a
-  mesh are not ported (ROADMAP.md, Queue 1).
+  float or int8 KV cache and float or quantized weights, with or without
+  per-row LoRA adapters (``lora=True``; the drafter stays on the base
+  model, as in the reference).  A mesh is not ported (ROADMAP.md, Queue
+  1).
 
 KV rollback costs nothing: the verify forward writes all K+1 positions'
 K/V through the row's block table (pad columns trash-routed), and a
@@ -203,25 +205,25 @@ def build_spec_verify(model, cfg, steps: int, kv_int8: bool = False,
     is the weight-quant context of quantized weights or None.  Signature:
     ``(toks [B, steps], lens [B], n_valid [B], tables [B, max_blocks],
     samp, *flat_arenas) -> (greedy [B, steps][, u, accept_p, resample,
-    sample], *flat_arenas)``."""
+    sample], *flat_arenas)``.  ``lora=True`` inserts the ``lora`` planes
+    (``{"ids": [B] int32, "a", "b"}``, ``models/lora.py``) after ``samp``:
+    each spec row's draft positions are scored by ITS adapter's
+    distribution, so greedy acceptance stays token-exact against that
+    adapter's sequential stream."""
     if steps < 1:
         raise ValueError(f"verify steps must be >= 1, got {steps}")
     if samp_flags[3]:
         raise ValueError(
             "token-mask constrained decoding cannot ride a verify "
             "forward (mask state is host-side and per emitted token)")
-    for on, what, item in (
-            (bool(lora), "LoRA in the verify forward",
-             "LoRA and fair share"),
-            (shard is not None, "a sharded verify forward",
-             "sharded serving")):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to paddle_tpu_torch yet "
-                f"(ROADMAP.md, Queue 1: {item})")
+    if shard is not None:
+        raise NotImplementedError(
+            "a sharded verify forward is not ported to paddle_tpu_torch "
+            "yet (ROADMAP.md, Queue 1: sharded serving)")
     flags = tuple(bool(f) for f in samp_flags)
 
-    def verify(toks, lens, n_valid, tables, samp, *flat_arenas):
+    def verify(toks, lens, n_valid, tables, samp, *rest):
+        planes, flat_arenas = (rest[0], rest[1:]) if lora else (None, rest)
         if toks.shape[1] != steps:
             raise ValueError(f"verify built for {steps} positions got "
                              f"toks of shape {tuple(toks.shape)}")
@@ -229,6 +231,6 @@ def build_spec_verify(model, cfg, steps: int, kv_int8: bool = False,
             raise ValueError(f"verify built with kv_int8={kv_int8} got "
                              f"{flat_arenas[0].dtype} arenas")
         return spec_verify(model, toks, lens, n_valid, tables, flat_arenas,
-                           wq=wq, samp=samp, flags=flags)
+                           wq=wq, samp=samp, flags=flags, lora=planes)
 
     return verify

@@ -15,7 +15,10 @@ What is here: ``LlamaConfig`` (the fields serving and training read),
   (``index_put_``), which takes the place of JAX's buffer donation: the
   caller's arena tensors are the updated arenas.  ``quant_projections``
   (:469) and the ``wq_linear`` projection sites (:133, :144-148,
-  :339-345) carry quantized weights (``models/wquant.py``).
+  :339-345) carry quantized weights (``models/wquant.py``);
+  ``attn_projections`` (:459) and the ``maybe_lora`` calls on top of the
+  four attention projections (:134, :144-148) carry per-row LoRA deltas
+  (``models/lora.py``).
 - ``generate()`` (``models/generation.py`` ``GenerationMixin``: greedy,
   sampled, beam) over the dense ``(k, v)`` cache: ``prefill`` (:489,
   :178, :376) and the dense branch of ``decode_step`` (:222-229).
@@ -64,6 +67,7 @@ from .generation import (GenerationMixin, cache_prefill_write, cache_scatter,
                          paged_cache_scatter_q, paged_chunk_scatter,
                          paged_chunk_scatter_q, paged_verify_scatter,
                          paged_verify_scatter_q)
+from .lora import maybe_lora
 from .wquant import wq_linear
 
 # (k_arena, v_arena, tables) or, for the int8 cache, (k_codes, v_codes,
@@ -146,15 +150,21 @@ class LlamaAttention(nn.Module):
 
     def _o(self, t):
         """The output projection, quantized inside a weight-quant
-        context (``wq_linear``)."""
-        return wq_linear(self.o_proj, t, "o_proj", self.layer_idx)
+        context (``wq_linear``), plus the row's LoRA delta inside an
+        adapter context (``maybe_lora``: float, on top of a quantized
+        base)."""
+        out = wq_linear(self.o_proj, t, "o_proj", self.layer_idx)
+        return maybe_lora(out, t, "o_proj", self.layer_idx)
 
     def _qkv_rope(self, x, position_ids):
         b, s, _ = x.shape
         li = self.layer_idx
-        q = wq_linear(self.q_proj, x, "q_proj", li)
-        k = wq_linear(self.k_proj, x, "k_proj", li)
-        v = wq_linear(self.v_proj, x, "v_proj", li)
+        q = maybe_lora(wq_linear(self.q_proj, x, "q_proj", li), x,
+                       "q_proj", li)
+        k = maybe_lora(wq_linear(self.k_proj, x, "k_proj", li), x,
+                       "k_proj", li)
+        v = maybe_lora(wq_linear(self.v_proj, x, "v_proj", li), x,
+                       "v_proj", li)
         q = q.reshape(b, s, -1, self.head_dim)
         k = k.reshape(b, s, -1, self.head_dim)
         v = v.reshape(b, s, -1, self.head_dim)
@@ -418,6 +428,16 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             return LlamaPretrainingCriterion(self.config)(logits,
                                                           labels), logits
         return logits
+
+    def attn_projections(self):
+        """Per-layer ``{target: Linear}`` views of the attention
+        projections, in layer order: the LoRA surface (the merged-weights
+        oracle and the AdapterStore's shape checks, ``models/lora.py``)."""
+        return [{"q_proj": l.self_attn.q_proj,
+                 "k_proj": l.self_attn.k_proj,
+                 "v_proj": l.self_attn.v_proj,
+                 "o_proj": l.self_attn.o_proj}
+                for l in self.llama.layers]
 
     def quant_projections(self):
         """Per-layer ``{target: Linear}`` views of every hot projection

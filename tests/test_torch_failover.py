@@ -13,8 +13,11 @@ after every router step.  The port is token-exact against its own
 no-fault twin (streams spliced, sampled and spec rows included); its
 router events, failover counters and migrated bytes equal the JAX
 router's; greedy rows equal the JAX tokens up to the first non-decisive
-position (teacher-forced top-2 margin <= 0.01).  The JAX trace's LoRA
-row rides plain here (adapters are not ported, ROADMAP #7)."""
+position (teacher-forced top-2 margin <= 0.01; the LoRA row's margins
+read from the JAX model with its adapter merged).  Each replica holds
+its own ``AdapterStore`` with the trace's adapter, so the LoRA row
+migrates like any other and its tokens equal the port's merged-weights
+``generate()``."""
 
 import numpy as np
 import pytest
@@ -23,19 +26,23 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import models as jmodels
 from paddle_tpu.inference import faultinject as jfault
+from paddle_tpu.inference import lora as jlora
 from paddle_tpu.inference import prefixcache as jprefix
 from paddle_tpu.inference import router as jrouter
 from paddle_tpu.inference import serving as jserving
 from paddle_tpu.inference.sampling import SamplingParams as JaxSP
 from paddle_tpu.observability import MetricsRegistry as JaxRegistry
+from paddle_tpu.models import lora as jmlora
 from paddle_tpu.observability.flightrec import FlightRecorder as JaxRecorder
 from paddle_tpu_torch.inference import faultinject as tfault
+from paddle_tpu_torch.inference import lora as tlora
 from paddle_tpu_torch.inference import prefixcache as tprefix
 from paddle_tpu_torch.inference import router as trouter
 from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.inference.sampling import SamplingParams as TorchSP
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      llama_state_from_jax)
+from paddle_tpu_torch.models import lora as tmlora
 from paddle_tpu_torch.observability import FlightRecorder, MetricsRegistry
 
 P, C, BL = 32, 48, 4
@@ -43,11 +50,11 @@ MARGIN = 0.01
 
 
 class Pkg:
-    def __init__(self, name, net, serving, router, fault, prefix, registry,
-                 recorder, sp, **extra):
+    def __init__(self, name, net, serving, router, fault, prefix, lora,
+                 registry, recorder, sp, **extra):
         self.name, self.net = name, net
         self.serving, self.router, self.fault = serving, router, fault
-        self.prefix = prefix
+        self.prefix, self.lora = prefix, lora
         self.Registry, self.Recorder, self.SP = registry, recorder, sp
         self.extra = extra
 
@@ -64,6 +71,14 @@ class Pkg:
         kw.setdefault("registry", self.Registry())
         return self.router.Router(engines, **kw)
 
+    def store(self, adapters, registry):
+        s = self.lora.AdapterStore(self.net, slots=2, max_rank=4,
+                                   dtype="float32", registry=registry,
+                                   **self.extra)
+        for ad in adapters:
+            s.register(ad)
+        return s
+
 
 @pytest.fixture(scope="module")
 def pkgs():
@@ -79,9 +94,9 @@ def pkgs():
     tnet = LlamaForCausalLM(LlamaConfig(**kw), device="cpu", init=False)
     tnet.load_state_dict(llama_state_from_jax(arrays))
     yield {"jax": Pkg("jax", jnet, jserving, jrouter, jfault, jprefix,
-                      JaxRegistry, JaxRecorder, JaxSP),
+                      jlora, JaxRegistry, JaxRecorder, JaxSP),
            "port": Pkg("port", tnet, tserving, trouter, tfault, tprefix,
-                       MetricsRegistry, FlightRecorder, TorchSP,
+                       tlora, MetricsRegistry, FlightRecorder, TorchSP,
                        device="cpu")}
     torch.set_num_threads(prev)
 
@@ -221,8 +236,10 @@ def test_failover_units(pkgs):
 def _combined(pkg):
     """The combined failover trace in two arms: the no-fault twin, and
     the same trace with one request force-swapped to the host tier and
-    its replica then killed."""
+    its replica then killed.  Row 3 rides the LoRA adapter ``fo_a0``."""
     rng = np.random.default_rng(77)
+    ad = pkg.lora.LoraAdapter.random(pkg.net.config, "fo_a0", rank=4,
+                                     seed=91, scale=0.05)
     prompts = [rng.integers(0, 128, (n,)).astype(np.int32)
                for n in (8, 7, 7, 5, 8)]
     news = [7, 4, 4, 3, 5]
@@ -232,7 +249,11 @@ def _combined(pkg):
     def build(inject):
         injs = [pkg.fault.FaultInjector() if inject else None
                 for _ in range(2)]
-        engs = [pkg.mk(injector=injs[i]) for i in range(2)]
+        engs = []
+        for i in range(2):
+            reg = pkg.Registry()
+            engs.append(pkg.mk(registry=reg, injector=injs[i],
+                               adapter_store=pkg.store([ad], reg)))
         rrec = pkg.Recorder()
         rt = pkg.Router(engs, affinity=True, flight_recorder=rrec)
         return rt, engs, injs, rrec
@@ -246,7 +267,7 @@ def _combined(pkg):
               rt.submit(prompts[2], max_new_tokens=news[2], spec_decode=2,
                         arrival_time=0.0),
               rt.submit(prompts[3], max_new_tokens=news[3],
-                        arrival_time=0.0),
+                        adapter=ad.name, arrival_time=0.0),
               rt.submit(prompts[4], max_new_tokens=news[4],
                         arrival_time=0.0)]
         return hs, st
@@ -254,7 +275,7 @@ def _combined(pkg):
     rtA, _e, _i, _r = build(False)
     hsA, stA = submit_all(rtA)
     flA = _drain(pkg, rtA, hsA, streams=[stA])
-    log = {"prompts": prompts, "news": news,
+    log = {"prompts": prompts, "news": news, "adapter": ad,
            "refs": [np.asarray(h.output) for h in hsA],
            "catA": np.concatenate(flA[id(stA)])}
 
@@ -327,21 +348,31 @@ def combined(pkgs):
 def test_failover_combined_kill_with_migration(pkgs, combined):
     j, t = combined
     tnet = pkgs["port"].net
-    # token-exact against the no-fault twin: streamed, sampled, spec and
-    # plain rows; the stream spliced without double-emitting
+    # token-exact against the no-fault twin: streamed, sampled, spec,
+    # LoRA and plain rows; the stream spliced without double-emitting
     assert t["states"] == ["finished"] * 5
     for i in range(5):
         assert np.array_equal(t["outs"][i], t["refs"][i]), i
     assert np.array_equal(t["catA"], t["catB"])
-    # greedy rows: the port's generate(), and the JAX tokens
+    # greedy rows: the port's generate() (the LoRA row's over merged
+    # weights), and the JAX tokens
     for i in (0, 2, 3, 4):
-        gen = tnet.generate(t["prompts"][i][None],
-                            max_new_tokens=t["news"][i], max_cache_len=C,
-                            compute_dtype="float32")
-        assert np.array_equal(t["refs"][i], np.asarray(gen)[0]), i
-    _hold_greedy(pkgs["jax"].net, [t["prompts"][i] for i in (0, 2, 3, 4)],
-                 [t["outs"][i] for i in (0, 2, 3, 4)],
-                 [j["outs"][i] for i in (0, 2, 3, 4)])
+        def gen():
+            return np.asarray(tnet.generate(
+                t["prompts"][i][None], max_new_tokens=t["news"][i],
+                max_cache_len=C, compute_dtype="float32"))[0]
+        if i == 3:
+            with tmlora.merged_adapter(tnet, t["adapter"]):
+                want = gen()
+        else:
+            want = gen()
+        assert np.array_equal(t["refs"][i], want), i
+    _hold_greedy(pkgs["jax"].net, [t["prompts"][i] for i in (0, 2, 4)],
+                 [t["outs"][i] for i in (0, 2, 4)],
+                 [j["outs"][i] for i in (0, 2, 4)])
+    with jmlora.merged_adapter(pkgs["jax"].net, j["adapter"]):
+        _hold_greedy(pkgs["jax"].net, [t["prompts"][3]], [t["outs"][3]],
+                     [j["outs"][3]])
     # the migration moved exactly the victim's parcel, whose bytes are
     # the JAX parcel's up to the decisive tokens (float32 K/V agree to
     # rounding, not bit for bit: the two models' matmuls differ)

@@ -10,9 +10,10 @@ replays byte-identically; its stitched record, fleet explanation,
 alerts, time series and merged registry snapshot (counters and gauges
 cell for cell, histograms by count) equal the JAX package's; the JAX
 package's ``serving_top`` and ``explain_request`` tools read the port's
-snapshot and exported records.  The JAX trace's two tenants are not
-ported (``submit(tenant=)`` waits for ROADMAP #7): both packages run
-the trace on the default tenant here."""
+snapshot and exported records.  The trace's two SLO rows carry the
+JAX trace's tenants, ``chat`` and ``batch``, in both packages; the
+merged snapshot holds every fair-share instrument the JAX fleet's
+does."""
 
 import importlib.util
 import json
@@ -83,9 +84,9 @@ def _run_trace(pkg):
     rt = pkg.router.Router(engs, affinity=True, registry=rreg,
                            flight_recorder=rrec, monitor=mon, timeseries=ts)
     hs = [rt.submit(prompts[0], max_new_tokens=news[0], arrival_time=0.0,
-                    deadline_s=1e9),
+                    deadline_s=1e9, tenant="chat"),
           rt.submit(prompts[1], max_new_tokens=news[1], arrival_time=0.0,
-                    deadline_s=1e9),
+                    deadline_s=1e9, tenant="batch"),
           rt.submit(prompts[2], max_new_tokens=news[2], arrival_time=0.0)]
     rt.step(now=0.0)
     assert all(h.engine is not None for h in hs)
@@ -225,10 +226,10 @@ def test_alert_fired_exactly_once_at_kill_step(trace):
     assert t1["kill_step"] == t2["kill_step"] == j["kill_step"]
     assert t1["mon"].alerts() == j["mon"].alerts()
     assert t1["mon"].burn_rates() == j["mon"].burn_rates() == \
-        {"default": 0.0}
+        {"batch": 0.0, "chat": 0.0}
     b = t1["mon"].budgets()
     assert b == j["mon"].budgets()
-    assert b["default"]["missed"] == 0 and b["default"]["consumed"] == 0.0
+    assert b["chat"]["missed"] == 0 and b["chat"]["consumed"] == 0.0
 
 
 def _no_hist(snap):
@@ -263,16 +264,13 @@ def test_fleet_snapshot_reconciles_against_replicas(trace):
     assert [r["slots_total"] for r in snap["load_reports"]] == [2, 2]
     assert snap["monitor"]["alerts_by_kind"] == {"replica_unhealthy": 1}
     assert rt._m.registry.get("serving.fleet.snapshots").total() >= 1
-    # the JAX fleet's snapshot, cell for cell (histograms by count; the
-    # port engine's fair-share instruments are not registered)
+    # the JAX fleet's snapshot, cell for cell (histograms by count)
     jsnap = j["snap"]
-    jm = {k: v for k, v in _no_hist(jsnap["registries"]).items()
-          if not k.startswith("serving.fairshare.")
-          and not k.startswith("serving.lora.")}
+    jm = _no_hist(jsnap["registries"])
     tm = _no_hist(merged)
-    assert set(tm) <= set(_no_hist(jsnap["registries"]))
-    assert {k: tm[k] for k in jm if k in tm} == \
-        {k: v for k, v in jm.items() if k in tm}
+    assert set(tm) == set(jm)
+    assert any(k.startswith("serving.fairshare.") for k in tm)
+    assert tm == jm
     for k in ("engines", "health", "roles", "shard_groups", "step",
               "load_reports", "router", "monitor"):
         assert snap[k] == jsnap[k], k
@@ -324,7 +322,7 @@ def test_serving_top_renders_and_checks(trace, tmp_path):
     assert text == top.render(snap)
     assert "2 replicas" in text and "replica_unhealthy=1" in text
     assert f"migrated_blocks={t1['vblocks']}" in text
-    assert "burn=" in text and "tenant default" in text
+    assert "burn=" in text and "tenant chat" in text
     assert top.check(snap) == []
     path = str(tmp_path / "snap.json")
     with open(path, "w") as f:
@@ -334,15 +332,9 @@ def test_serving_top_renders_and_checks(trace, tmp_path):
     bad = dict(snap, health=["healthy"])
     assert any("health" in p for p in top.check(bad))
     assert top.main([str(tmp_path / "missing.json"), "--check"]) == 1
-    # line for line the JAX fleet's dashboard, but for the instrument
-    # census (the port registers no fair-share or LoRA instruments)
-    jtext = top.render(j["snap"])
-
-    def body(txt):
-        return [ln for ln in txt.splitlines()
-                if not ln.lstrip().startswith("registries:")]
-    assert body(text) == body(jtext)
-    assert len(body(text)) == len(text.splitlines()) - 1
+    # line for line the JAX fleet's dashboard, the instrument census
+    # included (the port registers the fair-share instruments too)
+    assert text == top.render(j["snap"])
 
 
 def test_explain_request_cli_stitches(trace, tmp_path, capsys):

@@ -46,6 +46,8 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.inference.transport, "
         "paddle_tpu_torch.inference.procserve, "
         "paddle_tpu_torch.observability.fleet\n"
+        "import paddle_tpu_torch.inference.lora, "
+        "paddle_tpu_torch.models.lora\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -99,6 +101,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(model, num_slots=1, prompt_len=4, max_cache_len=8,
                       compute_dtype="float32")
+    from paddle_tpu_torch.inference import AdapterStore
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AdapterStore(model, slots=1, max_rank=2, dtype="float32")
     eng = ServingEngine(model, num_slots=1, prompt_len=4, max_cache_len=8,
                         compute_dtype="float32", device="cpu")
     req = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=2)

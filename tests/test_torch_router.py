@@ -13,9 +13,11 @@ request's first non-decisive position (teacher-forced top-2 margin <=
 0.01).  A multi-turn conversation's next prompt is built from the JAX
 side's outputs in both packages, so the two traces see the same prompts.
 
-The JAX traces' LoRA conversations ride plain here: adapters are not
-ported (ROADMAP #7), and the router refuses an unregistered adapter
-before any engine sees it."""
+The combined trace's conversations c1 and c2 each ride their own LoRA
+adapter, registered in every replica's ``AdapterStore`` (each package
+builds its own adapters from the same seeds): adapter affinity routes
+turn 2 back to the replica holding the adapter, and the adapter rows'
+margins are read from the JAX model with the adapter merged."""
 
 import numpy as np
 import pytest
@@ -23,12 +25,15 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import models as jmodels
+from paddle_tpu.inference import lora as jlora
 from paddle_tpu.inference import router as jrouter
 from paddle_tpu.inference import serving as jserving
 from paddle_tpu.inference.sampling import DfaTokenMask as JaxDfa
 from paddle_tpu.inference.sampling import SamplingParams as JaxSP
+from paddle_tpu.models import lora as jmlora
 from paddle_tpu.observability import MetricsRegistry as JaxRegistry
 from paddle_tpu.observability.flightrec import FlightRecorder as JaxRecorder
+from paddle_tpu_torch.inference import lora as tlora
 from paddle_tpu_torch.inference import router as trouter
 from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.inference.sampling import DfaTokenMask as TorchDfa
@@ -46,10 +51,10 @@ class Pkg:
     """One package's router, engine and observability classes, so a
     trace reads the same for both."""
 
-    def __init__(self, name, net, serving, router, registry, recorder,
-                 sp, dfa, **extra):
+    def __init__(self, name, net, serving, router, lora, registry,
+                 recorder, sp, dfa, **extra):
         self.name, self.net = name, net
-        self.serving, self.router = serving, router
+        self.serving, self.router, self.lora = serving, router, lora
         self.Registry, self.Recorder = registry, recorder
         self.SP, self.Dfa, self.extra = sp, dfa, extra
 
@@ -66,6 +71,14 @@ class Pkg:
     def Router(self, engines, **kw):
         return self.router.Router(engines, **kw)
 
+    def store(self, adapters, registry):
+        s = self.lora.AdapterStore(self.net, slots=2, max_rank=4,
+                                   dtype="float32", registry=registry,
+                                   **self.extra)
+        for ad in adapters:
+            s.register(ad)
+        return s
+
 
 @pytest.fixture(scope="module")
 def pkgs():
@@ -80,10 +93,11 @@ def pkgs():
     arrays = {n: np.asarray(p._value) for n, p in jnet.named_parameters()}
     tnet = LlamaForCausalLM(LlamaConfig(**kw), device="cpu", init=False)
     tnet.load_state_dict(llama_state_from_jax(arrays))
-    yield {"jax": Pkg("jax", jnet, jserving, jrouter, JaxRegistry,
+    yield {"jax": Pkg("jax", jnet, jserving, jrouter, jlora, JaxRegistry,
                       JaxRecorder, JaxSP, JaxDfa),
-           "port": Pkg("port", tnet, tserving, trouter, MetricsRegistry,
-                       FlightRecorder, TorchSP, TorchDfa, device="cpu")}
+           "port": Pkg("port", tnet, tserving, trouter, tlora,
+                       MetricsRegistry, FlightRecorder, TorchSP, TorchDfa,
+                       device="cpu")}
     torch.set_num_threads(prev)
 
 
@@ -96,12 +110,21 @@ def _decisive(jnet, ids, out):
     return int(close[0]) if close.size else len(out)
 
 
-def _assert_tokens(jnet, prompts_outs_port, prompts_outs_jax):
+def _assert_tokens(jnet, prompts_outs_port, prompts_outs_jax,
+                   adapters=None):
+    """Tokens equal up to each row's first non-decisive position, the
+    margins read from the JAX model with the row's JAX adapter (if any)
+    merged; at least half of all positions compared."""
     compared = total = 0
-    for (ids, tout), (_ids, jout) in zip(prompts_outs_port,
-                                         prompts_outs_jax):
+    adapters = adapters or [None] * len(prompts_outs_port)
+    for (ids, tout), (_ids, jout), ad in zip(prompts_outs_port,
+                                             prompts_outs_jax, adapters):
         jout = np.asarray(jout, np.int32)
-        upto = _decisive(jnet, np.asarray(ids, np.int32), jout)
+        if ad is None:
+            upto = _decisive(jnet, np.asarray(ids, np.int32), jout)
+        else:
+            with jmlora.merged_adapter(jnet, ad):
+                upto = _decisive(jnet, np.asarray(ids, np.int32), jout)
         np.testing.assert_array_equal(np.asarray(tout)[:upto], jout[:upto])
         compared += upto
         total += len(jout)
@@ -188,11 +211,17 @@ def test_router_units(pkgs):
 
 def _combined(pkg, jouts=None):
     """The combined 2-replica trace: 3 conversations x 2 turns (c0
-    streamed through policy 'chat'), an embed request, a bounded-engine-
-    queue spill, a router-queue shed, a timeout and a cancel.  ``jouts``
-    (the JAX run's turn outputs) build the next turn's prompts."""
+    streamed through policy 'chat', c1/c2 each on its own LoRA adapter),
+    an embed request, a bounded-engine-queue spill, a router-queue shed,
+    a timeout and a cancel.  ``jouts`` (the JAX run's turn outputs) build
+    the next turn's prompts."""
     rng = np.random.default_rng(42)
-    engs = [pkg.mk(registry=pkg.Registry()) for _ in range(2)]
+    ads = [pkg.lora.LoraAdapter.random(pkg.net.config, f"a{j}", rank=4,
+                                       seed=50 + j, scale=0.05)
+           for j in range(2)]
+    regs = [pkg.Registry() for _ in range(2)]
+    engs = [pkg.mk(registry=reg, adapter_store=pkg.store(ads, reg))
+            for reg in regs]
     rrec = pkg.Recorder()
     rt = pkg.Router(engs, affinity=True, registry=pkg.Registry(),
                     flight_recorder=rrec)
@@ -214,8 +243,9 @@ def _combined(pkg, jouts=None):
             assert steps < 80, "trace did not drain"
         return flushes
 
+    adapters = [None, ads[0].name, ads[1].name]
     log = {"assign": {ci: [] for ci in range(3)}, "outs": [],
-           "flushes": []}
+           "flushes": [], "adapters": [None, ads[0], ads[1]] * 2}
     for turn in range(2):
         handles, streams = [], []
         for ci in range(3):
@@ -228,7 +258,8 @@ def _combined(pkg, jouts=None):
                 streams.append(s)
                 h = s.request
             else:
-                h = rt.submit(ids, max_new_tokens=new, arrival_time=0.0)
+                h = rt.submit(ids, max_new_tokens=new,
+                              adapter=adapters[ci], arrival_time=0.0)
             handles.append(h)
         fl = drain(handles, streams)
         for ci, h in enumerate(handles):
@@ -244,6 +275,8 @@ def _combined(pkg, jouts=None):
     drain([he])
     assert he.state == "finished" and he.output.size == 1
     log["stats_after_turns"] = rt.stats()
+    # turn-2 adapter affinity saved the second swap-in on each replica
+    log["swapins"] = [r.get("serving.lora.swap_ins").value() for r in regs]
     log["engine_stats"] = [{k: e.stats()[k] for k in (
         "prefills", "prefill_chunks", "decode_steps", "block_dispatches",
         "prefix_hits", "prefix_hit_tokens", "async_syncs",
@@ -313,6 +346,10 @@ def test_router_combined_trace(pkgs, combined):
               "adapter_affinity_hits", "requests"):
         assert t["stats_after_turns"][k] == j["stats_after_turns"][k], k
     assert t["stats_after_turns"]["prefix_affinity_tokens"] > 0
+    # turn 2 returns c1 and c2 to the replica holding their adapter
+    assert t["stats_after_turns"]["routed_by_reason"]["adapter"] == 2
+    assert t["stats_after_turns"]["adapter_affinity_hits"] == 2
+    assert t["swapins"] == j["swapins"] == [1.0, 1.0]
     assert set(trouter.ROUTE_REASONS) == \
         set(t["stats_after_turns"]["routed_by_reason"])
     assert t["engine_stats"] == j["engine_stats"]
@@ -325,7 +362,7 @@ def test_router_combined_trace(pkgs, combined):
         _ids, out = t["outs"][turn * 3]
         assert sum(t["flushes"][turn], []) == out
         assert sum(1 for f in t["flushes"][turn] if f) >= 2
-    _assert_tokens(jnet, t["outs"], j["outs"])
+    _assert_tokens(jnet, t["outs"], j["outs"], j["adapters"])
     # the spill landed on e1 with e1's own affinity in the event
     eng, want_aff, attrs, same = t["spill"]
     assert eng == 1 and same and attrs["engine"] == 1

@@ -278,10 +278,10 @@ def test_sampled_schedule_and_counters_equal_jax(runs, arm):
     if arm:
         by = tst["async_syncs_by_reason"]
         assert by["mask"] > 0 and by["penalty"] > 0, by
-    # the decode programs built: by total steps, then by flag bucket
-    jkeys = sorted({(k[0], tuple(k[1])) for k in jeng._blocks})
-    tkeys = sorted((n, f) for n, progs in teng._blocks.items()
-                   for f in progs)
+    # the decode programs built: both caches key on (total steps, flag
+    # bucket, lora)
+    jkeys = sorted({(k[0], tuple(k[1]), k[2]) for k in jeng._blocks})
+    tkeys = sorted(teng._blocks)
     assert tkeys == jkeys
 
 
@@ -447,10 +447,16 @@ def test_sampled_spec_engine_equals_jax(bridged, drafter):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "#10"),
-    (dict(adapter_store=object()), "#7"), (dict(tenant_weights={"a": 1.0}),
-                                           "#7")],
+    (dict(adapter_store="store"), "#7"), (dict(tenant_weights={"a": 1.0}),
+                                          "#7")],
     ids=lambda x: next(iter(x)) if isinstance(x, dict) else x)
 def test_sampling_constructs_other_keywords_still_raise(bridged, kw, item):
+    """The sampling engine serves; ``mesh=`` (#10) still raises.  The #7
+    keywords are ported: ``adapter_store=`` and ``tenant_weights=`` build
+    a sampling engine that serves a seeded sampled row on an adapter and
+    a tenant, beside a default-sampled base row, and the store and the
+    tenant ledger see the run."""
+    from paddle_tpu_torch.inference import AdapterStore, LoraAdapter
     (_jnet, tnet), _ = bridged
     base = dict(num_slots=1, prompt_len=4, max_cache_len=12,
                 compute_dtype="float32", device="cpu")
@@ -462,12 +468,43 @@ def test_sampling_constructs_other_keywords_still_raise(bridged, kw, item):
     eng.run()
     assert r.state == d.state == "finished"
     assert eng.stats()["sampled_tokens"] == 6
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(tnet, **base, **kw)
     ids = np.arange(3, dtype=np.int32)
-    for skw, sitem in ((dict(adapter="a"), "#7"), (dict(tenant="t"), "#7")):
-        with pytest.raises(NotImplementedError, match=sitem):
-            eng.submit(ids, max_new_tokens=3, **skw)
+    if item == "#10":
+        with pytest.raises(NotImplementedError, match=item):
+            ServingEngine(tnet, **base, **kw)
+    else:
+        reg = TorchRegistry()
+        if "adapter_store" in kw:
+            store = AdapterStore(tnet, slots=1, max_rank=2,
+                                 dtype="float32", registry=reg,
+                                 device="cpu")
+            store.register(LoraAdapter.random(tnet.config, "a", rank=2,
+                                              seed=5, scale=0.2))
+            kw = dict(adapter_store=store)
+        e7 = ServingEngine(tnet, do_sample=True, temperature=0.7,
+                           top_p=0.9, registry=reg, **base, **kw)
+        ra = e7.submit(ids, max_new_tokens=3,
+                       sampling=SamplingParams(temperature=0.5, seed=1),
+                       adapter="a" if "adapter_store" in kw else None,
+                       tenant="a")
+        rb = e7.submit(ids, max_new_tokens=3, tenant="b")
+        e7.run()
+        assert ra.state == rb.state == "finished"
+        st = e7.stats()
+        assert st["sampled_tokens"] == 6
+        assert st["tenant_served_tokens"] == {"a": 6, "b": 6}
+        assert st["lora_dispatches"] == (3 if "adapter_store" in kw else 0)
+        if "adapter_store" not in kw:
+            # same seed, same row, no adapter: the base engine's stream
+            np.testing.assert_array_equal(ra.output, r.output)
+    # submit(adapter=) without a store is the JAX engine's ValueError;
+    # submit(tenant=) serves
+    with pytest.raises(ValueError, match="adapter_store"):
+        eng.submit(ids, max_new_tokens=3, adapter="a")
+    t = eng.submit(ids, max_new_tokens=3, tenant="t")
+    eng.run()
+    assert t.state == "finished"
+    assert eng.stats()["tenant_served_tokens"]["t"] == 6
     with pytest.raises(ValueError, match="SamplingParams"):
         eng.submit(ids, max_new_tokens=3, sampling="greedy")
     with pytest.raises(ValueError, match="no legal first"):

@@ -150,14 +150,37 @@ def test_scheduling_identical_to_jax_engine(served):
 @pytest.mark.parametrize("kw", [
     # int8 KV and int8/int4 weights are ported; what stays unported there
     # is a float KV dtype other than compute_dtype and quantized weights
-    # on a tensor-parallel mesh
+    # on a tensor-parallel mesh.  adapter_store= and tenant_weights= (LoRA
+    # and fair share) are ported: those two cases construct an engine
+    # that serves
     {"kv_cache_dtype": "bfloat16"}, {"weight_dtype": "int8",
                                      "mesh": object()},
-    {"mesh": object()}, {"adapter_store": object()},
+    {"mesh": object()}, {"adapter_store": "store"},
     {"tenant_weights": {"a": 1.0}}, {"cache_dtype": "bfloat16"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_engine_features_raise(kw):
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    if "adapter_store" in kw or "tenant_weights" in kw:
+        from paddle_tpu_torch.inference import AdapterStore, LoraAdapter
+        reg = TorchRegistry()
+        if "adapter_store" in kw:
+            store = AdapterStore(net, slots=1, max_rank=2, dtype="float32",
+                                 registry=reg, device="cpu")
+            store.register(LoraAdapter.random(net.config, "a", rank=2,
+                                              seed=1))
+            kw = {"adapter_store": store}
+        eng = ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                            compute_dtype="float32", device="cpu",
+                            registry=reg, **kw)
+        r = eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=3,
+                       adapter="a" if "adapter_store" in kw else None,
+                       tenant="a")
+        eng.run()
+        assert r.state == "finished" and r.output.size == 3
+        st = eng.stats()
+        assert st["tenant_served_tokens"] == {"a": 6}
+        assert st["lora_dispatches"] == (3 if "adapter_store" in kw else 0)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
                       compute_dtype="float32", device="cpu", **kw)
@@ -275,11 +298,33 @@ def test_engine_defaults_are_the_reference_engines():
     {"adapter": "a"}, {"tenant": "t"},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_submit_features_raise(kw):
+    """submit(adapter=) and submit(tenant=) are ported: without a store an
+    adapter is refused with the JAX engine's ValueError, and with one the
+    request serves; a tenant's request serves and is charged to it."""
+    from paddle_tpu_torch.inference import AdapterStore, LoraAdapter
     net = LlamaForCausalLM(tiny_llama_config(), device="cpu")
+    reg = TorchRegistry()
+    store = None
+    if "adapter" in kw:
+        eng = ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
+                            compute_dtype="float32", device="cpu",
+                            registry=TorchRegistry())
+        with pytest.raises(ValueError, match="adapter_store"):
+            eng.submit(np.zeros((3,), np.int32), max_new_tokens=2, **kw)
+        store = AdapterStore(net, slots=1, max_rank=2, dtype="float32",
+                             registry=reg, device="cpu")
+        store.register(LoraAdapter.random(net.config, "a", rank=2, seed=1))
     eng = ServingEngine(net, num_slots=1, prompt_len=4, max_cache_len=8,
-                        compute_dtype="float32", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.submit(np.zeros((3,), np.int32), **kw)
+                        compute_dtype="float32", device="cpu", registry=reg,
+                        adapter_store=store)
+    r = eng.submit(np.zeros((3,), np.int32), max_new_tokens=2, **kw)
+    eng.run()
+    assert r.state == "finished" and r.output.size == 2
+    assert eng.stats()["tenant_served_tokens"] == {kw.get("tenant",
+                                                          "default"): 5}
+    if store is not None:
+        assert reg.get("serving.lora.gathers").value() == 2
+        assert store.hbm_resident() == ["a"] and store.check()
 
 
 def test_submit_guards():

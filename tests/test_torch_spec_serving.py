@@ -408,11 +408,43 @@ def test_unported_spec_compositions_raise(bridged, case):
                        sampling=SamplingParams(
                            mask_processor=DfaTokenMask(table)))
         return
-    kw = {"lora": {"adapter_store": object()},
-          "mesh": {"mesh": object()}}[case]
+    if case == "lora":
+        # LoRA composes with spec (ported): an adapter row drafted by a
+        # ModelDrafter over the base target verifies under its adapter,
+        # token for token the same engine's non-spec run of the row
+        from paddle_tpu_torch.inference import AdapterStore, LoraAdapter
+        ids = np.random.default_rng(3).integers(
+            0, tnet.config.vocab_size, (5,)).astype(np.int32)
+        outs = []
+        for spec_k in (3, None):
+            reg = TorchRegistry()
+            store = AdapterStore(tnet, slots=1, max_rank=4,
+                                 dtype="float32", registry=reg,
+                                 device="cpu")
+            store.register(LoraAdapter.random(tnet.config, "a", rank=4,
+                                              seed=9, scale=0.2))
+            eng = ServingEngine(
+                tnet, num_slots=2, device="cpu", registry=reg,
+                adapter_store=store,
+                drafter=ModelDrafter(tnet, max_context=C,
+                                     compute_dtype="float32"),
+                **_engine_kw())
+            r = eng.submit(ids, max_new_tokens=8, spec_decode=spec_k,
+                           adapter="a", tenant="t")
+            eng.run()
+            assert r.state == "finished"
+            st = eng.stats()
+            outs.append((r.output, st))
+            assert st["lora_dispatches"] == \
+                reg.get("serving.lora.gathers").value() > 0
+        assert outs[0][1]["spec_verify_steps"] > 0
+        assert outs[0][1]["spec_accepted_tokens"] > 0
+        assert outs[1][1]["spec_verify_steps"] == 0
+        np.testing.assert_array_equal(outs[0][0], outs[1][0])
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tnet, num_slots=1, device="cpu", drafter=NGramDrafter(),
-                      **_engine_kw(**kw))
+                      mesh=object(), **_engine_kw())
 
 
 def test_build_spec_verify_guards_and_generate_raises(bridged):
@@ -422,9 +454,43 @@ def test_build_spec_verify_guards_and_generate_raises(bridged):
         build_spec_verify(tnet, cfg, 0)
     with pytest.raises(ValueError, match="mask"):
         build_spec_verify(tnet, cfg, 4, samp_flags=(True, False, False, True))
-    for kw in ({"lora": True}, {"shard": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_spec_verify(tnet, cfg, 4, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_spec_verify(tnet, cfg, 4, shard=object())
+    # lora=True is ported: the verify takes the adapter planes after samp;
+    # a row at the null adapter scores exactly as the plain verify, and an
+    # adapter row as the plain verify over merged weights
+    from paddle_tpu_torch.inference import AdapterStore, LoraAdapter
+    from paddle_tpu_torch.models.lora import merged_adapter
+    tcfg = tnet.config
+    store = AdapterStore(tnet, slots=1, max_rank=2, dtype="float32",
+                         registry=TorchRegistry(), device="cpu")
+    ad = LoraAdapter.random(tcfg, "a", rank=2, seed=2, scale=0.3)
+    store.register(ad)
+    slot = store.acquire("a")
+    nl, hkv, d = tnet.kv_cache_spec()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, tcfg.vocab_size, (2, 4)).astype(np.int32))
+    lens = torch.zeros(2, dtype=torch.int32)
+    n_valid = torch.full((2,), 4, dtype=torch.int32)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+
+    def arenas():
+        return [a for e in t_arena(nl, 4, BLK, hkv, d, torch.float32, "cpu")
+                for a in e]
+
+    planes = dict(store.arena_planes(),
+                  ids=torch.tensor([store.null_slot, slot],
+                                   dtype=torch.int32))
+    got = build_spec_verify(tnet, cfg, 4, lora=True)(
+        toks, lens, n_valid, tables, {}, planes, *arenas())[0]
+    plain = build_spec_verify(tnet, cfg, 4)(toks, lens, n_valid, tables, {},
+                                            *arenas())[0]
+    assert torch.equal(got[0], plain[0])
+    with merged_adapter(tnet, ad):
+        merged = build_spec_verify(tnet, cfg, 4)(toks, lens, n_valid, tables,
+                                                 {}, *arenas())[0]
+    assert torch.equal(got[1], merged[1])
+    assert not torch.equal(got[1], plain[1])
     ids = np.zeros((1, 4), np.int32)
     # beam generate() is ported (tests/test_torch_beam.py); with sampling
     # it raises the reference's ValueError

@@ -35,14 +35,17 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import models as jmodels
 from paddle_tpu.inference import faultinject as jfault
+from paddle_tpu.inference import lora as jlora
 from paddle_tpu.inference import procserve as jproc
 from paddle_tpu.inference import router as jrouter
 from paddle_tpu.inference import serving as jserving
 from paddle_tpu.inference import transport as jtransport
 from paddle_tpu.inference.sampling import SamplingParams as JaxSP
+from paddle_tpu.models import lora as jmlora
 from paddle_tpu.observability import MetricsRegistry as JaxRegistry
 from paddle_tpu.observability.flightrec import FlightRecorder as JaxRecorder
 from paddle_tpu_torch.inference import faultinject as tfault
+from paddle_tpu_torch.inference import lora as tlora
 from paddle_tpu_torch.inference import procserve as tproc
 from paddle_tpu_torch.inference import router as trouter
 from paddle_tpu_torch.inference import serving as tserving
@@ -84,6 +87,21 @@ class Pkg:
         kw.setdefault("registry", self.Registry())
         return self.router.Router(engines, **kw)
 
+    def store(self, adapters, registry):
+        lora = tlora if self.name == "port" else jlora
+        s = lora.AdapterStore(self.net, slots=2, max_rank=4,
+                              dtype="float32", registry=registry,
+                              **self.extra)
+        for ad in adapters:
+            s.register(ad)
+        return s
+
+    def adapters(self):
+        lora = tlora if self.name == "port" else jlora
+        return [lora.LoraAdapter.random(self.net.config, f"a{j}", rank=4,
+                                        seed=50 + j, scale=0.05)
+                for j in range(2)]
+
     def wrap(self, engine, label="replica"):
         return self.transport.RemoteReplica(self.transport.LoopbackTransport(
             self.proc.EngineHost(engine, label=label),
@@ -120,13 +138,19 @@ def _decisive(jnet, ids, out):
     return int(close[0]) if close.size else len(out)
 
 
-def _hold(jnet, prompts, touts, jouts):
+def _hold(jnet, prompts, touts, jouts, adapters=None):
     """Tokens equal the JAX tokens up to each request's first non-decisive
-    position; at least half of all positions are compared."""
+    position (read with the row's JAX adapter, if any, merged); at least
+    half of all positions are compared."""
     compared = total = 0
-    for ids, tout, jout in zip(prompts, touts, jouts):
+    adapters = adapters or [None] * len(prompts)
+    for ids, tout, jout, ad in zip(prompts, touts, jouts, adapters):
         jout = np.asarray(jout, np.int32)
-        upto = _decisive(jnet, np.asarray(ids, np.int32), jout)
+        if ad is None:
+            upto = _decisive(jnet, np.asarray(ids, np.int32), jout)
+        else:
+            with jmlora.merged_adapter(jnet, ad):
+                upto = _decisive(jnet, np.asarray(ids, np.int32), jout)
         np.testing.assert_array_equal(np.asarray(tout)[:upto], jout[:upto])
         compared += upto
         total += len(jout)
@@ -276,10 +300,13 @@ def test_wire_error_and_sampling_codecs():
 
 def _combined_trace(pkg, *, wrap, jouts=None):
     """The 2-replica conversation trace (3 conversations x 2 turns, c0
-    streamed 'chat', then an embed request) against bare or loopback-
-    wrapped engines."""
+    streamed 'chat', c1/c2 on their own LoRA adapters, then an embed
+    request) against bare or loopback-wrapped engines."""
     rng = np.random.default_rng(42)
-    engs = [pkg.mk() for _ in range(2)]
+    ads = pkg.adapters()
+    regs = [pkg.Registry() for _ in range(2)]
+    engs = [pkg.mk(registry=reg, adapter_store=pkg.store(ads, reg))
+            for reg in regs]
     replicas = ([pkg.wrap(e, f"r{i}") for i, e in enumerate(engs)]
                 if wrap else engs)
     rrec = pkg.Recorder()
@@ -287,6 +314,9 @@ def _combined_trace(pkg, *, wrap, jouts=None):
     term = pkg.serving.TERMINAL_STATES
     sys_ids = rng.integers(0, 128, (4,)).astype(np.int32)
     hist = [list(sys_ids) for _ in range(3)]
+    adapters = [None, ads[0].name, ads[1].name]
+    with pytest.raises(ValueError, match="not registered"):
+        rt.submit(sys_ids, adapter="nope")
 
     def drain(handles, streams=()):
         flushes = {id(s): [] for s in streams}
@@ -317,7 +347,8 @@ def _combined_trace(pkg, *, wrap, jouts=None):
                 streams.append(s)
                 h = s.request
             else:
-                h = rt.submit(ids, max_new_tokens=4, arrival_time=0.0)
+                h = rt.submit(ids, max_new_tokens=4, adapter=adapters[ci],
+                              arrival_time=0.0)
             handles.append(h)
         fl = drain(handles, streams)
         for ci, h in enumerate(handles):
@@ -332,7 +363,9 @@ def _combined_trace(pkg, *, wrap, jouts=None):
     drain([he])
     assert he.state == "finished" and he.output.size == 1
     return {
-        "assign": assign,
+        "assign": assign, "adapters": [None, ads[0], ads[1]] * 2,
+        "swapins": [r.get("serving.lora.swap_ins").value() for r in regs],
+        "adapter_hits": rt.stats()["adapter_affinity_hits"],
         "routed_by_reason": rt.stats()["routed_by_reason"],
         "outs": outs, "c0_flushes": c0_flushes,
         "events": _strip(rrec.events(), drop=("transport",)),
@@ -355,8 +388,11 @@ def test_loopback_byte_identity(pkgs):
     bare = _combined_trace(t, wrap=False, jouts=jloop["outs"])
     loop = _combined_trace(t, wrap=True, jouts=jloop["outs"])
     for k in ("assign", "routed_by_reason", "outs", "c0_flushes",
-              "events", "n_route_events", "engine_stats"):
+              "events", "n_route_events", "engine_stats", "swapins",
+              "adapter_hits"):
         assert bare[k] == loop[k], k
+    assert loop["swapins"] == jloop["swapins"] == [1.0, 1.0]
+    assert loop["adapter_hits"] == jloop["adapter_hits"] == 2
     assert loop["n_route_events"] == 7
     assert bare["transport_attrs"] == ["None"]
     assert loop["transport_attrs"] == ["loopback"]
@@ -371,7 +407,8 @@ def test_loopback_byte_identity(pkgs):
     assert [{k: s[k] for k in keys} for s in loop["engine_stats"]] == \
         [{k: s[k] for k in keys} for s in jloop["engine_stats"]]
     _hold(j.net, [p for p, _o in loop["outs"]],
-          [o for _p, o in loop["outs"]], [o for _p, o in jloop["outs"]])
+          [o for _p, o in loop["outs"]], [o for _p, o in jloop["outs"]],
+          jloop["adapters"])
 
 
 # ---------------------------------------------------------------------------
