@@ -46,6 +46,15 @@ beside it slice by slice and imports nothing of it (nor JAX).
   prefill/decode disaggregation, the framed wire transport and process
   replicas, and the fleet observability plane
   (``observability.fleet``); no kernel is added.
+- Slice 18, multi-tenant LoRA serving and fair-share admission
+  (``inference.AdapterStore``, ``models.lora``); no kernel is added.
+- Slice 19, the NLP model zoo: ``models.GPTForCausalLM`` through every
+  serving surface (the engine, speculation, quantized weights and KV,
+  ``generate()``, ``LLMPredictor`` and its artifact) and pretraining,
+  the ERNIE/BERT encoders with their heads, ``nn.LayerNorm`` and the
+  ``nn.Transformer*`` layers, and ``llama_3_70b_config``; no kernel is
+  added: the existing ones run at G = 1, head dim 64 and with the
+  quantized matmul's bias epilogue.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """

@@ -42,8 +42,9 @@ The dense serving session: ``LLMPredictor`` (:671) with its programs
 (``_build_serving_fns`` :590 and ``_build_decode_block`` :213; greedy,
 sampled or beam) and its artifact ``save``/``load`` (:886-1002).  The
 reference serialises StableHLO programs; the port's artifact
-(``.ptpu_torch_llm``) holds the meta, the Llama config and the weights,
-and ``load`` rebuilds the model and the programs from them.
+(``.ptpu_torch_llm``) holds the meta, the model family (Llama or GPT)
+with its config, and the weights, and ``load`` rebuilds the model and
+the programs from them.
 """
 
 from __future__ import annotations
@@ -143,7 +144,7 @@ def build_weight_quant_plan(model, weight_dtype) -> WeightQuantPlan:
     if not hasattr(model, "quant_projections"):
         raise ValueError(
             f"weight_dtype={weight_dtype!r} needs a model exposing "
-            f"quant_projections() (llama); got {type(model).__name__}")
+            f"quant_projections() (llama/gpt); got {type(model).__name__}")
     pos = {id(p): i for i, p in enumerate(model.parameters())}
     entries = []
     for li, layer in enumerate(model.quant_projections()):
@@ -585,6 +586,24 @@ ARTIFACT_SUFFIX = ".ptpu_torch_llm"
 ARTIFACT_VERSION = 1
 
 
+def _artifact_families():
+    """``{family: (model class, config class)}`` an artifact can hold."""
+    from ..models.gpt import GPTConfig, GPTForCausalLM
+    from ..models.llama import LlamaConfig, LlamaForCausalLM
+    return {"llama": (LlamaForCausalLM, LlamaConfig),
+            "gpt": (GPTForCausalLM, GPTConfig)}
+
+
+def _artifact_family(model) -> str:
+    for family, (model_cls, _cfg) in _artifact_families().items():
+        if type(model) is model_cls:
+            return family
+    raise NotImplementedError(
+        f"save() serialises a LlamaForCausalLM or a GPTForCausalLM, got "
+        f"{type(model).__name__} (ROADMAP.md, Known differences of the "
+        f"dense generation programs)")
+
+
 class SessionState:
     """The device state an ``LLMPredictor`` owns, the inputs and outputs
     of both session programs: the prompt inputs (``ids [B, P]``, ``lens_in
@@ -975,13 +994,12 @@ class LLMPredictor:
         """Write the serving artifact ``path + ".ptpu_torch_llm"``: a
         pickle of the format ``version``, the reference's ``meta`` dict
         (the full decode configuration: greedy, sampled or beam), the
-        model family and its ``LlamaConfig`` fields, and every weight as
-        numpy at its exact bits (bf16 as the ``uint16`` view plus the
-        dtype name, the host parcels' rule).  ``load()`` rebuilds the
-        model and the programs from it alone.  The reference's
-        ``.ptpu_llm`` holds StableHLO programs: neither package loads the
-        other's artifact."""
-        from ..models.llama import LlamaForCausalLM
+        model ``family`` (``"llama"`` or ``"gpt"``) with its config
+        fields, and every weight as numpy at its exact bits (bf16 as the
+        ``uint16`` view plus the dtype name, the host parcels' rule).
+        ``load()`` rebuilds the model and the programs from it alone.
+        The reference's ``.ptpu_llm`` holds StableHLO programs: neither
+        package loads the other's artifact."""
         from .prefixcache import host_rows
         if self._wq is not None:
             raise NotImplementedError(
@@ -989,12 +1007,8 @@ class LLMPredictor:
                 "the artifact would carry the code/scale planes without "
                 "the loader knowing the plan layout; quantized-weight "
                 "predictors serve in-process")
-        if not isinstance(self._model, LlamaForCausalLM):
-            raise NotImplementedError(
-                f"save() serialises a LlamaForCausalLM, got "
-                f"{type(self._model).__name__} (ROADMAP.md, Queue 1: #12 "
-                f"Model zoo)")
-        blob = {"version": ARTIFACT_VERSION, "family": "llama",
+        family = _artifact_family(self._model)
+        blob = {"version": ARTIFACT_VERSION, "family": family,
                 "config": dataclasses.asdict(self._model.config),
                 "meta": self._meta(),
                 "weights": {name: host_rows(t) for name, t in
@@ -1006,26 +1020,27 @@ class LLMPredictor:
     @classmethod
     def load(cls, path: str, device="cuda") -> "LLMPredictor":
         """Rebuild a serving session from a ``.ptpu_torch_llm`` artifact
-        written by ``save()``: the model (``LlamaForCausalLM`` of the
-        saved config, every weight at its saved bits and dtype) on
+        written by ``save()``: the model of the saved family and config
+        (an artifact without a family, as the first ones were written, is
+        a Llama one), every weight at its saved bits and dtype, on
         ``device`` (the CUDA card unless ``"cpu"`` is asked for; raises
         without CUDA) and the programs of the saved configuration."""
         from ..device import resolve_device
-        from ..models.llama import LlamaConfig, LlamaForCausalLM
         from .prefixcache import parcel_tensor
         dev = resolve_device(device)
         with open(path + ARTIFACT_SUFFIX, "rb") as f:
             blob = pickle.load(f)
-        if blob.get("version") != ARTIFACT_VERSION or \
-                blob.get("family") != "llama":
+        family = blob.get("family", "llama")
+        families = _artifact_families()
+        if blob.get("version") != ARTIFACT_VERSION or family not in families:
             raise ValueError(
                 f"{path}{ARTIFACT_SUFFIX}: artifact version "
-                f"{blob.get('version')!r} of family {blob.get('family')!r}; "
-                f"this loader reads version {ARTIFACT_VERSION} of 'llama'")
+                f"{blob.get('version')!r} of family {family!r}; this loader "
+                f"reads version {ARTIFACT_VERSION} of {sorted(families)}")
+        model_cls, config_cls = families[family]
         weights = blob["weights"]
-        model = LlamaForCausalLM(LlamaConfig(**blob["config"]), device=dev,
-                                 dtype=next(iter(weights.values()))[1],
-                                 init=False)
+        model = model_cls(config_cls(**blob["config"]), device=dev,
+                          dtype=next(iter(weights.values()))[1], init=False)
         names = dict(model.named_parameters())
         if set(names) != set(weights):
             raise ValueError(

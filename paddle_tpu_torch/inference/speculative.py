@@ -2,15 +2,15 @@
 verifier.  Port of ``paddle_tpu/inference/speculative.py``.
 
 A DRAFTER proposes up to K candidate tokens per sequence; ONE target
-forward (``LlamaForCausalLM.verify_step`` over the paged arena, whose
-attention is the K-wide verify kernel on the card) scores all K+1
-positions.  For a greedy row the longest draft prefix that matches the
-target's own argmax is accepted and the first mismatch's argmax is
-emitted as the correction token: every emitted token is a token the
-sequential greedy loop would have produced.  For a sampled row draft j
-is accepted with probability ``p_j(d_j)`` and the first rejection emits
-a draw from the residual (speculative sampling): the output distribution
-is the sequential sampled engine's.
+forward (the model's ``verify_step``, Llama's or GPT's, over the paged
+arena, whose attention is the K-wide verify kernel on the card) scores
+all K+1 positions.  For a greedy row the longest draft prefix that
+matches the target's own argmax is accepted and the first mismatch's
+argmax is emitted as the correction token: every emitted token is a
+token the sequential greedy loop would have produced.  For a sampled
+row draft j is accepted with probability ``p_j(d_j)`` and the first
+rejection emits a draw from the residual (speculative sampling): the
+output distribution is the sequential sampled engine's.
 
 - ``Drafter`` and ``NGramDrafter`` (:55, :70) are pure numpy, copied.
 - ``ModelDrafter`` (:117) runs a draft model's greedy ``generate()``

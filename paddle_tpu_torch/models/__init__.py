@@ -1,9 +1,22 @@
-"""Models of the port: Llama for paged serving, generate() (greedy,
-sampled, beam) and pretraining."""
+"""Models of the port: Llama (paged serving, generate() and
+pretraining), GPT (the same serving surfaces and pretraining) and the
+ERNIE/BERT encoders with their fine-tune and pretraining heads."""
 
-from .convert import (llama_state_from_jax,  # noqa: F401
-                      optimizer_state_from_jax, optimizer_state_to_jax)
+from .convert import (ernie_state_from_jax, gpt_state_from_jax,  # noqa: F401
+                      llama_state_from_jax, optimizer_state_from_jax,
+                      optimizer_state_to_jax)
+from .ernie import (BertConfig, BertForPretraining,  # noqa: F401
+                    BertForQuestionAnswering, BertForSequenceClassification,
+                    BertForTokenClassification, BertModel, ErnieConfig,
+                    ErnieForPretraining, ErnieForQuestionAnswering,
+                    ErnieForSequenceClassification,
+                    ErnieForTokenClassification, ErnieModel,
+                    ErniePretrainingCriterion, ernie_base_config,
+                    tiny_ernie_config)
 from .generation import GenerationConfig, GenerationMixin  # noqa: F401
+from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
+                  GPTPretrainingCriterion, gpt2_small_config,
+                  gpt3_13b_config, tiny_gpt_config)
 from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
                     LlamaPretrainingCriterion, llama_3_8b_config,
-                    tiny_llama_config)
+                    llama_3_70b_config, tiny_llama_config)

@@ -1,12 +1,19 @@
-"""Weight bridge from the JAX package's Llama to the port's.
+"""Weight bridge from the JAX package's models to the port's.
 
-``llama_state_from_jax`` maps the JAX model's ``named_parameters()``
-(``paddle_tpu/nn/layer/layers.py:169``), handed over as numpy arrays, onto
-``paddle_tpu_torch.models.LlamaForCausalLM``'s state dict.  The module
-names are identical; the one difference is the Linear layout: a JAX
-``nn.Linear`` stores its weight as ``[in, out]``
+``llama_state_from_jax``, ``gpt_state_from_jax`` and
+``ernie_state_from_jax`` map the JAX model's ``named_parameters()``
+(``paddle_tpu/nn/layer/layers.py:169``), handed over as numpy arrays,
+onto the state dict of the port's ``LlamaForCausalLM``,
+``GPTForCausalLM`` or ERNIE/BERT model (and the ``nn.Transformer*``
+layers).  The module names are identical; the one difference is the
+Linear layout: a JAX ``nn.Linear`` stores its weight as ``[in, out]``
 (``create_parameter((in_features, out_features))``), torch's as
-``[out, in]``, so every projection and ``lm_head`` is transposed.
+``[out, in]``, so every Linear weight is transposed.  Biases, LayerNorm
+weights and embeddings are not.  GPT's fused ``qkv_proj`` ``[h, 3h]``
+becomes ``[3h, h]``, whose output splits as the reference's ``[b, s, 3,
+H, D]``.  ERNIE's tied pretraining decoder has no weight of its own on
+either side: the word embedding is the one tensor, and
+``cls.decoder_bias`` the decoder's only parameter.
 
 ``optimizer_state_from_jax``/``optimizer_state_to_jax`` carry an
 optimizer's ``state_dict()`` across the same way: the reference's keys
@@ -22,25 +29,32 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-LINEAR_NAMES = frozenset({"q_proj", "k_proj", "v_proj", "o_proj",
-                          "gate_proj", "up_proj", "down_proj", "lm_head"})
+# the module names whose ``weight`` is a Linear's, per model family
+LINEAR_NAMES_BY_FAMILY = {
+    "llama": frozenset({"q_proj", "k_proj", "v_proj", "o_proj",
+                        "gate_proj", "up_proj", "down_proj", "lm_head"}),
+    "gpt": frozenset({"qkv_proj", "out_proj", "fc_in", "fc_out",
+                      "lm_head"}),
+    # ERNIE/BERT and the nn.Transformer* layers
+    "ernie": frozenset({"q_proj", "k_proj", "v_proj", "out_proj",
+                        "linear1", "linear2", "dense", "classifier",
+                        "transform", "decoder", "seq_relationship"}),
+}
+LINEAR_NAMES = frozenset().union(*LINEAR_NAMES_BY_FAMILY.values())
 
 
-def _is_linear_weight(name: str) -> bool:
+def _is_linear_weight(name: str, linear_names=LINEAR_NAMES) -> bool:
     parts = name.split(".")
     return len(parts) >= 2 and parts[-1] == "weight" \
-        and parts[-2] in LINEAR_NAMES
+        and parts[-2] in linear_names
 
 
-def llama_state_from_jax(named_arrays: Mapping[str, np.ndarray]
-                         ) -> Dict[str, torch.Tensor]:
-    """``{jax parameter name: array}`` -> a state dict for
-    ``LlamaForCausalLM.load_state_dict`` (CPU tensors, the arrays'
-    dtypes; Linear weights transposed to ``[out, in]``)."""
+def _state_from_jax(named_arrays, family):
+    names = LINEAR_NAMES_BY_FAMILY[family]
     out = {}
     for name, arr in named_arrays.items():
         a = np.asarray(arr)
-        if _is_linear_weight(name):
+        if _is_linear_weight(name, names):
             if a.ndim != 2:
                 raise ValueError(f"{name}: a Linear weight must be 2-D, got "
                                  f"shape {a.shape}")
@@ -48,6 +62,29 @@ def llama_state_from_jax(named_arrays: Mapping[str, np.ndarray]
         out[name] = torch.from_numpy(np.array(a, order="C"))  # owned copy
     return out
 
+
+def llama_state_from_jax(named_arrays: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """``{jax parameter name: array}`` -> a state dict for
+    ``LlamaForCausalLM.load_state_dict`` (CPU tensors, the arrays'
+    dtypes; Linear weights transposed to ``[out, in]``)."""
+    return _state_from_jax(named_arrays, "llama")
+
+
+def gpt_state_from_jax(named_arrays: Mapping[str, np.ndarray]
+                       ) -> Dict[str, torch.Tensor]:
+    """The same for ``GPTForCausalLM`` (``qkv_proj``, ``out_proj``,
+    ``fc_in``, ``fc_out`` and ``lm_head`` transposed)."""
+    return _state_from_jax(named_arrays, "gpt")
+
+
+def ernie_state_from_jax(named_arrays: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """The same for the ERNIE/BERT models and the ``nn.Transformer*``
+    layers (attention projections, ``linear1``/``linear2``, the pooler's
+    ``dense``, the heads' ``classifier``, ``transform``, untied
+    ``decoder`` and ``seq_relationship`` transposed)."""
+    return _state_from_jax(named_arrays, "ernie")
 
 
 def _entry_index(key: str):

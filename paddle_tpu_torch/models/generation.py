@@ -5,7 +5,9 @@ field of the reference's program key), the dense cache of ``generate()``
 :314, ``cached_decode_attention`` :325), ``init_paged_kv_arena`` (:113,
 float and int8 caches), ``quantize_kv_heads`` (:152), the decode / chunk
 / verify scatters with their trash routing and their quantize-on-append
-``_q`` twins (:174-311), ``filter_top_k_top_p`` (:342), ``sample_token``
+``_q`` twins (:174-311), one layer's cache write and attention in each
+cache form (``attend_decode``, ``attend_chunk``, ``attend_verify``: the
+dispatch every model's attention shares),``filter_top_k_top_p`` (:342), ``sample_token``
 (:368), ``decode_scan_body`` (:437), ``beam_scan_body`` (:460) and
 ``GenerationMixin.generate`` (:638) with its program (``_generate_compiled``
 :535): greedy, sampled or beam search.  The sampled draws are JAX's
@@ -38,7 +40,11 @@ import torch
 
 from ..device import to_dtype
 from ..ops.decode_attention import (cache_shape, decode_attention,
-                                    paged_arena_shape, paged_scale_shape)
+                                    decode_attention_paged,
+                                    decode_attention_paged_multi,
+                                    paged_arena_shape,
+                                    paged_prefix_attention,
+                                    paged_scale_shape)
 
 
 @dataclass(frozen=True)
@@ -280,6 +286,67 @@ def paged_verify_scatter_q(arena, scales, tables, lens, n_valid, new_kv):
         (b, c) + tuple(arena.shape[2:])))
     scales.index_put_((blk, off), s)
     return arena, scales
+
+
+def attend_decode(q1, k1, v1, kv, lens):
+    """One layer's decode-step cache write and attention, in each cache
+    form: ``generate()``'s dense (k_cache, v_cache) pair, the paged
+    triple, or the int8 cache's 5-tuple (quantize on append, dequantize
+    in the read).  q1 [B, H_q, D] contiguous; k1, v1 [B, H_kv, D] the new
+    token's K/V, written at slot ``lens[b]``.  Returns the attention
+    output of the decode kernels (``ops/decode_attention.py``)."""
+    if len(kv) == 2:
+        k_cache, v_cache = kv
+        cache_scatter(k_cache, lens, k1)
+        cache_scatter(v_cache, lens, v1)
+        return cached_decode_attention(q1, k_cache, v_cache, lens)
+    if len(kv) == 5:
+        k_arena, v_arena, k_s, v_s, tables = kv
+        paged_cache_scatter_q(k_arena, k_s, tables, lens, k1)
+        paged_cache_scatter_q(v_arena, v_s, tables, lens, v1)
+        return decode_attention_paged(q1, k_arena, v_arena, tables, lens,
+                                      kv_scales=(k_s, v_s))
+    k_arena, v_arena, tables = kv
+    paged_cache_scatter(k_arena, tables, lens, k1)
+    paged_cache_scatter(v_arena, tables, lens, v1)
+    return decode_attention_paged(q1, k_arena, v_arena, tables, lens)
+
+
+def attend_chunk(q, k, v, kv, start: int, n_valid: int):
+    """One layer's prefill-chunk cache write and attention for ONE
+    sequence over the paged cache (triple or int8 5-tuple): q [1, C,
+    H_q, D], k/v [1, C, H_kv, D] at global positions ``start ..
+    start+C-1``, positions ``>= n_valid`` trash-routed; attention is
+    causal over the written prefix."""
+    start_t = torch.full((1,), start, dtype=torch.int32, device=q.device)
+    if len(kv) == 5:
+        k_arena, v_arena, k_s, v_s, tables = kv
+        paged_chunk_scatter_q(k_arena, k_s, tables, start, n_valid, k[0])
+        paged_chunk_scatter_q(v_arena, v_s, tables, start, n_valid, v[0])
+        return paged_prefix_attention(q, k_arena, v_arena, tables, start_t,
+                                      kv_scales=(k_s, v_s))
+    k_arena, v_arena, tables = kv
+    paged_chunk_scatter(k_arena, tables, start, n_valid, k[0])
+    paged_chunk_scatter(v_arena, tables, start, n_valid, v[0])
+    return paged_prefix_attention(q, k_arena, v_arena, tables, start_t)
+
+
+def attend_verify(q, k, v, kv, lens, n_valid):
+    """One layer's speculative-verify cache write and attention over the
+    paged cache (triple or int8 5-tuple): q [B, C, H_q, D] contiguous,
+    k/v [B, C, H_kv, D] at per-row positions ``lens[b] .. lens[b]+C-1``,
+    columns ``>= n_valid[b]`` trash-routed; attention causal per query
+    offset (the K-wide verify kernel)."""
+    if len(kv) == 5:
+        k_arena, v_arena, k_s, v_s, tables = kv
+        paged_verify_scatter_q(k_arena, k_s, tables, lens, n_valid, k)
+        paged_verify_scatter_q(v_arena, v_s, tables, lens, n_valid, v)
+        return decode_attention_paged_multi(q, k_arena, v_arena, tables,
+                                            lens, kv_scales=(k_s, v_s))
+    k_arena, v_arena, tables = kv
+    paged_verify_scatter(k_arena, tables, lens, n_valid, k)
+    paged_verify_scatter(v_arena, tables, lens, n_valid, v)
+    return decode_attention_paged_multi(q, k_arena, v_arena, tables, lens)
 
 
 def filter_top_k_top_p(lg, top_k, top_p):

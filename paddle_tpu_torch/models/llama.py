@@ -2,7 +2,8 @@
 ``paddle_tpu/models/llama.py``.
 
 What is here: ``LlamaConfig`` (the fields serving and training read),
-``llama_3_8b_config``/``tiny_llama_config``, ``LlamaForCausalLM`` and
+``llama_3_8b_config``/``tiny_llama_config``, ``llama_3_70b_config`` (a
+config only), ``LlamaForCausalLM`` and
 ``LlamaPretrainingCriterion``.
 
 - Serving: ``kv_cache_spec`` (:485), ``decode_step`` (:514),
@@ -59,14 +60,8 @@ from ..nn.functional import (add, cross_entropy, embedding, linear,
                              llama_rope, scaled_dot_product_attention,
                              swiglu)
 from ..nn.norm import RMSNorm
-from ..ops.decode_attention import (decode_attention_paged,
-                                    decode_attention_paged_multi,
-                                    paged_prefix_attention)
-from .generation import (GenerationMixin, cache_prefill_write, cache_scatter,
-                         cached_decode_attention, paged_cache_scatter,
-                         paged_cache_scatter_q, paged_chunk_scatter,
-                         paged_chunk_scatter_q, paged_verify_scatter,
-                         paged_verify_scatter_q)
+from .generation import (GenerationMixin, attend_chunk, attend_decode,
+                         attend_verify, cache_prefill_write)
 from .lora import maybe_lora
 from .wquant import wq_linear
 
@@ -121,6 +116,17 @@ def llama_3_8b_config(**kw):
     return LlamaConfig(vocab_size=128256, hidden_size=4096,
                        intermediate_size=14336, num_hidden_layers=32,
                        num_attention_heads=32, num_key_value_heads=8,
+                       rope_theta=500000.0, **kw)
+
+
+def llama_3_70b_config(**kw):
+    """The 70B geometry (``paddle_tpu/models/llama.py:78``), a config
+    only: its bf16 weights (140 GB) do not fit one card, so nothing runs
+    it until sharded serving or distributed training (ROADMAP.md, Queue
+    1: #10 Sharded serving, #14 Distributed)."""
+    return LlamaConfig(vocab_size=128256, hidden_size=8192,
+                       intermediate_size=28672, num_hidden_layers=80,
+                       num_attention_heads=64, num_key_value_heads=8,
                        rope_theta=500000.0, **kw)
 
 
@@ -210,23 +216,8 @@ class LlamaAttention(nn.Module):
         v_cache) pair; lens: [B] int32 write slot = last valid index
         after the write.  Returns (out [B, 1, hidden], kv)."""
         q, k, v = self._qkv_rope(x, lens[:, None])
-        q1 = q[:, 0].contiguous()
-        if len(kv) == 2:
-            k_cache, v_cache = kv
-            cache_scatter(k_cache, lens, k[:, 0])
-            cache_scatter(v_cache, lens, v[:, 0])
-            out = cached_decode_attention(q1, k_cache, v_cache, lens)
-        elif len(kv) == 5:
-            k_arena, v_arena, k_s, v_s, tables = kv
-            paged_cache_scatter_q(k_arena, k_s, tables, lens, k[:, 0])
-            paged_cache_scatter_q(v_arena, v_s, tables, lens, v[:, 0])
-            out = decode_attention_paged(q1, k_arena, v_arena, tables, lens,
-                                         kv_scales=(k_s, v_s))
-        else:
-            k_arena, v_arena, tables = kv
-            paged_cache_scatter(k_arena, tables, lens, k[:, 0])
-            paged_cache_scatter(v_arena, tables, lens, v[:, 0])
-            out = decode_attention_paged(q1, k_arena, v_arena, tables, lens)
+        out = attend_decode(q[:, 0].contiguous(), k[:, 0], v[:, 0], kv,
+                            lens)
         return self._o(out[:, None, :]), kv
 
     def chunk_step(self, x, kv: PagedKV, start: int, n_valid: int):
@@ -237,19 +228,7 @@ class LlamaAttention(nn.Module):
         b, c, _ = x.shape
         pos = start + torch.arange(c, dtype=torch.int32, device=x.device)
         q, k, v = self._qkv_rope(x, pos[None, :])
-        start_t = torch.full((1,), start, dtype=torch.int32, device=x.device)
-        if len(kv) == 5:
-            k_arena, v_arena, k_s, v_s, tables = kv
-            paged_chunk_scatter_q(k_arena, k_s, tables, start, n_valid, k[0])
-            paged_chunk_scatter_q(v_arena, v_s, tables, start, n_valid, v[0])
-            out = paged_prefix_attention(q, k_arena, v_arena, tables,
-                                         start_t, kv_scales=(k_s, v_s))
-        else:
-            k_arena, v_arena, tables = kv
-            paged_chunk_scatter(k_arena, tables, start, n_valid, k[0])
-            paged_chunk_scatter(v_arena, tables, start, n_valid, v[0])
-            out = paged_prefix_attention(q, k_arena, v_arena, tables,
-                                         start_t)
+        out = attend_chunk(q, k, v, kv, start, n_valid)
         return self._o(out.reshape(b, c, -1)), kv
 
     def verify_step(self, x, kv: PagedKV, lens, n_valid):
@@ -263,19 +242,7 @@ class LlamaAttention(nn.Module):
         pos = lens[:, None] + torch.arange(c, dtype=torch.int32,
                                            device=x.device)[None, :]
         q, k, v = self._qkv_rope(x, pos)
-        q = q.contiguous()
-        if len(kv) == 5:
-            k_arena, v_arena, k_s, v_s, tables = kv
-            paged_verify_scatter_q(k_arena, k_s, tables, lens, n_valid, k)
-            paged_verify_scatter_q(v_arena, v_s, tables, lens, n_valid, v)
-            out = decode_attention_paged_multi(q, k_arena, v_arena, tables,
-                                               lens, kv_scales=(k_s, v_s))
-        else:
-            k_arena, v_arena, tables = kv
-            paged_verify_scatter(k_arena, tables, lens, n_valid, k)
-            paged_verify_scatter(v_arena, tables, lens, n_valid, v)
-            out = decode_attention_paged_multi(q, k_arena, v_arena, tables,
-                                               lens)
+        out = attend_verify(q.contiguous(), k, v, kv, lens, n_valid)
         return self._o(out.reshape(b, c, -1)), kv
 
 

@@ -3,4 +3,8 @@
 from . import functional  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue, clip_grad_norm_, clip_grad_value_)
-from .norm import RMSNorm  # noqa: F401
+from .common import Dropout  # noqa: F401
+from .norm import LayerNorm, RMSNorm  # noqa: F401
+from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)

@@ -6,6 +6,12 @@
   the RoPE kernel (``ops/rope.py``), as in the JAX package.
 - ``linear`` and ``embedding`` in torch's layouts (``linear``'s weight
   is ``[out, in]``; the JAX package's is ``[in, out]``).
+- ``layer_norm`` (``nn/functional/norm.py:27``): mean, population
+  variance and ``rsqrt(var + eps)`` in float32, the affine in float32,
+  one rounding back to x's dtype; ``gelu`` (``activation.py:47``, the
+  erfc form of ``jax.nn.gelu`` or its tanh approximation), ``relu`` and
+  ``tanh``.  Plain torch math: none of them is a kernel in the JAX
+  package.
 - The dropout family (``nn/functional/common.py:31-80``): ``dropout``,
   ``dropout2d``, ``dropout3d`` and ``alpha_dropout``.  A mask is
   ``uniform(key, shape) < 1 - p`` (``jax.random.bernoulli``) over the
@@ -31,6 +37,8 @@ op name (``amp.auto_cast.cast``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -52,6 +60,61 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     (weight,) = _amp_cast("embedding", weight)
     return F.embedding(ids, weight)
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """Normalize over the trailing ``normalized_shape`` axes in float32
+    (population variance), then the float32 affine, then one cast back
+    to x's dtype."""
+    x, weight, bias = _amp_cast("layer_norm", x, weight, bias)
+    n = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
+    axes = tuple(range(x.ndim - n, x.ndim))
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    c = xf - mean
+    var = (c * c).mean(dim=axes, keepdim=True)
+    out = c * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+_SQRT_HALF = float(np.sqrt(0.5))
+_SQRT_2_OVER_PI = float(np.sqrt(2 / np.pi))
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: JAX casts such a
+    constant to x's dtype (``np.sqrt(0.5).astype(x.dtype)``); a Python
+    scalar, unlike a 0-d tensor made from it, needs no host-to-device
+    copy, so a CUDA graph can capture the product."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """``jax.nn.gelu``: ``0.5 * x * erfc(-x * sqrt(1/2))``, or with
+    ``approximate`` ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715
+    x^3)))``, in x's dtype."""
+    (x,) = _amp_cast("gelu", x)
+    if approximate:
+        c = _in_dtype(_SQRT_2_OVER_PI, x.dtype)
+        cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+        return x * cdf
+    return 0.5 * x * torch.special.erfc(-x * _in_dtype(_SQRT_HALF, x.dtype))
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    (x,) = _amp_cast("relu", x)
+    return torch.relu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    (x,) = _amp_cast("tanh", x)
+    return torch.tanh(x)
 
 
 def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

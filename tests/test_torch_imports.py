@@ -48,6 +48,9 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.observability.fleet\n"
         "import paddle_tpu_torch.inference.lora, "
         "paddle_tpu_torch.models.lora\n"
+        "import paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.ernie, "
+        "paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.norm, "
+        "paddle_tpu_torch.nn.common\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -114,6 +117,33 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     out = model.generate(np.arange(3, dtype=np.int32)[None],
                          max_new_tokens=2, compute_dtype="float32")
     assert out.device.type == "cpu" and out.shape == (1, 2)
+
+
+@pytest.mark.parametrize("build", [
+    "GPTForCausalLM", "ErnieModel", "ErnieForSequenceClassification",
+    "ErnieForPretraining", "MultiHeadAttention", "TransformerEncoderLayer",
+    "Transformer", "square_mask"])
+def test_model_zoo_entry_points_need_cuda_unless_cpu_is_asked(build):
+    from paddle_tpu_torch import models, nn
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    make = {
+        "GPTForCausalLM": lambda **kw: models.GPTForCausalLM(
+            models.tiny_gpt_config(), **kw),
+        "MultiHeadAttention": lambda **kw: nn.MultiHeadAttention(16, 2,
+                                                                 **kw),
+        "TransformerEncoderLayer": lambda **kw: nn.TransformerEncoderLayer(
+            16, 2, 32, **kw),
+        "Transformer": lambda **kw: nn.Transformer(16, 2, 1, 1, 32, **kw),
+        "square_mask": lambda **kw: nn.Transformer.
+        generate_square_subsequent_mask(4, **kw),
+    }.get(build) or (lambda **kw: getattr(models, build)(
+        models.tiny_ernie_config(), **kw))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    made = make(device="cpu")
+    t = made if isinstance(made, torch.Tensor) else next(made.parameters())
+    assert t.device.type == "cpu"
 
 
 def test_engine_process_command_names_the_port():
