@@ -322,7 +322,35 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    ``amp.auto_cast`` O1 bf16, 1 + 3 steps): finite losses, no kernel
    launched (the pad mask keeps attention on the math path);
 6k. 5k (no attention dropout) and 5e at 2 layers, float32, 3 steps on
-   the card against the CPU (``phase_zoo_train_exactness``).
+   the card against the CPU (``phase_zoo_train_exactness``);
+7a. ResNet-50 training (BASELINE config 1 at ``bench.py``'s shape:
+   ``resnet50(num_classes=1000)`` in bf16, buffers too, Momentum 0.1 /
+   0.9 under ``TrainStep``, B=128 of 3x224x224 from ``--seed``), NCHW
+   and NHWC arms in turns (``phase_vision_training``): step ms,
+   images/s, peak memory, conv MFU (3 x the forward's conv and matmul
+   FLOPs from the layer shapes, at 989 TFLOP/s), device busy and idle
+   share and busy time by kernel group from one profiled step, the
+   Momentum update profiled alone, and the eval forward's images/s;
+   losses finite, the batch-norm buffers moved and finite;
+7b. PP-OCR inference (BASELINE config 4: ``PPOCRSystem(DBNet(),
+   CRNN())`` at their default configs, bf16, eval;
+   ``phase_ocr_inference``): detection on 8x3x640x640 and
+   ``db_postprocess`` on the host, recognition on ``bench.py``'s
+   512x3x32x320 and ``ctc_greedy_decode``: ms and images/s per stage,
+   each stage's parts timed alone (backbone, neck, head; convolutions,
+   LSTM, classifier), device busy and idle share;
+7c. OCR training (``phase_ocr_training``): CRNN + ``CTCHeadLoss`` on
+   64x3x32x320 and DBNet + ``DBLoss`` on 4x3x640x640 with synthetic
+   maps, bf16, Adam under ``TrainStep`` on a repeated batch, 1 + 4 steps
+   each: step ms; losses finite and falling; no port kernel launched
+   (Adam takes the unfused update);
+7d. vision card against CPU, float32 (``phase_vision_exactness``):
+   ResNet-18 and ResNet-50 at 2x3x64x64 in NCHW and NHWC (eval and
+   train forwards, the buffers after them), DBNet at scale 0.25 / 32
+   FPN channels, CRNN with 12 classes / hidden 16 (its CTC loss and
+   gradients), 2 ``TrainStep`` calls of ResNet-18 with Momentum; cuDNN's
+   TF32 left on for the caller, so the port's own scoping of float32
+   convolutions and LSTMs is what holds the tolerances.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -7705,6 +7733,529 @@ def phase_zoo_train_exactness(torch, seed):
         torch.cuda.empty_cache()
 
 
+# ---- the vision and OCR paths (phases 7a-7d) ----
+
+VISION = dict(batch=128, image=224, classes=1000, lr=0.1, momentum=0.9,
+              warm=2, steps=5, eval_steps=5)
+OCR_DET = dict(batch=8, size=640, post_images=2)
+OCR_REC = dict(batch=512, width=320)
+OCR_TRAIN = dict(rec_batch=64, rec_width=320, det_batch=4, det_size=640,
+                 lr=1e-3, steps=4)
+# card against CPU, float32: (relative to the reference's largest entry)
+VISION_REL = 1e-4
+# ResNet-50's train-mode forward at 2x64x64 normalizes 8 values a channel
+# in its last stage; the CPU tests hold it at 1e-3 for the same reason
+VISION_REL_R50_TRAIN = 1e-3
+
+
+def _conv_flops(torch, model, x):
+    """Forward multiply-add FLOPs (2 x MACs) of ``model``'s convolutions,
+    transposed convolutions and Linear layers on ``x``, from each layer's
+    input and output shapes in one eval forward."""
+    from paddle_tpu_torch.nn.conv import _ConvNd
+    total = [0]
+
+    def hook(m, inp, out):
+        if isinstance(m, _ConvNd):
+            k = 1
+            for d in m.kernel_size:
+                k *= d
+            if type(m).__name__.endswith("Transpose"):
+                macs = inp[0].numel() * (m.out_channels // m.groups) * k
+            else:
+                macs = out.numel() * (m.in_channels // m.groups) * k
+        else:
+            macs = out.numel() * m.in_features
+        total[0] += 2 * macs
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (_ConvNd, torch.nn.Linear))]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        model.train(was)
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+# kernel groups of a vision profile, by name, first match wins
+VISION_GROUPS = (("conv dgrad", ("dgrad",)),
+                 ("conv wgrad", ("wgrad", "splitkreduce")),
+                 ("conv forward", ("fprop", "implicit_convolve", "conv")),
+                 ("layout transposes", ("nchwtonhwc", "nhwctonchw",
+                                        "transpose")),
+                 ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+                 ("LSTM", ("lstm", "rnn")),
+                 ("GEMM", ("gemm", "nvjet", "cutlass")),
+                 ("pooling", ("pool",)))
+
+
+def _vision_groups(per_kernel):
+    out = {g: 0.0 for g, _ in VISION_GROUPS}
+    out["elementwise and other"] = 0.0
+    for name, us in per_kernel.items():
+        n = name.lower()
+        for g, keys in VISION_GROUPS:
+            if any(k in n for k in keys):
+                out[g] += us / 1e3
+                break
+        else:
+            out["elementwise and other"] += us / 1e3
+    return out
+
+
+def _profile_busy(torch, tag, fn, wall_ms=None):
+    """One call of ``fn`` under ``torch.profiler``: logs device busy (the
+    union of device intervals), the idle share of the profiled wall, busy
+    ms by ``VISION_GROUPS`` and the top kernels; returns (busy ms, wall
+    ms, groups)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per_kernel, count = _profile_kernels(torch, prof)
+    if not per_kernel:
+        _log(f"  {tag}: profiled wall {wall:.3f} ms; device busy not "
+             f"measured (the profiler recorded no CUDA kernel)")
+        return None, wall, {}
+    union_us, _span = _union_us(torch, prof)
+    busy = union_us / 1e3
+    groups = _vision_groups(per_kernel)
+    _log(f"  {tag}: profiled wall {wall:.3f} ms, device busy {busy:.3f} "
+         f"ms, idle {100 * (1 - busy / wall):.1f}%, "
+         f"{sum(count.values())} kernels; by group: " + "; ".join(
+             f"{g} {ms:.3f}" for g, ms in groups.items() if ms))
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        _log(f"    {us / 1e3:9.3f} ms x{count[name]:<4d} {name[:100]}")
+    return busy, wall, groups
+
+
+def _zero_kernels(tag):
+    """Raise unless no port kernel launched since the counts were set to
+    0; returns the (all-zero) counts of every kernel."""
+    from paddle_tpu_torch.ops import KERNELS
+    counts = {n: k.launches for n, k in KERNELS.items()}
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: port kernels launched: "
+                             f"{ {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
+def phase_vision_training(torch, seed, smi):
+    """Phase 7a (see the module docstring); returns the launches of every
+    port kernel over the phase (all 0, asserted)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    b, s, v = VISION["batch"], VISION["image"], VISION
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True       # this run's choice only
+    _zero_launches()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn((b, 3, s, s), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        y = torch.randint(0, v["classes"], (b,), generator=gen,
+                          device="cuda")
+        arms = {}
+        for df in ("NCHW", "NHWC"):
+            net = resnet50(num_classes=v["classes"], data_format=df,
+                           seed=seed).to(torch.bfloat16)
+            net.train()
+            opt = Momentum(learning_rate=v["lr"], momentum=v["momentum"],
+                           parameters=net.parameters())
+            step = TrainStep(net, lambda n, a, c: F.cross_entropy(n(a), c)
+                             .mean(), opt)
+            arms[df] = (net, step, {n: t.clone()
+                                    for n, t in net.named_buffers()})
+        flops = _conv_flops(torch, arms["NCHW"][0], x)
+        per_img = flops / b
+        n_params = sum(p.numel() for p in arms["NCHW"][0].parameters())
+        res = {df: [] for df in arms}
+        losses = {df: [] for df in arms}
+        for df in ("NCHW", "NHWC", "NHWC", "NCHW"):
+            net, step, _ = arms[df]
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(v["warm"]):
+                losses[df].append(step(x, y))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(v["steps"]):
+                losses[df].append(step(x, y))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / v["steps"] * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            res[df].append((ms, peak))
+        for df, (net, step, buf0) in arms.items():
+            ls = [float(t) for t in losses[df]]
+            if not _finite(ls):
+                raise AssertionError(f"resnet50 {df}: losses not finite: "
+                                     f"{ls}")
+            moved = 0
+            for name, t in net.named_buffers():
+                if not torch.isfinite(t.float()).all():
+                    raise AssertionError(f"resnet50 {df}: buffer {name} "
+                                         f"not finite")
+                moved += int(not torch.equal(t, buf0[name]))
+            if moved != len(buf0):
+                raise AssertionError(f"resnet50 {df}: {len(buf0) - moved} "
+                                     f"of {len(buf0)} buffers did not move")
+            tries = "; ".join(
+                f"{ms:.2f} ms = {b / ms * 1e3:.1f} images/s, conv MFU "
+                f"{100 * 3 * per_img * b / (ms * 1e-3) / PEAK_OPS['bfloat16']:.2f}%, "
+                f"peak {pk:.2f} GiB" for ms, pk in res[df])
+            _log(f"resnet50 training ({df}): {n_params / 1e6:.1f} M params, "
+                 f"bf16, batch {b}x3x{s}x{s}, Momentum lr {v['lr']}: "
+                 f"losses {['%.4f' % x_ for x_ in ls]}; {len(buf0)} buffers "
+                 f"moved, finite; two tries of {v['steps']} steps after "
+                 f"{v['warm']} warm-up: {tries}; forward "
+                 f"{per_img / 1e9:.3f} GFLOP/image (convs and fc, 2 x MACs "
+                 f"from the layer shapes), conv MFU = 3 x that x images/s / "
+                 f"989 TFLOP/s; on {smi}")
+            _profile_busy(torch, f"resnet50 train step ({df}), profiled",
+                          lambda: step(x, y))
+            grads = [torch.zeros_like(p) for p in step._params]
+            lr = step._prepare()
+
+            def update():
+                with torch.no_grad():
+                    step._apply_update(grads, lr, 0)
+
+            _profile_busy(torch, f"resnet50 Momentum update alone ({df}, "
+                                 f"{len(grads)} parameters)", update)
+            net.eval()
+            with torch.no_grad():
+                for _ in range(2):
+                    net(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(v["eval_steps"]):
+                    out = net(x)
+                torch.cuda.synchronize()
+                ev = (time.perf_counter() - t0) / v["eval_steps"] * 1e3
+            net.train()
+            if not torch.isfinite(out.float()).all() or \
+                    tuple(out.shape) != (b, v["classes"]):
+                raise AssertionError(f"resnet50 {df} eval: bad output")
+            _log(f"resnet50 eval forward ({df}): B={b}, {ev:.2f} ms = "
+                 f"{b / ev * 1e3:.1f} images/s")
+        del arms
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    return _zero_kernels("phase 7a")
+
+
+def phase_ocr_inference(torch, seed, smi):
+    """Phase 7b (see the module docstring); returns the launches (all
+    0, asserted)."""
+    from paddle_tpu_torch.models import (CRNN, DBNet, PPOCRSystem,
+                                         ctc_greedy_decode, db_postprocess)
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    _zero_launches()
+    try:
+        system = PPOCRSystem(DBNet(seed=seed), CRNN(seed=seed + 1))
+        system = system.to(torch.bfloat16).eval()
+        det, rec = system.det, system.rec
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        db, ds = OCR_DET["batch"], OCR_DET["size"]
+        rb, rw = OCR_REC["batch"], OCR_REC["width"]
+        dx = torch.rand((db, 3, ds, ds), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        rx = torch.rand((rb, 3, 32, rw), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            maps = system(dx)["maps"]
+            if tuple(maps.shape) != (db, 1, ds, ds) or not (
+                    (maps >= 0) & (maps <= 1)).all():
+                raise AssertionError(f"ocr det: maps {tuple(maps.shape)} "
+                                     f"not in [0, 1]")
+            det_ms = _time_ms(torch, lambda: system(dx), warmup=2, iters=10)
+            feats = det.backbone(dx)
+            neck = det.neck(feats)
+            parts = {"backbone": _time_ms(torch, lambda: det.backbone(dx),
+                                          warmup=2, iters=10),
+                     "neck (DBFPN)": _time_ms(torch, lambda: det.neck(feats),
+                                              warmup=2, iters=10),
+                     "head": _time_ms(torch, lambda: det.head(neck),
+                                      warmup=2, iters=10)}
+            det_flops = _conv_flops(torch, det, dx) / db
+            _log(f"ocr detection: DBNet (scale 0.5, 96 FPN channels), bf16, "
+                 f"{db}x3x{ds}x{ds}: {det_ms:.3f} ms = "
+                 f"{db / det_ms * 1e3:.1f} images/s (CUDA events); parts "
+                 + "; ".join(f"{k} {ms:.3f} ms" for k, ms in parts.items())
+                 + f"; {det_flops / 1e9:.3f} GFLOP/image; on {smi}")
+            _profile_busy(torch, "ocr detection forward, profiled",
+                          lambda: system(dx))
+            n_post = OCR_DET["post_images"]
+            t0 = time.perf_counter()
+            boxes = db_postprocess(maps[:n_post])
+            post_ms = (time.perf_counter() - t0) * 1e3
+            _log(f"ocr db_postprocess (host flood fill): {n_post} of {db} "
+                 f"maps, {post_ms:.1f} ms = {post_ms / n_post:.1f} ms an "
+                 f"image; boxes {[len(bx) for bx in boxes]}")
+            logits = system.recognize_crops(rx)
+            t_steps = rw // 4
+            if tuple(logits.shape) != (rb, t_steps, 97) or \
+                    not torch.isfinite(logits.float()).all():
+                raise AssertionError(f"ocr rec: logits "
+                                     f"{tuple(logits.shape)} not finite")
+            rec_ms = _time_ms(torch, lambda: system.recognize_crops(rx),
+                              warmup=2, iters=10)
+            feat = rec.convs(rx)
+            bb, c, h, w = feat.shape
+            seq = feat.permute(0, 3, 1, 2).reshape(bb, w, c * h)
+            enc, _ = rec.encoder(seq)
+            rparts = {"convolutions": _time_ms(torch, lambda: rec.convs(rx),
+                                               warmup=2, iters=10),
+                      "BiLSTM": _time_ms(torch, lambda: rec.encoder(seq),
+                                         warmup=2, iters=10),
+                      "classifier": _time_ms(torch, lambda: rec.fc(enc),
+                                             warmup=2, iters=10)}
+            rec_flops = _conv_flops(torch, rec, rx) / rb
+            _log(f"ocr recognition: CRNN (hidden 96, 97 classes), bf16, "
+                 f"{rb}x3x32x{rw} ({t_steps} time steps): {rec_ms:.3f} ms = "
+                 f"{rb / rec_ms * 1e3:.1f} images/s (CUDA events); parts "
+                 + "; ".join(f"{k} {ms:.3f} ms" for k, ms in rparts.items())
+                 + f"; convs and fc {rec_flops / 1e9:.3f} GFLOP/image")
+            _profile_busy(torch, "ocr recognition forward, profiled",
+                          lambda: system.recognize_crops(rx))
+            t0 = time.perf_counter()
+            texts = ctc_greedy_decode(logits)
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            if len(texts) != rb:
+                raise AssertionError("ocr rec: decode lost rows")
+            _log(f"ocr ctc_greedy_decode (host): {rb} rows x {t_steps} "
+                 f"steps in {dec_ms:.1f} ms; mean length "
+                 f"{sum(map(len, texts)) / rb:.1f}")
+        del system, det, rec, feats, neck, feat, seq, enc
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    return _zero_kernels("phase 7b")
+
+
+def _ocr_train_run(torch, tag, model, loss_fn, batch, smi, shape):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Adam
+    model = model.to(torch.bfloat16).train()
+    opt = Adam(learning_rate=OCR_TRAIN["lr"], parameters=model.parameters())
+    step = TrainStep(model, loss_fn, opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(*batch)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OCR_TRAIN["steps"]):
+        losses.append(step(*batch))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / OCR_TRAIN["steps"] * 1e3
+    ls = [float(x) for x in losses]
+    if not _finite(ls) or not ls[-1] < ls[0]:
+        raise AssertionError(f"{tag}: losses not finite and falling: {ls}")
+    _log(f"{tag}: bf16, {shape}, Adam lr {OCR_TRAIN['lr']} (unfused), "
+         f"repeated batch: losses {['%.4f' % x for x in ls]}; step "
+         f"{ms:.2f} ms over {OCR_TRAIN['steps']}; peak "
+         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {smi}")
+    _profile_busy(torch, f"{tag} step, profiled", lambda: step(*batch))
+
+
+def phase_ocr_training(torch, seed, smi):
+    """Phase 7c (see the module docstring); returns the launches (all
+    0, asserted)."""
+    from paddle_tpu_torch.models import CRNN, CTCHeadLoss, DBLoss, DBNet
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    _zero_launches()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+        rb, rw = OCR_TRAIN["rec_batch"], OCR_TRAIN["rec_width"]
+        x = torch.rand((rb, 3, 32, rw), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+        lens = torch.randint(5, 26, (rb,), generator=gen, device="cuda")
+        labels = torch.randint(1, 97, (rb, 25), generator=gen,
+                               device="cuda")
+        crit = CTCHeadLoss()
+        _ocr_train_run(torch, "ocr training, CRNN + CTC",
+                       CRNN(seed=seed + 2),
+                       lambda n, a, y, ln: crit(n(a), y, ln),
+                       (x, labels, lens), smi,
+                       f"{rb}x3x32x{rw}, labels of 5-25")
+        db, ds = OCR_TRAIN["det_batch"], OCR_TRAIN["det_size"]
+        dx = torch.rand((db, 3, ds, ds), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        gt = torch.zeros((db, 1, ds, ds), device="cuda",
+                         dtype=torch.bfloat16)
+        gt[:, :, ds // 4:ds // 2, ds // 8:3 * ds // 4] = 1.0
+        dcrit = DBLoss()
+        _ocr_train_run(torch, "ocr training, DBNet + DBLoss",
+                       DBNet(seed=seed + 3),
+                       lambda n, a, g: dcrit(n(a), g, g * 0.5),
+                       (dx, gt), smi, f"{db}x3x{ds}x{ds}, one text box")
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    return _zero_kernels("phase 7c")
+
+
+def _card_cpu(torch, tag, got, want, rel):
+    """Assert card ``got`` within ``rel`` of max(1, |want|) of the CPU's
+    ``want``; returns the largest |diff| over that scale."""
+    g = got.detach().float().cpu()
+    w = want.detach().float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{tag}: card output not finite")
+    scale = max(1.0, w.abs().max().item())
+    err = (g - w).abs().max().item() / scale
+    if err > rel:
+        raise AssertionError(f"{tag}: card vs CPU {err:.3g} of the largest "
+                             f"entry (limit {rel:.3g})")
+    return err
+
+
+def _pair_models(torch, build):
+    gpu = build(None)
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    return gpu, cpu
+
+
+def phase_vision_exactness(torch, seed):
+    """Phase 7d (see the module docstring): returns (vision launches,
+    ocr launches), all 0 (asserted)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (CRNN, CRNNConfig, CTCHeadLoss,
+                                         DBNet, DBNetConfig)
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as vm
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True   # the caller's default
+    worst = {}
+    try:
+        _zero_launches()
+        g = torch.Generator().manual_seed(seed + 7)
+        x = torch.randn((2, 3, 64, 64), generator=g)
+        for depth in (18, 50):
+            for df in ("NCHW", "NHWC"):
+                gpu, cpu = _pair_models(torch, lambda d: getattr(
+                    vm, f"resnet{depth}")(num_classes=7, data_format=df,
+                                          device=d, seed=seed))
+                for mode in ("eval", "train"):
+                    gpu.train(mode == "train")
+                    cpu.train(mode == "train")
+                    with torch.no_grad():
+                        got, want = gpu(x.cuda()), cpu(x)
+                    rel = VISION_REL_R50_TRAIN if (depth, mode) == (
+                        50, "train") else VISION_REL
+                    tag = f"resnet{depth} {df} {mode}"
+                    worst[tag] = _card_cpu(torch, tag, got, want, rel)
+                    cb = dict(cpu.named_buffers())
+                    for name, t in gpu.named_buffers():
+                        d = (t.cpu() - cb[name]).abs() - 1e-4 * \
+                            cb[name].abs()
+                        if d.max().item() > 1e-5:
+                            raise AssertionError(f"{tag}: buffer {name} "
+                                                 f"off by {d.max():.3g}")
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("the port changed the caller's TF32 "
+                                 "setting")
+        # two train steps of ResNet-18 with Momentum
+        gpu, cpu = _pair_models(torch, lambda d: vm.resnet18(
+            num_classes=10, device=d, seed=seed + 1))
+        p0 = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+        steps = []
+        for net in (gpu, cpu):
+            net.train()
+            opt = Momentum(learning_rate=0.01, momentum=0.9,
+                           parameters=net.parameters())
+            steps.append(TrainStep(net, lambda n, a, c: F.cross_entropy(
+                n(a), c).mean(), opt))
+        gx = torch.randn((4, 3, 64, 64), generator=g)
+        gy = torch.randint(0, 10, (4,), generator=g)
+        gl = [float(steps[0](gx.cuda(), gy.cuda())) for _ in range(2)]
+        cl = [float(steps[1](gx, gy)) for _ in range(2)]
+        rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(gl, cl))
+        if rel > 1e-4:
+            raise AssertionError(f"resnet18 train steps: losses card {gl} "
+                                 f"CPU {cl}")
+        cpar = dict(cpu.named_parameters())
+        frob = 0.0
+        for name, p in gpu.named_parameters():
+            _card_cpu(torch, f"resnet18 step {name}", p, cpar[name],
+                      VISION_REL)
+            dg = p.detach().cpu() - p0[name]
+            dc = cpar[name].detach() - p0[name]
+            frob = max(frob, ((dg - dc).norm() / dc.norm().clamp_min(
+                1e-30)).item())
+        if frob > 5e-3:
+            raise AssertionError(f"resnet18 train steps: an update differs "
+                                 f"by {frob:.3g} (relative Frobenius)")
+        worst["resnet18 2 Momentum steps, losses (rel)"] = rel
+        worst["resnet18 updates (relative Frobenius)"] = frob
+        vision = _zero_kernels("phase 7d (vision)")
+        _zero_launches()
+        det = _pair_models(torch, lambda d: DBNet(
+            DBNetConfig(backbone_scale=0.25, fpn_channels=32), device=d,
+            seed=seed + 2))
+        dx = torch.randn((2, 3, 64, 64), generator=g)
+        for mode in ("train", "eval"):
+            for net in det:
+                net.train(mode == "train")
+            with torch.no_grad():
+                got = det[0](dx.cuda())["maps"]
+                want = det[1](dx)["maps"]
+            worst[f"dbnet {mode} maps"] = _card_cpu(
+                torch, f"dbnet {mode}", got[:, :2], want[:, :2], VISION_REL)
+            if mode == "train":      # the binary map's slope reaches 12.5
+                worst["dbnet binary map"] = _card_cpu(
+                    torch, "dbnet binary", got[:, 2:], want[:, 2:],
+                    20 * VISION_REL)
+        rec = _pair_models(torch, lambda d: CRNN(
+            CRNNConfig(num_classes=12, hidden_size=16), device=d,
+            seed=seed + 3))
+        rx = torch.randn((2, 3, 32, 64), generator=g)
+        labels = torch.tensor([[3, 3, 5, 1], [2, 7, 0, 0]])
+        lens = torch.tensor([4, 2])
+        outs = []
+        for net, dev in zip(rec, ("cuda", "cpu")):
+            net.train()
+            logits = net(rx.to(dev))
+            loss = CTCHeadLoss()(logits, labels.to(dev), lens.to(dev))
+            grads = torch.autograd.grad(loss, [net.convs[0].conv.weight,
+                                               net.encoder.weight_ih_l0])
+            outs.append((logits, loss, grads))
+        worst["crnn logits"] = _card_cpu(torch, "crnn logits", outs[0][0],
+                                         outs[1][0], VISION_REL)
+        worst["crnn ctc loss"] = _card_cpu(torch, "crnn ctc", outs[0][1],
+                                           outs[1][1], VISION_REL)
+        for k, name in enumerate(("convs.0 weight", "LSTM weight_ih_l0")):
+            worst[f"crnn grad {name}"] = _card_cpu(
+                torch, f"crnn grad {name}", outs[0][2][k], outs[1][2][k],
+                VISION_REL)
+        ocr = _zero_kernels("phase 7d (ocr)")
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("the port changed the caller's TF32 "
+                                 "setting")
+        _log("vision exactness (float32, card vs CPU, cuDNN TF32 left on "
+             "for the caller; limits 1e-4 of the largest entry, ResNet-50 "
+             "train 1e-3, the DB binary map 2e-3): " + "; ".join(
+                 f"{k} {v:.3g}" for k, v in worst.items()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    torch.cuda.empty_cache()
+    return vision, ocr
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7828,6 +8379,20 @@ def main(argv=None) -> int:
     by_path["ernie"] = phase_ernie_finetune(torch, args.seed, smi)
     phase_zoo_train_exactness(torch, args.seed)
     mark("phases 5k, 5e, 6k")
+    by_path["vision"] = phase_vision_training(torch, args.seed, smi)
+    mark("phase 7a")
+    by_path["ocr"] = phase_ocr_inference(torch, args.seed, smi)
+    _add_launches(by_path["ocr"], phase_ocr_training(torch, args.seed,
+                                                     smi))
+    mark("phases 7b, 7c")
+    vision_exact, ocr_exact = phase_vision_exactness(torch, args.seed)
+    _add_launches(by_path["vision"], vision_exact)
+    _add_launches(by_path["ocr"], ocr_exact)
+    for path in ("vision", "ocr"):
+        if any(by_path[path].values()):
+            raise AssertionError(f"{path}: port kernels launched "
+                                 f"{by_path[path]}")
+    mark("phase 7d")
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)

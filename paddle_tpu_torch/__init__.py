@@ -55,12 +55,19 @@ beside it slice by slice and imports nothing of it (nor JAX).
   ``nn.Transformer*`` layers, and ``llama_3_70b_config``; no kernel is
   added: the existing ones run at G = 1, head dim 64 and with the
   quantized matmul's bias epilogue.
+- Slice 20, the vision and OCR path: ``nn``'s convolutions, pooling,
+  batch/group/instance norms, recurrent layers, activations, containers,
+  losses (``ctc_loss``) and common ops, the vision zoo
+  (``vision.models``: ResNet and the rest) and PP-OCR detection and
+  recognition (``models.ocr``); no kernel is added: convolutions,
+  batch norm and the LSTM are torch's (cuDNN on the card), as they are
+  XLA ops in the JAX package.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 
 from . import (amp, core, device, distributed, incubate,  # noqa: F401
                inference, jit, models, nn, observability, ops, optimizer,
-               quantization, regularizer, runtime)
+               quantization, regularizer, runtime, vision)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.generator import seed  # noqa: F401

@@ -9,7 +9,10 @@ The port has no dispatch layer, so each op on the port's paths calls
 that op: ``linear`` (every projection and ``lm_head``), ``embedding``,
 ``rms_norm``, ``llama_rope``, ``sdpa`` and ``flash_attention``,
 ``swiglu``, ``add`` (the residual adds), ``dropout``,
-``cross_entropy``, ``nll_loss`` and ``fused_linear_cross_entropy``.
+``cross_entropy``, ``nll_loss`` and ``fused_linear_cross_entropy``; and
+the vision slice's ops under theirs (``conv2d``, ``batch_norm_stats``
+and ``batch_norm``, ``max_pool2d``, ``relu``, ``flatten``, ``lstm``,
+``ctc_loss``, ...).
 ``torch.autocast`` is not used: its op lists are not the JAX package's.
 
 The rule (``_amp_hook``): O1 casts the white-list ops to the AMP dtype

@@ -1,10 +1,13 @@
 """Models of the port: Llama (paged serving, generate() and
-pretraining), GPT (the same serving surfaces and pretraining) and the
-ERNIE/BERT encoders with their fine-tune and pretraining heads."""
+pretraining), GPT (the same serving surfaces and pretraining), the
+ERNIE/BERT encoders with their fine-tune and pretraining heads, and the
+PP-OCR detector and recognizer (``ocr``); the vision zoo is
+``paddle_tpu_torch.vision.models``."""
 
 from .convert import (ernie_state_from_jax, gpt_state_from_jax,  # noqa: F401
-                      llama_state_from_jax, optimizer_state_from_jax,
-                      optimizer_state_to_jax)
+                      linear_weight_names, llama_state_from_jax,
+                      ocr_state_from_jax, optimizer_state_from_jax,
+                      optimizer_state_to_jax, vision_state_from_jax)
 from .ernie import (BertConfig, BertForPretraining,  # noqa: F401
                     BertForQuestionAnswering, BertForSequenceClassification,
                     BertForTokenClassification, BertModel, ErnieConfig,
@@ -20,3 +23,6 @@ from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
 from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
                     LlamaPretrainingCriterion, llama_3_8b_config,
                     llama_3_70b_config, tiny_llama_config)
+from .ocr import (CRNN, DBFPN, PPOCRSystem, CRNNConfig,  # noqa: F401
+                  CTCHeadLoss, DBHead, DBLoss, DBNet, DBNetConfig,
+                  ctc_greedy_decode, db_postprocess)

@@ -15,11 +15,19 @@ H, D]``.  ERNIE's tied pretraining decoder has no weight of its own on
 either side: the word embedding is the one tensor, and
 ``cls.decoder_bias`` the decoder's only parameter.
 
+``vision_state_from_jax`` (also ``ocr_state_from_jax``) maps the vision
+zoo's and the OCR models' parameters AND buffers (a batch norm's
+``_mean`` and ``_variance``), deciding by the port model's module types,
+not by a name rule: only the weight of a ``torch.nn.Linear`` is
+transposed; convolution, transposed-convolution, recurrent (an LSTM's
+2-D ``weight_ih_l0`` included) and norm tensors cross as they are.
+
 ``optimizer_state_from_jax``/``optimizer_state_to_jax`` carry an
 optimizer's ``state_dict()`` across the same way: the reference's keys
-(``{accumulator}_{index}``, ``master_{index}``, ``LR_Scheduler``), the
-index mapped through the parameter names, the entries of Linear weights
-transposed.
+(``{accumulator}_{index}``, ``master_{index}``, ``LR_Scheduler``; a
+Momentum's ``velocity_{index}`` among them), the index mapped through
+the parameter names, the entries of Linear weights transposed (by the
+name rule, or with ``linear=linear_weight_names(model)`` by type).
 """
 
 from __future__ import annotations
@@ -87,6 +95,38 @@ def ernie_state_from_jax(named_arrays: Mapping[str, np.ndarray]
     return _state_from_jax(named_arrays, "ernie")
 
 
+def linear_weight_names(model: torch.nn.Module) -> frozenset:
+    """The state-dict names of ``model``'s Linear weights (by module
+    type), the tensors whose layout differs between the packages."""
+    return frozenset(f"{name}.weight" if name else "weight"
+                     for name, m in model.named_modules()
+                     if isinstance(m, torch.nn.Linear))
+
+
+def vision_state_from_jax(named_arrays: Mapping[str, np.ndarray],
+                          model: torch.nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """``{jax parameter or buffer name: array}`` (the JAX model's
+    ``named_parameters()`` and ``named_buffers()``) -> a state dict for
+    the port ``model``'s ``load_state_dict``: CPU tensors in the arrays'
+    dtypes, the weights of ``model``'s ``torch.nn.Linear`` modules
+    transposed to ``[out, in]``, everything else as it is."""
+    linear = linear_weight_names(model)
+    out = {}
+    for name, arr in named_arrays.items():
+        a = np.asarray(arr)
+        if name in linear:
+            if a.ndim != 2:
+                raise ValueError(f"{name}: a Linear weight must be 2-D, got "
+                                 f"shape {a.shape}")
+            a = a.T
+        out[name] = torch.from_numpy(np.array(a, order="C"))  # owned copy
+    return out
+
+
+ocr_state_from_jax = vision_state_from_jax
+
+
 def _entry_index(key: str):
     """(accumulator name, parameter index) of a state-dict key, or None
     for ``LR_Scheduler`` and anything without a numeric suffix."""
@@ -94,7 +134,8 @@ def _entry_index(key: str):
     return (name, int(idx)) if name and idx.isdigit() else None
 
 
-def _bridge_state(state, src_names, dst_names, to_torch: bool):
+def _bridge_state(state, src_names, dst_names, to_torch: bool,
+                  linear=None):
     dst_index = {n: i for i, n in enumerate(dst_names)}
     out = {}
     for key, value in state.items():
@@ -106,7 +147,9 @@ def _bridge_state(state, src_names, dst_names, to_torch: bool):
         name = src_names[i]
         a = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) \
             else np.asarray(value)
-        if _is_linear_weight(name) and a.ndim == 2:
+        is_linear = (name in linear) if linear is not None \
+            else _is_linear_weight(name)
+        if is_linear and a.ndim == 2:
             a = a.T
         a = np.array(a, order="C")      # an owned copy
         out[f"{acc}_{dst_index[name]}"] = torch.from_numpy(a) if to_torch \
@@ -114,8 +157,8 @@ def _bridge_state(state, src_names, dst_names, to_torch: bool):
     return out
 
 
-def optimizer_state_from_jax(state: Mapping, jax_names, torch_names=None
-                             ) -> Dict:
+def optimizer_state_from_jax(state: Mapping, jax_names, torch_names=None,
+                             linear=None) -> Dict:
     """A JAX ``Optimizer.state_dict()`` handed over as numpy (``LR_Scheduler``
     as its dict) -> a state dict for the port optimizer's
     ``set_state_dict``.  ``jax_names``: the JAX optimizer's parameter
@@ -123,15 +166,18 @@ def optimizer_state_from_jax(state: Mapping, jax_names, torch_names=None
     (default the same order).  Keys keep their accumulator names
     (``moment1_0``, ``beta1_pow_0``, ``master_0``, ...) with the index
     mapped by name; Linear weights' entries are transposed to
-    ``[out, in]``."""
+    ``[out, in]`` (``linear``: the set of names to transpose, e.g.
+    ``linear_weight_names(model)``; default the name rule)."""
     return _bridge_state(state, list(jax_names),
-                         list(torch_names or jax_names), to_torch=True)
+                         list(torch_names or jax_names), to_torch=True,
+                         linear=linear)
 
 
-def optimizer_state_to_jax(state: Mapping, torch_names, jax_names=None
-                           ) -> Dict:
+def optimizer_state_to_jax(state: Mapping, torch_names, jax_names=None,
+                           linear=None) -> Dict:
     """The inverse of ``optimizer_state_from_jax``: the port optimizer's
     ``state_dict()`` -> numpy arrays under the JAX optimizer's keys,
     Linear weights' entries transposed back to ``[in, out]``."""
     return _bridge_state(state, list(torch_names),
-                         list(jax_names or torch_names), to_torch=False)
+                         list(jax_names or torch_names), to_torch=False,
+                         linear=linear)

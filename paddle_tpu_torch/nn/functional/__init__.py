@@ -30,6 +30,13 @@
   (``nn/functional/loss.py:30-110``): hard and soft labels, class
   weights, label smoothing, every reduction, any axis and
   ``use_softmax=False``.
+- The vision and OCR slice's functionals, one module each as in the
+  reference: ``activation`` (the rest of the activations), ``conv``
+  (convolutions and their transposes), ``pooling``, ``norm`` (batch,
+  instance, group and local-response norm, ``normalize``), ``common``
+  (``interpolate``, ``pad``, the shuffles, ``unfold``/``fold``, ...),
+  ``vision`` (``affine_grid``, ``grid_sample``) and ``loss`` (the rest
+  of the losses, ``ctc_loss`` and ``rnnt_loss``), re-exported here.
 
 Each op passes its inputs through the AMP rule under the JAX package's
 op name (``amp.auto_cast.cast``).
@@ -43,11 +50,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..amp.auto_cast import cast as _amp_cast
-from ..core import generator as _generator
-from ..ops.flash_attention import NEG_INF
-from ..ops.flash_attention import flash_attention as _flash
-from ..ops.rope import apply_rope
+from ...amp.auto_cast import cast as _amp_cast
+from ...core import generator as _generator
+from ...ops.flash_attention import NEG_INF
+from ...ops.flash_attention import flash_attention as _flash
+from ...ops.rope import apply_rope
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -183,7 +190,7 @@ def _weak(value, like: torch.Tensor) -> torch.Tensor:
 def _keep_mask(k: _generator.Key, q: float, shape, device) -> torch.Tensor:
     """``jax.random.bernoulli(key, q, shape)``: float32 threefry uniforms
     below float32 ``q``."""
-    from ..inference import threefry    # (the package imports the models)
+    from ...inference import threefry    # (the package imports the models)
     keys = torch.tensor(k.tf, dtype=torch.int64, device=device)
     return threefry.uniform(keys, tuple(shape)) < float(np.float32(q))
 
@@ -430,3 +437,14 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
     if reduction == "mean":
         return loss.sum() / torch.clamp(valid.to(input.dtype).sum(), min=1.0)
     return _reduce(loss, reduction)
+
+
+# ---- the vision and OCR slice: one module each, as the reference's ----
+
+from .activation import *  # noqa: E402,F401,F403
+from .common import *  # noqa: E402,F401,F403
+from .conv import *  # noqa: E402,F401,F403
+from .loss import *  # noqa: E402,F401,F403
+from .norm import *  # noqa: E402,F401,F403
+from .pooling import *  # noqa: E402,F401,F403
+from .vision import *  # noqa: E402,F401,F403

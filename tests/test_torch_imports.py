@@ -51,6 +51,12 @@ def test_import_loads_no_jax():
         "import paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.ernie, "
         "paddle_tpu_torch.nn.transformer, paddle_tpu_torch.nn.norm, "
         "paddle_tpu_torch.nn.common\n"
+        "import paddle_tpu_torch.vision.models, paddle_tpu_torch.models.ocr, "
+        "paddle_tpu_torch.nn.conv, paddle_tpu_torch.nn.pooling, "
+        "paddle_tpu_torch.nn.rnn, paddle_tpu_torch.nn.loss, "
+        "paddle_tpu_torch.nn.activation, paddle_tpu_torch.nn.container, "
+        "paddle_tpu_torch.nn.functional.conv, "
+        "paddle_tpu_torch.nn.functional.loss\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -122,12 +128,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 @pytest.mark.parametrize("build", [
     "GPTForCausalLM", "ErnieModel", "ErnieForSequenceClassification",
     "ErnieForPretraining", "MultiHeadAttention", "TransformerEncoderLayer",
-    "Transformer", "square_mask"])
+    "Transformer", "square_mask", "resnet50", "mobilenet_v3_small",
+    "vgg11", "DBNet", "CRNN", "PPOCRSystem", "Conv2D", "BatchNorm2D",
+    "LSTM", "Embedding"])
 def test_model_zoo_entry_points_need_cuda_unless_cpu_is_asked(build):
     from paddle_tpu_torch import models, nn
+    from paddle_tpu_torch.vision import models as vision
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     make = {
+        "resnet50": vision.resnet50,
+        "mobilenet_v3_small": vision.mobilenet_v3_small,
+        "vgg11": lambda **kw: vision.vgg11(batch_norm=True, **kw),
+        "DBNet": models.DBNet,
+        "CRNN": models.CRNN,
+        "PPOCRSystem": models.PPOCRSystem,
+        "Conv2D": lambda **kw: nn.Conv2D(3, 4, 3, **kw),
+        "BatchNorm2D": lambda **kw: nn.BatchNorm2D(4, **kw),
+        "LSTM": lambda **kw: nn.LSTM(4, 8, direction="bidirect", **kw),
+        "Embedding": lambda **kw: nn.Embedding(10, 4, **kw),
         "GPTForCausalLM": lambda **kw: models.GPTForCausalLM(
             models.tiny_gpt_config(), **kw),
         "MultiHeadAttention": lambda **kw: nn.MultiHeadAttention(16, 2,
