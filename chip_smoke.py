@@ -351,6 +351,33 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    gradients), 2 ``TrainStep`` calls of ResNet-18 with Momentum; cuDNN's
    TF32 left on for the caller, so the port's own scoping of float32
    convolutions and LSTMs is what holds the tolerances.
+7e. the hapi surface, BASELINE config 1's user surface
+   (``phase_hapi``): (a) ``examples.resnet_cifar`` with ``--arch
+   resnet50 --epochs 1 --batch-size 128`` on its synthetic data; (b)
+   ``Model.fit`` of ResNet-50 (10 classes) float32 with Adam over
+   ``Cifar10(size=50000)``, B=128, one epoch without shuffling, and
+   ``evaluate`` on ``size=10000`` (CIFAR-10's real sizes): ms a step and
+   images/s unprofiled, the host split of a step (loader wait,
+   ``train_batch``, the metric update and its read, ``float(loss)``),
+   peak memory, eval images/s, device busy, idle share and launches a
+   step from a profiled 10-step ``fit``, and ``fit``'s cost over a bare
+   ``TrainStep`` loop on the same batches (six pairs of 15-step runs,
+   the order alternating; resolved only where every pair agrees on the
+   sign); (c) 20 iterations under O1;
+   (d) 20 with ``num_workers=2`` (thread mode: CUDA is live); (e) a
+   float32 LeNet ``fit`` on synthetic MNIST, card against CPU from one
+   state (per-step losses within 1e-4 of the largest); (f) ``save`` /
+   ``load`` bit-equal; (g) O2's ``TypeError`` on a float32 batch; no port
+   kernel launched (``launches_by_path["hapi"]``, asserted);
+7f. the vision ops and ``F.rms_norm``, card against CPU
+   (``phase_vision_ops``): ``roi_align``/``roi_pool`` (64 RoIs on
+   2x256x50x68), ``deform_conv2d`` v1 and v2 (2x64x32x32, 64 filters),
+   ``box_coder`` both ways, values and input gradients within 1e-4 of
+   the largest entry; ``prior_box``, ``nms`` and ``matrix_nms`` equal;
+   ``F.rms_norm`` with a weight (the kernel, against ``rms_norm_plain``)
+   and without, float32 within 1e-5 of the largest entry, bf16 within
+   one bf16 ulp of each entry: its launches are the calls made
+   with a weight (``launches_by_path["functional"]``, asserted).
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -361,10 +388,12 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -8122,6 +8151,21 @@ def _card_cpu(torch, tag, got, want, rel):
     return err
 
 
+def _card_cpu_ulp(torch, tag, got, want):
+    """Assert bf16 card ``got`` within one bf16 ulp of each entry of the
+    CPU's ``want`` (``|got - want| <= |want| 2^-7``, element by
+    element); returns the largest share of that limit."""
+    g = got.detach().float().cpu()
+    w = want.detach().float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{tag}: card output not finite")
+    share = ((g - w).abs() / (w.abs() * 2.0 ** -7 + 1e-30)).max().item()
+    if share > 1.0:
+        raise AssertionError(f"{tag}: card vs CPU {share:.3g} bf16 ulps of "
+                             f"an entry (limit 1)")
+    return share
+
+
 def _pair_models(torch, build):
     gpu = build(None)
     cpu = build("cpu")
@@ -8254,6 +8298,446 @@ def phase_vision_exactness(torch, seed):
         torch.backends.cudnn.allow_tf32 = prev_tf32
     torch.cuda.empty_cache()
     return vision, ocr
+
+
+# ---- the hapi surface and the vision ops (phases 7e, 7f) ----
+
+HAPI = dict(batch=128, train=50000, test=10000, lr=1e-3, iters=20,
+            profile_steps=10, bare_steps=15, bare_pairs=6, lenet=512,
+            lenet_batch=64)
+# LeNet fit, card against CPU: per-step losses within this of the largest
+HAPI_LENET_REL = 1e-4
+
+
+class _HostSplit:
+    """Host time of ``Model.fit``'s step by part, measured by wrapping
+    the loader's iterator (the wait for a batch), ``Model.train_batch``,
+    ``Model._update_train_metrics`` (the metric update and its
+    device-to-host read) and ``hapi.model._loss_value`` (``float(loss)``)
+    while the context is open."""
+
+    PARTS = ("loader wait", "train_batch", "metrics + read", "float(loss)")
+
+    def __init__(self):
+        self.t = dict.fromkeys(self.PARTS, 0.0)
+        self.steps = 0
+
+    def __enter__(self):
+        from paddle_tpu_torch.hapi import model as hm
+        from paddle_tpu_torch.io import DataLoader
+        self._saved = [(DataLoader, "__iter__", DataLoader.__iter__),
+                       (hm.Model, "train_batch", hm.Model.train_batch),
+                       (hm.Model, "_update_train_metrics",
+                        hm.Model._update_train_metrics),
+                       (hm, "_loss_value", hm._loss_value)]
+        split = self
+
+        def timed(part, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split.t[part] += time.perf_counter() - t0
+            return run
+
+        orig_iter = DataLoader.__iter__
+
+        def loader_iter(dl):
+            it = orig_iter(dl)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    split.t["loader wait"] += time.perf_counter() - t0
+                yield batch
+
+        orig_tb = hm.Model.train_batch
+
+        def train_batch(*a, **k):
+            split.steps += 1
+            return timed("train_batch", orig_tb)(*a, **k)
+
+        DataLoader.__iter__ = loader_iter
+        hm.Model.train_batch = train_batch
+        hm.Model._update_train_metrics = timed(
+            "metrics + read", hm.Model._update_train_metrics)
+        hm._loss_value = timed("float(loss)", hm._loss_value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+    def report(self):
+        n = max(self.steps, 1)
+        ms = {k: v / n * 1e3 for k, v in self.t.items()}
+        ms["step dispatch"] = (ms["train_batch"] - ms["metrics + read"]
+                               - ms["float(loss)"])
+        return ms
+
+
+def _step_clock(paddle):
+    """A callback that stamps the end of every train batch."""
+    class Clock(paddle.hapi.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.stamps, self.losses = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.stamps.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+    return Clock()
+
+
+def _hapi_model(paddle, net, level=None, lr=HAPI["lr"]):
+    m = paddle.Model(net)
+    m.prepare(optimizer=paddle.optimizer.Adam(learning_rate=lr,
+                                              parameters=net.parameters()),
+              loss=paddle.nn.CrossEntropyLoss(),
+              metrics=paddle.metric.Accuracy(), amp_configs=level)
+    return m
+
+
+def _profile_fit(torch, tag, fn, steps):
+    """One call of ``fn`` (``steps`` train steps) under the profiler:
+    device busy, idle share and kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per_kernel, count = _profile_kernels(torch, prof)
+    if not per_kernel:
+        _log(f"  {tag}: profiled wall {wall:.3f} ms; device busy not "
+             f"measured (the profiler recorded no CUDA kernel)")
+        return None
+    busy = _union_us(torch, prof)[0] / 1e3
+    launches = sum(count.values())
+    _log(f"  {tag}: {steps} steps, profiled wall {wall:.3f} ms, device "
+         f"busy {busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%, "
+         f"{launches / steps:.1f} kernel launches a step; top kernels:")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]:
+        _log(f"    {us / 1e3:9.3f} ms x{count[name]:<5d} {name[:100]}")
+    return busy, wall, launches / steps
+
+
+def phase_hapi(torch, seed, smi):
+    """Phase 7e (see the module docstring); returns the launches of every
+    port kernel over the phase (all 0, asserted)."""
+    import warnings
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.examples import resnet_cifar
+    from paddle_tpu_torch.io import DataLoader, Subset
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.datasets import MNIST, Cifar10
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+    h, b = HAPI, HAPI["batch"]
+    _zero_launches()
+    # (a) the example twin, ResNet-50, its synthetic default data
+    t0 = time.perf_counter()
+    logs = resnet_cifar.main(["--arch", "resnet50", "--epochs", "1",
+                              "--batch-size", str(b)])
+    ex_s = time.perf_counter() - t0
+    if not (math.isfinite(logs["loss"]) and 0.0 <= logs["acc"] <= 1.0):
+        raise AssertionError(f"resnet_cifar: bad evaluate logs {logs}")
+    _log(f"hapi (a) examples.resnet_cifar --arch resnet50 --epochs 1 "
+         f"--batch-size {b} on the card: evaluate {logs}; {ex_s:.1f} s "
+         f"(1024 train and 256 test images, the build of the model and "
+         f"cuDNN's first calls included)")
+    # (b) CIFAR-10's real sizes, float32, one epoch
+    train = Cifar10(mode="train", size=h["train"])
+    test = Cifar10(mode="test", size=h["test"])
+    net = resnet50(num_classes=10, seed=seed)
+    model = _hapi_model(paddle, net)
+    clock = _step_clock(paddle)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _HostSplit() as split:
+        model.fit(train, batch_size=b, epochs=1, shuffle=False, verbose=0,
+                  callbacks=[clock])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(clock.stamps)
+    if n != -(-h["train"] // b) or not _finite(clock.losses):
+        raise AssertionError(f"hapi (b): {n} steps, losses finite "
+                             f"{_finite(clock.losses)}")
+    # steady steps: the first (the step's state and cuDNN's first calls)
+    # and the short last batch left out
+    ms = (clock.stamps[-2] - clock.stamps[0]) / (n - 2) * 1e3
+    t0 = time.perf_counter()
+    ev = model.evaluate(test, batch_size=b, verbose=0)
+    ev_s = time.perf_counter() - t0
+    if not (math.isfinite(ev["loss"]) and 0.0 <= ev["acc"] <= 1.0):
+        raise AssertionError(f"hapi (b): bad evaluate logs {ev}")
+    parts = split.report()
+    _log(f"hapi (b) Model.fit ResNet-50 (10 classes) float32, Adam "
+         f"{h['lr']}, Cifar10 train size {h['train']} B={b}, one epoch, "
+         f"shuffle=False: {n} steps in {fit_s:.1f} s; steady {ms:.2f} ms "
+         f"a step = {b / ms * 1e3:.1f} images/s (unprofiled, host clock "
+         f"between batch ends); losses first {clock.losses[0]:.4f} last "
+         f"{clock.losses[-1]:.4f}; peak {peak:.2f} GiB; host split a step "
+         + "; ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+         + f"; evaluate on {h['test']}: {ev} in {ev_s:.1f} s = "
+         f"{h['test'] / ev_s:.1f} images/s; on {smi}")
+    # profiled window of 10 steps through fit
+    window = Subset(train, list(range(h["profile_steps"] * b)))
+    _profile_fit(torch, "hapi (b) fit, profiled",
+                 lambda: model.fit(window, batch_size=b, epochs=1,
+                                   shuffle=False, verbose=0),
+                 h["profile_steps"])
+    # fit's cost over a bare TrainStep loop on the same batches, in turns
+    k = h["bare_steps"]
+    sub = Subset(train, list(range(k * b)))
+    batches = list(DataLoader(sub, batch_size=b, places="cuda"))
+    bare_net = resnet50(num_classes=10, seed=seed)
+    ce = paddle.nn.CrossEntropyLoss()
+    bare = TrainStep(bare_net, lambda m, x, y: ce(m(x), y),
+                     paddle.optimizer.Adam(learning_rate=h["lr"],
+                                           parameters=bare_net.parameters()))
+    fit_net = resnet50(num_classes=10, seed=seed)
+    fit_model = _hapi_model(paddle, fit_net)
+
+    def bare_run():
+        for xb, yb in batches:
+            loss = bare(xb, yb)
+        float(loss)
+
+    def fit_run():
+        fit_model.fit(sub, batch_size=b, epochs=1, shuffle=False,
+                      verbose=0)
+
+    bare(*batches[0])
+    fit_model.fit(Subset(train, list(range(b))), batch_size=b, epochs=1,
+                  shuffle=False, verbose=0)
+    # pairs of adjacent runs, their order alternating (bare, fit, fit,
+    # bare, ...): the host's drift between runs is shared within a pair
+    diffs, runs = [], {"bare": [], "fit": []}
+    for i in range(h["bare_pairs"]):
+        pair = {}
+        for arm in (("bare", "fit") if i % 2 == 0 else ("fit", "bare")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (bare_run if arm == "bare" else fit_run)()
+            torch.cuda.synchronize()
+            pair[arm] = (time.perf_counter() - t0) / k * 1e3
+            runs[arm].append(pair[arm])
+        diffs.append(pair["fit"] - pair["bare"])
+    lo, hi = min(diffs), max(diffs)
+    verdict = ("resolved: every pair agrees on the sign" if lo > 0 or hi < 0
+               else "unresolved: the pairs disagree on the sign")
+    _log(f"hapi (b) fit over a bare TrainStep loop, {h['bare_pairs']} "
+         f"pairs of {k}-step runs on the same batches, the order "
+         f"alternating (batches already on the card for the bare loop, "
+         f"one loss read at its end): fit "
+         + " / ".join(f"{t:.2f}" for t in runs["fit"]) + " ms a step, "
+         "bare " + " / ".join(f"{t:.2f}" for t in runs["bare"])
+         + " ms; fit minus bare by pair "
+         + " / ".join(f"{d:+.2f}" for d in diffs)
+         + f" ms, median {statistics.median(diffs):+.2f} ms a step, "
+         f"range {lo:+.2f} .. {hi:+.2f}; {verdict}")
+    del model, net, bare, bare_net, fit_model, fit_net, batches
+    torch.cuda.empty_cache()
+    # (c) O1, 20 iterations
+    o1 = _hapi_model(paddle, resnet50(num_classes=10, seed=seed),
+                     level="O1")
+    c1 = _step_clock(paddle)
+    o1.fit(train, batch_size=b, epochs=1, shuffle=False, verbose=0,
+           num_iters=h["iters"], callbacks=[c1])
+    torch.cuda.synchronize()
+    if len(c1.losses) != h["iters"] or not _finite(c1.losses):
+        raise AssertionError(f"hapi (c) O1: losses {c1.losses}")
+    o1_ms = (c1.stamps[-1] - c1.stamps[1]) / (len(c1.stamps) - 2) * 1e3
+    # (d) two loader workers: CUDA is live, so threads
+    mw = _hapi_model(paddle, resnet50(num_classes=10, seed=seed))
+    c2 = _step_clock(paddle)
+    probe = DataLoader(train, batch_size=b, num_workers=2,
+                       use_process_workers=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        use_proc = probe._resolve_process_workers()
+    if use_proc or not any("falling back" in str(w.message)
+                           for w in caught):
+        raise AssertionError("hapi (d): process workers with CUDA live")
+    mw.fit(train, batch_size=b, epochs=1, shuffle=False, verbose=0,
+           num_workers=2, num_iters=h["iters"], callbacks=[c2])
+    torch.cuda.synchronize()
+    if len(c2.losses) != h["iters"] or not _finite(c2.losses):
+        raise AssertionError(f"hapi (d) workers: losses {c2.losses}")
+    mw_ms = (c2.stamps[-1] - c2.stamps[1]) / (len(c2.stamps) - 2) * 1e3
+    _log(f"hapi (c) O1 (bf16 convolutions and matmuls), {h['iters']} "
+         f"iterations: {o1_ms:.2f} ms a step = {b / o1_ms * 1e3:.1f} "
+         f"images/s, losses {c1.losses[0]:.4f} .. {c1.losses[-1]:.4f}; "
+         f"(d) num_workers=2: CUDA is initialized, so thread mode "
+         f"(use_process_workers=True warns and takes threads), "
+         f"{h['iters']} iterations: {mw_ms:.2f} ms a step = "
+         f"{b / mw_ms * 1e3:.1f} images/s")
+    del o1, mw
+    torch.cuda.empty_cache()
+    # (e) LeNet, card against CPU, bridged weights
+    nets = _pair_models(torch, lambda d: LeNet(device=d, seed=seed))
+    losses = []
+    for net, dev in zip(nets, ("cuda", "cpu")):
+        m = _hapi_model(paddle, net)
+        c = _step_clock(paddle)
+        data = MNIST(size=h["lenet"])
+        m.fit(DataLoader(data, batch_size=h["lenet_batch"], places=dev),
+              epochs=1, verbose=0, callbacks=[c])
+        losses.append(c.losses)
+    scale = max(abs(x) for x in losses[1])
+    err = max(abs(a - c) for a, c in zip(*losses)) / scale
+    if len(losses[0]) != h["lenet"] // h["lenet_batch"] or \
+            err > HAPI_LENET_REL:
+        raise AssertionError(f"hapi (e) LeNet card {losses[0]} CPU "
+                             f"{losses[1]}")
+    # (f) save and load, bits equal
+    m = _hapi_model(paddle, nets[0])
+    m.fit(MNIST(size=h["lenet_batch"]), batch_size=h["lenet_batch"],
+          verbose=0)
+    fresh = LeNet(seed=seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        m.save(os.path.join(tmp, "lenet"))
+        _hapi_model(paddle, fresh).load(os.path.join(tmp, "lenet"))
+    for (name, a), c in zip(nets[0].state_dict().items(),
+                            fresh.state_dict().values()):
+        if not torch.equal(a, c):
+            raise AssertionError(f"hapi (f): {name} differs after load")
+    # (g) O2 refuses a float32 batch at the first convolution
+    o2 = _hapi_model(paddle, LeNet(seed=seed), level="O2")
+    try:
+        o2.fit(MNIST(size=8), batch_size=8, verbose=0)
+    except TypeError as e:
+        o2_msg = str(e)
+    else:
+        raise AssertionError("hapi (g): O2 with a float32 batch trained")
+    _log(f"hapi (e) LeNet fit, float32, card against CPU on one state, "
+         f"{len(losses[0])} steps: losses within {err:.3g} of the largest "
+         f"(limit {HAPI_LENET_REL}); (f) save/load: {len(fresh.state_dict())}"
+         f" tensors bit-equal; (g) O2: TypeError ({o2_msg})")
+    torch.cuda.empty_cache()
+    return _zero_kernels("phase 7e")
+
+
+def phase_vision_ops(torch, seed):
+    """Phase 7f (see the module docstring); returns the kernels'
+    launches of its ``F.rms_norm`` calls (asserted: the calls made with a
+    weight, and nothing else)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.rms_norm import rms_norm_plain
+    from paddle_tpu_torch.vision import ops
+    g = torch.Generator().manual_seed(seed + 21)
+    worst = {}
+
+    def both(tag, fn, inputs, diff=()):
+        """``fn`` on the card and the CPU on copies of ``inputs``; values
+        and the gradients of ``inputs[i]`` for ``i`` in ``diff``."""
+        outs = []
+        for dev in ("cuda", "cpu"):
+            xs = [t.to(dev).requires_grad_(i in diff)
+                  if isinstance(t, torch.Tensor) else t
+                  for i, t in enumerate(inputs)]
+            out = fn(*xs)
+            grads = []
+            if diff:
+                cot = torch.ones_like(out).mul_(0.5).to(dev)
+                grads = torch.autograd.grad((out * cot).sum(),
+                                            [xs[i] for i in diff])
+            outs.append((out, grads))
+        (go, gg), (co, cg) = outs
+        worst[tag] = _card_cpu(torch, tag, go, co, VISION_REL)
+        for i, a, c in zip(diff, gg, cg):
+            worst[f"{tag} grad {i}"] = _card_cpu(torch, f"{tag} grad {i}",
+                                                 a, c, VISION_REL)
+
+    x = torch.randn((2, 256, 50, 68), generator=g)
+    r = 64
+    xy = torch.rand((r, 2), generator=g) * torch.tensor([540.0, 400.0])
+    wh = torch.rand((r, 2), generator=g) * 200 + 8
+    boxes = torch.cat([xy, xy + wh], 1)
+    bn = torch.tensor([40, 24])
+    both("roi_align", lambda a, b_, n: ops.roi_align(
+        a, b_, n, 7, spatial_scale=0.125, sampling_ratio=2), [x, boxes, bn],
+        diff=(0,))
+    both("roi_pool", lambda a, b_, n: ops.roi_pool(
+        a, b_, n, 7, spatial_scale=0.125), [x, boxes, bn], diff=(0,))
+    dx = torch.randn((2, 64, 32, 32), generator=g)
+    off = torch.randn((2, 18, 32, 32), generator=g) * 2
+    mask = torch.rand((2, 9, 32, 32), generator=g)
+    wt = torch.randn((64, 64, 3, 3), generator=g) * 0.05
+    bias = torch.randn((64,), generator=g)
+    both("deform_conv2d v2", lambda a, o, w, b_, m: ops.deform_conv2d(
+        a, o, w, b_, padding=1, mask=m), [dx, off, wt, bias, mask],
+        diff=(0, 1, 2, 3, 4))
+    both("deform_conv2d v1", lambda a, o, w: ops.deform_conv2d(
+        a, o, w, stride=2, padding=1), [dx, off[:, :, ::2, ::2], wt],
+        diff=(0, 1, 2))
+    prior = boxes[:32] / 600.0
+    var = torch.tensor([[0.1, 0.1, 0.2, 0.2]]).repeat(32, 1)
+    shift = torch.rand((32, 2), generator=g) * 0.05
+    target = prior + torch.cat(
+        [shift, shift + torch.rand((32, 2), generator=g) * 0.05], 1)
+    both("box_coder encode", lambda p, v, t: ops.box_coder(p, v, t),
+         [prior, var, target], diff=(2,))
+    both("box_coder decode", lambda p, v, t: ops.box_coder(
+        p, v, t, "decode_center_size"), [prior, var, target], diff=(2,))
+    feat, img = torch.zeros((1, 8, 38, 38)), torch.zeros((1, 3, 300, 300))
+    feat_g = feat.cuda()
+    pb_g = ops.prior_box(feat_g, img.cuda(), [30.0], [60.0], (1.0, 2.0),
+                         flip=True, clip=True)
+    pb_c = ops.prior_box(feat, img, [30.0], [60.0], (1.0, 2.0), flip=True,
+                         clip=True)
+    for a, c in zip(pb_g, pb_c):
+        if a.device != feat_g.device or not torch.equal(a.cpu(), c):
+            raise AssertionError("prior_box: card and CPU differ")
+    scores = torch.rand((r,), generator=g)
+    cats = torch.randint(0, 4, (r,), generator=g)
+    keep_g = ops.nms(boxes.cuda(), 0.5, scores.cuda(), cats.cuda(), top_k=20)
+    keep_c = ops.nms(boxes, 0.5, scores, cats, top_k=20)
+    ms_g = ops.matrix_nms(boxes.cuda(), scores.cuda(), 0.1, 0.05,
+                          use_gaussian=True)
+    ms_c = ops.matrix_nms(boxes, scores, 0.1, 0.05, use_gaussian=True)
+    if not (torch.equal(keep_g.cpu(), keep_c) and all(
+            torch.equal(a.cpu(), c) for a, c in zip(ms_g, ms_c))):
+        raise AssertionError("nms/matrix_nms: card and CPU differ")
+    # F.rms_norm: the kernel with a weight, torch ops without
+    _zero_launches()
+    calls = 0
+    for rows, d, dt in ((8, 4096, torch.bfloat16), (64, 2048, torch.float32)):
+        xr = torch.randn((rows, d), generator=g).to(dt).cuda()
+        w = (1 + 0.1 * torch.randn((d,), generator=g)).to(dt).cuda()
+        got = F.rms_norm(xr, w)
+        calls += 1
+        want = rms_norm_plain(xr, w)
+        hold = _card_cpu_ulp if dt == torch.bfloat16 else (
+            lambda *a: _card_cpu(*a, 1e-5))
+        worst[f"F.rms_norm {dt} weight"] = hold(
+            torch, "F.rms_norm weight", got, want.cpu())
+        worst[f"F.rms_norm {dt} no weight"] = hold(
+            torch, "F.rms_norm", F.rms_norm(xr), F.rms_norm(xr.cpu()))
+    from paddle_tpu_torch.ops import KERNELS
+    counts = {n: k.launches for n, k in KERNELS.items()}
+    if counts.pop("rms_norm") != calls or any(counts.values()):
+        raise AssertionError(f"phase 7f: F.rms_norm launches {counts}, "
+                             f"{calls} calls with a weight")
+    _log("vision ops and F.rms_norm, card against CPU (float32; values and "
+         "input gradients within 1e-4 of the largest entry; nms, "
+         "matrix_nms and prior_box equal; F.rms_norm float32 within 1e-5 "
+         "of the largest entry, bf16 within one bf16 ulp of each entry "
+         "(its share of |want| 2^-7 shown); "
+         f"{calls} rms_norm launches for {calls} calls with a "
+         "weight): " + "; ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    counts["rms_norm"] = calls
+    return counts
 
 
 def main(argv=None) -> int:
@@ -8393,6 +8877,15 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: port kernels launched "
                                  f"{by_path[path]}")
     mark("phase 7d")
+    by_path["hapi"] = phase_hapi(torch, args.seed, smi)
+    if any(by_path["hapi"].values()):
+        raise AssertionError(f"hapi: port kernels launched "
+                             f"{by_path['hapi']}")
+    mark("phase 7e")
+    by_path["functional"] = phase_vision_ops(torch, args.seed)
+    if not by_path["functional"]["rms_norm"]:
+        raise AssertionError("functional: F.rms_norm launched no kernel")
+    mark("phase 7f")
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)

@@ -62,12 +62,26 @@ beside it slice by slice and imports nothing of it (nor JAX).
   recognition (``models.ocr``); no kernel is added: convolutions,
   batch norm and the LSTM are torch's (cuDNN on the card), as they are
   XLA ops in the JAX package.
+- Slice 21, the hapi training surface: ``Model`` (``prepare``/``fit``/
+  ``evaluate``/``predict``/``save``/``load``) with its callbacks,
+  ``summary`` and ``flops``, the data pipeline (``io``: datasets,
+  samplers and the ``DataLoader`` with thread and process workers),
+  ``metric``, ``save``/``load`` in the reference's file envelope
+  (``framework.io``), ``static.InputSpec``, ``vision.datasets``,
+  ``vision.transforms`` and the detection ops (``vision.ops``), with the
+  twin of the CIFAR example (``examples.resnet_cifar``); no kernel is
+  added.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 
-from . import (amp, core, device, distributed, incubate,  # noqa: F401
-               inference, jit, models, nn, observability, ops, optimizer,
-               quantization, regularizer, runtime, vision)
+from . import (amp, core, device, distributed, framework,  # noqa: F401
+               hapi, incubate, inference, io, jit, metric, models, nn,
+               observability, ops, optimizer, quantization, regularizer,
+               runtime, static, vision)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.generator import seed  # noqa: F401
+from .framework.io import load, save  # noqa: F401
+from .hapi.dynamic_flops import flops  # noqa: F401
+from .hapi.model import Model  # noqa: F401
+from .hapi.model_summary import summary  # noqa: F401

@@ -12,7 +12,10 @@ AdamW with global-norm clip 1.0, ``--accumulate`` for gradient merge),
 plus ``--device`` (the CUDA card unless ``cpu`` is asked for).  The data
 is ``np.random.default_rng(0)`` tokens and labels, as there.  A mesh
 (``--dp``/``--mp``/``--sharding`` above 1, ``--zero``) is ROADMAP.md,
-Queue 1, item 14, and ``--save`` (``paddle.save``) item 13: both raise.
+Queue 1, item 14: it raises.  ``--save PREFIX`` writes the reference's
+checkpoint pair after the run, ``PREFIX.pdparams`` and ``PREFIX.pdopt``
+(``paddle.save``: the reference's file envelope, each package's own
+tensor layout).
 """
 
 import argparse
@@ -53,10 +56,6 @@ def main(argv=None):
         raise NotImplementedError(
             "llama_pretrain: --dp/--mp/--sharding/--zero need the mesh and "
             "ZeRO training of ROADMAP.md, Queue 1, item 14 (distributed)")
-    if args.save:
-        raise NotImplementedError(
-            "llama_pretrain: --save needs paddle.save, ROADMAP.md, Queue 1, "
-            "item 13 (framework surface: io)")
 
     import torch
 
@@ -113,6 +112,10 @@ def main(argv=None):
                   f"({tps:,.0f} tokens/s)")
         else:
             losses.append(loss)
+    if args.save:
+        paddle.save(model.state_dict(), args.save + ".pdparams")
+        paddle.save(opt.state_dict(), args.save + ".pdopt")
+        print(f"saved checkpoint to {args.save}.pdparams/.pdopt")
     return [float(x) for x in losses]
 
 

@@ -247,6 +247,24 @@ def _as_input(x, device):
     return x
 
 
+def select_update(opt):
+    """``(update_fn, hypers)`` of the compiled step for ``opt``, or
+    ``None`` for an optimizer it does not take (the reference's
+    ``_select_update``: SGD, Momentum, Adam and AdamW)."""
+    if isinstance(opt, Adam):     # AdamW is an Adam
+        return _functional_adam, {
+            "beta1": opt._beta1, "beta2": opt._beta2,
+            "epsilon": opt._epsilon, "wd": opt._weight_decay,
+            "decoupled": isinstance(opt, AdamW),
+            "multi_precision": opt._multi_precision}
+    if isinstance(opt, Momentum):
+        return _functional_momentum, {
+            "momentum": opt._momentum, "nesterov": opt._use_nesterov}
+    if isinstance(opt, SGD):
+        return _functional_sgd, {}
+    return None
+
+
 class TrainStep:
     def __init__(self, model, loss_fn: Callable, optimizer: Optimizer,
                  mesh=None, in_shardings=None, donate: bool = True,
@@ -280,22 +298,14 @@ class TrainStep:
         self._gm_state = None
 
     def _select_update(self, opt):
-        if isinstance(opt, Adam):     # AdamW is an Adam
-            return _functional_adam, {
-                "beta1": opt._beta1, "beta2": opt._beta2,
-                "epsilon": opt._epsilon, "wd": opt._weight_decay,
-                "decoupled": isinstance(opt, AdamW),
-                "multi_precision": opt._multi_precision}
-        if isinstance(opt, Momentum):
-            return _functional_momentum, {
-                "momentum": opt._momentum, "nesterov": opt._use_nesterov}
-        if isinstance(opt, SGD):
-            return _functional_sgd, {}
-        raise NotImplementedError(
-            f"TrainStep with {type(opt).__name__}: the compiled step takes "
-            f"SGD, Momentum, Adam and AdamW, as the reference's "
-            f"_select_update does; train it with the eager opt.step() "
-            f"{_TRAINING}")
+        chosen = select_update(opt)
+        if chosen is None:
+            raise NotImplementedError(
+                f"TrainStep with {type(opt).__name__}: the compiled step "
+                f"takes SGD, Momentum, Adam and AdamW, as the reference's "
+                f"_select_update does; train it with the eager opt.step() "
+                f"{_TRAINING}")
+        return chosen
 
     def _init_state(self):
         def zeros(p, dtype=None):

@@ -19,7 +19,8 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue, clip_grad_norm_, clip_grad_value_)
 from .common import (AlphaDropout, Bilinear, ChannelShuffle,  # noqa: F401
                      CosineSimilarity, Dropout, Dropout2D, Dropout3D,
-                     Embedding, Flatten, Fold, Identity, Linear, Pad1D,
+                     Embedding, Flatten, Fold, Identity, Linear,
+                     LinearCompute, Pad1D,
                      Pad2D, Pad3D, PixelShuffle, PixelUnshuffle, Unfold,
                      Upsample, UpsamplingBilinear2D, UpsamplingNearest2D,
                      ZeroPad2D)

@@ -250,16 +250,24 @@ class Embedding(nn.Embedding):
 
 
 class Linear(nn.Linear):
-    """``x @ weight.T + bias`` through ``nn.functional.linear``;
-    ``bias_attr=False`` drops the bias, as the reference's."""
+    """``x @ weight.T + bias`` through ``nn.functional.linear``, made on
+    ``device`` (the card unless ``"cpu"``) with Xavier-normal weights
+    and a zero bias; ``bias_attr=False`` drops the bias, as the
+    reference's."""
 
-    def __init__(self, in_features: int, out_features: int, bias_attr=None,
-                 **factory):
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None, dtype="float32"):
         super().__init__(in_features, out_features,
-                         bias=bias_attr is not False, **factory)
+                         bias=bias_attr is not False,
+                         **meta_factory(dtype))
+        materialize(self, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+LinearCompute = Linear
 
 
 def _uniform_(t, limit, gen):

@@ -4,6 +4,9 @@
   ``paddle_tpu/incubate/nn/functional/__init__.py:50-108``): with
   ``position_ids`` the rotation is plain torch math, without them it is
   the RoPE kernel (``ops/rope.py``), as in the JAX package.
+- ``add``, ``multiply``, ``concat`` and ``split``: the tensor ops that
+  the decoder layers and the vision zoo call, under the reference's op
+  names (``paddle_tpu/tensor/{math,manipulation}.py``).
 - ``linear`` and ``embedding`` in torch's layouts (``linear``'s weight
   is ``[out, in]``; the JAX package's is ``[in, out]``).
 - ``layer_norm`` (``nn/functional/norm.py:27``): mean, population
@@ -128,6 +131,25 @@ def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x + y`` (the residual adds of the decoder layers)."""
     x, y = _amp_cast("add", x, y)
     return x + y
+
+
+def multiply(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x * y`` (the vision zoo's squeeze-excite scales)."""
+    x, y = _amp_cast("multiply", x, y)
+    return x * y
+
+
+def concat(xs, axis: int = 0) -> torch.Tensor:
+    """``torch.cat`` under the reference's op name (the vision zoo's
+    branch joins)."""
+    return torch.cat(_amp_cast("concat", *xs), dim=axis)
+
+
+def split(x: torch.Tensor, num: int, axis: int = 0):
+    """``num`` equal chunks along ``axis``, as a list (ShuffleNet v2's
+    channel split)."""
+    (x,) = _amp_cast("split", x)
+    return list(torch.chunk(x, num, dim=axis))
 
 
 def swiglu(x: torch.Tensor, y: torch.Tensor = None) -> torch.Tensor:

@@ -22,6 +22,10 @@ cuDNN on the card.
   (its ``IO`` kernel does not group) and a string padding (XLA has none
   for a transposed convolution); so does the port (ROADMAP.md, "Known
   differences of the vision layers").
+- The input and the kernel must share a dtype: a float32 batch into a
+  bf16 network raises ``TypeError``, as the reference's
+  ``lax.conv_general_dilated`` does (nothing is cast outside the AMP
+  rule).
 - float32 on the card runs without TF32 (``exact_fp32``): cuDNN would
   otherwise round the operands to TF32 by default.  The switch is
   scoped to the port's own forward and backward calls; the caller's
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ...amp.auto_cast import cast as _amp_cast
+from ...device import dtype_name
 
 __all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
            "conv2d_transpose", "conv3d_transpose"]
@@ -153,9 +158,18 @@ _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
            3: F.conv_transpose3d}
 
 
+def _same_dtype(name, x, weight):
+    if x.dtype != weight.dtype:
+        raise TypeError(
+            f"{name} requires arguments to have the same dtypes, got "
+            f"{dtype_name(x.dtype)}, {dtype_name(weight.dtype)} (as the "
+            f"reference's lax.conv_general_dilated)")
+
+
 def _conv(x, weight, bias, stride, padding, dilation, groups, data_format,
           n, name):
     x, weight, bias = _amp_cast(name, x, weight, bias)
+    _same_dtype(name, x, weight)
     last = not data_format.startswith("NC")
     if last:
         x = x.movedim(-1, 1)
@@ -205,6 +219,7 @@ def _conv_transpose(x, weight, bias, stride, padding, output_padding, groups,
             f"convolution takes groups=1 only (its IO kernel layout does not "
             f"group) {_KNOWN}")
     x, weight, bias = _amp_cast(name, x, weight, bias)
+    _same_dtype(name, x, weight)
     last = not data_format.startswith("NC")
     if last:
         x = x.movedim(-1, 1)

@@ -1,6 +1,13 @@
 """Normalization functionals: port of the rest of
 ``paddle_tpu/nn/functional/norm.py`` (``layer_norm`` is in the
-package's ``__init__``; ``rms_norm`` is ``ops.rms_norm``).
+package's ``__init__``).
+
+``rms_norm(x, weight=None, epsilon=1e-6)`` (``norm.py:50-68``): with a
+weight it is ``ops.rms_norm`` (the ``csrc/rms_norm.cu`` kernel on the
+card, ``rms_norm_plain`` on the CPU), its inputs cast by the AMP rule
+under the name of the reference's kernel route, ``rms_norm_pallas``;
+without one it is the reference's float32 formula in torch ops, cast
+under ``rms_norm``.
 
 ``batch_norm`` keeps the reference's rules, which are not torch's:
 - the batch variance is the biased one;
@@ -36,15 +43,26 @@ import torch
 import torch.nn.functional as F
 
 from ...amp.auto_cast import cast as _amp_cast
+from ...ops.rms_norm import rms_norm as _rms_norm_op
 
 __all__ = ["normalize", "batch_norm", "instance_norm", "group_norm",
-           "local_response_norm"]
+           "local_response_norm", "rms_norm"]
 
 
 def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     (x,) = _amp_cast("normalize", x)
     n = torch.sum(x.abs() ** p, dim=axis, keepdim=True) ** (1.0 / p)
     return x / torch.clamp_min(n, epsilon)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    if weight is not None:
+        x, weight = _amp_cast("rms_norm_pallas", x, weight)
+        return _rms_norm_op(x, weight, epsilon)
+    (x,) = _amp_cast("rms_norm", x)
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + epsilon)
+    return out.to(x.dtype)
 
 
 def _stat_dtype(x):

@@ -60,10 +60,11 @@ class MultiHeadAttention(nn.Module):
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
         fac = meta_factory(dtype)
-        self.q_proj = Linear(embed_dim, embed_dim, bias_attr, **fac)
-        self.k_proj = Linear(kdim, embed_dim, bias_attr, **fac)
-        self.v_proj = Linear(vdim, embed_dim, bias_attr, **fac)
-        self.out_proj = Linear(embed_dim, embed_dim, bias_attr, **fac)
+        self.q_proj = Linear(embed_dim, embed_dim, bias_attr=bias_attr, **fac)
+        self.k_proj = Linear(kdim, embed_dim, bias_attr=bias_attr, **fac)
+        self.v_proj = Linear(vdim, embed_dim, bias_attr=bias_attr, **fac)
+        self.out_proj = Linear(embed_dim, embed_dim,
+                               bias_attr=bias_attr, **fac)
         materialize(self, device)
 
     def _heads(self, t):
@@ -123,9 +124,11 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             weight_attr=weight_attr,
                                             bias_attr=bias_attr, **fac)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **fac)
+        self.linear1 = Linear(d_model, dim_feedforward,
+                              bias_attr=bias_attr, **fac)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **fac)
+        self.linear2 = Linear(dim_feedforward, d_model,
+                              bias_attr=bias_attr, **fac)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **fac)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **fac)
         self.dropout1 = Dropout(dropout)
@@ -199,9 +202,11 @@ class TransformerDecoderLayer(nn.Module):
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                              weight_attr=weight_attr,
                                              bias_attr=bias_attr, **fac)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **fac)
+        self.linear1 = Linear(d_model, dim_feedforward,
+                              bias_attr=bias_attr, **fac)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **fac)
+        self.linear2 = Linear(dim_feedforward, d_model,
+                              bias_attr=bias_attr, **fac)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **fac)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **fac)
         self.norm3 = LayerNorm(d_model, layer_norm_eps, **fac)

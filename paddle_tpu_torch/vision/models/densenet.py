@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-import torch
-
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
+from ...nn.functional import concat
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201", "densenet264"]
@@ -31,7 +31,7 @@ class DenseLayer(nn.Layer):
         out = self.conv2(self.relu2(self.norm2(out)))
         if self.drop_rate > 0:
             out = self.dropout(out)
-        return torch.cat([x, out], dim=1)
+        return concat([x, out], axis=1)
 
 
 class DenseBlock(nn.Layer):
@@ -106,7 +106,7 @@ class DenseNet(nn.Layer):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.classifier(x)
         return x
 

@@ -3,10 +3,10 @@ python/paddle/vision/models/googlenet.py)."""
 
 from __future__ import annotations
 
-import torch
-
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
+from ...nn.functional import concat
 
 __all__ = ["GoogLeNet", "googlenet"]
 
@@ -35,8 +35,8 @@ class Inception(nn.Layer):
             ConvBlock(in_channels, pool_proj, kernel_size=1))
 
     def forward(self, x):
-        return torch.cat([self.branch1(x), self.branch2(x), self.branch3(x),
-                       self.branch4(x)], dim=1)
+        return concat([self.branch1(x), self.branch2(x), self.branch3(x),
+                       self.branch4(x)], axis=1)
 
 
 class GoogLeNet(nn.Layer):
@@ -82,7 +82,7 @@ class GoogLeNet(nn.Layer):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.fc(self.dropout(x))
         return x
 

@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-import torch
-
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
+from ...nn.functional import concat
 
 __all__ = ["InceptionV3", "inception_v3"]
 
@@ -33,8 +33,8 @@ class InceptionA(nn.Layer):
             ConvBNLayer(in_c, pool_features, 1))
 
     def forward(self, x):
-        return torch.cat([self.branch1x1(x), self.branch5x5(x),
-                       self.branch3x3dbl(x), self.branch_pool(x)], dim=1)
+        return concat([self.branch1x1(x), self.branch5x5(x),
+                       self.branch3x3dbl(x), self.branch_pool(x)], axis=1)
 
 
 class InceptionB(nn.Layer):
@@ -47,8 +47,8 @@ class InceptionB(nn.Layer):
         self.branch_pool = nn.MaxPool2D(3, stride=2)
 
     def forward(self, x):
-        return torch.cat([self.branch3x3(x), self.branch3x3dbl(x),
-                       self.branch_pool(x)], dim=1)
+        return concat([self.branch3x3(x), self.branch3x3dbl(x),
+                       self.branch_pool(x)], axis=1)
 
 
 class InceptionC(nn.Layer):
@@ -70,8 +70,8 @@ class InceptionC(nn.Layer):
             nn.AvgPool2D(3, stride=1, padding=1), ConvBNLayer(in_c, 192, 1))
 
     def forward(self, x):
-        return torch.cat([self.branch1x1(x), self.branch7x7(x),
-                       self.branch7x7dbl(x), self.branch_pool(x)], dim=1)
+        return concat([self.branch1x1(x), self.branch7x7(x),
+                       self.branch7x7dbl(x), self.branch_pool(x)], axis=1)
 
 
 class InceptionD(nn.Layer):
@@ -87,8 +87,8 @@ class InceptionD(nn.Layer):
         self.branch_pool = nn.MaxPool2D(3, stride=2)
 
     def forward(self, x):
-        return torch.cat([self.branch3x3(x), self.branch7x7x3(x),
-                       self.branch_pool(x)], dim=1)
+        return concat([self.branch3x3(x), self.branch7x7x3(x),
+                       self.branch_pool(x)], axis=1)
 
 
 class InceptionE(nn.Layer):
@@ -107,12 +107,10 @@ class InceptionE(nn.Layer):
 
     def forward(self, x):
         b3 = self.branch3x3_1(x)
-        b3 = torch.cat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], dim=1)
+        b3 = concat([self.branch3x3_2a(b3), self.branch3x3_2b(b3)], axis=1)
         bd = self.branch3x3dbl_1(x)
-        bd = torch.cat([self.branch3x3dbl_2a(bd), self.branch3x3dbl_2b(bd)],
-                    dim=1)
-        return torch.cat([self.branch1x1(x), b3, bd, self.branch_pool(x)],
-                      dim=1)
+        bd = concat([self.branch3x3dbl_2a(bd), self.branch3x3dbl_2b(bd)], axis=1)
+        return concat([self.branch1x1(x), b3, bd, self.branch_pool(x)], axis=1)
 
 
 class InceptionV3(nn.Layer):
@@ -149,7 +147,7 @@ class InceptionV3(nn.Layer):
         if self.with_pool:
             x = self.avg_pool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.fc(self.dropout(x))
         return x
 

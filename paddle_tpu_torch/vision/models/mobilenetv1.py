@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
 
 __all__ = ["MobileNetV1", "mobilenet_v1"]
@@ -71,7 +72,7 @@ class MobileNetV1(nn.Layer):
         if self.with_pool:
             x = self.pool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.fc(x)
         return x
 

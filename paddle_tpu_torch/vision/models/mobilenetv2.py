@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
 
 __all__ = ["MobileNetV2", "mobilenet_v2"]
@@ -48,7 +49,7 @@ class InvertedResidual(nn.Layer):
 
     def forward(self, x):
         if self.use_res_connect:
-            return x + self.conv(x)
+            return F.add(x, self.conv(x))
         return self.conv(x)
 
 
@@ -90,7 +91,7 @@ class MobileNetV2(nn.Layer):
         if self.with_pool:
             x = self.pool2d_avg(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.classifier(x)
         return x
 

@@ -3,7 +3,9 @@
 from __future__ import annotations
 
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
+from ...nn.functional import multiply
 from .mobilenetv2 import _make_divisible
 
 __all__ = ["MobileNetV3Small", "MobileNetV3Large", "mobilenet_v3_small",
@@ -39,7 +41,7 @@ class SqueezeExcitation(nn.Layer):
         scale = self.avgpool(x)
         scale = self.relu(self.fc1(scale))
         scale = self.hardsigmoid(self.fc2(scale))
-        return x * scale
+        return multiply(x, scale)
 
 
 class InvertedResidual(nn.Layer):
@@ -67,7 +69,7 @@ class InvertedResidual(nn.Layer):
     def forward(self, x):
         out = self.block(x)
         if self.use_res_connect:
-            out = out + x
+            out = F.add(out, x)
         return out
 
 
@@ -108,7 +110,7 @@ class MobileNetV3(nn.Layer):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.classifier(x)
         return x
 

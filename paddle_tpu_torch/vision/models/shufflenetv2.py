@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-import torch
-
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
+from ...nn.functional import concat, split
 
 __all__ = ["ShuffleNetV2", "shufflenet_v2_x0_25", "shufflenet_v2_x0_33",
            "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
@@ -55,10 +55,10 @@ class InvertedResidual(nn.Layer):
 
     def forward(self, x):
         if self.stride == 1:
-            x1, x2 = torch.chunk(x, 2, dim=1)
-            out = torch.cat([x1, self.branch2(x2)], dim=1)
+            x1, x2 = split(x, 2, axis=1)
+            out = concat([x1, self.branch2(x2)], axis=1)
         else:
-            out = torch.cat([self.branch1(x), self.branch2(x)], dim=1)
+            out = concat([self.branch1(x), self.branch2(x)], axis=1)
         return self.shuffle(out)
 
 
@@ -108,7 +108,7 @@ class ShuffleNetV2(nn.Layer):
         if self.with_pool:
             x = self.pool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
             x = self.fc(x)
         return x
 

@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-import torch
-
 from ... import nn
+from ...nn import functional as F
 from ...nn.common import built_on_meta
+from ...nn.functional import concat
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
@@ -24,10 +24,10 @@ class Fire(nn.Layer):
 
     def forward(self, x):
         x = self.squeeze_activation(self.squeeze(x))
-        return torch.cat([
+        return concat([
             self.expand1x1_activation(self.expand1x1(x)),
             self.expand3x3_activation(self.expand3x3(x)),
-        ], dim=1)
+        ], axis=1)
 
 
 class SqueezeNet(nn.Layer):
@@ -71,7 +71,7 @@ class SqueezeNet(nn.Layer):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
+            x = F.flatten(x, 1)
         return x
 
 

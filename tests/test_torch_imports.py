@@ -57,6 +57,17 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.nn.activation, paddle_tpu_torch.nn.container, "
         "paddle_tpu_torch.nn.functional.conv, "
         "paddle_tpu_torch.nn.functional.loss\n"
+        "import paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.model, "
+        "paddle_tpu_torch.hapi.callbacks, "
+        "paddle_tpu_torch.hapi.model_summary, "
+        "paddle_tpu_torch.hapi.dynamic_flops, paddle_tpu_torch.io, "
+        "paddle_tpu_torch.io.dataloader, paddle_tpu_torch.io.sampler, "
+        "paddle_tpu_torch.io.dataset, paddle_tpu_torch.metric, "
+        "paddle_tpu_torch.framework.io, paddle_tpu_torch.jit.api, "
+        "paddle_tpu_torch.static, paddle_tpu_torch.distributed.env, "
+        "paddle_tpu_torch.vision.ops, paddle_tpu_torch.vision.datasets, "
+        "paddle_tpu_torch.vision.transforms, "
+        "paddle_tpu_torch.examples.resnet_cifar, paddle_tpu_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -211,3 +222,82 @@ def test_engine_process_command_names_the_port():
             procserve.tiny_llama_engine()
     eng = procserve.tiny_llama_engine(device="cpu")
     assert eng.device.type == "cpu" and eng.role == "both"
+
+
+def test_slice_21_names():
+    """The hapi slice's top-level names, and the two exports of the
+    reference's ``nn`` that the vision slice had left out."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    assert nn.LinearCompute is nn.Linear
+    assert F.rms_norm.__module__ == "paddle_tpu_torch.nn.functional.norm"
+    x = torch.randn(2, 16)
+    assert torch.equal(F.rms_norm(x, torch.ones(16)), F.rms_norm(x))
+    for name in ("save", "load", "Model", "summary", "flops", "io",
+                 "metric", "static", "hapi", "framework"):
+        assert hasattr(paddle, name), name
+    assert paddle.static.InputSpec is paddle.jit.InputSpec
+    spec = paddle.static.InputSpec((1, 3), "bfloat16", "x")
+    assert (spec.shape, spec.dtype, spec.name) == ((1, 3), torch.bfloat16,
+                                                   "x")
+
+
+@pytest.mark.parametrize("build", ["DataLoader", "DeformConv2D",
+                                   "resnet_cifar", "Model.fit", "nn.Linear",
+                                   "Model.fit(Linear)"])
+def test_hapi_entry_points_need_cuda_unless_cpu_is_asked(build):
+    from paddle_tpu_torch import io, nn, optimizer
+    from paddle_tpu_torch.examples import resnet_cifar
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.vision import ops
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    ds = MNIST(size=4)
+
+    def fit(device=None, build=LeNet):
+        net = build(device=device)
+        m = Model(net)
+        m.prepare(optimizer.SGD(parameters=net.parameters()),
+                  nn.CrossEntropyLoss())
+        m.fit(ds, batch_size=2, verbose=0)
+        return next(net.parameters())
+
+    def example(device=None):
+        logs = resnet_cifar.main(["--epochs", "0"] + (
+            ["--device", device] if device else []))
+        assert set(logs) == {"loss", "acc"}
+        return torch.device(device)
+
+    make = {
+        "DataLoader": lambda device=None: io.DataLoader(
+            ds, places=device).device,
+        "DeformConv2D": lambda device=None: ops.DeformConv2D(
+            1, 2, 3, device=device).weight.device,
+        "resnet_cifar": example,
+        "Model.fit": lambda device=None: fit(device).device,
+        "nn.Linear": lambda device=None: nn.Linear(
+            4, 2, device=device).weight.device,
+        # the reference's usual hapi net: a Sequential of bare layers
+        "Model.fit(Linear)": lambda device=None: fit(
+            device, lambda device: nn.Sequential(
+                nn.Flatten(), nn.Linear(784, 10, device=device))).device,
+    }[build]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+    assert make("cpu").type == "cpu"
+
+
+def test_model_without_tensors_runs_on_the_card():
+    """A network with no parameters or buffers gives ``Model`` no device
+    to follow: its batches go to the card, and without CUDA it raises
+    instead of running on the host."""
+    import numpy as np
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.hapi import Model
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(nn.Flatten()).predict_batch([np.zeros((1, 2), np.float32)])

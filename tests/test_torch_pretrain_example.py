@@ -1,7 +1,8 @@
 """The port's twin of ``examples/llama_pretrain.py``
 (``python -m paddle_tpu_torch.examples.llama_pretrain``): the reference's
-flags and defaults, a run on the CPU at tiny flags, and the refusals of
-what is not ported (a mesh, ``--save``)."""
+flags and defaults, a run on the CPU at tiny flags, the refusals of what
+is not ported (a mesh), and ``--save``'s checkpoint pair read back by
+both packages."""
 
 import ast
 import os
@@ -53,7 +54,35 @@ def test_runs_on_the_cpu_at_tiny_flags(accumulate, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--dp", "2"], "item 14"), (["--mp", "2"], "item 14"),
-    (["--zero", "os"], "item 14"), (["--save", "ckpt"], "item 13")])
+    (["--zero", "os"], "item 14"), (["--sharding", "2"], "item 14")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         llama_pretrain.main(TINY + flag)
+
+
+def test_save_writes_the_reference_checkpoint_pair(tmp_path):
+    """``--save PREFIX`` writes ``PREFIX.pdparams`` (the model's state
+    dict) and ``PREFIX.pdopt`` (the optimizer's ``state_dict()``) in the
+    reference's envelope: the port loads them back, and the JAX
+    package's ``paddle.load`` reads the same arrays.  ``TrainStep`` keeps
+    its moments in the step, not in the optimizer, in both packages, so
+    ``.pdopt`` holds no moment after a run (the reference's example
+    writes the same)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu as jpaddle
+    import paddle_tpu_torch as paddle
+    prefix = str(tmp_path / "ckpt")
+    llama_pretrain.main(TINY + ["--steps", "1", "--save", prefix])
+    params = paddle.load(prefix + ".pdparams")
+    opt = paddle.load(prefix + ".pdopt")
+    assert params and all(isinstance(v, torch.Tensor)
+                          for v in params.values())
+    assert opt == {} and jpaddle.load(prefix + ".pdopt") == {}
+    jparams = jpaddle.load(prefix + ".pdparams")
+    assert sorted(jparams) == sorted(params)
+    for k, v in params.items():
+        np.testing.assert_array_equal(
+            np.asarray(jparams[k]._value.astype("float32")),
+            v.float().numpy(), err_msg=k)

@@ -482,7 +482,7 @@ def test_containers_name_children_as_the_reference():
         return [n for n, _ in m.named_parameters()]
 
     for build in (lambda nn, **f: nn.Sequential(
-                      nn.Conv2D(3, 4, 1, **f), nn.ReLU(), nn.Linear(4, 2)),
+                      nn.Conv2D(3, 4, 1, **f), nn.ReLU(), nn.Linear(4, 2, **f)),
                   lambda nn, **f: nn.Sequential(
                       ("conv", nn.Conv2D(3, 4, 1, **f)), ("act", nn.ReLU())),
                   lambda nn, **f: nn.Sequential(OrderedDict(
@@ -744,3 +744,49 @@ def test_rnnt_loss(reduction):
     _both(lambda a, b, c, d: JF.rnnt_loss(a, b, c, d, reduction=reduction),
           lambda a, b, c, d: TF.rnnt_loss(a, b, c, d, reduction=reduction),
           [acts, label, il, ll])
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_functional(weighted, dtype):
+    """``F.rms_norm(x, weight=None, epsilon)``: with a weight it is
+    ``ops.rms_norm`` (its plain version here), without one the
+    reference's float32 formula; float32 values and input gradients
+    within 1e-5 of the largest entry, bf16 values within one bf16 ulp
+    of the reference's (both round the same float32 result once)."""
+    x = _rand((3, 5, 128), 31)
+    w = (1.0 + 0.1 * _rand((128,), 32)).astype(np.float32)
+    inputs = [x, w] if weighted else [x]
+    if dtype == "float32":
+        _both(lambda a, *r: JF.rms_norm(a, *r, epsilon=1e-5),
+              lambda a, *r: TF.rms_norm(a, *r, epsilon=1e-5), inputs,
+              diff=tuple(range(len(inputs))))
+        return
+    want = JF.rms_norm(JTensor(jnp.asarray(x, jnp.bfloat16)),
+                       *[JTensor(jnp.asarray(w, jnp.bfloat16))][:len(
+                           inputs) - 1], epsilon=1e-5)._value
+    got = TF.rms_norm(torch.tensor(x).to(torch.bfloat16),
+                      *[torch.tensor(w).to(torch.bfloat16)][:len(
+                          inputs) - 1], epsilon=1e-5)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32), np.float64)
+    got = got.float().numpy().astype(np.float64)
+    ulp = np.abs(want) * 2.0 ** -7 + 1e-30
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def test_rms_norm_amp_names():
+    """Under O2 the weighted form casts as the reference's kernel route
+    (``rms_norm_pallas``: not on the black list, so bf16) and the
+    unweighted form as ``rms_norm`` (black list: float32)."""
+    import importlib
+    from paddle_tpu_torch import amp as tamp
+    tcast = importlib.import_module("paddle_tpu_torch.amp.auto_cast")
+    x = torch.randn(2, 16)
+    w = torch.ones(16)
+    with tcast._trace_ops() as got, tamp.auto_cast(level="O2"):
+        a = TF.rms_norm(x, w)
+        b = TF.rms_norm(x)
+    assert got == [("rms_norm_pallas", (torch.bfloat16, torch.bfloat16)),
+                   ("rms_norm", (torch.float32,))]
+    assert a.dtype == torch.bfloat16 and b.dtype == torch.float32

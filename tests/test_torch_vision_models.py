@@ -436,3 +436,64 @@ def test_momentum_state_bridge_finds_linear_weights_by_type():
     back = optimizer_state_to_jax(bridged, names, linear=linear)
     for k, v in jstate.items():
         assert np.array_equal(back[k], v), k
+
+
+# the reference's tier-1 and slow split of these models, case for case
+AMP_ZOO = [
+    "squeezenet1_1", "shufflenet_v2_x0_25",
+    pytest.param("mobilenet_v1", marks=pytest.mark.slow),
+    pytest.param("mobilenet_v2", marks=pytest.mark.slow),
+    pytest.param("mobilenet_v3_small", marks=pytest.mark.slow),
+    pytest.param("mobilenet_v3_large", marks=pytest.mark.slow),
+    pytest.param("densenet121", marks=pytest.mark.slow),
+    pytest.param("googlenet", marks=pytest.mark.slow),
+    pytest.param("inception_v3", marks=pytest.mark.slow),
+]
+
+
+@pytest.mark.parametrize("name", AMP_ZOO)
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_zoo_amp_op_trace_matches_jax(name, level):
+    """``test_resnet_amp_op_trace_matches_jax`` on the rest of the zoo
+    (eval, 2x3x64x64, 96x96 for Inception-v3): the tensor ops of the
+    blocks (``concat``, ``split``, ``multiply``, ``add``, ``flatten``)
+    consult the rule under the reference's names too, in the
+    reference's order, with the reference's cast dtypes."""
+    import importlib
+
+    import jax.numpy as jnp
+    from paddle_tpu.core import dispatch as jdispatch
+
+    from paddle_tpu_torch import amp as tamp
+    tcast = importlib.import_module("paddle_tpu_torch.amp.auto_cast")
+    jdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    jnet, tnet = _pair(name, num_classes=5)
+    jnet.eval()
+    tnet.eval()
+    x = _images(size=96 if name == "inception_v3" else 64, seed=6)
+    log = []
+    orig = jdispatch._dispatch_impl
+
+    def rec(op_name, impl, tensor_args, *a, **k):
+        d = jdispatch._amp_cast_hook(op_name)
+        dts = tuple(jdt[str(jnp.dtype(d if d is not None else t.dtype))]
+                    for t in tensor_args
+                    if getattr(t, "dtype", None) is not None
+                    and jnp.issubdtype(t.dtype, jnp.floating))
+        log.append((op_name, dts))
+        return orig(op_name, impl, tensor_args, *a, **k)
+
+    jdispatch._dispatch_impl = rec
+    try:
+        with paddle.amp.auto_cast(level=level):
+            jnet(paddle.to_tensor(x))
+    finally:
+        jdispatch._dispatch_impl = orig
+    with tcast._trace_ops() as got, tamp.auto_cast(level=level), \
+            torch.no_grad():
+        tnet(torch.from_numpy(x))
+    names = {n for n, _ in got}
+    block_ops = {"concat", "split", "multiply", "add"} & {
+        n for n, _ in log}
+    assert names >= block_ops | {"flatten"}, names
+    assert got == [e for e in log if e[0] in names]
