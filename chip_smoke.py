@@ -202,6 +202,18 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    capture ms, each swap-in's ms and GB/s, peak memory; then one engine
    with int8 KV, int8 weights, ``async_depth=2`` and a ``ModelDrafter``
    holding a greedy spec adapter row and a sampled adapter row;
+3l. quantization at the same width, on phase 3's model after its last
+   use (``phase_quantization``): an ``LLMPredictor(weight_dtype="int8")``
+   session (8 rows, prompt 512, 64 new tokens), then
+   ``weight_only_quantize`` in place (``lm_head`` kept bf16: 224
+   ``QuantizedLinearInfer`` layers) and the converted model's session
+   with ``FLAGS_use_int8_matmul_kernel`` off (dequantize + cuBLAS, no
+   kernel launch) and on (the quantized matmul, 224 a forward): tokens
+   against the int8-plan session and each other (flag off within
+   ``QUANT_ROUTE_ULPS`` bf16 ulps of flag on, teacher-forced), tokens/s,
+   the block step against busy and the idle share, each arm's kernel
+   split, the flag-off dequantize's and GEMMs' rates, peak memory, the
+   memory the conversion freed;
 3k. GPT-3 13B at full width (40 layers, hidden 5120, 40 heads of D =
    128, ffn 20480, vocab 50304; bf16 random weights from ``--seed``),
    after the 8B model is freed, through phase 3's engine geometry and
@@ -242,7 +254,7 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    with an int8 KV cache; a ``ModelDrafter`` spec row preempted and
    resumed against the uninterrupted run; each with its kernels
    launched;
-4f. sampled exactness: a 4-layer float32 model at 8B width serves a
+4f. sampled exactness: a 2-layer float32 model at 8B width serves a
    sampled mix on the card and, from the same state dict, on the CPU:
    tokens equal up to each request's first position whose CPU top-two
    decisive margin is <= 0.01; then ``generate(do_sample=True)`` on the
@@ -267,6 +279,17 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    request alone on a 1-slot engine in float32 and with int8 KV + int8
    weights; a spec engine and the CPU's engine equal to the card's
    non-spec tokens up to each request's first non-decisive position;
+4l. quantization exactness (``phase_quant_exactness_layers``): (a) a
+   2-layer float32 model at 8B width after ``weight_only_quantize`` on
+   the card and on the CPU: codes bit-equal, the card's 16 greedy
+   ``generate()`` tokens against the CPU's teacher-forced logits under
+   both values of ``FLAGS_use_int8_matmul_kernel``, and one session
+   toggled between them equal to ``generate()``; (b)
+   ``Sequential(Linear, GELU, Linear, ReLU, Linear)`` at 4096/16384
+   widths, M=256, after
+   ``fuse_act_into_quant_linear``: the kernel's bias+act epilogues
+   against their plain versions in bf16 and float32; (c) a small conv
+   net through PTQ and QAT: the converted layers card against CPU;
 5. training at the full width of ``examples/llama_pretrain.py`` ("1.1B":
    16 layers, hidden 2048, 32/8 heads, vocab 32000, bfloat16 parameters,
    full recompute): ``TrainStep`` with AdamW (fp32 moments) and
@@ -304,11 +327,12 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    (plain versions); losses and parameters agree within stated bounds;
 6b. the same under the routes of 5b, with Adam (the unfused update) and
    then AdamW under a schedule (the fused kernel on the card, its plain
-   version on the CPU);
+   version on the CPU), at 1 layer (``TRAIN_EXACT_CUT_LAYERS``);
 6c. phase 6's model under each remat policy of 5c on the card against
    phase 6's CPU run (a policy changes no value on the CPU), the fused
-   loss against its own CPU run; every eager optimizer over a layer's
-   parameter shapes, AMP O1's loss and gradients, and dropout masks
+   loss against its own CPU run at 1 layer; every eager optimizer over a
+   layer's parameter shapes, AMP O1's loss and gradients at 1 layer, and
+   dropout masks
    (``F.dropout``, the SDPA probabilities' mask: bit-equal), card
    against CPU;
 5k. GPT-2 small pretraining at full width (``phase_gpt_training``; 12
@@ -2993,15 +3017,21 @@ def phase_observability(torch, seed, cfg, model, want_tokens):
     return path_launches
 
 
+# the depth of the exactness phases whose CPU half serves a whole trace
+# (3g (f), 4f, 4j): 2 layers at 8B width, cut from phase 4's 4 for the
+# smoke's time
+EXACT_CPU_LAYERS = 2
+
+
 def phase_observability_exactness(torch, seed):
-    """Phase 3g (f): phase 4d's preemption trace (a) on phase 4's 4-layer
-    float32 model at 8B width, TF32 off, on the card and, from the same
-    state dict, on the CPU, each engine with a private registry and an
-    enabled flight recorder: the two flight records are equal modulo
-    wall, and so are the goodput ledgers and every counter of the two
-    registries.  (No EOS is configured, so the schedule, the events and
-    the ledger do not depend on the tokens; the tokens are phase 4d's
-    business.)"""
+    """Phase 3g (f): phase 4d's preemption trace (a) on a 2-layer float32
+    model at 8B width (``EXACT_CPU_LAYERS``), TF32 off, on the card and,
+    from the same state dict, on the CPU, each engine with a private
+    registry and an enabled flight recorder: the two flight records are
+    equal modulo wall, and so are the goodput ledgers and every counter
+    of the two registries.  (No EOS is configured, so the schedule, the
+    events and the ledger do not depend on the tokens; the tokens are
+    phase 4d's business.)"""
     import numpy as np
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.models import LlamaForCausalLM
@@ -3009,7 +3039,7 @@ def phase_observability_exactness(torch, seed):
                                                 MetricsRegistry)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, gpu = _build_8b(torch, 4, "float32", seed + 1)
+    cfg, gpu = _build_8b(torch, EXACT_CPU_LAYERS, "float32", seed + 1)
     cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     rng = np.random.default_rng(seed + 9)
@@ -3055,7 +3085,8 @@ def phase_observability_exactness(torch, seed):
     if bad:
         raise AssertionError(f"card vs CPU: counters differ: {bad}")
     _log(f"observability (f): phase 4d's trace (a) on the card "
-         f"({gwall:.2f} s) and the CPU ({cwall:.2f} s), 4 layers float32 "
+         f"({gwall:.2f} s) and the CPU ({cwall:.2f} s), "
+         f"{cfg.num_hidden_layers} layers float32 "
          f"at 8B width: {len(gev)} flight events equal modulo wall, "
          f"ledgers equal (useful {gst['useful_tokens']}, wasted "
          f"{gst['wasted_tokens']}, dispatched {gst['dispatched_tokens']}), "
@@ -3528,7 +3559,7 @@ def _generate_margins(torch, lg, kw, seed):
 
 
 def phase_sampled_exactness(torch, seed):
-    """Phase 4f: a 4-layer float32 model at 8B width serves a sampled mix
+    """Phase 4f: a 2-layer float32 model at 8B width serves a sampled mix
     (greedy, seeded T=0.8, top-k/top-p, a repetition penalty, a DFA mask)
     through a 5-slot engine on the card and, from the same state dict, on
     the CPU: the card's tokens equal the CPU's up to each request's first
@@ -3542,7 +3573,7 @@ def phase_sampled_exactness(torch, seed):
                                             ServingEngine)
     from paddle_tpu_torch.models import LlamaForCausalLM
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, gpu = _build_8b(torch, 4, "float32", seed + 13)
+    cfg, gpu = _build_8b(torch, EXACT_CPU_LAYERS, "float32", seed + 13)
     cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     rng = np.random.default_rng(seed + 13)
@@ -3589,7 +3620,8 @@ def phase_sampled_exactness(torch, seed):
     if compared < total // 2:
         raise AssertionError(f"sampled exactness: only {compared} of {total} "
                              f"positions decisive")
-    _log(f"sampled exactness: 4 layers at 8B width, float32, a 5-request "
+    _log(f"sampled exactness: {cfg.num_hidden_layers} layers at 8B width, "
+         f"float32, a 5-request "
          f"sampled mix (greedy, T=0.8, top-k/top-p, penalty, DFA mask): "
          f"card tokens equal the CPU's at {compared} of {total} positions "
          f"(each request up to its first CPU margin <= 0.01); whole requests "
@@ -4735,9 +4767,10 @@ def phase_train_exactness(torch, seed, label="train exactness",
                                         "flash_attention_bwd_dkv",
                                         "fused_adamw"),
                           accumulate_steps=1, cfg_kw=None, cpu_ref=None,
-                          fwd_per_layer=2):
-    """Phase 6: 2 float32 train steps of a 2-layer model at 1.1B width,
-    batch 1 x 256, on the card (kernels) and on the CPU (plain versions)
+                          fwd_per_layer=2, layers=2):
+    """Phase 6: 2 float32 train steps of a ``layers``-deep model (2 in
+    phase 6 and under 6c's remat policies, ``TRAIN_EXACT_CUT_LAYERS``
+    elsewhere) at 1.1B width, batch 1 x 256, on the card (kernels) and on the CPU (plain versions)
     from the same state dict and batch (2 updates: with
     ``accumulate_steps`` k, 2 k calls, each update merging k).  Bounds, set with room around
     what the run measures (float32 sums in other orders give a loss
@@ -4774,11 +4807,12 @@ def phase_train_exactness(torch, seed, label="train exactness",
         kw = {} if make_opt is None else dict(make_opt=opt_for)
         if accumulate_steps > 1:
             kw["accumulate_steps"] = accumulate_steps
-        cfg, gpu, _, gstep = _train_setup(torch, 2, "float32", seed + 2,
-                                          cfg_kw=cfg_kw, **kw)
+        cfg, gpu, _, gstep = _train_setup(torch, layers, "float32",
+                                          seed + 2, cfg_kw=cfg_kw, **kw)
         if cpu_ref is None:
-            _, cpu, _, cstep = _train_setup(torch, 2, "float32", seed + 2,
-                                            "cpu", cfg_kw=cfg_kw, **kw)
+            _, cpu, _, cstep = _train_setup(torch, layers, "float32",
+                                            seed + 2, "cpu", cfg_kw=cfg_kw,
+                                            **kw)
             cpu.load_state_dict({k: v.cpu()
                                  for k, v in gpu.state_dict().items()})
         tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 2, "cpu")
@@ -4813,7 +4847,7 @@ def phase_train_exactness(torch, seed, label="train exactness",
         if launches[name] != 0:
             raise AssertionError(f"{label}: {name} launched "
                                  f"{launches[name]} times")
-    if launches["flash_attention_fwd"] != fwd_per_layer * 2 * n_steps:
+    if launches["flash_attention_fwd"] != fwd_per_layer * layers * n_steps:
         raise AssertionError(f"{label}: flash forward launched "
                              f"{launches['flash_attention_fwd']} times, "
                              f"expected {fwd_per_layer} a layer a call")
@@ -4832,7 +4866,7 @@ def phase_train_exactness(torch, seed, label="train exactness",
             f"{label}: parameters differ by up to {worst:.3g} "
             f"(bound {lr:.3g}), {n_bad} of {n_all} elements past 1e-4")
     src = " (the full arm's CPU run)" if cpu_ref else ""
-    _log(f"{label}: 2 layers at 1.1B width, float32, batch 1x256, "
+    _log(f"{label}: {layers} layers at 1.1B width, float32, batch 1x256, "
          f"{n_steps} calls, accumulate_steps={accumulate_steps}: losses card {gl} CPU {cl} (max rel diff "
          f"{rel:.3g}); parameters max |diff| {worst:.3g}, {n_bad} of "
          f"{n_all} elements past 1e-4; card {t_gpu:.2f} s, CPU "
@@ -4843,9 +4877,16 @@ def phase_train_exactness(torch, seed, label="train exactness",
     return cl, cparams
 
 
+# the depth of phase 6b's runs, 6c's fused-loss arm and 6c's AMP check:
+# 1 layer at 1.1B width, cut from phase 6's 2 for the smoke's time (each
+# route and check is a layer's or the head's; phase 6 and 6c's remat
+# policies keep 2 layers, where save_attn_mlp/2 alternates)
+TRAIN_EXACT_CUT_LAYERS = 1
+
+
 def phase_train_exactness_routes(torch, seed):
     """Phase 6b: phase 6 under the flag-selected routes (two-pass flash
-    backward, fused AdamW), first with Adam (coupled decay: the unfused
+    backward, fused AdamW) at ``TRAIN_EXACT_CUT_LAYERS``, first with Adam (coupled decay: the unfused
     update), then with AdamW under a warm-up/cosine schedule and gradient
     merge over 2 calls (the fused kernel on the card, its plain version
     on the CPU, fed the merged gradients)."""
@@ -4882,11 +4923,13 @@ def phase_train_exactness_routes(torch, seed):
     twopass = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     phase_train_exactness(torch, seed, "train exactness routes, Adam", adam,
                           ROUTE_FLAGS, twopass,
-                          ("flash_attention_bwd", "fused_adamw"))
+                          ("flash_attention_bwd", "fused_adamw"),
+                          layers=TRAIN_EXACT_CUT_LAYERS)
     phase_train_exactness(torch, seed, "train exactness routes, AdamW + "
                           "schedule + merge", adamw, ROUTE_FLAGS,
                           twopass + ("fused_adamw",),
-                          ("flash_attention_bwd",), accumulate_steps=2)
+                          ("flash_attention_bwd",), accumulate_steps=2,
+                          layers=TRAIN_EXACT_CUT_LAYERS)
 
 
 def _train_per_step(nl, fwd_per_layer=2):
@@ -5239,8 +5282,9 @@ def _amp_exactness(torch, seed):
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.ops import KERNELS
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, gpu, _, _ = _train_setup(torch, 2, "float32", seed + 3)
-    _, cpu, _, _ = _train_setup(torch, 2, "float32", seed + 3, "cpu")
+    layers = TRAIN_EXACT_CUT_LAYERS
+    cfg, gpu, _, _ = _train_setup(torch, layers, "float32", seed + 3)
+    _, cpu, _, _ = _train_setup(torch, layers, "float32", seed + 3, "cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     tokens, labels = _train_batch(torch, cfg, 1, 256, seed + 3, "cpu")
     out = {}
@@ -5264,7 +5308,7 @@ def _amp_exactness(torch, seed):
               "rms_norm"):
         if n not in launched:
             raise AssertionError(f"amp exactness: {n} never launched")
-    _log(f"amp exactness: O1, 2 layers at 1.1B width, fp32 parameters, "
+    _log(f"amp exactness: O1, {layers} layers at 1.1B width, fp32 parameters, "
          f"batch 1x256: loss card {lg} CPU {lc}; gradients within "
          f"{worst:.3g} of their norm (bound {AMP_GRAD_RTOL}); launches "
          f"{launched}")
@@ -5318,14 +5362,16 @@ def phase_train_exactness_policies(torch, seed, cpu_full):
     """Phase 6c: phase 6's 2-layer float32 model under each remat policy
     of phase 5c on the card against the CPU's full run (``cpu_full``,
     phase 6's: the CPU's values are the same under every policy), the
-    fused loss against its own CPU run, then (b) every eager optimizer,
-    (c) AMP O1 and (d) dropout masks, card against CPU."""
+    fused loss against its own CPU run (``TRAIN_EXACT_CUT_LAYERS``), then
+    (b) every eager optimizer, (c) AMP O1 (``TRAIN_EXACT_CUT_LAYERS``)
+    and (d) dropout masks, card against CPU."""
     t0 = time.perf_counter()
     for name, cfg_kw, fwd in POLICY_ARMS[1:]:
         fused = bool(cfg_kw.get("fused_linear_loss"))
         phase_train_exactness(
             torch, seed, f"train exactness {name}", cfg_kw=dict(cfg_kw),
-            cpu_ref=None if fused else cpu_full, fwd_per_layer=fwd)
+            cpu_ref=None if fused else cpu_full, fwd_per_layer=fwd,
+            layers=TRAIN_EXACT_CUT_LAYERS if fused else 2)
     _optimizer_exactness(torch, seed)
     _amp_exactness(torch, seed)
     _dropout_exactness(torch, seed)
@@ -5354,17 +5400,25 @@ def _dense_cfg(kw):
                             **{k: kw[k] for k in keys if k in kw})
 
 
-def _busy_ms(torch, fn):
-    """Device busy ms of one call of ``fn`` (kernel durations in a
-    profile), or None when the profiler recorded no CUDA kernel."""
+def _profiled(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: (device busy ms, the
+    sum of kernel durations, or None when the profiler recorded no CUDA
+    kernel; ``{kernel: us}``; ``{kernel: launches}``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    per_kernel, _ = _profile_kernels(torch, prof)
-    return sum(per_kernel.values()) / 1e3 if per_kernel else None
+    per_kernel, count = _profile_kernels(torch, prof)
+    busy = sum(per_kernel.values()) / 1e3 if per_kernel else None
+    return busy, per_kernel, count
+
+
+def _busy_ms(torch, fn):
+    """Device busy ms of one call of ``fn`` (kernel durations in a
+    profile), or None when the profiler recorded no CUDA kernel."""
+    return _profiled(torch, fn)[0]
 
 
 def _wall_ms(torch, fn, n=3):
@@ -6832,7 +6886,7 @@ def _lora_exact_run(torch, cfg, model, device):
 
 
 def phase_lora_exactness(torch, seed):
-    """Phase 4j: phase 4's 4-layer float32 model at 8B width, TF32 off,
+    """Phase 4j: a 2-layer float32 model at 8B width, TF32 off,
     serves the CPU test's LoRA fixture (``LORA_EXACT``: two concurrent
     adapters, a base row in the same dispatches, a demotion and swap-in,
     slot reuse with a changed adapter, a spec row) on the card and, from
@@ -6846,7 +6900,7 @@ def phase_lora_exactness(torch, seed):
     from paddle_tpu_torch.models.lora import merged_adapter
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, gpu = _build_8b(torch, 4, "float32", seed + 1)
+    cfg, gpu = _build_8b(torch, EXACT_CPU_LAYERS, "float32", seed + 1)
     cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     _zero_launches()
@@ -6874,7 +6928,8 @@ def phase_lora_exactness(torch, seed):
                              f"{card[3]}) != CPU {host[1]} ({host[3]}), or "
                              f"the arena rows differ")
     _log(f"lora exactness: the CPU test's LoRA trace on the card "
-         f"({gwall:.2f} s) and the CPU ({cwall:.2f} s), 4 layers float32 "
+         f"({gwall:.2f} s) and the CPU ({cwall:.2f} s), "
+         f"{cfg.num_hidden_layers} layers float32 "
          f"at 8B width: tokens equal over {compared} of {total} positions "
          f"(decisive), stats {card[1]}, {card[3]:.0f} swap-ins and every "
          f"arena row equal; launches {launches}")
@@ -7001,6 +7056,584 @@ def phase_dense_exactness(torch, seed):
 GPT_DECODE_GEOMS = ((40, 1, 128), (12, 1, 64))
 GPT_QMM_KN = ((5120, 15360), (5120, 5120), (5120, 20480), (20480, 5120))
 GPT_FLASH = (1024, 12, 12, 64)          # S, Hq, Hkv, D (GPT-2 small)
+# ---- phase 3l: quantization at 8B width, phase 4l: its exactness ----
+
+# phase 3l's sessions: phase 3h's geometry in blocks of 8 steps, 64 new
+# tokens a row
+QSESSION = dict(batch=8, prompt_len=512, max_cache_len=1024,
+                steps_per_call=8)
+QSESSION_NEW = 64
+QUANT_PER_LAYER = 7                  # q, k, v, o, gate, up, down
+# flag off against flag on, teacher-forced along the flag-on tokens: at
+# every position the largest logit difference is within this many bf16
+# ulps of the position's largest logit (the two routes round each weight
+# or each product once in other orders; a wrong dequantize, scales on the
+# wrong axis, moves logits by whole units)
+QUANT_ROUTE_ULPS = 4
+# and at least this share of the 512 positions is decisive (margin above
+# 0.01 and twice the gap) for the argmax check to mean something: random
+# 8B bf16 logits have close top-2 pairs (254 of 512 were decisive in a
+# run on an H100)
+QUANT_MIN_DECISIVE = 1 / 3
+
+
+def _skip_head(name, layer):
+    return name == "lm_head"
+
+
+def _int8_flag(on):
+    from paddle_tpu_torch.core.flags import set_flags
+    set_flags({"FLAGS_use_int8_matmul_kernel": bool(on)})
+
+
+def _quant_arm(torch, tag, model, ids, lens, total, per_forward, flag=False,
+               **extra):
+    """One phase-3l session arm under ``FLAGS_use_int8_matmul_kernel =
+    flag``: an 8-row ``LLMPredictor`` (``QSESSION``, bf16) generates
+    ``QSESSION_NEW`` tokens a row (its launches into ``total``); then a
+    prefill and one block with their quantized-matmul launches asserted
+    (``per_forward`` a forward), the least of three unprofiled block
+    walls, one profiled block's busy and kernels, and the peak memory of
+    the arm.  Returns (tokens, the step's record)."""
+    from paddle_tpu_torch.inference.llm import LLMPredictor
+    steps = QSESSION["steps_per_call"]
+    _int8_flag(flag)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pred = LLMPredictor(model, compute_dtype="bfloat16", **QSESSION,
+                            **extra)
+        torch.cuda.synchronize()
+        cap_ms = (time.perf_counter() - t0) * 1e3
+        _zero_launches()
+        got = pred.generate(ids, seq_lens=lens, max_new_tokens=QSESSION_NEW)
+        torch.cuda.synchronize()
+        _add_launches(total, _launch_counts())
+        _zero_launches()
+        pred.start(ids, seq_lens=lens)
+        torch.cuda.synchronize()
+        pre = _launch_counts().get("quantized_matmul", 0)
+        _zero_launches()
+        pred.decode(steps)
+        torch.cuda.synchronize()
+        blk = _launch_counts().get("quantized_matmul", 0)
+        if (pre, blk) != (per_forward, per_forward * steps):
+            raise AssertionError(
+                f"quantization {tag}: quantized matmul launches {pre} a "
+                f"prefill and {blk} a block of {steps} steps, want "
+                f"{per_forward} a forward")
+
+        def block():
+            pred.start(ids, seq_lens=lens)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.decode(steps)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        wall = min(block() for _ in range(3))
+        pred.start(ids, seq_lens=lens)
+        busy, per_kernel, count = _profiled(torch,
+                                            lambda: pred.decode(steps))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del pred
+    finally:
+        _int8_flag(False)
+    rec = dict(step_ms=wall / steps, tokens_s=ids.shape[0] * steps / wall
+               * 1e3, busy_ms=None if busy is None else busy / steps,
+               peak_gib=peak, capture_ms=cap_ms,
+               ms={k: us / 1e3 / steps for k, us in per_kernel.items()},
+               launches={k: n / steps for k, n in count.items()})
+    _log(f"quantization {tag}: B={ids.shape[0]}, prompt {ids.shape[1]}, "
+         f"{QSESSION_NEW} new tokens; construction (both captures) "
+         f"{cap_ms:.1f} ms; block of {steps} steps {wall:.3f} ms "
+         f"({rec['step_ms']:.3f} ms a step, {rec['tokens_s']:.1f} "
+         f"tokens/s), {_fmt_busy(busy, wall)}; peak memory {peak:.2f} GiB; "
+         f"quantized matmul {pre} a prefill, {blk // steps} a decode step")
+    return got, rec
+
+
+# 3l's kernel groups of a decode step, by name, first match wins
+QUANT_GROUPS = (("quantized matmul", ("qmm",)),
+                ("decode attention", ("decode",)),
+                ("cuBLAS GEMMs", ("nvjet", "gemm", "cutlass")),
+                ("other port kernels", ("(anonymous namespace)::",)))
+
+
+def _quant_groups(ms):
+    out = {g: 0.0 for g, _ in QUANT_GROUPS}
+    out["other PyTorch kernels"] = 0.0
+    for name, v in ms.items():
+        g = next((g for g, keys in QUANT_GROUPS
+                  if any(k in name for k in keys)), "other PyTorch kernels")
+        out[g] += v
+    return out
+
+
+def _quant_split(recs, qmodel, per_forward):
+    """Where a decode step's device time goes in each 3l arm (ms a step by
+    kernel group, from the arm's profiled block), and the flag-off
+    route's two costs measured apart: the dequantize, the kernels that
+    are not GEMMs and launch at least ``per_forward`` times a step (one
+    a projection; no other kernel of the step launches that often),
+    their ms and launches beyond the flag-on arm's (which may run a
+    kernel of the same name for another op), against the bytes it must
+    move (each code read, each bf16 weight written, each scale read),
+    and the cuBLAS GEMMs, against the bf16 weights they read."""
+    from paddle_tpu_torch.nn.quant import QuantizedLinearInfer
+    groups = {tag: _quant_groups(r["ms"]) for tag, r in recs.items()}
+    _log("quantization kernel split, ms a step (" + " | ".join(groups)
+         + "): " + "; ".join(
+             f"{g} " + " | ".join(f"{groups[t][g]:.3f}" for t in groups)
+             for g in next(iter(groups.values()))))
+    off, on = recs["flag off"], recs["flag on"]
+    gemm = QUANT_GROUPS[2][1]
+    deq = {k: (off["ms"][k] - on["ms"].get(k, 0.0),
+               off["launches"][k] - on["launches"].get(k, 0.0))
+           for k in off["ms"] if not any(g in k for g in gemm)
+           and off["launches"][k] >= per_forward}
+    layers = [m for m in qmodel.modules()
+              if isinstance(m, QuantizedLinearInfer)]
+    codes = sum(m.qweight.numel() for m in layers)
+    deq_bytes = 3 * codes + sum(4 * m.weight_scale.numel() for m in layers)
+    deq_ms = sum(v for v, _n in deq.values())
+    gemm_ms = groups["flag off"]["cuBLAS GEMMs"]
+
+    def rate(nbytes, ms):
+        return (f"{nbytes / ms / 1e9:.3f} TB/s" if ms > 0 else
+                "rate not measured (no such kernel in the profile)")
+    _log(f"quantization flag off: the dequantize {deq_ms:.3f} ms a step "
+         f"over {sum(n for _v, n in deq.values()):.0f} launches "
+         f"({deq_bytes / 1e9:.2f} GB a step: {codes / 1e9:.2f} G codes "
+         f"read, bf16 written) = {rate(deq_bytes, deq_ms)}; "
+         f"cuBLAS GEMMs {gemm_ms:.3f} ms a step over the bf16 weights "
+         f"({2 * codes / 1e9:.2f} GB read) = "
+         f"{rate(2 * codes, gemm_ms)}, flag on "
+         f"{groups['flag on']['cuBLAS GEMMs']:.3f} ms (lm_head); "
+         f"the dequantize's kernels: "
+         + "; ".join(f"{k[:110]} {v:.3f} ms, {n:.0f} launches beyond "
+                     f"flag on's {on['launches'].get(k, 0.0):.0f}"
+                     for k, (v, n) in deq.items()))
+    for k, v in sorted(off["ms"].items(), key=lambda kv: -kv[1])[:6]:
+        _log(f"  flag off {v:8.3f} ms/step {off['launches'][k]:6.0f} "
+             f"launches/step  {k[:100]}")
+
+
+def _tf_rows(torch, model, ids, lens, outs, flag):
+    """Teacher-forced logits (``_forward_logits``) of every row of
+    ``outs`` under ``FLAGS_use_int8_matmul_kernel = flag``."""
+    _int8_flag(flag)
+    try:
+        return [_forward_logits(torch, model, ids[r, :lens[r]], outs[r])
+                for r in range(len(outs))]
+    finally:
+        _int8_flag(False)
+
+
+def phase_quantization(torch, seed, cfg, model):
+    """Phase 3l: the quantization slice at full Llama-3-8B width, on phase
+    3's bf16 model, where it is used for the last time.  (a) the
+    reference arm: an ``LLMPredictor(weight_dtype="int8")`` session
+    (``QSESSION``) on 8 seeded ragged prompts, 64 new tokens; (b)
+    ``weight_only_quantize(model, inplace=True)`` with ``lm_head``
+    skipped: 224 ``QuantizedLinearInfer`` layers, the memory it freed;
+    (c) the converted model's session with
+    ``FLAGS_use_int8_matmul_kernel`` off (dequantize + cuBLAS: 0
+    quantized-matmul launches) and on (the kernel: 224 a forward, 7
+    projections x 32 layers).  Each arm: tokens/s, the unprofiled block
+    wall per step, busy and idle share from a profile, peak memory.
+    Holds: the flag-on tokens against the reference arm's (the same
+    codes, kernel and M: equal, or the first difference is reported with
+    its top-2 margin, and they must agree up to each row's first
+    position within ``BF16_ULPS`` bf16 ulps of its top logit); flag off
+    against flag on, teacher-forced along the flag-on tokens: the logits
+    within ``QUANT_ROUTE_ULPS`` bf16 ulps of each position's largest
+    logit, the argmax equal at every decisive position (at least
+    ``QUANT_MIN_DECISIVE`` of them), and the sessions' tokens equal up to each row's first
+    non-decisive position (``_decisive``, the gap being the two routes'
+    logit gap there).  Logs each arm's kernel split and the flag-off
+    route's dequantize and GEMMs apart (``_quant_split``).  Returns the
+    launch counts of the three sessions' runs."""
+    import numpy as np
+    from paddle_tpu_torch.nn.quant import QuantizedLinearInfer
+    from paddle_tpu_torch.quantization import weight_only_quantize
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 29)
+    b, p = QSESSION["batch"], QSESSION["prompt_len"]
+    ids = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    lens = rng.integers(p // 8, p + 1, b).astype(np.int32)
+    lens[0] = p
+    per_forward = QUANT_PER_LAYER * cfg.num_hidden_layers
+    total = {}
+    recs = {}
+    ref, recs["int8 plan"] = _quant_arm(
+        torch, "(a) weight_dtype='int8' session", model, ids, lens, total,
+        per_forward, weight_dtype="int8")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qmodel = weight_only_quantize(model, inplace=True, skip=_skip_head)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    n_conv = sum(isinstance(m, QuantizedLinearInfer)
+                 for m in qmodel.modules())
+    if qmodel is not model or n_conv != per_forward:
+        raise AssertionError(f"quantization (b): {n_conv} converted layers, "
+                             f"want {per_forward}")
+    wbytes = sum(t.numel() * t.element_size() for t in
+                 list(qmodel.parameters()) + list(qmodel.buffers()))
+    _log(f"quantization (b): weight_only_quantize in place, {n_conv} "
+         f"QuantizedLinearInfer layers (lm_head kept bf16) in {conv_s:.2f} "
+         f"s; freed {(before - after) / 2 ** 30:.2f} GiB of device memory; "
+         f"the converted model's weights {wbytes / 2 ** 30:.2f} GiB")
+    off, recs["flag off"] = _quant_arm(
+        torch, "(c) converted, flag off (dequantize + cuBLAS)", qmodel, ids,
+        lens, total, 0, flag=False)
+    on, recs["flag on"] = _quant_arm(
+        torch, "(c) converted, flag on (the kernel)", qmodel, ids, lens,
+        total, per_forward, flag=True)
+    _quant_split(recs, qmodel, per_forward)
+    lg_on = _tf_rows(torch, qmodel, ids, lens, on, True)
+    same = np.array_equal(on, ref)
+    if same:
+        first = "equal token for token"
+    else:
+        r = int(np.flatnonzero((on != ref).any(axis=1))[0])
+        pos = int(np.flatnonzero(on[r] != ref[r])[0])
+        lg_ref = _tf_rows(torch, qmodel, ids, lens, ref, True)
+        top2 = lg_ref[r][pos].topk(2).values
+        first = (f"first difference at row {r} position {pos} (top-2 "
+                 f"margin there {float(top2[0] - top2[1]):.4g})")
+        for r in range(b):
+            _hold_upto(f"quantization flag on vs int8 plan, row {r}", on[r],
+                       ref[r], _decisive(torch, lg_ref[r]))
+    lg_off = _tf_rows(torch, qmodel, ids, lens, on, False)
+    compared = agree = 0
+    worst = worst_ulps = 0.0
+    for r in range(b):
+        gap = (lg_on[r] - lg_off[r]).abs().amax(dim=-1).numpy()
+        top = lg_on[r].abs().amax(dim=-1).numpy()
+        ulps = gap / 2.0 ** (np.floor(np.log2(np.maximum(top, 1e-30))) - 7)
+        worst = max(worst, float(gap.max()))
+        worst_ulps = max(worst_ulps, float(ulps.max()))
+        if worst_ulps > QUANT_ROUTE_ULPS:
+            pos = int(ulps.argmax())
+            raise AssertionError(
+                f"quantization flag off vs on, row {r}: the teacher-forced "
+                f"logits differ by {gap[pos]:.4g} at position {pos}, "
+                f"{ulps[pos]:.2f} bf16 ulps of its largest logit "
+                f"{top[pos]:.4g} (limit {QUANT_ROUTE_ULPS})")
+        dec = _decisive(torch, lg_on[r], gap)
+        compared += _hold_upto(f"quantization flag off vs on, row {r}",
+                               off[r], on[r], dec)
+        a_on, a_off = lg_on[r].argmax(-1).numpy(), lg_off[r].argmax(-1).numpy()
+        bad = np.flatnonzero(dec & (a_on != a_off))
+        if bad.size:
+            raise AssertionError(
+                f"quantization flag off vs on, row {r}: the two routes' "
+                f"teacher-forced argmax differ at decisive positions "
+                f"{bad.tolist()}")
+        agree += int(dec.sum())
+    if agree < QUANT_MIN_DECISIVE * b * QSESSION_NEW:
+        raise AssertionError(f"quantization flag off vs on: only {agree} of "
+                             f"{b * QSESSION_NEW} positions decisive (at "
+                             f"least {QUANT_MIN_DECISIVE:.3g} wanted; "
+                             f"largest gap {worst_ulps:.2f} bf16 ulps)")
+    _log(f"quantization: flag-on tokens vs the int8-plan session: {first}; "
+         f"flag off vs on: teacher-forced logits within {worst:.4g} "
+         f"({worst_ulps:.2f} bf16 ulps of the position's largest logit; "
+         f"limit {QUANT_ROUTE_ULPS}), argmax equal at all {agree} decisive "
+         f"of {b * QSESSION_NEW} positions, sessions' tokens equal at "
+         f"{compared} (up to each row's first non-decisive position); "
+         f"phase 3l {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _quant_llama_exactness(torch, seed):
+    """4l (a): a 2-layer float32 model at 8B width on the card and, from
+    the same state dict, on the CPU, both converted by
+    ``weight_only_quantize`` (``lm_head`` kept float): codes bit-equal;
+    under each flag value the card's 16 greedy ``generate()`` tokens of 2
+    prompts (a captured graph, one per flag; the quantized matmul 14 a
+    forward with the flag on, none off) are the CPU's greedy tokens up
+    to each row's first non-decisive position: one teacher-forced CPU
+    forward along the card's tokens, its argmax equal to them there and
+    its logits within ``QUANT_LOGIT_ATOL`` of the card's (so the CPU's
+    own greedy run would emit the same tokens, without 16 incremental
+    CPU forwards); then one ``LLMPredictor`` on the card whose flag is
+    toggled between sessions: its tokens equal ``generate()``'s under
+    each value (a graph pair each).  Returns the card's launches."""
+    import numpy as np
+    from paddle_tpu_torch.inference.llm import LLMPredictor
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.quantization import weight_only_quantize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu = _build_8b(torch, 2, "float32", seed + 23)
+    cpu = LlamaForCausalLM(cfg, device="cpu", init=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    for m in (gpu, cpu):
+        weight_only_quantize(m, skip=_skip_head)
+    for (name, g), c in zip(gpu.named_buffers(), cpu.buffers()):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError(f"quant layers (a): {name} differs card vs "
+                                 f"CPU")
+    rng = np.random.default_rng(seed + 23)
+    ids = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    lens = [32, 32]
+    per_forward = QUANT_PER_LAYER * cfg.num_hidden_layers
+    total, toks, notes = {}, {}, []
+    t_cpu = 0.0
+    for flag in (False, True):
+        _int8_flag(flag)
+        try:
+            _zero_launches()
+            g = gpu.generate(ids, max_new_tokens=16,
+                             compute_dtype="float32").cpu().numpy()
+            torch.cuda.synchronize()
+            run = _launch_counts()
+        finally:
+            _int8_flag(False)
+        _add_launches(total, run)
+        want = per_forward * 16 if flag else 0
+        if run.get("quantized_matmul", 0) != want:
+            raise AssertionError(f"quant layers (a) flag={flag}: quantized "
+                                 f"matmul {run.get('quantized_matmul', 0)} "
+                                 f"launches, want {want}")
+        t0 = time.perf_counter()
+        lg_c = _tf_rows(torch, cpu, ids, lens, g, flag)
+        t_cpu += time.perf_counter() - t0
+        lg_g = _tf_rows(torch, gpu, ids, lens, g, flag)
+        upto, worst = [], 0.0
+        for r in range(2):
+            gap = (lg_g[r] - lg_c[r]).abs().amax(dim=-1)
+            worst = max(worst, gap.max().item())
+            if worst > QUANT_LOGIT_ATOL:
+                raise AssertionError(f"quant layers (a) flag={flag}: card "
+                                     f"logits differ from the CPU's by "
+                                     f"{worst:.3g}")
+            upto.append(_hold_upto(
+                f"quant layers (a) flag={flag} row {r} (card tokens vs the "
+                f"CPU's teacher-forced argmax)", g[r],
+                lg_c[r].argmax(-1).numpy(),
+                _decisive(torch, lg_c[r], gap.numpy())))
+        toks[flag] = g
+        notes.append(f"flag {'on' if flag else 'off'}: largest logit gap "
+                     f"{worst:.3g}, tokens equal through {upto} of 16")
+    pred = LLMPredictor(gpu, batch=2, prompt_len=32, max_cache_len=64,
+                        steps_per_call=8, compute_dtype="float32")
+    for flag in (False, True):
+        _int8_flag(flag)
+        try:
+            got = pred.generate(ids, max_new_tokens=16)
+        finally:
+            _int8_flag(False)
+        if not np.array_equal(got, toks[flag]):
+            raise AssertionError(f"quant layers (a): the session's tokens "
+                                 f"under flag={flag} differ from "
+                                 f"generate()'s")
+    if len(pred._graphs) != 2:
+        raise AssertionError(f"quant layers (a): the session holds "
+                             f"{len(pred._graphs)} graph pairs, want 2")
+    _log(f"quant layers (a): 2 layers at 8B width, float32, converted "
+         f"(lm_head float): codes bit-equal card vs CPU; {'; '.join(notes)} "
+         f"(bound {QUANT_LOGIT_ATOL}); CPU forwards {t_cpu:.2f} s; a "
+         f"session toggled between flags equals generate() under each "
+         f"(two graph pairs)")
+    del pred, gpu, cpu
+    torch.cuda.empty_cache()
+    return total
+
+
+def _quant_epilogues(torch, seed):
+    """4l (b): ``nn.Sequential(Linear(4096, 16384), GELU, Linear(16384,
+    4096), ReLU, Linear(4096, 4096))`` with random biases, converted and
+    its GELU and ReLU folded (``fuse_act_into_quant_linear``: 2), at
+    M=256 in bf16 and float32 with the flag on: each fused layer's
+    output against ``quantized_matmul_plain`` with its bias and act on the
+    same input, the unfused layer's product against the plain product
+    (the layer adds its bias after it), at the kernel table's
+    tolerances; 3 launches a forward."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn.quant import QuantizedLinearInfer
+    from paddle_tpu_torch.ops.quantized_matmul import (
+        quantized_matmul, quantized_matmul_plain)
+    from paddle_tpu_torch.quantization import (fuse_act_into_quant_linear,
+                                               weight_only_quantize)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 31)
+    total = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        net = tnn.Sequential(tnn.Linear(4096, 16384, dtype=dtype), tnn.GELU(),
+                             tnn.Linear(16384, 4096, dtype=dtype), tnn.ReLU(),
+                             tnn.Linear(4096, 4096, dtype=dtype))
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, torch.nn.Linear):
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape,
+                                                   generator=gen,
+                                                   device="cuda"))
+        weight_only_quantize(net)
+        if fuse_act_into_quant_linear(net) != 2:
+            raise AssertionError("quant layers (b): fused pairs != 2")
+        x = torch.randn(256, 4096, generator=gen, device="cuda").to(dt)
+        _int8_flag(True)
+        try:
+            with torch.no_grad():
+                _zero_launches()
+                out = net(x)
+                torch.cuda.synchronize()
+                run = _launch_counts()
+                h = x
+                for i, layer in enumerate(net):
+                    if not isinstance(layer, QuantizedLinearInfer):
+                        h = layer(h)
+                        continue
+                    out_i = layer(h)
+                    if layer._fused_act:
+                        got = out_i
+                        want = quantized_matmul_plain(
+                            h, layer.qweight, layer.weight_scale,
+                            bias=layer.bias, act=layer._fused_act)
+                    else:
+                        # the kernel's product; the layer adds the bias
+                        # after it, in x's dtype
+                        got = quantized_matmul(h, layer.qweight,
+                                               layer.weight_scale)
+                        want = quantized_matmul_plain(
+                            h, layer.qweight, layer.weight_scale)
+                        if not torch.equal(out_i, got + layer.bias.to(dt)):
+                            raise AssertionError(
+                                f"quant layers (b) layer {i} {dtype}: the "
+                                f"layer is not the kernel plus its bias")
+                    _check(torch, f"quant layers (b) layer {i} "
+                           f"({layer._fused_act or 'no act'}) {dtype}",
+                           got, want, dtype, tol=QMM_TOL[dtype])
+                    h = out_i
+        finally:
+            _int8_flag(False)
+        if not torch.equal(h, out) or run.get("quantized_matmul") != 3:
+            raise AssertionError(f"quant layers (b) {dtype}: the forward "
+                                 f"differs from its layers' or launched "
+                                 f"{run}")
+        _add_launches(total, run)
+        del net, x, out, h
+    torch.cuda.empty_cache()
+    return total
+
+
+def _quant_convnet(torch, seed):
+    """4l (c): a small conv net (Conv2D 3->16, ReLU, pool, Linear 16->10)
+    on the card and, from the same state dict, on the CPU, float32: PTQ
+    (``AbsmaxObserver``, 3 calibration batches) with codes bit-equal and
+    scales within 1e-6; QAT (fake quanters on activations and weights,
+    3 SGD steps, each from the card's state on both sides) with losses
+    within 1e-5, the card's trained state loaded into the CPU's before
+    ``convert``; each converted model's
+    ``QuantizedConv2DInfer`` and ``QuantizedLinearInfer`` outputs card
+    against CPU within 1e-4 of the largest entry."""
+    import numpy as np
+    from paddle_tpu_torch import nn as tnn, optimizer as topt
+    from paddle_tpu_torch import quantization as tq
+    from paddle_tpu_torch.nn.quant import (QuantizedConv2DInfer,
+                                           QuantizedLinearInfer)
+
+    def build(dev):
+        return tnn.Sequential(
+            tnn.Conv2D(3, 16, 3, padding=1, device=dev), tnn.ReLU(),
+            tnn.AdaptiveAvgPool2D(1), tnn.Flatten(),
+            tnn.Linear(16, 10, device=dev))
+
+    rng = np.random.default_rng(seed + 37)
+    xs = [rng.standard_normal((8, 3, 32, 32)).astype(np.float32)
+          for _ in range(3)]
+    y = rng.integers(0, 10, 8).astype(np.int64)
+    errs = []
+
+    def layers_agree(tag, g, c, x):
+        hg, hc = torch.from_numpy(x).cuda(), torch.from_numpy(x)
+        with torch.no_grad():
+            for lg, lc in zip(g, c):
+                og, oc = lg(hg), lc(hc)
+                if isinstance(lg, (QuantizedConv2DInfer,
+                                   QuantizedLinearInfer)):
+                    errs.append(_card_cpu(torch, f"{tag} "
+                                          f"{type(lg).__name__}", og, oc,
+                                          1e-4))
+                hg, hc = og, oc
+
+    gpu, cpu = _pair_models(torch, build)
+    convs = []
+    for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        ptq = tq.PTQ(tq.QuantConfig(activation=tq.AbsmaxObserver))
+        q = ptq.quantize(m, inplace=False)
+        for x in xs:
+            q(torch.from_numpy(x).to(dev))
+        convs.append(ptq.convert(q))
+    for k in (0, 4):
+        g, c = convs[0][k], convs[1][k]
+        if not (torch.equal(g.qweight.cpu(), c.qweight) and torch.allclose(
+                g._act_scale.cpu(), c._act_scale, rtol=1e-6, atol=0)):
+            raise AssertionError(f"quant layers (c): PTQ layer {k} codes or "
+                                 f"scales differ card vs CPU")
+    layers_agree("quant layers (c) PTQ", convs[0], convs[1], xs[0])
+    gpu, cpu = _pair_models(torch, build)
+    qats = []
+    for m in (gpu, cpu):
+        qat = tq.QAT(tq.QuantConfig(
+            activation=tq.FakeQuanterWithAbsMaxObserver,
+            weight=tq.FakeQuanterChannelWiseAbsMaxObserver))
+        qm = qat.quantize(m)
+        qm.train()
+        qats.append((qat, qm, topt.SGD(learning_rate=0.05,
+                                       parameters=qm.parameters())))
+    (gqat, gq, gopt), (cqat, cq, copt) = qats
+    losses = []
+    for _ in range(3):
+        # each step from the same state on both sides: a fake-quant code
+        # that float32 noise tips across a rounding boundary would
+        # otherwise part the two runs for good
+        cq.load_state_dict({k: v.cpu() for k, v in gq.state_dict().items()})
+        step = []
+        for qm, opt, dev in ((gq, gopt, "cuda"), (cq, copt, "cpu")):
+            loss = tnn.functional.cross_entropy(
+                qm(torch.from_numpy(xs[0]).to(dev)),
+                torch.from_numpy(y).to(dev))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            step.append(float(loss.detach()))
+        losses.append(step)
+    if max(abs(a - b) for a, b in losses) > 1e-5:
+        raise AssertionError(f"quant layers (c): QAT losses (card, CPU) "
+                             f"{losses}")
+    cq.load_state_dict({k: v.cpu() for k, v in gq.state_dict().items()})
+    gi, ci = gqat.convert(gq), cqat.convert(cq)
+    gi.eval()
+    ci.eval()
+    layers_agree("quant layers (c) QAT", gi, ci, xs[1])
+    _log(f"quant layers (c): conv net PTQ and QAT (3 steps, each from the "
+         f"card's state on both sides: losses (card, CPU) {losses}): "
+         f"converted layers card vs CPU within {max(errs):.3g} of the "
+         f"largest entry (limit 1e-4)")
+
+
+def phase_quant_exactness_layers(torch, seed):
+    """Phase 4l: the quantization slice's exactness on the card against
+    the CPU (``_quant_llama_exactness``, ``_quant_epilogues``,
+    ``_quant_convnet``).  Returns the launch counts of (a) and (b)."""
+    t0 = time.perf_counter()
+    total = _quant_llama_exactness(torch, seed)
+    _add_launches(total, _quant_epilogues(torch, seed))
+    _quant_convnet(torch, seed)
+    _log(f"quant layers: phase 4l {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 # phase 3k: GPT-3 13B at full width through phase 3's engine geometry
 GPT_ENGINE = dict(num_slots=8, prompt_len=512, chunk_len=256,
                   max_cache_len=1024, block_len=16, compute_dtype="bfloat16")
@@ -8822,9 +9455,12 @@ def main(argv=None) -> int:
                                    serve_tokens)
     mark("phase 3i")
     by_path["lora"] = phase_lora(torch, args.seed, cfg, model, serve_tokens)
+    mark("phase 3j")
+    by_path["quantization"] = phase_quantization(torch, args.seed, cfg,
+                                                 model)
     del model
     torch.cuda.empty_cache()
-    mark("phase 3j")
+    mark("phase 3l")
     by_path.update(phase_gpt_serving(torch, args.seed))
     mark("phase 3k (GPT-3 13B)")
     phase_exactness(torch, args.seed)
@@ -8845,6 +9481,9 @@ def main(argv=None) -> int:
     mark("phase 4j")
     phase_gpt_exactness(torch, args.seed)
     mark("phase 4k")
+    by_path["quantization_exactness"] = phase_quant_exactness_layers(
+        torch, args.seed)
+    mark("phase 4l")
     by_path["training"] = phase_training(torch, args.seed, smi)
     cpu_full = phase_train_exactness(torch, args.seed)
     mark("phases 5, 6")

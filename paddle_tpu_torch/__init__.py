@@ -71,6 +71,13 @@ beside it slice by slice and imports nothing of it (nor JAX).
   ``vision.transforms`` and the detection ops (``vision.ops``), with the
   twin of the CIFAR example (``examples.resnet_cifar``); no kernel is
   added.
+- Slice 22, quantization: ``quantization`` (QAT, PTQ, the observers and
+  fake quanters, ``QuantConfig``, ``weight_only_quantize``,
+  ``fuse_act_into_quant_linear``), ``nn.quant`` (the QAT wrappers and
+  the converted int8 layers) and ``static.quantization``; a converted
+  Llama or GPT serves through ``generate()`` and ``LLMPredictor`` from
+  its int8 codes, on the quantized-matmul kernel under
+  ``FLAGS_use_int8_matmul_kernel``; no kernel is added.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """

@@ -6,13 +6,16 @@ an unknown name and the ``FLAGS_<name>`` environment override read when
 a flag is defined.  Every flag of the JAX package is defined here with
 its default (``paddle_tpu/core/flags.py:70-101``).
 
-The port reads three of them, which pick routes of the training step:
-``adamw_rsqrt_update`` (the epsilon-hat Adam form), ``flash_onepass_bwd``
-(the one-pass or the two-pass flash-attention backward) and
-``use_fused_adamw_kernel`` (the fused AdamW kernel).  Those take any
-value, and so does ``low_precision_op_list``, which the JAX package
-defines and reads nowhere.  Every other flag selects a route the port does not have yet, so
-setting it to anything but its default (by ``set_flags`` or by the
+The port reads four of them, at every call: three pick routes of the
+training step, ``adamw_rsqrt_update`` (the epsilon-hat Adam form),
+``flash_onepass_bwd`` (the one-pass or the two-pass flash-attention
+backward) and ``use_fused_adamw_kernel`` (the fused AdamW kernel), and
+``use_int8_matmul_kernel`` picks the route of a converted int8 layer
+(``nn.quant.QuantizedLinearInfer``: a dequantize and a plain product, or
+the quantized-matmul kernel).  Those take any value, and so does
+``low_precision_op_list``, which the JAX package defines and reads
+nowhere.  Every other flag selects a route the port does not have yet,
+so setting it to anything but its default (by ``set_flags`` or by the
 environment) raises ``NotImplementedError`` naming the ROADMAP item that
 brings the route.
 """
@@ -34,8 +37,6 @@ _UNPORTED = {
     "use_autotune": "item 13 (framework surface: the kernel autotuner)",
     "use_decode_attention_kernel": "item 11 (the XLA decode path: "
                                    "attention without the decode kernel)",
-    "use_int8_matmul_kernel": "item 13 (QuantizedLinearInfer with the "
-                              "int8 matmul kernel)",
     "eager_log_level": "item 13 (framework surface: eager dispatch "
                        "logging)",
     "default_dtype": "item 13 (framework surface: the default dtype)",

@@ -3,17 +3,17 @@
     python -m paddle_tpu_torch.examples.llama_serve
     python -m paddle_tpu_torch.examples.llama_serve --device cpu
 
-Steps 1-3 of the JAX package's example on the tiny Llama (random weights
-from seed 0, prompts from ``np.random.default_rng(0)``): (1) greedy
-``generate()``, one captured CUDA graph of prefill and every decode step
-on the card; (2) an ``LLMPredictor`` session, prefilled once and decoded
-in blocks of 4 steps; (3) the serving artifact (``.ptpu_torch_llm``)
-saved into a temporary directory and loaded without the model object,
-which must reproduce the session's tokens.  Step 4, weight-only int8
-through ``weight_only_quantize`` and ``QuantizedLinearInfer``, waits for
-ROADMAP.md, Queue 1, item 13 (framework surface: quantization); this twin
-runs no other route in its place.  ``--device`` picks the torch device
-(the CUDA card unless ``cpu`` is asked for).
+The four steps of the JAX package's example on the tiny Llama (random
+weights from seed 0, prompts from ``np.random.default_rng(0)``): (1)
+greedy ``generate()``, one captured CUDA graph of prefill and every
+decode step on the card; (2) an ``LLMPredictor`` session, prefilled once
+and decoded in blocks of 4 steps; (3) the serving artifact
+(``.ptpu_torch_llm``) saved into a temporary directory and loaded
+without the model object, which must reproduce the session's tokens; (4)
+weight-only int8: ``weight_only_quantize`` converts a copy of the model
+(every projection a ``QuantizedLinearInfer``, ``lm_head`` kept float)
+and a session of the converted copy generates.  ``--device`` picks the
+torch device (the CUDA card unless ``cpu`` is asked for).
 """
 
 import argparse
@@ -29,9 +29,23 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def int8_session(net, prompt):
+    """Step 4: ``weight_only_quantize`` a copy of ``net`` (``lm_head``
+    kept float) and generate 12 tokens of ``prompt`` [2, 8] through a
+    session of the copy; ``net`` is left as it was."""
+    from paddle_tpu_torch.inference.llm import LLMPredictor
+    from paddle_tpu_torch.quantization import weight_only_quantize
+
+    qnet = weight_only_quantize(net, inplace=False,
+                                skip=lambda name, l: name == "lm_head")
+    qpred = LLMPredictor(qnet, batch=2, prompt_len=8, max_cache_len=32,
+                         steps_per_call=4)
+    return qpred.generate(prompt, max_new_tokens=12)
+
+
 def main(argv=None):
-    """Run steps 1-3; returns ``{"generate", "session", "artifact"}``, the
-    int32 token arrays each step printed."""
+    """Run the four steps; returns ``{"generate", "session", "artifact",
+    "int8"}``, the int32 token arrays each step printed."""
     args = parse_args(argv)
 
     from paddle_tpu_torch.inference.llm import LLMPredictor
@@ -67,7 +81,13 @@ def main(argv=None):
         raise AssertionError(f"the artifact must reproduce the session: "
                              f"{again} != {session}")
     print("artifact:", again[0], "(deterministic)")
-    return {"generate": toks, "session": session, "artifact": again}
+
+    # 4) weight-only int8: halve the weight stream (decode is
+    #    weight-streaming bound)
+    int8 = int8_session(net, prompt)
+    print("int8    :", int8[0])
+    return {"generate": toks, "session": session, "artifact": again,
+            "int8": int8}
 
 
 if __name__ == "__main__":

@@ -59,6 +59,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.flags import flag
 from ..device import to_dtype
 from ..models.generation import GenerationConfig, generate_program
 from ..models.lora import gather_lora, lora_context
@@ -604,6 +605,31 @@ def _artifact_family(model) -> str:
         f"dense generation programs)")
 
 
+def _converted_linears(model) -> dict:
+    """``{module name: {"bits", "fused_act"}}`` of the model's converted
+    int8 layers (``quantization.weight_only_quantize`` and kin), which an
+    artifact carries beside their ``qweight``/``weight_scale`` buffers."""
+    from ..nn.quant import QuantizedLinearInfer
+    return {name: {"bits": m._bits, "fused_act": m._fused_act}
+            for name, m in model.named_modules()
+            if isinstance(m, QuantizedLinearInfer)}
+
+
+def _convert_linear(model, name: str, spec: dict):
+    """Rebuild a converted layer at load: the ``torch.nn.Linear`` at
+    ``name`` becomes an empty ``QuantizedLinearInfer`` of its shape
+    (filled from the artifact), keeping the Linear's bias parameter."""
+    from ..nn.quant import QuantizedLinearInfer
+    parent_name, _, leaf = name.rpartition(".")
+    parent = model.get_submodule(parent_name)
+    lin = parent._modules[leaf]
+    if not isinstance(lin, torch.nn.Linear):
+        raise ValueError(f"artifact: {name} is a {type(lin).__name__} in "
+                         f"the model of its config, not a Linear")
+    parent._modules[leaf] = QuantizedLinearInfer.empty_like(
+        lin, bits=spec["bits"], fused_act=spec["fused_act"])
+
+
 class SessionState:
     """The device state an ``LLMPredictor`` owns, the inputs and outputs
     of both session programs: the prompt inputs (``ids [B, P]``, ``lens_in
@@ -760,7 +786,11 @@ class LLMPredictor:
     differs from ``compute_dtype``): an in-place update of the model is
     seen by the session, where the reference snapshots the parameter
     arrays at construction; a rebinding of a parameter makes a graph
-    replay raise."""
+    replay raise.  A model converted by ``quantization`` serves its int8
+    layers on the route ``FLAGS_use_int8_matmul_kernel`` picks: the
+    session has a graph pair per flag value, taken at ``start()``, and
+    ``decode()`` under another value than its ``start()``'s raises.  A
+    float model's session does not read the flag."""
 
     def __init__(self, model=None, *, batch, prompt_len,
                  max_cache_len=None, steps_per_call=16,
@@ -830,18 +860,43 @@ class LLMPredictor:
         def block():
             return session_block(model, cfg, steps, st, wq)
 
-        if not graphs_on(self.device):
-            self._prefill, self._block = prefill, block
-            return
-        self._prefill_graph = _dense_capture(prefill, self.device)
-        # the block's warm-up must write in range whatever the prompt
-        # length: every row frozen at slot 0 (start() prefills again)
-        st.lens.zero_()
-        st.done.fill_(True)
-        self._block_graph = _dense_capture(block, self.device)
-        self._struct = parameter_structure(model)
-        self._prefill = lambda: self._replay(self._prefill_graph)
-        self._block = lambda: self._replay(self._block_graph)
+        self._programs = (prefill, block)
+        # a converted model's int8 layers take the route
+        # FLAGS_use_int8_matmul_kernel picks: the value the session was
+        # started under, and on the card the graph pair of each value
+        # seen (a float model has one route, keyed None)
+        from ..nn.quant.quant_layers import holds_int8_layers
+        self._int8 = holds_int8_layers(model)
+        self._route = None
+        self._graphs = {}
+        if graphs_on(self.device):
+            self._struct = parameter_structure(model)
+            self._graph_pair()
+
+    def _route_key(self):
+        """The current ``FLAGS_use_int8_matmul_kernel`` value for a
+        converted model, ``None`` for a float one."""
+        return bool(flag("use_int8_matmul_kernel")) if self._int8 else None
+
+    def _graph_pair(self):
+        """The (prefill, block) graphs of the current route key
+        (``_route_key``): a graph records one route of the converted int8
+        layers, so each flag value has its own pair, captured at its
+        first use (at construction or at ``start()``, which prefills
+        again after the capture's warm-up)."""
+        key = self._route_key()
+        pair = self._graphs.get(key)
+        if pair is None:
+            prefill, block = self._programs
+            st = self._st
+            pg = _dense_capture(prefill, self.device)
+            # the block's warm-up must write in range whatever the prompt
+            # length: every row frozen at slot 0 (start() prefills again)
+            st.lens.zero_()
+            st.done.fill_(True)
+            pair = self._graphs[key] = (pg, _dense_capture(block,
+                                                           self.device))
+        return pair
 
     def _replay(self, graph: CapturedGraph):
         from ..models.generation import parameter_structure
@@ -851,6 +906,23 @@ class LLMPredictor:
                 "moved or cast) after its graphs were captured; build a "
                 "new predictor")
         return graph.replay()
+
+    def _prefill(self):
+        self._route = self._route_key()
+        if not graphs_on(self.device):
+            return self._programs[0]()
+        return self._replay(self._graph_pair()[0])
+
+    def _block(self):
+        if self._route_key() != self._route:
+            raise RuntimeError(
+                "LLMPredictor: FLAGS_use_int8_matmul_kernel changed since "
+                "start(); a session decodes on the route it was started "
+                "on, so call start() again (ROADMAP.md, Known differences "
+                "of quantization)")
+        if not graphs_on(self.device):
+            return self._programs[1]()
+        return self._replay(self._graphs[self._route][1])
 
     # -- session --
     def _check_prompt(self, input_ids, seq_lens):
@@ -996,8 +1068,12 @@ class LLMPredictor:
         (the full decode configuration: greedy, sampled or beam), the
         model ``family`` (``"llama"`` or ``"gpt"``) with its config
         fields, and every weight as numpy at its exact bits (bf16 as the
-        ``uint16`` view plus the dtype name, the host parcels' rule).
-        ``load()`` rebuilds the model and the programs from it alone.
+        ``uint16`` view plus the dtype name, the host parcels' rule).  A
+        model converted by ``quantization.weight_only_quantize`` carries
+        its int8 ``qweight``/``weight_scale`` buffers among the weights
+        and the converted layers' names under ``"quantized"``.
+        ``load()`` rebuilds the model (its converted layers too) and the
+        programs from it alone.
         The reference's ``.ptpu_llm`` holds StableHLO programs: neither
         package loads the other's artifact."""
         from .prefixcache import host_rows
@@ -1013,6 +1089,9 @@ class LLMPredictor:
                 "meta": self._meta(),
                 "weights": {name: host_rows(t) for name, t in
                             self._model.state_dict().items()}}
+        converted = _converted_linears(self._model)
+        if converted:
+            blob["quantized"] = converted
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path + ARTIFACT_SUFFIX, "wb") as f:
             pickle.dump(blob, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -1041,7 +1120,9 @@ class LLMPredictor:
         weights = blob["weights"]
         model = model_cls(config_cls(**blob["config"]), device=dev,
                           dtype=next(iter(weights.values()))[1], init=False)
-        names = dict(model.named_parameters())
+        for name, spec in blob.get("quantized", {}).items():
+            _convert_linear(model, name, spec)
+        names = model.state_dict(keep_vars=True)
         if set(names) != set(weights):
             raise ValueError(
                 f"{path}{ARTIFACT_SUFFIX}: weights "

@@ -1262,6 +1262,20 @@ class ServingEngine:
         if mesh is not None:
             _not_ported("mesh= (tensor-parallel serving)",
                         "#10 Sharded serving")
+        from ..nn.quant.quant_layers import holds_int8_layers
+        for what, m in (("model", model),
+                        ("drafter's model", getattr(drafter, "_model",
+                                                    None))):
+            if m is not None and holds_int8_layers(m):
+                # its captured graphs would record one route of
+                # FLAGS_use_int8_matmul_kernel, and the cast to
+                # compute_dtype would cast the float32 scales
+                raise NotImplementedError(
+                    f"ServingEngine: the {what} holds layers converted by "
+                    f"paddle_tpu_torch.quantization (QuantizedLinearInfer); "
+                    f"serve it through LLMPredictor or generate(), or use "
+                    f"weight_dtype= on the float model (ROADMAP.md, Known "
+                    f"differences of quantization)")
         # disaggregation role: pure policy over the migration mechanism;
         # "both" keeps every trace byte-identical to a role-less engine
         self.role = str(role)

@@ -15,6 +15,14 @@ H, D]``.  ERNIE's tied pretraining decoder has no weight of its own on
 either side: the word embedding is the one tensor, and
 ``cls.decoder_bias`` the decoder's only parameter.
 
+Quantized models cross the same way, given their parameters and buffers
+(``named_buffers()``): a QAT model's ``QuantedLinear`` holds its
+Linear's weight under the Linear's name, transposed like it, and its
+quanters' buffers (``activation_quanter.scale``, ``_initialized``) cross
+as they are; a converted layer (``QuantizedLinearInfer``) has no
+``weight``, and its ``qweight`` (``[in, out]`` int8 codes in both
+packages) and ``weight_scale`` cross as they are, byte for byte.
+
 ``vision_state_from_jax`` (also ``ocr_state_from_jax``) maps the vision
 zoo's and the OCR models' parameters AND buffers (a batch norm's
 ``_mean`` and ``_variance``), deciding by the port model's module types,
@@ -97,10 +105,13 @@ def ernie_state_from_jax(named_arrays: Mapping[str, np.ndarray]
 
 def linear_weight_names(model: torch.nn.Module) -> frozenset:
     """The state-dict names of ``model``'s Linear weights (by module
-    type), the tensors whose layout differs between the packages."""
+    type: a ``torch.nn.Linear`` or a QAT ``QuantedLinear``, which holds
+    its Linear's weight), the tensors whose layout differs between the
+    packages."""
+    from ..nn.quant import QuantedLinear
     return frozenset(f"{name}.weight" if name else "weight"
                      for name, m in model.named_modules()
-                     if isinstance(m, torch.nn.Linear))
+                     if isinstance(m, (torch.nn.Linear, QuantedLinear)))
 
 
 def vision_state_from_jax(named_arrays: Mapping[str, np.ndarray],

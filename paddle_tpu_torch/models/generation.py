@@ -610,9 +610,12 @@ class GenerationMixin:
     caches, ``decode_step(tokens [B], lens, kvs)`` (the dense ``(k, v)``
     form among others) and ``kv_cache_spec()``.  On the card each call
     replays one captured CUDA graph of ``generate_program`` per (B, S,
-    max_cache_len, ``GenerationConfig``, ``parameter_structure``), as the
+    max_cache_len, ``GenerationConfig``, ``parameter_structure``, and
+    for a converted model ``FLAGS_use_int8_matmul_kernel``), as the
     reference compiles one program per key; on the CPU the program runs
-    eagerly."""
+    eagerly.  Buffers are
+    never cast: a converted layer's int8 codes stay int8 and its scales
+    float32."""
 
     def _generate_graph(self, b: int, s: int, max_cache_len: int,
                         cfg: GenerationConfig):
@@ -621,9 +624,16 @@ class GenerationMixin:
         pin their graphs' memory: they are evicted, as the reference
         evicts its stale executables."""
         from ..inference.llm import GenerateGraph
+        from ..core.flags import flag
+        from ..nn.quant.quant_layers import holds_int8_layers
         cache = self.__dict__.setdefault("_generate_graphs", {})
         struct = parameter_structure(self)
-        keyt = (b, s, max_cache_len, cfg, struct)
+        # a graph records one route of the converted int8 layers
+        # (QuantizedLinearInfer): the flag that picks it is in the key
+        # of a converted model
+        route = (bool(flag("use_int8_matmul_kernel"))
+                 if holds_int8_layers(self) else None)
+        keyt = (b, s, max_cache_len, cfg, struct, route)
         hit = cache.get(keyt)
         if hit is not None:
             return hit

@@ -50,12 +50,12 @@ from torch import nn
 from ..device import DeviceLike
 from ..distributed.utils import recompute
 from ..nn.common import Dropout, materialize, meta_factory
-from ..nn.functional import (add, cross_entropy, embedding, gelu, linear,
+from ..nn.functional import (add, cross_entropy, embedding, gelu,
                              scaled_dot_product_attention)
 from ..nn.norm import LayerNorm
 from .generation import (GenerationMixin, attend_chunk, attend_decode,
                          attend_verify, cache_prefill_write)
-from .wquant import wq_linear
+from .wquant import project, wq_linear
 
 PagedKV = Tuple[torch.Tensor, ...]
 
@@ -295,7 +295,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         ``(loss, logits)`` with ``labels`` (``GPTPretrainingCriterion``,
         unshifted, as the reference)."""
         hidden = self.gpt(input_ids, position_ids, attention_mask)
-        logits = linear(hidden, self.lm_head.weight)
+        logits = project(self.lm_head, hidden)
         if labels is not None:
             return self.criterion(logits, labels), logits
         return logits
@@ -337,7 +337,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
                 self.config.num_attention_heads, self.config.head_dim)
 
     def _logits(self, h):
-        return linear(self.gpt.ln_f(h), self.lm_head.weight)
+        return project(self.lm_head, self.gpt.ln_f(h))
 
     def prefill(self, ids, lens, kvs) -> Tuple[torch.Tensor, List]:
         """Prompt pass of ``generate()``: the prompt's K/V into the dense

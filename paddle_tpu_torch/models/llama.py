@@ -39,7 +39,10 @@ Module and parameter names match the JAX model's ``named_parameters()``
 so the weight bridge (``models/convert.py``) is a rename-free mapping.
 The projections and ``lm_head`` are ``nn.Linear`` (a library GEMM, as
 the JAX package leaves them to XLA) unless a weight-quant context routes
-a projection through the quantized-matmul kernel; RMSNorm, RoPE (without
+a projection through the quantized-matmul kernel, or
+``quantization.weight_only_quantize`` converted them
+(``nn.quant.QuantizedLinearInfer``, called as a module at every site,
+``wquant.project``); RMSNorm, RoPE (without
 position ids), causal attention, paged decode and verify attention (float
 and int8 cache) and dense decode attention run the port's CUDA kernels on
 the card.
@@ -56,14 +59,14 @@ from torch import nn
 from ..device import DeviceLike, resolve_device, to_dtype
 from ..distributed.utils import checkpoint_name, recompute
 from ..incubate.nn.functional import fused_linear_cross_entropy
-from ..nn.functional import (add, cross_entropy, embedding, linear,
+from ..nn.functional import (add, cross_entropy, embedding,
                              llama_rope, scaled_dot_product_attention,
                              swiglu)
 from ..nn.norm import RMSNorm
 from .generation import (GenerationMixin, attend_chunk, attend_decode,
                          attend_verify, cache_prefill_write)
 from .lora import maybe_lora
-from .wquant import wq_linear
+from .wquant import project, wq_linear
 
 # (k_arena, v_arena, tables) or, for the int8 cache, (k_codes, v_codes,
 # k_scales, v_scales, tables); decode_step also takes generate()'s dense
@@ -390,7 +393,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 hidden.reshape(-1, hidden.shape[-1]), self.lm_head.weight.t(),
                 labels.reshape(-1), chunk=1024)
             return loss, None
-        logits = linear(hidden, self.lm_head.weight)
+        logits = project(self.lm_head, hidden)
         if labels is not None:
             return LlamaPretrainingCriterion(self.config)(logits,
                                                           labels), logits

@@ -9,7 +9,9 @@ call the models' unchanged ``decode_step`` / ``prefill_chunk`` inside
 :func:`wquant_context`; the projection sites call :func:`wq_linear`,
 which routes the matmul through the quantized kernel when the active
 context holds planes for ``(layer_idx, target)`` and is the plain
-``lin(x)`` everywhere else (training, float serving).
+``lin(x)`` everywhere else (training, float serving, and a layer that
+``quantization.weight_only_quantize`` converted, which carries its own
+codes: :func:`project`).
 
 Non-projection parameters (embeddings, norms, ``lm_head``) stay float.
 The reference swaps each quantized weight for a zero-size placeholder
@@ -64,18 +66,28 @@ def wquant_context(ctx: Optional[WeightQuantContext]):
         _ACTIVE = prev
 
 
-def wq_linear(lin: torch.nn.Linear, x: torch.Tensor, target: str,
+def project(lin: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``lin`` applied to ``x``: the float ``linear`` (cast by the AMP
+    rule) for a torch ``Linear``; the module itself for a converted
+    layer (``nn.quant.QuantizedLinearInfer``, which has no ``weight``),
+    as the reference's sites call ``lin(x)``."""
+    if isinstance(lin, torch.nn.Linear):
+        return linear(x, lin.weight, lin.bias)
+    return lin(x)
+
+
+def wq_linear(lin: torch.nn.Module, x: torch.Tensor, target: str,
               layer_idx: int) -> torch.Tensor:
     """Projection-site hook: ``lin``'s matmul through the quantized
     codes+scales when the active context registers ``(layer_idx,
-    target)``, the float ``linear`` (cast by the AMP rule) otherwise.
-    The bias (always float) joins the kernel's f32 epilogue."""
+    target)``, ``project(lin, x)`` otherwise.  The bias (always float)
+    joins the kernel's f32 epilogue."""
     ctx = _ACTIVE
     if ctx is None:
-        return linear(x, lin.weight, lin.bias)
+        return project(lin, x)
     entry = ctx.planes.get((layer_idx, target))
     if entry is None:
-        return linear(x, lin.weight, lin.bias)
+        return project(lin, x)
     codes, scales = entry
     return routed_quantized_matmul(x, codes, scales, bits=ctx.bits,
                                    bias=lin.bias)

@@ -68,6 +68,13 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.vision.ops, paddle_tpu_torch.vision.datasets, "
         "paddle_tpu_torch.vision.transforms, "
         "paddle_tpu_torch.examples.resnet_cifar, paddle_tpu_torch.runtime\n"
+        "import paddle_tpu_torch.nn.quant, "
+        "paddle_tpu_torch.nn.quant.quant_layers, "
+        "paddle_tpu_torch.quantization.quanters, "
+        "paddle_tpu_torch.quantization.config, "
+        "paddle_tpu_torch.quantization.qat, "
+        "paddle_tpu_torch.quantization.ptq, "
+        "paddle_tpu_torch.static.quantization\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -241,6 +248,27 @@ def test_slice_21_names():
     spec = paddle.static.InputSpec((1, 3), "bfloat16", "x")
     assert (spec.shape, spec.dtype, spec.name) == ((1, 3), torch.bfloat16,
                                                    "x")
+
+
+def test_slice_22_names():
+    """The quantization slice's names: ``quantization`` and ``nn.quant``
+    with the reference's ``__all__``, ``static.quantization``, and the
+    int8 matmul flag accepted."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, quantization, static
+    for name in quantization.__all__:
+        assert hasattr(quantization, name), name
+    for name in nn.quant.__all__:
+        assert hasattr(nn.quant, name), name
+    assert static.quantization.quant_post_static.__module__ == \
+        "paddle_tpu_torch.static.quantization"
+    assert static.quantization.PTQ is quantization.PTQ
+    paddle.set_flags({"FLAGS_use_int8_matmul_kernel": True})
+    try:
+        assert paddle.get_flags("FLAGS_use_int8_matmul_kernel") == {
+            "FLAGS_use_int8_matmul_kernel": True}
+    finally:
+        paddle.set_flags({"FLAGS_use_int8_matmul_kernel": False})
 
 
 @pytest.mark.parametrize("build", ["DataLoader", "DeformConv2D",

@@ -404,7 +404,7 @@ def test_cross_entropy_options_match_jax(kw):
 
 @pytest.mark.parametrize("flag,value", [
     ("FLAGS_use_decode_attention_kernel", False),
-    ("FLAGS_use_int8_matmul_kernel", True),
+    ("FLAGS_check_nan_inf", True),
     ("FLAGS_prefer_pallas_kernels", False),
 ])
 def test_set_flags_refuses_the_unported_routes(flag, value):
