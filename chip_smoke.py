@@ -10,7 +10,8 @@ The second form measures only the decode attention kernels, alone and
 in the serving step (``phase_decode_window``), the third the quantized
 matmul and the int8 decode, alone and in the quantized serving step
 (``phase_quant_window``), the fourth RoPE and RMSNorm, alone, in a train
-step and in the serving decode step (``phase_norm_window``), of this
+step and in the serving decode step, and the host cost of the kernels'
+dispatcher ops (``phase_norm_window``), of this
 checkout or of the port in another tree (a parent commit unpacked beside
 it); none prints a result line.
 
@@ -214,16 +215,17 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    the block step against busy and the idle share, each arm's kernel
    split, the flag-off dequantize's and GEMMs' rates, peak memory, the
    memory the conversion freed;
-3k. GPT-3 13B at full width (40 layers, hidden 5120, 40 heads of D =
-   128, ffn 20480, vocab 50304; bf16 random weights from ``--seed``),
+3k. GPT-3 13B at full width, 10 of its 40 layers (hidden 5120, 40 heads
+   of D = 128, ffn 20480, vocab 50304; bf16 random weights from
+   ``--seed``; the depth cut for the smoke's time, ROADMAP.md),
    after the 8B model is freed, through phase 3's engine geometry and
    trace (``phase_gpt_serving``): (a) the lockstep and the default arm
-   in turns, twice each, equal tokens, the paged decode exactly 40 a
+   in turns, twice each, equal tokens, the paged decode exactly L a
    decode step and no other kernel; (b) int8 KV with int8, then int4,
-   weights, the quantized matmul (its bias epilogue) exactly 160 a
-   forward and the int8 decode 40 a step; (c) ``spec_decode=4`` with a
+   weights, the quantized matmul (its bias epilogue) exactly 4L a
+   forward and the int8 decode L a step; (c) ``spec_decode=4`` with a
    ``ModelDrafter`` over a 2-layer GPT of the same width, the K-wide
-   verify 40 a verify, the dense decode and the flash forward 2 a
+   verify L a verify, the dense decode and the flash forward 2 a
    drafter step and prefill; (d) greedy ``generate()`` at B=8 and an
    8-row ``LLMPredictor`` as captured graphs, bit-equal to their eager
    programs; tokens/s, TTFT, decode step, busy, idle share, verify
@@ -379,8 +381,9 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    (``phase_hapi``): (a) ``examples.resnet_cifar`` with ``--arch
    resnet50 --epochs 1 --batch-size 128`` on its synthetic data; (b)
    ``Model.fit`` of ResNet-50 (10 classes) float32 with Adam over
-   ``Cifar10(size=50000)``, B=128, one epoch without shuffling, and
-   ``evaluate`` on ``size=10000`` (CIFAR-10's real sizes): ms a step and
+   ``Cifar10(size=10000)`` (10000 of CIFAR-10's 50000 training images,
+   cut for the smoke's time, ROADMAP.md), B=128, one epoch without
+   shuffling, and ``evaluate`` on ``size=10000``: ms a step and
    images/s unprofiled, the host split of a step (loader wait,
    ``train_batch``, the metric update and its read, ``float(loss)``),
    peak memory, eval images/s, device busy, idle share and launches a
@@ -402,6 +405,32 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    and without, float32 within 1e-5 of the largest entry, bf16 within
    one bf16 ulp of each entry: its launches are the calls made
    with a weight (``launches_by_path["functional"]``, asserted).
+8a. jit and the Predictor (``phase_jit``), the deployment path
+   ``jit.save`` -> ``inference.Config``/``create_predictor`` ->
+   ``Predictor.run`` (one captured CUDA graph per input signature): (a) 8
+   of Llama-3-8B's 32 layers at full width, bf16, saved at ``InputSpec([4,
+   512], int64)``, run through the handles, the list form and a clone
+   (weights shared): logits bit-equal to the eager forward on the card,
+   launches a run RMSNorm 2L+1, RoPE 2L, flash forward L; export, write
+   and load times, bytes, the first run (capture), replay ms against the
+   eager forward's, peak memory; (b) the same model converted in place by
+   ``weight_only_quantize`` (``lm_head`` float) and saved under
+   ``FLAGS_use_int8_matmul_kernel``: bit-equal to the eager converted
+   forward, 7L quantized-matmul launches a run; (c) a 2-layer model at 8B
+   width exported on the CPU and served on the card through the kernels,
+   and two clones under ``enable_memory_optim`` staging different feeds
+   before either runs, each with its own feed's logits;
+   (d) ``examples.resnet_cifar --arch resnet50 --epochs 0 --batch-size
+   128 --export``, its Predictor at B=128 3x32x32 float32 against
+   ``Model.predict_batch`` within 1e-5 of the largest entry with TF32 on
+   for the caller, no port kernel launched; (e) ``to_static`` forward and
+   backward of an MLP, a converted tensor ``while`` exported
+   (``while_loop``) and run on the card, and a static ``Program`` trained
+   3 steps with ``SGD.minimize`` on the card, then a step each by a CPU
+   Executor and the card's on the same host parameters (which stay on the
+   host), against 5 CPU steps within 1e-5; each
+   artifact is deleted after it is loaded (``launches_by_path["jit"]``:
+   the Predictor runs of (a)-(c)).
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -1320,8 +1349,8 @@ def _rope_case(torch, dtype, gen, shape=ROPE_SHAPES[0]):
                         inv)
     cos = torch.cos(freqs)[None, :, None, :]
     sin = torch.sin(freqs)[None, :, None, :]
-    y = rp._rope(x, cos, sin, 1.0)
-    gx = rp._rope(g, cos, sin, -1.0)
+    y = rp._rope_cuda(x, cos, sin, 1.0)
+    gx = rp._rope_cuda(g, cos, sin, -1.0)
     want_y = rp.apply_rope_plain(x, cos, sin)
     want_gx = rp.apply_rope_plain(g, cos, -sin)
     torch.cuda.synchronize()
@@ -1337,7 +1366,7 @@ def _rope_case(torch, dtype, gen, shape=ROPE_SHAPES[0]):
     item = x.element_size()
     bound_ms, by = _bound(2 * x.numel() * item + 2 * cos.numel() * 4,
                           3 * x.numel(), dtype)
-    ms = _time_ms(torch, lambda: rp._rope(x, cos, sin, 1.0))
+    ms = _time_ms(torch, lambda: rp._rope_cuda(x, cos, sin, 1.0))
     plain_ms = _time_ms(torch, lambda: rp.apply_rope_plain(x, cos, sin))
     return dict(shape=f"[{b},{s},{h},{d}]", dtype=dtype, max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
@@ -3986,6 +4015,52 @@ def _decode_rms_host(torch, eng, rng, vocab, steps=8):
     return 1e6 * sum(spent) / len(spent), len(spent) / steps
 
 
+def _op_host_us(torch, gen):
+    """Host us a call of ``apply_rope`` at (1, 256, 32, 128) bf16 and of
+    the int8 ``quantized_matmul`` at (8, 4096) x (4096, 14336), no grad,
+    least of 5 turns of ``_host_us``."""
+    from paddle_tpu_torch.ops import quantized_matmul as qmm
+    from paddle_tpu_torch.ops import rope as rp
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    x = torch.randn((8, 4096), generator=gen, **bf)
+    q = torch.randn((1, 256, 32, 128), generator=gen, **bf)
+    cos = torch.rand((1, 256, 1, 64), generator=gen, device="cuda")
+    sin = torch.rand((1, 256, 1, 64), generator=gen, device="cuda")
+    codes = torch.randint(-127, 128, (4096, 14336), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    scales = torch.rand(14336, generator=gen, device="cuda")
+    with torch.no_grad():
+        for name, fn in (
+                ("apply_rope (1, 256, 32, 128) bf16",
+                 lambda: rp.apply_rope(q, cos, sin)),
+                ("quantized_matmul int8 (8, 4096) x (4096, 14336)",
+                 lambda: qmm.quantized_matmul(x, codes, scales))):
+            turns = [_host_us(torch, fn) for _ in range(5)]
+            _log(f"norm window: {name}: host {min(turns):.2f} us a call "
+                 f"(least of 5 turns of 500 calls; turns "
+                 + " / ".join(f"{t:.2f}" for t in turns) + ")")
+
+
+def _prefill_chunk_walls(torch, eng, rng, vocab):
+    """The unprofiled wall of the eager prefill chunk (a 256-row chunk of
+    a 512-token prompt on an idle engine: 65 RMSNorm and 64 RoPE calls at
+    32 layers), least of 10 after the first."""
+    walls = []
+    for _ in range(11):
+        eng.submit(rng.integers(0, vocab, 512).astype("int32"),
+                   max_new_tokens=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        eng.run()
+    _log(f"norm window: eager 8B prefill chunk (256 rows of a 512-token "
+         f"prompt, 32 layers, bf16): {min(walls[1:]):.3f} ms (least of 10 "
+         f"after the first; walls " + " / ".join(f"{v:.3f}" for v in walls)
+         + ")")
+
+
 def phase_norm_window(torch, seed):
     """``--norm-window``: RoPE and RMSNorm alone and in the steps that run
     them.  Phase 2's bf16 RoPE cases at the first three ``ROPE_SHAPES``
@@ -3996,9 +4071,14 @@ def phase_norm_window(torch, seed):
     model (``_profile_train_step``: RoPE's and RMSNorm's device ms and
     launches in it), and phase 3's bf16 8B decode window (RMSNorm's
     device ms a step and us a launch, profiled) and RMSNorm's host us a
-    call in those decode steps.  With ``--root`` the package comes from
-    another tree (a parent commit unpacked beside this checkout), so one
-    script measures two trees, in turns within one call."""
+    call in those decode steps.  The host cost of the kernels as
+    dispatcher ops: host us a call of ``apply_rope`` and
+    ``quantized_matmul`` (``_op_host_us``; RMSNorm's is ``_rms_turns``'),
+    the phase-5 step's synced wall (least of 3), and the unprofiled wall
+    of the eager 8B prefill chunk (``_prefill_chunk_walls``).  With
+    ``--root`` the package comes from another tree (a parent commit
+    unpacked beside this checkout), so one script measures two trees, in
+    turns within one call."""
     import numpy as np
     from paddle_tpu_torch.inference import ServingEngine
     gen = torch.Generator(device="cuda")
@@ -4011,6 +4091,7 @@ def phase_norm_window(torch, seed):
              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     for n, d in RMS_TURN_SHAPES:
         _rms_turns(torch, n, d, gen)
+    _op_host_us(torch, gen)
     for shape, what in COPY_FLOORS:
         _copy_floor(torch, shape, gen, what)
     b, s, nl = TRAIN["batch"], TRAIN["seq"], TRAIN["layers"]
@@ -4018,11 +4099,16 @@ def phase_norm_window(torch, seed):
     tokens, labels = _train_batch(torch, cfg, b, s, seed, "cuda")
     step(tokens, labels)
     _profile_train_step(torch, step, tokens, labels)
+    ms = _wall_ms(torch, lambda: float(step(tokens, labels)), n=3)
+    _log(f"norm window: phase-5 train step ({nl} layers, b{b} s{s}, bf16): "
+         f"{ms:.3f} ms (least of 3 synced walls)")
     del step, opt, model
     torch.cuda.empty_cache()
     cfg, model = _build_8b(torch, 32, "bfloat16", seed)
     kw = dict(num_slots=8, prompt_len=512, chunk_len=256, max_cache_len=1024,
               block_len=16, compute_dtype="bfloat16")
+    _prefill_chunk_walls(torch, ServingEngine(model, **kw), rng,
+                         cfg.vocab_size)
     _profile_decode(torch, ServingEngine(model, **kw), rng, cfg.vocab_size)
     us, calls = _decode_rms_host(torch, ServingEngine(model, **kw), rng,
                                  cfg.vocab_size)
@@ -7634,7 +7720,9 @@ def phase_quant_exactness_layers(torch, seed):
     return total
 
 
-# phase 3k: GPT-3 13B at full width through phase 3's engine geometry
+# phase 3k: GPT-3 13B at full width through phase 3's engine geometry, at
+# 10 of its 40 layers (the smoke's time: ROADMAP.md)
+GPT_SERVE_LAYERS = 10
 GPT_ENGINE = dict(num_slots=8, prompt_len=512, chunk_len=256,
                   max_cache_len=1024, block_len=16, compute_dtype="bfloat16")
 GPT_DENSE = dict(prompt=512, new=64)    # 3k (d): B=8 generate()
@@ -7958,16 +8046,18 @@ def _gpt_dense_arms(torch, seed, cfg, model, total):
 
 
 def phase_gpt_serving(torch, seed):
-    """Phase 3k: GPT-3 13B at full width (40 layers, hidden 5120, 40
-    heads of D = 128, ffn 20480, vocab 50304, 2048 positions; bf16
-    random weights from ``seed``) through phase 3's engine geometry and
-    trace: (a) the lockstep and the default arm in turns, twice each,
-    tokens equal; (b) int8 KV with int8, then int4, weights; (c)
+    """Phase 3k: GPT-3 13B at full width (``GPT_SERVE_LAYERS`` of its 40
+    layers, hidden 5120, 40 heads of D = 128, ffn 20480, vocab 50304,
+    2048 positions; bf16 random weights from ``seed``) through phase 3's
+    engine geometry and trace: (a) the lockstep and the default arm in
+    turns, twice each, tokens equal; (b) int8 KV with int8, then int4, weights; (c)
     ``spec_decode=4`` with a 2-layer GPT drafter; (d) ``generate()`` and
     ``LLMPredictor`` as captured graphs.  Every run holds its launch
     formula.  Returns the launches of each path."""
+    import dataclasses
     from paddle_tpu_torch.models import gpt3_13b_config
-    cfg = gpt3_13b_config()
+    cfg = dataclasses.replace(gpt3_13b_config(),
+                              num_hidden_layers=GPT_SERVE_LAYERS)
     t0 = time.perf_counter()
     model = _build_gpt(torch, cfg, "bfloat16", seed, tag="gpt serving")
     by_path = {k: {} for k in ("gpt_serving", "gpt_quant", "gpt_speculative",
@@ -8935,7 +9025,9 @@ def phase_vision_exactness(torch, seed):
 
 # ---- the hapi surface and the vision ops (phases 7e, 7f) ----
 
-HAPI = dict(batch=128, train=50000, test=10000, lr=1e-3, iters=20,
+# 7e's fit over 10000 of CIFAR-10's 50000 training images (the smoke's
+# time: ROADMAP.md); evaluate on its 10000 test images
+HAPI = dict(batch=128, train=10000, test=10000, lr=1e-3, iters=20,
             profile_steps=10, bare_steps=15, bare_pairs=6, lenet=512,
             lenet_batch=64)
 # LeNet fit, card against CPU: per-step losses within this of the largest
@@ -9086,7 +9178,8 @@ def phase_hapi(torch, seed, smi):
          f"--batch-size {b} on the card: evaluate {logs}; {ex_s:.1f} s "
          f"(1024 train and 256 test images, the build of the model and "
          f"cuDNN's first calls included)")
-    # (b) CIFAR-10's real sizes, float32, one epoch
+    # (b) 10000 of CIFAR-10's training images, its 10000 test images,
+    # float32, one epoch
     train = Cifar10(mode="train", size=h["train"])
     test = Cifar10(mode="test", size=h["test"])
     net = resnet50(num_classes=10, seed=seed)
@@ -9373,6 +9466,340 @@ def phase_vision_ops(torch, seed):
     return counts
 
 
+JIT = dict(layers=8, batch=4, seq=512, cpu_layers=2, cifar_batch=128,
+           mlp=(256, 512, 10), mlp_batch=64, static_steps=3,
+           replays=5)
+JIT_REL = 1e-5                       # float32 card vs CPU (8a (d), (e))
+
+
+def _jit_grow(x):
+    """A tensor ``while`` loop: ``jit.save`` exports it (converted by
+    dy2static) as ``torch._higher_order_ops.while_loop``."""
+    s = x
+    while s.sum() < 1000.0:
+        s = s * 2.0 + 1.0
+    return s
+
+
+def _run_device(pred):
+    """``pred.run()`` through its handles; the output left on the card."""
+    pred.run()
+    return pred.get_output_handle("output_0").to_device_array()
+
+
+def _jit_arm(torch, tag, model, ids, want, prefix, per_run, eager_ms):
+    """``jit.save`` of ``model`` at ``ids``' shape, ``create_predictor`` on
+    the card, runs through the handles and the list form, each held bit
+    for bit against ``want`` (the eager forward on the card) with the
+    kernels' launches of one run equal to ``per_run``; a clone shares the
+    weights.  Returns the launches of the Predictor's runs; the artifact
+    is deleted."""
+    import numpy as np
+    from paddle_tpu_torch import inference, jit
+    stats = jit.save(model, prefix,
+                     input_spec=[jit.InputSpec(list(ids.shape), "int64")])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(prefix))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for sfx in (jit.api.PROGRAM_SUFFIX, jit.api.PARAMS_SUFFIX):
+        os.remove(prefix + sfx)
+    h = pred.get_input_handle("input_0")
+    h.share_external_data(ids)
+    total = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    got = _run_device(pred)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    _add_launches(total, counts)
+    if not torch.equal(got, want):
+        d = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{tag}: Predictor logits differ from the "
+                             f"eager forward's by up to {d:.4g}")
+    if counts != per_run:
+        raise AssertionError(f"{tag}: launches of one run {counts}, "
+                             f"want {per_run}")
+    _zero_launches()
+    replay_ms = _wall_ms(torch, lambda: _run_device(pred), n=JIT["replays"])
+    runs = JIT["replays"]
+    counts = _launch_counts()
+    _add_launches(total, counts)
+    if counts != {k: v * runs for k, v in per_run.items()}:
+        raise AssertionError(f"{tag}: launches of {runs} runs {counts}")
+    _zero_launches()
+    listed = pred.run([ids])[0]
+    _add_launches(total, _launch_counts())
+    if not np.array_equal(listed, want.float().cpu().numpy()):
+        raise AssertionError(f"{tag}: list-form run differs")
+    twin = pred.clone()
+    shared = all(a.data_ptr() == b.data_ptr() for a, b in
+                 zip(twin._param_values, pred._param_values))
+    twin.get_input_handle("input_0").share_external_data(ids)
+    _zero_launches()
+    if not (shared and torch.equal(_run_device(twin), want)):
+        raise AssertionError(f"{tag}: clone shares weights {shared}, or "
+                             f"its run differs")
+    _add_launches(total, _launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _log(f"jit {tag}: jit.save export {stats['export_s']:.2f} s, write "
+         f"{stats['write_s']:.2f} s, {stats['bytes'] / 2 ** 30:.3f} GiB; "
+         f"create_predictor (load, weights to the card) {load_s:.2f} s; "
+         f"first run (warm-up, capture, replay) {first_s:.2f} s; replay "
+         f"{replay_ms:.3f} ms (least of {JIT['replays']} synced walls, "
+         f"output copied on the card) against the eager forward's "
+         f"{eager_ms:.3f} ms; logits bit-equal to the eager forward "
+         f"(handles, list form, clone: weights shared {shared}); launches "
+         f"a run {per_run}; peak {peak:.2f} GiB")
+    del pred, twin
+    torch.cuda.empty_cache()
+    return total
+
+
+def _jit_resnet(torch, seed, tmp):
+    """8a (d): the CIFAR example's twin exports ResNet-50 (``--export``);
+    its Predictor's logits at B=128 against ``Model.predict_batch`` on
+    the card, TF32 on for cuDNN around both (each must turn it off for
+    float32 convolutions itself); no port kernel launched."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.examples import resnet_cifar
+    from paddle_tpu_torch.jit.api import Artifact
+    from paddle_tpu_torch.vision.models import resnet50
+    prefix = os.path.join(tmp, "resnet")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        resnet_cifar.main(["--arch", "resnet50", "--epochs", "0",
+                           "--batch-size", str(JIT["cifar_batch"]),
+                           "--export", prefix])
+        ex_s = time.perf_counter() - t0
+        art = Artifact(prefix)
+        net = resnet50(num_classes=10)
+        keep = net.state_dict()
+        net.load_state_dict({n: v for n, v in zip(art.names, art.values)
+                             if n in keep})
+        model = paddle.Model(net)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+        x = torch.randn((JIT["cifar_batch"], 3, 32, 32), generator=gen,
+                        device="cuda")
+        want = model.predict_batch([x])
+        pred = inference.create_predictor(inference.Config(prefix))
+        t0 = time.perf_counter()
+        got = pred.run([x])[0]
+        first_s = time.perf_counter() - t0
+        pred.get_input_handle("input_0").share_external_data(x)
+        replay_ms = _wall_ms(torch, lambda: _run_device(pred),
+                             n=JIT["replays"])
+        eager_ms = _wall_ms(torch, lambda: model.predict_batch([x]),
+                            n=JIT["replays"])
+        err = _card_cpu(torch, "8a (d) Predictor vs predict_batch",
+                        torch.from_numpy(got), want.cpu(), JIT_REL)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    counts = _zero_kernels("phase 8a (d)")
+    _log(f"jit 8a (d) examples.resnet_cifar --arch resnet50 --epochs 0 "
+         f"--batch-size {JIT['cifar_batch']} --export: {ex_s:.1f} s (the "
+         f"model, 256 test images, the export); Predictor at "
+         f"B={JIT['cifar_batch']} 3x32x32 float32 against "
+         f"Model.predict_batch on the card: within {err:.3g} of the largest "
+         f"entry (limit {JIT_REL}), TF32 on for the caller; first run "
+         f"{first_s:.2f} s, replay {replay_ms:.3f} ms against predict_batch "
+         f"{eager_ms:.3f} ms; no port kernel launched")
+    del pred, model, net
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _jit_static(torch, seed, tmp):
+    """8a (e): ``to_static`` forward and backward, a converted ``while``
+    exported and run on the card, and a static ``Program`` trained
+    ``static_steps`` steps with ``SGD.minimize`` on the card, then one
+    step by a CPU Executor and one by the card's on the same parameters,
+    each card against CPU."""
+    import copy
+    import numpy as np
+    from paddle_tpu_torch import jit, nn, optimizer, static
+    d_in, d_hid, d_out = JIT["mlp"]
+    gen = torch.Generator().manual_seed(seed + 25)
+    x = torch.randn((JIT["mlp_batch"], d_in), generator=gen)
+    nets = [nn.Sequential(nn.Linear(d_in, d_hid, device="cpu"), nn.GELU(),
+                          nn.Linear(d_hid, d_out, device="cpu"))]
+    nets.insert(0, copy.deepcopy(nets[0]).to("cuda"))
+    outs = []
+    for net, dev in zip(nets, ("cuda", "cpu")):
+        step = jit.to_static(lambda a, _n=net: _n(a).square().mean())
+        loss = step(x.to(dev))
+        loss.backward()
+        outs.append([loss] + [p.grad for p in net.parameters()])
+    worst = max(_card_cpu(torch, "8a (e) to_static", g, c, JIT_REL)
+                for g, c in zip(*outs))
+    prefix = os.path.join(tmp, "grow")
+    jit.save(_jit_grow, prefix, input_spec=[jit.InputSpec([64], "float32")])
+    loaded = jit.load(prefix)
+    hops = {str(n.target) for n in loaded._artifact.program.graph.nodes
+            if n.op == "call_function" and "while_loop" in str(n.target)}
+    xs = torch.rand((64,), generator=gen)
+    grown = loaded(xs.cuda())
+    if not hops or not torch.equal(grown.cpu(), _jit_grow(xs)):
+        raise AssertionError(f"8a (e) converted while: graph {hops}, "
+                             f"card vs eager CPU differ")
+    rng = np.random.default_rng(seed)
+    xv = rng.standard_normal((16, d_in)).astype(np.float32)
+    yv = rng.standard_normal((16, 1)).astype(np.float32)
+    base = nn.Linear(d_in, 1, device="cpu")
+    runs = []
+    # the card's Executor trains a copy of the host's parameters and
+    # writes each update back: a CPU Executor on the same program goes on
+    # from them, and the card's after it
+    n = JIT["static_steps"]
+    for places in (["cuda"] * n + ["cpu", "cuda"], ["cpu"] * (n + 2)):
+        lin = copy.deepcopy(base)
+        sgd = optimizer.SGD(learning_rate=0.01, parameters=lin.parameters())
+        prog = static.Program()
+        with static.program_guard(prog):
+            xd = static.data("x", [16, d_in], "float32")
+            yd = static.data("y", [16, 1], "float32")
+            loss = ((lin(xd) - yd) ** 2).mean()
+            sgd.minimize(loss)
+        exes = {p: static.Executor(p) for p in set(places)}
+        losses = [float(exes[p].run(prog, feed={"x": xv, "y": yv},
+                                    fetch_list=[loss])[0])
+                  for p in places]
+        if lin.weight.device.type != "cpu":
+            raise AssertionError(f"8a (e) static: the Executor moved the "
+                                 f"module's weight to {lin.weight.device}")
+        runs.append((losses, lin.weight.detach()))
+    (lg, wg), (lc, wc) = runs
+    if not lg[-1] < lg[0]:
+        raise AssertionError(f"8a (e) static: losses {lg} do not fall")
+    worst = max(worst, _card_cpu(torch, "8a (e) static losses",
+                                 torch.tensor(lg), torch.tensor(lc),
+                                 JIT_REL),
+                _card_cpu(torch, "8a (e) static weight", wg, wc, JIT_REL))
+    _log(f"jit 8a (e) to_static MLP {JIT['mlp']} forward and backward, a "
+         f"converted tensor while exported ({sorted(hops)}) and run on the "
+         f"card, a static Program (Linear {d_in}->1, SGD.minimize) "
+         f"{n} steps on the card, then one by a CPU Executor and one by the "
+         f"card's on the same parameters, losses "
+         f"{[round(v, 6) for v in lg]}: "
+         f"card vs CPU within {worst:.3g} of the largest entry "
+         f"(limit {JIT_REL})")
+
+
+def phase_jit(torch, seed, smi):
+    """Phase 8a (see the module docstring); returns the launches of the
+    Predictor runs of (a)-(c), the path's counts."""
+    import dataclasses
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_3_8b_config
+    from paddle_tpu_torch.quantization import weight_only_quantize
+    nl, b, s = JIT["layers"], JIT["batch"], JIT["seq"]
+    per_run = {"rms_norm": 2 * nl + 1, "rope": 2 * nl,
+               "flash_attention_fwd": nl}
+    total = {}
+    tmp = tempfile.mkdtemp(prefix="ptpu_jit_")
+    try:
+        cfg, model = _build_8b(torch, nl, "bfloat16", seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+        ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device="cuda")
+        with torch.no_grad():
+            want = model(ids)
+            eager_ms = _wall_ms(torch, lambda: model(ids), n=JIT["replays"])
+        _add_launches(total, _jit_arm(
+            torch, f"8a (a) Llama-3-8B width, {nl} layers, bf16, ids "
+            f"{b}x{s}", model, ids, want, os.path.join(tmp, "a"), per_run,
+            eager_ms))
+        del want
+        weight_only_quantize(model, inplace=True, skip=_skip_head)
+        _int8_flag(True)
+        try:
+            with torch.no_grad():
+                want = model(ids)
+                eager_ms = _wall_ms(torch, lambda: model(ids),
+                                    n=JIT["replays"])
+            _add_launches(total, _jit_arm(
+                torch, "8a (b) the same model by weight_only_quantize, "
+                "FLAGS_use_int8_matmul_kernel", model, ids, want,
+                os.path.join(tmp, "b"),
+                {**per_run, "quantized_matmul": QUANT_PER_LAYER * nl},
+                eager_ms))
+        finally:
+            _int8_flag(False)
+        del model, want
+        torch.cuda.empty_cache()
+        # (c) exported on the CPU, served on the card
+        c_cfg = dataclasses.replace(llama_3_8b_config(),
+                                    num_hidden_layers=JIT["cpu_layers"])
+        small = LlamaForCausalLM(c_cfg, dtype="bfloat16", seed=seed + 1)
+        ids2 = torch.flip(ids, dims=(1,))
+        with torch.no_grad():
+            want, want2 = small(ids), small(ids2)
+        small.to("cpu")
+        prefix = os.path.join(tmp, "c")
+        stats = jit.save(small, prefix, input_spec=[jit.InputSpec([b, s],
+                                                                  "int64")])
+        del small
+        pred = inference.create_predictor(inference.Config(prefix))
+        if pred._shared.exported_on != "cpu":
+            raise AssertionError("8a (c): the artifact was exported on "
+                                 f"{pred._shared.exported_on}")
+        pred.get_input_handle("input_0").share_external_data(ids)
+        _zero_launches()
+        got = _run_device(pred)
+        counts = _launch_counts()
+        _add_launches(total, counts)
+        nc = JIT["cpu_layers"]
+        want_c = {"rms_norm": 2 * nc + 1, "rope": 2 * nc,
+                  "flash_attention_fwd": nc}
+        equal = torch.equal(got, want)
+        diff = (got.float() - want.float()).abs().max().item()
+        if counts != want_c or not (equal or diff <= TOL["bfloat16"][0]):
+            raise AssertionError(f"8a (c): launches {counts} (want "
+                                 f"{want_c}); logits off by {diff:.4g}")
+        # two clones under enable_memory_optim stage different feeds
+        # before either runs; each gets its own logits
+        cfg = inference.Config(prefix)
+        cfg.enable_memory_optim()
+        staged = inference.create_predictor(cfg)
+        pair = (staged, staged.clone())
+        _zero_launches()
+        for p_, feed in zip(pair, (ids, ids2)):
+            p_.get_input_handle("input_0").copy_from_cpu(feed.cpu().numpy())
+        outs = [_run_device(p_) for p_ in pair]
+        _add_launches(total, _launch_counts())
+        diff2 = (outs[1].float() - want2.float()).abs().max().item()
+        if not (torch.equal(outs[0], got) and (
+                torch.equal(outs[1], want2) or diff2 <= TOL["bfloat16"][0])):
+            raise AssertionError("8a (c): clones staging different feeds "
+                                 "under enable_memory_optim got another "
+                                 f"feed's logits (second off by {diff2:.4g})")
+        _log(f"jit 8a (c) a {nc}-layer model at 8B width exported on the "
+             f"CPU ({stats['export_s']:.2f} s, {stats['bytes'] / 2 ** 30:.3f}"
+             f" GiB), served on the card: launches a run {counts}; logits "
+             f"{'bit-equal to' if equal else f'within {diff:.4g} of'} the "
+             f"eager forward on the card; two clones under "
+             f"enable_memory_optim staging different feeds: the first "
+             f"bit-equal to the run above, the second within {diff2:.4g} of "
+             f"its eager forward")
+        del pred, staged, pair, outs
+        torch.cuda.empty_cache()
+        if not all(total.get(k) for k in per_run):
+            raise AssertionError(f"phase 8a: a kernel never launched {total}")
+        _jit_resnet(torch, seed, tmp)
+        _jit_static(torch, seed, tmp)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9525,6 +9952,8 @@ def main(argv=None) -> int:
     if not by_path["functional"]["rms_norm"]:
         raise AssertionError("functional: F.rms_norm launched no kernel")
     mark("phase 7f")
+    by_path["jit"] = phase_jit(torch, args.seed, smi)
+    mark("phase 8a")
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)

@@ -78,6 +78,13 @@ beside it slice by slice and imports nothing of it (nor JAX).
   Llama or GPT serves through ``generate()`` and ``LLMPredictor`` from
   its int8 codes, on the quantized-matmul kernel under
   ``FLAGS_use_int8_matmul_kernel``; no kernel is added.
+- Slice 23, jit and static: ``jit`` (``to_static`` with dy2static,
+  ``save``/``load`` over ``torch.export`` programs, bucketing),
+  ``static`` (``Program``, ``Executor``, ``append_backward``, the
+  control-flow ops, ``static.nn``) and ``inference.create_predictor``,
+  one captured CUDA graph per input signature on the card; RMSNorm, RoPE
+  and the quantized matmul become dispatcher ops, so an exported
+  program carries the kernels; no kernel is added.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """

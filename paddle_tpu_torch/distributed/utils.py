@@ -27,10 +27,11 @@ A callable is taken as a policy function of torch's selective
 checkpoint (``(ctx, op, *args, **kwargs) -> CheckpointPolicy`` or a
 bool).  An unknown name raises the reference's ``ValueError``.
 
-Kernels bound with ``ctypes`` inside an autograd Function (RMSNorm,
-RoPE) are not dispatcher ops, so every policy but
-``everything_saveable`` recomputes them, as every JAX policy but that
-one recomputes the reference's Pallas calls.
+RMSNorm, RoPE and the quantized matmul are dispatcher ops too
+(``paddle_tpu_torch::rms_norm``, ``::apply_rope``,
+``::quantized_matmul``), so a policy sees them; no named policy saves
+them, so every policy but ``everything_saveable`` recomputes them, as
+every JAX policy but that one recomputes the reference's Pallas calls.
 
 Keys: as in the reference (:84-103), ``recompute`` draws one key from
 the generator and pushes it around the function, so draws inside derive

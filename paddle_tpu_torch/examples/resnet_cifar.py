@@ -11,8 +11,12 @@ The same flags and defaults as the JAX package's example (ResNet-18,
 2 epochs, batch 64, Adam at 1e-3, ``--amp O1/O2``, ``--num-workers``),
 plus ``--device`` (the CUDA card unless ``cpu`` is asked for).  Without
 ``--data-file`` the data is ``Cifar10``'s synthetic images (1024 train,
-256 test).  ``--export`` (``Model.save(training=False)``, through
-``jit.save``) is ROADMAP.md, Queue 1, item 13: it raises.  ``main``
+256 test).  ``--export PREFIX`` writes the inference artifact after the
+evaluation (``Model.save(training=False)``, through ``jit.save``:
+``PREFIX.ptpu_torch_model`` and ``PREFIX.ptpu_params``), which
+``inference.create_predictor`` serves.  Its batch dimension is dynamic
+(``InputSpec((None, 3, 32, 32))``), so the artifact serves any batch; the
+reference's spec, ``(1, 3, 32, 32)``, exports batch 1 only.  ``main``
 returns the final ``evaluate`` logs.
 """
 
@@ -39,10 +43,6 @@ def parse_args(argv=None):
 def main(argv=None):
     """Train and evaluate; returns the final ``evaluate`` logs."""
     args = parse_args(argv)
-    if args.export:
-        raise NotImplementedError(
-            "resnet_cifar: --export needs jit.save, ROADMAP.md, Queue 1, "
-            "item 13 (framework surface: jit and static)")
 
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import nn
@@ -55,7 +55,8 @@ def main(argv=None):
     test = Cifar10(data_file=args.data_file, mode="test")
 
     net = getattr(vmodels, args.arch)(num_classes=10, device=args.device)
-    model = paddle.Model(net, inputs=[InputSpec((1, 3, 32, 32), "float32")])
+    model = paddle.Model(net,
+                         inputs=[InputSpec((None, 3, 32, 32), "float32")])
     model.prepare(
         optimizer=paddle.optimizer.Adam(learning_rate=args.lr,
                                         parameters=net.parameters()),
@@ -67,6 +68,10 @@ def main(argv=None):
               verbose=2)
     logs = model.evaluate(test, batch_size=args.batch_size, verbose=0)
     print(logs)
+    if args.export:
+        model.save(args.export, training=False)
+        print(f"inference artifact exported to "
+              f"{args.export}.ptpu_torch_model")
     return logs
 
 

@@ -19,10 +19,9 @@ every ``*_batch`` moves its inputs there.
   bf16 convolution raises ``TypeError``, as in the reference.
 - ``save(path)`` writes ``path.pdparams`` and ``path.pdopt`` through
   ``framework.io.save``; ``load`` restores both in place.
-  ``save(training=False)`` exports an inference program through
-  ``jit.save``, which is ROADMAP.md, Queue 1, item 13 (framework
-  surface: jit and static): it raises, after the reference's
-  ``ValueError`` when no input specs were given.
+  ``save(training=False)`` exports the inference artifact through
+  ``jit.save`` at the input specs given at construction (the reference's
+  ``ValueError`` when none were given).
 """
 
 from __future__ import annotations
@@ -351,17 +350,19 @@ class Model:
     def save(self, path, training=True):
         """training=True: a checkpoint (``path.pdparams`` and, with an
         optimizer, ``path.pdopt``).  training=False: the inference
-        export, which waits on the port's ``jit.save``."""
+        artifact, ``jit.save`` of the network at the input specs given
+        at construction (``path.ptpu_torch_model`` and
+        ``path.ptpu_params``)."""
         if not training:
             if self._inputs is None:
                 raise ValueError(
                     "Model.save(training=False) exports an inference "
                     "model and needs input specs: Model(net, "
                     "inputs=[InputSpec(...)])")
-            raise NotImplementedError(
-                "Model.save(training=False) exports through jit.save, "
-                "ROADMAP.md, Queue 1, item 13 (framework surface: jit and "
-                "static)")
+            from ..jit.api import save as jit_save
+            self.network.eval()
+            jit_save(self.network, path, input_spec=list(self._inputs))
+            return
         from ..framework.io import save as fsave
         fsave(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:

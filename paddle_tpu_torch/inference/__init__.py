@@ -13,9 +13,12 @@ disaggregation, the framed wire transport (``LoopbackTransport``,
 ``SocketTransport``, ``RemoteReplica``) and process replicas
 (``EngineHost``, ``EngineProcess``, ``TCPStoreLite``); and multi-tenant
 batched LoRA serving (``AdapterStore``, ``LoraAdapter``) with fair-share
-admission over tenants."""
+admission over tenants; and the Predictor (``Config``,
+``create_predictor``) over ``jit.save`` artifacts, one captured CUDA graph
+per input signature on the card."""
 
 from .faultinject import FaultInjector  # noqa: F401
+from .predictor import Config, Predictor, create_predictor  # noqa: F401
 from .llm import LLMPredictor  # noqa: F401
 from .lora import AdapterStore, LoraAdapter  # noqa: F401
 from .prefixcache import HostTier, RadixPrefixCache  # noqa: F401

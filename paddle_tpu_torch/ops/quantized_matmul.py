@@ -15,10 +15,13 @@ tensors.  The reference's route gate is dropped, not ported: its
 ``max_m`` cap and ``rows_below_min`` rule (:75-99) are TPU tiling rules,
 and the port's kernel tiles M and N itself, so every shape the kernel
 takes goes to it.  As in the reference, the int8 form without bias or
-act is differentiable in x (``_qmm`` custom_vjp :294-316; here a
-``torch.autograd.Function`` whose backward is ``_qmm_bwd``'s plain
-math); the int4 and fused-epilogue forms raise in grad mode when x
-requires grad.
+act is differentiable in x (``_qmm`` custom_vjp :294-316; here the
+dispatcher op ``paddle_tpu_torch::quantized_matmul`` with
+``_qmm_bwd``'s plain math as its gradient); the int4 and fused-epilogue
+forms raise in grad mode when x requires grad.  The op's CUDA body is
+the kernel and its CPU body the plain version, chosen by the dispatcher
+from x's device (``_dispatch.kernel_op``), so an exported graph
+(``jit.save``) holds the op itself.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._dispatch import kernel_op
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACTS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
@@ -250,32 +254,47 @@ def _qmm_cuda(x2, qweight, scales, out_dtype, bias, act, bits):
     return y
 
 
-def _qmm_dispatch(x2, qweight, scales, out_dtype, bias, act, bits):
-    if x2.device.type == "cuda":
-        return _qmm_cuda(x2, qweight, scales, out_dtype, bias, act, bits)
-    if x2.device.type == "cpu":
-        return quantized_matmul_plain(x2, qweight, scales, out_dtype, bias,
-                                      act, bits)
-    raise ValueError(f"quantized_matmul: unsupported device {x2.device}")
+def _qmm_cpu(x2, qweight, scales, out_dtype, bias, act, bits):
+    return quantized_matmul_plain(x2, qweight, scales, out_dtype, bias, act,
+                                  bits)
 
 
-class _QMM(torch.autograd.Function):
-    """The int8 form without bias or act, differentiable in x: backward
-    ``dx = g @ (codes * scale)^T`` in fp32, cast to x's dtype (the
-    reference's ``_qmm_bwd``, plain math there too); codes and scales
-    take no gradient."""
+def _setup_context(ctx, inputs, output):
+    x2, qweight, scales, _out_dtype, bias, act, bits = inputs
+    ctx.save_for_backward(qweight, scales)
+    ctx.x_dtype = x2.dtype
+    ctx.form = (bits, bias is None, act is None)
 
-    @staticmethod
-    def forward(ctx, x2, qweight, scales, out_dtype):
-        ctx.save_for_backward(qweight, scales)
-        ctx.x_dtype = x2.dtype
-        return _qmm_dispatch(x2, qweight, scales, out_dtype, None, None, 8)
 
-    @staticmethod
-    def backward(ctx, g):
-        qweight, scales = ctx.saved_tensors
+def _backward(ctx, g):
+    """The int8 form without bias or act, in x: ``dx = g @ (codes *
+    scale)^T`` in fp32, cast to x's dtype (the reference's ``_qmm_bwd``,
+    plain math there too); codes, scales and bias take no gradient."""
+    if ctx.form != (8, True, True):
+        raise RuntimeError(_NOT_DIFFERENTIABLE)
+    qweight, scales = ctx.saved_tensors
+    dx = None
+    if ctx.needs_input_grad[0]:
         w = qweight.float() * scales.float()[None, :]
-        return (g.float() @ w.t()).to(ctx.x_dtype), None, None, None
+        dx = (g.float() @ w.t()).to(ctx.x_dtype)
+    return dx, None, None, None, None, None, None
+
+
+# ``act(x2 @ codes * scales [+ bias])`` [M, N]: the kernel for CUDA
+# tensors, the plain version for CPU tensors.
+qmm_op = kernel_op(
+    "quantized_matmul",
+    "(Tensor x2, Tensor qweight, Tensor scales, ScalarType out_dtype, "
+    "Tensor? bias, str? act, int bits) -> Tensor",
+    cuda=_qmm_cuda, cpu=_qmm_cpu,
+    fake=lambda x2, qweight, scales, out_dtype, bias, act, bits:
+    x2.new_empty((x2.shape[0], qweight.shape[1]), dtype=out_dtype),
+    setup_context=_setup_context, backward=_backward)
+
+_NOT_DIFFERENTIABLE = (
+    "quantized_matmul: only the int8 form without bias or act is "
+    "differentiable (as in the reference); the int4 and fused-epilogue "
+    "forms are inference-only")
 
 
 def quantized_matmul(x, qweight, scales, out_dtype=None, bias=None,
@@ -284,26 +303,21 @@ def quantized_matmul(x, qweight, scales, out_dtype=None, bias=None,
     with ``bits=4``); scales: [N] f32; bias: [N] f32 or None; act: None,
     "relu", "gelu" (tanh form), "silu".  Returns ``act(x @ codes * scales
     [+ bias])`` as [..., N] in ``out_dtype`` (default x's dtype).  CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    tensors launch the kernel; CPU tensors run the plain version.  Always
+    through the dispatcher op ``paddle_tpu_torch::quantized_matmul``."""
     k = _true_k(qweight, bits)
     n = qweight.shape[1]
     if x.shape[-1] != k:
         raise ValueError(
             f"quantized_matmul: x last dim ({x.shape[-1]}) != weight K ({k})")
     out_dtype = out_dtype or x.dtype
-    x2 = x.reshape(-1, k)
     scales = scales.float()
     bias = None if bias is None else bias.float()
-    needs_grad = torch.is_grad_enabled() and x.requires_grad
-    if needs_grad and bits == 8 and bias is None and act is None:
-        y = _QMM.apply(x2, qweight, scales, out_dtype)
-    else:
-        if needs_grad:
-            raise RuntimeError(
-                "quantized_matmul: only the int8 form without bias or act "
-                "is differentiable (as in the reference); the int4 and "
-                "fused-epilogue forms are inference-only")
-        y = _qmm_dispatch(x2, qweight, scales, out_dtype, bias, act, bits)
+    if torch.is_grad_enabled() and x.requires_grad and not (
+            bits == 8 and bias is None and act is None):
+        raise RuntimeError(_NOT_DIFFERENTIABLE)
+    y = qmm_op(x.reshape(-1, k), qweight, scales, out_dtype, bias, act,
+               int(bits))
     return y.reshape(tuple(x.shape[:-1]) + (n,))
 
 

@@ -1,5 +1,5 @@
 """RMSNorm: the CUDA forward kernel ``csrc/rms_norm.cu``, its plain
-PyTorch version, and the autograd Function over both.
+PyTorch version, and the dispatcher op over both.
 
 Port of ``paddle_tpu/ops/pallas/rms_norm.py`` (``_fwd_kernel`` :63,
 ``_rms_fwd_impl`` :70, the ``_rms`` custom_vjp :87-111, ``rms_norm``
@@ -10,12 +10,15 @@ alike (``nn/functional/norm.py:59-65``): ``y = x * rsqrt(mean(x^2) + eps)
 as it is XLA (not a kernel) in the JAX package; it saves only (x, w) and
 recomputes the row statistic.
 
-``rms_norm`` takes the kernel for a CUDA tensor and the plain version for
-a CPU tensor, and nothing else: there is no switch that sends a CUDA
+``rms_norm`` is the dispatcher op ``paddle_tpu_torch::rms_norm``
+(``_dispatch.kernel_op``), so a traced or exported graph (``jit.save``)
+holds the op itself, not the branch that picked the route, and a
+selective-checkpoint policy sees it.  Its CUDA body is the kernel and
+its CPU body the plain version, chosen by the dispatcher from the
+tensor's device, and nothing else: there is no switch that sends a CUDA
 tensor to the plain version, and a CUDA tensor the kernel cannot take
-raises.  Where nothing needs a gradient (grad disabled, as in the
-serving programs, or no input requiring one) it runs the forward
-directly, without the autograd Function.
+raises.  Its gradient is ``rms_norm_bwd``; where nothing needs a
+gradient the op runs the forward without recording one.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._dispatch import kernel_op
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -137,12 +141,8 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def _rms_norm_fwd(x, weight, epsilon):
-    if x.is_cuda:
-        return _rms_norm_cuda(x, weight, epsilon)
-    if x.is_cpu:
-        return rms_norm_plain(x, weight, epsilon)
-    raise ValueError(f"rms_norm: unsupported device {x.device}")
+def _rms_norm_cpu(x, weight, epsilon):
+    return rms_norm_plain(x, weight, epsilon)
 
 
 def rms_norm_bwd(x, weight, g, epsilon):
@@ -162,26 +162,28 @@ def rms_norm_bwd(x, weight, g, epsilon):
     return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
 
 
-class _RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, epsilon):
-        ctx.save_for_backward(x, weight)
-        ctx.epsilon = epsilon
-        return _rms_norm_fwd(x, weight, epsilon)
+def _setup_context(ctx, inputs, output):
+    x, weight, epsilon = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.epsilon = epsilon
 
-    @staticmethod
-    def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x, weight, g, ctx.epsilon)
-        return dx, dw, None
+
+def _backward(ctx, g):
+    x, weight = ctx.saved_tensors
+    dx, dw = rms_norm_bwd(x, weight, g, ctx.epsilon)
+    return dx, dw, None
+
+
+rms_norm_op = kernel_op(
+    "rms_norm", "(Tensor x, Tensor weight, float epsilon) -> Tensor",
+    cuda=_rms_norm_cuda, cpu=_rms_norm_cpu,
+    fake=lambda x, weight, epsilon: x.new_empty(x.shape),
+    setup_context=_setup_context, backward=_backward)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              epsilon: float = 1e-6) -> torch.Tensor:
     """x: [..., d]; weight: [d].  CUDA tensors run the kernel (or
     raise); CPU tensors run ``rms_norm_plain``.  Differentiable in x and
-    weight through ``rms_norm_bwd``; where nothing needs a gradient the
-    forward runs without the autograd Function."""
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        return _RMSNorm.apply(x, weight, float(epsilon))
-    return _rms_norm_fwd(x, weight, float(epsilon))
+    weight through ``rms_norm_bwd``."""
+    return rms_norm_op(x, weight, float(epsilon))

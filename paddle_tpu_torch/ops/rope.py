@@ -1,5 +1,5 @@
 """Half-split RoPE: the CUDA kernel ``csrc/rope.cu``, its plain PyTorch
-version, and the autograd Function over both.
+version, and the dispatcher op over both.
 
 Port of ``paddle_tpu/ops/pallas/rope.py`` (``_rope_kernel`` :41,
 ``_rope_call`` :58, ``apply_rope`` custom_vjp :84-100).  The arithmetic is
@@ -8,13 +8,18 @@ over the halves ``x = [x1 | x2]``, cast back to x's dtype.  The backward
 is the same rotation with ``-sin`` (rotations are orthogonal), as
 ``_rope_bwd`` (:94-97) does; on the card it is the same kernel again.
 
-``apply_rope`` launches the kernel for a CUDA tensor (or raises on what
-it cannot take) and runs ``apply_rope_plain`` for a CPU tensor; nothing
-sends a CUDA tensor to the plain version.  The TPU gates (``D >= 64``,
-VMEM blocks, :22-38) are tiling rules of that chip and are not carried
-over: the kernel takes any even D, 16 bytes an access where ``(D/2) %
-vec == 0`` (the vector route) and one element an access otherwise (the
-element route); ``rope_plan`` says which and how the work is cut.
+``apply_rope`` is the dispatcher op ``paddle_tpu_torch::apply_rope``
+(``_dispatch.kernel_op``), so an exported graph (``jit.save``) holds the
+op, not the branch that picked the route.  Its CUDA body launches the
+kernel (or raises on what it cannot take) and its CPU body runs
+``apply_rope_plain``, chosen by the dispatcher from the tensor's device;
+nothing sends a CUDA tensor to the plain version.  Its gradient is the
+same op with the opposite sign.  The TPU gates (``D >= 64``, VMEM
+blocks, :22-38) are tiling rules of that chip and are not carried over:
+the kernel takes any even D, 16 bytes an access where
+``(D/2) % vec == 0`` (the vector route) and one element an
+access otherwise (the element route); ``rope_plan`` says which and how
+the work is cut.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import _build
+from ._dispatch import kernel_op
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -131,26 +137,28 @@ def _rope_cuda(x, cos, sin, sign: float):
     return y
 
 
-def _rope(x, cos, sin, sign: float):
-    """The rotation by +theta (sign 1) or -theta (sign -1) on x's
-    device: the kernel for CUDA, the plain version for the CPU."""
-    if x.device.type == "cuda":
-        return _rope_cuda(x, cos, sin, sign)
-    if x.device.type == "cpu":
-        return apply_rope_plain(x, cos, sin if sign > 0 else -sin)
-    raise ValueError(f"apply_rope: unsupported device {x.device}")
+def _rope_cpu(x, cos, sin, sign: float):
+    return apply_rope_plain(x, cos, sin if sign > 0 else -sin)
 
 
-class _ApplyRope(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, cos, sin):
-        ctx.save_for_backward(cos, sin)
-        return _rope(x, cos, sin, 1.0)
+def _setup_context(ctx, inputs, output):
+    _x, cos, sin, sign = inputs
+    ctx.save_for_backward(cos, sin)
+    ctx.sign = sign
 
-    @staticmethod
-    def backward(ctx, g):
-        cos, sin = ctx.saved_tensors
-        return _rope(g, cos, sin, -1.0), None, None
+
+def _backward(ctx, g):
+    cos, sin = ctx.saved_tensors
+    return rope_op(g, cos, sin, -ctx.sign), None, None, None
+
+
+# The rotation by ``sign`` * theta: the kernel for CUDA tensors, the
+# plain version for CPU tensors.
+rope_op = kernel_op(
+    "apply_rope", "(Tensor x, Tensor cos, Tensor sin, float sign) -> Tensor",
+    cuda=_rope_cuda, cpu=_rope_cpu,
+    fake=lambda x, cos, sin, sign: x.new_empty(x.shape),
+    setup_context=_setup_context, backward=_backward)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -158,4 +166,4 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     """x: [B, S, H, D]; cos/sin: [1, S, 1, D/2] fp32 (half-split
     convention).  Differentiable in x; the tables get no gradient, as in
     the JAX package."""
-    return _ApplyRope.apply(x, cos, sin)
+    return rope_op(x, cos, sin, 1.0)

@@ -46,6 +46,9 @@ class SGD(Optimizer):
         else:
             p.copy_(p - as_dtype(lr_, p) * grad.to(p.dtype))
 
+    def _functional_update(self):
+        return lambda p, g, lr: p - as_dtype(lr, p) * g.to(p.dtype)
+
 
 def _momentum_update(p, g, vel, lr_, mu, use_nesterov):
     g = g.to(p.dtype)

@@ -209,9 +209,39 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        if hasattr(loss, "_static_var_id"):   # a static program variable
+            return self._minimize_static(loss, parameters)
         loss.backward()
         self.step()
         return None, None
+
+    def _minimize_static(self, loss, parameters=None):
+        """The static path (reference ``optimizer.py:165-200``):
+        ``append_backward`` and a functional update per parameter recorded
+        into the Program being built; its Executor runs the update after
+        each run and writes the new values into the parameters."""
+        from ..static.program import current_build_program
+        prog = current_build_program()
+        if prog is None:
+            raise RuntimeError("minimize(loss) on a static Variable must run "
+                               "under program_guard")
+        params_grads = prog.append_backward(
+            loss, parameters or self._parameter_list)
+        update = self._functional_update()
+        lr = self.get_lr()
+        for p, _g in params_grads:
+            prog.updates.append(
+                (p, lambda pv, gv, _lr=lr: update(pv, gv, _lr)))
+        return params_grads, None
+
+    def _functional_update(self):
+        """Pure (param, grad, lr) -> new param for the static path; the
+        optimizers with per-parameter state take the ``jit.TrainStep``
+        path, as in the reference."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support static-mode minimize; "
+            "use SGD or the jit.TrainStep path (as the reference; ROADMAP.md, "
+            "\"Known differences of jit and static\")")
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list:

@@ -267,9 +267,11 @@ def test_save_load_in_place(tmp_path, lenet_runs):
     assert torch.equal(tm_.predict_batch([x]), m2.predict_batch([x]))
     with pytest.raises(ValueError, match="input spec"):
         m2.save(prefix, training=False)
+    # with input specs, the inference artifact through jit.save
     spec = paddle.static.InputSpec((1, 1, 28, 28), "float32")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        paddle.Model(net2, inputs=[spec]).save(prefix, training=False)
+    paddle.Model(net2, inputs=[spec]).save(prefix, training=False)
+    loaded = paddle.jit.load(prefix, device="cpu")
+    assert torch.equal(loaded(x[:1]), net2(x[:1]))
 
 
 def _summary_text(fn):
@@ -292,7 +294,7 @@ def test_summary_and_flops_match_jax(name, size):
     assert tf == jf and tft == jft
 
 
-def test_example_twin_runs_on_the_cpu(capsys):
+def test_example_twin_runs_on_the_cpu(capsys, tmp_path):
     from paddle_tpu_torch.examples import resnet_cifar
     logs = resnet_cifar.main(["--epochs", "1", "--device", "cpu",
                               "--batch-size", "128"])
@@ -300,8 +302,18 @@ def test_example_twin_runs_on_the_cpu(capsys):
     assert 0.0 <= logs["acc"] <= 1.0
     out = capsys.readouterr().out
     assert "epoch 0" in out and str(logs) in out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        resnet_cifar.main(["--device", "cpu", "--export", "x"])
+    # --export writes the artifact the Predictor serves, at any batch
+    prefix = str(tmp_path / "resnet")
+    resnet_cifar.main(["--device", "cpu", "--epochs", "0", "--batch-size",
+                       "128", "--export", prefix])
+    assert f"exported to {prefix}.ptpu_torch_model" in \
+        capsys.readouterr().out
+    cfg = paddle.inference.Config(prefix)
+    cfg.disable_gpu()
+    pred = paddle.inference.create_predictor(cfg)
+    for b in (1, 3):
+        out = pred.run([np.zeros((b, 3, 32, 32), np.float32)])[0]
+        assert out.shape == (b, 10) and np.isfinite(out).all()
 
 
 def test_example_twin_flags_are_the_reference_s():

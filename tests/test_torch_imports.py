@@ -75,6 +75,10 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.quantization.qat, "
         "paddle_tpu_torch.quantization.ptq, "
         "paddle_tpu_torch.static.quantization\n"
+        "import paddle_tpu_torch.jit.dy2static, "
+        "paddle_tpu_torch.jit.bucketing, paddle_tpu_torch.static.program, "
+        "paddle_tpu_torch.static.control_flow, paddle_tpu_torch.static.nn, "
+        "paddle_tpu_torch.inference.predictor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -269,6 +273,57 @@ def test_slice_22_names():
             "FLAGS_use_int8_matmul_kernel": True}
     finally:
         paddle.set_flags({"FLAGS_use_int8_matmul_kernel": False})
+
+
+def test_slice_23_names():
+    """The jit and static slice's names: the reference's ``jit`` and
+    ``static`` ``__all__`` and the Predictor's exports."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit, static
+    for name in ("to_static", "not_to_static", "ignore_module", "save",
+                 "load", "TranslatedLayer", "TrainStep", "BucketedFunction",
+                 "bucketed", "default_buckets", "pad_to_bucket"):
+        assert name in jit.__all__ and hasattr(jit, name), name
+    for name in ("InputSpec", "save_inference_model", "load_inference_model",
+                 "Program", "program_guard", "data", "Executor",
+                 "append_backward", "default_main_program",
+                 "default_startup_program", "global_scope", "nn", "cond",
+                 "while_loop", "case", "switch_case"):
+        assert name in static.__all__ and hasattr(static, name), name
+    for name in ("Config", "Predictor", "create_predictor"):
+        assert hasattr(inference, name), name
+    assert static.InputSpec is jit.InputSpec is paddle.static.InputSpec
+    for op in ("rms_norm", "apply_rope", "quantized_matmul",
+               "flash_attention_fwd"):
+        assert hasattr(torch.ops.paddle_tpu_torch, op), op
+
+
+@pytest.mark.parametrize("build", ["jit.load", "create_predictor",
+                                   "Executor"])
+def test_jit_entry_points_need_cuda_unless_cpu_is_asked(build, tmp_path):
+    from paddle_tpu_torch import inference, jit, nn, static
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    prefix = str(tmp_path / "m")
+    jit.save(nn.Linear(4, 2, device="cpu"), prefix,
+             input_spec=[jit.InputSpec([1, 4], "float32")])
+
+    def predictor(cpu):
+        cfg = inference.Config(prefix)
+        if cpu:
+            cfg.disable_gpu()
+        return inference.create_predictor(cfg).device
+
+    make = {
+        "jit.load": lambda cpu: jit.load(prefix, device="cpu" if cpu
+                                         else None).device,
+        "create_predictor": predictor,
+        "Executor": lambda cpu: static.Executor("cpu" if cpu
+                                                else None).place,
+    }[build]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(False)
+    assert make(True).type == "cpu"
 
 
 @pytest.mark.parametrize("build", ["DataLoader", "DeformConv2D",

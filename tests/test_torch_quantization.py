@@ -639,8 +639,8 @@ def test_int8_ptq_forward_half_of_the_predictor_case(kernel_flag):
     """The forward half of the reference's
     ``test_int8_ptq_through_predictor``: PTQ-calibrate, convert, fold the
     GELU; int8 outputs stay close to the float model's and equal the
-    reference's.  (The ``jit.save`` + ``create_predictor`` half waits for
-    ROADMAP.md, Queue 1, item 13 part 2.)"""
+    reference's.  (The ``jit.save`` + ``create_predictor`` half is
+    ``tests/test_torch_predictor.py::test_int8_ptq_through_predictor``.)"""
     paddle.seed(0)
     jm = jnn.Sequential(jnn.Linear(32, 64), jnn.GELU(), jnn.Linear(64, 16))
     tm = _bridge(jm, tnn.Sequential(tnn.Linear(32, 64, device="cpu"),
