@@ -215,7 +215,7 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    the block step against busy and the idle share, each arm's kernel
    split, the flag-off dequantize's and GEMMs' rates, peak memory, the
    memory the conversion freed;
-3k. GPT-3 13B at full width, 10 of its 40 layers (hidden 5120, 40 heads
+3k. GPT-3 13B at full width, 6 of its 40 layers (hidden 5120, 40 heads
    of D = 128, ffn 20480, vocab 50304; bf16 random weights from
    ``--seed``; the depth cut for the smoke's time, ROADMAP.md),
    after the 8B model is freed, through phase 3's engine geometry and
@@ -256,7 +256,7 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    with an int8 KV cache; a ``ModelDrafter`` spec row preempted and
    resumed against the uninterrupted run; each with its kernels
    launched;
-4f. sampled exactness: a 2-layer float32 model at 8B width serves a
+4f. sampled exactness: a 1-layer float32 model at 8B width serves a
    sampled mix on the card and, from the same state dict, on the CPU:
    tokens equal up to each request's first position whose CPU top-two
    decisive margin is <= 0.01; then ``generate(do_sample=True)`` on the
@@ -268,7 +268,8 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    B=8) equal on every row whose CPU run keeps each K-th / (K+1)-th
    candidate gap and its pick's best-vs-second gap above
    ``BEAM_MARGIN`` (1e-3), at least one row such;
-4j. LoRA exactness: phase 4's model on the card and, from the same
+4j. LoRA exactness: phase 4's model (at ``EXACT_CPU_LAYERS``, 1 layer)
+   on the card and, from the same
    state dict, on the CPU serves the CPU test's LoRA trace (two
    concurrent adapters, a base row in the same dispatches, a demotion and
    swap-in, slot reuse with a changed adapter, a spec row): tokens equal
@@ -407,8 +408,9 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    with a weight (``launches_by_path["functional"]``, asserted).
 8a. jit and the Predictor (``phase_jit``), the deployment path
    ``jit.save`` -> ``inference.Config``/``create_predictor`` ->
-   ``Predictor.run`` (one captured CUDA graph per input signature): (a) 8
-   of Llama-3-8B's 32 layers at full width, bf16, saved at ``InputSpec([4,
+   ``Predictor.run`` (one captured CUDA graph per input signature): (a) 4
+   of Llama-3-8B's 32 layers at full width (cut for the smoke's time,
+   ROADMAP.md), bf16, saved at ``InputSpec([4,
    512], int64)``, run through the handles, the list form and a clone
    (weights shared): logits bit-equal to the eager forward on the card,
    launches a run RMSNorm 2L+1, RoPE 2L, flash forward L; export, write
@@ -431,6 +433,31 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    host), against 5 CPU steps within 1e-5; each
    artifact is deleted after it is loaded (``launches_by_path["jit"]``:
    the Predictor runs of (a)-(c)).
+8b. a decoder written against the reference API (``phase_nn_api``,
+   ``api_decoder_class``): an ``nn.Layer`` of ``create_parameter``
+   weights (``ParamAttr(initializer=Normal(0, 0.02))``) over
+   ``fused_rms_norm``, ``fused_linear``, ``fused_rotary_position_embedding``
+   (rotate-half, base 500000), ``memory_efficient_attention`` and
+   ``swiglu``, decoding one token through ``masked_multihead_attention``
+   with the 8 kv heads repeated to 32, at Llama-3-8B width, 2 layers,
+   bf16: (a) built under ``LazyGuard`` (every parameter in host RAM, the
+   card's ``memory_allocated()`` unchanged), placed on the card by its
+   first forward; (b) prefill B=2 S=512: logits finite, RMSNorm 2L+1 and
+   flash forward L launches a prefill; (c) ``flash_attn_unpadded`` over
+   layer 0's q/k/v packed in lengths (512, 384, 200, 1, 0), each
+   sequence's rows against the flash kernel alone (bf16, 2^-5 of the row
+   RMS), float32 card vs CPU within 1e-5; (d) ``BeamSearchDecoder(
+   beam_size=4)`` and ``dynamic_decode(max_step_num=31)`` from the
+   prefill's caches (max_seq 1024): ms a step, RMSNorm 2L+1 a step,
+   ``beam_size=1`` equal to a greedy argmax loop, and
+   ``masked_multihead_attention`` alone against its byte bound; (e) the
+   decoder at 1 layer in float32 (TF32 off), built once on the host and
+   carried to the card by ``set_state_dict``: prefill logits within 1e-4
+   of the largest, beam tokens and parents equal and scores within 1e-4
+   up to each row's first non-decisive step; (f) ``sparse_attention``,
+   ``one_hot`` and ``embedding`` (``padding_idx``, ids outside [0, V):
+   NaN rows, no device assert), card vs CPU (``launches_by_path[
+   "nn_api"]``: (a), (b) and (d)).
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -3047,13 +3074,13 @@ def phase_observability(torch, seed, cfg, model, want_tokens):
 
 
 # the depth of the exactness phases whose CPU half serves a whole trace
-# (3g (f), 4f, 4j): 2 layers at 8B width, cut from phase 4's 4 for the
-# smoke's time
-EXACT_CPU_LAYERS = 2
+# (3g (f), 4f, 4j): 1 layer at 8B width, cut from phase 4's 4 for the
+# smoke's time (ROADMAP.md)
+EXACT_CPU_LAYERS = 1
 
 
 def phase_observability_exactness(torch, seed):
-    """Phase 3g (f): phase 4d's preemption trace (a) on a 2-layer float32
+    """Phase 3g (f): phase 4d's preemption trace (a) on a 1-layer float32
     model at 8B width (``EXACT_CPU_LAYERS``), TF32 off, on the card and,
     from the same state dict, on the CPU, each engine with a private
     registry and an enabled flight recorder: the two flight records are
@@ -3588,7 +3615,7 @@ def _generate_margins(torch, lg, kw, seed):
 
 
 def phase_sampled_exactness(torch, seed):
-    """Phase 4f: a 2-layer float32 model at 8B width serves a sampled mix
+    """Phase 4f: a 1-layer float32 model at 8B width serves a sampled mix
     (greedy, seeded T=0.8, top-k/top-p, a repetition penalty, a DFA mask)
     through a 5-slot engine on the card and, from the same state dict, on
     the CPU: the card's tokens equal the CPU's up to each request's first
@@ -6972,7 +6999,7 @@ def _lora_exact_run(torch, cfg, model, device):
 
 
 def phase_lora_exactness(torch, seed):
-    """Phase 4j: a 2-layer float32 model at 8B width, TF32 off,
+    """Phase 4j: a 1-layer float32 model at 8B width, TF32 off,
     serves the CPU test's LoRA fixture (``LORA_EXACT``: two concurrent
     adapters, a base row in the same dispatches, a demotion and swap-in,
     slot reuse with a changed adapter, a spec row) on the card and, from
@@ -7721,8 +7748,8 @@ def phase_quant_exactness_layers(torch, seed):
 
 
 # phase 3k: GPT-3 13B at full width through phase 3's engine geometry, at
-# 10 of its 40 layers (the smoke's time: ROADMAP.md)
-GPT_SERVE_LAYERS = 10
+# 6 of its 40 layers (the smoke's time: ROADMAP.md)
+GPT_SERVE_LAYERS = 6
 GPT_ENGINE = dict(num_slots=8, prompt_len=512, chunk_len=256,
                   max_cache_len=1024, block_len=16, compute_dtype="bfloat16")
 GPT_DENSE = dict(prompt=512, new=64)    # 3k (d): B=8 generate()
@@ -9466,7 +9493,7 @@ def phase_vision_ops(torch, seed):
     return counts
 
 
-JIT = dict(layers=8, batch=4, seq=512, cpu_layers=2, cifar_batch=128,
+JIT = dict(layers=4, batch=4, seq=512, cpu_layers=2, cifar_batch=128,
            mlp=(256, 512, 10), mlp_batch=64, static_steps=3,
            replays=5)
 JIT_REL = 1e-5                       # float32 card vs CPU (8a (d), (e))
@@ -9800,6 +9827,564 @@ def phase_jit(torch, seed, smi):
     return total
 
 
+# ---- phase 8b: a decoder written against the reference API ----
+
+NN_API = dict(layers=2, batch=2, seq=512, beam=4, steps=31, max_seq=1024,
+              rope_base=500000.0, eps=1e-5, start=128000, end=128001,
+              varlen=(512, 384, 200, 1, 0), cpu_layers=1, cpu_seq=128,
+              cpu_steps=7)
+NN_API_LOGIT_REL = 1e-4          # float32 card vs CPU, of max(1, |logit|)
+NN_API_REL = 1e-5                # float32 card vs CPU, the small functions
+
+
+def api_decoder_class():
+    """The Llama-architecture decoder phase 8b runs, written the way a
+    Paddle user writes one, against the public API only: an ``nn.Layer``
+    whose weights come from ``create_parameter`` (``[in, out]``, Normal(0,
+    0.02); norms Constant(1)), with ``fused_rms_norm``,
+    ``fused_linear``, ``fused_rotary_position_embedding`` (rotate-half,
+    the reference's interleaved tables), ``memory_efficient_attention``,
+    ``swiglu`` and, for one-token decode, ``masked_multihead_attention``
+    over a ``[2, N, H, max_seq, D]`` cache after repeating the kv heads.
+    ``memory_efficient_attention`` has no causal form in the reference
+    (its ``attn_bias`` is additive, and a bias leaves the kernel), so the
+    prefill attends over the whole prompt, as a prefix LM does, and
+    decoding is causal over the cache.  ``step(ids, states)`` is the
+    cell ``BeamSearchDecoder`` drives: states are the per-layer caches
+    ``[N, 2, H, max_seq, D]`` (batch first) and the lengths ``[N]``.
+    The tests hold it against the same decoder written against the JAX
+    package (``tests/test_torch_decode.py``)."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+
+    def weight(layer, shape):
+        return layer.create_parameter(shape, attr=nn.ParamAttr(
+            initializer=nn.initializer.Normal(0.0, 0.02)))
+
+    def unit(layer, n):
+        return layer.create_parameter(
+            [n], default_initializer=nn.initializer.Constant(1.0))
+
+    class ApiBlock(nn.Layer):
+        def __init__(self, hidden, heads, kv_heads, ffn, eps, base, dtype):
+            super().__init__(dtype=dtype)
+            d = hidden // heads
+            self.heads, self.kv_heads, self.d = heads, kv_heads, d
+            self.eps, self.base = eps, base
+            self.ln1, self.ln2 = unit(self, hidden), unit(self, hidden)
+            self.wq = weight(self, [hidden, heads * d])
+            self.wk = weight(self, [hidden, kv_heads * d])
+            self.wv = weight(self, [hidden, kv_heads * d])
+            self.wo = weight(self, [heads * d, hidden])
+            self.w_gate_up = weight(self, [hidden, 2 * ffn])
+            self.w_down = weight(self, [ffn, hidden])
+
+        def qkv(self, x):
+            """Rotated q ``[B, S, H, D]``, k and v ``[B, S, Hkv, D]``."""
+            b, s = x.shape[:2]
+            h = IF.fused_rms_norm(x, self.ln1, epsilon=self.eps)
+            q = IF.fused_linear(h, self.wq).reshape(b, s, self.heads, self.d)
+            k = IF.fused_linear(h, self.wk).reshape(b, s, self.kv_heads,
+                                                    self.d)
+            v = IF.fused_linear(h, self.wv).reshape(b, s, self.kv_heads,
+                                                    self.d)
+            q, k = IF.fused_rotary_position_embedding(
+                q, k, use_neox_rotary_style=False,
+                rotary_emb_base=self.base)
+            return q, k, v
+
+        def mlp(self, x):
+            h = IF.fused_rms_norm(x, self.ln2, epsilon=self.eps)
+            return x + IF.fused_linear(
+                IF.swiglu(IF.fused_linear(h, self.w_gate_up)), self.w_down)
+
+        def forward(self, x):
+            b, s = x.shape[:2]
+            q, k, v = self.qkv(x)
+            a = IF.memory_efficient_attention(q, k, v)
+            x = x + IF.fused_linear(a.reshape(b, s, -1), self.wo)
+            return self.mlp(x), k, v
+
+        def decode(self, x, cache, lens, sin, cos):
+            n = x.shape[0]
+            h = IF.fused_rms_norm(x, self.ln1, epsilon=self.eps)
+            q = IF.fused_linear(h, self.wq).reshape(n, 1, self.heads, self.d)
+            k = IF.fused_linear(h, self.wk).reshape(n, 1, self.kv_heads,
+                                                    self.d)
+            v = IF.fused_linear(h, self.wv).reshape(n, self.kv_heads, self.d)
+            q, k = IF.fused_rotary_position_embedding(
+                q, k, sin=sin, cos=cos, position_ids=lens[:, None],
+                use_neox_rotary_style=False)
+            g = self.heads // self.kv_heads
+            k = k.reshape(n, self.kv_heads, self.d).repeat_interleave(g, 1)
+            packed = torch.cat([q.reshape(n, -1), k.reshape(n, -1),
+                                v.repeat_interleave(g, 1).reshape(n, -1)],
+                               dim=-1)
+            out, new = IF.masked_multihead_attention(
+                packed, cache.transpose(0, 1), sequence_lengths=lens)
+            x = x + IF.fused_linear(out, self.wo)
+            return self.mlp(x), new.transpose(0, 1)
+
+    class ApiDecoder(nn.Layer):
+        def __init__(self, vocab, hidden, heads, kv_heads, ffn, layers,
+                     max_seq, rope_base=500000.0, eps=1e-5,
+                     dtype="float32"):
+            super().__init__(dtype=dtype)
+            self.max_seq, self.base, self.eps = max_seq, rope_base, eps
+            self.embed = weight(self, [vocab, hidden])
+            self.blocks = nn.LayerList([
+                ApiBlock(hidden, heads, kv_heads, ffn, eps, rope_base, dtype)
+                for _ in range(layers)])
+            self.norm = unit(self, hidden)
+            self.lm_head = weight(self, [hidden, vocab])
+
+        def logits(self, x):
+            return IF.fused_linear(
+                IF.fused_rms_norm(x, self.norm, epsilon=self.eps),
+                self.lm_head)
+
+        def forward(self, ids):
+            """Prefill: logits ``[B, S, V]`` and each layer's (k, v)."""
+            x = F.embedding(ids, self.embed)
+            kv = []
+            for blk in self.blocks:
+                x, k, v = blk(x)
+                kv.append((k, v))
+            return self.logits(x), kv
+
+        def caches(self, kv):
+            """The cell's states after a prefill: per layer ``[B, 2, H,
+            max_seq, D]`` (kv heads repeated), then the lengths ``[B]``."""
+            out = []
+            for blk, (k, v) in zip(self.blocks, kv):
+                b, s, hkv, d = k.shape
+                g = blk.heads // hkv
+                c = k.new_zeros((b, 2, blk.heads, self.max_seq, d))
+                c[:, 0, :, :s] = k.repeat_interleave(g, 2).transpose(1, 2)
+                c[:, 1, :, :s] = v.repeat_interleave(g, 2).transpose(1, 2)
+                out.append(c)
+            lens = torch.full((kv[0][0].shape[0],), kv[0][0].shape[1],
+                              dtype=torch.int64, device=kv[0][0].device)
+            return (*out, lens)
+
+        def tables(self, device):
+            """Rotary tables for every cache slot, built as
+            ``fused_rotary_position_embedding`` builds its own: ``[1,
+            max_seq, 1, D]`` sin and cos."""
+            d = self.blocks[0].d
+            exps = torch.div(torch.arange(d, dtype=torch.float32,
+                                          device=device), 2,
+                             rounding_mode="floor") * 2.0 / d
+            inv_freq = 1.0 / (self.base ** exps)
+            t = torch.arange(self.max_seq, dtype=torch.float32,
+                             device=device)
+            emb = torch.outer(t, inv_freq)[None, :, None, :]
+            return torch.sin(emb), torch.cos(emb)
+
+        def step(self, ids, states):
+            """The decode cell: ids ``[N]`` -> (logits ``[N, V]``, states)."""
+            *caches, lens = states
+            sin, cos = self.tables(ids.device)
+            x = F.embedding(ids, self.embed)
+            new = []
+            for blk, cache in zip(self.blocks, caches):
+                x, c = blk.decode(x, cache, lens, sin, cos)
+                new.append(c)
+            return self.logits(x), (*new, lens + 1)
+
+    return ApiDecoder
+
+
+def _api_decoder(n_layers, dtype, max_seq):
+    """``api_decoder_class()`` at Llama-3-8B's widths (``llama_3_8b_config``:
+    hidden 4096, 32/8 heads of D 128, FFN 14336, vocab 128256)."""
+    from paddle_tpu_torch.models import llama_3_8b_config
+    c = llama_3_8b_config()
+    return api_decoder_class()(
+        c.vocab_size, c.hidden_size, c.num_attention_heads,
+        c.num_key_value_heads, c.intermediate_size, n_layers, max_seq,
+        NN_API["rope_base"], NN_API["eps"], dtype)
+
+
+def _api_beam(keep_gaps=False):
+    """A ``BeamSearchDecoder`` subclass whose ``finalize`` also returns the
+    steps' raw outputs (scores, tokens, parents); with ``keep_gaps`` it
+    records, each step, every batch row's gap between the K-th and the
+    (K+1)-th candidate score of its flat top-K (4j's decisiveness)."""
+    import torch
+    from paddle_tpu_torch import nn
+
+    class KeepSteps(nn.BeamSearchDecoder):
+        gaps = []
+
+        def _beam_search_step(self, time, logits, cells, state):
+            if keep_gaps:
+                vocab = logits.shape[-1]
+                noend = torch.full((vocab,), -1e9, device=logits.device)
+                noend[self.end_token] = 0.0
+                lp = torch.where(state.finished[:, :, None], noend,
+                                 torch.log_softmax(logits.float(), dim=-1))
+                total = (state.log_probs[:, :, None] + lp).flatten(1)
+                top = torch.topk(total, self.beam_size + 1, dim=-1).values
+                self.gaps.append((top[:, -2] - top[:, -1]).cpu())
+            return super()._beam_search_step(time, logits, cells, state)
+
+        def finalize(self, outputs, final_states, sequence_lengths):
+            ids, states = super().finalize(outputs, final_states,
+                                           sequence_lengths)
+            return (ids, outputs), states
+
+    return KeepSteps
+
+
+def _greedy(torch, model, states, start, steps):
+    """Argmax decoding over ``model.step`` from ``states``: ``[B, steps]``."""
+    n = states[-1].shape[0]
+    tok = torch.full((n,), start, dtype=torch.int32, device=states[-1].device)
+    out = []
+    for _ in range(steps):
+        logits, states = model.step(tok, states)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def _api_small_functions(torch, seed):
+    """8b (f): ``sparse_attention``, ``one_hot`` and ``embedding`` (with
+    ``padding_idx`` and ids outside [0, V): NaN rows, no device assert),
+    card against CPU in float32."""
+    import numpy as np
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(seed + 31)
+    b, h, s, d, per_row = 2, 4, 256, 64, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)) for _ in range(3))
+    cols = np.sort(np.stack([[[rng.choice(s, per_row, replace=False)
+                               for _ in range(s)] for _ in range(h)]
+                             for _ in range(b)]), axis=-1)
+    cols = torch.from_numpy(cols.reshape(b, h, -1).astype(np.int32))
+    offset = torch.arange(0, s * per_row + 1, per_row,
+                          dtype=torch.int32).expand(b, h, -1).contiguous()
+    kp = torch.from_numpy((rng.random((b, s)) > 0.1).astype(np.float32))
+    am = torch.tril(torch.ones(s, s))
+    args = (q, k, v, offset, cols)
+    want = F.sparse_attention(*args, key_padding_mask=kp, attn_mask=am)
+    got = F.sparse_attention(*[a.cuda() for a in args],
+                             key_padding_mask=kp.cuda(), attn_mask=am.cuda())
+    worst = _card_cpu(torch, "8b (f) sparse_attention", got, want,
+                      NN_API_REL)
+    ids = torch.from_numpy(rng.integers(-12, 12, (4, 16)))
+    hot = F.one_hot(ids.cuda(), 9)
+    if not torch.equal(hot.cpu(), F.one_hot(ids, 9)):
+        raise AssertionError("8b (f) one_hot: card differs from the CPU")
+    w = torch.from_numpy(rng.standard_normal((8, 5)).astype(np.float32))
+    for pad in (None, 3):
+        e_cpu = F.embedding(ids, w, padding_idx=pad)
+        e_gpu = F.embedding(ids.cuda(), w.cuda(), padding_idx=pad)
+        torch.cuda.synchronize()        # a device assert would raise here
+        nan_rows = int(torch.isnan(e_gpu).all(dim=-1).sum())
+        if not (torch.equal(torch.isnan(e_gpu).cpu(), torch.isnan(e_cpu))
+                and torch.equal(torch.nan_to_num(e_gpu).cpu(),
+                                torch.nan_to_num(e_cpu)) and nan_rows):
+            raise AssertionError(f"8b (f) embedding(padding_idx={pad}): "
+                                 f"card differs from the CPU")
+    _log(f"nn api 8b (f) sparse_attention B={b} H={h} S={s} D={d} "
+         f"({per_row} columns a row, both masks) within {worst:.3g} of the "
+         f"largest entry (limit {NN_API_REL}); one_hot of ids in [-12, 12) "
+         f"over 9 classes equal; embedding of ids in [-12, 12) over V=8 "
+         f"with and without padding_idx equal ({nan_rows} NaN rows, no "
+         f"device assert)")
+
+
+def _api_beam_steps(run):
+    """``(ids [B, T, K], scores, tokens, parents [B, T, K], lengths [B,
+    K])`` of a ``dynamic_decode`` run over ``_api_beam``."""
+    (ids, raw), final = run
+    return ids, raw.scores, raw.predicted_ids, raw.parent_ids, final.lengths
+
+
+def _api_exactness(torch, seed):
+    """8b (e): the decoder at ``cpu_layers`` layer(s), float32, TF32 off:
+    built once on the host, its state carried to one built on the card by
+    ``set_state_dict``; prefill logits (B=2, ``cpu_seq``) within
+    ``NN_API_LOGIT_REL`` of the largest, beam K=4 over ``cpu_steps + 1``
+    steps: tokens and parents equal and scores within
+    ``NN_API_LOGIT_REL`` of max(1, |score|) up to each row's first step
+    whose CPU K-th/(K+1)-th gap is <= ``BEAM_MARGIN``."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch import nn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nl, s, steps = NN_API["cpu_layers"], NN_API["cpu_seq"], NN_API["cpu_steps"]
+    prev = tdevice._layer_device
+    try:
+        t0 = time.perf_counter()
+        pt.set_device("cpu")
+        pt.seed(seed + 33)
+        host = _api_decoder(nl, "float32", s + steps + 8)
+        host_s = time.perf_counter() - t0
+        pt.set_device("cuda")
+        card = _api_decoder(nl, "float32", s + steps + 8)
+    finally:
+        tdevice._layer_device = prev
+    missing, unexpected = card.set_state_dict(host.state_dict())
+    if missing or unexpected:
+        raise AssertionError(f"8b (e) set_state_dict: {missing} {unexpected}")
+    rng = np.random.default_rng(seed + 34)
+    ids = torch.from_numpy(rng.integers(0, NN_API["start"],
+                                        (NN_API["batch"], s)))
+    runs = []
+    for model, dev in ((card, "cuda"), (host, "cpu")):
+        with torch.no_grad():
+            logits, kv = model(ids.to(dev))
+            beam = _api_beam(keep_gaps=dev == "cpu")
+            beam.gaps = []
+            dec = beam(model.step, NN_API["start"], NN_API["end"],
+                       NN_API["beam"])
+            out = _api_beam_steps(nn.dynamic_decode(
+                dec, inits=model.caches(kv), max_step_num=steps))
+        runs.append((logits, out, beam.gaps))
+    (gl, gout, _), (cl, cout, gaps) = runs
+    err = _card_cpu(torch, "8b (e) prefill logits", gl, cl, NN_API_LOGIT_REL)
+    gaps = torch.stack(gaps, dim=1).numpy()          # [B, T]
+    held = 0
+    for r in range(gaps.shape[0]):
+        upto = int(np.argmax(gaps[r] <= BEAM_MARGIN)) if (
+            gaps[r] <= BEAM_MARGIN).any() else gaps.shape[1]
+        for name, g, c in zip(("tokens", "parents"), gout[2:4], cout[2:4]):
+            if not torch.equal(g[r, :upto].cpu(), c[r, :upto]):
+                raise AssertionError(f"8b (e) row {r} {name} differ before "
+                                     f"step {upto}")
+        _card_cpu(torch, f"8b (e) row {r} scores", gout[1][r, :upto],
+                  cout[1][r, :upto], NN_API_LOGIT_REL)
+        held += upto
+    _log(f"nn api 8b (e) the decoder at {nl} layer, 8B width, float32, TF32 "
+         f"off, built on the host in {host_s:.1f} s and carried to the card "
+         f"by set_state_dict: prefill logits B={NN_API['batch']} S={s} "
+         f"within {err:.3g} of the largest (limit {NN_API_LOGIT_REL}); beam "
+         f"K={NN_API['beam']} over {gaps.shape[1]} steps: tokens and parents "
+         f"equal, scores within {NN_API_LOGIT_REL} at {held} of "
+         f"{gaps.size} row-steps (each row up to its first K-th/(K+1)-th "
+         f"gap <= {BEAM_MARGIN}; smallest gaps "
+         f"{np.round(gaps.min(axis=1), 5).tolist()})")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def _api_varlen(torch, model, ids):
+    """8b (c): ``flash_attn_unpadded`` over layer 0's q/k/v of the prefill,
+    packed (q and k alike) in sequences of ``NN_API["varlen"]`` tokens
+    taken from the batch rows in turn, in float32 (the bf16 values
+    widened): each sequence's rows are held against the flash kernel on
+    the sequence alone in bf16 (``memory_efficient_attention`` without
+    ``causal``, ``scaled_dot_product_attention(is_causal=True)`` with it)
+    at the flash tolerance (2^-5 of the row's RMS: the float32 math is
+    the kernel's plain version), the length-0 sequence adds no row, and
+    the card's output is held against the CPU's.  (In bf16 the
+    reference's math rounds its scores to bf16: a row of this prefill
+    then differs from the kernel's by up to 11% of its RMS on an H100,
+    PERF.md.)"""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    lens = NN_API["varlen"]
+    with torch.no_grad():
+        q, k, v = model.blocks[0].qkv(F.embedding(ids, model.embed))
+    rows = [i % q.shape[0] for i in range(len(lens))]
+    packed = [torch.cat([t[r, :n] for r, n in zip(rows, lens)]).float()
+              for t in (q, k, v)]
+    cu = torch.tensor([sum(lens[:i]) for i in range(len(lens) + 1)],
+                      dtype=torch.int32, device="cuda")
+    mx, scale = max(lens), 1.0 / math.sqrt(q.shape[-1])
+    worst = {}
+    for causal in (False, True):
+        out = F.flash_attn_unpadded(*packed, cu, cu, mx, mx, scale,
+                                    causal=causal)
+        if out.shape != packed[0].shape:
+            raise AssertionError(f"8b (c) varlen: shape {tuple(out.shape)}")
+        for i, (r, n) in enumerate(zip(rows, lens)):
+            if n == 0:
+                continue
+            a, b_ = int(cu[i]), int(cu[i + 1])
+            one = [t[r:r + 1, :n] for t in (q, k, v)]
+            alone = (F.scaled_dot_product_attention(*one, is_causal=True)
+                     if causal else IF.memory_efficient_attention(*one))[0]
+            want = out[a:b_]
+            rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+            err = ((alone.float() - want).abs()
+                   / rms.clamp_min(1e-30)).max().item()
+            if err > 2.0 ** -5:
+                raise AssertionError(f"8b (c) varlen causal={causal} "
+                                     f"sequence {i} ({n} tokens): the flash "
+                                     f"kernel alone is {err:.4g} of the row "
+                                     f"RMS off")
+            worst[causal] = max(worst.get(causal, 0.0), err)
+    host = F.flash_attn_unpadded(*[t.cpu() for t in packed], cu.cpu(),
+                                 cu.cpu(), mx, mx, scale, causal=True)
+    cpu_err = _card_cpu(torch, "8b (c) varlen float32", out, host,
+                        NN_API_REL)
+    _log(f"nn api 8b (c) flash_attn_unpadded over layer 0's q "
+         f"{list(packed[0].shape)} and k/v {list(packed[1].shape)}, lengths "
+         f"{list(lens)} packed, float32: the flash kernel on each sequence "
+         f"alone (bf16) within {worst[False]:.3g} (not causal, "
+         f"memory_efficient_attention) and {worst[True]:.3g} (causal, "
+         f"scaled_dot_product_attention) of the row RMS (limit 2^-5), the "
+         f"length-0 sequence no row; card vs CPU within {cpu_err:.3g} of "
+         f"the largest entry (limit {NN_API_REL})")
+
+
+def phase_nn_api(torch, seed, smi):
+    """Phase 8b (see the module docstring); returns the launches of the
+    main path (the first forward, the timed prefills, the beam and greedy
+    decodes)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    nl, b, s = NN_API["layers"], NN_API["batch"], NN_API["seq"]
+    per_prefill = {"rms_norm": 2 * nl + 1, "flash_attention_fwd": nl}
+    total = {}
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # (c), (e): float32
+    # (a) lazy construction: parameters in host RAM, the card untouched
+    pt.seed(seed + 30)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with pt.LazyGuard():
+        model = _api_decoder(nl, "bfloat16", NN_API["max_seq"])
+    build_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    on_host = all(p.device.type == "cpu" for p in params)
+    grown = torch.cuda.memory_allocated() - before
+    if not on_host or grown:
+        raise AssertionError(f"8b (a) LazyGuard: parameters on the host "
+                             f"{on_host}, card memory grew by {grown} B")
+    vocab = model.lm_head.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    ids = torch.randint(0, NN_API["start"], (b, s), generator=gen,
+                        device="cuda")
+    # a hook registered after the guard's runs after its move
+    moved = []
+
+    def after_move(module, args):
+        torch.cuda.synchronize()
+        moved.append(time.perf_counter())
+
+    hook = model.register_forward_pre_hook(after_move)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, kv = model(ids)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    hook.remove()
+    move_s = moved[0] - t0
+    counts = _launch_counts()
+    _add_launches(total, counts)
+    card = resolve_device()
+    if not all(p.device == card for p in model.parameters()) or any(
+            a is not c for a, c in zip(model.parameters(), params)):
+        raise AssertionError("8b (a): the first forward did not place the "
+                             "same parameters on the card")
+    n_params = sum(p.numel() for p in params)
+    _log(f"nn api 8b (a) LazyGuard: the decoder ({nl} layers at Llama-3-8B "
+         f"width, bf16, {n_params / 1e9:.3f} B parameters) built in host RAM "
+         f"in {build_s:.2f} s, card memory unchanged; the first forward "
+         f"moved the same parameters to the card in {move_s:.2f} s and ran "
+         f"the prefill in {first_s - move_s:.2f} s")
+    # (b) prefill
+    if counts != per_prefill:
+        raise AssertionError(f"8b (b) prefill launches {counts}, want "
+                             f"{per_prefill}")
+    if logits.shape != (b, s, vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"8b (b) prefill logits {tuple(logits.shape)} "
+                             f"or not finite")
+    reps = 3
+    _zero_launches()
+    with torch.no_grad():
+        prefill_ms = _wall_ms(torch, lambda: model(ids), n=reps)
+    counts = _launch_counts()
+    _add_launches(total, counts)
+    if counts != {k_: v_ * reps for k_, v_ in per_prefill.items()}:
+        raise AssertionError(f"8b (b) {reps} prefills launched {counts}")
+    _log(f"nn api 8b (b) prefill B={b} S={s} bf16: {prefill_ms:.3f} ms "
+         f"(least of {reps} synced walls), logits finite, launches a "
+         f"prefill {per_prefill}; {smi}")
+    # (c) varlen
+    _api_varlen(torch, model, ids)
+    # (d) beam decode from the prefill's caches
+    states = model.caches(kv)
+    del logits
+    runs = {}
+    for k_ in (NN_API["beam"], 1):
+        dec = _api_beam()(model.step, NN_API["start"], NN_API["end"], k_)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = _api_beam_steps(nn.dynamic_decode(
+                dec, inits=states, max_step_num=NN_API["steps"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        _add_launches(total, counts)
+        t = out[0].shape[1]
+        if counts != {"rms_norm": (2 * nl + 1) * t}:
+            raise AssertionError(f"8b (d) beam {k_}: {t} steps launched "
+                                 f"{counts}")
+        runs[k_] = (out, wall, t)
+    (out, wall, t) = runs[NN_API["beam"]]
+    ids_b, scores = out[0], out[1]
+    if ids_b.shape != (b, t, NN_API["beam"]) or not torch.isfinite(
+            scores).all() or int(ids_b.max()) >= vocab:
+        raise AssertionError(f"8b (d) beam ids {tuple(ids_b.shape)} or "
+                             f"scores not finite")
+    _zero_launches()
+    with torch.no_grad():
+        greedy = _greedy(torch, model, states, NN_API["start"],
+                         runs[1][2])
+    _add_launches(total, _launch_counts())
+    one = runs[1][0][0][..., 0]
+    if not torch.equal(one, greedy):
+        raise AssertionError(f"8b (d) beam_size=1 differs from the greedy "
+                             f"loop: {one.tolist()} vs {greedy.tolist()}")
+    # masked_multihead_attention alone, at the step's shape
+    n = b * NN_API["beam"]
+    cache = states[0].repeat_interleave(NN_API["beam"], 0).transpose(0, 1)
+    x = torch.randn((n, 3 * cache.shape[2] * cache.shape[4]), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    lens = torch.full((n,), s + t // 2, dtype=torch.int64, device="cuda")
+    mmha_ms = _time_ms(torch, lambda: IF.masked_multihead_attention(
+        x, cache, sequence_lengths=lens))
+    xb = x.numel() * x.element_size()
+    nbytes = 2 * cache.numel() * cache.element_size() + xb + xb // 3
+    mmha_bound = nbytes / H100_BYTES_PER_S * 1e3
+    _log(f"nn api 8b (d) BeamSearchDecoder(beam_size={NN_API['beam']}) and "
+         f"dynamic_decode(max_step_num={NN_API['steps']}) over the "
+         f"masked_multihead_attention cell, B={b}, max_seq "
+         f"{NN_API['max_seq']}, from the prefill's caches: {t} steps in "
+         f"{wall:.3f} s, {wall / t * 1e3:.3f} ms a step (wall, with each "
+         f"step's finished check), RMSNorm {2 * nl + 1} a step; beam_size=1 "
+         f"({runs[1][1] / runs[1][2] * 1e3:.3f} ms a step) equals the greedy "
+         f"argmax loop token for token; masked_multihead_attention alone at "
+         f"x {list(x.shape)}, cache {list(cache.shape)} "
+         f"bf16: {mmha_ms:.4f} ms against {mmha_bound:.4f} ms for its "
+         f"{nbytes / 1e6:.1f} MB (the cache read and the new cache written "
+         f"once) at 3.35 TB/s; {smi}")
+    del model, states, kv, cache, runs, out
+    torch.cuda.empty_cache()
+    # (e), (f): checks; their launches are not the path's
+    _api_exactness(torch, seed)
+    _api_small_functions(torch, seed)
+    if not all(total.get(k_) for k_ in per_prefill):
+        raise AssertionError(f"phase 8b: a kernel never launched {total}")
+    _log(f"nn api 8b: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9954,6 +10539,8 @@ def main(argv=None) -> int:
     mark("phase 7f")
     by_path["jit"] = phase_jit(torch, args.seed, smi)
     mark("phase 8a")
+    by_path["nn_api"] = phase_nn_api(torch, args.seed, smi)
+    mark("phase 8b")
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)

@@ -86,7 +86,16 @@ beside it slice by slice and imports nothing of it (nor JAX).
   and the quantized matmul become dispatcher ops, so an exported
   program carries the kernels; no kernel is added.
 
-Entry points run on the CUDA card unless called with ``device="cpu"``.
+- Slice 24, the rest of ``nn`` and ``incubate.nn``: the ``nn.Layer``
+  facade (``create_parameter``, ``ParamAttr``, ``Parameter``, the
+  initializers), ``LazyGuard``, ``nn.BeamSearchDecoder`` and
+  ``dynamic_decode``, ``one_hot``, varlen and CSR-sparse attention, and
+  ``incubate.nn``'s fused functionals and layers; ``fused_rms_norm`` and
+  ``memory_efficient_attention`` reach the RMSNorm and flash-forward
+  kernels; no kernel is added.
+
+Entry points run on the CUDA card unless called with ``device="cpu"``
+(an ``nn.Layer``'s ``create_parameter``: unless ``set_device("cpu")``).
 """
 
 from . import (amp, core, device, distributed, framework,  # noqa: F401
@@ -95,7 +104,9 @@ from . import (amp, core, device, distributed, framework,  # noqa: F401
                runtime, static, vision)
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.generator import seed  # noqa: F401
+from .device import set_device  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 from .hapi.dynamic_flops import flops  # noqa: F401
 from .hapi.model import Model  # noqa: F401
 from .hapi.model_summary import summary  # noqa: F401
+from .nn.lazy import LazyGuard  # noqa: F401

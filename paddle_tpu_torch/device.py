@@ -49,3 +49,25 @@ def to_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+_layer_device: DeviceLike = None
+
+
+def set_device(device: str) -> torch.device:
+    """The reference's ``paddle.set_device`` (``core/device.py:84``) for
+    the ``nn.Layer`` facade: ``Layer.create_parameter`` makes its
+    parameters on ``device`` (``"cpu"``, ``"gpu"``/``"gpu:N"`` or
+    ``"cuda"``/``"cuda:N"``), so a user layer whose ``__init__`` calls
+    ``super().__init__()`` bare can be built on the CPU.  Every other
+    entry point keeps its own ``device=`` (``resolve_device``)."""
+    global _layer_device
+    dev = resolve_device(str(device).replace("gpu", "cuda"))
+    _layer_device = dev
+    return dev
+
+
+def layer_device() -> torch.device:
+    """Where ``Layer.create_parameter`` puts a parameter: the
+    ``set_device`` choice, else the card (raising without CUDA)."""
+    return resolve_device(_layer_device)

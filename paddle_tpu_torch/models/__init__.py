@@ -5,8 +5,8 @@ PP-OCR detector and recognizer (``ocr``); the vision zoo is
 ``paddle_tpu_torch.vision.models``."""
 
 from .convert import (ernie_state_from_jax, gpt_state_from_jax,  # noqa: F401
-                      linear_weight_names, llama_state_from_jax,
-                      ocr_state_from_jax, optimizer_state_from_jax,
+                      layer_state_from_jax, linear_weight_names,
+                      llama_state_from_jax, ocr_state_from_jax, optimizer_state_from_jax,
                       optimizer_state_to_jax, vision_state_from_jax)
 from .ernie import (BertConfig, BertForPretraining,  # noqa: F401
                     BertForQuestionAnswering, BertForSequenceClassification,

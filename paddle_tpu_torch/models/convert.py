@@ -23,8 +23,10 @@ as they are; a converted layer (``QuantizedLinearInfer``) has no
 ``weight``, and its ``qweight`` (``[in, out]`` int8 codes in both
 packages) and ``weight_scale`` cross as they are, byte for byte.
 
-``vision_state_from_jax`` (also ``ocr_state_from_jax``) maps the vision
-zoo's and the OCR models' parameters AND buffers (a batch norm's
+``layer_state_from_jax`` (also ``vision_state_from_jax`` and
+``ocr_state_from_jax``) maps any facade model's (an ``nn.Layer``
+subclass written against the API, the vision zoo, the OCR models)
+parameters AND buffers (a batch norm's
 ``_mean`` and ``_variance``), deciding by the port model's module types,
 not by a name rule: only the weight of a ``torch.nn.Linear`` is
 transposed; convolution, transposed-convolution, recurrent (an LSTM's
@@ -114,14 +116,16 @@ def linear_weight_names(model: torch.nn.Module) -> frozenset:
                      if isinstance(m, (torch.nn.Linear, QuantedLinear)))
 
 
-def vision_state_from_jax(named_arrays: Mapping[str, np.ndarray],
-                          model: torch.nn.Module
-                          ) -> Dict[str, torch.Tensor]:
+def layer_state_from_jax(named_arrays: Mapping[str, np.ndarray],
+                         model: torch.nn.Module
+                         ) -> Dict[str, torch.Tensor]:
     """``{jax parameter or buffer name: array}`` (the JAX model's
     ``named_parameters()`` and ``named_buffers()``) -> a state dict for
-    the port ``model``'s ``load_state_dict``: CPU tensors in the arrays'
-    dtypes, the weights of ``model``'s ``torch.nn.Linear`` modules
-    transposed to ``[out, in]``, everything else as it is."""
+    the port ``model``'s ``load_state_dict`` or ``set_state_dict``: CPU
+    tensors in the arrays' dtypes, the weights of ``model``'s
+    ``torch.nn.Linear`` modules transposed to ``[out, in]``, everything
+    else as it is (a parameter an ``nn.Layer`` made by
+    ``create_parameter`` has the same shape in both packages)."""
     linear = linear_weight_names(model)
     out = {}
     for name, arr in named_arrays.items():
@@ -135,7 +139,7 @@ def vision_state_from_jax(named_arrays: Mapping[str, np.ndarray],
     return out
 
 
-ocr_state_from_jax = vision_state_from_jax
+vision_state_from_jax = ocr_state_from_jax = layer_state_from_jax
 
 
 def _entry_index(key: str):

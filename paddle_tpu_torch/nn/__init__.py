@@ -1,14 +1,18 @@
 """Layers and functionals of the port.
 
-``Layer`` is ``torch.nn.Module`` (the reference's base class name).
-Every layer with parameters is built on ``meta`` and materialized on its
-device (the card unless ``device="cpu"``); inside a parent's
-``torch.device("meta")`` scope it stays there for the parent to
+``Layer`` (``layers.py``) is the reference's base class over
+``torch.nn.Module``, with ``Parameter``, ``ParamAttr``, the initializers
+(``initializer``) and ``LazyGuard`` (``lazy.py``); ``decode.py`` holds
+``BeamSearchDecoder`` and ``dynamic_decode``.  Every port layer with
+parameters is built on ``meta`` and materialized on its device (the card
+unless ``device="cpu"``; the host under ``LazyGuard``); inside a
+parent's ``torch.device("meta")`` scope it stays there for the parent to
 materialize (``nn.common.materialize``)."""
 
-from torch.nn import Module as Layer  # noqa: F401
-
 from . import functional  # noqa: F401
+from . import initializer  # noqa: F401
+from .lazy import LazyGuard, in_lazy_mode  # noqa: F401
+from .layers import Layer, ParamAttr, Parameter  # noqa: F401
 from .activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink,  # noqa: F401
                          Hardsigmoid, Hardswish, Hardtanh, LeakyReLU,
                          LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU,
@@ -48,3 +52,4 @@ from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 from . import quant  # noqa: F401,E402
+from .decode import BeamSearchDecoder, Decoder, dynamic_decode  # noqa: F401,E402

@@ -22,7 +22,6 @@ import functools
 import torch
 from torch import nn
 
-from ..amp.auto_cast import cast as _amp_cast
 from . import functional as F
 
 
@@ -226,10 +225,12 @@ class Bilinear(nn.Module):
 
 
 class Embedding(nn.Embedding):
-    """A ``[num_embeddings, embedding_dim]`` table (N(0, 1)); with
-    ``padding_idx`` that row starts at zero and the lookup returns zeros
-    for it (the reference masks the output, so its gradient is zero
-    too).  ``sparse`` is accepted and not read, as in the reference."""
+    """A ``[num_embeddings, embedding_dim]`` table (N(0, 1)) looked up by
+    ``nn.functional.embedding``: an id in ``[-V, -1]`` wraps, any other
+    out-of-range id gives a NaN row; with ``padding_idx`` that row
+    starts at zero and the lookup returns zeros for it (the reference
+    masks the output, so its gradient is zero too).  ``sparse`` is
+    accepted and not read, as in the reference."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, device=None,
@@ -240,13 +241,7 @@ class Embedding(nn.Embedding):
         materialize(self, device)
 
     def forward(self, x):
-        (w,) = _amp_cast("embedding", self.weight)
-        out = torch.nn.functional.embedding(x, w)
-        if self._padding_idx is not None:
-            out = torch.where((x == self._padding_idx)[..., None],
-                              torch.zeros((), dtype=out.dtype,
-                                          device=out.device), out)
-        return out
+        return F.embedding(x, self.weight, self._padding_idx)
 
 
 class Linear(nn.Linear):
@@ -352,14 +347,23 @@ def materialize(module: nn.Module, device, seed: int = 0,
     ``torch.device("meta")`` scope, leaves it where it is, for a parent
     that materializes it), then ``reference_init`` it from
     ``seed`` unless ``init=False``.  Parameters are made in place on the
-    device, never staged through the host."""
+    device, never staged through the host, except under ``LazyGuard``:
+    then they are made on the host and move at the first forward
+    (``nn.lazy``)."""
     if str(device) == "meta" or (
             device is None and torch.get_default_device().type == "meta"):
         # built inside a parent's ``torch.device("meta")`` scope: the
         # parent materializes the whole
         return module
     from ..device import resolve_device
-    module.to_empty(device=resolve_device(device))
+    from . import lazy
+    target = resolve_device(device)
+    if lazy.in_lazy_mode():
+        # born in host RAM, placed on ``target`` at the first forward
+        module.to_empty(device="cpu")
+        lazy.defer(module, target, recurse=True)
+    else:
+        module.to_empty(device=target)
     if init:
         reference_init(module, seed)
     return module

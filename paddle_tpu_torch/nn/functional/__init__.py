@@ -7,8 +7,12 @@
 - ``add``, ``multiply``, ``concat`` and ``split``: the tensor ops that
   the decoder layers and the vision zoo call, under the reference's op
   names (``paddle_tpu/tensor/{math,manipulation}.py``).
-- ``linear`` and ``embedding`` in torch's layouts (``linear``'s weight
-  is ``[out, in]``; the JAX package's is ``[in, out]``).
+- ``linear`` in torch's layout (its weight is ``[out, in]``; the JAX
+  package's is ``[in, out]``).
+- ``embedding`` and ``one_hot`` (``input.py``, port of
+  ``nn/functional/input.py``) and ``flash_attn_unpadded``,
+  ``sparse_attention`` and ``sdp_kernel`` (``attention.py``, the rest of
+  ``nn/functional/attention.py``), plain torch as they are XLA there.
 - ``layer_norm`` (``nn/functional/norm.py:27``): mean, population
   variance and ``rsqrt(var + eps)`` in float32, the affine in float32,
   one rounding back to x's dtype; ``gelu`` (``activation.py:47``, the
@@ -65,11 +69,6 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     """``x @ weight.T + bias`` with ``weight`` ``[out, in]``."""
     x, weight, bias = _amp_cast("linear", x, weight, bias)
     return F.linear(x, weight, bias)
-
-
-def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    (weight,) = _amp_cast("embedding", weight)
-    return F.embedding(ids, weight)
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
@@ -272,13 +271,15 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
 # ---- attention ----
 
 def _attention_math(q, k, v, mask=None, causal=False, dropout_p=0.0,
-                    dropout_key=None):
-    """``_xla_attention``: scores in q's dtype, causal mask -1e30 with
-    the ``sk - sq`` offset, additive mask, fp32 softmax cast to q's
-    dtype, then (with ``dropout_p`` and a key) the probabilities dropped
-    and the kept ones divided by ``1 - p``; GQA by repeating kv heads.
-    q/k/v: [B, S, H, D]."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
+                    dropout_key=None, scale=None):
+    """``_xla_attention``: scores in q's dtype (times ``scale``, by
+    default ``1/sqrt(D)``), causal mask -1e30 with the ``sk - sq``
+    offset, additive mask, fp32 softmax cast to q's dtype, then (with
+    ``dropout_p`` and a key) the probabilities dropped and the kept ones
+    divided by ``1 - p``; GQA by repeating kv heads.  q/k/v: [B, S, H,
+    D]."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if kt.shape[1] != qt.shape[1]:
         rep = qt.shape[1] // kt.shape[1]
@@ -464,8 +465,10 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
 # ---- the vision and OCR slice: one module each, as the reference's ----
 
 from .activation import *  # noqa: E402,F401,F403
+from .attention import *  # noqa: E402,F401,F403
 from .common import *  # noqa: E402,F401,F403
 from .conv import *  # noqa: E402,F401,F403
+from .input import *  # noqa: E402,F401,F403
 from .loss import *  # noqa: E402,F401,F403
 from .norm import *  # noqa: E402,F401,F403
 from .pooling import *  # noqa: E402,F401,F403
