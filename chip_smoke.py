@@ -5,13 +5,16 @@
     python3 chip_smoke.py --decode-window [--root TREE]
     python3 chip_smoke.py --quant-window [--root TREE]
     python3 chip_smoke.py --norm-window [--root TREE]
+    python3 chip_smoke.py --facade-window [--root TREE]
 
 The second form measures only the decode attention kernels, alone and
 in the serving step (``phase_decode_window``), the third the quantized
 matmul and the int8 decode, alone and in the quantized serving step
 (``phase_quant_window``), the fourth RoPE and RMSNorm, alone, in a train
 step and in the serving decode step, and the host cost of the kernels'
-dispatcher ops (``phase_norm_window``), of this
+dispatcher ops (``phase_norm_window``), the fifth the host cost of the
+tensor ops that the port's models call through ``nn.functional``
+(``phase_facade_window``), of this
 checkout or of the port in another tree (a parent commit unpacked beside
 it); none prints a result line.
 
@@ -458,6 +461,31 @@ Phases, each of which raises (nonzero exit, no result line) on failure:
    ``one_hot`` and ``embedding`` (``padding_idx``, ids outside [0, V):
    NaN rows, no device assert), card vs CPU (``launches_by_path[
    "nn_api"]``: (a), (b) and (d)).
+8c. a decoder written against the top-level tensor API (``phase_tensor_api``,
+   ``tensor_decoder_class``): facade calls only (``normal``, ``matmul``,
+   ``reshape``, ``transpose``, ``split``, ``concat``, ``stack``,
+   ``multiply``, ``add``, ``sin``/``cos``, indexing, the operators),
+   ``_C_ops.rms_norm`` and ``_C_ops.flash_attention(causal=True)`` and a
+   user ``PyLayer`` SwiGLU with a hand-written backward, at Llama-3-8B
+   width (hidden 4096, 32/8 heads of D 128, FFN 14336, rotate-half RoPE
+   base 500000), 2 layers, bf16: (a) 436 M weights drawn on the card by
+   the facade's threefry ``normal``, one tensor at a time; (b) forward at
+   B=2 S=1024, loss finite, RMSNorm 2L+1 and flash forward L launches;
+   (c) ``loss.backward()`` with flash backward L launches and every
+   ``.grad`` finite, a second backward accumulating to twice the first,
+   ``grad(loss, [h0])`` equal to the ``.grad`` route, the ``PyLayer``'s
+   gradients equal to autograd through the same ops in float32; (d) the
+   decoder at 1 layer in float32 (TF32 off), B=1 S=64, held on the host
+   (its weights drawn on the card: threefry on the host's cores would
+   take tens of seconds) and carried to the card by
+   ``to_tensor(place=)``: the loss and each gradient within 1e-4 of its
+   own largest entry; (e) every registry op at the CPU sweep's inputs
+   (``sweep_inputs``; the two flash ops at head_dim 64, the kernels'),
+   card vs CPU in float32, forward and gradient, threefry draws
+   bit-equal; (f) the host time to enqueue (b)'s forward on facade
+   tensors, on plain ones through the same facade functions, and written
+   with raw torch calls and the kernel wrappers, launches equal
+   (``launches_by_path["tensor_api"]``: (b) and (c)).
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card.
@@ -4143,6 +4171,87 @@ def phase_norm_window(torch, seed):
         "not measured (the decode block replays a CUDA graph, which calls "
         "no wrapper)" if us is None else
         f"{us:.2f} us a call, {calls:.0f} calls a step"))
+
+
+def phase_facade_window(torch, seed, n=2000, reps=5):
+    """``--facade-window``: the host cost of the five tensor ops that the
+    port's models call through ``nn.functional`` (``add``, ``multiply``,
+    ``concat``, ``split``, ``flatten``: the residual adds of
+    ``nn.transformer`` and ERNIE, the vision zoo's joins and flattens) on
+    plain CUDA tensors, and phase 5e's ERNIE-base fine-tune step, which
+    calls ``add`` 2 a layer.  Each op: host us a call, the least of
+    ``reps`` windows of ``n`` calls between two syncs (the device work of
+    a call, bf16 [32, 768], is a few us, under the host's).  ERNIE: the
+    step's wall (mean of 10 after one warm-up, as 5e) and its calls of
+    the five names (counted in one more, untimed, step).  With ``--root``
+    the package comes from another tree, so one call measures the parent
+    and the change in turns."""
+    import paddle_tpu_torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn(32, 768, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    y = torch.randn(32, 768, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    x4 = x.reshape(32, 3, 16, 16)
+    cases = (("add", lambda: F.add(x, y)),
+             ("multiply", lambda: F.multiply(x, y)),
+             ("concat", lambda: F.concat([x, y], axis=1)),
+             ("split", lambda: F.split(x, 2, axis=1)),
+             ("flatten", lambda: F.flatten(x4, 1)))
+    us = {}
+    for name, fn in cases:
+        fn()
+        best = None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            w = (time.perf_counter() - t0) / n * 1e6
+            best = w if best is None else min(best, w)
+        us[name] = best
+    floor = None
+    for _ in range(reps):      # the same add in raw torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            torch.add(x, y)
+        torch.cuda.synchronize()
+        w = (time.perf_counter() - t0) / n * 1e6
+        floor = w if floor is None else min(floor, w)
+    b, s = ERNIE_TRAIN["batch"], ERNIE_TRAIN["seq"]
+    cfg, model, step = _ernie_train_setup(torch, 12, seed, amp_level="O1")
+    batch = _ernie_batch(torch, cfg, b, s, seed, "cuda")
+    losses, warm, step_s, _, _ = _timed_steps(torch, step, batch, n=10)
+    calls = dict.fromkeys(us, 0)
+    kept = {name: getattr(F, name) for name in us}
+
+    def counted(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return kept[name](*a, **k)
+        return fn
+
+    try:
+        for name in us:
+            setattr(F, name, counted(name))
+        step(*batch)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in kept.items():
+            setattr(F, name, fn)
+    _log("facade window: host us a call on plain bf16 [32, 768] CUDA "
+         "tensors (least of " + str(reps) + " windows of " + str(n) +
+         "): " + ", ".join(f"F.{k} {v:.2f}" for k, v in us.items()) +
+         f"; raw torch.add {floor:.2f}; ERNIE-base fine-tune step "
+         f"(phase 5e, batch {b}x{s}, O1 bf16) {step_s * 1e3:.2f} ms (mean "
+         f"of 10), calls a step "
+         + ", ".join(f"{k} {v}" for k, v in calls.items() if v)
+         + f"; losses finite {_finite(losses)}")
+    del step, model
+    torch.cuda.empty_cache()
 
 
 def phase_exactness(torch, seed):
@@ -10385,6 +10494,971 @@ def phase_nn_api(torch, seed, smi):
     return total
 
 
+# ---- phase 8c: a decoder written against the top-level tensor API ----
+
+TENSOR_API = dict(layers=2, batch=2, seq=1024, hidden=4096, heads=32,
+                  kv_heads=8, ffn=14336, eps=1e-5, rope_base=500000.0,
+                  std=0.02, cpu_layers=1, cpu_batch=1, cpu_seq=64)
+TENSOR_API_REL = 1e-4        # float32 card vs CPU, of the largest entry
+TENSOR_API_SWEEP_REL = 1e-4  # the op sweep card vs CPU, float32
+# gradients accumulated twice vs twice one backward: the one-pass flash
+# backward's dQ sums its tiles in a run-dependent order; bf16 grads hold
+# one bf16 ulp of the largest entry
+TENSOR_API_REPEAT_REL = 2.0 ** -7
+
+
+def tensor_decoder_class(P=None):
+    """The Llama-architecture decoder phase 8c runs, written the way a
+    Paddle user writes one against the top-level tensor API only
+    (``to_tensor``, ``normal``, ``matmul``, ``reshape``, ``transpose``,
+    ``split``, ``concat``, ``stack``, ``multiply``, ``add``, ``sin``/
+    ``cos``, ``cast``, indexing, the operators, ``_C_ops.rms_norm`` and
+    ``_C_ops.flash_attention(causal=True)``), with a user ``PyLayer``
+    for SwiGLU whose backward is written by hand; nothing of ``torch``,
+    ``models`` or ``nn``.  ``P`` is the package (the port by default; the
+    tests pass the JAX package to build its twin from the same code).
+    Weights are ``[in, out]``; the decoder takes hidden states ``[B, S,
+    hidden]`` (no embedding or head) and ``loss`` is the mean square of
+    the final norm's output less 0.5, in float32."""
+    import importlib
+    if P is None:
+        import paddle_tpu_torch as P
+    C = importlib.import_module(P.__name__ + "._C_ops")
+
+    class SwiGLU(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, gate, up):
+            sig = 1.0 / (1.0 + P.exp(-gate))
+            ctx.save_for_backward(gate, up, sig)
+            return P.multiply(gate * sig, up)
+
+        @staticmethod
+        def backward(ctx, g):
+            gate, up, sig = ctx.saved_tensor()
+            d_gate = g * up * sig * (1.0 + gate * (1.0 - sig))
+            return d_gate, g * (gate * sig)
+
+    class TensorDecoder:
+        def __init__(self, hidden, heads, kv_heads, ffn, layers,
+                     eps=1e-5, rope_base=500000.0, dtype="bfloat16",
+                     std=0.02):
+            self.hidden, self.heads, self.kv_heads = hidden, heads, kv_heads
+            self.d = hidden // heads
+            self.eps, self.base, self.dtype = eps, rope_base, dtype
+            self.layers = []
+            for _ in range(layers):
+                self.layers.append({
+                    "ln1": self._unit(hidden), "ln2": self._unit(hidden),
+                    "wq": self._draw([hidden, heads * self.d], std),
+                    "wk": self._draw([hidden, kv_heads * self.d], std),
+                    "wv": self._draw([hidden, kv_heads * self.d], std),
+                    "wo": self._draw([hidden, heads * self.d], std),
+                    "w_gate_up": self._draw([hidden, 2 * ffn], std),
+                    "w_down": self._draw([ffn, hidden], std)})
+            self.norm = self._unit(hidden)
+
+        def _draw(self, shape, std):
+            w = P.normal(0.0, std, shape).astype(self.dtype)
+            w.stop_gradient = False
+            return w
+
+        def _unit(self, n):
+            w = P.ones([n], dtype=self.dtype)
+            w.stop_gradient = False
+            return w
+
+        def parameters(self):
+            out = []
+            for layer in self.layers:
+                out += [layer[k] for k in sorted(layer)]
+            return out + [self.norm]
+
+        def tables(self, s):
+            """Rotate-half RoPE tables ``[1, S, 1, D]`` in float32."""
+            inv = 1.0 / (self.base ** (P.arange(
+                0, self.d, 2, dtype="float32") / float(self.d)))
+            pos = P.arange(s, dtype="float32")
+            freqs = P.matmul(P.reshape(pos, [s, 1]),
+                             P.reshape(inv, [1, self.d // 2]))
+            emb = P.concat([freqs, freqs], axis=-1)
+            tab = P.stack([P.cos(emb), P.sin(emb)])
+            return (P.reshape(tab[0], [1, s, 1, self.d]),
+                    P.reshape(tab[1], [1, s, 1, self.d]))
+
+        def rope(self, x, cos, sin):
+            xf = P.cast(x, "float32")
+            half = self.d // 2
+            rot = P.concat([-xf[..., half:], xf[..., :half]], axis=-1)
+            out = P.add(P.multiply(xf, cos), P.multiply(rot, sin))
+            return P.cast(out, x.dtype)
+
+        def forward(self, x):
+            b, s = x.shape[0], x.shape[1]
+            cos, sin = self.tables(s)
+            for L in self.layers:
+                h = C.rms_norm(x, L["ln1"], self.eps)
+                q = P.reshape(P.matmul(h, L["wq"]),
+                              [b, s, self.heads, self.d])
+                k = P.reshape(P.matmul(h, L["wk"]),
+                              [b, s, self.kv_heads, self.d])
+                v = P.reshape(P.matmul(h, L["wv"]),
+                              [b, s, self.kv_heads, self.d])
+                q, k = self.rope(q, cos, sin), self.rope(k, cos, sin)
+                a = C.flash_attention(q, k, v, causal=True)
+                a = P.reshape(a, [b, s, self.heads * self.d])
+                x = P.add(x, P.matmul(a, P.transpose(L["wo"], [1, 0])))
+                h = C.rms_norm(x, L["ln2"], self.eps)
+                gate, up = P.split(P.matmul(h, L["w_gate_up"]), 2, axis=-1)
+                x = P.add(x, P.matmul(SwiGLU.apply(gate, up),
+                                      L["w_down"]))
+            return C.rms_norm(x, self.norm, self.eps)
+
+        @staticmethod
+        def loss(out):
+            # (the RMS-normed output's own mean square is 1 whatever the
+            # input, so the target is offset)
+            return P.mean(P.square(P.cast(out, "float32") - 0.5))
+
+    TensorDecoder.SwiGLU = SwiGLU
+    return TensorDecoder
+
+
+def _tensor_decoder(pt, layers, dtype):
+    c = TENSOR_API
+    return tensor_decoder_class(pt)(
+        c["hidden"], c["heads"], c["kv_heads"], c["ffn"], layers, c["eps"],
+        c["rope_base"], dtype, c["std"])
+
+
+# ---- the registry sweep's inputs (numpy only) ----
+# The rules of the CPU sweep (tests/test_op_sweep.py ``_auto_inputs`` and
+# tests/op_sweep_spec.py ``CUSTOM_INPUTS``), with the tensor factory
+# ``T`` a parameter; tests/test_torch_op_sweep.py holds these inputs
+# equal to the reference sweep's, op for op.
+
+SWEEP_SKIP = {
+    "to_tensor": "constructor, covered by the facade tests",
+    "tolist": "host conversion returning python lists",
+    "cond": "the reference's sweep skips the name (control flow)",
+    "while_loop": "takes python callables",
+    "case": "takes python callables",
+    "switch_case": "takes python callables",
+    "masked_select": "dynamic output shape",
+    "nonzero": "dynamic output shape",
+    "unique": "dynamic output shape",
+    "unique_consecutive": "dynamic output shape",
+    "all_reduce": "collective",
+    "all_gather": "collective",
+}
+# draws bit-equal to the reference's for one seed (threefry bits)
+SWEEP_BITS = {"rand", "uniform", "uniform_", "randint", "randint_like",
+              "randperm", "bernoulli", "dropout", "dropout2d", "dropout3d",
+              "alpha_dropout"}
+# draws through the same uniforms and torch's erfinv: a few ulps
+SWEEP_ULPS = {"normal", "normal_", "standard_normal", "randn", "log_normal"}
+# draws that follow the reference's law only: shape and dtype
+SWEEP_LAW = {"multinomial", "poisson", "binomial", "standard_gamma",
+             "exponential_", "rrelu", "gumbel_softmax"}
+# ops whose gradient is not compared, with the reason
+SWEEP_NO_GRAD = {
+    "increment": "in place on a leaf that needs a gradient: torch "
+                 "refuses it (README, 'Known differences of the tensor "
+                 "facade')",
+    "scatter_": "in place on a leaf (as increment)",
+    "unsqueeze_": "in place on a leaf (as increment)",
+    "squeeze_": "in place on a leaf (as increment)",
+    "reshape_": "in place on a leaf (as increment)",
+    "flatten_": "in place on a leaf (as increment)",
+    "cast_": "in place on a leaf (as increment)",
+    "uniform_": "a draw in place (no gradient)",
+    "normal_": "a draw in place (no gradient)",
+    "exponential_": "a draw in place (no gradient)",
+    "relu_": "in place on a leaf: the reference's leaf loses its "
+             "gradient (ROADMAP Queue 3), torch refuses or records it",
+    "softmax_": "in place on a leaf (as relu_)",
+    "svd": "the reference's tape cannot differentiate svd (its vjp gets "
+           "a tuple for jnp's SVDResult: ROADMAP Queue 3)",
+    "eig": "no gradient in the reference (host LAPACK)",
+    "eigvals": "no gradient in the reference (host LAPACK)",
+}
+# output slots holding singular/eigen vectors, whose signs are free:
+# (vector output, the slot sharing its signs, that slot's vector axis)
+SWEEP_SIGNED = {"eigh": (1, None, None), "svd": (0, 2, -2),
+                "pca_lowrank": (0, 2, -1)}
+
+_SWEEP_FLOAT_NAMES = {"x", "y", "input", "a", "b", "value", "tensor",
+                      "weight", "theta", "grad", "param", "logit", "logits",
+                      "other"}
+_SWEEP_INT_NAMES = {"index", "indices", "label", "labels", "target"}
+
+
+def _sweep_rng(seed=0):
+    import numpy as np
+    return np.random.default_rng(seed)
+
+
+def sweep_inputs(op, fn, T, F=None, card=False):
+    """``(args, kwargs)`` of the sweep's case for ``op`` (``fn`` its
+    implementation, read for its signature), every array made by
+    ``T(numpy_array)``; ``F`` is the ``nn.functional`` module (the
+    unpooling cases pool first).  ``card``: the shapes the card's
+    kernels take where the CPU sweep's do not fit them (the flash
+    kernels' head_dim is 64 or 128; the CPU sweep's is 4)."""
+    import inspect
+    import numpy as np
+
+    def f(shape=(3, 4), lo=0.3, hi=0.9, seed=0):
+        return T(_sweep_rng(seed).uniform(lo, hi, shape).astype(np.float32))
+
+    def i(shape=(3,), hi=3, seed=1, dtype=np.int64):
+        return T(_sweep_rng(seed).integers(0, hi, shape).astype(dtype))
+
+    def rngf(shape, lo=-1.0, hi=1.0, seed=9):
+        return _sweep_rng(seed).uniform(lo, hi, shape).astype(np.float32)
+
+    def spd(n=3, seed=5):
+        a = _sweep_rng(seed).standard_normal((n, n)).astype(np.float32)
+        return a @ a.T + n * np.eye(n, dtype=np.float32)
+
+    def sq(n=3, seed=6):
+        a = _sweep_rng(seed).uniform(0.1, 0.9, (n, n)).astype(np.float32)
+        return T(a + n * np.eye(n, dtype=np.float32))
+
+    def chol():
+        return T(np.linalg.cholesky(spd()))
+
+    def unpool(shape, pool):
+        out, idx = pool(f(shape), 2, stride=2, return_mask=True)
+        return (out, idx, 2), {}
+
+    i32 = np.int32
+    custom = {
+        "acosh": lambda: ((f(lo=1.2, hi=2.5),), {}),
+        "bitwise_and": lambda: ((i((3, 4), 7, dtype=i32),
+                                 i((3, 4), 7, 8, dtype=i32)), {}),
+        "bitwise_or": lambda: ((i((3, 4), 7, dtype=i32),
+                                i((3, 4), 7, 8, dtype=i32)), {}),
+        "bitwise_xor": lambda: ((i((3, 4), 7, dtype=i32),
+                                 i((3, 4), 7, 8, dtype=i32)), {}),
+        "bitwise_not": lambda: ((i((3, 4), 7, dtype=i32),), {}),
+        "bitwise_left_shift": lambda: ((i((3, 4), 7, dtype=i32),
+                                        i((3, 4), 3, 8, dtype=i32)), {}),
+        "bitwise_right_shift": lambda: ((i((3, 4), 63, dtype=i32),
+                                         i((3, 4), 3, 8, dtype=i32)), {}),
+        "bincount": lambda: ((i((10,), 5),), {}),
+        "gather_tree": lambda: ((i((4, 2, 3), 9), i((4, 2, 3), 2)), {}),
+        "sparse_attention": lambda: (
+            (f((1, 2, 4, 8)), f((1, 2, 4, 8), seed=2), f((1, 2, 4, 8), seed=3),
+             T(np.tile(np.arange(0, 17, 4, dtype=i32), (1, 2, 1))),
+             T(np.tile(np.tile(np.arange(4, dtype=i32), 4), (1, 2, 1)))), {}),
+        "gcd": lambda: ((i((4,), 12, dtype=i32), i((4,), 12, 8, dtype=i32)),
+                        {}),
+        "lcm": lambda: ((i((4,), 6, dtype=i32), i((4,), 6, 8, dtype=i32)),
+                        {}),
+        "matmul": lambda: ((f((3, 4)), f((4, 5), seed=2)), {}),
+        "bmm": lambda: ((f((2, 3, 4)), f((2, 4, 5), seed=2)), {}),
+        "mv": lambda: ((f((3, 4)), f((4,), seed=2)), {}),
+        "addmm": lambda: ((f((3, 5)), f((3, 4), seed=2), f((4, 5), seed=3)),
+                          {}),
+        "linear": lambda: ((f((3, 4)), f((4, 5), seed=2)), {}),
+        "multi_dot": lambda: (([f((3, 4)), f((4, 5), seed=2),
+                                f((5, 2), seed=3)],), {}),
+        "matrix_power": lambda: ((sq(), 2), {}),
+        "einsum": lambda: (("ij,jk->ik", f((3, 4)), f((4, 5), seed=2)), {}),
+        "bilinear": lambda: ((f((3, 4)), f((3, 5), seed=2),
+                              f((6, 4, 5), seed=3)), {}),
+        "dot": lambda: ((f((4,)), f((4,), seed=2)), {}),
+        "outer": lambda: ((f((3,)), f((4,), seed=2)), {}),
+        "cross": lambda: ((f((3, 3)), f((3, 3), seed=2)), {}),
+        "cholesky": lambda: ((T(spd()),), {}),
+        "cholesky_inverse": lambda: ((chol(),), {}),
+        "cholesky_solve": lambda: ((f((3, 2)), chol()), {}),
+        "det": lambda: ((sq(),), {}),
+        "slogdet": lambda: ((sq(),), {}),
+        "inv": lambda: ((sq(),), {}),
+        "inverse": lambda: ((sq(),), {}),
+        "eig": lambda: ((sq(),), {}),
+        "eigvals": lambda: ((sq(),), {}),
+        "eigh": lambda: ((T(spd()),), {}),
+        "eigvalsh": lambda: ((T(spd()),), {}),
+        "solve": lambda: ((sq(), f((3, 2), seed=2)), {}),
+        "triangular_solve": lambda: ((chol(), f((3, 2), seed=2)),
+                                     {"upper": False}),
+        "lstsq": lambda: ((f((5, 3)), f((5, 2), seed=2)), {}),
+        "svd": lambda: ((f((4, 3)),), {}),
+        "qr": lambda: ((f((4, 3)),), {}),
+        "lu": lambda: ((sq(),), {}),
+        "pinv": lambda: ((f((4, 3)),), {}),
+        "pca_lowrank": lambda: ((f((6, 4)),), {"q": 2}),
+        "matrix_rank": lambda: ((sq(),), {}),
+        "transpose": lambda: ((f((3, 4)), [1, 0]), {}),
+        "flip": lambda: ((f((3, 4)), [0]), {}),
+        "moveaxis": lambda: ((f((3, 4)), [0], [1]), {}),
+        "roll": lambda: ((f((3, 4)), 1), {}),
+        "split": lambda: ((f((4, 4)), 2), {}),
+        "chunk": lambda: ((f((4, 4)), 2), {}),
+        "vsplit": lambda: ((f((4, 4)), 2), {}),
+        "hsplit": lambda: ((f((4, 4)), 2), {}),
+        "dsplit": lambda: ((f((2, 3, 4)), 2), {}),
+        "tensor_split": lambda: ((f((4, 4)), 2), {}),
+        "unflatten": lambda: ((f((3, 4)), 1, [2, 2]), {}),
+        "unsqueeze_": lambda: ((f((3, 4)), 0), {}),
+        "topk": lambda: ((f((3, 4)), 2), {}),
+        "kthvalue": lambda: ((f((3, 4)), 2), {}),
+        "one_hot": lambda: ((i((4,), 3), 3), {}),
+        "slice": lambda: ((f((3, 4)), [0], [0], [2]), {}),
+        "strided_slice": lambda: ((f((3, 4)), [0], [0], [3], [1]), {}),
+        "crop": lambda: ((f((3, 4)), [2, 2], [0, 1]), {}),
+        "pad": lambda: ((f((3, 4)), [1, 1]), {}),
+        "zeropad2d": lambda: ((f((2, 3, 4, 4)), [1, 1, 1, 1]), {}),
+        "increment": lambda: ((f((1,)),), {}),
+        "repeat_interleave": lambda: ((f((3, 4)), 2), {}),
+        "tril_indices": lambda: ((3, 3, 0), {}),
+        "triu_indices": lambda: ((3, 3, 0), {}),
+        "full": lambda: (([3, 4], 1.5), {}),
+        "full_like": lambda: ((f((3, 4)), 1.5), {}),
+        "linspace": lambda: ((0.0, 1.0, 5), {}),
+        "logspace": lambda: ((0.0, 2.0, 5), {}),
+        "quantile": lambda: ((f((3, 4)), 0.5), {}),
+        "nanquantile": lambda: ((f((3, 4)), 0.5), {}),
+        "index_add": lambda: ((f((3, 4)), i((2,), 3), 0, f((2, 4), seed=2)),
+                              {}),
+        "index_put": lambda: ((f((3, 4)), (i((2,), 3),), f((2, 4), seed=2)),
+                              {}),
+        "gather_nd": lambda: ((f((3, 4)), i((2, 1), 3)), {}),
+        "scatter_nd": lambda: ((i((2, 1), 3), f((2, 4), seed=2), [3, 4]),
+                               {}),
+        "scatter_nd_add": lambda: ((f((3, 4)), i((2, 1), 3),
+                                    f((2, 4), seed=2)), {}),
+        "take_along_axis": lambda: ((f((3, 4)), i((3, 2), 4, seed=4), 1),
+                                    {}),
+        "put_along_axis": lambda: ((f((3, 4)), i((3, 1), 4),
+                                    f((3, 1), seed=2), 1), {}),
+        "mse_loss": lambda: ((f((3, 4)), f((3, 4), seed=2)), {}),
+        "l1_loss": lambda: ((f((3, 4)), f((3, 4), seed=2)), {}),
+        "smooth_l1_loss": lambda: ((f((3, 4)), f((3, 4), seed=2)), {}),
+        "log_loss": lambda: ((f((3, 1), lo=0.1, hi=0.9),
+                              f((3, 1), lo=0.1, hi=0.9, seed=2)), {}),
+        "kl_div": lambda: ((f((3, 4)), f((3, 4), seed=2)), {}),
+        "binary_cross_entropy": lambda: ((f((3, 4), lo=0.1, hi=0.9),
+                                          f((3, 4), seed=2)), {}),
+        "binary_cross_entropy_with_logits": lambda: (
+            (f((3, 4)), f((3, 4), seed=2)), {}),
+        "hinge_embedding_loss": lambda: ((f((3, 4)), T(np.sign(
+            rngf((3, 4))).astype(np.float32))), {}),
+        "margin_ranking_loss": lambda: ((f((3,)), f((3,), seed=2),
+                                         T(np.ones(3, np.float32))), {}),
+        "soft_margin_loss": lambda: ((f((3, 4)), T(np.sign(
+            rngf((3, 4))).astype(np.float32))), {}),
+        "multi_label_soft_margin_loss": lambda: (
+            (f((3, 4)), i((3, 4), 2, dtype=np.float32)), {}),
+        "sigmoid_focal_loss": lambda: ((f((3, 4)),
+                                        i((3, 4), 2, dtype=np.float32)), {}),
+        "poisson_nll_loss": lambda: ((f((3, 4)), f((3, 4), seed=2)), {}),
+        "dice_loss": lambda: ((f((3, 4)), i((3, 1), 4)), {}),
+        "square_error_cost": lambda: ((f((3, 4)), f((3, 4), seed=2)), {}),
+        "ctc_loss": lambda: (
+            (T(np.log(rngf((6, 2, 5), 0.05, 0.95, seed=3))),
+             i((2, 3), 4, seed=4), T(np.asarray([6, 6], np.int64)),
+             T(np.asarray([3, 2], np.int64))), {}),
+        "rnnt_loss": lambda: (
+            (T(rngf((1, 3, 3, 4), -1.0, 1.0, seed=5)), i((1, 2), 3, seed=6),
+             T(np.asarray([3], np.int64)), T(np.asarray([2], np.int64))), {}),
+        "cross_entropy": lambda: ((f((3, 5)), i((3,), 5)), {}),
+        "nll_loss": lambda: ((T(np.log(rngf((3, 5), 0.1, 0.9))),
+                              i((3,), 5)), {}),
+        "batch_norm": lambda: ((f((2, 3, 4, 4)), T(np.zeros(3, np.float32)),
+                                T(np.ones(3, np.float32))), {}),
+        "layer_norm": lambda: ((f((2, 3, 4)), [4]), {}),
+        "group_norm": lambda: ((f((2, 4, 3, 3)), 2), {}),
+        "local_response_norm": lambda: ((f((2, 3, 4, 4)), 3), {}),
+        "prelu": lambda: ((f((2, 3, 4)), T(np.full(3, 0.25, np.float32))),
+                          {}),
+        "maxout": lambda: ((f((2, 4, 3, 3)), 2), {}),
+        "gumbel_softmax": lambda: ((f((3, 4)),), {}),
+        "channel_shuffle": lambda: ((f((2, 4, 3, 3)), 2), {}),
+        "pixel_shuffle": lambda: ((f((2, 4, 3, 3)), 2), {}),
+        "pixel_unshuffle": lambda: ((f((2, 1, 4, 4)), 2), {}),
+        "affine_grid": lambda: ((f((2, 2, 3)), [2, 3, 4, 4]), {}),
+        "grid_sample": lambda: ((f((2, 3, 4, 4)),
+                                 T(rngf((2, 4, 4, 2), -0.9, 0.9))), {}),
+        "fold": lambda: ((f((2, 12, 4)), [4, 4], [2, 2]),
+                         {"strides": [2, 2]}),
+        "unfold": lambda: ((f((2, 3, 6, 6)), [2, 2]), {}),
+        "flash_attention": lambda: ((f((2, 8, 2, 4)), f((2, 8, 2, 4), seed=2),
+                                     f((2, 8, 2, 4), seed=3)), {}),
+        "scaled_dot_product_attention": lambda: (
+            (f((2, 8, 2, 4)), f((2, 8, 2, 4), seed=2),
+             f((2, 8, 2, 4), seed=3)), {}),
+        "flash_attn_unpadded": lambda: (
+            (T(rngf((8, 2, 4), 0.3, 0.9, seed=1)),
+             T(rngf((8, 2, 4), 0.3, 0.9, seed=2)),
+             T(rngf((8, 2, 4), 0.3, 0.9, seed=3)),
+             T(np.asarray([0, 4, 8], i32)), T(np.asarray([0, 4, 8], i32)),
+             4, 4, 0.5), {}),
+        "adaptive_avg_pool1d": lambda: ((f((2, 3, 8)), 4), {}),
+        "adaptive_avg_pool2d": lambda: ((f((2, 3, 8, 8)), [4, 4]), {}),
+        "adaptive_avg_pool3d": lambda: ((f((2, 3, 4, 4, 4)), [2, 2, 2]), {}),
+        "adaptive_max_pool1d": lambda: ((f((2, 3, 8)), 4), {}),
+        "adaptive_max_pool2d": lambda: ((f((2, 3, 8, 8)), [4, 4]), {}),
+        "adaptive_max_pool3d": lambda: ((f((2, 3, 4, 4, 4)), [2, 2, 2]), {}),
+        "avg_pool1d": lambda: ((f((2, 3, 8)), 2), {}),
+        "avg_pool2d": lambda: ((f((2, 3, 8, 8)), 2), {}),
+        "avg_pool3d": lambda: ((f((2, 3, 4, 4, 4)), 2), {}),
+        "max_pool1d": lambda: ((f((2, 3, 8)), 2), {}),
+        "max_pool2d": lambda: ((f((2, 3, 8, 8)), 2), {}),
+        "max_pool3d": lambda: ((f((2, 3, 4, 4, 4)), 2), {}),
+        "max_unpool1d": lambda: unpool((2, 3, 8), F.max_pool1d),
+        "max_unpool2d": lambda: unpool((2, 3, 8, 8), F.max_pool2d),
+        "max_unpool3d": lambda: unpool((2, 3, 4, 4, 4), F.max_pool3d),
+        "conv1d": lambda: ((f((2, 3, 8)), f((4, 3, 3), seed=2)), {}),
+        "conv2d": lambda: ((f((2, 3, 8, 8)), f((4, 3, 3, 3), seed=2)), {}),
+        "conv3d": lambda: ((f((1, 2, 4, 4, 4)), f((3, 2, 2, 2, 2), seed=2)),
+                           {}),
+        "conv1d_transpose": lambda: ((f((2, 3, 8)), f((3, 4, 3), seed=2)),
+                                     {}),
+        "conv2d_transpose": lambda: ((f((2, 3, 8, 8)),
+                                      f((3, 4, 3, 3), seed=2)), {}),
+        "conv3d_transpose": lambda: ((f((1, 2, 4, 4, 4)),
+                                      f((2, 3, 2, 2, 2), seed=2)), {}),
+    }
+    if card and op in ("flash_attention", "scaled_dot_product_attention"):
+        return (f((2, 8, 2, 64)), f((2, 8, 2, 64), seed=2),
+                f((2, 8, 2, 64), seed=3)), {}
+    if op in custom:
+        return custom[op]()
+    args, seed = [], 0
+    for name, param in inspect.signature(fn).parameters.items():
+        if param.default is not inspect.Parameter.empty:
+            break
+        if param.kind in (param.VAR_POSITIONAL, param.VAR_KEYWORD):
+            break
+        if name in _SWEEP_INT_NAMES:
+            args.append(T(_sweep_rng(seed).integers(0, 3, (3,)).astype(
+                np.int64)))
+        elif name == "shape":
+            args.append([3, 4])
+        elif name in ("num_rows", "n", "num"):
+            args.append(3)
+        elif name == "dtype":
+            args.append("float32")
+        elif name in ("inputs", "tensors", "xs"):
+            args.append([f(seed=seed), f(seed=seed + 7)])
+        else:  # default: a float tensor
+            args.append(f(seed=seed))
+        seed += 11
+    return tuple(args), {}
+
+
+def _sweep_flat(out, torch):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        flat = []
+        for o in out:
+            flat.extend(_sweep_flat(o, torch))
+        return flat
+    return []
+
+
+def _sweep_signed(op, out, s):
+    k, k2, axis = SWEEP_SIGNED[op]
+    out = list(out)
+    out[k] = out[k] * s.to(out[k].device)
+    if k2 is not None:
+        s2 = s.to(out[k2].device)
+        out[k2] = out[k2] * (s2[:, None] if axis == -2 else s2)
+    return tuple(out)
+
+
+def _sweep_fn(pt, op):
+    fn = getattr(pt._C_ops, op)
+    if op == "linear":
+        # the port's linear takes torch's [out, in] weight; the sweep's
+        # inputs are the reference's [in, out]
+        return lambda x, w, b=None, name=None: fn(x, w.mT, b)
+    return fn
+
+
+def sweep_case(torch, pt, op, device, signs=None):
+    """One registry op at the sweep's inputs on ``device`` (float32):
+    its outputs on the host and, unless the op is a draw or in
+    ``SWEEP_NO_GRAD``, the gradients of its summed float outputs with
+    respect to its float tensor inputs.  ``signs`` (from another run)
+    aligns free eigen/singular vector signs."""
+    from paddle_tpu_torch.ops.registry import registry_by_name, resolve
+    pt.set_device("cpu" if device == "cpu" else "gpu")   # creation ops
+    fn = _sweep_fn(pt, op)
+    args, kw = sweep_inputs(
+        op, resolve(registry_by_name()[op]),
+        lambda a: pt.to_tensor(a, place=device), pt.nn.functional,
+        card=True)
+    args = list(args)
+    grad = not (op in SWEEP_BITS or op in SWEEP_ULPS or op in SWEEP_LAW
+                or op in SWEEP_NO_GRAD)
+    idx = [k for k, a in enumerate(args) if isinstance(a, torch.Tensor)
+           and a.is_floating_point()] if grad else []
+    for k in idx:
+        args[k].stop_gradient = False
+    pt.seed(1234)
+    out = fn(*args, **kw)
+    if op in SWEEP_SIGNED and signs is not None:
+        out = _sweep_signed(op, out, signs)
+    outs = _sweep_flat(out, torch)
+    host = [o.detach().cpu() for o in outs]
+    if not outs:
+        host = [out]
+    grads = None
+    fl = [o for o in outs if o.is_floating_point() and o.requires_grad]
+    if idx and fl:
+        loss = fl[0].float().sum()
+        for o in fl[1:]:
+            loss = loss + o.float().sum()
+        loss.backward()
+        grads = [None if args[k].grad is None else
+                 args[k].grad.detach().cpu() for k in idx]
+    return host, grads
+
+
+def _sweep_signs(torch, op, want, got):
+    k = SWEEP_SIGNED[op][0]
+    dots = (want[k].double() * got[k].double()).sum(-2)
+    return torch.where(dots < 0, -1.0, 1.0).float()
+
+
+def _sweep_close(torch, op, what, got, want, rel, floor=0.0):
+    """Equal dtypes; floats within ``rel`` of max(largest, floor), the
+    rest exact.  Returns the error over that scale."""
+    if not isinstance(want, torch.Tensor):
+        if want != got:
+            raise AssertionError(f"8c (e) {op} {what}: {got} != {want}")
+        return 0.0
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"8c (e) {op} {what}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if not (want.is_floating_point() or want.is_complex()):
+        if not torch.equal(got, want):
+            raise AssertionError(f"8c (e) {op} {what}: not equal")
+        return 0.0
+    w, g = want.to(torch.complex64 if want.is_complex() else torch.float32), \
+        got.to(torch.complex64 if want.is_complex() else torch.float32)
+    fin = torch.isfinite(w)
+    if not torch.equal(fin, torch.isfinite(g)):
+        raise AssertionError(f"8c (e) {op} {what}: non-finite entries differ")
+    if not bool(fin.any()):
+        return 0.0
+    scale = max(float(w[fin].abs().max()), floor, 1e-30)
+    err = float((g[fin] - w[fin]).abs().max()) / scale
+    if err > rel:
+        raise AssertionError(f"8c (e) {op} {what}: card vs CPU {err:.3g} of "
+                             f"the largest entry (limit {rel:.3g})")
+    return err
+
+
+def _tensor_api_sweep(torch, pt):
+    """(e): every registry op the port resolves (the CPU sweep's cases),
+    card against CPU in float32, forward and gradient; threefry draws
+    bit-equal.  Returns (ops run, worst error, ops with a gradient)."""
+    from paddle_tpu_torch.ops.registry import registry_by_name
+    ops = sorted(op for op in registry_by_name() if op not in SWEEP_SKIP)
+    worst, n_grad = 0.0, 0
+    walls = []
+    for op in ops:
+        t_op = time.perf_counter()
+        cpu_out, cpu_g = sweep_case(torch, pt, op, "cpu")
+        signs = None
+        if op in SWEEP_SIGNED:
+            probe, _ = sweep_case(torch, pt, op, "cuda")
+            signs = _sweep_signs(torch, op, cpu_out, probe)
+        gpu_out, gpu_g = sweep_case(torch, pt, op, "cuda", signs)
+        if len(cpu_out) != len(gpu_out):
+            raise AssertionError(f"8c (e) {op}: {len(gpu_out)} outputs on "
+                                 f"the card, {len(cpu_out)} on the CPU")
+        for k, (g, w) in enumerate(zip(gpu_out, cpu_out)):
+            if op in SWEEP_LAW:
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"8c (e) {op}: law draw's shape or "
+                                         f"dtype differs")
+                continue
+            if op in ("eig", "eigvals") and k == 0:
+                g = torch.sort(torch.view_as_real(g.to(torch.complex64)),
+                               dim=0).values if g.is_complex() else \
+                    torch.sort(g).values
+                w = torch.sort(torch.view_as_real(w.to(torch.complex64)),
+                               dim=0).values if w.is_complex() else \
+                    torch.sort(w).values
+            elif op == "eig":
+                continue        # vectors: their eigenvalue order is free
+            rel = 0.0 if op in SWEEP_BITS else TENSOR_API_SWEEP_REL
+            worst = max(worst, _sweep_close(torch, op, f"output {k}", g, w,
+                                            rel))
+        if cpu_g is not None:
+            n_grad += 1
+            for k, (g, w) in enumerate(zip(gpu_g, cpu_g)):
+                if g is None or w is None:
+                    other = w if g is None else g
+                    if other is not None and bool(other.abs().max() > 0):
+                        raise AssertionError(f"8c (e) {op}: a gradient on "
+                                             f"one device only")
+                    continue
+                worst = max(worst, _sweep_close(
+                    torch, op, f"grad {k}", g, w, TENSOR_API_SWEEP_REL,
+                    floor=1.0))
+        walls.append((time.perf_counter() - t_op, op))
+    slow = ", ".join(f"{op} {w * 1e3:.0f}" for w, op in sorted(walls)[-6:])
+    return len(ops), worst, n_grad, slow
+
+
+def tensor_api_grads(pt, model, xh, dev):
+    """8c (d)'s one run of ``model`` on ``dev`` (``"cpu"`` or ``"gpu"``):
+    ``[loss, each weight's gradient, the input's gradient]`` of one
+    forward and backward on the host tensor ``xh``."""
+    pt.set_device(dev)          # the rotary tables' device
+    x = pt.to_tensor(xh, place=dev, stop_gradient=False)
+    loss = model.loss(model.forward(x))
+    loss.backward()
+    return [loss] + [p.grad for p in model.parameters()] + [x.grad]
+
+
+def hold_by_own_largest(torch, tag, got, want, rel):
+    """Assert each card tensor of ``got`` within ``rel`` of its CPU twin
+    in ``want``, scaled by that twin's own largest entry (``max|g - w| /
+    max|w|``, tensor by tensor: a gradient of 1e-5 is held at 1e-5
+    ``rel``, not at an absolute ``rel``); returns the worst ratio and the
+    index of its tensor."""
+    worst, at = 0.0, None
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().float().cpu()
+        w = w.detach().float().cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: tensor {i} is {tuple(g.shape)} "
+                                 f"and finite {bool(torch.isfinite(g).all())}"
+                                 f" on the card, {tuple(w.shape)} on the CPU")
+        diff = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        if scale > 0:
+            err = diff / scale
+        else:
+            err = 0.0 if diff == 0 else float("inf")
+        if err > rel:
+            raise AssertionError(f"{tag}: tensor {i} card vs CPU {err:.3g} "
+                                 f"of its largest entry {scale:.3g} (limit "
+                                 f"{rel:.3g})")
+        if at is None or err > worst:
+            worst, at = err, i
+    return worst, at
+
+
+def _host_us_per_op(torch, pt, forward, x, n_ops, reps=3):
+    """Host wall of enqueuing one ``forward(x)`` (no sync inside), least
+    of ``reps``, per facade op of (b)'s forward."""
+    walls = []
+    with pt.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(x)
+            walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+    return min(walls) / n_ops * 1e6
+
+
+def _raw_torch_forward(torch, model):
+    """8c (f)'s floor: ``model``'s forward written with raw torch calls
+    and the kernel wrappers (``ops.rms_norm.rms_norm``,
+    ``ops.flash_attention.flash_attention``) over the same weights, op
+    for op: no facade function and no dispatcher."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    from paddle_tpu_torch.ops.rms_norm import rms_norm
+    T = torch.Tensor
+    layers = [{k: v.detach().as_subclass(T) for k, v in layer.items()}
+              for layer in model.layers]
+    norm = model.norm.detach().as_subclass(T)
+    nh, nkv, d, eps = model.heads, model.kv_heads, model.d, model.eps
+    half = d // 2
+
+    def rope(x, cos, sin):
+        xf = x.float()
+        rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+        return torch.add(xf * cos, rot * sin).to(x.dtype)
+
+    def forward(x):
+        b, s = x.shape[0], x.shape[1]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        inv = 1.0 / (model.base ** (torch.arange(0, d, 2, **f32) / float(d)))
+        pos = torch.arange(s, **f32)
+        freqs = torch.matmul(pos.reshape(s, 1), inv.reshape(1, half))
+        emb = torch.cat([freqs, freqs], dim=-1)
+        tab = torch.stack([torch.cos(emb), torch.sin(emb)])
+        cos, sin = tab[0].reshape(1, s, 1, d), tab[1].reshape(1, s, 1, d)
+        for L in layers:
+            h = rms_norm(x, L["ln1"], eps)
+            q = torch.matmul(h, L["wq"]).reshape(b, s, nh, d)
+            k = torch.matmul(h, L["wk"]).reshape(b, s, nkv, d)
+            v = torch.matmul(h, L["wv"]).reshape(b, s, nkv, d)
+            q, k = rope(q, cos, sin), rope(k, cos, sin)
+            a = flash_attention(q, k, v, causal=True).reshape(b, s, nh * d)
+            x = torch.add(x, torch.matmul(a, L["wo"].permute(1, 0)))
+            h = rms_norm(x, L["ln2"], eps)
+            gate, up = torch.split(torch.matmul(h, L["w_gate_up"]),
+                                   L["w_down"].shape[0], dim=-1)
+            sig = 1.0 / (1.0 + torch.exp(-gate))
+            x = torch.add(x, torch.matmul(torch.mul(gate * sig, up),
+                                          L["w_down"]))
+        return rms_norm(x, norm, eps)
+
+    return forward
+
+
+def _plain_copy(torch, model):
+    """The same decoder over plain ``torch.Tensor`` views of its weights
+    (the facade's functions then run on torch's rules and return plain
+    tensors)."""
+    import copy
+    plain = copy.copy(model)
+    plain.layers = [{k: v.detach().as_subclass(torch.Tensor)
+                     for k, v in layer.items()} for layer in model.layers]
+    plain.norm = model.norm.detach().as_subclass(torch.Tensor)
+    plain.tables = lambda s: tuple(t.as_subclass(torch.Tensor)
+                                   for t in model.tables(s))
+    return plain
+
+
+def phase_tensor_api(torch, seed, smi):
+    """Phase 8c (see the module docstring); returns the launches of the
+    main path ((a)-(c): the forwards and backwards)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.runtime import HostTracer
+    c = TENSOR_API
+    nl, b, s = c["layers"], c["batch"], c["seq"]
+    per_fwd = {"rms_norm": 2 * nl + 1, "flash_attention_fwd": nl}
+    total = {}
+    t_phase = time.perf_counter()
+    prev_dev = tdevice._layer_device
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pt.set_device("gpu")
+        # (a) weights drawn on the card by the facade's ``normal``
+        pt.seed(seed + 40)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = _tensor_decoder(pt, nl, "bfloat16")
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        params = model.parameters()
+        n_params = sum(p.numel() for p in params)
+        card = tdevice.resolve_device()
+        if not all(p.device == card and p.dtype == torch.bfloat16
+                   and p.is_leaf and not p.stop_gradient for p in params):
+            raise AssertionError("8c (a): a weight is not a bf16 leaf on "
+                                 "the card that needs a gradient")
+        h0 = (pt.randn([b, s, c["hidden"]]) * 0.5).astype("bfloat16")
+        h0.stop_gradient = False
+        _log(f"tensor api 8c (a) weights: {n_params / 1e6:.1f} M parameters "
+             f"({n_params * 2 / 1e9:.3f} GB bf16) drawn on the card by "
+             f"pt.normal (threefry) in {draw_s:.2f} s")
+        # (b) forward
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(model.forward(h0))
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        counts = _launch_counts()
+        _add_launches(total, counts)
+        if counts != per_fwd:
+            raise AssertionError(f"8c (b) forward launches {counts}, want "
+                                 f"{per_fwd}")
+        if not bool(pt.isfinite(loss)):
+            raise AssertionError("8c (b) loss not finite")
+        reps = 3
+        _zero_launches()
+        warm_ms = _wall_ms(torch, lambda: model.loss(model.forward(h0)),
+                           n=reps)
+        counts = _launch_counts()
+        _add_launches(total, counts)
+        if counts != {k_: v_ * reps for k_, v_ in per_fwd.items()}:
+            raise AssertionError(f"8c (b) {reps} forwards launched {counts}")
+        _log(f"tensor api 8c (b) forward B={b} S={s} bf16 ({nl} layers at "
+             f"Llama-3-8B width): {warm_ms:.3f} ms (least of {reps} synced "
+             f"walls; the first {fwd_ms:.3f}), loss "
+             f"{float(loss.detach()):.6g}, launches a forward {per_fwd}; "
+             f"{smi}")
+        # (c) backward
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd_ms = (time.perf_counter() - t0) * 1e3
+        counts = _launch_counts()
+        _add_launches(total, counts)
+        want_bwd = {"flash_attention_bwd": nl}
+        if counts != want_bwd:
+            raise AssertionError(f"8c (c) backward launches {counts}, want "
+                                 f"{want_bwd}")
+        first = [p.grad.float().clone() for p in params]
+        if not all(bool(torch.isfinite(g).all()) for g in first):
+            raise AssertionError("8c (c) a weight's gradient is not finite")
+        h0_grad = h0.grad.float().clone()
+        # a second backward after a new forward accumulates (its wall is
+        # the warm backward's)
+        _zero_launches()
+        loss1 = model.loss(model.forward(h0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss1.backward()
+        torch.cuda.synchronize()
+        warm_bwd_ms = (time.perf_counter() - t0) * 1e3
+        _add_launches(total, _launch_counts())
+        acc = 0.0
+        for p, g1 in zip(params, first):
+            scale = float(g1.abs().max()) * 2 or 1.0
+            acc = max(acc, float((p.grad.float() - 2 * g1).abs().max())
+                      / scale)
+        if acc > TENSOR_API_REPEAT_REL:
+            raise AssertionError(f"8c (c) two backwards {acc:.3g} of twice "
+                                 f"one (limit {TENSOR_API_REPEAT_REL:.3g})")
+        # paddle.grad against the .grad route
+        _zero_launches()
+        loss2 = model.loss(model.forward(h0))
+        (gh,) = pt.grad(loss2, [h0])
+        _add_launches(total, _launch_counts())
+        g_err = float((gh.float() - h0_grad).abs().max()) / max(
+            float(h0_grad.abs().max()), 1e-30)
+        if g_err > TENSOR_API_REPEAT_REL:
+            raise AssertionError(f"8c (c) grad(loss, [h0]) {g_err:.3g} from "
+                                 f"the .grad route")
+        _log(f"tensor api 8c (c) backward: {warm_bwd_ms:.3f} ms (a synced "
+             f"wall; the first {bwd_ms:.3f}), flash backward {nl} launches, "
+             f"every weight's .grad "
+             f"finite; a second backward accumulates to twice the first "
+             f"within {acc:.3g} of the largest (limit "
+             f"{TENSOR_API_REPEAT_REL:.3g}: the one-pass dQ's run-to-run "
+             f"order); pt.grad(loss, [h0]) equals the .grad route within "
+             f"{g_err:.3g}; {smi}")
+        # the PyLayer's gradients against autograd through the same ops
+        SwiGLU = type(model).SwiGLU
+        g32 = pt.randn([4, 64])
+        u32 = pt.randn([4, 64])
+        ga, ua = g32.clone(), u32.clone()
+        for t in (g32, u32, ga, ua):
+            t.stop_gradient = False
+        w = pt.randn([4, 64])
+        (SwiGLU.apply(g32, u32) * w).sum().backward()
+        ((ga * (1.0 / (1.0 + pt.exp(-ga)))) * ua * w).sum().backward()
+        pl = max(float((g32.grad - ga.grad).abs().max()),
+                 float((u32.grad - ua.grad).abs().max()))
+        if pl > 1e-5:
+            raise AssertionError(f"8c (c) PyLayer gradients {pl:.3g} from "
+                                 f"autograd")
+        # (f) the facade's host cost (before the small phases free memory)
+        HostTracer.clear()
+        HostTracer.enable()
+        with pt.no_grad():
+            model.forward(h0)
+        HostTracer.disable()
+        n_ops = sum(1 for e in HostTracer.events()
+                    if e[0] == 0 and e[5].startswith("op::"))
+        HostTracer.clear()
+        plain = _plain_copy(torch, model)
+        raw = _raw_torch_forward(torch, model)
+        x_plain = h0.detach().as_subclass(torch.Tensor)
+        runs = {}
+        for tag, fwd, x in (("facade", model.forward, h0.detach()),
+                            ("plain", plain.forward, x_plain),
+                            ("raw", raw, x_plain)):
+            _zero_launches()
+            with pt.no_grad():
+                out = fwd(x)
+            runs[tag] = (out, _launch_counts())
+        facade_launch = runs["facade"][1]
+        f_out = runs["facade"][0].float()
+        raw_err = float((runs["raw"][0].float() - f_out).abs().max()) / \
+            float(f_out.abs().max())
+        if any(type(runs[t][0]) is not torch.Tensor for t in ("plain", "raw"))\
+                or any(runs[t][1] != facade_launch for t in runs) \
+                or raw_err > TENSOR_API_REPEAT_REL:
+            raise AssertionError(
+                f"8c (f): results {[type(r[0]) for r in runs.values()]}, "
+                f"launches {[r[1] for r in runs.values()]}, raw vs facade "
+                f"{raw_err:.3g} of the largest")
+        us = {tag: _host_us_per_op(torch, pt, fwd, x, n_ops)
+              for tag, fwd, x in (("facade", model.forward, h0.detach()),
+                                  ("plain", plain.forward, x_plain),
+                                  ("raw", raw, x_plain))}
+        _log(f"tensor api 8c (f) host cost: (b)'s forward runs {n_ops} "
+             f"facade ops; host time to enqueue it {us['facade']:.1f} us an "
+             f"op on facade tensors, {us['plain']:.1f} us on plain tensors "
+             f"through the same facade functions (as_subclass(torch.Tensor)),"
+             f" {us['raw']:.1f} us written with raw torch calls and the "
+             f"kernel wrappers (output within {raw_err:.3g} of the facade's "
+             f"largest entry); launches equal {facade_launch}; {smi}")
+        del model, plain, raw, runs, out, f_out
+        del params, first, loss, loss1, loss2, gh
+        torch.cuda.empty_cache()
+        # (d) card against CPU: 1 layer in float32; the host decoder
+        # holds weights drawn on the card (threefry on the host's cores
+        # would take tens of seconds at this width), and the card's
+        # decoder is carried from it by to_tensor(place=)
+        pt.seed(seed + 41)
+        drawn = tensor_decoder_class(pt)(
+            c["hidden"], c["heads"], c["kv_heads"], c["ffn"],
+            c["cpu_layers"], c["eps"], c["rope_base"], "float32", c["std"])
+        host = copy_decoder_to(pt, drawn, "cpu")
+        del drawn
+        xh = pt.randn([c["cpu_batch"], c["cpu_seq"], c["hidden"]]).cpu()
+        card = copy_decoder_to(pt, host, "gpu")
+        want = tensor_api_grads(pt, host, xh, "cpu")
+        got = tensor_api_grads(pt, card, xh, "gpu")
+        d_err, d_at = hold_by_own_largest(torch, "8c (d)", got, want,
+                                          TENSOR_API_REL)
+        _log(f"tensor api 8c (d) card vs CPU, 1 layer float32 (TF32 off) "
+             f"B={c['cpu_batch']} S={c['cpu_seq']}, weights carried by "
+             f"to_tensor(place=): the loss and each of the "
+             f"{len(want) - 1} gradients within {d_err:.3g} of its own "
+             f"largest entry (max |card - CPU| / max |CPU|, worst: tensor "
+             f"{d_at}; limit {TENSOR_API_REL}); gradients' largest "
+             f"entries {min(float(w.abs().max()) for w in want[1:]):.3g} "
+             f"to {max(float(w.abs().max()) for w in want[1:]):.3g}")
+        del host, card, want, got
+        torch.cuda.empty_cache()
+        # (e) the registry sweep, card against CPU
+        t0 = time.perf_counter()
+        n_ops_swept, worst, n_grad, slow = _tensor_api_sweep(torch, pt)
+        sweep_s = time.perf_counter() - t0
+        _log(f"tensor api 8c (e) op sweep: {n_ops_swept} registry ops at the "
+             f"CPU sweep's inputs (the two flash ops at head_dim 64, which "
+             f"the kernels take), float32 (TF32 off), card vs CPU, forward "
+             f"and ({n_grad} ops) the gradient: worst {worst:.3g} of the "
+             f"largest entry (limit {TENSOR_API_SWEEP_REL}); threefry draws "
+             f"bit-equal; {sweep_s:.2f} s (the slowest ops, ms on both "
+             f"devices: {slow})")
+    finally:
+        tdevice._layer_device = prev_dev
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not all(total.get(k_) for k_ in ("rms_norm", "flash_attention_fwd",
+                                        "flash_attention_bwd")):
+        raise AssertionError(f"phase 8c: a kernel never launched {total}")
+    _log(f"tensor api 8c: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def copy_decoder_to(pt, model, place):
+    """A copy of a ``tensor_decoder_class`` model with every weight
+    carried to ``place`` by ``to_tensor`` (a leaf that needs a
+    gradient)."""
+    import copy
+    out = copy.copy(model)
+    out.layers = [{k: pt.to_tensor(v, place=place, stop_gradient=False)
+                   for k, v in layer.items()} for layer in model.layers]
+    out.norm = pt.to_tensor(model.norm, place=place, stop_gradient=False)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10402,6 +11476,11 @@ def main(argv=None) -> int:
                          "and in the serving decode step "
                          "(phase_norm_window), then stop without a result "
                          "line")
+    ap.add_argument("--facade-window", action="store_true",
+                    help="measure the host cost of nn.functional's tensor "
+                         "ops on plain tensors and in ERNIE's step "
+                         "(phase_facade_window), then stop without a "
+                         "result line")
     ap.add_argument("--root", help="import paddle_tpu_torch from this tree "
                                    "instead of the checkout (with a "
                                    "--*-window: measure another commit)")
@@ -10428,6 +11507,9 @@ def main(argv=None) -> int:
         return 0
     if args.norm_window:
         phase_norm_window(torch, args.seed)
+        return 0
+    if args.facade_window:
+        phase_facade_window(torch, args.seed)
         return 0
     t_start = time.perf_counter()
 
@@ -10541,6 +11623,8 @@ def main(argv=None) -> int:
     mark("phase 8a")
     by_path["nn_api"] = phase_nn_api(torch, args.seed, smi)
     mark("phase 8b")
+    by_path["tensor_api"] = phase_tensor_api(torch, args.seed, smi)
+    mark("phase 8c")
     # the case of each kernel's row: bf16 on its main path's shape
     # (RMSNorm: one serving decode step; the quantized matmul: int8, one
     # decode step's gate/up projection, M=8 K=4096 N=14336)

@@ -94,19 +94,114 @@ beside it slice by slice and imports nothing of it (nor JAX).
   ``memory_efficient_attention`` reach the RMSNorm and flash-forward
   kernels; no kernel is added.
 
+- Slice 25, the tensor facade: ``Tensor`` (a ``torch.Tensor`` subclass
+  that adds the reference's surface), ``to_tensor``, the dtypes (``int64``
+  is ``int32``, as in the reference's 32-bit JAX), places, the grad
+  modes, ``grad``, per-use gradient hooks, the op dispatcher
+  (``core.dispatch``: AMP under the reference's op names and
+  ``op::<name>`` spans), ``tensor`` (the registry's 289 tensor ops with
+  the reference's signatures and result dtypes, threefry draws
+  bit-equal to the reference's), the port's ``ops.yaml`` registry and
+  ``_C_ops``, and ``autograd`` (``PyLayer``, ``vjp``/``jvp``/
+  ``jacobian``/``hessian``); a decoder written against this API reaches
+  the RMSNorm and flash kernels through ``_C_ops``; no kernel is added.
+
 Entry points run on the CUDA card unless called with ``device="cpu"``
 (an ``nn.Layer``'s ``create_parameter``: unless ``set_device("cpu")``).
 """
 
-from . import (amp, core, device, distributed, framework,  # noqa: F401
-               hapi, incubate, inference, io, jit, metric, models, nn,
-               observability, ops, optimizer, quantization, regularizer,
-               runtime, static, vision)
+# ---- core ----
+from .core.tensor import Tensor, to_tensor, is_tensor  # noqa: F401
+from .core.tape import (no_grad, enable_grad,  # noqa: F401
+                        set_grad_enabled, is_grad_enabled)
+from .core.tape import grad as _tape_grad
+from .core.dtypes import (  # noqa: F401
+    bool_ as bool, uint8, int8, int16, int32, int64, float16, bfloat16,
+    float32, float64, complex64, complex128, float8_e4m3fn, float8_e5m2,
+    set_default_dtype, get_default_dtype,
+)
+from .core.generator import (seed, get_rng_state,  # noqa: F401
+                             set_rng_state, Generator)
 from .core.flags import get_flags, set_flags  # noqa: F401
-from .core.generator import seed  # noqa: F401
-from .device import set_device  # noqa: F401
+from .core.device import (  # noqa: F401
+    set_device, get_device, CPUPlace, TPUPlace, CUDAPlace,
+    is_compiled_with_cuda, is_compiled_with_tpu, device_count,
+)
+
+# ---- ops (also attaches the Tensor methods) ----
+from .tensor import *  # noqa: F401,F403
+from . import tensor  # noqa: F401
+from . import _C_ops  # noqa: F401
+
+# ---- subsystems ----
+from . import (amp, autograd, core, device, distributed,  # noqa: F401
+               framework, hapi, incubate, inference, io, jit, metric,
+               models, nn, observability, ops, optimizer, quantization,
+               regularizer, runtime, static, vision)
 from .framework.io import load, save  # noqa: F401
 from .hapi.dynamic_flops import flops  # noqa: F401
 from .hapi.model import Model  # noqa: F401
 from .hapi.model_summary import summary  # noqa: F401
 from .nn.lazy import LazyGuard  # noqa: F401
+from .autograd.py_layer import PyLayer  # noqa: F401
+
+import torch as _torch
+
+dtype = _torch.dtype
+grad = _tape_grad
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """Configure the numpy printing a ``Tensor``'s repr uses (the
+    reference's ``paddle.set_printoptions`` subset)."""
+    import numpy as _np
+    kw = {}
+    if precision is not None:
+        kw["precision"] = precision
+    if threshold is not None:
+        kw["threshold"] = threshold
+    if edgeitems is not None:
+        kw["edgeitems"] = edgeitems
+    if linewidth is not None:
+        kw["linewidth"] = linewidth
+    if sci_mode is not None:
+        kw["suppress"] = not sci_mode
+    _np.set_printoptions(**kw)
+
+
+def iinfo(dtype_):
+    from .core.dtypes import convert_dtype
+    return _torch.iinfo(convert_dtype(dtype_))
+
+
+def finfo(dtype_):
+    from .core.dtypes import convert_dtype
+    return _torch.finfo(convert_dtype(dtype_))
+
+
+def get_cuda_rng_state():
+    """The generator's state (one logical generator, as the
+    reference's)."""
+    return [get_rng_state()]
+
+
+def set_cuda_rng_state(state_list):
+    if state_list:
+        set_rng_state(state_list[0])
+
+
+def disable_static():
+    """Eager execution is the default and only mode (the reference's
+    no-op)."""
+
+
+def enable_static():
+    """Static graphs are built under ``static.program_guard`` (the
+    reference's no-op)."""
+
+
+def in_dynamic_mode() -> bool:
+    """True when executing eagerly (not while ``torch.compile`` or
+    ``torch.export`` traces)."""
+    return not _torch.compiler.is_compiling()

@@ -32,7 +32,8 @@ _DEFS: Dict[str, dict] = {}
 
 # flag -> where its other route is queued (ROADMAP.md, Queue 1)
 _UNPORTED = {
-    "check_nan_inf": "item 13 (framework surface: the eager NaN/Inf scan)",
+    "check_nan_inf": "item 13 part 7 (framework surface: the eager "
+                     "NaN/Inf scan)",
     "benchmark": "item 13 (framework surface: eager op timing)",
     "use_autotune": "item 13 (framework surface: the kernel autotuner)",
     "use_decode_attention_kernel": "item 11 (the XLA decode path: "

@@ -62,6 +62,8 @@ def set_device(device: str) -> torch.device:
     ``super().__init__()`` bare can be built on the CPU.  Every other
     entry point keeps its own ``device=`` (``resolve_device``)."""
     global _layer_device
+    if hasattr(device, "torch_device"):    # a core.device.Place
+        device = device.torch_device()
     dev = resolve_device(str(device).replace("gpu", "cuda"))
     _layer_device = dev
     return dev

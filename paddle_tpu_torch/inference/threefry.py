@@ -137,12 +137,20 @@ def uniform(keys: torch.Tensor, shape: Sequence[int] = (),
     """``jax.random.uniform`` (float32) per key: the top 23 bits of each
     word as the mantissa of a float in [1, 2), minus 1, then ``* (maxval
     - minval) + minval`` (the difference taken in float32) and
-    ``max(minval, .)``, as ``_uniform`` builds it."""
+    ``max(minval, .)``, as ``_uniform`` builds it.  XLA fuses that
+    multiply-add (one rounding): with a scale other than 1 it is taken
+    in float64, where the product of two float32 values is exact (the
+    sum's own rounding can then meet a float32 tie, about once in 2^29
+    draws)."""
     bits = random_bits(keys, shape)
     lo, hi = np.float32(minval), np.float32(maxval)
     scale = float(hi - lo)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f * scale + float(lo), float(lo))
+    if scale != 1.0:
+        f = (f.double() * scale + float(lo)).float()
+    else:
+        f = f + float(lo)
+    return torch.clamp_min(f, float(lo))
 
 
 def gumbel(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:

@@ -5,8 +5,9 @@
   ``position_ids`` the rotation is plain torch math, without them it is
   the RoPE kernel (``ops/rope.py``), as in the JAX package.
 - ``add``, ``multiply``, ``concat`` and ``split``: the tensor ops that
-  the decoder layers and the vision zoo call, under the reference's op
-  names (``paddle_tpu/tensor/{math,manipulation}.py``).
+  the decoder layers and the vision zoo call, re-exported from the
+  facade's ``tensor`` package (one definition; on plain torch tensors
+  they keep torch's rules).
 - ``linear`` in torch's layout (its weight is ``[out, in]``; the JAX
   package's is ``[in, out]``).
 - ``embedding`` and ``one_hot`` (``input.py``, port of
@@ -64,15 +65,14 @@ from ...ops.flash_attention import flash_attention as _flash
 from ...ops.rope import apply_rope
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: torch.Tensor = None) -> torch.Tensor:
+def linear(x, weight, bias=None, name=None):
     """``x @ weight.T + bias`` with ``weight`` ``[out, in]``."""
     x, weight, bias = _amp_cast("linear", x, weight, bias)
     return F.linear(x, weight, bias)
 
 
-def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
-               epsilon: float = 1e-5) -> torch.Tensor:
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
+               name=None):
     """Normalize over the trailing ``normalized_shape`` axes in float32
     (population variance), then the float32 affine, then one cast back
     to x's dtype."""
@@ -104,7 +104,7 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+def gelu(x, approximate=False, name=None):
     """``jax.nn.gelu``: ``0.5 * x * erfc(-x * sqrt(1/2))``, or with
     ``approximate`` ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715
     x^3)))``, in x's dtype."""
@@ -116,7 +116,7 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return 0.5 * x * torch.special.erfc(-x * _in_dtype(_SQRT_HALF, x.dtype))
 
 
-def relu(x: torch.Tensor) -> torch.Tensor:
+def relu(x, name=None):
     (x,) = _amp_cast("relu", x)
     return torch.relu(x)
 
@@ -126,29 +126,11 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
 
-def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x + y`` (the residual adds of the decoder layers)."""
-    x, y = _amp_cast("add", x, y)
-    return x + y
-
-
-def multiply(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x * y`` (the vision zoo's squeeze-excite scales)."""
-    x, y = _amp_cast("multiply", x, y)
-    return x * y
-
-
-def concat(xs, axis: int = 0) -> torch.Tensor:
-    """``torch.cat`` under the reference's op name (the vision zoo's
-    branch joins)."""
-    return torch.cat(_amp_cast("concat", *xs), dim=axis)
-
-
-def split(x: torch.Tensor, num: int, axis: int = 0):
-    """``num`` equal chunks along ``axis``, as a list (ShuffleNet v2's
-    channel split)."""
-    (x,) = _amp_cast("split", x)
-    return list(torch.chunk(x, num, dim=axis))
+# the tensor ops the decoder layers (residual adds) and the vision zoo
+# (squeeze-excite scales, branch joins, ShuffleNet's channel split) call:
+# the facade's one definition, torch's rules on plain tensors
+from ...tensor.manipulation import concat, split  # noqa: E402,F401
+from ...tensor.math import add, multiply  # noqa: E402,F401
 
 
 def swiglu(x: torch.Tensor, y: torch.Tensor = None) -> torch.Tensor:
@@ -304,7 +286,7 @@ def _attention_math(q, k, v, mask=None, causal=False, dropout_p=0.0,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """q/k/v: [B, S, H, D] (the reference API layout).  Without a mask
     and dropout (and with equal q/k lengths) this is the flash-attention
     kernels on the card; otherwise the ``_xla_attention`` math in plain

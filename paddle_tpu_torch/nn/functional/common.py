@@ -1,7 +1,8 @@
 """Common functionals: port of the rest of
 ``paddle_tpu/nn/functional/common.py`` (``linear`` and the dropout
-family are in the package's ``__init__``) and of ``pad`` and
-``flatten`` (``paddle_tpu/tensor/manipulation.py``).
+family are in the package's ``__init__``) and of ``pad``
+(``paddle_tpu/tensor/manipulation.py``); ``flatten`` is the facade's
+``tensor.flatten``.
 
 ``interpolate`` follows the reference's two paths, whatever the mode's
 name says:
@@ -77,11 +78,7 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
     return x
 
 
-def flatten(x, start_axis=0, stop_axis=-1, name=None):
-    (x,) = _amp_cast("flatten", x)
-    if x.ndim == 0:
-        return x.reshape(1)
-    return torch.flatten(x, start_axis % x.ndim, stop_axis % x.ndim)
+from ...tensor.manipulation import flatten  # noqa: E402,F401  (one definition)
 
 
 def _resize_nearest(x, out_hw, channels_first):

@@ -29,6 +29,9 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     accepted and not read, as in the reference."""
     (weight,) = _amp_cast("embedding", weight)
     v = weight.shape[0]
+    if not (x.dtype in (torch.int32, torch.int64) or x.dtype == torch.int16
+            or x.dtype == torch.uint8 or x.dtype == torch.int8):
+        x = x.to(torch.int64)     # the reference's astype(int32)
     wrapped = torch.where(x < 0, x + v, x)
     inside = (wrapped >= 0) & (wrapped < v)
     out = F.embedding(torch.where(inside, wrapped, 0), weight)

@@ -105,7 +105,8 @@ def kl_div(input, label, reduction="mean", log_target=False, name=None):
 
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
                         name=None):
-    a, b, y = _amp_cast("margin_ranking_loss", input, other, label)
+    a, b, y = _amp_cast("margin_ranking_loss", input, other,
+                        label.detach())
     return _reduce(torch.clamp_min(-y * (a - b) + margin, 0.0), reduction)
 
 
@@ -175,7 +176,7 @@ def dice_loss(input, label, epsilon=1e-5, name=None):
 
 def poisson_nll_loss(input, label, log_input=True, full=False, epsilon=1e-8,
                      reduction="mean", name=None):
-    a, y = _amp_cast("poisson_nll_loss", input, label)
+    a, y = _amp_cast("poisson_nll_loss", input, label.detach())
     loss = torch.exp(a) - y * a if log_input else \
         a - y * torch.log(a + epsilon)
     if full:
@@ -187,7 +188,8 @@ def poisson_nll_loss(input, label, log_input=True, full=False, epsilon=1e-8,
 
 def multi_label_soft_margin_loss(input, label, weight=None, reduction="mean",
                                  name=None):
-    z, y, w = _amp_cast("multi_label_soft_margin_loss", input, label, weight)
+    z, y, w = _amp_cast("multi_label_soft_margin_loss", input,
+                        label.detach(), weight)
     loss = -(y * F.logsigmoid(z) + (1 - y) * F.logsigmoid(-z)).mean(dim=-1)
     if w is not None:
         loss = loss * w
@@ -195,7 +197,7 @@ def multi_label_soft_margin_loss(input, label, weight=None, reduction="mean",
 
 
 def soft_margin_loss(input, label, reduction="mean", name=None):
-    z, y = _amp_cast("soft_margin_loss", input, label)
+    z, y = _amp_cast("soft_margin_loss", input, label.detach())
     return _reduce(torch.log1p(torch.exp(-y * z)), reduction)
 
 

@@ -85,8 +85,10 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     sdt = _stat_dtype(x)
     w, b = (None if t is None else t.to(sdt) for t in (weight, bias))
     if not use_batch:
-        out = F.batch_norm(xc, running_mean.to(sdt), running_var.to(sdt), w,
-                           b, False, 0.0, epsilon)
+        # no gradient reaches the running statistics (the reference's)
+        out = F.batch_norm(xc, running_mean.detach().to(sdt),
+                           running_var.detach().to(sdt), w, b, False, 0.0,
+                           epsilon)
     else:
         c = xc.shape[1]
         n = xc.numel() // c
@@ -112,6 +114,8 @@ def _affine(out, weight, bias, shape):
 
 
 def _moments(xf, axes):
+    if not axes:    # no axis to reduce (torch would reduce them all)
+        return xf, torch.zeros_like(xf)
     m = xf.mean(dim=axes, keepdim=True)
     c = xf - m
     return m, (c * c).mean(dim=axes, keepdim=True)

@@ -1,7 +1,7 @@
 """The ``Layer`` facade: port of ``paddle_tpu/nn/layer/layers.py``.
 
-- ``Parameter`` (:28) is a ``torch.nn.Parameter`` that carries the
-  reference's attributes: ``trainable`` (``requires_grad``; its inverse
+- ``Parameter`` (:28) is a ``torch.nn.Parameter`` (and a facade
+  ``Tensor``) that carries the reference's attributes: ``trainable`` (``requires_grad``; its inverse
   is ``stop_gradient``), ``optimize_attr`` (the per-parameter learning
   rate the port's optimizers read), ``regularizer``, ``need_clip`` (read
   by ``nn.clip``), ``persistable``, ``is_distributed`` and ``name``.
@@ -29,14 +29,18 @@ import copy
 import numpy as np
 import torch
 
+from ..core.tensor import Tensor
 from ..device import layer_device, to_dtype
 from . import lazy as _lazy
 
 __all__ = ["Layer", "ParamAttr", "Parameter"]
 
 
-class Parameter(torch.nn.Parameter):
-    """A trainable tensor with the reference's attributes."""
+class Parameter(torch.nn.Parameter, Tensor):
+    """A trainable tensor with the reference's attributes; a facade
+    ``Tensor`` too (``isinstance(p, paddle_tpu_torch.Tensor)``, as the
+    reference's parameters are its tensors), whose torch calls stay
+    plain (``torch.nn.Parameter``'s ``__torch_function__`` comes first)."""
 
     def __new__(cls, data=None, trainable: bool = True, name=None):
         p = super().__new__(cls, data, requires_grad=trainable)

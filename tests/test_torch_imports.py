@@ -79,6 +79,16 @@ def test_import_loads_no_jax():
         "paddle_tpu_torch.jit.bucketing, paddle_tpu_torch.static.program, "
         "paddle_tpu_torch.static.control_flow, paddle_tpu_torch.static.nn, "
         "paddle_tpu_torch.inference.predictor\n"
+        "import paddle_tpu_torch.tensor, paddle_tpu_torch.tensor.math, "
+        "paddle_tpu_torch.tensor.random, paddle_tpu_torch.tensor.linalg, "
+        "paddle_tpu_torch.core.tensor, paddle_tpu_torch.core.tape, "
+        "paddle_tpu_torch.core.dispatch, paddle_tpu_torch.core.dtypes, "
+        "paddle_tpu_torch.core.device, paddle_tpu_torch.core.errors, "
+        "paddle_tpu_torch.core.pytree, paddle_tpu_torch.autograd, "
+        "paddle_tpu_torch.autograd.functional, paddle_tpu_torch._C_ops, "
+        "paddle_tpu_torch.ops.registry\n"
+        "from paddle_tpu_torch import _C_ops\n"
+        "_C_ops.matmul, _C_ops.rms_norm, _C_ops.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'paddle_tpu' "
         "or m.startswith('paddle_tpu.'))\n"
@@ -273,6 +283,60 @@ def test_slice_22_names():
             "FLAGS_use_int8_matmul_kernel": True}
     finally:
         paddle.set_flags({"FLAGS_use_int8_matmul_kernel": False})
+
+
+def test_slice_25_names():
+    """The tensor facade's top-level names (the reference's
+    ``paddle_tpu/__init__.py:13-31`` and :73-135) and its op surface."""
+    import paddle_tpu_torch as paddle
+    for name in ("Tensor", "to_tensor", "is_tensor", "no_grad",
+                 "enable_grad", "set_grad_enabled", "is_grad_enabled",
+                 "grad", "bool", "uint8", "int8", "int16", "int32", "int64",
+                 "float16", "bfloat16", "float32", "float64", "complex64",
+                 "complex128", "float8_e4m3fn", "float8_e5m2",
+                 "set_default_dtype", "get_default_dtype", "seed",
+                 "get_rng_state", "set_rng_state", "Generator", "set_flags",
+                 "get_flags", "device", "set_device", "get_device",
+                 "CPUPlace", "TPUPlace", "CUDAPlace", "is_compiled_with_cuda",
+                 "is_compiled_with_tpu", "device_count", "tensor",
+                 "autograd", "PyLayer", "iinfo", "finfo", "set_printoptions",
+                 "in_dynamic_mode", "enable_static", "disable_static",
+                 "dtype", "get_cuda_rng_state", "set_cuda_rng_state",
+                 "matmul", "concat", "split", "randn", "normal", "zeros",
+                 "arange", "einsum", "median", "unique", "_C_ops"):
+        assert hasattr(paddle, name), name
+    assert paddle.in_dynamic_mode()
+    assert paddle.enable_static() is None and paddle.disable_static() is None
+    assert paddle.grad is paddle.core.tape.grad
+
+
+@pytest.mark.parametrize("build", ["to_tensor", "zeros", "randn", "arange",
+                                   "uniform", "eye"])
+def test_creation_entry_points_need_cuda_unless_cpu_is_asked(build):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    calls = {"to_tensor": lambda: paddle.to_tensor([1.0, 2.0]),
+             "zeros": lambda: paddle.zeros([2]),
+             "randn": lambda: paddle.randn([2]),
+             "arange": lambda: paddle.arange(3),
+             "uniform": lambda: paddle.uniform([2]),
+             "eye": lambda: paddle.eye(2)}
+    prev = tdevice._layer_device
+    try:
+        tdevice._layer_device = None
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            calls[build]()
+        paddle.set_device("cpu")
+        assert calls[build]().device.type == "cpu"
+        tdevice._layer_device = None
+        t = paddle.to_tensor([1.0], place="cpu")
+        assert t.device.type == "cpu"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            paddle.to_tensor([1.0], place=paddle.CUDAPlace(0))
+    finally:
+        tdevice._layer_device = prev
 
 
 def test_slice_23_names():
